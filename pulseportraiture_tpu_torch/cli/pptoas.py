@@ -1,0 +1,177 @@
+"""pptoas — measure wideband TOAs and DMs on the GPU.
+
+The wideband GetTOAs options of the JAX package's pptoas that map onto
+the ported fast lane.  Narrowband TOAs (ROADMAP A8), the streaming
+campaign driver (A7), scattering fits (A6) and telemetry (A13) are not
+ported yet and are refused.
+
+    python -m pulseportraiture_tpu_torch.cli.pptoas -d archive.fits \\
+        -m model.gmodel -o out.tim [--device cuda|cpu]
+"""
+
+import argparse
+import sys
+
+import numpy as np
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="pptoas", description=__doc__.splitlines()[0])
+    p.add_argument("-d", "--datafiles", metavar="archive", required=True,
+                   help="PSRFITS archive or metafile of archive names.")
+    p.add_argument("-m", "--modelfile", metavar="model", required=True,
+                   help=".gmodel or PSRFITS template.")
+    p.add_argument("-o", "--outfile", metavar="timfile", default=None,
+                   help="Output .tim file (appends). [default=stdout]")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the fits run on. [default=cuda]")
+    p.add_argument("--narrowband", action="store_true", default=False,
+                   help="Narrowband TOAs (not ported yet).")
+    p.add_argument("--stream", action="store_true", default=False,
+                   help="Streaming campaign driver (not ported yet).")
+    p.add_argument("--errfile", metavar="errfile", default=None,
+                   help="Write fitted DM errors to this file (appends).")
+    p.add_argument("-T", "--tscrunch", action="store_true", default=False,
+                   help="tscrunch archives before measurement.")
+    p.add_argument("-f", "--format", dest="format", default="ipta",
+                   choices=("ipta", "princeton"),
+                   help="Output TOA format.")
+    p.add_argument("--nu_ref", dest="nu_ref_DM", default=None,
+                   help="Output reference frequency [MHz]; 'inf' for "
+                        "infinite. [default: zero-covariance frequency]")
+    p.add_argument("--DM", dest="DM0", default=None, type=float,
+                   help="Nominal DM [cm**-3 pc] for offset-DM reporting.")
+    p.add_argument("--no_bary", dest="bary", action="store_false",
+                   default=True, help="No Doppler correction of DM/GM.")
+    p.add_argument("--one_DM", action="store_true", default=False,
+                   help="Single (mean) DM value per epoch in the .tim.")
+    p.add_argument("--fix_DM", dest="fit_DM", action="store_false",
+                   default=True, help="Do not fit for DM.")
+    p.add_argument("--fit_dt4", dest="fit_GM", action="store_true",
+                   default=False, help="Fit nu**-4 'GM' delays.")
+    p.add_argument("--fit_scat", action="store_true", default=False,
+                   help="Fit scattering (not ported yet).")
+    p.add_argument("--print_phase", action="store_true", default=False,
+                   help="Add -phs/-phs_err flags to TOA lines.")
+    p.add_argument("--print_flux", action="store_true", default=False,
+                   help="Add flux-estimate flags to TOA lines.")
+    p.add_argument("--print_parangle", action="store_true", default=False,
+                   help="Add parallactic-angle flags to TOA lines.")
+    p.add_argument("--flags", default="",
+                   help="Comma-separated extra TOA flag pairs k1,v1,k2,v2.")
+    p.add_argument("--snr_cut", dest="snr_cutoff", default=0.0, type=float,
+                   help="Minimum snr flag value for written TOAs.")
+    p.add_argument("--prefetch", action="store_true", default=False,
+                   help="Overlap archive IO with fitting (long lists).")
+    p.add_argument("--fit-fused", dest="fit_fused", default=None,
+                   metavar="off|auto|on",
+                   help="Fused DFT -> cross-spectrum kernel lane of the "
+                        "fast fit (active only with the harmonic window): "
+                        "'off', 'auto' (CUDA devices), 'on'. [default: "
+                        "config.fit_fused]")
+    p.add_argument("--bound", action="append", default=[],
+                   metavar="PARAM:LO,HI",
+                   help="Box bound on a fit parameter (repeatable): "
+                        "PARAM in {phi,dm,gm}; LO/HI are floats or "
+                        "'None' (open).  A fit converging on a bound "
+                        "reports return code 0.")
+    p.add_argument("--telemetry", metavar="trace.jsonl", default=None,
+                   help="JSONL campaign trace (not ported yet).")
+    p.add_argument("--quality_flags", action="store_true", default=False,
+                   help="Add per-TOA -nfev/-chi2 fit-diagnostic flags.")
+    p.add_argument("--quiet", action="store_true", default=False)
+    return p
+
+
+_BOUND_PARAMS = {"phi": 0, "dm": 1, "gm": 2, "tau": 3, "alpha": 4}
+
+
+def parse_bounds(specs):
+    """--bound PARAM:LO,HI strings -> (5, 2) array or None."""
+    if not specs:
+        return None
+    bounds = np.full((5, 2), (-np.inf, np.inf))
+    for spec in specs:
+        try:
+            name, rng = spec.split(":")
+            lo, hi = rng.split(",")
+            idx = _BOUND_PARAMS[name.strip().lower()]
+            lo_v = (-np.inf if lo.strip().lower() in ("none", "")
+                    else float(lo))
+            hi_v = (np.inf if hi.strip().lower() in ("none", "")
+                    else float(hi))
+        except (ValueError, KeyError):
+            raise SystemExit(
+                f"--bound: expected PARAM:LO,HI with PARAM in "
+                f"{sorted(_BOUND_PARAMS)}; got {spec!r}")
+        if np.isnan(lo_v) or np.isnan(hi_v):
+            raise SystemExit(f"--bound: NaN bound in {spec!r}")
+        if lo_v > hi_v:
+            raise SystemExit(
+                f"--bound: lower bound exceeds upper in {spec!r}")
+        bounds[idx] = (lo_v, hi_v)
+    return bounds
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    from .. import config
+    from ..io.tim import write_princeton_TOAs, write_TOAs
+    from ..pipeline import GetTOAs
+
+    if args.narrowband:
+        raise NotImplementedError(
+            "pptoas --narrowband: narrowband TOAs are not ported yet "
+            "(ROADMAP A8)")
+    if args.stream:
+        raise NotImplementedError(
+            "pptoas --stream: the streaming campaign driver is not ported "
+            "yet (ROADMAP A7)")
+    nu_ref_DM = args.nu_ref_DM
+    if nu_ref_DM is not None:
+        nu_ref_DM = np.inf if str(nu_ref_DM).lower() == "inf" \
+            else float(nu_ref_DM)
+    nu_refs = None if nu_ref_DM is None else (nu_ref_DM, None)
+    addtnl = {}
+    if args.flags:
+        parts = args.flags.split(",")
+        addtnl = dict(zip(parts[0::2], parts[1::2]))
+    bounds = parse_bounds(args.bound)
+    if args.fit_fused is not None:
+        table = {"off": False, "auto": "auto", "on": True}
+        v = str(args.fit_fused).lower()
+        if v not in table:
+            raise SystemExit("--fit-fused expected one of off/auto/on, "
+                             f"got {args.fit_fused!r}")
+        config.fit_fused = table[v]
+
+    gt = GetTOAs(args.datafiles, args.modelfile, quiet=args.quiet,
+                 device=args.device)
+    gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=args.DM0,
+                bary=args.bary, fit_DM=args.fit_DM, fit_GM=args.fit_GM,
+                fit_scat=args.fit_scat, print_phase=args.print_phase,
+                print_flux=args.print_flux,
+                print_parangle=args.print_parangle,
+                addtnl_toa_flags=addtnl, prefetch=args.prefetch,
+                quiet=args.quiet, bounds=bounds,
+                quality_flags=args.quality_flags, telemetry=args.telemetry)
+    if args.one_DM:
+        gt.apply_one_DM()
+    if args.format == "princeton":
+        dDMs = [toa.DM - gt.DM0s[gt.order.index(toa.archive)]
+                if toa.DM is not None else 0.0 for toa in gt.TOA_list]
+        write_princeton_TOAs(gt.TOA_list, outfile=args.outfile, dDMs=dDMs)
+        if args.errfile:
+            with open(args.errfile, "a") as f:
+                for toa in gt.TOA_list:
+                    if toa.DM_error is not None:
+                        f.write(f"{toa.DM_error:.5e}\n")
+    else:
+        write_TOAs(gt.TOA_list, SNR_cutoff=args.snr_cutoff,
+                   outfile=args.outfile, append=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

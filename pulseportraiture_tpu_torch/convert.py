@@ -1,0 +1,40 @@
+"""Carry the JAX package's parameters over to the port.
+
+The wideband TOA path has no trained weights: its parameters are the
+template.  A Gaussian template crosses as its fields — a JAX-package
+``GaussianModel`` (duck-typed: name, code, nu_ref, dc, tau, alpha, the
+component arrays and fit_flags) or the flat vectors of its
+``io.gmodel.model_to_flat`` — and becomes the port's GaussianModel, so
+both packages build the same portrait.  Nothing here imports JAX.
+"""
+
+import numpy as np
+
+from .io.gmodel import model_from_flat
+from .models.gaussian import GaussianModel
+
+__all__ = ["gaussian_model_from_fields", "gaussian_model_from_flat"]
+
+_ARRAYS = ("locs", "wids", "amps", "mlocs", "mwids", "mamps")
+
+
+def gaussian_model_from_fields(model):
+    """Any object with the GaussianModel fields -> the port's
+    GaussianModel, arrays copied to float64 host numpy."""
+    flags = {k: (np.array(v) if np.ndim(v) else int(v))
+             for k, v in dict(getattr(model, "fit_flags", {}) or {}).items()}
+    return GaussianModel(
+        name=str(model.name), code=str(model.code),
+        nu_ref=float(model.nu_ref), dc=float(model.dc),
+        tau=float(model.tau), alpha=float(model.alpha),
+        fit_flags=flags,
+        **{k: np.array(np.asarray(getattr(model, k)), dtype=np.float64)
+           for k in _ARRAYS})
+
+
+def gaussian_model_from_flat(name, code, nu_ref, params, fit_flags, alpha,
+                             fit_alpha=0):
+    """``model_to_flat`` vectors (params [dc, tau, (loc, mloc, wid,
+    mwid, amp, mamp) * ngauss] and their fit flags) -> GaussianModel."""
+    return model_from_flat(name, code, nu_ref, params, fit_flags, alpha,
+                           fit_alpha)

@@ -1,0 +1,3 @@
+"""Template models."""
+
+from .gaussian import GaussianModel, gen_gaussian_portrait  # noqa: F401

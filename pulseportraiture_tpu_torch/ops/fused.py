@@ -1,0 +1,274 @@
+"""Fused DFT -> cross-spectrum hot path (counterpart of pulseportraiture_tpu/ops/fused.py).
+
+The wideband fit's prepare stage needs, per (subint, channel), only the
+weighted cross-spectrum Xr/Xi and the model power S0 (or the full
+weighted model power M2w on the scattering lane); the four DFT products
+dr/di/mr/mi in between are pure traffic.  Two implementations of the
+same function live here:
+
+- :func:`fused_cross_spectrum_cuda` — the hand-written Hopper kernel
+  (csrc/fused_cross_spectrum.cu), the port of the TPU Pallas kernel
+  ``fused_cross_spectrum_pallas``.  It runs for CUDA tensors, and only
+  for them; a build or launch failure raises.
+- :func:`fused_cross_spectrum_ref` — the plain PyTorch version, a
+  mirror of the JAX package's hand-blocked scan: the same zero-padded
+  channel tiling and the same host-built twiddles (ops.fourier).  It
+  is the CPU implementation and the kernel's oracle on the card.
+
+:func:`fused_cross_spectrum` dispatches by the device the tensors are
+on.  Inputs carry an optional leading batch (subint) dimension: port
+(B, nchan, nbin) against a shared (nchan, nbin) template or per-element
+(B, nchan, nbin) models, with weights (B, nchan, K) or shared
+(nchan, K).  The shared template is never broadcast in memory.
+"""
+
+import ctypes
+import os
+import threading
+
+import torch
+
+from .. import config
+from .fourier import (_dtype_str, check_dft_precision, device_weights,
+                      rfft_mm, use_dft_fold)
+
+__all__ = ["fused_cross_spectrum", "fused_cross_spectrum_ref",
+           "fused_cross_spectrum_cuda", "fused_block_default",
+           "kernel_launches", "reset_kernel_launches", "build_kernels"]
+
+# Channel-block target of the plain version's tiling (the scan's).
+_BLOCK_TARGET = 32
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                    "fused_cross_spectrum.cu")
+BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
+
+# kernel launches since the last reset, counted where the wrapper
+# launches the kernel and nowhere else
+_launches = {"fused_cross_spectrum": 0}
+
+
+def kernel_launches():
+    """{kernel name: launches since the last reset}."""
+    return dict(_launches)
+
+
+def reset_kernel_launches():
+    for k in _launches:
+        _launches[k] = 0
+
+
+def fused_block_default():
+    """config.fused_block when set, else the built-in target."""
+    b = config.fused_block
+    if b is None:
+        return _BLOCK_TARGET
+    b = int(b)
+    if b < 1:
+        raise ValueError(
+            f"config.fused_block must be a positive int or None; got {b!r}")
+    return b
+
+
+def _block_size(nchan, target=None):
+    """Channel-tile size of the plain version: the target (explicit >
+    config.fused_block > built-in), clamped to nchan.  A ragged channel
+    count is zero-padded up to a tile multiple."""
+    if target is None:
+        target = fused_block_default()
+    return min(int(target), int(nchan))
+
+
+def fused_cross_spectrum(port, model, w, nharm, precision=None, fold=None,
+                         want_m2=False, block=None):
+    """Windowed split-real DFT of data and model -> weighted cross
+    spectrum (+ model power), never materializing dr/di/mr/mi.
+
+    port: (..., nchan, nbin); model: (nchan, nbin) shared or the same
+    shape as port; w: (..., nchan, nharm) weights already sliced to the
+    harmonic window (or shared (nchan, nharm)).  Returns (Xr, Xi, S0)
+    with S0 (..., nchan), or (Xr, Xi, M2w) when want_m2.
+
+    CUDA tensors run the hand-written kernel; CPU tensors the plain
+    version.  block only shapes the plain version's tiling."""
+    if port.device.type == "cuda":
+        return fused_cross_spectrum_cuda(port, model, w, nharm,
+                                         precision=precision, fold=fold,
+                                         want_m2=want_m2)
+    if port.device.type != "cpu":
+        raise ValueError(f"fused_cross_spectrum: unsupported device "
+                         f"{port.device}")
+    return fused_cross_spectrum_ref(port, model, w, nharm,
+                                    precision=precision, fold=fold,
+                                    want_m2=want_m2, block=block)
+
+
+def fused_cross_spectrum_ref(port, model, w, nharm, precision=None,
+                             fold=None, want_m2=False, block=None):
+    """The plain PyTorch version: the JAX package's scan, one channel
+    tile per step, with the same zero padding and twiddles (rfft_mm).
+    A shared template's per-tile DFT is computed once per tile for the
+    whole batch."""
+    nchan, nbin = port.shape[-2], port.shape[-1]
+    cb = _block_size(nchan, block)
+    nblk = -(-nchan // cb)
+    pad = nblk * cb - nchan
+
+    def padded(x):
+        if not pad:
+            return x
+        z = x.new_zeros(x.shape[:-2] + (pad, x.shape[-1]))
+        return torch.cat([x, z], dim=-2)
+
+    pb, mb, wb = padded(port), padded(model), padded(w)
+    xr, xi, o2 = [], [], []
+    for i in range(nblk):
+        sl = slice(i * cb, (i + 1) * cb)
+        drb, dib = rfft_mm(pb[..., sl, :], precision=precision,
+                           nharm=nharm, fold=fold)
+        mrb, mib = rfft_mm(mb[..., sl, :], precision=precision,
+                           nharm=nharm, fold=fold)
+        wk = wb[..., sl, :]
+        xr.append((drb * mrb + dib * mib) * wk)
+        xi.append((dib * mrb - drb * mib) * wk)
+        m2b = (mrb**2 + mib**2) * wk
+        o2.append(m2b if want_m2 else torch.sum(m2b, dim=-1))
+    Xr = torch.cat(xr, dim=-2)[..., :nchan, :]
+    Xi = torch.cat(xi, dim=-2)[..., :nchan, :]
+    o2 = (torch.cat(o2, dim=-2)[..., :nchan, :] if want_m2
+          else torch.cat(o2, dim=-1)[..., :nchan])
+    return Xr, Xi, o2
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build, bind, launch
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build_kernels(verbose=False):
+    """Compile csrc/fused_cross_spectrum.cu for sm_90a with
+    torch.utils.cpp_extension.load into BUILD_DIR and bind its plain C
+    interface with ctypes.  The source includes no PyTorch headers, so
+    the build takes seconds.  Idempotent per process; load() rebuilds
+    when the source or flags change.  verbose prints ptxas's register,
+    shared-memory and spill report."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        from torch.utils.cpp_extension import load
+
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        flags = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+        if verbose:
+            flags.append("-Xptxas=-v")
+        name = "ppt_fused_cross_spectrum"
+        load(name=name, sources=[_SRC], extra_cuda_cflags=flags,
+             build_directory=BUILD_DIR, verbose=verbose, with_cuda=True,
+             is_python_module=False)
+        so = os.path.join(BUILD_DIR, f"{name}.so")
+        lib = ctypes.CDLL(so)
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for fn_name in ("ppt_fcs_spectrum_f32", "ppt_fcs_spectrum_f64"):
+            fn = getattr(lib, fn_name)
+            fn.restype = i32
+            fn.argtypes = [vp, i64, i32, vp, vp, vp, i32, i32, i32, vp, vp,
+                           vp]
+        for fn_name in ("ppt_fcs_cross_f32", "ppt_fcs_cross_f64"):
+            fn = getattr(lib, fn_name)
+            fn.restype = i32
+            fn.argtypes = [vp, i64, i32, vp, vp, vp, i32, i32, i32, vp, vp,
+                           i64, vp, i64, vp, vp, vp, i32, vp]
+        _lib = lib
+        return _lib
+
+
+def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
+                              fold=None, want_m2=False):
+    """The hand-written Hopper kernel (csrc/fused_cross_spectrum.cu).
+
+    Two launches of one kernel per call: the model spectrum (once for
+    a shared template, else per element) into scratch, then the data
+    DFT with the cross-spectrum and the S0 row sum (or M2w) formed in
+    its epilogue.  CUDA float32/float64 tensors only; dft_precision
+    must be 'highest' (full FP32 products)."""
+    check_dft_precision(precision, port.device)
+    if port.device.type != "cuda":
+        raise ValueError("fused_cross_spectrum_cuda needs CUDA tensors")
+    dt = port.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"fused_cross_spectrum_cuda: float32 or float64, "
+                        f"got {dt}")
+    for t, name in ((model, "model"), (w, "w")):
+        if t.device != port.device or t.dtype != dt:
+            raise ValueError(f"fused_cross_spectrum_cuda: {name} must be "
+                             f"{dt} on {port.device}")
+    if port.dim() not in (2, 3) or not port.is_contiguous():
+        raise ValueError("fused_cross_spectrum_cuda: port must be a "
+                         "contiguous (nchan, nbin) or (B, nchan, nbin)")
+    if not (model.is_contiguous() and w.is_contiguous()):
+        raise ValueError("fused_cross_spectrum_cuda: model and w must be "
+                         "contiguous")
+    nchan, nbin = port.shape[-2], port.shape[-1]
+    K = int(nharm)
+    batch = port.shape[:-2]
+    M = port.numel() // nbin
+    if model.shape == (nchan, nbin):
+        Mm, m_mod = nchan, nchan
+    elif model.shape == port.shape:
+        Mm, m_mod = M, M
+    else:
+        raise ValueError(f"fused_cross_spectrum_cuda: model shape "
+                         f"{tuple(model.shape)} is neither (nchan, nbin) "
+                         f"nor the port's {tuple(port.shape)}")
+    if w.shape == (nchan, K):
+        w_mod = nchan
+    elif w.shape == batch + (nchan, K):
+        w_mod = M
+    else:
+        raise ValueError(f"fused_cross_spectrum_cuda: w shape "
+                         f"{tuple(w.shape)} is neither ({nchan}, {K}) nor "
+                         f"the port's batch + ({nchan}, {K})")
+    if fold is None:
+        fold = use_dft_fold(port.device)
+    fold = bool(fold) and nbin % 2 == 0 and nbin >= 8
+    dts = _dtype_str(dt)
+    if fold:
+        Wc, Ws, sgn = device_weights("fold", port.device, nbin, dts, K)
+    else:
+        Wc, Ws = device_weights("rfft", port.device, nbin, dts, K)
+        sgn = Wc  # unread without fold; any valid pointer
+    L = Wc.shape[0]
+
+    lib = build_kernels()
+    sfx = "f32" if dt == torch.float32 else "f64"
+    spectrum = getattr(lib, f"ppt_fcs_spectrum_{sfx}")
+    cross = getattr(lib, f"ppt_fcs_cross_{sfx}")
+    stream = torch.cuda.current_stream(port.device).cuda_stream
+
+    mr = torch.empty((Mm, K), dtype=dt, device=port.device)
+    mi = torch.empty_like(mr)
+    Xr = torch.empty(batch + (nchan, K), dtype=dt, device=port.device)
+    Xi = torch.empty_like(Xr)
+    o2 = torch.empty(batch + ((nchan, K) if want_m2 else (nchan,)),
+                     dtype=dt, device=port.device)
+    rc = spectrum(model.data_ptr(), Mm, nbin, Wc.data_ptr(), Ws.data_ptr(),
+                  sgn.data_ptr(), L, K, int(fold), mr.data_ptr(),
+                  mi.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_cross_spectrum spectrum launch failed: "
+                           f"cudaError {rc}")
+    _launches["fused_cross_spectrum"] += 1
+    rc = cross(port.data_ptr(), M, nbin, Wc.data_ptr(), Ws.data_ptr(),
+               sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
+               m_mod, w.data_ptr(), w_mod, Xr.data_ptr(), Xi.data_ptr(),
+               o2.data_ptr(), int(bool(want_m2)), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_cross_spectrum cross launch failed: "
+                           f"cudaError {rc}")
+    _launches["fused_cross_spectrum"] += 1
+    return Xr, Xi, o2

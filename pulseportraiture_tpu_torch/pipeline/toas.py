@@ -1,0 +1,560 @@
+"""Wideband TOA measurement pipeline (counterpart of pulseportraiture_tpu/pipeline/toas.py).
+
+GetTOAs.get_TOAs: per archive, all usable subints are stacked into one
+(nsub, nchan, nbin) batch per fit-flag group and fitted by one call of
+the fast lane (fit.portrait.fit_portrait_batch_fast) on the device;
+TOAs, DMs, flags and the per-archive DeltaDM statistics are assembled
+on the host exactly as in the JAX package.
+
+Not ported yet, and refused with NotImplementedError naming the
+ROADMAP item instead of being ignored: scattering fits (fit_scat,
+scat_guess) and the instrumental response (A6), config.use_fast_fit
+resolving False (the complex engine, A6), telemetry traces (A13), and
+narrowband TOAs (A8).
+"""
+
+import time
+
+import numpy as np
+
+from ..config import scattering_alpha
+from ..device import resolve_device
+from ..fit.portrait import (FitFlags, fit_portrait_batch_fast,
+                            use_fast_fit_default, warn_bf16_high_snr)
+from ..io.psrfits import load_data
+from ..io.tim import TOA
+from ..utils.log import log
+from .models import TemplateModel
+
+__all__ = ["GetTOAs", "weighted_mean", "effective_fit_flags",
+           "doppler_corrected_DM_GM", "snr_weighted_nu_fit",
+           "load_for_toas", "delta_dm_stats"]
+
+MAX_NFILE = 999  # parity: cfitsio open-file guard
+
+
+def weighted_mean(values, errs):
+    """Error-weighted mean and its uncertainty."""
+    values = np.asarray(values, float)
+    errs = np.asarray(errs, float)
+    good = errs > 0
+    w = np.where(good, 1.0 / np.where(good, errs, 1.0) ** 2, 0.0)
+    wsum = w.sum()
+    if wsum == 0.0:
+        return float(np.mean(values)), np.inf
+    mean = float((values * w).sum() / wsum)
+    return mean, float(wsum ** -0.5)
+
+
+def effective_fit_flags(nchx_i, base):
+    """Degenerate-geometry flag demotion: one usable channel ->
+    phase-only; two channels with GM requested -> drop GM."""
+    if nchx_i <= 1:
+        return (True, False, False, False, False)
+    if nchx_i == 2 and base[2]:
+        return (True, base[1], False, base[3], base[4])
+    return base
+
+
+def doppler_corrected_DM_GM(DM, GM, df, fit_DM, fit_GM, bary):
+    """(DM, GM) with the PSRCHIVE barycentric convention applied:
+    DM *= df, GM *= df^3 under bary for FITTED parameters."""
+    if bary:
+        if fit_DM:
+            DM = DM * df
+        if fit_GM:
+            GM = GM * df ** 3
+    return DM, GM
+
+
+def snr_weighted_nu_fit(snrs_chan, freqs0):
+    """Per-subint fit reference frequency: the S/N * nu^-2-weighted
+    center-of-mass frequency, with a mean-frequency fallback for empty
+    subints.  snrs_chan: (nsub, nchan) masked channel S/Ns."""
+    w = np.maximum(snrs_chan, 0.0) * freqs0 ** -2.0
+    denom = (w * freqs0 ** -2.0).sum(axis=1)
+    denom = np.where(denom > 0, denom, 1.0)
+    nu_fit = np.sqrt(w.sum(axis=1) / denom)
+    return np.where(np.isfinite(nu_fit) & (nu_fit > 0), nu_fit,
+                    freqs0.mean())
+
+
+def load_for_toas(f, tscrunch=False, quiet=True, dtype=None):
+    """The load_data configuration every TOA driver uses: dispersed
+    data, pscrunched, no flux profile, archive object dropped."""
+    return load_data(f, dedisperse=False, dededisperse=True,
+                     tscrunch=tscrunch, pscrunch=True, flux_prof=False,
+                     refresh_arch=False, return_arch=False, quiet=quiet,
+                     dtype=np.float64 if dtype is None else dtype)
+
+
+def delta_dm_stats(dDMs, dDM_errs):
+    """Per-archive offset-DM mean and inflated error: inverse-variance
+    weights when every error is positive, uniform otherwise; variance
+    inflated by the weighted scatter when more than one subint."""
+    dDMs = np.asarray(dDMs, float)
+    errs = np.asarray(dDM_errs, float)
+    n = len(dDMs)
+    if n == 0:
+        return np.nan, np.nan
+    if np.all(errs > 0):
+        w = errs ** -2.0
+    else:
+        w = np.ones(n)
+    mean = float(np.average(dDMs, weights=w))
+    var = 1.0 / w.sum()
+    if n > 1:
+        var *= float(((dDMs - mean) ** 2 * w).sum() / (n - 1))
+    return mean, float(np.sqrt(var))
+
+
+def _iter_archives(datafiles, loader, prefetch):
+    """Yield (datafile, DataBunch-or-Exception).  With prefetch, worker
+    threads load archives ahead of the consumer (prefetch: True = depth
+    4, an int sets the depth)."""
+    if not prefetch or len(datafiles) <= 1:
+        for f in datafiles:
+            try:
+                yield f, loader(f)
+            except Exception as e:
+                yield f, e
+        return
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    depth = 4 if prefetch is True else max(1, int(prefetch))
+
+    def safe(f):
+        try:
+            return loader(f)
+        except Exception as e:
+            return e
+
+    with ThreadPoolExecutor(max_workers=min(depth, 4)) as ex:
+        futs = deque()
+        it = iter(datafiles)
+        for f in datafiles[:depth]:
+            next(it)
+            futs.append((f, ex.submit(safe, f)))
+        while futs:
+            f, fut = futs.popleft()
+            nxt = next(it, None)
+            if nxt is not None:
+                futs.append((nxt, ex.submit(safe, nxt)))
+            yield f, fut.result()
+
+
+def _read_metafile(path):
+    with open(path) as f:
+        return [line.strip() for line in f
+                if line.strip() and not line.strip().startswith("#")]
+
+
+def _is_metafile(path):
+    """A metafile is a short ASCII list of existing file paths."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(256)
+        head.decode("ascii")
+    except (UnicodeDecodeError, OSError):
+        return False
+    if head.startswith(b"SIMPLE"):
+        return False
+    import os
+
+    names = _read_metafile(path)
+    return bool(names) and all(os.path.exists(n) for n in names[:3])
+
+
+class GetTOAs:
+    """Measure wideband TOAs + DMs (+ GM) from archives.
+
+    Construct with datafiles (single archive, metafile, or list), a
+    modelfile (.gmodel or PSRFITS template) and the device the fits run
+    on (default cuda), call get_TOAs(), read the per-archive parallel
+    result lists, pass TOA_list to io.tim.write_TOAs.
+    """
+
+    def __init__(self, datafiles, modelfile, quiet=False, device=None):
+        self.device = resolve_device(device)
+        if isinstance(datafiles, str):
+            if _is_metafile(datafiles):
+                self.datafiles = _read_metafile(datafiles)
+            else:
+                self.datafiles = [datafiles]
+        else:
+            self.datafiles = list(datafiles)
+        if len(self.datafiles) > MAX_NFILE:
+            raise ValueError(
+                f"> {MAX_NFILE} archives in one run; split the metafile")
+        self.modelfile = str(modelfile)
+        self.model = TemplateModel(modelfile, quiet=quiet,
+                                   device=self.device)
+        # instrumental-response config (set "DM-smear" True and/or
+        # append (width, kind) pairs); only the empty response is
+        # ported, anything else raises in get_TOAs
+        self.instrumental_response_dict = {
+            "DM-smear": False, "wids": [], "irf_types": []}
+        for name in ("obs", "doppler_fs", "nu0s", "nu_fits", "nu_refs",
+                     "ok_isubs", "epochs", "MJDs", "Ps", "phis",
+                     "phi_errs", "TOAs", "TOA_errs", "DM0s", "DMs",
+                     "DM_errs", "DeltaDM_means", "DeltaDM_errs", "GMs",
+                     "GM_errs", "taus", "tau_errs", "alphas", "alpha_errs",
+                     "scales", "scale_errs", "snrs", "channel_snrs",
+                     "profile_fluxes", "profile_flux_errs", "fluxes",
+                     "flux_errs", "flux_freqs", "covariances", "red_chi2s",
+                     "channel_red_chi2s", "nfevals", "rcs",
+                     "fit_durations", "order", "TOA_list"):
+            setattr(self, name, [])
+        self.quiet = quiet
+
+    def get_TOAs(self, datafile=None, tscrunch=False, nu_refs=None,
+                 DM0=None, bary=True, fit_DM=True, fit_GM=False,
+                 fit_scat=False, log10_tau=True, scat_guess=None,
+                 fix_alpha=False, print_phase=False, print_flux=False,
+                 print_parangle=False, addtnl_toa_flags={},
+                 nu_fits=None, max_iter=40, prefetch=False, quiet=None,
+                 bounds=None, quality_flags=False, telemetry=None):
+        """Measure wideband TOAs (the JAX package's get_TOAs, fast lane
+        only).  bounds: optional (5, 2) [lo, hi] box on (phi, DM, GM,
+        tau, alpha); a fit converging ON a bound reports return code 0.
+        quality_flags=True adds per-TOA -nfev and -chi2 flags."""
+        if quiet is None:
+            quiet = self.quiet
+        if fit_scat or scat_guess is not None:
+            raise NotImplementedError(
+                "get_TOAs: scattering fits (fit_scat, scat_guess) are not "
+                "ported yet (ROADMAP A6)")
+        ird = self.instrumental_response_dict
+        if ird.get("DM-smear") or ird.get("wids") or ird.get("irf_types"):
+            raise NotImplementedError(
+                "get_TOAs: an instrumental response is not ported yet "
+                "(ROADMAP A6)")
+        if telemetry is not None:
+            raise NotImplementedError(
+                "get_TOAs: telemetry traces are not ported yet "
+                "(ROADMAP A13)")
+        if not use_fast_fit_default(self.device):
+            raise NotImplementedError(
+                "get_TOAs: config.use_fast_fit resolves False on "
+                f"{self.device.type}, and the complex fit engine is not "
+                "ported yet (ROADMAP A6); set config.use_fast_fit = True")
+        if bounds is not None:
+            bounds = np.asarray(bounds, float)
+            if bounds.shape != (5, 2):
+                raise ValueError(
+                    f"bounds must be (5, 2) [lo, hi] rows for (phi, DM,"
+                    f" GM, tau, alpha); got shape {bounds.shape}")
+            if np.any(np.isnan(bounds)):
+                raise ValueError("bounds: NaN entries (use +-np.inf "
+                                 "for open bounds)")
+            if np.any(bounds[:, 0] > bounds[:, 1]):
+                raise ValueError("bounds: a lower bound exceeds its "
+                                 "upper bound")
+        log10_tau = False
+        self.fit_flags = [1, int(fit_DM), int(fit_GM), 0, 0]
+        self.log10_tau = log10_tau
+        self.tscrunch = tscrunch
+        self.bary = bary
+        self.DM0 = DM0
+        datafiles = self.datafiles if datafile is None else [datafile]
+        nu_ref_DM = nu_refs[0] if nu_refs is not None else None
+        load_times = {}
+
+        def _loader(f):
+            t0 = time.time()
+            try:
+                return load_for_toas(f, tscrunch=tscrunch, quiet=quiet)
+            finally:
+                load_times[f] = time.time() - t0
+
+        for datafile, d in _iter_archives(datafiles, _loader, prefetch):
+            t_start = time.time()
+            if isinstance(d, Exception):
+                log(f"Skipping {datafile}: {d}", level="warn")
+                continue
+            if d.nsub == 0 or len(d.ok_isubs) == 0:
+                log(f"No subints to fit in {datafile}; skipping.",
+                    level="warn")
+                continue
+            self._fit_archive(datafile, d, DM0, bary, fit_DM, fit_GM,
+                              nu_fits, nu_ref_DM, max_iter, bounds,
+                              print_phase, print_flux, print_parangle,
+                              addtnl_toa_flags, quality_flags, quiet,
+                              t_start, load_times)
+
+    def _fit_archive(self, datafile, d, DM0, bary, fit_DM, fit_GM, nu_fits,
+                     nu_ref_DM, max_iter, bounds, print_phase, print_flux,
+                     print_parangle, addtnl_toa_flags, quality_flags,
+                     quiet, t_start, load_times):
+        nsub, nchan, nbin = d.nsub, d.nchan, d.nbin
+        ok = np.asarray(d.ok_isubs, int)
+        nok = len(ok)
+        P_mean = float(np.mean(d.Ps[ok]))
+        freqs0 = np.asarray(d.freqs[0], float)
+        DM_stored = float(d.DM)
+        DM0_arch = DM_stored if DM0 is None else float(DM0)
+        DM_guess = DM_stored if DM_stored != 0.0 else DM0_arch
+
+        try:
+            modelx = self.model.portrait(freqs0, nbin, P=P_mean)
+        except ValueError as e:
+            log(f"Skipping {datafile}: {e}", level="warn")
+            return
+
+        ports = np.asarray(d.subints[ok, 0], float)
+        masks = np.asarray(d.weights[ok] > 0.0, float)
+        noise = np.asarray(d.noise_stds[ok, 0], float)
+        snrs_chan = np.asarray(d.SNRs[ok, 0], float) * masks
+
+        if nu_fits is not None:
+            nu_fit_arr = np.full(nok, float(nu_fits[0]))
+        else:
+            nu_fit_arr = snr_weighted_nu_fit(snrs_chan, freqs0)
+
+        theta0 = np.zeros((nok, 5))
+        theta0[:, 1] = DM_guess
+        theta0[:, 4] = (self.model.gauss.alpha if self.model.is_gaussian
+                        else scattering_alpha)
+
+        nchx = masks.sum(axis=1).astype(int)
+        base = (True, bool(fit_DM), bool(fit_GM), False, False)
+        groups = {}
+        for i in range(nok):
+            groups.setdefault(
+                effective_fit_flags(nchx[i], base), []).append(i)
+
+        fit_duration = 0.0
+        res_arrays = {k: np.full(nok, np.nan) for k in
+                      ("phi", "phi_err", "DM", "DM_err", "GM", "GM_err",
+                       "tau", "tau_err", "alpha", "alpha_err", "nu_DM",
+                       "nu_GM", "nu_tau", "snr", "chi2", "dof")}
+        res_arrays["nfeval"] = np.zeros(nok, int)
+        res_arrays["rc"] = np.full(nok, -2, int)
+        scales_arr = np.zeros((nok, nchan))
+        scale_errs_arr = np.zeros((nok, nchan))
+        channel_snrs_arr = np.zeros((nok, nchan))
+        covs = np.zeros((nok, 5, 5))
+
+        for flags, idx in groups.items():
+            idx = np.asarray(idx, int)
+            tfit = time.time()
+            r = fit_portrait_batch_fast(
+                np.asarray(ports[idx], np.float32),
+                # host numpy template: lets the harmonic-window 'auto'
+                # derivation see the model's spectrum
+                np.asarray(modelx, np.float32),
+                np.asarray(noise[idx], np.float32),
+                np.asarray(freqs0, np.float32),
+                np.asarray(d.Ps[ok][idx], np.float32),
+                np.asarray(nu_fit_arr[idx], np.float32),
+                nu_out=nu_ref_DM,
+                theta0=np.asarray(theta0[idx], np.float32),
+                fit_flags=FitFlags(*flags),
+                chan_masks=np.asarray(masks[idx], np.float32),
+                max_iter=max_iter,
+                bounds=bounds,
+                device=self.device,
+            )
+            r = {k: v.detach().cpu().numpy()
+                 for k, v in r._asdict().items()}
+            fit_duration += time.time() - tfit
+            for k in ("phi", "phi_err", "DM", "DM_err", "GM", "GM_err",
+                      "tau", "tau_err", "alpha", "alpha_err", "nu_DM",
+                      "nu_GM", "nu_tau", "snr", "chi2", "dof"):
+                res_arrays[k][idx] = r[k]
+            res_arrays["nfeval"][idx] = r["nfeval"]
+            res_arrays["rc"][idx] = r["return_code"]
+            scales_arr[idx] = r["scales"] * masks[idx]
+            scale_errs_arr[idx] = r["scale_errs"] * masks[idx]
+            channel_snrs_arr[idx] = r["channel_snrs"] * masks[idx]
+            covs[idx] = r["covariance"]
+
+        with np.errstate(invalid="ignore"):
+            warn_bf16_high_snr(float(np.nanmax(
+                channel_snrs_arr, initial=0.0)), quiet=quiet)
+
+        phis = np.full(nsub, np.nan)
+        phi_errs = np.full(nsub, np.nan)
+        TOAs_arr = [None] * nsub
+        TOA_errs = np.full(nsub, np.nan)
+        DMs = np.full(nsub, np.nan)
+        DM_errs = np.full(nsub, np.nan)
+        GMs = np.full(nsub, np.nan)
+        GM_errs = np.full(nsub, np.nan)
+        taus = np.full(nsub, np.nan)
+        tau_errs = np.full(nsub, np.nan)
+        alphas = np.full(nsub, np.nan)
+        alpha_errs = np.full(nsub, np.nan)
+        snrs_sub = np.full(nsub, np.nan)
+        red_chi2s = np.full(nsub, np.nan)
+        nfevals = np.zeros(nsub, int)
+        rcs = np.full(nsub, -2, int)
+        nu_refs_sub = np.full((nsub, 3), np.nan)
+        scales_full = np.zeros((nsub, nchan))
+        scale_errs_full = np.zeros((nsub, nchan))
+        channel_snrs_full = np.zeros((nsub, nchan))
+        covariances = np.zeros((nsub, 5, 5))
+        profile_fluxes = np.zeros((nsub, nchan))
+        profile_flux_errs = np.zeros((nsub, nchan))
+        fluxes = np.full(nsub, np.nan)
+        flux_errs = np.full(nsub, np.nan)
+        flux_freqs = np.full(nsub, np.nan)
+        MJDs = np.full(nsub, np.nan)
+
+        for j, isub in enumerate(ok):
+            phi = float(res_arrays["phi"][j])
+            P = float(d.Ps[isub])
+            epoch = d.epochs[isub]
+            toa_mjd = epoch.add_seconds(phi * P + d.backend_delay)
+            df = float(d.doppler_factors[isub]) if bary else 1.0
+            DM_j, GM_j = doppler_corrected_DM_GM(
+                float(res_arrays["DM"][j]), float(res_arrays["GM"][j]),
+                df, self.fit_flags[1], self.fit_flags[2], bary)
+
+            phis[isub] = phi
+            phi_errs[isub] = res_arrays["phi_err"][j]
+            TOAs_arr[isub] = toa_mjd
+            TOA_errs[isub] = res_arrays["phi_err"][j] * P * 1e6
+            DMs[isub] = DM_j
+            DM_errs[isub] = res_arrays["DM_err"][j]
+            GMs[isub] = GM_j
+            GM_errs[isub] = res_arrays["GM_err"][j]
+            taus[isub] = res_arrays["tau"][j]
+            tau_errs[isub] = res_arrays["tau_err"][j]
+            alphas[isub] = res_arrays["alpha"][j]
+            alpha_errs[isub] = res_arrays["alpha_err"][j]
+            snrs_sub[isub] = res_arrays["snr"][j]
+            dof = max(float(res_arrays["dof"][j]), 1.0)
+            red_chi2s[isub] = res_arrays["chi2"][j] / dof
+            nfevals[isub] = res_arrays["nfeval"][j]
+            rcs[isub] = res_arrays["rc"][j]
+            nu_refs_sub[isub] = (res_arrays["nu_DM"][j],
+                                 res_arrays["nu_GM"][j],
+                                 res_arrays["nu_tau"][j])
+            scales_full[isub] = scales_arr[j]
+            scale_errs_full[isub] = scale_errs_arr[j]
+            channel_snrs_full[isub] = channel_snrs_arr[j]
+            covariances[isub] = covs[j]
+            MJDs[isub] = toa_mjd.to_float()
+
+            if print_flux:
+                okc = np.asarray(d.ok_ichans[isub], int)
+                means = modelx.mean(axis=1)
+                profile_fluxes[isub, okc] = means[okc] * \
+                    scales_full[isub, okc]
+                profile_flux_errs[isub, okc] = np.abs(means[okc]) * \
+                    scale_errs_full[isub, okc]
+                fl, fl_err = weighted_mean(profile_fluxes[isub, okc],
+                                           profile_flux_errs[isub, okc])
+                ffreq, _ = weighted_mean(freqs0[okc],
+                                         profile_flux_errs[isub, okc])
+                fluxes[isub], flux_errs[isub] = fl, fl_err
+                flux_freqs[isub] = ffreq
+
+            okc = np.asarray(d.ok_ichans[isub], int)
+            freqsx = freqs0[okc]
+            toa_flags = {}
+            DM_out, DM_err_out = DM_j, float(DM_errs[isub])
+            if not self.fit_flags[1]:
+                DM_out = DM_err_out = None
+            if self.fit_flags[2]:
+                toa_flags["gm"] = GM_j
+                toa_flags["gm_err"] = float(GM_errs[isub])
+            toa_flags["be"] = d.backend
+            toa_flags["fe"] = d.frontend
+            toa_flags["f"] = f"{d.frontend}_{d.backend}"
+            toa_flags["nbin"] = int(nbin)
+            toa_flags["nch"] = int(nchan)
+            toa_flags["nchx"] = int(len(freqsx))
+            toa_flags["bw"] = float(freqsx.max() - freqsx.min()) \
+                if len(freqsx) else 0.0
+            toa_flags["chbw"] = abs(float(d.bw)) / nchan
+            toa_flags["subint"] = int(isub)
+            toa_flags["tobs"] = float(d.subtimes[isub])
+            toa_flags["fratio"] = float(freqsx.max() / freqsx.min()) \
+                if len(freqsx) else 1.0
+            toa_flags["tmplt"] = self.modelfile
+            toa_flags["snr"] = float(res_arrays["snr"][j])
+            if nu_ref_DM is None and self.fit_flags[1]:
+                toa_flags["phi_DM_cov"] = float(covs[j][0, 1])
+            toa_flags["gof"] = float(red_chi2s[isub])
+            if quality_flags:
+                toa_flags["nfev"] = int(res_arrays["nfeval"][j])
+                toa_flags["chi2"] = float(res_arrays["chi2"][j])
+            if print_phase:
+                toa_flags["phs"] = phi
+                toa_flags["phs_err"] = float(phi_errs[isub])
+            if print_flux:
+                toa_flags["flux"] = float(fluxes[isub])
+                toa_flags["flux_err"] = float(flux_errs[isub])
+                toa_flags["flux_ref_freq"] = float(flux_freqs[isub])
+            if print_parangle:
+                toa_flags["par_angle"] = float(d.parallactic_angles[isub])
+            toa_flags.update(addtnl_toa_flags)
+            self.TOA_list.append(TOA(
+                datafile, float(res_arrays["nu_DM"][j]), toa_mjd,
+                float(TOA_errs[isub]), d.telescope, d.telescope_code,
+                DM_out, DM_err_out, toa_flags))
+
+        DeltaDM_mean, DeltaDM_err = delta_dm_stats(
+            DMs[ok] - DM0_arch, DM_errs[ok])
+        self.order.append(datafile)
+        self.obs.append(d.telescope_code)
+        self.doppler_fs.append(np.asarray(d.doppler_factors))
+        self.nu0s.append(d.nu0)
+        self.nu_fits.append(nu_fit_arr)
+        self.nu_refs.append(nu_refs_sub)
+        self.ok_isubs.append(ok)
+        self.epochs.append(d.epochs)
+        self.MJDs.append(MJDs)
+        self.Ps.append(np.asarray(d.Ps))
+        self.phis.append(phis)
+        self.phi_errs.append(phi_errs)
+        self.TOAs.append(TOAs_arr)
+        self.TOA_errs.append(TOA_errs)
+        self.DM0s.append(DM0_arch)
+        self.DMs.append(DMs)
+        self.DM_errs.append(DM_errs)
+        self.DeltaDM_means.append(DeltaDM_mean)
+        self.DeltaDM_errs.append(DeltaDM_err)
+        self.GMs.append(GMs)
+        self.GM_errs.append(GM_errs)
+        self.taus.append(taus)
+        self.tau_errs.append(tau_errs)
+        self.alphas.append(alphas)
+        self.alpha_errs.append(alpha_errs)
+        self.scales.append(scales_full)
+        self.scale_errs.append(scale_errs_full)
+        self.snrs.append(snrs_sub)
+        self.channel_snrs.append(channel_snrs_full)
+        self.profile_fluxes.append(profile_fluxes)
+        self.profile_flux_errs.append(profile_flux_errs)
+        self.fluxes.append(fluxes)
+        self.flux_errs.append(flux_errs)
+        self.flux_freqs.append(flux_freqs)
+        self.covariances.append(covariances)
+        self.red_chi2s.append(red_chi2s)
+        self.nfevals.append(nfevals)
+        self.rcs.append(rcs)
+        self.fit_durations.append(fit_duration)
+        if not quiet:
+            tot = time.time() - t_start + load_times.get(datafile, 0.0)
+            med = np.nanmedian(phi_errs[ok]) * np.mean(d.Ps[ok]) * 1e6
+            log("--------------------------\n"
+                f"{datafile}\n"
+                f"~{fit_duration / max(nok, 1):.4f} sec/TOA (fit), "
+                f"{tot:.2f} sec total\n"
+                f"Med. TOA error is {med:.3f} us", quiet=quiet)
+
+    def apply_one_DM(self):
+        """Replace each TOA's DM with the per-archive DM0 + weighted
+        mean DeltaDM, inflating errors (the CLI --one_DM behavior)."""
+        for iarch, datafile in enumerate(self.order):
+            one_DM = self.DM0s[iarch] + self.DeltaDM_means[iarch]
+            for toa in self.TOA_list:
+                if toa.archive == datafile and toa.DM is not None:
+                    toa.DM = one_DM
+                    toa.DM_error = self.DeltaDM_errs[iarch]
+                    toa.flags["one_DM"] = "True"
+

@@ -1,0 +1,4 @@
+"""Synthetic data with known injected parameters."""
+
+from .archive import add_scintillation, make_fake_pulsar  # noqa: F401
+from .fake import default_test_model  # noqa: F401

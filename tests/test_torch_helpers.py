@@ -1,0 +1,30 @@
+"""Shared helpers of the PyTorch port's parity tests (test_torch_*.py).
+
+Importing this module pins torch to one intra-op thread: the suite runs
+under several pytest-xdist workers, and torch's default thread pool per
+worker would oversubscribe the host.  No tests live here.
+"""
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+# the pulsar of tests/test_pipeline_toas.py
+PAR = {"PSR": "J1744-1134", "RAJ": "17:44:29.4", "DECJ": "-11:34:54.6",
+       "P0": 0.004074, "PEPOCH": 55000.0, "DM": 3.139}
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref| over a pair of arrays."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)),
+                                                  1e-300))
+
+
+def tol_for(dtype):
+    """The parity tolerance (relative to max |ref|) of a dtype: f64 1e-12
+    (two frameworks' summation orders differ), f32 1e-5 (the JAX and
+    torch matmuls differ by ~3e-5 absolute at unit inputs, measured)."""
+    return 1e-12 if str(dtype).endswith("float64") else 1e-5
