@@ -7,25 +7,40 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
 (non-zero exit, no result line) when any phase fails:
 
 1. card: the GPU's name and power limit (nvidia-smi);
-2. build: every kernel of the main path compiled from this checkout's
-   sources (nvcc, sm_90a) into build/torch_kernels/;
-3. kernels vs plain versions: each kernel against its plain PyTorch
-   version on the card over a directed set of shapes, with the
-   tolerance stated per case, plus the kernel's, the plain version's and
-   a torch.matmul equivalent's median times at the main path's shapes,
-   where each output is held to the same tolerance again;
+2. build: every kernel compiled from this checkout's sources (nvcc,
+   sm_90a, one object per source, built in parallel) into
+   build/torch_kernels/;
+3. kernels vs plain versions: B1 (fused DFT -> cross-spectrum) and B2
+   (sub-byte decode -> DFT -> cross-spectrum) against their plain
+   PyTorch versions on the card over directed sets of shapes, with the
+   tolerance stated per case (B2's decoded samples exactly);
 4. main path: a 64-subint 512-channel x 2048-bin archive with injected
    (phi, dDM) from a seeded generator and a .gmodel template, measured
    by ``python -m pulseportraiture_tpu_torch.cli.pptoas`` (run in this
    process, so the kernels' launch counters can be read), then by the
    GetTOAs library call for the fit time; every TOA must recover the
    injected phase to |dphi| < 1e-4 rot, every return code must be in
-   {0, 1, 2}, and every kernel of the path must have been launched.
+   {0, 1, 2}, and B1 must have been launched;
+5. B1's, its plain version's and a torch.matmul equivalent's times at
+   the main path's shapes, each output held to its tolerance again;
+6. stream path: 8 archives of 64 x 512 x 2048 2-bit (NBIT=2) samples and
+   the main path's int16 archive in one metafile, measured by
+   ``pptoas --stream`` in this process; B2 and B1 must both have been
+   launched, every TOA must recover the injection to 1e-4 rot, and every
+   2-bit TOA must agree with GetTOAs on the same archive within 0.1
+   sigma; B1 is held to its plain version at a full int16 bucket
+   (256 x 512 x 2048, the largest shape the stream path gives it); then
+   the campaign's TOAs/s, host -> device bytes and the device's idle
+   share under the profiler;
+7. B2's, its plain version's and a torch equivalent's times at the
+   stream path's bucket shape (256 x 512 x 2048), each output held to
+   its tolerance.
 
 The line before the last is one JSON object listing each kernel with
-its launches on the main path, error, times and bound; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result
-when no CUDA device is available or the package is missing.
+its launches on its path, error, times and bound; the last line is
+``{"ok": true, "device": {...}}``.  Each phase prints its wall time.
+Exits non-zero without a result when no CUDA device is available or the
+package is missing.
 """
 
 import json
@@ -50,6 +65,9 @@ PAR = {"PSR": "J1744-1134", "RAJ": "17:44:29.4", "DECJ": "-11:34:54.6",
 NSUB, NCHAN, NBIN = 64, 512, 2048
 PHI_INJ, DDM_INJ = 0.0123, 2.0e-4
 SEED = 20261016
+# the stream path: NARCH 2-bit archives beside the main path's archive,
+# in buckets of the JAX package's default nsub_batch
+NARCH, NOISE_2BIT, NSUB_BATCH = 8, 1.0, 256
 
 
 def log(msg):
@@ -98,6 +116,38 @@ def cross_spectrum_case(name, nb, nchan, nbin, K, dtype, fold=False,
                 want_m2=want_m2)
 
 
+def check_cross_spectrum_case(c):
+    """B1 against its plain version on one case: each output within
+    1e-5 (float32) or 1e-12 (float64) of its max|ref|; raises
+    otherwise."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    args = (c["port"], c["model"], c["w"], c["K"])
+    kw = dict(fold=c["fold"], want_m2=c["want_m2"])
+    got = F.fused_cross_spectrum_cuda(*args, **kw)
+    ref = F.fused_cross_spectrum_ref(*args, **kw)
+    torch.cuda.synchronize()
+    f64case = c["port"].dtype == torch.float64
+    rtol = 1e-12 if f64case else 1e-5
+    errs = []
+    for g, r, part in zip(got, ref, ("Xr", "Xi", "o2")):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{c['name']} {part}: shape "
+                                 f"{tuple(g.shape)} vs {tuple(r.shape)} "
+                                 f"or non-finite")
+        err = float((g - r).abs().max())
+        scale = float(r.abs().max())
+        if not err <= rtol * scale:
+            raise AssertionError(
+                f"{c['name']} {part}: max abs err {err:.3e} > {rtol:g} x "
+                f"max|ref| {scale:.3e}")
+        errs.append(f"{part} {err:.3e} of {scale:.3e}")
+    log(f"kernel check ok: fused_cross_spectrum {c['name']} (tol "
+        f"{'1e-12' if f64case else '1e-5'} x max|ref|; max abs err "
+        + ", ".join(errs) + ")")
+
+
 def library_equivalent(port, model, w, K, W):
     """One torch.matmul-based computation of the same function (the
     yardstick; the port never calls it)."""
@@ -144,11 +194,129 @@ def dft_operations_ms(nb, nchan, nbin, K, itemsize, fold, shared=True):
     return 4.0 * (rows + mrows) * L * K / peak * 1e3
 
 
+def decode_case(name, nb, nchan, nbin, K, dtype, code, fold=False,
+                seed=0):
+    """A B2 problem on the card: random packed bytes (every sample value
+    occurs), DAT_SCL in [0.5, 1.5), DAT_OFFS ~ N(0, 1), one shared
+    template and per-element weights."""
+    import torch
+    from pulseportraiture_tpu_torch.ops.decode import PACKED_BITS
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if nb is None else (nb,)
+    bpc = nbin * PACKED_BITS[code] // 8
+    raw = torch.randint(0, 256, lead + (nchan, bpc), generator=g,
+                        device="cuda", dtype=torch.uint8)
+    scl = torch.rand(lead + (nchan,), generator=g, device="cuda",
+                     dtype=dtype) + 0.5
+    offs = torch.randn(lead + (nchan,), generator=g, device="cuda",
+                       dtype=dtype)
+    model = torch.randn((nchan, nbin), generator=g, device="cuda",
+                        dtype=dtype)
+    w = torch.rand(lead + (nchan, K), generator=g, device="cuda",
+                   dtype=dtype) + 0.5
+    return dict(name=name, raw=raw, scl=scl, offs=offs, model=model, w=w,
+                K=K, code=code, nbin=nbin, fold=fold)
+
+
+def check_decode_case(c):
+    """B2 against its plain version on one case: each output within
+    1e-5 (float32) or 1e-12 (float64) of its max|ref|, and the kernel's
+    decoded samples equal to the plain decode's.  Returns the worst
+    (err, max|ref|, output) of the five outputs."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.ops.decode import affine_decode
+    from pulseportraiture_tpu_torch.ops.noise import min_window_baseline
+
+    args = (c["raw"], c["scl"], c["offs"], c["model"], c["w"], c["K"])
+    kw = dict(code=c["code"], nbin=c["nbin"], fold=c["fold"])
+    got = F.fused_decode_cross_spectrum_cuda(*args, **kw)
+    ref = F.fused_decode_cross_spectrum_ref(*args, **kw)
+    torch.cuda.synchronize()
+    f64case = c["w"].dtype == torch.float64
+    rtol = 1e-12 if f64case else 1e-5
+    worst = []
+    for g, r, part in zip(got, ref, ("Xr", "Xi", "S0", "pwr", "x0")):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{c['name']} {part}: shape "
+                                 f"{tuple(g.shape)} vs {tuple(r.shape)} "
+                                 f"or non-finite")
+        err = float((g - r).abs().max())
+        scale = float(r.abs().max())
+        if not err <= rtol * scale:
+            raise AssertionError(
+                f"{c['name']} {part}: max abs err {err:.3e} > {rtol:g} x "
+                f"max|ref| {scale:.3e}")
+        worst.append((err / scale, err, scale, part))
+    # the samples the kernel's GEMM stages, against the plain decode
+    # with the plain baseline: bit for bit
+    from pulseportraiture_tpu_torch.ops.decode import (PACKED_BITS,
+                                                       unpack_bitplanes)
+
+    nbin = c["nbin"]
+    s = unpack_bitplanes(c["raw"], PACKED_BITS[c["code"]], nbin)
+    x = affine_decode(s, c["scl"], c["offs"], c["w"].dtype)
+    b = min_window_baseline(x)
+    ref_x = x - b[..., None]
+    got_x = F.decode_rows_cuda(c["raw"], c["scl"], c["offs"], b,
+                               code=c["code"], nbin=nbin,
+                               dtype=c["w"].dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(got_x, ref_x):
+        n = int((got_x != ref_x).sum())
+        raise AssertionError(f"{c['name']}: {n} decoded samples differ "
+                             "from the plain decode")
+    _, err, scale, part = max(worst)
+    log(f"kernel check ok: fused_decode_cross_spectrum {c['name']} (tol "
+        f"{'1e-12' if f64case else '1e-5'} x max|ref|; worst {part} "
+        f"{err:.3e} of {scale:.3e}; decoded samples exact)")
+    return err, scale, part
+
+
+def decode_library_equivalent(raw, scl, offs, model, w, K, code, nbin, W):
+    """One torch computation of B2's function with library calls: the
+    decode as torch ops, a torch.matmul DFT of data and template, the
+    epilogue and the Parseval rows (the yardstick; the port never calls
+    it)."""
+    import torch
+    from pulseportraiture_tpu_torch.ops.decode import decode_stokes_I
+
+    x = decode_stokes_I(raw.reshape(raw.shape[:-2] + (-1,)), scl, offs,
+                        w.dtype, code=code, nbin=nbin)
+    Xr, Xi, S0 = library_equivalent(x, model, w, K, W)
+    x0 = x.sum(dim=-1)
+    pwr = nbin * ((x - (x0 / nbin)[..., None]) ** 2).sum(dim=-1)
+    sgn = torch.ones(nbin, device=x.device, dtype=x.dtype)
+    sgn[1::2] = -1.0
+    pwr = pwr + (x * sgn).sum(dim=-1) ** 2
+    return Xr, Xi, S0, pwr, x0
+
+
+def decode_bound_ms(nb, nchan, nbin, K, nbit, itemsize=4):
+    """Least time for B2's function on this card: the larger of its
+    bytes (packed rows, scl/offs, template and per-element w read once;
+    Xr/Xi/S0/pwr/x0 written once) over HBM bandwidth and its fewest
+    operations over the FP32 (or FP64) peak: a real FFT of every data
+    and template row (2.5 nbin log2 nbin FLOPs each), the epilogue (11
+    per output harmonic), and the decode, baseline and Parseval rows
+    (about 10 per sample)."""
+    rows = nb * nchan
+    flops = (2.5 * (rows + nchan) * nbin * math.log2(nbin)
+             + 11.0 * rows * K + 10.0 * rows * nbin)
+    nbytes = (rows * nbin * nbit / 8 + itemsize * (
+        2 * rows + nchan * nbin + rows * K + 2 * rows * K + 3 * rows))
+    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def phase_kernels():
     """Every kernel vs its plain version on the card over the directed
     set; raises on the first disagreement."""
     import torch
-    from pulseportraiture_tpu_torch.ops import fused as F
 
     f32, f64 = torch.float32, torch.float64
     cases = [
@@ -172,26 +340,26 @@ def phase_kernels():
                             per_element=True, seed=8),
     ]
     for c in cases:
-        args = (c["port"], c["model"], c["w"], c["K"])
-        kw = dict(fold=c["fold"], want_m2=c["want_m2"])
-        got = F.fused_cross_spectrum_cuda(*args, **kw)
-        ref = F.fused_cross_spectrum_ref(*args, **kw)
-        torch.cuda.synchronize()
-        f64case = c["port"].dtype == f64
-        rtol = 1e-12 if f64case else 1e-5
-        for g, r, part in zip(got, ref, ("Xr", "Xi", "o2")):
-            if g.shape != r.shape or not torch.isfinite(g).all():
-                raise AssertionError(f"{c['name']} {part}: shape "
-                                     f"{tuple(g.shape)} vs "
-                                     f"{tuple(r.shape)} or non-finite")
-            err = float((g - r).abs().max())
-            scale = float(r.abs().max())
-            if not err <= rtol * scale:
-                raise AssertionError(
-                    f"{c['name']} {part}: max abs err {err:.3e} > "
-                    f"{rtol:g} x max|ref| {scale:.3e}")
-        log(f"kernel check ok: fused_cross_spectrum {c['name']} "
-            f"(tol {'1e-12' if f64case else '1e-5'} x max|ref|)")
+        check_cross_spectrum_case(c)
+    del cases
+    for c in (
+            decode_case("2-bit 64x512x2048 K=256", NSUB, NCHAN, NBIN, 256,
+                        f32, "p2", seed=20),
+            decode_case("1-bit 4x512x2048 K=256", 4, NCHAN, NBIN, 256, f32,
+                        "p1", seed=21),
+            decode_case("4-bit 4x512x2048 K=256", 4, NCHAN, NBIN, 256, f32,
+                        "p4", seed=22),
+            decode_case("ragged nchan=500 2-bit", 2, 500, NBIN, 256, f32,
+                        "p2", seed=23),
+            decode_case("fold 2-bit", 4, NCHAN, NBIN, 256, f32, "p2",
+                        fold=True, seed=24),
+            decode_case("single subint 4-bit K not a tile multiple", None,
+                        37, 256, 100, f32, "p4", fold=True, seed=25),
+            decode_case("f64 small 1-bit", 3, 13, 128, 40, f64, "p1",
+                        seed=26),
+            decode_case("f64 small 4-bit fold", 2, 13, 128, 40, f64, "p4",
+                        fold=True, seed=27)):
+        check_decode_case(c)
 
 
 
@@ -444,6 +612,224 @@ def phase_fit_profile(arch, gmodel, device="cuda"):
     return K
 
 
+def phase_decode_timing(K_main):
+    """B2 at the directed production shape (64 x 512 x 2048, 2-bit) at
+    the main path's K, then its, its plain version's and the torch
+    equivalent's median times at the stream path's bucket shape
+    (NSUB_BATCH x 512 x 2048, 2-bit, per-element weights) at K_main.
+    Each output is first held to 1e-5 x its max|ref|."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.ops.fourier import device_weights
+
+    f32 = torch.float32
+    check_decode_case(decode_case(f"2-bit 64x512x2048 K={K_main}", NSUB,
+                                  NCHAN, NBIN, K_main, f32, "p2", seed=30))
+    c = decode_case(f"stream bucket {NSUB_BATCH}x{NCHAN}x{NBIN} "
+                    f"K={K_main}", NSUB_BATCH, NCHAN, NBIN, K_main, f32,
+                    "p2", seed=31)
+    err, scale, part = check_decode_case(c)
+    args = (c["raw"], c["scl"], c["offs"], c["model"], c["w"], K_main)
+    kw = dict(code="p2", nbin=NBIN)
+    Wc, Ws = device_weights("rfft", c["raw"].device, NBIN, "float32",
+                            K_main)
+    W = torch.cat([Wc, Ws], dim=1).contiguous()
+    ms = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(*args, **kw),
+                   n=10)
+    plain_ms = median_ms(
+        lambda: F.fused_decode_cross_spectrum_ref(*args, **kw), n=5)
+    lib_ms = median_ms(lambda: decode_library_equivalent(
+        *args, "p2", NBIN, W), n=5)
+    ms2 = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(*args, **kw),
+                    n=10)
+    bound, by = decode_bound_ms(NSUB_BATCH, NCHAN, NBIN, K_main, 2)
+    log(f"timing fused_decode_cross_spectrum {NSUB_BATCH}x{NCHAN}x{NBIN} "
+        f"2-bit K={K_main} f32: kernel {ms:.4f} ms (again {ms2:.4f}), "
+        f"plain {plain_ms:.4f} ms, torch equivalent (decode + "
+        f"torch.matmul) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+        f"worst {part} max abs err {err:.3e} of max|ref| {scale:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by, max_abs_err=err,
+                max_abs_ref=scale)
+
+
+def stream_archives(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
+                    narch=NARCH, noise=NOISE_2BIT):
+    """The stream path's campaign: narch 2-bit archives with the main
+    path's injection (each its own epoch and noise draw) beside the main
+    path's int16 archive, in one metafile.  Returns (metafile, 2-bit
+    archive paths, int16 archive path, .gmodel path)."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    model = default_test_model(1500.0)
+    files = []
+    for i in range(narch):
+        path = os.path.join(WORK, f"fake2bit-{i}.fits")
+        make_fake_pulsar(model, PAR, outfile=path, nsub=nsub, nchan=nchan,
+                         nbin=nbin, nu0=1500.0, bw=800.0, tsub=60.0,
+                         phase=PHI_INJ, dDM=DDM_INJ,
+                         start_MJD=MJD(55200 + i, 0.1), noise_stds=noise,
+                         dedispersed=False, quiet=True,
+                         rng=np.random.default_rng(SEED + 1 + i), nbit=2,
+                         device=device)
+        files.append(path)
+    int16 = os.path.join(WORK, "fake.fits")
+    meta = os.path.join(WORK, "stream_meta.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join(files + [int16]) + "\n")
+    return meta, files, int16, os.path.join(WORK, "model.gmodel")
+
+
+def toa_sigma_offset(a, b):
+    """|TOA(a) - TOA(b)| over a's TOA error, b referenced to a's
+    frequency along b's own DM: TOA objects of one subint."""
+    from pulseportraiture_tpu_torch.config import Dconst
+
+    dt = ((b.MJD.day - a.MJD.day) + (b.MJD.frac - a.MJD.frac)) * 86400.0
+    dt += Dconst * b.DM * (a.frequency ** -2.0 - b.frequency ** -2.0)
+    return abs(dt) * 1e6 / a.TOA_error
+
+
+def phase_stream(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
+                 narch=NARCH, noise=NOISE_2BIT, nsub_batch=NSUB_BATCH,
+                 K=None):
+    """The stream path: ``pptoas --stream`` over the campaign, in this
+    process, with the kernels' counters set to 0 just before it and read
+    just after; then the 2-bit TOAs against GetTOAs, and the library
+    call timed and profiled.  On a CUDA device B2 and B1 must both have
+    been launched (the CPU runs their plain versions), and B1 is held to
+    its plain version at a full int16 bucket (nsub_batch x nchan x nbin,
+    per-element weights, the main path's harmonic window K): a bucket
+    dispatches up to nsub_batch subints, so no B1 launch of this path is
+    larger."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline import GetTOAs
+    from pulseportraiture_tpu_torch.pipeline.stream import (
+        stream_wideband_TOAs)
+
+    t0 = time.perf_counter()
+    meta, files, int16, gmodel = stream_archives(device, nsub, nchan, nbin,
+                                                 narch, noise)
+    log(f"stream archives: {narch} x {nsub}x{nchan}x{nbin} 2-bit written "
+        f"in {time.perf_counter() - t0:.2f} s")
+    tim = os.path.join(WORK, "stream.tim")
+    if os.path.exists(tim):
+        os.remove(tim)
+    F.reset_kernel_launches()
+    argv = sys.argv
+    sys.argv = ["pptoas", "--stream", "-d", meta, "-m", gmodel, "-o", tim,
+                "--quiet", "--print_phase", "--quality_flags", "--device",
+                device]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("pulseportraiture_tpu_torch.cli.pptoas",
+                         run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise RuntimeError(f"pptoas --stream exited with {e.code!r}")
+    finally:
+        sys.argv = argv
+    sync(device)
+    cli_s = time.perf_counter() - t0
+    launches = F.kernel_launches()
+    ntoa = (narch + 1) * nsub
+    log(f"stream path (pptoas --stream): {ntoa} TOAs from {narch + 1} "
+        f"archives in {cli_s:.3f} s wall incl. load and first use = "
+        f"{ntoa / cli_s:.1f} TOAs/s, kernel launches {launches}")
+
+    with open(tim) as f:
+        lines = [ln.split() for ln in f if ln.strip()]
+    if len(lines) != ntoa:
+        raise AssertionError(f"{len(lines)} stream TOAs for {ntoa} subints")
+    worst = 0.0
+    for tok in lines:
+        flags = dict(zip(tok[5::2], tok[6::2]))
+        phi = float(flags["-phs"])
+        if not all(math.isfinite(float(x))
+                   for x in (tok[3], phi, flags["-pp_dm"])):
+            raise AssertionError(f"non-finite stream TOA line {tok}")
+        worst = max(worst, abs((phi - expected_phase(float(tok[1])) + 0.5)
+                               % 1.0 - 0.5))
+    if not worst < 1e-4:
+        raise AssertionError(f"stream phase recovery |dphi| = {worst:.3e} "
+                             "rot >= 1e-4")
+    log(f"stream phase recovery: max |dphi| = {worst:.3e} rot over {ntoa} "
+        f"TOAs (limit 1e-4)")
+
+    # the 2-bit TOAs against GetTOAs on the same archives
+    t0 = time.perf_counter()
+    res = stream_wideband_TOAs(meta, gmodel, nsub_batch=nsub_batch,
+                               device=device, quiet=True)
+    sync(device)
+    lib_s = time.perf_counter() - t0
+    gt = GetTOAs(files, gmodel, quiet=True, device=device)
+    gt.get_TOAs(quiet=True, prefetch=True)
+    ref = {(t.archive, t.flags["subint"]): t for t in gt.TOA_list}
+    offs = [toa_sigma_offset(ref[(t.archive, t.flags["subint"])], t)
+            for t in res.TOA_list if t.archive in files]
+    if len(offs) != narch * nsub or not max(offs) <= 0.1:
+        raise AssertionError(f"2-bit stream TOAs vs GetTOAs: {len(offs)} "
+                             f"compared, max {max(offs):.3f} sigma (limit "
+                             "0.1)")
+    log(f"stream vs GetTOAs: max |dTOA| = {max(offs):.4f} sigma over "
+        f"{len(offs)} 2-bit TOAs (limit 0.1)")
+    log(f"stream path (library, warm): {len(res.TOA_list)} TOAs in "
+        f"{lib_s:.3f} s = {len(res.TOA_list) / lib_s:.1f} TOAs/s; "
+        f"{res.nfit} dispatches, h2d {res.h2d_bytes} bytes in "
+        f"{res.h2d_duration:.3f} s (overlapped with fits "
+        f"{res.h2d_overlap_duration:.3f} s), {res.fit_duration:.3f} s "
+        f"blocked on the device; dispatches by bucket shape "
+        f"{res.dispatch_shapes}")
+    if device_type(device) == "cuda":
+        for k in ("fused_decode_cross_spectrum", "fused_cross_spectrum"):
+            if launches[k] < 1:
+                raise AssertionError(f"the stream path never launched {k}")
+        check_cross_spectrum_case(cross_spectrum_case(
+            f"full int16 bucket {nsub_batch}x{nchan}x{nbin} K={K}",
+            nsub_batch, nchan, nbin, K, torch.float32, seed=12))
+        stream_profile(meta, gmodel, device, nsub_batch)
+    return launches
+
+
+def stream_profile(meta, gmodel, device, nsub_batch):
+    """The library stream call once more under torch.profiler: device
+    busy time (kernels and copies, summed by name) against the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    from pulseportraiture_tpu_torch.pipeline.stream import (
+        stream_wideband_TOAs)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stream_wideband_TOAs(meta, gmodel, nsub_batch=nsub_batch,
+                             device=device, quiet=True)
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        dt_us = getattr(e, "self_device_time_total", None)
+        if dt_us is None:
+            dt_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dt_us > 0:
+            rows.append((dt_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(f"stream profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+        f"wall (idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on)")
+    for us, key, n in rows[:14]:
+        log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
+
+
+def device_type(device):
+    import torch
+
+    return torch.device(device).type
+
+
 def sync(device):
     import torch
 
@@ -465,20 +851,31 @@ def main():
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-
     t0 = time.perf_counter()
     F.build_kernels(verbose=True)
-    log(f"build: fused_cross_spectrum.cu compiled and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"build: fused_cross_spectrum.cu and fused_decode_cross_spectrum.cu "
+        f"compiled and loaded in {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
     phase_kernels()
+    log(f"phase kernels: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
     launches = phase_main_path()
     K = phase_fit_profile(os.path.join(WORK, "fake.fits"),
                           os.path.join(WORK, "model.gmodel"))
     if K is None:
         raise AssertionError("the main path derived no harmonic window, "
                              "so the fused kernel lane was not active")
+    log(f"phase main path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
     rec = phase_timing(K)[K]
+    log(f"phase timing B1: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    stream_launches = phase_stream(K=K)
+    log(f"phase stream path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    rec2 = phase_decode_timing(K)
+    log(f"phase timing B2: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -493,6 +890,20 @@ def main():
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
+    }, {
+        "name": "fused_decode_cross_spectrum",
+        "route": "cuda",
+        "source": "pulseportraiture_tpu_torch/ops/csrc/"
+                  "fused_decode_cross_spectrum.cu",
+        "replaces": "pulseportraiture_tpu/ops/fused.py:358",
+        "launches": stream_launches["fused_decode_cross_spectrum"],
+        "max_abs_err": rec2["max_abs_err"],
+        "max_abs_ref": rec2["max_abs_ref"],
+        "ms": rec2["ms"],
+        "plain_ms": rec2["plain_ms"],
+        "bound_ms": rec2["bound_ms"],
+        "bound_by": rec2["bound_by"],
+        "library_ms": rec2["library_ms"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

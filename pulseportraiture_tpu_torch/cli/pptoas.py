@@ -1,12 +1,16 @@
 """pptoas — measure wideband TOAs and DMs on the GPU.
 
-The wideband GetTOAs options of the JAX package's pptoas that map onto
-the ported fast lane.  Narrowband TOAs (ROADMAP A8), the streaming
-campaign driver (A7), scattering fits (A6) and telemetry (A13) are not
+The wideband options of the JAX package's pptoas that map onto the
+ported fast lane: GetTOAs per archive, or with --stream the campaign
+lane (pipeline/stream.py) that pools subints across the archives of
+a metafile into batched fits.  Narrowband TOAs (ROADMAP A8), the
+transport codec (A7), scattering fits (A6) and telemetry (A13) are not
 ported yet and are refused.
 
     python -m pulseportraiture_tpu_torch.cli.pptoas -d archive.fits \\
         -m model.gmodel -o out.tim [--device cuda|cpu]
+    python -m pulseportraiture_tpu_torch.cli.pptoas --stream \\
+        -d metafile -m model.gmodel -o out.tim [--stream-devices auto|N]
 """
 
 import argparse
@@ -29,7 +33,26 @@ def build_parser():
     p.add_argument("--narrowband", action="store_true", default=False,
                    help="Narrowband TOAs (not ported yet).")
     p.add_argument("--stream", action="store_true", default=False,
-                   help="Streaming campaign driver (not ported yet).")
+                   help="Cross-archive batched dispatches for large "
+                        "campaigns (wideband phi/DM fits only).")
+    p.add_argument("--stream-devices", dest="stream_devices",
+                   default=None, metavar="auto|N",
+                   help="With --stream: CUDA devices to deal buckets "
+                        "across, round-robin ('auto' = every visible "
+                        "device, or a count). [default: "
+                        "config.stream_devices; --device cpu streams on "
+                        "the CPU]")
+    p.add_argument("--pipeline-depth", dest="pipeline_depth",
+                   default=None, type=int, metavar="N",
+                   help="With --stream: buckets that may occupy a "
+                        "device's copy -> fit pipeline at once (2 "
+                        "double-buffers the host->device copy against "
+                        "the running fit). [default: "
+                        "config.stream_pipeline_depth]")
+    p.add_argument("--transport-compress", dest="transport_compress",
+                   default=None, metavar="off|auto|on",
+                   help="With --stream: lossless transport codec (not "
+                        "ported yet).")
     p.add_argument("--errfile", metavar="errfile", default=None,
                    help="Write fitted DM errors to this file (appends).")
     p.add_argument("-T", "--tscrunch", action="store_true", default=False,
@@ -124,10 +147,11 @@ def main(argv=None):
         raise NotImplementedError(
             "pptoas --narrowband: narrowband TOAs are not ported yet "
             "(ROADMAP A8)")
-    if args.stream:
+    if args.telemetry is not None:
         raise NotImplementedError(
-            "pptoas --stream: the streaming campaign driver is not ported "
-            "yet (ROADMAP A7)")
+            "pptoas --telemetry: telemetry traces are not ported yet "
+            "(ROADMAP A13)")
+    stream_devices = _stream_options(args)
     nu_ref_DM = args.nu_ref_DM
     if nu_ref_DM is not None:
         nu_ref_DM = np.inf if str(nu_ref_DM).lower() == "inf" \
@@ -138,6 +162,9 @@ def main(argv=None):
         parts = args.flags.split(",")
         addtnl = dict(zip(parts[0::2], parts[1::2]))
     bounds = parse_bounds(args.bound)
+    if bounds is not None and args.stream:
+        raise SystemExit("--bound applies to the standard wideband "
+                         "GetTOAs path (no --stream)")
     if args.fit_fused is not None:
         table = {"off": False, "auto": "auto", "on": True}
         v = str(args.fit_fused).lower()
@@ -145,6 +172,9 @@ def main(argv=None):
             raise SystemExit("--fit-fused expected one of off/auto/on, "
                              f"got {args.fit_fused!r}")
         config.fit_fused = table[v]
+
+    if args.stream:
+        return _run_stream(args, nu_ref_DM, addtnl, stream_devices)
 
     gt = GetTOAs(args.datafiles, args.modelfile, quiet=args.quiet,
                  device=args.device)
@@ -155,7 +185,7 @@ def main(argv=None):
                 print_parangle=args.print_parangle,
                 addtnl_toa_flags=addtnl, prefetch=args.prefetch,
                 quiet=args.quiet, bounds=bounds,
-                quality_flags=args.quality_flags, telemetry=args.telemetry)
+                quality_flags=args.quality_flags)
     if args.one_DM:
         gt.apply_one_DM()
     if args.format == "princeton":
@@ -169,6 +199,78 @@ def main(argv=None):
                         f.write(f"{toa.DM_error:.5e}\n")
     else:
         write_TOAs(gt.TOA_list, SNR_cutoff=args.snr_cutoff,
+                   outfile=args.outfile, append=True)
+    return 0
+
+
+def _stream_options(args):
+    """The --stream flags' checks (the JAX pptoas's): the resolved
+    stream_devices value, or None for the default."""
+    if args.transport_compress is not None:
+        if not args.stream:
+            raise SystemExit("--transport-compress requires --stream "
+                             "(the codec rides the streaming copy stage)")
+        raise NotImplementedError(
+            "pptoas --transport-compress: the transport codec is not "
+            "ported yet (ROADMAP A7)")
+    stream_devices = args.stream_devices
+    if stream_devices is not None:
+        if not args.stream:
+            raise SystemExit("--stream-devices requires --stream")
+        v = stream_devices.strip().lower()
+        if v == "auto":
+            stream_devices = "auto"
+        else:
+            try:
+                stream_devices = int(v)
+            except ValueError:
+                raise SystemExit("--stream-devices: expected 'auto' or a "
+                                 "positive count, got "
+                                 f"{args.stream_devices!r}")
+            if stream_devices < 1:
+                raise SystemExit("--stream-devices: count must be >= 1, "
+                                 f"got {stream_devices}")
+    if args.pipeline_depth is not None:
+        if not args.stream:
+            raise SystemExit("--pipeline-depth requires --stream")
+        if args.pipeline_depth < 1:
+            raise SystemExit("--pipeline-depth: depth must be >= 1, got "
+                             f"{args.pipeline_depth}")
+    if args.stream and (args.one_DM or args.print_parangle):
+        raise SystemExit("--stream supports the wideband (phi, DM[, GM]), "
+                         "flux and phase campaign configuration only (no "
+                         "one_DM/parangle flags)")
+    if args.stream and args.fit_scat:
+        raise NotImplementedError(
+            "pptoas --stream --fit_scat: scattering fits are not ported "
+            "yet (ROADMAP A6)")
+    return stream_devices
+
+
+def _run_stream(args, nu_ref_DM, addtnl, stream_devices):
+    """pptoas --stream: the campaign lane over every archive named."""
+    from ..io.tim import write_princeton_TOAs, write_TOAs
+    from ..pipeline.stream import stream_wideband_TOAs
+
+    res = stream_wideband_TOAs(
+        args.datafiles, args.modelfile, fit_DM=args.fit_DM,
+        fit_GM=args.fit_GM, print_flux=args.print_flux,
+        print_phase=args.print_phase, nu_ref_DM=nu_ref_DM, DM0=args.DM0,
+        bary=args.bary, tscrunch=args.tscrunch, addtnl_toa_flags=addtnl,
+        stream_devices=stream_devices, device=args.device,
+        pipeline_depth=args.pipeline_depth,
+        quality_flags=args.quality_flags, quiet=args.quiet)
+    if args.format == "princeton":
+        dDMs = [toa.DM - res.DM0s[res.order.index(toa.archive)]
+                if toa.DM is not None else 0.0 for toa in res.TOA_list]
+        write_princeton_TOAs(res.TOA_list, outfile=args.outfile, dDMs=dDMs)
+        if args.errfile:
+            with open(args.errfile, "a") as f:
+                for toa in res.TOA_list:
+                    if toa.DM_error is not None:
+                        f.write(f"{toa.DM_error:.5e}\n")
+    else:
+        write_TOAs(res.TOA_list, SNR_cutoff=args.snr_cutoff,
                    outfile=args.outfile, append=True)
     return 0
 

@@ -49,6 +49,21 @@ dft_precision = "highest"
 # the working dtype is float32.  None keeps float32 storage.
 cross_spectrum_dtype = "bfloat16"
 
+# --- Streaming campaign lane (pipeline/stream.py) ------------------------
+# Devices full buckets are dealt across, round-robin: 'auto' = every
+# visible CUDA device; an int N = the first N; or a device sequence.
+stream_devices = "auto"
+# Fused dispatches that may be pending per device before the host
+# blocks on that device's oldest (the bound is exact).
+stream_max_inflight = 4
+# Buckets that may occupy a device's copy -> fit pipeline at once:
+# 2 double-buffers the host->device copy against the running fit.
+stream_pipeline_depth = 2
+# Pad bucket channel counts to the next power of two with zero-weight
+# channels.  False (default): exact shapes; 'auto': pad on CUDA
+# devices; True: always pad.
+bucket_pad = False
+
 # Fold-symmetry matmul DFT (half-length contraction).
 #   False (default): direct matmul.  'auto': fold off CUDA only.
 #   True: fold everywhere.

@@ -23,6 +23,7 @@ KNOB_POLARITY = {
     "fit_fused": "cuda",    # fused DFT -> cross-spectrum kernel lane
     "fast_fit": "cuda",     # complex-free fast fit in the pipeline
     "dft_fold": "not_cuda",  # fold-symmetry half-length DFT
+    "bucket_pad": "cuda",   # stream bucket channel-count coarsening
 }
 
 

@@ -35,7 +35,9 @@ from ..device import resolve_auto, resolve_device
 from ..ops.fourier import irfft_mm, rfft_mm, use_dft_fold
 
 __all__ = ["FitFlags", "FitResult", "fit_portrait_batch_fast",
-           "fast_fit_batched", "prepare_portrait_fit_real", "make_weights",
+           "fast_fit_batched", "prepare_portrait_fit_real",
+           "fast_fit_batched_packed", "prepare_portrait_fit_real_packed",
+           "make_weights",
            "model_harmonic_window", "resolve_harmonic_window",
            "use_fast_fit_default", "use_bf16_cross_spectrum",
            "resolve_fit_fused", "warn_bf16_high_snr"]
@@ -354,6 +356,43 @@ def prepare_portrait_fit_real(port, model, w, freqs, P, nu_fit, theta0,
         phi0 = _initial_phase_guess_real(Xr, Xi, cvec, theta0[:, 1],
                                          derotate=seed_derotate,
                                          nbin=port.shape[-1])
+        theta0 = theta0.clone()
+        theta0[:, 0] = phi0
+    xdt = x_dtype or dt
+    return Xr.to(xdt), Xi.to(xdt), S0, Sd, theta0
+
+
+def prepare_portrait_fit_real_packed(raw, scl, offs, model, w, freqs, P,
+                                     nu_fit, theta0, *, raw_code, nbin,
+                                     nharm_eff, seed_phi=True,
+                                     seed_derotate=True, x_dtype=None,
+                                     dft_fold=None):
+    """prepare_portrait_fit_real for sub-byte PACKED raw rows: the
+    decode (bit-plane unpack, affine decode, min-window baseline) and
+    the windowed DFT -> cross-spectrum run in one fused stage
+    (ops.fused.fused_decode_cross_spectrum, kernel B2 on a CUDA device),
+    so the decoded portrait is never materialized for the fit.
+
+    raw (B, nchan, bpc) uint8; scl/offs (B, nchan); model (nchan, nbin)
+    shared; w (B, nchan, nharm_w) with nharm_w >= nharm_eff (columns 0
+    and 1 carry the Parseval weights).  The full-spectrum Sd comes from
+    the stage's per-channel Parseval rows with _parseval_Sd's outer
+    reductions.  Windowed lanes only: nharm_eff must be set."""
+    from ..ops.fused import fused_decode_cross_spectrum
+
+    dt = w.dtype
+    cvec, _ = _t_coeffs(freqs, P, nu_fit)
+    cvec = cvec.to(dt)
+    Xr, Xi, S0, pwr, x0 = fused_decode_cross_spectrum(
+        raw, scl, offs, model, w[..., :nharm_eff].contiguous(), nharm_eff,
+        code=raw_code, nbin=nbin, fold=dft_fold)
+    Sd = torch.sum(w[..., 1] * (0.5 * pwr), dim=-1)
+    if float(F0_fact) != 0.0:
+        Sd = Sd + torch.sum(w[..., 0] * x0**2, dim=-1)
+    theta0 = theta0.to(dt)
+    if seed_phi:
+        phi0 = _initial_phase_guess_real(Xr, Xi, cvec, theta0[:, 1],
+                                         derotate=seed_derotate, nbin=nbin)
         theta0 = theta0.clone()
         theta0[:, 0] = phi0
     xdt = x_dtype or dt
@@ -693,6 +732,32 @@ def fast_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
         fit_flags=fit_flags, max_iter=max_iter,
         nharm_total=nbin // 2 + 1 if nharm_eff is not None else None,
         bounds=bounds)
+
+
+def fast_fit_batched_packed(raw, scl, offs, model, noise_stds, chan_masks,
+                            freqs, P, nu_fit, nu_out, theta0, *, raw_code,
+                            nbin, fit_flags, max_iter, nharm_eff,
+                            seed_derotate=True, x_bf16=None, dft_fold=None):
+    """fast_fit_batched for sub-byte packed raw rows (the JAX package's
+    fast_fit_one_packed with the batch as a leading dimension): weights
+    from the noise levels, the decode-fused prepare
+    (prepare_portrait_fit_real_packed), then the same real Newton core.
+    noise_stds' dtype is the working dtype; model and freqs are shared
+    across the batch, everything else is per element."""
+    if x_bf16 is None:
+        x_bf16 = use_bf16_cross_spectrum()
+    dt = noise_stds.dtype
+    w = make_weights(noise_stds, nbin, chan_masks, dtype=dt,
+                     nharm=nharm_eff)
+    x_dtype = torch.bfloat16 if (x_bf16 and dt == torch.float32) else None
+    Xr, Xi, S0, Sd, th0 = prepare_portrait_fit_real_packed(
+        raw, scl, offs, model.to(dt), w, freqs, P, nu_fit, theta0,
+        raw_code=raw_code, nbin=nbin, nharm_eff=nharm_eff,
+        seed_phi=bool(fit_flags[0]), seed_derotate=seed_derotate,
+        x_dtype=x_dtype, dft_fold=dft_fold)
+    return _fit_portrait_core_real(
+        Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out, th0,
+        fit_flags=fit_flags, max_iter=max_iter, nharm_total=nbin // 2 + 1)
 
 
 def _as_tensor(x, dtype, device):

@@ -20,34 +20,47 @@ on.  Inputs carry an optional leading batch (subint) dimension: port
 (B, nchan, nbin) against a shared (nchan, nbin) template or per-element
 (B, nchan, nbin) models, with weights (B, nchan, K) or shared
 (nchan, K).  The shared template is never broadcast in memory.
+
+The streaming lane's sub-byte raw buckets take the decode-fused form
+of the same stage (B2), :func:`fused_decode_cross_spectrum`: packed
+1/2/4-bit rows -> unpack -> affine decode -> min-window baseline ->
+the Parseval rows and the same cross-spectrum, with the kernel
+csrc/fused_decode_cross_spectrum.cu for CUDA tensors and
+:func:`fused_decode_cross_spectrum_ref` for CPU tensors.
 """
 
 import ctypes
 import os
 import threading
 
+import numpy as np
 import torch
 
 from .. import config
 from .fourier import (_dtype_str, check_dft_precision, device_weights,
                       rfft_mm, use_dft_fold)
+from .noise import baseline_window
 
 __all__ = ["fused_cross_spectrum", "fused_cross_spectrum_ref",
-           "fused_cross_spectrum_cuda", "fused_block_default",
-           "kernel_launches", "reset_kernel_launches", "build_kernels"]
+           "fused_cross_spectrum_cuda", "fused_decode_cross_spectrum",
+           "fused_decode_cross_spectrum_ref",
+           "fused_decode_cross_spectrum_cuda", "decode_rows_cuda",
+           "fused_block_default", "kernel_launches",
+           "reset_kernel_launches", "build_kernels"]
 
 # Channel-block target of the plain version's tiling (the scan's).
 _BLOCK_TARGET = 32
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "fused_cross_spectrum.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_SOURCES = [os.path.join(_CSRC, "fused_cross_spectrum.cu"),
+            os.path.join(_CSRC, "fused_decode_cross_spectrum.cu")]
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 
 # kernel launches since the last reset, counted where the wrapper
 # launches the kernel and nowhere else
-_launches = {"fused_cross_spectrum": 0}
+_launches = {"fused_cross_spectrum": 0, "fused_decode_cross_spectrum": 0}
 
 
 def kernel_launches():
@@ -150,12 +163,13 @@ _lib_lock = threading.Lock()
 
 
 def build_kernels(verbose=False):
-    """Compile csrc/fused_cross_spectrum.cu for sm_90a with
-    torch.utils.cpp_extension.load into BUILD_DIR and bind its plain C
-    interface with ctypes.  The source includes no PyTorch headers, so
-    the build takes seconds.  Idempotent per process; load() rebuilds
-    when the source or flags change.  verbose prints ptxas's register,
-    shared-memory and spill report."""
+    """Compile the kernels' sources (csrc/*.cu, one object each, built in
+    parallel) for sm_90a with torch.utils.cpp_extension.load into
+    BUILD_DIR as one library, and bind its plain C interface with
+    ctypes.  No source includes PyTorch headers, so the build takes
+    seconds.  Idempotent per process; load() rebuilds when a source or
+    the flags change.  verbose prints ptxas's register, shared-memory
+    and spill report."""
     global _lib
     with _lib_lock:
         if _lib is not None:
@@ -166,23 +180,29 @@ def build_kernels(verbose=False):
         flags = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
         if verbose:
             flags.append("-Xptxas=-v")
-        name = "ppt_fused_cross_spectrum"
-        load(name=name, sources=[_SRC], extra_cuda_cflags=flags,
+        name = "ppt_fused_kernels"
+        load(name=name, sources=_SOURCES, extra_cuda_cflags=flags,
              build_directory=BUILD_DIR, verbose=verbose, with_cuda=True,
              is_python_module=False)
-        so = os.path.join(BUILD_DIR, f"{name}.so")
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"{name}.so"))
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        for fn_name in ("ppt_fcs_spectrum_f32", "ppt_fcs_spectrum_f64"):
-            fn = getattr(lib, fn_name)
-            fn.restype = i32
-            fn.argtypes = [vp, i64, i32, vp, vp, vp, i32, i32, i32, vp, vp,
-                           vp]
-        for fn_name in ("ppt_fcs_cross_f32", "ppt_fcs_cross_f64"):
-            fn = getattr(lib, fn_name)
-            fn.restype = i32
-            fn.argtypes = [vp, i64, i32, vp, vp, vp, i32, i32, i32, vp, vp,
-                           i64, vp, i64, vp, vp, vp, i32, vp]
+        argtypes = {
+            "ppt_fcs_spectrum": [vp, i64, i32, vp, vp, vp, i32, i32, i32,
+                                 vp, vp, vp],
+            "ppt_fcs_cross": [vp, i64, i32, vp, vp, vp, i32, i32, i32, vp,
+                              vp, i64, vp, i64, vp, vp, vp, i32, vp],
+            "ppt_fdcs_stats": [vp, i64, i32, i32, i32, i32, vp, vp, vp, vp,
+                               vp, vp],
+            "ppt_fdcs_cross": [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp,
+                               vp, i32, i32, i32, vp, vp, i64, vp, i64, vp,
+                               vp, vp, vp],
+            "ppt_fdcs_decode": [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp],
+        }
+        for stem, args in argtypes.items():
+            for sfx in ("f32", "f64"):
+                fn = getattr(lib, f"{stem}_{sfx}")
+                fn.restype = i32
+                fn.argtypes = args
         _lib = lib
         return _lib
 
@@ -272,3 +292,208 @@ def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
                            f"cudaError {rc}")
     _launches["fused_cross_spectrum"] += 1
     return Xr, Xi, o2
+
+
+# ---------------------------------------------------------------------------
+# B2: the decode-fused form for sub-byte packed raw rows
+
+def _packed_geometry(code, nbin, name):
+    """(nbit, bytes per channel) of a packed code, refusing what the
+    per-channel byte tiling cannot carry (the JAX kernel's messages)."""
+    from .decode import PACKED_BITS
+
+    nbit = PACKED_BITS.get(code)
+    if nbit is None:
+        raise ValueError(f"{name}: packed sub-byte codes only (got "
+                         f"{code!r})")
+    if (nbin * nbit) % 8 != 0:
+        raise ValueError(f"{name}: nbin*nbit must be byte-aligned per "
+                         f"channel (nbin={nbin}, nbit={nbit})")
+    return nbit, (nbin * nbit) // 8
+
+
+def fused_decode_cross_spectrum(raw, scl, offs, model, w, nharm, *, code,
+                                nbin, precision=None, fold=None,
+                                block=None):
+    """Sub-byte packed rows -> bit-plane unpack -> affine decode ->
+    min-window baseline -> the Parseval rows and the windowed
+    cross-spectrum, never materializing the decoded portrait.
+
+    raw: (..., nchan, bpc) uint8, each channel's packed bytes a row
+    (bpc = nbin * nbit / 8); scl/offs: (..., nchan) DAT_SCL/DAT_OFFS;
+    model: (nchan, nbin) shared template; w: (..., nchan, nharm) or
+    shared (nchan, nharm) weights sliced to the harmonic window, whose
+    dtype is the compute dtype.  code: 'p1' | 'p2' | 'p4'.  Returns
+    (Xr, Xi, S0, pwr, x0): the cross-spectrum triple, the mean-removed
+    time-domain power (with the Nyquist term for even nbin) and the
+    channel sum of the decoded, baselined samples.
+
+    CUDA tensors run the hand-written kernel; CPU tensors the plain
+    version.  block only shapes the plain version's tiling."""
+    if raw.device.type == "cuda":
+        return fused_decode_cross_spectrum_cuda(
+            raw, scl, offs, model, w, nharm, code=code, nbin=nbin,
+            precision=precision, fold=fold)
+    if raw.device.type != "cpu":
+        raise ValueError(f"fused_decode_cross_spectrum: unsupported "
+                         f"device {raw.device}")
+    return fused_decode_cross_spectrum_ref(
+        raw, scl, offs, model, w, nharm, code=code, nbin=nbin,
+        precision=precision, fold=fold, block=block)
+
+
+def fused_decode_cross_spectrum_ref(raw, scl, offs, model, w, nharm, *,
+                                    code, nbin, precision=None, fold=None,
+                                    block=None):
+    """The plain PyTorch version: decode_stokes_I on the rows, then
+    fused_cross_spectrum_ref, then the Parseval rows with
+    fit.portrait._parseval_Sd's per-channel operations."""
+    from .decode import decode_stokes_I
+
+    _packed_geometry(code, nbin, "fused_decode_cross_spectrum_ref")
+    dt = w.dtype
+    x = decode_stokes_I(raw.reshape(raw.shape[:-2] + (-1,)), scl, offs, dt,
+                        code=code, nbin=nbin)
+    Xr, Xi, S0 = fused_cross_spectrum_ref(x, model.to(dt), w, nharm,
+                                          precision=precision, fold=fold,
+                                          block=block)
+    x0 = torch.sum(x, dim=-1)
+    mu = x0 / nbin
+    pwr = nbin * torch.sum((x - mu[..., None]) ** 2, dim=-1)
+    if nbin % 2 == 0:
+        sgn = torch.tensor((-1.0) ** np.arange(nbin), dtype=dt,
+                           device=x.device)
+        pwr = pwr + torch.sum(x * sgn, dim=-1) ** 2
+    return Xr, Xi, S0, pwr, x0
+
+
+def _packed_args(raw, scl, offs, code, nbin, dt, name):
+    """Checked (nbit, bpc, M, scl, offs) of a CUDA packed-row call."""
+    nbit, bpc = _packed_geometry(code, nbin, name)
+    if raw.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors")
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32 or float64, got {dt}")
+    if raw.dtype != torch.uint8 or raw.dim() < 2 \
+            or raw.shape[-1] != bpc or not raw.is_contiguous():
+        raise ValueError(f"{name}: raw must be a contiguous uint8 "
+                         f"(..., nchan, {bpc}) tensor; got {raw.dtype} "
+                         f"{tuple(raw.shape)}")
+    rows = raw.shape[:-1]
+    out = []
+    for t, tname in ((scl, "scl"), (offs, "offs")):
+        if t.shape != rows or t.device != raw.device:
+            raise ValueError(f"{name}: {tname} must be {tuple(rows)} on "
+                             f"{raw.device}; got {tuple(t.shape)}")
+        out.append(t.to(dt).contiguous())
+    return nbit, bpc, raw.numel() // bpc, out[0], out[1]
+
+
+def fused_decode_cross_spectrum_cuda(raw, scl, offs, model, w, nharm, *,
+                                     code, nbin, precision=None, fold=None):
+    """The hand-written Hopper kernel (csrc/fused_decode_cross_spectrum.cu).
+
+    Three launches per call: the per-row stats (baseline, x0, pwr) from
+    the packed bytes, the template's spectrum (B1's spectrum launch),
+    and the GEMM that decodes the rows as it stages them, with the
+    cross-spectrum and S0 in its epilogue.  CUDA tensors only; the
+    compute dtype (w's) is float32 or float64; dft_precision must be
+    'highest'."""
+    name = "fused_decode_cross_spectrum_cuda"
+    dt = w.dtype
+    nbit, bpc, M, scl, offs = _packed_args(raw, scl, offs, code, nbin, dt,
+                                           name)
+    check_dft_precision(precision, raw.device)
+    nchan = raw.shape[-2]
+    batch = raw.shape[:-2]
+    K = int(nharm)
+    if model.shape != (nchan, nbin) or model.dtype != dt \
+            or model.device != raw.device or not model.is_contiguous():
+        raise ValueError(f"{name}: model must be a contiguous {dt} "
+                         f"({nchan}, {nbin}) tensor on {raw.device}")
+    if w.device != raw.device or not w.is_contiguous():
+        raise ValueError(f"{name}: w must be contiguous on {raw.device}")
+    if w.shape == (nchan, K):
+        w_mod = nchan
+    elif w.shape == batch + (nchan, K):
+        w_mod = M
+    else:
+        raise ValueError(f"{name}: w shape {tuple(w.shape)} is neither "
+                         f"({nchan}, {K}) nor the rows' batch + "
+                         f"({nchan}, {K})")
+    if fold is None:
+        fold = use_dft_fold(raw.device)
+    fold = bool(fold) and nbin % 2 == 0 and nbin >= 8
+    dts = _dtype_str(dt)
+    if fold:
+        Wc, Ws, sgn = device_weights("fold", raw.device, nbin, dts, K)
+    else:
+        Wc, Ws = device_weights("rfft", raw.device, nbin, dts, K)
+        sgn = Wc  # unread without fold; any valid pointer
+    L = Wc.shape[0]
+
+    lib = build_kernels()
+    sfx = "f32" if dt == torch.float32 else "f64"
+    stream = torch.cuda.current_stream(raw.device).cuda_stream
+    dev = raw.device
+    base = torch.empty(M, dtype=dt, device=dev)
+    x0 = torch.empty(batch + (nchan,), dtype=dt, device=dev)
+    pwr = torch.empty_like(x0)
+    win = baseline_window(nbin)
+    rc = getattr(lib, f"ppt_fdcs_stats_{sfx}")(
+        raw.data_ptr(), M, nbin, bpc, nbit, win, scl.data_ptr(),
+        offs.data_ptr(), base.data_ptr(), x0.data_ptr(), pwr.data_ptr(),
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_cross_spectrum stats launch "
+                           f"failed: cudaError {rc}")
+    _launches["fused_decode_cross_spectrum"] += 1
+    mr = torch.empty((nchan, K), dtype=dt, device=dev)
+    mi = torch.empty_like(mr)
+    rc = getattr(lib, f"ppt_fcs_spectrum_{sfx}")(
+        model.data_ptr(), nchan, nbin, Wc.data_ptr(), Ws.data_ptr(),
+        sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_cross_spectrum spectrum launch "
+                           f"failed: cudaError {rc}")
+    _launches["fused_decode_cross_spectrum"] += 1
+    Xr = torch.empty(batch + (nchan, K), dtype=dt, device=dev)
+    Xi = torch.empty_like(Xr)
+    S0 = torch.empty(batch + (nchan,), dtype=dt, device=dev)
+    rc = getattr(lib, f"ppt_fdcs_cross_{sfx}")(
+        raw.data_ptr(), M, nbin, bpc, nbit, scl.data_ptr(),
+        offs.data_ptr(), base.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
+        sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
+        nchan, w.data_ptr(), w_mod, Xr.data_ptr(), Xi.data_ptr(),
+        S0.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_decode_cross_spectrum cross launch "
+                           f"failed: cudaError {rc}")
+    _launches["fused_decode_cross_spectrum"] += 1
+    return Xr, Xi, S0, pwr, x0
+
+
+def decode_rows_cuda(raw, scl, offs, base, *, code, nbin, dtype):
+    """The samples B2's GEMM stages, written out: (..., nchan, bpc)
+    packed rows -> (..., nchan, nbin) x = s scl + offs - base in
+    ``dtype``, by the kernel's own decode.  A check of the kernel
+    against the plain decode; the fused path never calls it, and it
+    counts no launch."""
+    name = "decode_rows_cuda"
+    nbit, bpc, M, scl, offs = _packed_args(raw, scl, offs, code, nbin,
+                                           dtype, name)
+    base = base.to(dtype).contiguous()
+    if base.numel() != M:
+        raise ValueError(f"{name}: base needs one value per row ({M})")
+    out = torch.empty(raw.shape[:-1] + (nbin,), dtype=dtype,
+                      device=raw.device)
+    lib = build_kernels()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    rc = getattr(lib, f"ppt_fdcs_decode_{sfx}")(
+        raw.data_ptr(), M, nbin, bpc, nbit, scl.data_ptr(), offs.data_ptr(),
+        base.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(raw.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return out

@@ -1,4 +1,6 @@
-"""Pipeline layer: template dispatch and wideband TOA measurement."""
+"""Pipeline layer: template dispatch, wideband TOA measurement, and the
+streaming campaign lane."""
 
 from .models import TemplateModel, sniff_model_type  # noqa: F401
+from .stream import stream_wideband_TOAs  # noqa: F401
 from .toas import GetTOAs  # noqa: F401

@@ -1,0 +1,1402 @@
+"""Cross-archive streaming TOA measurement, the campaign driver (counterpart of pulseportraiture_tpu/pipeline/stream.py).
+
+GetTOAs fits one archive at a time.  This driver POOLS usable subints
+across archives into shape buckets, keyed by (nchan, nbin, channel
+frequencies, effective fit flags, payload kind), and fires one batched
+fit per full bucket:
+
+- archive IO runs ahead of the consumer on prefetch threads;
+- full buckets are dealt round-robin across ``stream_devices`` (default:
+  every visible CUDA device), each with a bounded in-flight queue of at
+  most ``max_inflight`` dispatches; the host drains whichever device's
+  oldest dispatch is ready, and ``.tim`` checkpoints are written in
+  archive order, so output does not depend on the device count;
+- in raw mode the host never decodes the data: the undecoded DATA
+  column (int16, bytes, float32, or sub-byte NBIT=1/2/4 samples PACKED)
+  ships to the device, and one bucket program decodes, baselines,
+  estimates noise, S/N and nu_fit, and fits.  Sub-byte buckets with a
+  harmonic window take the decode-fused stage (ops.fused kernel B2 on a
+  CUDA device), which re-decodes the packed bytes inside the fit's
+  DFT; every other bucket runs B1 on the decoded portrait;
+- each device runs a COPY worker (stack, pin, host->device copy on a
+  side CUDA stream) double-buffered against its FIT worker (the bucket
+  program on its own CUDA stream), _DevicePipeline.
+
+Archives the raw lane cannot carry (tscrunch, misaligned sub-byte pol
+planes, packed + FITS-scaled columns, sub-byte + channel padding) fall
+back to the host-decoded lane, as in the JAX package.
+
+Not ported yet, and refused with NotImplementedError naming the
+ROADMAP item: scattering fits and the instrumental response (A6), the
+transport codec (A7), inline zapping and the post-fit cut (A8),
+telemetry (A13), narrowband streaming (A8), and the executor's service
+mode (A13).  The complex fit engine (config.use_fast_fit resolving
+False) is not ported either (A6).
+"""
+
+import concurrent.futures as cf
+import os
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from .. import config
+from ..config import Dconst, scattering_alpha
+from ..device import resolve_auto, resolve_device
+from ..fit.portrait import (FitFlags, fast_fit_batched,
+                            fast_fit_batched_packed, fit_portrait_batch_fast,
+                            resolve_fit_fused, resolve_harmonic_window,
+                            use_bf16_cross_spectrum, use_fast_fit_default,
+                            warn_bf16_high_snr)
+from ..io.psrfits import read_archive
+from ..io.tim import TOA, write_TOAs
+from ..ops.decode import PACKED_BITS, decode_stokes_I
+from ..ops.fourier import irfft_mm, rfft_mm, use_dft_fold
+from ..ops.noise import get_noise_PS, get_SNR
+from ..utils.bunch import DataBunch
+from ..utils.log import log
+from .models import TemplateModel
+from .toas import (_is_metafile, _iter_archives, _read_metafile,
+                   delta_dm_stats, doppler_corrected_DM_GM,
+                   effective_fit_flags, load_for_toas, snr_weighted_nu_fit)
+
+__all__ = ["stream_wideband_TOAs", "stream_narrowband_TOAs",
+           "make_wideband_lane", "checkpoint_completed",
+           "sanitize_checkpoint", "resolve_stream_devices", "bucket_pad_to",
+           "CKPT_STALENESS_HORIZON"]
+
+# Per-archive completion sentinel in incremental .tim checkpoints: a
+# comment line appended AFTER an archive's TOA lines, so the last
+# sentinel marks the last durably complete archive and everything after
+# it is a torn tail, dropped on resume.
+_DONE_PREFIX = "C ppt-done "
+
+# Once the oldest archive with undispatched subints lags this many
+# prepared archives behind, every pending bucket is force-flushed, so an
+# archive stuck in a rare-shape bucket cannot defer the in-order
+# checkpoint writes of everything after it.  The trigger depends only on
+# the fill sequence, never on completion timing or the device count.
+CKPT_STALENESS_HORIZON = 8
+
+
+def checkpoint_completed(path):
+    """Archive paths (absolute) recorded complete in a .tim checkpoint
+    (empty for a missing file).  A sentinel counts only when its line
+    is newline-terminated: a truncated final line is part of the torn
+    tail."""
+    if not path or not os.path.exists(path):
+        return set()
+    with open(path) as f:
+        return {os.path.abspath(line[len(_DONE_PREFIX):].strip())
+                for line in f
+                if line.startswith(_DONE_PREFIX) and line.endswith("\n")}
+
+
+def sanitize_checkpoint(path):
+    """Truncate a .tim checkpoint after its last completion sentinel,
+    dropping the partial tail an interrupted writer left, atomically
+    (temp file + os.replace).  Returns the completed-archive set."""
+    if not path or not os.path.exists(path):
+        return set()
+    with open(path) as f:
+        lines = f.readlines()
+    last = -1
+    done = set()
+    for i, line in enumerate(lines):
+        if line.startswith(_DONE_PREFIX) and line.endswith("\n"):
+            last = i
+            done.add(os.path.abspath(line[len(_DONE_PREFIX):].strip()))
+    if last + 1 < len(lines):
+        tmp = path + ".ppt-sanitize"
+        with open(tmp, "w") as f:
+            f.writelines(lines[:last + 1])
+        os.replace(tmp, path)
+    return done
+
+
+class _Bucket:
+    """Pending subints sharing one (layout, flags, kind) key.
+
+    kind 'dec': rows are host-decoded float ports with host noise,
+    nu_fit and theta0.  kind 'raw': rows are undecoded wire samples
+    (raw_code, ops.decode.RAW_CODES) with per-channel scl/offs;
+    everything downstream happens in the bucket program.  pol_sum rows
+    carry the two summand pols of an AA+BB/Coherence archive."""
+
+    def __init__(self, freqs, nbin, modelx, flags, kind="dec",
+                 raw_code="i16", pol_sum=False, col_scaled=False):
+        self.freqs = freqs          # (nchan,)
+        self.nbin = int(nbin)
+        self.modelx = modelx        # (nchan, nbin) host template
+        self.flags = flags          # effective FitFlags tuple
+        self.kind = kind
+        self.raw_code = raw_code
+        self.pol_sum = bool(pol_sum)
+        self.col_scaled = bool(col_scaled)
+        self._hwin = None
+        self._hwin_key = object()   # never equals a config value
+        self.ports = []             # 'dec': (nchan, nbin) float
+        self.raw = []               # 'raw': wire samples or packed bytes
+        self.scl = []
+        self.offs = []
+        self.tscal = []
+        self.tzero = []
+        self.dedisp = []            # 'raw': (DM, nu0) to re-disperse by
+        self.noise = []             # 'dec'
+        self.masks = []
+        self.Ps = []
+        self.nu_fits = []           # 'dec'
+        self.theta0 = []            # 'dec'
+        self.DM_guess = []          # 'raw'
+        self.dfs = []
+        self.owners = []            # (archive_index, isub)
+
+    def harmonic_window(self):
+        """The template's harmonic window, derived once per bucket per
+        config.fit_harmonic_window value (a host rfft of the template)."""
+        key = config.fit_harmonic_window
+        if key != self._hwin_key:
+            self._hwin = resolve_harmonic_window(None, self.modelx,
+                                                 self.nbin)
+            self._hwin_key = key
+        return self._hwin
+
+    def __len__(self):
+        return len(self.owners)
+
+    def clear(self):
+        for lst in (self.ports, self.raw, self.scl, self.offs, self.tscal,
+                    self.tzero, self.dedisp, self.noise, self.masks,
+                    self.Ps, self.nu_fits, self.theta0, self.DM_guess,
+                    self.dfs, self.owners):
+            lst.clear()
+
+
+def _bucket_shape(b):
+    """A bucket's shape string: layout x payload kind (raw buckets name
+    their wire sample type, pol reduction and column scaling) x
+    effective flag bits, e.g. '512x2048:raw:p2:11000'."""
+    shape = f"{len(b.freqs)}x{b.nbin}:{b.kind}"
+    if b.kind == "raw":
+        shape += f":{b.raw_code}"
+        if b.pol_sum:
+            shape += ":sum2"
+        if b.col_scaled:
+            shape += ":tz"
+    if b.flags:
+        shape += ":" + "".join("1" if f else "0" for f in b.flags)
+    return shape
+
+
+def bucket_pad_to(nchan, device):
+    """config.bucket_pad resolved to a bucket layout's channel count:
+    False (default) keeps it exact; 'auto' pads on CUDA devices; True
+    always pads to the next power of two (masked pad channels add
+    nothing to any fit sum)."""
+    v = config.bucket_pad
+    if isinstance(v, str) and v.strip().lower() != "auto":
+        raise ValueError(f"config.bucket_pad must be False, 'auto' or "
+                         f"True; got {v!r}")
+    v = resolve_auto("bucket_pad", v, device, label="config.bucket_pad")
+    if not v or nchan <= 1:
+        return int(nchan)
+    return 1 << (int(nchan) - 1).bit_length()
+
+
+def resolve_stream_devices(value=None):
+    """The torch devices buckets are dealt across.
+
+    None reads config.stream_devices; 'auto' means every visible CUDA
+    device (and raises when there is none: the CPU is only ever asked
+    for, as ``['cpu']``); an int N the first N CUDA devices (an error
+    when N exceeds the count, never a silent clamp); a sequence of
+    devices passes through device.resolve_device."""
+    if value is None:
+        value = config.stream_devices
+    if isinstance(value, str):
+        if value.strip().lower() == "auto":
+            n = torch.cuda.device_count() if torch.cuda.is_available() \
+                else 0
+            if n == 0:
+                raise RuntimeError(
+                    "stream_devices='auto': no CUDA device is available; "
+                    "pass stream_devices=['cpu'] (or device='cpu') to "
+                    "stream on the CPU")
+            return [torch.device("cuda", i) for i in range(n)]
+        try:
+            value = int(value)
+        except ValueError:
+            raise ValueError(
+                "stream_devices must be 'auto', a positive device count, "
+                f"or a device sequence; got {value!r}")
+    if isinstance(value, (int, np.integer)):
+        n = int(value)
+        if n < 1:
+            raise ValueError(f"stream_devices must be >= 1, got {n}")
+        have = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if n > have:
+            raise ValueError(f"stream_devices={n} exceeds the {have} "
+                             "visible CUDA device(s)")
+        return [torch.device("cuda", i) for i in range(n)]
+    devs = []
+    for d in value:
+        dev = resolve_device(d)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        devs.append(dev)
+    if not devs:
+        raise ValueError("stream_devices: empty device sequence")
+    return devs
+
+
+class _StreamExecutor:
+    """The campaign scaffolding: archive iteration with prefetch and
+    skip-and-continue, bucket fill and flush, the per-device bounded
+    in-flight queues, per-archive completion, in-order .tim checkpoints
+    with completion sentinels, and resume.  A LANE supplies the physics
+    as four hooks:
+
+      prepare(iarch, datafile, d, ok) -> (m, per_subint) or None
+          m: what TOA assembly needs; per_subint: [(bucket_key,
+          bucket_factory, fill)], fill(b) appends one subint and its
+          (iarch, isub) owner.  None skips the archive.
+      launch(bucket, pipeline, seq) -> (handle, owners, extra) or None
+          admits one dispatch into the device's _DevicePipeline and
+          clears the bucket; handle is the fit-stage Future.
+      scatter(out, owners, extra, results): one dispatch's packed host
+          output -> per-owner records.
+      assemble(m, results) -> tuple whose first element is the TOA list
+          (what the checkpoint writes).
+
+    The per-device in-flight bound is exact: a queue never holds more
+    than max_inflight dispatches.  Drains take ready dispatches first,
+    on whichever device they finished; when every queue is full the
+    host waits for the first completion among the oldest dispatches.
+    Checkpoints are written in ARCHIVE order, so .tim content does not
+    depend on completion order or device count.
+
+    Run mode only: the JAX package's service mode (``service=True``,
+    ``flush_stale``, the ``on_launch``/``on_archive_done`` owner hooks)
+    is ROADMAP A13 and refused."""
+
+    def __init__(self, lane, datafiles, loader, nsub_batch,
+                 max_inflight=None, prefetch=True, tim_out=None,
+                 resume=False, skip_archives=None, quiet=False,
+                 stream_devices=None, pipeline_depth=None, service=False):
+        if service:
+            raise NotImplementedError(
+                "_StreamExecutor(service=True): the serving mode is not "
+                "ported yet (ROADMAP A13)")
+        self.lane = lane
+        self.nsub_batch = int(nsub_batch)
+        if max_inflight is None:
+            max_inflight = config.stream_max_inflight
+        self.max_inflight = max(1, int(max_inflight))
+        if pipeline_depth is None:
+            pipeline_depth = config.stream_pipeline_depth
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.prefetch = prefetch
+        self.tim_out = tim_out
+        self.quiet = quiet
+        done = {os.path.abspath(f) for f in (skip_archives or ())}
+        if tim_out:
+            if resume:
+                done |= sanitize_checkpoint(tim_out)
+            else:
+                # a fresh checkpoint: a rerun must not append onto a
+                # previous campaign's lines
+                open(tim_out, "w").close()
+        if done:
+            n0 = len(datafiles)
+            datafiles = [f for f in datafiles
+                         if os.path.abspath(f) not in done]
+            if n0 > len(datafiles):
+                log(f"Resuming: {n0 - len(datafiles)} archive(s) already "
+                    f"complete in checkpoints, {len(datafiles)} to go",
+                    quiet=quiet)
+        self.datafiles = datafiles
+        self.loader = loader
+        self.devices = resolve_stream_devices(stream_devices)
+        self.buckets = {}
+        self.results = {}
+        self.meta = []
+        self.meta_by_iarch = {}
+        self.remaining = {}
+        self.assembled = {}
+        self.in_flight = [deque() for _ in self.devices]
+        # one copy->fit pipeline per device; the closure tells its copy
+        # worker whether an EARLIER dispatch of the same device was still
+        # unfinished when the copy started (the link hidden behind
+        # compute)
+        self.pipelines = [
+            _DevicePipeline(dev, i, self.pipeline_depth,
+                            (lambda seq, q=self.in_flight[i]: any(
+                                r[3] < seq
+                                and not _StreamExecutor._head_ready(r)
+                                for r in list(q))))
+            for i, dev in enumerate(self.devices)]
+        self._rr = 0
+        self._seq = 0
+        # iarch -> subints not yet launched; entries leave at zero
+        self.undispatched = {}
+        self._prep_idx = {}  # iarch -> prepared-archive sequence number
+        self.nfit = 0
+        self.fit_duration = 0.0      # blocked on dispatch completion
+        self.scatter_duration = 0.0  # host-side unpack of results
+        self.devices_used = set()
+        self.peak_inflight = 0
+        self.dispatch_shapes = {}    # bucket shape string -> dispatches
+        self._ckpt_order = []
+        self._ckpt_next = 0
+
+    # the owner hooks of the JAX package's service mode
+    @property
+    def on_launch(self):
+        return None
+
+    @on_launch.setter
+    def on_launch(self, fn):
+        raise NotImplementedError("_StreamExecutor.on_launch: owner hooks "
+                                  "are not ported yet (ROADMAP A13)")
+
+    @property
+    def on_archive_done(self):
+        return None
+
+    @on_archive_done.setter
+    def on_archive_done(self, fn):
+        raise NotImplementedError("_StreamExecutor.on_archive_done: owner "
+                                  "hooks are not ported yet (ROADMAP A13)")
+
+    def flush_stale(self, max_age_s):
+        raise NotImplementedError("_StreamExecutor.flush_stale: deadline "
+                                  "flushes of the serving mode are not "
+                                  "ported yet (ROADMAP A13)")
+
+    def _checkpoint(self, m, out):
+        write_TOAs(out[0], outfile=self.tim_out, append=True)
+        with open(self.tim_out, "a") as fh:
+            fh.write(_DONE_PREFIX + os.path.abspath(m.datafile) + "\n")
+
+    def _ckpt_flush(self):
+        """Write completed archives to the checkpoint strictly in
+        archive order."""
+        if not self.tim_out:
+            return
+        while self._ckpt_next < len(self._ckpt_order):
+            ia = self._ckpt_order[self._ckpt_next]
+            if ia not in self.assembled:
+                break
+            self._checkpoint(self.meta_by_iarch[ia], self.assembled[ia])
+            self._ckpt_next += 1
+
+    @staticmethod
+    def _head_ready(rec):
+        """True when draining this record will not block: the fit
+        future resolved AND the device work behind its result finished
+        (the fit worker returns once the work is enqueued)."""
+        h = rec[0]
+        if not h.done():
+            return False
+        if h.exception() is not None:
+            return True  # the drain propagates the failure
+        return h.result().ready()
+
+    def _drain_head(self, idev):
+        """Drain device idev's oldest dispatch (blocking on it)."""
+        t0 = time.time()
+        handle, owners, extra, seq = self.in_flight[idev].popleft()
+        out = handle.result().wait()
+        self.fit_duration += time.time() - t0
+        t1 = time.time()
+        self.lane.scatter(out, owners, extra, self.results)
+        self.scatter_duration += time.time() - t1
+        touched = set()
+        for iarch, _ in owners:
+            if iarch in self.remaining:
+                self.remaining[iarch] -= 1
+            touched.add(iarch)
+        for ia in touched:
+            # assemble completed archives at once (host memory stays
+            # O(bucket)); the checkpoint write still waits for order
+            if self.remaining.get(ia) == 0 and ia not in self.assembled:
+                m = self.meta_by_iarch[ia]
+                self.assembled[ia] = self.lane.assemble(m, self.results)
+                for isub in m.ok:
+                    self.results.pop((ia, int(isub)), None)
+                self._ckpt_flush()
+
+    def _drain_ready(self):
+        """Drain every dispatch that has finished, oldest first per
+        device, without blocking.  Returns the count."""
+        n = 0
+        for idev, q in enumerate(self.in_flight):
+            while q and self._head_ready(q[0]):
+                self._drain_head(idev)
+                n += 1
+        return n
+
+    def _drain_any(self):
+        """Drain at least one dispatch: everything ready first, else the
+        FIRST completion among the per-device oldest dispatches
+        (unresolved futures through cf.wait, resolved ones whose device
+        work still runs through a ~1 ms event poll)."""
+        while True:
+            if self._drain_ready():
+                return
+            heads = [q[0][0] for q in self.in_flight if q]
+            if not heads:
+                return
+            futs = [h for h in heads if not h.done()]
+            if futs:
+                cf.wait(futs, return_when=cf.FIRST_COMPLETED, timeout=0.05)
+            else:
+                time.sleep(0.001)
+
+    def _pick_device(self):
+        """Next round-robin device with in-flight room, or None."""
+        ndev = len(self.devices)
+        for k in range(ndev):
+            idev = (self._rr + k) % ndev
+            if len(self.in_flight[idev]) < self.max_inflight:
+                self._rr = (idev + 1) % ndev
+                return idev
+        return None
+
+    def _flush(self, b):
+        if len(b) == 0:
+            return
+        self._drain_ready()
+        idev = self._pick_device()
+        while idev is None:
+            self._drain_any()
+            idev = self._pick_device()
+        self._seq += 1
+        seq = self._seq
+        shape = _bucket_shape(b)  # before launch clears the bucket
+        rec = self.lane.launch(b, self.pipelines[idev], seq)
+        if rec is None:
+            return
+        self.nfit += 1
+        self.dispatch_shapes[shape] = self.dispatch_shapes.get(shape, 0) + 1
+        self.devices_used.add(idev)
+        for ia, _ in rec[1]:
+            if ia in self.undispatched:
+                self.undispatched[ia] -= 1
+                if self.undispatched[ia] == 0:
+                    del self.undispatched[ia]
+        q = self.in_flight[idev]
+        # seq at index 3: the copy-overlap closure reads r[3]
+        q.append(rec + (seq,))
+        self.peak_inflight = max(self.peak_inflight, len(q))
+
+    @property
+    def h2d_bytes(self):
+        """Total bytes the copy stages shipped host -> device."""
+        return sum(pl.h2d_bytes for pl in self.pipelines)
+
+    @property
+    def h2d_duration(self):
+        """Total seconds the copy stages spent moving bytes."""
+        return sum(pl.h2d_s for pl in self.pipelines)
+
+    @property
+    def h2d_overlap_duration(self):
+        """Seconds of copy time that ran while an earlier fit of the
+        same device was unfinished."""
+        return sum(pl.h2d_overlap_s for pl in self.pipelines)
+
+    def _shutdown(self, wait):
+        for pl in self.pipelines:
+            pl.shutdown(wait)
+
+    def admit(self, iarch, datafile, d, ok):
+        """Prepare one loaded archive through the lane and fill its
+        subints into the buckets, flushing any that reaches nsub_batch.
+        Returns the number of per-subint entries, or None when the lane
+        skipped the archive."""
+        prep = self.lane.prepare(iarch, datafile, d, ok)
+        if prep is None:
+            return None
+        m, per_subint = prep
+        self.meta.append(m)
+        self._ckpt_order.append(iarch)
+        self._prep_idx[iarch] = len(self._ckpt_order) - 1
+        self.meta_by_iarch[iarch] = m
+        self.remaining[iarch] = len(ok)
+        self.undispatched[iarch] = len(per_subint)
+        for key, factory, fill in per_subint:
+            b = self.buckets.get(key)
+            if b is None:
+                b = self.buckets[key] = factory()
+            fill(b)
+            if len(b) >= self.nsub_batch:
+                self._flush(b)
+        return len(per_subint)
+
+    def flush_all(self):
+        """Launch every non-empty bucket."""
+        for b in self.buckets.values():
+            if len(b):
+                self._flush(b)
+
+    def drain_all(self):
+        """Block until every in-flight dispatch has drained."""
+        while any(self.in_flight):
+            self._drain_any()
+
+    def assemble_leftover(self, iarch):
+        """Assemble an archive that never completed through the drain
+        (e.g. every subint failed); idempotent."""
+        if iarch in self.assembled:
+            return self.assembled[iarch]
+        out = self.lane.assemble(self.meta_by_iarch[iarch], self.results)
+        self.assembled[iarch] = out
+        return out
+
+    def finalize(self):
+        """Late assemblies in archive order, then the final in-order
+        checkpoint flush."""
+        for m in self.meta:
+            self.assemble_leftover(m.iarch)
+        self._ckpt_flush()
+
+    def run(self):
+        # a failed dispatch or assembly must not leave a worker thread
+        # grinding through queued copies while the exception propagates
+        try:
+            for iarch, (datafile, d) in enumerate(
+                    _iter_archives(self.datafiles, self.loader,
+                                   self.prefetch)):
+                if isinstance(d, Exception):
+                    log(f"Skipping {datafile}: {d}", level="warn")
+                    continue
+                ok = np.asarray(d.ok_isubs, int)
+                if d.nsub == 0 or len(ok) == 0:
+                    log(f"No subints to fit in {datafile}; skipping.",
+                        level="warn")
+                    continue
+                if self.admit(iarch, datafile, d, ok) is None:
+                    continue
+                # checkpoint-staleness horizon, counted in PREPARED
+                # archives
+                head_d = min(self.undispatched, default=None)
+                if head_d is not None and \
+                        self._prep_idx[iarch] - self._prep_idx[head_d] \
+                        >= CKPT_STALENESS_HORIZON:
+                    self.flush_all()
+            self.flush_all()
+            self.drain_all()
+        except BaseException:
+            self._shutdown(wait=False)
+            raise
+        self._shutdown(wait=True)
+        self.finalize()
+        return self.meta, self.assembled
+
+
+def _load_raw(f, device):
+    """Raw streaming load: undecoded DATA samples plus the per-archive
+    metadata TOA assembly needs.  npol == 1 ships as-is; an IQUV archive
+    ships its Stokes-I plane (a host index, no extra bytes); any other
+    multi-pol state ships its two summand pols (decoded and baselined
+    per pol on the device, then summed).  read_archive(decode=False)
+    refuses the layouts the raw lane cannot carry (ValueError), and the
+    caller falls back to the decoded lane."""
+    arch = read_archive(f, decode=False)
+    if arch.raw_code in PACKED_BITS \
+            and bucket_pad_to(arch.nchan, device) != arch.nchan:
+        # channel padding has no byte-aligned meaning inside a packed
+        # bit stream
+        raise ValueError(
+            f"{f}: sub-byte raw payloads cannot channel-pad "
+            f"(config.bucket_pad); decoding on host instead")
+    if arch.npol == 1 or arch.get_state() == "Stokes":
+        raw = arch.raw_data[:, 0]
+        scl = arch.raw_scl[:, 0]
+        offs = arch.raw_offs[:, 0]
+        pol_sum = False
+    else:
+        raw = arch.raw_data[:, :2]
+        scl = arch.raw_scl[:, :2]
+        offs = arch.raw_offs[:, :2]
+        pol_sum = True
+    weights = arch.get_weights()
+    weights_norm = np.where(weights == 0.0, 0.0, 1.0)
+    nsub = arch.nsub
+    ok_isubs = np.compress(weights_norm.mean(axis=1),
+                           np.arange(nsub)).astype(int)
+    from ..io.telescopes import telescope_code
+
+    return DataBunch(
+        raw_mode=True, raw=raw, scl=scl, offs=offs,
+        raw_code=arch.raw_code, pol_sum=pol_sum,
+        tscal=arch.raw_tscal, tzero=arch.raw_tzero,
+        weights=weights, ok_isubs=ok_isubs,
+        nsub=nsub, nchan=arch.nchan, nbin=arch.nbin,
+        freqs=arch.freqs_table, Ps=arch.folding_periods(),
+        epochs=arch.epochs(), subtimes=list(arch.tsubints),
+        doppler_factors=arch.doppler_factors(),
+        DM=arch.get_dispersion_measure(),
+        dmc=bool(arch.get_dedispersed()),
+        dedisp_nu=arch.dedispersion_ref_freq(),
+        nu0=arch.get_centre_frequency(), bw=arch.get_bandwidth(),
+        backend=arch.get_backend_name(),
+        frontend=arch.get_receiver_name(),
+        backend_delay=arch.get_backend_delay(),
+        telescope=arch.get_telescope(),
+        telescope_code=telescope_code(arch.get_telescope()))
+
+
+def _raw_decode(raw, scl, offs, nbin, ft, redisp=False, redisp_turns=None,
+                dft_fold=None, code="i16", pol_sum=False, tscal=None,
+                tzero=None):
+    """Stage 1 of a raw bucket: sample decode (ops.decode), min-window
+    baseline, the Stokes-I pol reduction, and for dedispersed-on-disk
+    archives the re-dispersion by the stored DM (a matmul-DFT phasor
+    rotation by host-wrapped turns; the convention of
+    io/psrfits.rotate_phase(amps, -delays))."""
+    x = decode_stokes_I(raw, scl, offs, ft, code=code, pol_sum=pol_sum,
+                        nbin=nbin, tscal=tscal, tzero=tzero)
+    if redisp:
+        k = torch.arange(nbin // 2 + 1, dtype=ft, device=x.device)
+        ang = -2.0 * np.pi * redisp_turns.to(ft)[..., None] * k
+        c, s = torch.cos(ang), torch.sin(ang)
+        Xr, Xi = rfft_mm(x, fold=dft_fold)
+        x = irfft_mm(Xr * c - Xi * s, Xr * s + Xi * c, nbin)
+    return x
+
+
+def _raw_stats(x, cmask, freqs, ft):
+    """Stage 2 of a raw bucket: power-spectrum noise, equivalent-width
+    S/N, and the S/N-weighted nu_fit seed (host mirror:
+    pipeline.toas.snr_weighted_nu_fit).  Returns (noise, snr, nu_fit)."""
+    tiny = torch.finfo(ft).tiny
+    noise = torch.clamp(get_noise_PS(x), min=tiny)
+    snr = get_SNR(x, noise) * cmask
+    w_nf = torch.clamp(snr, min=0.0) * freqs[None, :] ** -2.0
+    den = torch.sum(w_nf * freqs[None, :] ** -2.0, dim=1)
+    nu_fit = torch.sqrt(torch.sum(w_nf, dim=1)
+                        / torch.where(den > 0, den, torch.ones_like(den)))
+    nu_fit = torch.where(torch.isfinite(nu_fit) & (nu_fit > 0), nu_fit,
+                         torch.mean(freqs)).to(ft)
+    return noise, snr, nu_fit
+
+
+def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
+                redisp=False, want_flux=False, nharm_eff=None,
+                seed_derotate=True, raw_code="i16", pol_sum=False,
+                col_scaled=False):
+    """The raw bucket program for one bucket's geometry: decode ->
+    baseline -> noise -> S/N -> nu_fit -> fit -> one packed
+    (nfield, nb) result, so a bucket costs one copy of wire bytes and
+    one small pull.  Eager PyTorch: no jit and no program cache.
+
+    Branch selection as in the JAX package, with "fit_fused resolved
+    True on this device" in place of its Pallas mode: sub-byte packed
+    buckets with a harmonic window, byte-aligned channels, and no pol
+    sum, column scaling or re-dispersion take the DECODE-FUSED fit
+    (fit.portrait.fast_fit_batched_packed, B2), which re-decodes the
+    packed bytes inside the DFT stage; the stats above still decode
+    once, since the noise and S/N need the time-domain portrait.
+    Every other bucket fits the decoded portrait
+    (fit.portrait.fast_fit_batched, B1 when fit_fused resolves True).
+    The returned function carries the choice as ``run.decode_fused``."""
+    fit_fused = resolve_fit_fused(nharm_eff, device)
+    dft_fold = use_dft_fold(device)
+    nbit = PACKED_BITS.get(raw_code)
+    decode_fused = bool(
+        fit_fused and nbit is not None and (nbin * nbit) % 8 == 0
+        and not pol_sum and not col_scaled and not redisp
+        and nharm_eff is not None)
+    fit_flags = FitFlags(*flags)
+    keys = _result_keys(flags)
+
+    def run(raw, scl, offs, cmask, modelx, freqs, Ps, DMg, nu_out, alpha0,
+            redisp_turns, tscal=None, tzero=None):
+        x = _raw_decode(raw, scl, offs, nbin, ft, redisp=redisp,
+                        redisp_turns=redisp_turns, dft_fold=dft_fold,
+                        code=raw_code, pol_sum=pol_sum,
+                        tscal=tscal if col_scaled else None,
+                        tzero=tzero if col_scaled else None)
+        noise, snr, nu_fit = _raw_stats(x, cmask, freqs, ft)
+        nb = x.shape[0]
+        zeros = torch.zeros(nb, dtype=ft, device=x.device)
+        theta0 = torch.stack([zeros, DMg.to(ft), zeros, zeros,
+                              torch.full_like(zeros, alpha0)], dim=1)
+        nu_out_arr = torch.full_like(zeros, nu_out)
+        if decode_fused:
+            bpc = (nbin * nbit) // 8
+            r = fast_fit_batched_packed(
+                raw.reshape(nb, nchan, bpc), scl, offs, modelx, noise,
+                cmask, freqs, Ps, nu_fit, nu_out_arr, theta0,
+                raw_code=raw_code, nbin=nbin, fit_flags=fit_flags,
+                max_iter=max_iter, nharm_eff=nharm_eff,
+                seed_derotate=seed_derotate, x_bf16=x_bf16,
+                dft_fold=dft_fold)
+        else:
+            r = fast_fit_batched(
+                x, modelx, noise, cmask, freqs, Ps, nu_fit, nu_out_arr,
+                theta0, fit_flags=fit_flags, max_iter=max_iter,
+                seed_derotate=seed_derotate, x_bf16=x_bf16,
+                nharm_eff=nharm_eff, dft_fold=dft_fold,
+                fit_fused=fit_fused)
+        fields = [getattr(r, k).to(ft) for k in keys]
+        if want_flux:
+            fields += list(_flux_rows(r.scales, r.scale_errs,
+                                      torch.mean(modelx, dim=-1), cmask,
+                                      freqs))
+        return torch.stack(fields)
+
+    run.decode_fused = decode_fused
+    return run
+
+
+_RESULT_KEYS = ("phi", "phi_err", "DM", "DM_err", "nu_DM", "snr",
+                "chi2", "dof", "nfeval", "return_code")
+
+
+def _result_keys(flags):
+    """Per-subint result fields to pull for a bucket's flag set."""
+    keys = _RESULT_KEYS
+    if flags[2]:
+        keys = keys + ("GM", "GM_err")
+    return keys
+
+
+def _raw_rows(bucket):
+    """Snapshot a raw bucket's per-subint rows on the caller's thread
+    (the bucket is cleared right after launch, so the copy stage must
+    never read it) plus the re-dispersion flag."""
+    rows = (list(bucket.raw), list(bucket.scl), list(bucket.offs))
+    dedisp = np.asarray(bucket.dedisp)  # (n, 2)
+    redisp = bool(np.any(dedisp[:, 0] != 0.0))
+    return rows, dedisp, redisp
+
+
+def _stack_rows(rows, dedisp, redisp, Ps, freqs):
+    """Stack snapshotted raw rows into the dispatch payload and compute
+    the re-dispersion turns on the host in float64, wrapped to
+    [-0.5, 0.5) before the float32 device trig.  Runs on the COPY
+    worker."""
+    raw = np.stack(rows[0])
+    scl = np.stack(rows[1])
+    offs = np.stack(rows[2])
+    if redisp:
+        freqs_h = np.asarray(freqs, np.float64)
+        turns = (Dconst * dedisp[:, :1] / Ps[:, None]) * (
+            freqs_h[None, :] ** -2.0 - dedisp[:, 1:] ** -2.0)
+        turns = (turns + 0.5) % 1.0 - 0.5
+    else:
+        turns = np.zeros((len(rows[0]), 1))
+    return raw, scl, offs, turns
+
+
+class _Result:
+    """A dispatch's packed result: a host tensor whose device -> host
+    copy was enqueued on the fit stream, and the event that marks it
+    done (None on the CPU, where the result is final)."""
+
+    def __init__(self, host, event=None):
+        self.host = host
+        self.event = event
+
+    def ready(self):
+        return self.event is None or self.event.query()
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class _DevicePipeline:
+    """The two-stage host -> device dispatch pipeline of ONE device.
+
+    Stage 1, the COPY worker, runs the bucket's copy closure: it stacks
+    the payload and moves each array through :meth:`put` (pinned host
+    buffer, non_blocking copy on the pipeline's copy stream), then waits
+    for its own copies, which frees the pinned buffers and times the
+    link.  Stage 2, the FIT worker, runs the bucket program on the
+    pipeline's fit stream: the copied tensors are marked as used there
+    (``record_stream``, so the caching allocator cannot hand their
+    memory to the copy stream while the fit still reads it), the packed
+    result is copied back into pinned memory on the same stream, and an
+    event marks it done; the executor's readiness test is
+    ``event.query()``.  A semaphore of ``depth`` buckets gates
+    admission: 1 serializes copy and fit, 2 (default) double-buffers
+    bucket N+1's copy against bucket N's fit.  Output is identical for
+    any depth.  On the CPU both stages run synchronously on the two
+    worker threads."""
+
+    def __init__(self, device, idev, depth, inflight_fn):
+        self.device = torch.device(device)
+        self.idev = idev
+        self.depth = max(1, int(depth))
+        self._inflight_fn = inflight_fn
+        self._sem = threading.BoundedSemaphore(self.depth)
+        self.copy_ex = ThreadPoolExecutor(max_workers=1)
+        self.fit_ex = ThreadPoolExecutor(max_workers=1)
+        self.cuda = self.device.type == "cuda"
+        if self.cuda:
+            self.copy_stream = torch.cuda.Stream(self.device)
+            self.fit_stream = torch.cuda.Stream(self.device)
+        self.h2d_bytes = 0
+        self.h2d_s = 0.0
+        self.h2d_overlap_s = 0.0
+        self._nbytes = 0
+
+    def put(self, a, dtype=None):
+        """Copy one host array to the device (on the copy worker),
+        counting its bytes."""
+        arr = np.ascontiguousarray(np.asarray(a) if dtype is None
+                                   else np.asarray(a, dtype))
+        self._nbytes += arr.nbytes
+        t = torch.from_numpy(arr)
+        if not self.cuda:
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def submit(self, copy_fn, fit_fn, seq):
+        """Admit one bucket: ``copy_fn() -> dev_args`` on the copy
+        worker, then ``fit_fn(*dev_args) -> packed device tensor`` on
+        the fit worker.  Returns the fit Future (resolving to a
+        _Result).  Blocks only while ``depth`` buckets occupy the
+        pipeline."""
+        self._sem.acquire()
+        copy_fut = self.copy_ex.submit(self._run_copy, copy_fn, seq)
+        return self.fit_ex.submit(self._run_fit, copy_fut, fit_fn)
+
+    def _run_copy(self, copy_fn, seq):
+        overlap = bool(self._inflight_fn(seq))
+        self._nbytes = 0
+        t0 = time.perf_counter()
+        if self.cuda:
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.copy_stream):
+                dev_args = copy_fn()
+            self.copy_stream.synchronize()
+        else:
+            dev_args = copy_fn()
+        dt = time.perf_counter() - t0
+        self.h2d_bytes += self._nbytes
+        self.h2d_s += dt
+        if overlap:
+            self.h2d_overlap_s += dt
+        return dev_args
+
+    def _run_fit(self, copy_fut, fit_fn):
+        try:
+            dev_args = copy_fut.result()
+            if not self.cuda:
+                return _Result(fit_fn(*dev_args))
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.fit_stream):
+                for t in dev_args:
+                    if isinstance(t, torch.Tensor):
+                        t.record_stream(self.fit_stream)
+                out = fit_fn(*dev_args)
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.fit_stream)
+            return _Result(host, ev)
+        finally:
+            # release on ANY exit (a failed copy included): the
+            # semaphore is what unblocks the submitting thread
+            self._sem.release()
+
+    def shutdown(self, wait):
+        self.copy_ex.shutdown(wait=wait, cancel_futures=not wait)
+        self.fit_ex.shutdown(wait=wait, cancel_futures=not wait)
+
+
+def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
+            alpha0=0.0, seq=0):
+    """Launch ONE dispatch for a bucket's pending subints through
+    ``pipeline`` and return its in-flight record without waiting for
+    the device.  A partial bucket dispatches its own rows only: the
+    JAX package pads it to nsub_batch with copies of subint 0 to keep
+    its compiled shapes canonical, and eager PyTorch compiles nothing
+    per shape."""
+    if len(bucket) == 0:
+        return None
+    device = pipeline.device
+    masks_rows = list(bucket.masks)
+    Ps = np.asarray(bucket.Ps)
+    flags = FitFlags(*bucket.flags)
+    keys = _result_keys(flags)
+    if want_flux:
+        keys = keys + ("flux", "flux_err", "flux_ref_freq")
+    nu_out = -1.0 if nu_ref_DM is None else float(nu_ref_DM)
+    modelx, freqs = bucket.modelx, bucket.freqs
+    hwin = bucket.harmonic_window()
+    ft, ft_np = torch.float32, np.float32
+    put = pipeline.put
+
+    if bucket.kind == "raw":
+        rows, dedisp, redisp = _raw_rows(bucket)
+        DMg = np.asarray(bucket.DM_guess)
+        col_scaled = bucket.col_scaled
+        tscal_h = np.asarray(bucket.tscal) if col_scaled else None
+        tzero_h = np.asarray(bucket.tzero) if col_scaled else None
+        fn = _raw_fit_fn(
+            len(np.asarray(freqs)), bucket.nbin,
+            tuple(bool(f) for f in bucket.flags), int(max_iter), ft,
+            use_bf16_cross_spectrum(), device, redisp=redisp,
+            want_flux=want_flux, nharm_eff=hwin,
+            # all-zero DM guesses make the CCF seed's derotation the
+            # identity, so the fit skips that pass
+            seed_derotate=bool(np.any(DMg != 0.0)),
+            raw_code=bucket.raw_code, pol_sum=bucket.pol_sum,
+            col_scaled=col_scaled)
+
+        def copy():
+            raw, scl, offs, turns = _stack_rows(rows, dedisp, redisp, Ps,
+                                                freqs)
+            masks = np.stack(masks_rows)
+            return (put(raw), put(scl, ft_np), put(offs, ft_np),
+                    put(masks, ft_np), put(modelx, ft_np),
+                    put(freqs, ft_np), put(Ps, ft_np), put(DMg, ft_np),
+                    put(turns, ft_np),
+                    put(tscal_h, ft_np) if col_scaled else None,
+                    put(tzero_h, ft_np) if col_scaled else None)
+
+        def fit(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d, Ps_d,
+                DMg_d, turns_d, tscal_d, tzero_d):
+            return fn(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d,
+                      Ps_d, DMg_d, nu_out, alpha0, turns_d, tscal_d,
+                      tzero_d)
+    else:
+        ports_rows = list(bucket.ports)
+        noise_rows = list(bucket.noise)
+        nu_fit = np.asarray(bucket.nu_fits)
+        theta0 = np.stack(bucket.theta0)
+
+        def copy():
+            return (put(np.stack(ports_rows), ft_np), put(modelx, ft_np),
+                    put(np.stack(noise_rows), ft_np), put(freqs, ft_np),
+                    put(Ps, ft_np), put(nu_fit, ft_np),
+                    put(theta0, ft_np), put(np.stack(masks_rows), ft_np))
+
+        def fit(ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
+                theta0_d, masks_d):
+            r = fit_portrait_batch_fast(
+                ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
+                nu_out=nu_ref_DM, theta0=theta0_d, fit_flags=flags,
+                chan_masks=masks_d, max_iter=max_iter,
+                harmonic_window=hwin if hwin is not None else False,
+                device=device)
+            fields = [getattr(r, k).to(ft) for k in _result_keys(flags)]
+            if want_flux:
+                fields += list(_flux_rows(r.scales, r.scale_errs,
+                                          torch.mean(modelx_d, dim=-1),
+                                          masks_d, freqs_d))
+            return torch.stack(fields)
+
+    handle = pipeline.submit(copy, fit, seq)
+    rec = (handle, list(bucket.owners), keys)
+    bucket.clear()
+    return rec
+
+
+def _flux_rows(scales, scale_errs, means, cmask, freqs):
+    """(flux, flux_err, flux_ref_freq) per subint, on the device: the
+    error-weighted mean of the model channel means times the fitted
+    scales (pipeline/toas.weighted_mean semantics: a plain mean and an
+    infinite error when no channel has a positive error)."""
+    fx = means[None, :] * scales
+    fe = torch.abs(means)[None, :] * scale_errs
+    good = (fe > 0.0) & (cmask > 0.0)
+    one = torch.ones_like(fe)
+    w = torch.where(good, 1.0 / torch.where(good, fe, one) ** 2.0,
+                    torch.zeros_like(fe))
+    wsum = w.sum(dim=1)
+    ok = wsum > 0.0
+    wsafe = torch.where(ok, wsum, torch.ones_like(wsum))
+    nmask = torch.clamp(cmask.sum(dim=1), min=1.0)
+    flux = torch.where(ok, (fx * w).sum(dim=1) / wsafe,
+                       (fx * cmask).sum(dim=1) / nmask)
+    flux_err = torch.where(ok, wsafe ** -0.5,
+                           torch.full_like(wsafe, float("inf")))
+    ffreq = torch.where(ok, (freqs[None, :] * w).sum(dim=1) / wsafe,
+                        (freqs[None, :] * cmask).sum(dim=1) / nmask)
+    return flux, flux_err, ffreq
+
+
+def _assemble_archive(m, results, modelfile, fit_DM, bary,
+                      addtnl_toa_flags, fit_GM=False, print_flux=False,
+                      print_phase=False, quiet=False, quality_flags=False):
+    """The TOA objects and DeltaDM statistics of one archive from the
+    scattered fit results."""
+    toas, dDMs, dDM_errs = [], [], []
+    for j, isub in enumerate(m.ok):
+        r = results.get((m.iarch, int(isub)))
+        if r is None:
+            continue
+        P = m.Ps[j]
+        phi = float(r["phi"])
+        toa_mjd = m.epochs[j].add_seconds(phi * P + m.backend_delay)
+        df = m.dfs[j] if bary else 1.0
+        DM_j, GM_j = doppler_corrected_DM_GM(
+            float(r["DM"]), float(r.get("GM", 0.0)), df, fit_DM, "GM" in r,
+            bary)
+        flags = {}
+        if fit_GM:
+            flags["gm"] = GM_j
+            flags["gm_err"] = float(r.get("GM_err", 0.0))
+        flags.update({
+            "be": m.backend, "fe": m.frontend,
+            "f": f"{m.frontend}_{m.backend}",
+            "nbin": int(m.nbin), "nch": int(m.nchan),
+            "subint": int(isub), "tobs": m.subtimes[j],
+            "tmplt": str(modelfile), "snr": float(r["snr"]),
+            "gof": float(r["chi2"] / max(float(r["dof"]), 1.0)),
+        })
+        # the packed result carries only the total S/N: snr/sqrt(nchan)
+        # underestimates the channel S/N, so the warning is never false
+        warn_bf16_high_snr(float(r["snr"]) / max(m.nchan, 1) ** 0.5,
+                           quiet=quiet)
+        if print_phase:
+            flags["phs"] = phi
+            flags["phs_err"] = float(r["phi_err"])
+        if print_flux:
+            flags["flux"] = float(r["flux"])
+            flags["flux_err"] = float(r["flux_err"])
+            flags["flux_ref_freq"] = float(r["flux_ref_freq"])
+        if quality_flags:
+            flags["nfev"] = int(r["nfeval"])
+            flags["chi2"] = float(r["chi2"])
+        flags.update(addtnl_toa_flags)
+        DM_out = DM_j if fit_DM else None
+        DM_err_out = float(r["DM_err"]) if fit_DM else None
+        toas.append(TOA(
+            m.datafile, float(r["nu_DM"]), toa_mjd,
+            float(r["phi_err"]) * P * 1e6, m.telescope, m.telescope_code,
+            DM_out, DM_err_out, flags))
+        if fit_DM:
+            dDMs.append(DM_j - m.DM0_arch)
+            dDM_errs.append(DM_err_out)
+    mean, err = delta_dm_stats(dDMs, dDM_errs)
+    return toas, mean, err
+
+
+def _collect_wideband(meta, assembled):
+    """TOAs and per-archive DeltaDM statistics in archive order."""
+    TOA_list = []
+    order, DM0s, means, errs = [], [], [], []
+    for m in meta:
+        toas, mean, err = assembled[m.iarch]
+        TOA_list.extend(toas)
+        order.append(m.datafile)
+        DM0s.append(m.DM0_arch)
+        means.append(mean)
+        errs.append(err)
+    return TOA_list, order, DM0s, means, errs
+
+
+def _refuse_unported(fit_scat=False, scat_guess=None,
+                     instrumental_response_dict=None, telemetry=None,
+                     zap_inline=False, zap_nstd=None, zap_channels=None,
+                     postfit_cut=False):
+    """NotImplementedError naming the ROADMAP item of every option whose
+    lane is not ported; none is ever ignored."""
+    ird = instrumental_response_dict or {}
+    if fit_scat or scat_guess is not None:
+        raise NotImplementedError(
+            "stream_wideband_TOAs: scattering fits (fit_scat, scat_guess) "
+            "are not ported yet (ROADMAP A6)")
+    if ird.get("DM-smear") or ird.get("wids") or ird.get("irf_types"):
+        raise NotImplementedError(
+            "stream_wideband_TOAs: an instrumental response is not ported "
+            "yet (ROADMAP A6)")
+    if telemetry is not None:
+        raise NotImplementedError(
+            "stream_wideband_TOAs: telemetry traces are not ported yet "
+            "(ROADMAP A13)")
+    if zap_inline or zap_nstd is not None or zap_channels is not None:
+        raise NotImplementedError(
+            "stream_wideband_TOAs: inline and offline zapping (zap_inline, "
+            "zap_nstd, zap_channels) are not ported yet (ROADMAP A8)")
+    if postfit_cut:
+        raise NotImplementedError(
+            "stream_wideband_TOAs: the post-fit quality cut is not ported "
+            "yet (ROADMAP A8)")
+
+
+def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
+                       nu_ref_DM=None, DM0=None, bary=True,
+                       tscrunch=False, max_iter=25, print_flux=False,
+                       print_phase=False, addtnl_toa_flags={},
+                       quiet=False, quality_flags=False, device=None):
+    """The wideband physics lane and archive loader for a template and
+    option set: returns ``(lane, loader)``, the lane supplying
+    _StreamExecutor's prepare/launch/scatter/assemble hooks.  ``device``
+    (default cuda) is where the template is built and where the 'auto'
+    knobs (fast fit, fused lane, bucket padding) resolve."""
+    dev = resolve_device(device)
+    if not use_fast_fit_default(dev):
+        raise NotImplementedError(
+            "stream_wideband_TOAs: config.use_fast_fit resolves False on "
+            f"{dev.type}, and the complex fit engine is not ported yet "
+            "(ROADMAP A6); set config.use_fast_fit = True")
+    model = TemplateModel(modelfile, quiet=quiet, device=dev)
+    # scattering baked into the template makes the portrait depend on
+    # the folding period, so such templates key buckets by P too
+    p_dependent = model.has_scattering()
+    alpha0_run = float(model.gauss.alpha if model.is_gaussian
+                       else scattering_alpha)
+
+    def _loader(f):
+        if not tscrunch:
+            try:
+                # raw lane: undecoded wire samples straight to the device
+                return _load_raw(f, dev)
+            except (ValueError, KeyError):
+                pass
+        # the host-decoded lane, in float32 like the fit it feeds
+        return load_for_toas(f, tscrunch=tscrunch, quiet=True,
+                             dtype=np.float32)
+
+    class _WidebandLane:
+        """The wideband physics hooks for _StreamExecutor."""
+
+        def prepare(self, iarch, datafile, d, ok):
+            nchan, nbin = d.nchan, d.nbin
+            freqs0 = np.asarray(d.freqs[0], float)
+            P_mean = float(np.mean(d.Ps[ok]))
+            # config.bucket_pad: pad the DEVICE layout to the next power
+            # of two with zero-weight channels repeating the last
+            # channel's frequency; host statistics and TOA flags keep
+            # the true nchan
+            pad_c = bucket_pad_to(nchan, dev) - nchan
+            freqs_b = (np.concatenate([freqs0, np.full(pad_c, freqs0[-1])])
+                       if pad_c else freqs0)
+            try:
+                modelx = model.portrait(freqs_b, nbin, P=P_mean)
+            except ValueError as e:
+                log(f"Skipping {datafile}: {e}", level="warn")
+                return None
+            base_key = (nchan + pad_c, nbin, freqs_b.tobytes())
+            if p_dependent:
+                base_key += (round(P_mean, 12),)
+            DM_stored = float(d.DM)
+            DM0_arch = DM_stored if DM0 is None else float(DM0)
+            DM_guess = DM_stored if DM_stored != 0.0 else DM0_arch
+            masks = np.asarray(d.weights[ok] > 0.0, float)
+            raw_mode = bool(d.get("raw_mode", False))
+            masks_b = (np.pad(masks, ((0, 0), (0, pad_c))) if pad_c
+                       else masks)
+            # keep only what TOA assembly needs, not the data cube
+            m = DataBunch(
+                datafile=datafile, iarch=iarch, ok=ok, DM0_arch=DM0_arch,
+                nbin=nbin, nchan=nchan,
+                epochs=[d.epochs[isub] for isub in ok],
+                Ps=[float(d.Ps[isub]) for isub in ok],
+                dfs=[float(d.doppler_factors[isub]) for isub in ok],
+                subtimes=[float(d.subtimes[isub]) for isub in ok],
+                backend_delay=d.backend_delay, backend=d.backend,
+                frontend=d.frontend, telescope=d.telescope,
+                telescope_code=d.telescope_code)
+            nchx = masks.sum(axis=1).astype(int)
+            if not raw_mode:
+                ports = np.asarray(d.subints[ok, 0])
+                noise = np.asarray(d.noise_stds[ok, 0], float)
+                snrs_chan = np.asarray(d.SNRs[ok, 0], float) * masks
+                nu_fit_arr = snr_weighted_nu_fit(snrs_chan, freqs0)
+                if pad_c:
+                    # edge-replicated data and noise: masked channels
+                    # must carry ordinary finite noise
+                    ports = np.pad(ports, ((0, 0), (0, pad_c), (0, 0)),
+                                   mode="edge")
+                    noise = np.pad(noise, ((0, 0), (0, pad_c)),
+                                   mode="edge")
+            base_flags = (True, bool(fit_DM), bool(fit_GM), False, False)
+            kind = "raw" if raw_mode else "dec"
+            # raw payloads bucket by wire sample type, pol reduction and
+            # column-scaling presence: each is its own decode stage
+            raw_code = str(d.get("raw_code") or "i16")
+            pol_sum = bool(d.get("pol_sum", False))
+            col_scaled = raw_mode and (d.get("tscal") is not None
+                                       or d.get("tzero") is not None)
+            tscal_val = float(d.get("tscal") or 1.0) if raw_mode else 1.0
+            tzero_val = float(d.get("tzero") or 0.0) if raw_mode else 0.0
+            per_subint = []
+            for j, isub in enumerate(ok):
+                # degenerate-geometry demotion, as GetTOAs does
+                eff_flags = effective_fit_flags(nchx[j], base_flags)
+                key = base_key + (eff_flags, kind)
+                if raw_mode:
+                    key += (raw_code, pol_sum, col_scaled)
+
+                def factory(freqs_b=freqs_b, nbin=nbin, modelx=modelx,
+                            eff_flags=eff_flags, kind=kind,
+                            raw_code=raw_code, pol_sum=pol_sum,
+                            col_scaled=col_scaled):
+                    return _Bucket(freqs_b, nbin, modelx, eff_flags,
+                                   kind=kind, raw_code=raw_code,
+                                   pol_sum=pol_sum, col_scaled=col_scaled)
+
+                def fill(b, j=j, isub=int(isub), d=d, masks_b=masks_b,
+                         DM_guess=DM_guess, raw_mode=raw_mode, iarch=iarch,
+                         pad_c=pad_c, col_scaled=col_scaled,
+                         tscal_val=tscal_val, tzero_val=tzero_val):
+                    if raw_mode:
+                        raw_row = d.raw[isub]
+                        scl_row = d.scl[isub]
+                        offs_row = d.offs[isub]
+                        if col_scaled:
+                            b.tscal.append(tscal_val)
+                            b.tzero.append(tzero_val)
+                        if pad_c:
+                            # pad channels REPLICATE the edge channel
+                            # (samples and scl/offs), so their device
+                            # noise estimate is ordinary and finite
+                            raw_row = np.pad(
+                                raw_row, [(0, 0)] * (raw_row.ndim - 2)
+                                + [(0, pad_c), (0, 0)], mode="edge")
+                            scl_row = np.pad(
+                                scl_row, [(0, 0)] * (scl_row.ndim - 1)
+                                + [(0, pad_c)], mode="edge")
+                            offs_row = np.pad(
+                                offs_row, [(0, 0)] * (offs_row.ndim - 1)
+                                + [(0, pad_c)], mode="edge")
+                        b.raw.append(raw_row)
+                        b.scl.append(scl_row)
+                        b.offs.append(offs_row)
+                        b.DM_guess.append(DM_guess)
+                        # dedispersed on disk: the device program
+                        # restores the stored DM's delays before fitting
+                        b.dedisp.append(
+                            (float(d.DM) if d.get("dmc") else 0.0,
+                             float(d.get("dedisp_nu")
+                                   or d.get("nu0", 0.0) or 0.0)))
+                    else:
+                        th = np.zeros(5)
+                        th[1] = DM_guess
+                        th[4] = alpha0_run
+                        b.ports.append(ports[j])
+                        b.noise.append(noise[j])
+                        b.nu_fits.append(float(nu_fit_arr[j]))
+                        b.theta0.append(th)
+                    b.masks.append(masks_b[j])
+                    b.Ps.append(float(d.Ps[isub]))
+                    b.dfs.append(float(d.doppler_factors[isub]))
+                    b.owners.append((iarch, isub))
+
+                per_subint.append((key, factory, fill))
+            return m, per_subint
+
+        def launch(self, b, pipeline, seq):
+            return _launch(b, nu_ref_DM, max_iter, pipeline,
+                           want_flux=print_flux, alpha0=alpha0_run, seq=seq)
+
+        def scatter(self, out, owners, keys, results):
+            for i, owner in enumerate(owners):
+                results[owner] = {k: out[j, i] for j, k in enumerate(keys)}
+
+        def assemble(self, m, results):
+            return _assemble_archive(
+                m, results, modelfile, fit_DM, bary, addtnl_toa_flags,
+                fit_GM=fit_GM, print_flux=print_flux,
+                print_phase=print_phase, quiet=quiet,
+                quality_flags=quality_flags)
+
+    return _WidebandLane(), _loader
+
+
+def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
+                         fit_GM=False, nu_ref_DM=None, nu_ref_tau=None,
+                         DM0=None, bary=True, tscrunch=False,
+                         fit_scat=False, log10_tau=True, scat_guess=None,
+                         fix_alpha=False, max_iter=25, prefetch=True,
+                         max_inflight=None, print_flux=False,
+                         print_phase=False, instrumental_response_dict=None,
+                         addtnl_toa_flags={}, tim_out=None, quiet=False,
+                         resume=False, skip_archives=None,
+                         stream_devices=None, telemetry=None,
+                         quality_flags=False, pipeline_depth=None,
+                         zap_inline=False, zap_nstd=None, zap_channels=None,
+                         postfit_cut=False, device=None):
+    """Measure wideband (phi, DM[, GM]) TOAs for many archives with
+    cross-archive batched dispatches.
+
+    Options follow the JAX package's stream_wideband_TOAs.  Devices:
+    ``stream_devices`` ('auto' = every visible CUDA device, an int N the
+    first N, or a device sequence such as ['cpu'] or ['cpu', 'cpu']);
+    when it is None, ``device`` alone (e.g. device='cpu') names the one
+    device, and with neither config.stream_devices applies.  There is
+    no CPU fallback: with no card the CUDA default raises.
+    nu_ref_tau, log10_tau and fix_alpha only act on scattering fits,
+    which are refused (ROADMAP A6), as are the instrumental response,
+    telemetry (A13) and zapping / the post-fit cut (A8).
+
+    tim_out: .tim checkpoint; each archive's TOA lines are appended as
+    soon as all its subints are fitted, in archive order, each archive
+    followed by a completion sentinel.  resume=True drops the torn tail
+    after the last sentinel and skips completed archives.
+
+    Returns a DataBunch: TOA_list (archive order), order, DM0s,
+    DeltaDM_means, DeltaDM_errs, fit_duration, scatter_duration, nfit,
+    devices_used, peak_inflight, dispatch_shapes ({bucket shape: number
+    of dispatches}), h2d_bytes, h2d_duration, h2d_overlap_duration and
+    wall."""
+    _refuse_unported(fit_scat=fit_scat, scat_guess=scat_guess,
+                     instrumental_response_dict=instrumental_response_dict,
+                     telemetry=telemetry, zap_inline=zap_inline,
+                     zap_nstd=zap_nstd, zap_channels=zap_channels,
+                     postfit_cut=postfit_cut)
+    if isinstance(datafiles, str):
+        datafiles = (_read_metafile(datafiles) if _is_metafile(datafiles)
+                     else [datafiles])
+    else:
+        datafiles = list(datafiles)
+    if stream_devices is None and device is not None:
+        stream_devices = [device]
+    devices = resolve_stream_devices(stream_devices)
+    t_start = time.time()
+    lane, loader = make_wideband_lane(
+        modelfile, fit_DM=fit_DM, fit_GM=fit_GM,
+        nu_ref_DM=nu_ref_DM, DM0=DM0, bary=bary, tscrunch=tscrunch,
+        max_iter=max_iter, print_flux=print_flux, print_phase=print_phase,
+        addtnl_toa_flags=addtnl_toa_flags, quiet=quiet,
+        quality_flags=quality_flags, device=devices[0])
+    ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,
+                         max_inflight=max_inflight, prefetch=prefetch,
+                         tim_out=tim_out, resume=resume,
+                         skip_archives=skip_archives, quiet=quiet,
+                         stream_devices=devices,
+                         pipeline_depth=pipeline_depth)
+    meta, assembled = ex.run()
+    TOA_list, order, DM0s, means, errs = _collect_wideband(meta, assembled)
+    wall = time.time() - t_start
+    n = len(TOA_list)
+    log(f"streamed {n} TOAs from {len(order)} archives in {wall:.2f} s "
+        f"({ex.nfit} dispatches across {len(ex.devices_used)} device(s), "
+        f"{ex.fit_duration:.2f} s blocked on devices, "
+        f"{ex.scatter_duration:.2f} s in host scatter, "
+        f"{n / max(wall, 1e-9):.1f} TOAs/s end to end)", quiet=quiet)
+    return DataBunch(TOA_list=TOA_list, order=order, DM0s=DM0s,
+                     DeltaDM_means=means, DeltaDM_errs=errs,
+                     fit_duration=ex.fit_duration,
+                     scatter_duration=ex.scatter_duration, nfit=ex.nfit,
+                     devices_used=len(ex.devices_used),
+                     peak_inflight=ex.peak_inflight,
+                     dispatch_shapes=dict(ex.dispatch_shapes),
+                     h2d_bytes=int(ex.h2d_bytes),
+                     h2d_duration=ex.h2d_duration,
+                     h2d_overlap_duration=ex.h2d_overlap_duration,
+                     wall=wall)
+
+
+def stream_narrowband_TOAs(*args, **kwargs):
+    """The narrowband streaming driver is not ported yet (ROADMAP A8)."""
+    raise NotImplementedError(
+        "stream_narrowband_TOAs: narrowband streaming is not ported yet "
+        "(ROADMAP A8)")

@@ -3,9 +3,12 @@
 B1 (the fused DFT -> cross-spectrum kernel): the port's plain PyTorch
 version against the JAX package's scan AND its Pallas kernel run under
 ``pallas_call(interpret=True)``, over the directed set of
-tests/test_pallas_interpret.py.  Also the matmul DFTs, the Gaussian
-template carried across by convert.py, archive loading through the
-shared native decoder, import hygiene and the device rule.
+tests/test_pallas_interpret.py.  B2 (the decode-fused kernel): the
+port's plain version against the JAX Pallas kernel in interpret mode,
+and the decode and noise ops of the streaming lane against the JAX
+package's.  Also the matmul DFTs, the Gaussian template carried across
+by convert.py, archive loading through the shared native decoder,
+import hygiene and the device rule.
 """
 
 import os
@@ -22,11 +25,15 @@ import torch
 from test_torch_helpers import PAR, rel_err, tol_for
 
 import pulseportraiture_tpu_torch as PT
+from pulseportraiture_tpu_torch.ops import decode as TD
 from pulseportraiture_tpu_torch.ops import fourier as TF
 from pulseportraiture_tpu_torch.ops import fused as TFu
+from pulseportraiture_tpu_torch.ops import noise as TN
 
+from pulseportraiture_tpu.ops import decode as JD
 from pulseportraiture_tpu.ops import fourier as JF
 from pulseportraiture_tpu.ops import fused as JFu
+from pulseportraiture_tpu.ops import noise as JN
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -116,7 +123,227 @@ class TestFusedCrossSpectrumParity:
         TFu.reset_kernel_launches()
         port, model, w, nharm = _problem(8, 64, "float32")
         TFu.fused_cross_spectrum(_t(port), _t(model), _t(w), nharm)
-        assert TFu.kernel_launches() == {"fused_cross_spectrum": 0}
+        assert TFu.kernel_launches() == {"fused_cross_spectrum": 0,
+                                         "fused_decode_cross_spectrum": 0}
+
+
+def _packed_problem(code, nchan, nbin, dt, seed=3):
+    """test_pallas_interpret.TestDecodeKernelParity's inputs: random
+    packed bytes, scl in [0.5, 2), normal offs, a normal model and
+    weights in [0.5, 2) over nbin // 4 harmonics."""
+    rng = np.random.default_rng(seed)
+    nbit = JD.PACKED_BITS[code]
+    bpc = (nbin * nbit) // 8
+    packed = rng.integers(0, 256, size=(nchan * bpc,)).astype(np.uint8)
+    scl = rng.uniform(0.5, 2.0, size=(nchan,)).astype(dt)
+    offs = rng.normal(size=(nchan,)).astype(dt)
+    model = rng.normal(size=(nchan, nbin)).astype(dt)
+    nharm = nbin // 4
+    w = rng.uniform(0.5, 2.0, size=(nchan, nharm)).astype(dt)
+    return packed.reshape(nchan, bpc), scl, offs, model, w, nharm
+
+
+class TestFusedDecodeCrossSpectrumParity:
+    """B2's plain version vs the JAX Pallas kernel in interpret mode at
+    13 x 128 (ragged against every block).  Tolerance: max abs error
+    <= 1e-12 x max|ref| in float64, 1e-5 x max|ref| in float32, per
+    output (Xr, Xi, S0, pwr, x0)."""
+
+    @pytest.mark.parametrize("code", ["p1", "p2", "p4"])
+    @pytest.mark.parametrize("fold,block,dt", [
+        (False, None, "float64"), (True, None, "float64"),
+        (False, 7, "float64"), (True, 7, "float64"),
+        (False, None, "float32"), (True, 7, "float32")])
+    def test_parity(self, code, fold, block, dt):
+        nchan, nbin = 13, 128
+        raw, scl, offs, model, w, nharm = _packed_problem(code, nchan, nbin,
+                                                          dt)
+        ref = jax.jit(lambda p, s, o, m, wk:
+                      JFu.fused_decode_cross_spectrum_pallas(
+                          p, s, o, m, wk, nharm, code=code, nbin=nbin,
+                          fold=fold, block=block, interpret=True))(
+            jnp.asarray(raw), jnp.asarray(scl), jnp.asarray(offs),
+            jnp.asarray(model), jnp.asarray(w))
+        got = TFu.fused_decode_cross_spectrum(
+            _t(raw), _t(scl), _t(offs), _t(model), _t(w), nharm, code=code,
+            nbin=nbin, fold=fold, block=block)
+        for r, g, name in zip(ref, got, ("Xr", "Xi", "S0", "pwr", "x0")):
+            assert g.shape == r.shape, name
+            assert g.dtype == getattr(torch, dt), name
+            assert rel_err(g.numpy(), r) <= tol_for(dt), name
+
+    def test_batched_rows_match_per_element(self):
+        """A (B, nchan, bpc) batch gives each element's unbatched
+        result: the decode and the tiling are per row."""
+        raw, scl, offs, model, w, nharm = _packed_problem("p2", 9, 128,
+                                                          "float64")
+        raw2 = np.stack([raw, raw[::-1].copy()])
+        scl2, offs2 = np.stack([scl, scl[::-1]]), np.stack([offs, offs])
+        w2 = np.stack([w, w[::-1]])
+        got = TFu.fused_decode_cross_spectrum(
+            _t(raw2), _t(scl2), _t(offs2), _t(model), _t(w2), nharm,
+            code="p2", nbin=128)
+        for b in range(2):
+            one = TFu.fused_decode_cross_spectrum(
+                _t(raw2[b]), _t(scl2[b]), _t(offs2[b]), _t(model),
+                _t(w2[b]), nharm, code="p2", nbin=128)
+            for a, c in zip(got, one):
+                assert rel_err(a[b].numpy(), c.numpy()) <= 1e-14
+
+    @pytest.mark.parametrize("code", ["p1", "p2", "p4"])
+    def test_unpack_exact(self, code):
+        nbit = TD.PACKED_BITS[code]
+        raw = np.random.default_rng(5).integers(
+            0, 256, size=(3, 40)).astype(np.uint8)
+        nsamp = 40 * (8 // nbit) - 3  # trims a partial byte's samples
+        ref = np.asarray(JD.unpack_bitplanes(jnp.asarray(raw), nbit, nsamp))
+        got = TD.unpack_bitplanes(_t(raw), nbit, nsamp)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+    def test_refuses_bad_inputs(self):
+        """The JAX kernel's refusals, by every entry point of B2."""
+        model = torch.zeros((4, 100), dtype=torch.float64)
+        w = torch.ones((4, 25), dtype=torch.float64)
+        raw = torch.zeros((4, 25), dtype=torch.uint8)
+        one = torch.ones(4, dtype=torch.float64)
+        for fn in (TFu.fused_decode_cross_spectrum,
+                   TFu.fused_decode_cross_spectrum_ref,
+                   TFu.fused_decode_cross_spectrum_cuda):
+            with pytest.raises(ValueError, match="packed sub-byte"):
+                fn(raw, one, one, model, w, 25, code="i16", nbin=100)
+            with pytest.raises(ValueError, match="byte-aligned"):
+                # 100 bins x 1 bit = 100 bits: not a whole byte count
+                fn(raw, one, one, model, w, 25, code="p1", nbin=100)
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self):
+        raw, scl, offs, model, w, nharm = _packed_problem("p4", 4, 64,
+                                                          "float32")
+        with pytest.raises(ValueError, match="CUDA"):
+            TFu.fused_decode_cross_spectrum_cuda(
+                _t(raw), _t(scl), _t(offs), _t(model), _t(w), nharm,
+                code="p4", nbin=64)
+
+    def test_cpu_dispatch_launches_no_kernel(self):
+        TFu.reset_kernel_launches()
+        raw, scl, offs, model, w, nharm = _packed_problem("p2", 4, 64,
+                                                          "float32")
+        TFu.fused_decode_cross_spectrum(_t(raw), _t(scl), _t(offs),
+                                        _t(model), _t(w), nharm, code="p2",
+                                        nbin=64)
+        assert TFu.kernel_launches() == {"fused_cross_spectrum": 0,
+                                         "fused_decode_cross_spectrum": 0}
+
+
+def _raw_payload(code, nb, nchan, nbin, rng, npol=None):
+    """Random wire samples of a raw code: (nb, [npol,] nchan, nbin)
+    samples, or (nb, [npol,] plane_bytes) packed bytes."""
+    lead = (nb,) if npol is None else (nb, npol)
+    nbit = TD.PACKED_BITS.get(code)
+    if nbit is not None:
+        return rng.integers(0, 256, size=lead + (nchan * nbin * nbit // 8,)
+                            ).astype(np.uint8)
+    if code == "i16":
+        return rng.integers(-3000, 3000, size=lead + (nchan, nbin)
+                            ).astype(np.int16)
+    if code == "f32":
+        return rng.normal(size=lead + (nchan, nbin)).astype(np.float32)
+    return rng.integers(0, 256, size=lead + (nchan, nbin)).astype(np.uint8)
+
+
+class TestDecodeOpsParity:
+    """ops.decode and ops.noise vs the JAX package's, on the same
+    numpy inputs: decode_stokes_I for every raw code, the two-pol sum
+    and TSCAL/TZERO column scaling; the baseline, noise and S/N in
+    float64 (1e-12 x max|ref|) and float32 (1e-5 x max|ref|)."""
+
+    @pytest.mark.parametrize("dt", ["float64", "float32"])
+    @pytest.mark.parametrize("code", list(TD.RAW_CODES))
+    def test_decode_stokes_I(self, code, dt):
+        assert TD.RAW_CODES == JD.RAW_CODES
+        rng = np.random.default_rng(21)
+        nb, nchan, nbin = 3, 5, 64
+        raw = _raw_payload(code, nb, nchan, nbin, rng)
+        scl = rng.uniform(0.5, 2.0, size=(nb, nchan)).astype(dt)
+        offs = rng.normal(size=(nb, nchan)).astype(dt)
+        ref = JD.decode_stokes_I(jnp.asarray(raw), jnp.asarray(scl),
+                                 jnp.asarray(offs), getattr(jnp, dt),
+                                 code=code, nbin=nbin)
+        got = TD.decode_stokes_I(_t(raw), _t(scl), _t(offs),
+                                 getattr(torch, dt), code=code, nbin=nbin)
+        assert tuple(got.shape) == (nb, nchan, nbin)
+        assert rel_err(got.numpy(), ref) <= tol_for(dt)
+
+    @pytest.mark.parametrize("code", ["i16", "p2"])
+    def test_pol_sum(self, code):
+        rng = np.random.default_rng(22)
+        nb, nchan, nbin = 2, 4, 64
+        raw = _raw_payload(code, nb, nchan, nbin, rng, npol=2)
+        scl = rng.uniform(0.5, 2.0, size=(nb, 2, nchan))
+        offs = rng.normal(size=(nb, 2, nchan))
+        ref = JD.decode_stokes_I(jnp.asarray(raw), jnp.asarray(scl),
+                                 jnp.asarray(offs), jnp.float64,
+                                 code=code, pol_sum=True, nbin=nbin)
+        got = TD.decode_stokes_I(_t(raw), _t(scl), _t(offs),
+                                 torch.float64, code=code, pol_sum=True,
+                                 nbin=nbin)
+        assert tuple(got.shape) == (nb, nchan, nbin)
+        assert rel_err(got.numpy(), ref) <= 1e-12
+
+    @pytest.mark.parametrize("code", ["i16", "u8", "i8"])
+    def test_column_scaling(self, code):
+        rng = np.random.default_rng(23)
+        nb, nchan, nbin = 3, 4, 32
+        raw = _raw_payload(code, nb, nchan, nbin, rng)
+        scl = rng.uniform(0.5, 2.0, size=(nb, nchan))
+        offs = rng.normal(size=(nb, nchan))
+        tscal = rng.uniform(0.5, 1.5, size=nb)
+        tzero = rng.normal(size=nb)
+        ref = JD.decode_stokes_I(jnp.asarray(raw), jnp.asarray(scl),
+                                 jnp.asarray(offs), jnp.float64, code=code,
+                                 tscal=jnp.asarray(tscal),
+                                 tzero=jnp.asarray(tzero))
+        got = TD.decode_stokes_I(_t(raw), _t(scl), _t(offs), torch.float64,
+                                 code=code, tscal=_t(tscal),
+                                 tzero=_t(tzero))
+        assert rel_err(got.numpy(), ref) <= 1e-12
+
+    def test_unknown_code_refused(self):
+        with pytest.raises(ValueError, match="unknown raw sample code"):
+            TD.affine_decode(torch.zeros(1, 2, 3), torch.ones(1, 2),
+                             torch.zeros(1, 2), torch.float64, code="i32")
+
+    @pytest.mark.parametrize("dt", ["float64", "float32"])
+    @pytest.mark.parametrize("nbin", [128, 101])
+    def test_baseline_noise_snr(self, dt, nbin):
+        rng = np.random.default_rng(24)
+        x = (rng.normal(size=(3, 6, nbin))
+             + 4.0 * np.exp(-0.5 * ((np.arange(nbin) - 30.0) / 4.0) ** 2)
+             + rng.normal(size=(3, 6, 1))).astype(dt)
+        xj, xt = jnp.asarray(x), _t(x)
+        pairs = [(JN.min_window_baseline(xj), TN.min_window_baseline(xt)),
+                 (JN.get_noise_PS(xj), TN.get_noise_PS(xt)),
+                 (JN.get_SNR(xj), TN.get_SNR(xt)),
+                 (JN.get_SNR(xj, 0.5 * JN.get_noise_PS(xj)),
+                  TN.get_SNR(xt, 0.5 * TN.get_noise_PS(xt)))]
+        for r, g in pairs:
+            assert g.dtype == getattr(torch, dt)
+            assert rel_err(g.numpy(), r) <= tol_for(dt)
+
+    @pytest.mark.parametrize("dt", ["float64", "float32"])
+    def test_median_even_length_is_mean_of_middles(self, dt):
+        """jnp.median's semantics: with an even count the median is the
+        mean of the two middle values (torch.median would return the
+        lower one)."""
+        x = np.array([[4.0, 1.0, 3.0, 2.0], [7.0, 7.0, 1.0, 9.0]], dt)
+        got = TN.median_lastaxis(_t(x))
+        np.testing.assert_array_equal(got.numpy(), np.array([2.5, 7.0], dt))
+        big = np.random.default_rng(25).normal(size=(5, 2048)).astype(dt)
+        ref = JN.exact_median_lastaxis(jnp.asarray(big))
+        np.testing.assert_array_equal(TN.median_lastaxis(_t(big)).numpy(),
+                                      np.asarray(ref))
+        assert not torch.equal(TN.median_lastaxis(_t(big)),
+                               torch.median(_t(big), dim=-1).values)
 
 
 class TestMatmulDFTParity:
@@ -269,8 +496,13 @@ def test_import_hygiene():
     code = (
         "import importlib, pkgutil, sys\n"
         "import pulseportraiture_tpu_torch as p\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        "new = {p.__name__ + '.' + n for n in ('ops.decode', 'ops.noise',"
+        " 'pipeline.stream')}\n"
+        "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "
         "k.startswith('pulseportraiture_tpu.')]\n"

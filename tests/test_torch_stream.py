@@ -1,0 +1,437 @@
+"""The PyTorch port's streaming campaign lane (pipeline/stream.py) on the
+CPU, against the JAX package's stream_wideband_TOAs.
+
+End to end: archives forged as in tests/test_pallas_interpret.py
+(2 subints x 8 channels x 256 bins; int16 and NBIT=1/2/4 packed
+samples) in one metafile, streamed by both packages with the fast fit,
+the fused lane and a 128-harmonic window.  The JAX side runs
+fit_pallas=False, whose .tim equals its Pallas run byte for byte
+(test_pallas_interpret.py's own gates).  Both run the raw lane in
+float32.  .tim lines are compared with test_torch_toas's tolerances:
+TOA and DM within 0.05 sigma, flags equal (fit-derived numbers within
+one unit of their last printed digit).
+
+Spies on the plain B2 version show which buckets took the decode-fused
+branch; the executor tests (resume after a torn tail, a degenerate
+one-channel subint, the exact in-flight bound, one device vs two) run
+the port alone on make_fake_pulsar archives.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_helpers import PAR
+from test_torch_toas import _assert_tim_parity, _parse_tim
+
+from fits_forge import forge_archive, gaussian_portrait
+
+from pulseportraiture_tpu import config as jcfg
+from pulseportraiture_tpu_torch import config as tcfg
+from pulseportraiture_tpu_torch.ops import fused as TFu
+from pulseportraiture_tpu_torch.pipeline import stream as TS
+
+_NSUB, _NCHAN, _NBIN = 2, 8, 256
+_HWIN = 128
+_CODES = {"int16": "i16", "nbit1": "p1", "nbit2": "p2", "nbit4": "p4"}
+
+
+def _noisy_maker(nchan, nbin, nsub, seed=3, sigma=0.08):
+    """test_pallas_interpret._noisy_maker, single pol."""
+    base = gaussian_portrait(nchan, nbin)
+    rng = np.random.default_rng(seed)
+    noise = {s: rng.normal(0.0, sigma, (nchan, nbin)) for s in range(nsub)}
+    return lambda s, p: base + 0.1 * s + noise[s]
+
+
+def _forge_set(root, dtypes, dm):
+    """One forged archive per wire format in a metafile, and the first
+    archive tscrunched as the template: (metafile, archives, template)."""
+    from pulseportraiture_tpu.io.psrfits import (read_archive,
+                                                 unload_new_archive)
+
+    files = []
+    for dtype in dtypes:
+        f = str(root / f"{dtype}.fits")
+        forge_archive(f, nsub=_NSUB, nchan=_NCHAN, nbin=_NBIN, dedisp=0,
+                      dm=dm, data_dtype=dtype,
+                      data_maker=_noisy_maker(_NCHAN, _NBIN, _NSUB,
+                                              seed=3 + list(_CODES).index(
+                                                  dtype)))
+        files.append(f)
+    arch = read_archive(files[0])
+    arch.tscrunch()
+    tmpl = str(root / "tmpl.fits")
+    unload_new_archive(np.asarray(arch.amps), arch, tmpl, DM=0.0, dmc=1,
+                       quiet=True)
+    meta = root / "meta.txt"
+    meta.write_text("\n".join(files) + "\n")
+    return str(meta), files, tmpl
+
+
+@pytest.fixture(scope="module")
+def forged(tmp_path_factory):
+    """Every wire format, forged with header DM 0: the forged data carry
+    no dispersion, and at the forge's default of 12.5 the packed
+    archives' fits start among several minima
+    (test_stream_parity_at_header_dm)."""
+    root = tmp_path_factory.mktemp("torch_stream")
+    return (root,) + _forge_set(root, _CODES, 0.0)
+
+
+@pytest.fixture(scope="module")
+def forged_dm(tmp_path_factory):
+    """The int16 and 1-bit archives with the forge's header DM of 12.5."""
+    root = tmp_path_factory.mktemp("torch_stream_dm")
+    return (root,) + _forge_set(root, ("int16", "nbit1"), 12.5)
+
+
+@pytest.fixture
+def stream_config():
+    """Fast fit forced on (its 'auto' is the accelerator only), the
+    fused lane on, the window engaged; restored afterwards."""
+    keys = ("use_fast_fit", "fit_fused", "fit_harmonic_window")
+    old_j = {k: getattr(jcfg, k) for k in keys + ("fit_pallas",)}
+    old_t = {k: getattr(tcfg, k) for k in keys}
+    jcfg.use_fast_fit = tcfg.use_fast_fit = True
+    jcfg.fit_fused = tcfg.fit_fused = True
+    jcfg.fit_harmonic_window = tcfg.fit_harmonic_window = _HWIN
+    jcfg.fit_pallas = False
+    yield
+    for k, v in old_j.items():
+        setattr(jcfg, k, v)
+    for k, v in old_t.items():
+        setattr(tcfg, k, v)
+
+
+def _spy_b2(monkeypatch):
+    """Record (raw code, subints) of every call of the plain B2 version."""
+    calls = []
+    orig = TFu.fused_decode_cross_spectrum_ref
+
+    def spy(*a, **k):
+        calls.append((k["code"], a[0].shape[0]))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(TFu, "fused_decode_cross_spectrum_ref", spy)
+    return calls
+
+
+def test_stream_tim_parity_with_jax(forged, stream_config, monkeypatch):
+    """The port's stream .tim against the JAX package's, every wire
+    format; the spy shows the packed buckets took the decode-fused
+    branch and the int16 bucket did not."""
+    from pulseportraiture_tpu.pipeline import stream as JS
+
+    root, meta, files, tmpl = forged
+    for f, code in zip(files, _CODES.values()):
+        assert TS._load_raw(f, torch.device("cpu")).raw_code == code
+    ref = str(root / "jax.tim")
+    got = str(root / "torch.tim")
+    JS.stream_wideband_TOAs(meta, tmpl, nsub_batch=4, quiet=True,
+                            tim_out=ref)
+    calls = _spy_b2(monkeypatch)
+    res = TS.stream_wideband_TOAs(meta, tmpl, nsub_batch=4, quiet=True,
+                                  tim_out=got, device="cpu")
+    # one call per packed bucket, none for i16; a partial bucket
+    # dispatches its own subints, unpadded
+    assert sorted(calls) == [("p1", _NSUB), ("p2", _NSUB), ("p4", _NSUB)]
+    assert res.nfit == 4 and len(res.TOA_list) == 4 * _NSUB
+    assert res.dispatch_shapes == {
+        f"{_NCHAN}x{_NBIN}:raw:{c}:11000": 1 for c in _CODES.values()}
+    assert res.order == files
+    _assert_tim_parity(_tim_lines(ref, root / "jax_lines.tim"),
+                       _tim_lines(got, root / "torch_lines.tim"))
+
+
+def _tim_lines(path, out):
+    """The TOA lines of a checkpoint, without its sentinel comments."""
+    with open(path) as f:
+        lines = [ln for ln in f if ln.strip() and not ln.startswith("C ")]
+    with open(out, "w") as f:
+        f.writelines(lines)
+    return str(out)
+
+
+def _max_sigma(ref_path, got_path):
+    """The largest TOA or DM difference of two .tim files, line by line,
+    in units of the first file's errors."""
+    worst = 0.0
+    for r, g in zip(_parse_tim(ref_path), _parse_tim(got_path)):
+        dm_r, dm_g = float(r[5]["-pp_dm"]), float(g[5]["-pp_dm"])
+        dt = ((g[2][0] - r[2][0]) + (g[2][1] - r[2][1])) * 86400.0
+        dt += tcfg.Dconst * dm_g * (r[1] ** -2.0 - g[1] ** -2.0)
+        worst = max(worst, abs(dm_g - dm_r) / float(r[5]["-pp_dme"]),
+                    abs(dt) * 1e6 / r[3])
+    return worst
+
+
+def test_stream_parity_at_header_dm(forged_dm, stream_config, monkeypatch):
+    """Header DM 12.5, the forge's default: every fit starts 12.5 pc
+    cm^-3 from the truth.  The int16 archive's TOAs still agree with the
+    JAX package's within 0.05 sigma.  The 1-bit archive's need not, and
+    the cause is the fit's conditioning, not the port: the JAX package's
+    own TOAs move by more than 100 sigma when only its min-window
+    baseline is summed in float64 (as the port sums it) where it sums
+    in float32."""
+    from pulseportraiture_tpu.ops import decode as JD
+    from pulseportraiture_tpu.pipeline import stream as JS
+
+    root, meta, files, tmpl = forged_dm
+    out = {k: str(root / f"{k}.tim") for k in ("jax", "torch", "jax_p1",
+                                               "jax_p1_f64")}
+    JS.stream_wideband_TOAs([files[0]], tmpl, nsub_batch=4, quiet=True,
+                            tim_out=out["jax"])
+    TS.stream_wideband_TOAs([files[0]], tmpl, nsub_batch=4, quiet=True,
+                            tim_out=out["torch"], device="cpu")
+    _assert_tim_parity(_tim_lines(out["jax"], root / "jax_lines.tim"),
+                       _tim_lines(out["torch"], root / "torch_lines.tim"))
+
+    JS.stream_wideband_TOAs([files[1]], tmpl, nsub_batch=4, quiet=True,
+                            tim_out=out["jax_p1"])
+    f32_baseline = JD.min_window_baseline
+
+    def f64_baseline(p, frac=0.15):
+        return f32_baseline(p.astype(jnp.float64), frac).astype(p.dtype)
+
+    monkeypatch.setattr(JD, "min_window_baseline", f64_baseline)
+    JS._raw_fit_fn_cached.cache_clear()
+    try:
+        JS.stream_wideband_TOAs([files[1]], tmpl, nsub_batch=4, quiet=True,
+                                tim_out=out["jax_p1_f64"])
+    finally:
+        # no later test may reuse the program traced with the patch
+        monkeypatch.undo()
+        JS._raw_fit_fn_cached.cache_clear()
+    assert _max_sigma(
+        _tim_lines(out["jax_p1"], root / "jax_p1_lines.tim"),
+        _tim_lines(out["jax_p1_f64"], root / "jax_p1_f64_lines.tim")) > 100
+
+
+def test_decoded_lane_matches_raw_lane(forged, stream_config, monkeypatch):
+    """An archive the raw lane refuses falls back to the host-decoded
+    lane (no B2 there), with the same TOAs within 0.05 sigma."""
+    root, meta, files, tmpl = forged
+    raw_tim, dec_tim = str(root / "raw.tim"), str(root / "dec.tim")
+    TS.stream_wideband_TOAs([files[2]], tmpl, nsub_batch=4, quiet=True,
+                            tim_out=raw_tim, device="cpu")
+
+    def refuse(f, device):
+        raise ValueError("forced decoded lane")
+
+    monkeypatch.setattr(TS, "_load_raw", refuse)
+    calls = _spy_b2(monkeypatch)
+    TS.stream_wideband_TOAs([files[2]], tmpl, nsub_batch=4, quiet=True,
+                            tim_out=dec_tim, device="cpu")
+    assert calls == []
+    _assert_tim_parity(_tim_lines(raw_tim, root / "raw_lines.tim"),
+                       _tim_lines(dec_tim, root / "dec_lines.tim"))
+
+
+def test_fit_fused_off_skips_b2(forged, stream_config, monkeypatch):
+    """With the fused lane off the packed bucket fits the decoded
+    portrait: the decode-fused gate reads the resolved knob."""
+    root, meta, files, tmpl = forged
+    tcfg.fit_fused = False
+    calls = _spy_b2(monkeypatch)
+    res = TS.stream_wideband_TOAs([files[2]], tmpl, nsub_batch=4,
+                                  quiet=True, device="cpu")
+    assert calls == [] and len(res.TOA_list) == _NSUB
+
+
+# ---------------------------------------------------------------------
+# executor behaviour, the port alone
+
+DDMS = [2e-4, -3e-4, 1e-4]
+
+
+@pytest.fixture(scope="module")
+def campaign(tmp_path_factory):
+    """Three small archives (one 2-bit packed, one a different channel
+    count) for the executor tests."""
+    from pulseportraiture_tpu_torch.io.gmodel import write_gmodel
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    root = tmp_path_factory.mktemp("torch_campaign")
+    model = default_test_model(1500.0)
+    gmodel = str(root / "model.gmodel")
+    write_gmodel(model, gmodel, quiet=True)
+    files = []
+    for i, dDM in enumerate(DDMS):
+        path = str(root / f"ep{i}.fits")
+        make_fake_pulsar(model, PAR, outfile=path, nsub=3,
+                         nchan=12 if i == 2 else 16, nbin=256, nu0=1500.0,
+                         bw=800.0, tsub=60.0, phase=0.05 * i, dDM=dDM,
+                         start_MJD=MJD(55100 + 10 * i, 0.1),
+                         noise_stds=0.1, dedispersed=False, quiet=True,
+                         rng=400 + i, nbit=2 if i == 1 else 16,
+                         device="cpu")
+        files.append(path)
+    return root, files, gmodel
+
+
+def test_resume_drops_torn_tail(campaign, stream_config, tmp_path):
+    """resume=True truncates after the last completion sentinel, skips
+    completed archives, and ends with the uninterrupted run's lines."""
+    root, files, gmodel = campaign
+    full = tmp_path / "full.tim"
+    TS.stream_wideband_TOAs(files, gmodel, nsub_batch=4, device="cpu",
+                            tim_out=str(full), quiet=True)
+    lines = full.read_text().splitlines(keepends=True)
+    first_done = next(i for i, ln in enumerate(lines)
+                      if ln.startswith("C ppt-done "))
+    part = tmp_path / "part.tim"
+    part.write_text("".join(lines[:first_done + 1]) + "torn 1400.0 55100.12")
+    done_arch = lines[first_done].split("C ppt-done ", 1)[1].strip()
+    assert TS.checkpoint_completed(str(part)) == {done_arch}
+    res = TS.stream_wideband_TOAs(files, gmodel, nsub_batch=4,
+                                  device="cpu", tim_out=str(part),
+                                  quiet=True, resume=True)
+    assert done_arch not in [t.archive for t in res.TOA_list]
+    assert len(res.TOA_list) == 6
+    assert part.read_bytes() == full.read_bytes()
+
+
+def test_degenerate_one_channel_subint(campaign, stream_config, tmp_path):
+    """A subint with one usable channel is demoted to a phase-only
+    bucket and reports the header DM."""
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+
+    root, files, gmodel = campaign
+    w = np.ones((2, 16))
+    w[0, 1:] = 0.0
+    path = str(tmp_path / "degen.fits")
+    make_fake_pulsar(default_test_model(1500.0), PAR, outfile=path, nsub=2,
+                     nchan=16, nbin=256, tsub=60.0, noise_stds=0.1,
+                     weights=w, dedispersed=False, quiet=True, rng=9,
+                     nbit=2, device="cpu")
+    res = TS.stream_wideband_TOAs([path], gmodel, nsub_batch=8,
+                                  device="cpu", quiet=True)
+    assert len(res.TOA_list) == 2
+    assert res.nfit == 2  # one full bucket + one phase-only bucket
+    assert all(np.isfinite(t.TOA_error) for t in res.TOA_list)
+    t0 = [t for t in res.TOA_list if t.flags["subint"] == 0][0]
+    # the header DM as the float32 lane holds it
+    assert t0.DM == float(np.float32(PAR["DM"]))
+
+
+def test_inflight_bound_is_exact(campaign, stream_config):
+    """With max_inflight=1 no device queue ever holds two dispatches."""
+    root, files, gmodel = campaign
+    res = TS.stream_wideband_TOAs(files, gmodel, nsub_batch=2,
+                                  max_inflight=1,
+                                  stream_devices=["cpu", "cpu"], quiet=True)
+    assert res.nfit >= 4
+    assert res.peak_inflight == 1
+    assert len(res.TOA_list) == 9
+
+
+def test_two_devices_identical_to_one(campaign, stream_config, tmp_path):
+    """Buckets dealt across two devices give the one-device .tim byte
+    for byte (archive-order checkpoints)."""
+    root, files, gmodel = campaign
+    t1, t2 = tmp_path / "d1.tim", tmp_path / "d2.tim"
+    a = TS.stream_wideband_TOAs(files, gmodel, nsub_batch=2,
+                                stream_devices=["cpu"], tim_out=str(t1),
+                                quiet=True)
+    b = TS.stream_wideband_TOAs(files, gmodel, nsub_batch=2,
+                                stream_devices=["cpu", "cpu"],
+                                tim_out=str(t2), quiet=True)
+    assert b.devices_used == 2 and a.devices_used == 1
+    assert a.nfit == b.nfit
+    assert t1.read_bytes() == t2.read_bytes()
+    assert a.DeltaDM_means == b.DeltaDM_means
+
+
+def test_campaign_recovers_injection(campaign, stream_config):
+    """Per-archive DeltaDM recovers the injected dDM, int16 and 2-bit."""
+    root, files, gmodel = campaign
+    res = TS.stream_wideband_TOAs(files, gmodel, nsub_batch=4,
+                                  device="cpu", quiet=True)
+    for i, dDM in enumerate(DDMS):
+        assert res.DeltaDM_means[i] == pytest.approx(
+            dDM, abs=max(4 * res.DeltaDM_errs[i], 2e-4))
+
+
+def test_cli_stream(campaign, stream_config, tmp_path):
+    """pptoas --stream --device cpu writes the library call's TOAs."""
+    from pulseportraiture_tpu_torch.cli.pptoas import main
+
+    root, files, gmodel = campaign
+    meta = tmp_path / "meta.txt"
+    meta.write_text("\n".join(files) + "\n")
+    out = str(tmp_path / "cli.tim")
+    assert main(["--stream", "-d", str(meta), "-m", gmodel, "-o", out,
+                 "--device", "cpu", "--quiet", "--print_phase",
+                 "--pipeline-depth", "1"]) == 0
+    lib = TS.stream_wideband_TOAs(files, gmodel, device="cpu", quiet=True,
+                                  print_phase=True)
+    got = _parse_tim(out)
+    assert len(got) == len(lib.TOA_list) == 9
+    for g, t in zip(got, lib.TOA_list):
+        assert g[0] == t.archive and g[5]["-subint"] == str(
+            t.flags["subint"])
+        # -phs is printed to 8 decimals
+        assert float(g[5]["-phs"]) == pytest.approx(t.flags["phs"],
+                                                    abs=1e-8)
+
+
+class TestRefusals:
+    """Unported options raise NotImplementedError naming their ROADMAP
+    item; the CUDA default raises without a card."""
+
+    @pytest.mark.parametrize("kw,item", [
+        ({"fit_scat": True}, "A6"), ({"scat_guess": "auto"}, "A6"),
+        ({"instrumental_response_dict": {"wids": [0.1],
+                                         "irf_types": ["rect"]}}, "A6"),
+        ({"telemetry": "t.jsonl"}, "A13"), ({"zap_inline": True}, "A8"),
+        ({"zap_channels": {}}, "A8"), ({"postfit_cut": True}, "A8")])
+    def test_options(self, campaign, kw, item):
+        root, files, gmodel = campaign
+        with pytest.raises(NotImplementedError, match=item):
+            TS.stream_wideband_TOAs(files, gmodel, device="cpu", **kw)
+
+    def test_narrowband_and_service_mode(self, campaign, stream_config):
+        root, files, gmodel = campaign
+        with pytest.raises(NotImplementedError, match="A8"):
+            TS.stream_narrowband_TOAs(files, gmodel)
+        lane, loader = TS.make_wideband_lane(gmodel, device="cpu")
+        with pytest.raises(NotImplementedError, match="A13"):
+            TS._StreamExecutor(lane, files, loader, 4,
+                               stream_devices=["cpu"], service=True)
+        ex = TS._StreamExecutor(lane, files, loader, 4,
+                                stream_devices=["cpu"])
+        with pytest.raises(NotImplementedError, match="A13"):
+            ex.flush_stale(1.0)
+        with pytest.raises(NotImplementedError, match="A13"):
+            ex.on_archive_done = print
+        ex._shutdown(wait=True)
+
+    def test_cli_transport_compress(self, campaign):
+        from pulseportraiture_tpu_torch.cli.pptoas import main
+
+        root, files, gmodel = campaign
+        with pytest.raises(NotImplementedError, match="A7"):
+            main(["--stream", "-d", files[0], "-m", gmodel, "--device",
+                  "cpu", "--transport-compress", "on"])
+        with pytest.raises(SystemExit):
+            main(["-d", files[0], "-m", gmodel, "--device", "cpu",
+                  "--stream-devices", "2"])
+
+    def test_no_card(self, campaign, stream_config, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        root, files, gmodel = campaign
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TS.resolve_stream_devices("auto")
+        with pytest.raises(RuntimeError):
+            TS.stream_wideband_TOAs(files, gmodel, stream_devices="auto")
+        with pytest.raises(RuntimeError):
+            TS.stream_wideband_TOAs(files, gmodel, device="cuda")
+        assert TS.resolve_stream_devices(["cpu", "cpu"]) == [
+            torch.device("cpu")] * 2
+        with pytest.raises(ValueError):
+            TS.resolve_stream_devices(3)

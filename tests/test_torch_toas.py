@@ -215,11 +215,16 @@ class TestUnportedOptionsRaise:
     @pytest.mark.parametrize("flag,item", [("--narrowband", "A8"),
                                            ("--stream", "A7")])
     def test_cli_lanes(self, dataset, flag, item):
+        """--narrowband is refused; --stream runs (tests/
+        test_torch_stream.py), and what it still refuses is its
+        transport codec."""
         from pulseportraiture_tpu_torch.cli.pptoas import main
 
         meta, gmodel, files = dataset
+        extra = ["--transport-compress", "on"] if flag == "--stream" else []
         with pytest.raises(NotImplementedError, match=item):
-            main(["-d", files[0], "-m", gmodel, "--device", "cpu", flag])
+            main(["-d", files[0], "-m", gmodel, "--device", "cpu", flag]
+                 + extra)
 
     def test_spline_template(self, tmp_path):
         from pulseportraiture_tpu_torch.pipeline import TemplateModel
