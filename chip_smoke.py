@@ -13,31 +13,40 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
 3. kernels vs plain versions: B1 (fused DFT -> cross-spectrum) and B2
    (sub-byte decode -> DFT -> cross-spectrum) against their plain
    PyTorch versions on the card over directed sets of shapes, with the
-   tolerance stated per case (B2's decoded samples exactly);
+   tolerance stated per case (B2's decoded samples exactly), each case
+   through the arm the shape rule (ops.fused.fft_arm) or the case
+   names: the FFT arm at nbin 16 ... 8192, the GEMM arm at nbin 1000 and
+   forced at 2048.  A float32 FFT-arm case is held to the plain version
+   evaluated in float64 on the same inputs (plain_oracle: the float32
+   plain version's own error can exceed the tolerance);
 4. main path: a 64-subint 512-channel x 2048-bin archive with injected
    (phi, dDM) from a seeded generator and a .gmodel template, measured
    by ``python -m pulseportraiture_tpu_torch.cli.pptoas`` (run in this
    process, so the kernels' launch counters can be read), then by the
    GetTOAs library call for the fit time; every TOA must recover the
    injected phase to |dphi| < 1e-4 rot, every return code must be in
-   {0, 1, 2}, and B1 must have been launched;
-5. B1's, its plain version's and a torch.matmul equivalent's times at
-   the main path's shapes, each output held to its tolerance again;
+   {0, 1, 2}, and B1 must have been launched through its FFT arm and
+   never its GEMM arm;
+5. B1's, its GEMM arm's, its plain version's, a torch.matmul
+   equivalent's and a cuFFT (torch.fft.rfft) equivalent's times at the
+   main path's shapes, each output held to its tolerance again;
 6. stream path: 8 archives of 64 x 512 x 2048 2-bit (NBIT=2) samples and
    the main path's int16 archive in one metafile, measured by
    ``pptoas --stream`` in this process; B2 and B1 must both have been
-   launched, every TOA must recover the injection to 1e-4 rot, and every
+   launched through their FFT arms and never their GEMM arms, every TOA
+   must recover the injection to 1e-4 rot, and every
    2-bit TOA must agree with GetTOAs on the same archive within 0.1
    sigma; B1 is held to its plain version at a full int16 bucket
    (256 x 512 x 2048, the largest shape the stream path gives it); then
    the campaign's TOAs/s, host -> device bytes and the device's idle
    share under the profiler;
-7. B2's, its plain version's and a torch equivalent's times at the
-   stream path's bucket shape (256 x 512 x 2048), each output held to
-   its tolerance.
+7. B2's, its GEMM arm's, its plain version's and two torch
+   equivalents' (the decode as torch ops, then torch.matmul or
+   torch.fft.rfft) times at the stream path's bucket shape (256 x 512 x
+   2048), each output held to its tolerance.
 
 The line before the last is one JSON object listing each kernel with
-its launches on its path, error, times and bound; the last line is
+its launches on its path, error, times, bound and arm; the last line is
 ``{"ok": true, "device": {...}}``.  Each phase prints its wall time.
 Exits non-zero without a result when no CUDA device is available or the
 package is missing.
@@ -81,7 +90,12 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, n=20, warmup=3):
+def median_ms(fn, n=20, warmup=3, reps=5):
+    """Median over n samples of the device time per call: CUDA events
+    around reps calls issued back to back, divided by reps, so that the
+    host's time to issue a call overlaps the card's work on the one
+    before (a lone call would also time the idle card waiting for its
+    first launch)."""
     import torch
 
     for _ in range(warmup):
@@ -92,16 +106,17 @@ def median_ms(fn, n=20, warmup=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     times.sort()
     return times[len(times) // 2]
 
 
 def cross_spectrum_case(name, nb, nchan, nbin, K, dtype, fold=False,
-                        want_m2=False, per_element=False, seed=0):
+                        want_m2=False, per_element=False, seed=0, arm=None):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -113,39 +128,107 @@ def cross_spectrum_case(name, nb, nchan, nbin, K, dtype, fold=False,
     w = torch.rand(lead + (nchan, K), generator=g, device="cuda",
                    dtype=dtype) + 0.5
     return dict(name=name, port=port, model=model, w=w, K=K, fold=fold,
-                want_m2=want_m2)
+                want_m2=want_m2, arm=arm)
+
+
+def expect_arm(kernel, before, arm, name):
+    """Raise unless the launches since ``before`` (a kernel_launches()
+    snapshot) all went through ``arm``; return the arm."""
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    now = F.kernel_launches()
+    d = {a: now[f"{kernel}.{a}"] - before[f"{kernel}.{a}"]
+         for a in ("fft", "gemm")}
+    other = "gemm" if arm == "fft" else "fft"
+    if d[arm] < 1 or d[other]:
+        raise AssertionError(f"{name}: {kernel} launches by arm {d}, "
+                             f"expected the {arm} arm only")
+    return arm
+
+
+def case_arm(c, nbin):
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    return c["arm"] or ("fft" if F.fft_arm(nbin, c["K"]) else "gemm")
+
+
+def plain_oracle(ref_fn, args, kw, arm):
+    """The plain version's outputs that a case is held to, and the
+    float32 plain version's own outputs (None for float64 cases).  A
+    float64 case, and the GEMM arm (which sums each harmonic in the
+    plain version's order), are held to the plain version as it is.  A
+    float32 case of the FFT arm is held to the plain version on the same
+    inputs evaluated in float64: the float32 plain version sums each
+    harmonic over the row in order, and on baselined rows (a DC term of
+    a few hundred) its DC harmonic errs by up to ~2e-5 x max|dr| at 2048
+    bins, more than the tolerance and ~200x the FFT's tree of sums."""
+    import torch
+
+    ref32 = ref_fn(*args, **kw)
+    if ref32[0].dtype == torch.float64:
+        return ref32, None
+    if arm == "gemm":
+        return ref32, ref32
+    up = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+               else a for a in args)
+    return ref_fn(*up, **kw), ref32
+
+
+def upcast(ref, ref32):
+    """True when plain_oracle evaluated the float32 case in float64."""
+    return ref32 is not None and ref32 is not ref
+
+
+def check_outputs(name, kernel, got, ref, ref32, parts):
+    """Each output within 1e-5 (float32) or 1e-12 (float64) x its
+    max|ref| of ref; raises otherwise.  Returns [(err, max|ref|, part)]
+    and the log text (with the float32 plain version's own error against
+    ref where the two differ)."""
+    import torch
+
+    rtol = 1e-5 if ref32 is not None else 1e-12
+    worst, text = [], []
+    for i, part in enumerate(parts):
+        g, r = got[i], ref[i]
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {part}: shape {tuple(g.shape)} vs "
+                                 f"{tuple(r.shape)} or non-finite")
+        err = float((g.double() - r.double()).abs().max())
+        scale = float(r.abs().max())
+        if not err <= rtol * scale:
+            raise AssertionError(
+                f"{kernel} {name} {part}: max abs err {err:.3e} > {rtol:g} "
+                f"x max|ref| {scale:.3e}")
+        worst.append((err, scale, part))
+        t = f"{part} {err:.3e} of {scale:.3e}"
+        if upcast(ref, ref32):
+            e32 = float((ref32[i].double() - r.double()).abs().max())
+            t += f" (plain f32 {e32:.3e})"
+        text.append(t)
+    return worst, ", ".join(text)
 
 
 def check_cross_spectrum_case(c):
-    """B1 against its plain version on one case: each output within
-    1e-5 (float32) or 1e-12 (float64) of its max|ref|; raises
-    otherwise."""
+    """B1 against its plain version (plain_oracle) on one case, through
+    the arm the shape rule or the case names: each output within 1e-5
+    (float32) or 1e-12 (float64) of its max|ref|; raises otherwise."""
     import torch
     from pulseportraiture_tpu_torch.ops import fused as F
 
     args = (c["port"], c["model"], c["w"], c["K"])
     kw = dict(fold=c["fold"], want_m2=c["want_m2"])
-    got = F.fused_cross_spectrum_cuda(*args, **kw)
-    ref = F.fused_cross_spectrum_ref(*args, **kw)
+    before = F.kernel_launches()
+    got = F.fused_cross_spectrum_cuda(*args, arm=c["arm"], **kw)
+    arm = expect_arm("fused_cross_spectrum", before,
+                     case_arm(c, c["port"].shape[-1]), c["name"])
+    ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, kw, arm)
     torch.cuda.synchronize()
-    f64case = c["port"].dtype == torch.float64
-    rtol = 1e-12 if f64case else 1e-5
-    errs = []
-    for g, r, part in zip(got, ref, ("Xr", "Xi", "o2")):
-        if g.shape != r.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"{c['name']} {part}: shape "
-                                 f"{tuple(g.shape)} vs {tuple(r.shape)} "
-                                 f"or non-finite")
-        err = float((g - r).abs().max())
-        scale = float(r.abs().max())
-        if not err <= rtol * scale:
-            raise AssertionError(
-                f"{c['name']} {part}: max abs err {err:.3e} > {rtol:g} x "
-                f"max|ref| {scale:.3e}")
-        errs.append(f"{part} {err:.3e} of {scale:.3e}")
-    log(f"kernel check ok: fused_cross_spectrum {c['name']} (tol "
-        f"{'1e-12' if f64case else '1e-5'} x max|ref|; max abs err "
-        + ", ".join(errs) + ")")
+    _, text = check_outputs(c["name"], "fused_cross_spectrum", got, ref,
+                            ref32, ("Xr", "Xi", "o2"))
+    log(f"kernel check ok: fused_cross_spectrum {c['name']} ({arm} arm; "
+        f"tol {'1e-5' if ref32 is not None else '1e-12'} x max|ref| of the "
+        f"plain version{' in float64' if upcast(ref, ref32) else ''};"
+        f" max abs err {text})")
 
 
 def library_equivalent(port, model, w, K, W):
@@ -157,6 +240,20 @@ def library_equivalent(port, model, w, K, W):
     Mm = torch.matmul(model, W)
     dr, di = D[..., :K], D[..., K:]
     mr, mi = Mm[..., :K], Mm[..., K:]
+    Xr = (dr * mr + di * mi) * w
+    Xi = (di * mr - dr * mi) * w
+    return Xr, Xi, torch.sum((mr * mr + mi * mi) * w, dim=-1)
+
+
+def cufft_equivalent(port, model, w, K):
+    """The same function with torch.fft.rfft (cuFFT) of data and
+    template sliced to K and the same epilogue (the yardstick; the port
+    never calls it)."""
+    import torch
+
+    D = torch.fft.rfft(port)[..., :K]
+    Mm = torch.fft.rfft(model)[..., :K]
+    dr, di, mr, mi = D.real, D.imag, Mm.real, Mm.imag
     Xr = (dr * mr + di * mi) * w
     Xi = (di * mr - dr * mi) * w
     return Xr, Xi, torch.sum((mr * mr + mi * mi) * w, dim=-1)
@@ -183,19 +280,8 @@ def cross_spectrum_bound_ms(nb, nchan, nbin, K, itemsize, want_m2,
                                  else "bytes")
 
 
-def dft_operations_ms(nb, nchan, nbin, K, itemsize, fold, shared=True):
-    """Secondary figure: the kernel's own matmul-DFT FLOPs (direct arm:
-    4 x rows x nbin x K; fold arm: over nbin/2 - 1 folded samples) over
-    the FP32 (or FP64) peak, for the data rows and the template once."""
-    L = nbin // 2 - 1 if fold else nbin
-    rows = nb * nchan
-    mrows = nchan if shared else rows
-    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS
-    return 4.0 * (rows + mrows) * L * K / peak * 1e3
-
-
 def decode_case(name, nb, nchan, nbin, K, dtype, code, fold=False,
-                seed=0):
+                seed=0, arm=None):
     """A B2 problem on the card: random packed bytes (every sample value
     occurs), DAT_SCL in [0.5, 1.5), DAT_OFFS ~ N(0, 1), one shared
     template and per-element weights."""
@@ -216,44 +302,35 @@ def decode_case(name, nb, nchan, nbin, K, dtype, code, fold=False,
     w = torch.rand(lead + (nchan, K), generator=g, device="cuda",
                    dtype=dtype) + 0.5
     return dict(name=name, raw=raw, scl=scl, offs=offs, model=model, w=w,
-                K=K, code=code, nbin=nbin, fold=fold)
+                K=K, code=code, nbin=nbin, fold=fold, arm=arm)
 
 
 def check_decode_case(c):
-    """B2 against its plain version on one case: each output within
-    1e-5 (float32) or 1e-12 (float64) of its max|ref|, and the kernel's
+    """B2 against its plain version (plain_oracle) on one case, through
+    the arm the shape rule or the case names: each output within 1e-5
+    (float32) or 1e-12 (float64) of its max|ref|, and the kernel's
     decoded samples equal to the plain decode's.  Returns the worst
     (err, max|ref|, output) of the five outputs."""
     import torch
     from pulseportraiture_tpu_torch.ops import fused as F
-    from pulseportraiture_tpu_torch.ops.decode import affine_decode
+    from pulseportraiture_tpu_torch.ops.decode import (PACKED_BITS,
+                                                       affine_decode,
+                                                       unpack_bitplanes)
     from pulseportraiture_tpu_torch.ops.noise import min_window_baseline
 
     args = (c["raw"], c["scl"], c["offs"], c["model"], c["w"], c["K"])
     kw = dict(code=c["code"], nbin=c["nbin"], fold=c["fold"])
-    got = F.fused_decode_cross_spectrum_cuda(*args, **kw)
-    ref = F.fused_decode_cross_spectrum_ref(*args, **kw)
+    before = F.kernel_launches()
+    got = F.fused_decode_cross_spectrum_cuda(*args, arm=c["arm"], **kw)
+    arm = expect_arm("fused_decode_cross_spectrum", before,
+                     case_arm(c, c["nbin"]), c["name"])
+    ref, ref32 = plain_oracle(F.fused_decode_cross_spectrum_ref, args, kw,
+                              arm)
     torch.cuda.synchronize()
-    f64case = c["w"].dtype == torch.float64
-    rtol = 1e-12 if f64case else 1e-5
-    worst = []
-    for g, r, part in zip(got, ref, ("Xr", "Xi", "S0", "pwr", "x0")):
-        if g.shape != r.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"{c['name']} {part}: shape "
-                                 f"{tuple(g.shape)} vs {tuple(r.shape)} "
-                                 f"or non-finite")
-        err = float((g - r).abs().max())
-        scale = float(r.abs().max())
-        if not err <= rtol * scale:
-            raise AssertionError(
-                f"{c['name']} {part}: max abs err {err:.3e} > {rtol:g} x "
-                f"max|ref| {scale:.3e}")
-        worst.append((err / scale, err, scale, part))
-    # the samples the kernel's GEMM stages, against the plain decode
-    # with the plain baseline: bit for bit
-    from pulseportraiture_tpu_torch.ops.decode import (PACKED_BITS,
-                                                       unpack_bitplanes)
-
+    worst, _ = check_outputs(c["name"], "fused_decode_cross_spectrum", got,
+                             ref, ref32, ("Xr", "Xi", "S0", "pwr", "x0"))
+    # the samples the kernel stages, against the plain decode with the
+    # plain baseline: bit for bit
     nbin = c["nbin"]
     s = unpack_bitplanes(c["raw"], PACKED_BITS[c["code"]], nbin)
     x = affine_decode(s, c["scl"], c["offs"], c["w"].dtype)
@@ -267,24 +344,29 @@ def check_decode_case(c):
         n = int((got_x != ref_x).sum())
         raise AssertionError(f"{c['name']}: {n} decoded samples differ "
                              "from the plain decode")
-    _, err, scale, part = max(worst)
-    log(f"kernel check ok: fused_decode_cross_spectrum {c['name']} (tol "
-        f"{'1e-12' if f64case else '1e-5'} x max|ref|; worst {part} "
-        f"{err:.3e} of {scale:.3e}; decoded samples exact)")
+    err, scale, part = max(worst, key=lambda t: t[0] / max(t[1], 1e-300))
+    log(f"kernel check ok: fused_decode_cross_spectrum {c['name']} ({arm} "
+        f"arm; tol {'1e-5' if ref32 is not None else '1e-12'} x max|ref| of "
+        f"the plain version{' in float64' if upcast(ref, ref32) else ''}"
+        f"; worst {part} {err:.3e} of {scale:.3e}; decoded samples exact)")
     return err, scale, part
 
 
-def decode_library_equivalent(raw, scl, offs, model, w, K, code, nbin, W):
+def decode_library_equivalent(raw, scl, offs, model, w, K, code, nbin,
+                              W=None):
     """One torch computation of B2's function with library calls: the
-    decode as torch ops, a torch.matmul DFT of data and template, the
-    epilogue and the Parseval rows (the yardstick; the port never calls
-    it)."""
+    decode as torch ops, a torch.matmul DFT (against W) or, without W,
+    a torch.fft.rfft of data and template, the epilogue and the Parseval
+    rows (the yardstick; the port never calls it)."""
     import torch
     from pulseportraiture_tpu_torch.ops.decode import decode_stokes_I
 
     x = decode_stokes_I(raw.reshape(raw.shape[:-2] + (-1,)), scl, offs,
                         w.dtype, code=code, nbin=nbin)
-    Xr, Xi, S0 = library_equivalent(x, model, w, K, W)
+    if W is None:
+        Xr, Xi, S0 = cufft_equivalent(x, model, w, K)
+    else:
+        Xr, Xi, S0 = library_equivalent(x, model, w, K, W)
     x0 = x.sum(dim=-1)
     pwr = nbin * ((x - (x0 / nbin)[..., None]) ** 2).sum(dim=-1)
     sgn = torch.ones(nbin, device=x.device, dtype=x.dtype)
@@ -315,60 +397,83 @@ def decode_bound_ms(nb, nchan, nbin, K, nbit, itemsize=4):
 
 def phase_kernels():
     """Every kernel vs its plain version on the card over the directed
-    set; raises on the first disagreement."""
+    set, each case through its expected arm; raises on the first
+    disagreement."""
     import torch
 
     f32, f64 = torch.float32, torch.float64
+    B1 = cross_spectrum_case
     cases = [
-        cross_spectrum_case("production 64x512x2048 K=256", 64, 512, 2048,
-                            256, f32),
-        cross_spectrum_case("single subint 512x2048 K=256", None, 512,
-                            2048, 256, f32, seed=1),
-        cross_spectrum_case("ragged nchan=500", 2, 500, 2048, 256, f32,
-                            seed=2),
-        cross_spectrum_case("fold", 4, 512, 2048, 256, f32, fold=True,
-                            seed=3),
-        cross_spectrum_case("want_m2", 4, 512, 2048, 256, f32,
-                            want_m2=True, seed=4),
-        cross_spectrum_case("per-element models", 4, 512, 2048, 256, f32,
-                            per_element=True, seed=5),
-        cross_spectrum_case("K not a tile multiple", 3, 37, 256, 100, f32,
-                            fold=True, want_m2=True, seed=6),
-        cross_spectrum_case("f64 small", 3, 13, 128, 40, f64, seed=7),
-        cross_spectrum_case("f64 small fold want_m2 per-element", 2, 13,
-                            128, 40, f64, fold=True, want_m2=True,
-                            per_element=True, seed=8),
+        # FFT arm: the production shape, the ends of the nbin range,
+        # K = 1, K on no tile, K = nbin/2 + 1, odd row counts, both
+        # model forms, want_m2, no batch axis, float32 and float64
+        B1("production 64x512x2048 K=256", 64, 512, 2048, 256, f32),
+        B1("single subint 512x2048 K=256", None, 512, 2048, 256, f32,
+           seed=1),
+        B1("ragged nchan=500", 2, 500, 2048, 256, f32, seed=2),
+        B1("per-element models want_m2 2048 K=1025", 4, 512, 2048, 1025,
+           f32, want_m2=True, per_element=True, seed=3),
+        B1("nbin=16 K=9 111 rows", 3, 37, 16, 9, f32, seed=4),
+        B1("nbin=8192 K=4097 66 rows", 2, 33, 8192, 4097, f32, seed=5),
+        B1("nbin=128 K=1 13 rows", None, 13, 128, 1, f32, seed=6),
+        B1("nbin=256 K=100 want_m2 per-element", 3, 37, 256, 100, f32,
+           want_m2=True, per_element=True, seed=7),
+        B1("f64 nbin=128 K=40", 3, 13, 128, 40, f64, seed=8),
+        B1("f64 nbin=16 K=9 per-element want_m2", 3, 13, 16, 9, f64,
+           want_m2=True, per_element=True, seed=9),
+        B1("f64 nbin=2048 K=1025 26 rows", 2, 13, 2048, 1025, f64,
+           seed=10),
+        B1("f64 nbin=8192 K=1 5 rows", None, 5, 8192, 1, f64, seed=11),
+        B1("f64 nbin=8192 K=4097 want_m2", 1, 7, 8192, 4097, f64,
+           want_m2=True, seed=12),
+        # GEMM arm: by the rule (nbin=1000) and forced at 2048
+        B1("GEMM arm nbin=1000 K=100", 3, 37, 1000, 100, f32, seed=13),
+        B1("GEMM arm forced 2048 fold", 4, 512, 2048, 256, f32, fold=True,
+           seed=14, arm="gemm"),
+        B1("GEMM arm f64 nbin=1000 fold want_m2 per-element", 2, 13, 1000,
+           40, f64, fold=True, want_m2=True, per_element=True, seed=15),
     ]
     for c in cases:
         check_cross_spectrum_case(c)
     del cases
+    B2 = decode_case
     for c in (
-            decode_case("2-bit 64x512x2048 K=256", NSUB, NCHAN, NBIN, 256,
-                        f32, "p2", seed=20),
-            decode_case("1-bit 4x512x2048 K=256", 4, NCHAN, NBIN, 256, f32,
-                        "p1", seed=21),
-            decode_case("4-bit 4x512x2048 K=256", 4, NCHAN, NBIN, 256, f32,
-                        "p4", seed=22),
-            decode_case("ragged nchan=500 2-bit", 2, 500, NBIN, 256, f32,
-                        "p2", seed=23),
-            decode_case("fold 2-bit", 4, NCHAN, NBIN, 256, f32, "p2",
-                        fold=True, seed=24),
-            decode_case("single subint 4-bit K not a tile multiple", None,
-                        37, 256, 100, f32, "p4", fold=True, seed=25),
-            decode_case("f64 small 1-bit", 3, 13, 128, 40, f64, "p1",
-                        seed=26),
-            decode_case("f64 small 4-bit fold", 2, 13, 128, 40, f64, "p4",
-                        fold=True, seed=27)):
+            B2("2-bit 64x512x2048 K=256", NSUB, NCHAN, NBIN, 256, f32, "p2",
+               seed=20),
+            B2("1-bit 4x512x2048 K=256", 4, NCHAN, NBIN, 256, f32, "p1",
+               seed=21),
+            B2("4-bit 4x512x2048 K=1025", 4, NCHAN, NBIN, 1025, f32, "p4",
+               seed=22),
+            B2("ragged nchan=500 2-bit", 2, 500, NBIN, 256, f32, "p2",
+               seed=23),
+            B2("single subint 4-bit nbin=256 K=100 37 rows", None, 37, 256,
+               100, f32, "p4", seed=24),
+            B2("1-bit nbin=8192 K=4097 9 rows", 1, 9, 8192, 4097, f32, "p1",
+               seed=25),
+            B2("2-bit nbin=16 K=1 111 rows", 3, 37, 16, 1, f32, "p2",
+               seed=26),
+            B2("f64 1-bit nbin=128 K=40", 3, 13, 128, 40, f64, "p1",
+               seed=27),
+            B2("f64 4-bit nbin=16 K=9", 2, 13, 16, 9, f64, "p4", seed=28),
+            B2("f64 2-bit nbin=8192 K=1", None, 5, 8192, 1, f64, "p2",
+               seed=29),
+            B2("GEMM arm 2-bit nbin=1000 K=100", 2, 37, 1000, 100, f32,
+               "p2", seed=30),
+            B2("GEMM arm forced 2-bit 2048 fold", 4, NCHAN, NBIN, 256, f32,
+               "p2", fold=True, seed=31, arm="gemm"),
+            B2("GEMM arm f64 4-bit nbin=1000 fold", 2, 13, 1000, 40, f64,
+               "p4", fold=True, seed=32)):
         check_decode_case(c)
 
 
-
 def phase_timing(K_main):
-    """Kernel, plain-version and torch.matmul-equivalent median times at
-    the main path's shape: 64 subints against one shared template with
-    per-element weights, at the main path's harmonic window K_main and
-    at the production K=256 of the directed set.  Each output is first
-    held to the f32 tolerance (1e-5 x its max|ref|); raises otherwise."""
+    """Kernel (its arm by the shape rule, the FFT arm here), GEMM-arm,
+    plain-version, torch.matmul-equivalent and cuFFT-equivalent median
+    times at the main path's shape: 64 subints against one shared
+    template with per-element weights, at the main path's harmonic
+    window K_main and at the production K=256 of the directed set.  Each
+    output of the kernel, its GEMM arm and the cuFFT equivalent is first
+    held to 1e-5 x its max|ref| (plain_oracle); raises otherwise."""
     import torch
     from pulseportraiture_tpu_torch.ops import fused as F
     from pulseportraiture_tpu_torch.ops.fourier import device_weights
@@ -382,41 +487,46 @@ def phase_timing(K_main):
         Wc, Ws = device_weights("rfft", c["port"].device, NBIN, "float32",
                                 K)
         W = torch.cat([Wc, Ws], dim=1).contiguous()
+        before = F.kernel_launches()
         got = F.fused_cross_spectrum_cuda(*args)
-        ref = F.fused_cross_spectrum_ref(*args)
-        errs = []
-        for g, r, part in zip(got, ref, ("Xr", "Xi", "S0")):
-            e = float((g - r).abs().max())
-            s = float(r.abs().max())
-            if not (torch.isfinite(g).all() and e <= 1e-5 * s):
-                raise AssertionError(
-                    f"time K={K} {part}: max abs err {e:.3e} > 1e-5 x "
-                    f"max|ref| {s:.3e} (or non-finite)")
-            errs.append((e, s, part))
-        err, scale, _ = max(errs)
+        arm = expect_arm("fused_cross_spectrum", before, "fft",
+                         f"time K={K}")
+        parts = ("Xr", "Xi", "S0")
+        ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, {},
+                                  arm)
+        errs, text = check_outputs(f"time K={K}", "fused_cross_spectrum",
+                                   got, ref, ref32, parts)
+        check_outputs(f"time K={K} GEMM arm", "fused_cross_spectrum",
+                      F.fused_cross_spectrum_cuda(*args, arm="gemm"), ref32,
+                      ref32, parts)
+        check_outputs(f"time K={K} cuFFT equivalent", "cufft_equivalent",
+                      cufft_equivalent(c["port"], c["model"], c["w"], K),
+                      ref, ref32, parts)
+        del got, ref, ref32
+        err, scale, _ = max(errs, key=lambda t: t[0] / max(t[1], 1e-300))
         ms = median_ms(lambda: F.fused_cross_spectrum_cuda(*args))
+        gemm_ms = median_ms(lambda: F.fused_cross_spectrum_cuda(
+            *args, arm="gemm"))
         plain_ms = median_ms(lambda: F.fused_cross_spectrum_ref(*args))
         lib_ms = median_ms(lambda: library_equivalent(
             c["port"], c["model"], c["w"], K, W))
+        cufft_ms = median_ms(lambda: cufft_equivalent(
+            c["port"], c["model"], c["w"], K))
         ms2 = median_ms(lambda: F.fused_cross_spectrum_cuda(*args))
-        fold_ms = median_ms(lambda: F.fused_cross_spectrum_cuda(
-            *args, fold=True))
         bound, by = cross_spectrum_bound_ms(NSUB, NCHAN, NBIN, K, 4, False)
-        direct_ops = dft_operations_ms(NSUB, NCHAN, NBIN, K, 4, False)
-        fold_ops = dft_operations_ms(NSUB, NCHAN, NBIN, K, 4, True)
         log(f"timing fused_cross_spectrum {NSUB}x{NCHAN}x{NBIN} K={K} "
-            f"f32: kernel {ms:.4f} ms (again {ms2:.4f}), plain "
-            f"{plain_ms:.4f} ms, torch.matmul equivalent {lib_ms:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}; rfft operations or bytes); "
-            f"fold arm {fold_ms:.4f} ms; matmul-DFT operations alone "
-            f"{direct_ops:.4f} ms direct, {fold_ops:.4f} ms fold; "
-            + ", ".join(f"{p} max abs err {e:.3e} of max|ref| {s:.3e}"
-                        for e, s, p in errs)
-            + " (tol 1e-5 x max|ref| each)")
+            f"f32: kernel ({arm} arm) {ms:.4f} ms (again {ms2:.4f}), GEMM "
+            f"arm {gemm_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+            f"equivalent {lib_ms:.4f} ms, cuFFT equivalent {cufft_ms:.4f} "
+            f"ms, bound {bound:.4f} ms ({by}; rfft operations or bytes), "
+            f"kernel at {100.0 * bound / ms:.1f} % of its bound; max abs "
+            f"err {text} (tol 1e-5 x max|ref| of the plain version in "
+            f"float64 each)")
         records[K] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          cufft_ms=cufft_ms, gemm_ms=gemm_ms,
                           bound_ms=bound, bound_by=by, max_abs_err=err,
-                          max_abs_ref=scale)
-        del c, args, got, ref
+                          max_abs_ref=scale, arm=arm)
+        del c, args
     return records
 
 
@@ -481,6 +591,8 @@ def phase_main_path(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN):
     if launches["fused_cross_spectrum"] < 1:
         raise AssertionError("the main path never launched the "
                              "fused_cross_spectrum kernel")
+    if device_type(device) == "cuda":
+        fft_only(launches, ("fused_cross_spectrum",), "the main path")
 
     with open(tim) as f:
         lines = [ln.split() for ln in f if ln.strip()]
@@ -516,6 +628,8 @@ def phase_main_path(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN):
     lib_launches = F.kernel_launches()["fused_cross_spectrum"]
     if lib_launches < 1:
         raise AssertionError("GetTOAs never launched the kernel")
+    if device_type(device) == "cuda":
+        fft_only(F.kernel_launches(), ("fused_cross_spectrum",), "GetTOAs")
     rcs = np.asarray(gt.rcs[0])[gt.ok_isubs[0]]
     if not np.all(np.isin(rcs, (0, 1, 2))):
         raise AssertionError(f"return codes {sorted(set(rcs.tolist()))}")
@@ -614,43 +728,61 @@ def phase_fit_profile(arch, gmodel, device="cuda"):
 
 def phase_decode_timing(K_main):
     """B2 at the directed production shape (64 x 512 x 2048, 2-bit) at
-    the main path's K, then its, its plain version's and the torch
-    equivalent's median times at the stream path's bucket shape
-    (NSUB_BATCH x 512 x 2048, 2-bit, per-element weights) at K_main.
-    Each output is first held to 1e-5 x its max|ref|."""
+    the main path's K, then its (FFT arm), its GEMM arm's, its plain
+    version's and the two torch equivalents' (decode as torch ops, then
+    torch.matmul or torch.fft.rfft) median times at the stream path's
+    bucket shape (NSUB_BATCH x 512 x 2048, 2-bit, per-element weights)
+    at K_main.  Each output of the kernel, its GEMM arm and the cuFFT
+    equivalent is first held to 1e-5 x its max|ref| (plain_oracle)."""
     import torch
     from pulseportraiture_tpu_torch.ops import fused as F
     from pulseportraiture_tpu_torch.ops.fourier import device_weights
 
     f32 = torch.float32
     check_decode_case(decode_case(f"2-bit 64x512x2048 K={K_main}", NSUB,
-                                  NCHAN, NBIN, K_main, f32, "p2", seed=30))
-    c = decode_case(f"stream bucket {NSUB_BATCH}x{NCHAN}x{NBIN} "
-                    f"K={K_main}", NSUB_BATCH, NCHAN, NBIN, K_main, f32,
-                    "p2", seed=31)
+                                  NCHAN, NBIN, K_main, f32, "p2", seed=40))
+    name = f"stream bucket {NSUB_BATCH}x{NCHAN}x{NBIN} K={K_main}"
+    c = decode_case(name, NSUB_BATCH, NCHAN, NBIN, K_main, f32, "p2",
+                    seed=41)
     err, scale, part = check_decode_case(c)
     args = (c["raw"], c["scl"], c["offs"], c["model"], c["w"], K_main)
     kw = dict(code="p2", nbin=NBIN)
     Wc, Ws = device_weights("rfft", c["raw"].device, NBIN, "float32",
                             K_main)
     W = torch.cat([Wc, Ws], dim=1).contiguous()
+    parts = ("Xr", "Xi", "S0", "pwr", "x0")
+    ref, ref32 = plain_oracle(F.fused_decode_cross_spectrum_ref, args, kw,
+                              "fft")
+    check_outputs(f"{name} GEMM arm", "fused_decode_cross_spectrum",
+                  F.fused_decode_cross_spectrum_cuda(*args, arm="gemm", **kw),
+                  ref32, ref32, parts)
+    check_outputs(f"{name} cuFFT equivalent", "decode_library_equivalent",
+                  decode_library_equivalent(*args, "p2", NBIN), ref, ref32,
+                  parts)
+    del ref, ref32
     ms = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(*args, **kw),
                    n=10)
+    gemm_ms = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(
+        *args, arm="gemm", **kw), n=10)
     plain_ms = median_ms(
         lambda: F.fused_decode_cross_spectrum_ref(*args, **kw), n=5)
     lib_ms = median_ms(lambda: decode_library_equivalent(
         *args, "p2", NBIN, W), n=5)
+    cufft_ms = median_ms(lambda: decode_library_equivalent(
+        *args, "p2", NBIN), n=5)
     ms2 = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(*args, **kw),
                     n=10)
     bound, by = decode_bound_ms(NSUB_BATCH, NCHAN, NBIN, K_main, 2)
     log(f"timing fused_decode_cross_spectrum {NSUB_BATCH}x{NCHAN}x{NBIN} "
-        f"2-bit K={K_main} f32: kernel {ms:.4f} ms (again {ms2:.4f}), "
-        f"plain {plain_ms:.4f} ms, torch equivalent (decode + "
-        f"torch.matmul) {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
-        f"worst {part} max abs err {err:.3e} of max|ref| {scale:.3e}")
+        f"2-bit K={K_main} f32: kernel (fft arm) {ms:.4f} ms (again "
+        f"{ms2:.4f}), GEMM arm {gemm_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch equivalents: decode + torch.matmul {lib_ms:.4f} ms, decode "
+        f"+ torch.fft.rfft {cufft_ms:.4f} ms; bound {bound:.4f} ms ({by}), "
+        f"kernel at {100.0 * bound / ms:.1f} % of its bound; worst {part} "
+        f"max abs err {err:.3e} of max|ref| {scale:.3e}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound, bound_by=by, max_abs_err=err,
-                max_abs_ref=scale)
+                cufft_ms=cufft_ms, gemm_ms=gemm_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=err, max_abs_ref=scale, arm="fft")
 
 
 def stream_archives(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
@@ -785,9 +917,8 @@ def phase_stream(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
         f"blocked on the device; dispatches by bucket shape "
         f"{res.dispatch_shapes}")
     if device_type(device) == "cuda":
-        for k in ("fused_decode_cross_spectrum", "fused_cross_spectrum"):
-            if launches[k] < 1:
-                raise AssertionError(f"the stream path never launched {k}")
+        fft_only(launches, ("fused_decode_cross_spectrum",
+                            "fused_cross_spectrum"), "the stream path")
         check_cross_spectrum_case(cross_spectrum_case(
             f"full int16 bucket {nsub_batch}x{nchan}x{nbin} K={K}",
             nsub_batch, nchan, nbin, K, torch.float32, seed=12))
@@ -824,6 +955,17 @@ def stream_profile(meta, gmodel, device, nsub_batch):
         log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
+def fft_only(launches, kernels, path):
+    """Raise unless each kernel was launched on the path, through its
+    FFT arm only (the paths run 2048 bins)."""
+    for k in kernels:
+        if launches[f"{k}.fft"] < 1 or launches[f"{k}.gemm"]:
+            raise AssertionError(
+                f"{path}: {k} launched {launches[f'{k}.fft']} times through "
+                f"the FFT arm and {launches[f'{k}.gemm']} through the GEMM "
+                "arm; expected FFT-arm launches only")
+
+
 def device_type(device):
     import torch
 
@@ -854,7 +996,8 @@ def main():
     t0 = time.perf_counter()
     F.build_kernels(verbose=True)
     log(f"build: fused_cross_spectrum.cu and fused_decode_cross_spectrum.cu "
-        f"compiled and loaded in {time.perf_counter() - t0:.2f} s")
+        f"(with fcs_gemm.cuh and fft_smem.cuh) compiled and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     phase_kernels()
@@ -890,6 +1033,9 @@ def main():
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
+        "cufft_ms": rec["cufft_ms"],
+        "gemm_arm_ms": rec["gemm_ms"],
+        "arm": rec["arm"],
     }, {
         "name": "fused_decode_cross_spectrum",
         "route": "cuda",
@@ -904,6 +1050,9 @@ def main():
         "bound_ms": rec2["bound_ms"],
         "bound_by": rec2["bound_by"],
         "library_ms": rec2["library_ms"],
+        "cufft_ms": rec2["cufft_ms"],
+        "gemm_arm_ms": rec2["gemm_ms"],
+        "arm": rec2["arm"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,5 +1,16 @@
 // The windowed-DFT -> cross-spectrum GEMM shared by the two fused
-// kernels (fused_cross_spectrum.cu, fused_decode_cross_spectrum.cu).
+// kernels (fused_cross_spectrum.cu, fused_decode_cross_spectrum.cu): the
+// GEMM arm of the ports of the TPU Pallas kernels
+// fused_cross_spectrum_pallas and fused_decode_cross_spectrum_pallas
+// (pulseportraiture_tpu/ops/fused.py), which carries the DFT on the MXU
+// as this GEMM does in FP32 FMAs.
+//
+// Shape rule between the arms (ops/fused.py fft_arm): this arm takes
+// every shape the FFT arm (fft_smem.cuh) does not, i.e. nbin not a power
+// of two in [16, 8192] or K > nbin/2 + 1.  Bound on this card: FP32 FMA
+// throughput (4 rows nbin K FLOPs on rows nbin inputs, ~K/2 FLOPs per
+// input byte, far above the H100's FP32 ridge of ~20 FLOP/B); the design
+// below keeps the FMA pipes fed.
 //
 // For every data row r (one channel of one subint) and harmonic k < K:
 //

@@ -1,26 +1,86 @@
 // Fused windowed DFT -> weighted cross-spectrum for Hopper (sm_90a).
 //
 // Replaces the TPU Pallas kernel fused_cross_spectrum_pallas
-// (pulseportraiture_tpu/ops/fused.py).  The GEMM and its epilogue live
-// in fcs_gemm.cuh (shared with fused_decode_cross_spectrum.cu); this
-// source reads the data operand from a dense float portrait.
+// (pulseportraiture_tpu/ops/fused.py).  For every data row r (one
+// channel of one subint) and harmonic k < K it writes
 //
-// Bound on this card: the contraction is 4 * rows * nbin * K FLOPs on
-// rows * nbin inputs, i.e. ~K/2 FLOPs per input byte in float32 —
-// far above the H100's FP32 ridge (~20 FLOP/B), so the kernel is
-// bound by FP32 FMA throughput (see fcs_gemm.cuh for the design).  The
-// model spectrum is one launch of the same kernel in spectrum mode
-// (once per call for a shared template), read back in the cross-mode
-// epilogue.
+//   Xr = (dr mr + di mi) w,  Xi = (di mr - dr mi) w,
+//   S0[r] = sum_k (mr^2 + mi^2) w     (or the full M2w row)
+//
+// with (dr, di) the row's rfft and (mr, mi) the model's, never writing
+// the four spectra.  Two arms compute it, chosen by a rule on the shape
+// (ops/fused.py fft_arm):
+//
+// - the FFT arm (fft_smem.cuh), for power-of-two nbin in [16, 8192] with
+//   K <= nbin/2 + 1: a block stages RB rows with cp.async, takes their
+//   real FFTs in shared memory two rows per complex transform, and
+//   forms the cross-spectrum from the K harmonics it needs.  Bound on
+//   this card: bytes (each row, weight and output moved once; the FFT's
+//   arithmetic is ~1/50 of the FP32 peak's share of that time), which
+//   is what the design aims at;
+// - the GEMM arm (fcs_gemm.cuh), for every other shape: the DFT as an
+//   FP32 SIMT matrix product, bound by FP32 FMA throughput.
+//
+// Both arms run the model spectrum as a first launch (once per call for
+// a shared template) into scratch that the cross launch reads; fold
+// (the half-length symmetric DFT) shapes only the GEMM arm.
 //
 // Plain C interface (ctypes); each entry point launches one kernel on
-// the given stream and returns cudaGetLastError().
+// the given stream and returns a cudaError_t code.
 
 #include "fcs_gemm.cuh"
+#include "fft_smem.cuh"
+
+namespace {
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(FFT_NT) fft_dense_kernel(
+    const T* __restrict__ x, int64_t M, int n, int logn,
+    const typename Fft<T>::C* __restrict__ tw, int K,
+    const T* __restrict__ mr, const T* __restrict__ mi, int64_t m_mod,
+    const T* __restrict__ w, int64_t w_mod, T* __restrict__ out_r,
+    T* __restrict__ out_i, T* __restrict__ o2, int want_m2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using C = typename Fft<T>::C;
+  C* buf = reinterpret_cast<C*>(smem);
+  T* red = reinterpret_cast<T*>(smem + fft_buffer_bytes<T>(n));
+  const int RB = fft_rows_per_block<T>(n);
+  const int64_t row0 = (int64_t)blockIdx.x * RB;
+  fft_stage_dense<T>(buf, x, row0, M, RB, n, logn);
+  fft_dif<T>(buf, RB / 2 * n, n, logn, tw);
+  fft_epilogue<T, MODE>(buf, row0, M, RB, n, logn, K, mr, mi, m_mod, w,
+                        w_mod, out_r, out_i, o2, want_m2, red);
+}
+
+template <typename T, int MODE>
+int fft_dense_launch(const void* x, int64_t M, int nbin, const void* tw,
+                     int K, const void* mr, const void* mi, int64_t m_mod,
+                     const void* w, int64_t w_mod, void* out_r, void* out_i,
+                     void* o2, int want_m2, void* stream) {
+  const int logn = fft_logn(nbin);
+  if (logn < 0 || K < 0 || K > nbin / 2 + 1)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0) return 0;
+  const int RB = fft_rows_per_block<T>(nbin);
+  const int smem = fft_buffer_bytes<T>(nbin) + 2 * FFT_NW * (int)sizeof(T);
+  auto kern = fft_dense_kernel<T, MODE>;
+  static int granted[64] = {};  // per kernel and device
+  const cudaError_t e = allow_smem((const void*)kern, smem, granted);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)((M + RB - 1) / RB), FFT_NT, smem,
+         (cudaStream_t)stream>>>(
+      (const T*)x, M, nbin, logn, (const typename Fft<T>::C*)tw, K,
+      (const T*)mr, (const T*)mi, m_mod, (const T*)w, w_mod, (T*)out_r,
+      (T*)out_i, (T*)o2, want_m2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
-// Spectrum mode: (out_r, out_i)[M, K] = windowed DFT of x[M, nbin].
+// GEMM arm, spectrum mode: (out_r, out_i)[M, K] = windowed DFT of
+// x[M, nbin].
 int ppt_fcs_spectrum_f32(const void* x, int64_t M, int nbin,
                          const void* Wc, const void* Ws, const void* sgn,
                          int L, int K, int fold, void* out_r, void* out_i,
@@ -43,8 +103,8 @@ int ppt_fcs_spectrum_f64(const void* x, int64_t M, int nbin,
       nullptr, 0, (cudaStream_t)stream);
 }
 
-// Cross mode: (Xr, Xi)[M, K] and S0[M] (or M2w[M, K] when want_m2)
-// from data x[M, nbin], the model spectrum (mr, mi)[*, K] (row
+// GEMM arm, cross mode: (Xr, Xi)[M, K] and S0[M] (or M2w[M, K] when
+// want_m2) from data x[M, nbin], the model spectrum (mr, mi)[*, K] (row
 // r % m_mod) and weights w[*, K] (row r % w_mod).
 int ppt_fcs_cross_f32(const void* x, int64_t M, int nbin, const void* Wc,
                       const void* Ws, const void* sgn, int L, int K,
@@ -71,6 +131,45 @@ int ppt_fcs_cross_f64(const void* x, int64_t M, int nbin, const void* Wc,
       (const double*)mr, (const double*)mi, m_mod, (const double*)w, w_mod,
       (double*)Xr, (double*)Xi, (double*)o2, want_m2,
       (cudaStream_t)stream);
+}
+
+// FFT arm, spectrum mode: (out_r, out_i)[M, K] = the first K harmonics
+// of the rfft of x[M, nbin]; tw = the (nbin, 2) twiddle table.
+int ppt_fcs_fft_spectrum_f32(const void* x, int64_t M, int nbin,
+                             const void* tw, int K, void* out_r,
+                             void* out_i, void* stream) {
+  return fft_dense_launch<float, FFT_SPECTRUM>(
+      x, M, nbin, tw, K, nullptr, nullptr, 1, nullptr, 1, out_r, out_i,
+      nullptr, 0, stream);
+}
+
+int ppt_fcs_fft_spectrum_f64(const void* x, int64_t M, int nbin,
+                             const void* tw, int K, void* out_r,
+                             void* out_i, void* stream) {
+  return fft_dense_launch<double, FFT_SPECTRUM>(
+      x, M, nbin, tw, K, nullptr, nullptr, 1, nullptr, 1, out_r, out_i,
+      nullptr, 0, stream);
+}
+
+// FFT arm, cross mode: the outputs of ppt_fcs_cross_*.
+int ppt_fcs_fft_cross_f32(const void* x, int64_t M, int nbin,
+                          const void* tw, int K, const void* mr,
+                          const void* mi, int64_t m_mod, const void* w,
+                          int64_t w_mod, void* Xr, void* Xi, void* o2,
+                          int want_m2, void* stream) {
+  return fft_dense_launch<float, FFT_CROSS>(x, M, nbin, tw, K, mr, mi,
+                                            m_mod, w, w_mod, Xr, Xi, o2,
+                                            want_m2, stream);
+}
+
+int ppt_fcs_fft_cross_f64(const void* x, int64_t M, int nbin,
+                          const void* tw, int K, const void* mr,
+                          const void* mi, int64_t m_mod, const void* w,
+                          int64_t w_mod, void* Xr, void* Xi, void* o2,
+                          int want_m2, void* stream) {
+  return fft_dense_launch<double, FFT_CROSS>(x, M, nbin, tw, K, mr, mi,
+                                             m_mod, w, w_mod, Xr, Xi, o2,
+                                             want_m2, stream);
 }
 
 }  // extern "C"

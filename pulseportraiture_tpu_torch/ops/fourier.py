@@ -89,13 +89,22 @@ def _rfft_fold_weights(n, dtype_str, nharm=None):
             sgn.astype(dtype_str))
 
 
+@lru_cache(maxsize=None)
+def _fft_twiddles(n, dtype_str):
+    """(tw,): the (n, 2) table of exp(-2 pi i j / n), j < n, as (re, im)
+    pairs: the twiddles of the fused kernels' shared-memory FFT
+    (csrc/fft_smem.cuh), read as complex values."""
+    ang = 2.0 * np.pi * np.arange(n) / n
+    return (np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(dtype_str),)
+
+
 _HOST_WEIGHTS = {"rfft": _rfft_weights, "fold": _rfft_fold_weights,
-                 "irfft": _irfft_weights}
+                 "irfft": _irfft_weights, "fft": _fft_twiddles}
 _device_cache = {}
 
 
 def device_weights(kind, device, *args):
-    """The cached host twiddles of ``kind`` ('rfft', 'fold', 'irfft';
+    """The cached host twiddles of ``kind`` ('rfft', 'fold', 'irfft', 'fft';
     args as the host constructor's) as tensors on ``device``, copied
     once per (shape, dtype, device)."""
     key = (kind, str(device)) + args

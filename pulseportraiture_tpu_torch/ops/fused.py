@@ -15,6 +15,14 @@ same function live here:
   channel tiling and the same host-built twiddles (ops.fourier).  It
   is the CPU implementation and the kernel's oracle on the card.
 
+The kernel has two arms, chosen by a rule on the shape (:func:`fft_arm`):
+a power-of-two nbin in [FFT_NBIN_MIN, FFT_NBIN_MAX] = [16, 8192] with a
+harmonic window K <= nbin/2 + 1 takes the FFT arm (csrc/fft_smem.cuh: a
+real FFT of the rows in shared memory, two rows per complex transform),
+every other shape the GEMM arm (csrc/fcs_gemm.cuh: the DFT as an FP32
+matrix product).  A failed build or launch of either arm raises; neither
+falls back to the other.
+
 :func:`fused_cross_spectrum` dispatches by the device the tensors are
 on.  Inputs carry an optional leading batch (subint) dimension: port
 (B, nchan, nbin) against a shared (nchan, nbin) template or per-element
@@ -25,11 +33,12 @@ The streaming lane's sub-byte raw buckets take the decode-fused form
 of the same stage (B2), :func:`fused_decode_cross_spectrum`: packed
 1/2/4-bit rows -> unpack -> affine decode -> min-window baseline ->
 the Parseval rows and the same cross-spectrum, with the kernel
-csrc/fused_decode_cross_spectrum.cu for CUDA tensors and
-:func:`fused_decode_cross_spectrum_ref` for CPU tensors.
+csrc/fused_decode_cross_spectrum.cu (the same two arms) for CUDA
+tensors and :func:`fused_decode_cross_spectrum_ref` for CPU tensors.
 """
 
 import ctypes
+import hashlib
 import os
 import threading
 
@@ -46,7 +55,8 @@ __all__ = ["fused_cross_spectrum", "fused_cross_spectrum_ref",
            "fused_decode_cross_spectrum_ref",
            "fused_decode_cross_spectrum_cuda", "decode_rows_cuda",
            "fused_block_default", "kernel_launches",
-           "reset_kernel_launches", "build_kernels"]
+           "reset_kernel_launches", "build_kernels", "fft_arm",
+           "FFT_NBIN_MIN", "FFT_NBIN_MAX"]
 
 # Channel-block target of the plain version's tiling (the scan's).
 _BLOCK_TARGET = 32
@@ -56,21 +66,46 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SOURCES = [os.path.join(_CSRC, "fused_cross_spectrum.cu"),
             os.path.join(_CSRC, "fused_decode_cross_spectrum.cu")]
+# included by both sources; their digest is a build flag, so editing a
+# header rebuilds the library
+_HEADERS = [os.path.join(_CSRC, "fcs_gemm.cuh"),
+            os.path.join(_CSRC, "fft_smem.cuh")]
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 
+# the FFT arm's range of nbin (csrc/fft_smem.cuh FFT_MIN_LOGN,
+# FFT_MAX_LOGN), in float32 and float64
+FFT_NBIN_MIN, FFT_NBIN_MAX = 16, 8192
+
+_KERNELS = ("fused_cross_spectrum", "fused_decode_cross_spectrum")
 # kernel launches since the last reset, counted where the wrapper
-# launches the kernel and nowhere else
-_launches = {"fused_cross_spectrum": 0, "fused_decode_cross_spectrum": 0}
+# launches the kernel and nowhere else: each kernel's total and its
+# arms' ("<name>.fft", "<name>.gemm")
+_launches = {f"{k}{arm}": 0 for k in _KERNELS
+             for arm in ("", ".fft", ".gemm")}
 
 
 def kernel_launches():
-    """{kernel name: launches since the last reset}."""
+    """{kernel name or "<name>.<arm>": launches since the last reset}."""
     return dict(_launches)
 
 
 def reset_kernel_launches():
     for k in _launches:
         _launches[k] = 0
+
+
+def _count(kernel, arm):
+    _launches[kernel] += 1
+    _launches[f"{kernel}.{arm}"] += 1
+
+
+def fft_arm(nbin, nharm):
+    """The shape rule between the kernels' arms: True (the FFT arm) for a
+    power-of-two nbin in [FFT_NBIN_MIN, FFT_NBIN_MAX] and a harmonic
+    window nharm <= nbin/2 + 1, False (the GEMM arm) otherwise."""
+    nbin, nharm = int(nbin), int(nharm)
+    return (FFT_NBIN_MIN <= nbin <= FFT_NBIN_MAX and nbin & (nbin - 1) == 0
+            and nharm <= nbin // 2 + 1)
 
 
 def fused_block_default():
@@ -164,12 +199,13 @@ _lib_lock = threading.Lock()
 
 def build_kernels(verbose=False):
     """Compile the kernels' sources (csrc/*.cu, one object each, built in
-    parallel) for sm_90a with torch.utils.cpp_extension.load into
-    BUILD_DIR as one library, and bind its plain C interface with
-    ctypes.  No source includes PyTorch headers, so the build takes
-    seconds.  Idempotent per process; load() rebuilds when a source or
-    the flags change.  verbose prints ptxas's register, shared-memory
-    and spill report."""
+    parallel; both include csrc/fcs_gemm.cuh and csrc/fft_smem.cuh) for
+    sm_90a with torch.utils.cpp_extension.load into BUILD_DIR as one
+    library, and bind its plain C interface with ctypes.  No source
+    includes PyTorch headers, so the build takes seconds.  Idempotent
+    per process; load() rebuilds when a source, a header (through the
+    digest flag) or the flags change.  verbose prints ptxas's register,
+    shared-memory and spill report."""
     global _lib
     with _lib_lock:
         if _lib is not None:
@@ -177,7 +213,12 @@ def build_kernels(verbose=False):
         from torch.utils.cpp_extension import load
 
         os.makedirs(BUILD_DIR, exist_ok=True)
-        flags = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+        digest = hashlib.sha1()
+        for path in _HEADERS:
+            with open(path, "rb") as f:
+                digest.update(f.read())
+        flags = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
+                 f"-DPPT_HEADERS_SHA1={digest.hexdigest()[:16]}"]
         if verbose:
             flags.append("-Xptxas=-v")
         name = "ppt_fused_kernels"
@@ -197,6 +238,11 @@ def build_kernels(verbose=False):
                                vp, i32, i32, i32, vp, vp, i64, vp, i64, vp,
                                vp, vp, vp],
             "ppt_fdcs_decode": [vp, i64, i32, i32, i32, vp, vp, vp, vp, vp],
+            "ppt_fcs_fft_spectrum": [vp, i64, i32, vp, i32, vp, vp, vp],
+            "ppt_fcs_fft_cross": [vp, i64, i32, vp, i32, vp, vp, i64, vp,
+                                  i64, vp, vp, vp, i32, vp],
+            "ppt_fdcs_fft": [vp, i64, i32, i32, i32, i32, vp, vp, vp, i32,
+                             vp, vp, i64, vp, i64, vp, vp, vp, vp, vp, vp],
         }
         for stem, args in argtypes.items():
             for sfx in ("f32", "f64"):
@@ -207,32 +253,66 @@ def build_kernels(verbose=False):
         return _lib
 
 
+def _resolve_arm(arm, nbin, K, name):
+    """'fft' or 'gemm': the shape rule when arm is None; 'gemm' may be
+    forced for any shape, 'fft' only within the rule."""
+    rule = "fft" if fft_arm(nbin, K) else "gemm"
+    if arm is None or arm == rule or arm == "gemm":
+        return arm or rule
+    if arm == "fft":
+        raise ValueError(f"{name}: the FFT arm takes a power-of-two nbin in "
+                         f"[{FFT_NBIN_MIN}, {FFT_NBIN_MAX}] and nharm <= "
+                         f"nbin/2 + 1; got nbin={nbin}, nharm={K}")
+    raise ValueError(f"{name}: arm must be None, 'fft' or 'gemm'; got "
+                     f"{arm!r}")
+
+
+def _gemm_weights(fold, device, nbin, dts, K):
+    """(Wc, Ws, sgn, L, fold) of the GEMM arm: the direct or the folded
+    DFT twiddles (fold only for even nbin >= 8)."""
+    if fold is None:
+        fold = use_dft_fold(device)
+    fold = bool(fold) and nbin % 2 == 0 and nbin >= 8
+    if fold:
+        Wc, Ws, sgn = device_weights("fold", device, nbin, dts, K)
+    else:
+        Wc, Ws = device_weights("rfft", device, nbin, dts, K)
+        sgn = Wc  # unread without fold; any valid pointer
+    return Wc, Ws, sgn, Wc.shape[0], fold
+
+
+def _check(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
 def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
-                              fold=None, want_m2=False):
+                              fold=None, want_m2=False, arm=None):
     """The hand-written Hopper kernel (csrc/fused_cross_spectrum.cu).
 
-    Two launches of one kernel per call: the model spectrum (once for
-    a shared template, else per element) into scratch, then the data
-    DFT with the cross-spectrum and the S0 row sum (or M2w) formed in
-    its epilogue.  CUDA float32/float64 tensors only; dft_precision
-    must be 'highest' (full FP32 products)."""
+    Two launches per call: the model spectrum (once for a shared
+    template, else per element) into scratch, then the data transform
+    with the cross-spectrum and the S0 row sum (or M2w) formed in its
+    epilogue.  arm None takes the shape rule of :func:`fft_arm`; 'gemm'
+    forces the GEMM arm, 'fft' asserts the FFT arm.  fold shapes only
+    the GEMM arm.  CUDA float32/float64 tensors only; dft_precision must
+    be 'highest' (full FP32 products)."""
+    name = "fused_cross_spectrum_cuda"
     check_dft_precision(precision, port.device)
     if port.device.type != "cuda":
-        raise ValueError("fused_cross_spectrum_cuda needs CUDA tensors")
+        raise ValueError(f"{name} needs CUDA tensors")
     dt = port.dtype
     if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_cross_spectrum_cuda: float32 or float64, "
-                        f"got {dt}")
-    for t, name in ((model, "model"), (w, "w")):
+        raise TypeError(f"{name}: float32 or float64, got {dt}")
+    for t, tname in ((model, "model"), (w, "w")):
         if t.device != port.device or t.dtype != dt:
-            raise ValueError(f"fused_cross_spectrum_cuda: {name} must be "
-                             f"{dt} on {port.device}")
+            raise ValueError(f"{name}: {tname} must be {dt} on "
+                             f"{port.device}")
     if port.dim() not in (2, 3) or not port.is_contiguous():
-        raise ValueError("fused_cross_spectrum_cuda: port must be a "
-                         "contiguous (nchan, nbin) or (B, nchan, nbin)")
+        raise ValueError(f"{name}: port must be a contiguous (nchan, nbin) "
+                         "or (B, nchan, nbin)")
     if not (model.is_contiguous() and w.is_contiguous()):
-        raise ValueError("fused_cross_spectrum_cuda: model and w must be "
-                         "contiguous")
+        raise ValueError(f"{name}: model and w must be contiguous")
     nchan, nbin = port.shape[-2], port.shape[-1]
     K = int(nharm)
     batch = port.shape[:-2]
@@ -242,32 +322,21 @@ def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
     elif model.shape == port.shape:
         Mm, m_mod = M, M
     else:
-        raise ValueError(f"fused_cross_spectrum_cuda: model shape "
-                         f"{tuple(model.shape)} is neither (nchan, nbin) "
-                         f"nor the port's {tuple(port.shape)}")
+        raise ValueError(f"{name}: model shape {tuple(model.shape)} is "
+                         f"neither (nchan, nbin) nor the port's "
+                         f"{tuple(port.shape)}")
     if w.shape == (nchan, K):
         w_mod = nchan
     elif w.shape == batch + (nchan, K):
         w_mod = M
     else:
-        raise ValueError(f"fused_cross_spectrum_cuda: w shape "
-                         f"{tuple(w.shape)} is neither ({nchan}, {K}) nor "
-                         f"the port's batch + ({nchan}, {K})")
-    if fold is None:
-        fold = use_dft_fold(port.device)
-    fold = bool(fold) and nbin % 2 == 0 and nbin >= 8
+        raise ValueError(f"{name}: w shape {tuple(w.shape)} is neither "
+                         f"({nchan}, {K}) nor the port's batch + "
+                         f"({nchan}, {K})")
+    arm = _resolve_arm(arm, nbin, K, name)
     dts = _dtype_str(dt)
-    if fold:
-        Wc, Ws, sgn = device_weights("fold", port.device, nbin, dts, K)
-    else:
-        Wc, Ws = device_weights("rfft", port.device, nbin, dts, K)
-        sgn = Wc  # unread without fold; any valid pointer
-    L = Wc.shape[0]
-
     lib = build_kernels()
     sfx = "f32" if dt == torch.float32 else "f64"
-    spectrum = getattr(lib, f"ppt_fcs_spectrum_{sfx}")
-    cross = getattr(lib, f"ppt_fcs_cross_{sfx}")
     stream = torch.cuda.current_stream(port.device).cuda_stream
 
     mr = torch.empty((Mm, K), dtype=dt, device=port.device)
@@ -276,21 +345,31 @@ def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
     Xi = torch.empty_like(Xr)
     o2 = torch.empty(batch + ((nchan, K) if want_m2 else (nchan,)),
                      dtype=dt, device=port.device)
-    rc = spectrum(model.data_ptr(), Mm, nbin, Wc.data_ptr(), Ws.data_ptr(),
-                  sgn.data_ptr(), L, K, int(fold), mr.data_ptr(),
-                  mi.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_cross_spectrum spectrum launch failed: "
-                           f"cudaError {rc}")
-    _launches["fused_cross_spectrum"] += 1
-    rc = cross(port.data_ptr(), M, nbin, Wc.data_ptr(), Ws.data_ptr(),
-               sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
-               m_mod, w.data_ptr(), w_mod, Xr.data_ptr(), Xi.data_ptr(),
-               o2.data_ptr(), int(bool(want_m2)), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_cross_spectrum cross launch failed: "
-                           f"cudaError {rc}")
-    _launches["fused_cross_spectrum"] += 1
+    outs = (Xr.data_ptr(), Xi.data_ptr(), o2.data_ptr(), int(bool(want_m2)))
+    if arm == "fft":
+        tw, = device_weights("fft", port.device, nbin, dts)
+        _check(getattr(lib, f"ppt_fcs_fft_spectrum_{sfx}")(
+            model.data_ptr(), Mm, nbin, tw.data_ptr(), K, mr.data_ptr(),
+            mi.data_ptr(), stream), "fused_cross_spectrum FFT spectrum")
+        _count("fused_cross_spectrum", arm)
+        _check(getattr(lib, f"ppt_fcs_fft_cross_{sfx}")(
+            port.data_ptr(), M, nbin, tw.data_ptr(), K, mr.data_ptr(),
+            mi.data_ptr(), m_mod, w.data_ptr(), w_mod, *outs, stream),
+            "fused_cross_spectrum FFT cross")
+        _count("fused_cross_spectrum", arm)
+        return Xr, Xi, o2
+    Wc, Ws, sgn, L, fold = _gemm_weights(fold, port.device, nbin, dts, K)
+    _check(getattr(lib, f"ppt_fcs_spectrum_{sfx}")(
+        model.data_ptr(), Mm, nbin, Wc.data_ptr(), Ws.data_ptr(),
+        sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
+        stream), "fused_cross_spectrum spectrum")
+    _count("fused_cross_spectrum", arm)
+    _check(getattr(lib, f"ppt_fcs_cross_{sfx}")(
+        port.data_ptr(), M, nbin, Wc.data_ptr(), Ws.data_ptr(),
+        sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
+        m_mod, w.data_ptr(), w_mod, *outs, stream),
+        "fused_cross_spectrum cross")
+    _count("fused_cross_spectrum", arm)
     return Xr, Xi, o2
 
 
@@ -390,15 +469,20 @@ def _packed_args(raw, scl, offs, code, nbin, dt, name):
 
 
 def fused_decode_cross_spectrum_cuda(raw, scl, offs, model, w, nharm, *,
-                                     code, nbin, precision=None, fold=None):
+                                     code, nbin, precision=None, fold=None,
+                                     arm=None):
     """The hand-written Hopper kernel (csrc/fused_decode_cross_spectrum.cu).
 
-    Three launches per call: the per-row stats (baseline, x0, pwr) from
-    the packed bytes, the template's spectrum (B1's spectrum launch),
-    and the GEMM that decodes the rows as it stages them, with the
-    cross-spectrum and S0 in its epilogue.  CUDA tensors only; the
-    compute dtype (w's) is float32 or float64; dft_precision must be
-    'highest'."""
+    FFT arm (:func:`fft_arm`): two launches per call, the template's
+    spectrum (B1's FFT spectrum launch) and one kernel that decodes a
+    block of rows in shared memory, takes their baselines, Parseval rows
+    and FFTs there and forms the cross-spectrum and S0.  GEMM arm: three
+    launches, the per-row stats (baseline, x0, pwr), B1's GEMM spectrum
+    launch for the template, and the GEMM that decodes the rows as it
+    stages them.  arm None takes the shape rule; 'gemm' forces the GEMM
+    arm, 'fft' asserts the FFT arm.  fold shapes only the GEMM arm.
+    CUDA tensors only; the compute dtype (w's) is float32 or float64;
+    dft_precision must be 'highest'."""
     name = "fused_decode_cross_spectrum_cuda"
     dt = w.dtype
     nbit, bpc, M, scl, offs = _packed_args(raw, scl, offs, code, nbin, dt,
@@ -421,65 +505,63 @@ def fused_decode_cross_spectrum_cuda(raw, scl, offs, model, w, nharm, *,
         raise ValueError(f"{name}: w shape {tuple(w.shape)} is neither "
                          f"({nchan}, {K}) nor the rows' batch + "
                          f"({nchan}, {K})")
-    if fold is None:
-        fold = use_dft_fold(raw.device)
-    fold = bool(fold) and nbin % 2 == 0 and nbin >= 8
+    arm = _resolve_arm(arm, nbin, K, name)
     dts = _dtype_str(dt)
-    if fold:
-        Wc, Ws, sgn = device_weights("fold", raw.device, nbin, dts, K)
-    else:
-        Wc, Ws = device_weights("rfft", raw.device, nbin, dts, K)
-        sgn = Wc  # unread without fold; any valid pointer
-    L = Wc.shape[0]
-
     lib = build_kernels()
     sfx = "f32" if dt == torch.float32 else "f64"
     stream = torch.cuda.current_stream(raw.device).cuda_stream
     dev = raw.device
-    base = torch.empty(M, dtype=dt, device=dev)
+    kname = "fused_decode_cross_spectrum"
     x0 = torch.empty(batch + (nchan,), dtype=dt, device=dev)
     pwr = torch.empty_like(x0)
-    win = baseline_window(nbin)
-    rc = getattr(lib, f"ppt_fdcs_stats_{sfx}")(
-        raw.data_ptr(), M, nbin, bpc, nbit, win, scl.data_ptr(),
-        offs.data_ptr(), base.data_ptr(), x0.data_ptr(), pwr.data_ptr(),
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_decode_cross_spectrum stats launch "
-                           f"failed: cudaError {rc}")
-    _launches["fused_decode_cross_spectrum"] += 1
     mr = torch.empty((nchan, K), dtype=dt, device=dev)
     mi = torch.empty_like(mr)
-    rc = getattr(lib, f"ppt_fcs_spectrum_{sfx}")(
-        model.data_ptr(), nchan, nbin, Wc.data_ptr(), Ws.data_ptr(),
-        sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_decode_cross_spectrum spectrum launch "
-                           f"failed: cudaError {rc}")
-    _launches["fused_decode_cross_spectrum"] += 1
     Xr = torch.empty(batch + (nchan, K), dtype=dt, device=dev)
     Xi = torch.empty_like(Xr)
     S0 = torch.empty(batch + (nchan,), dtype=dt, device=dev)
-    rc = getattr(lib, f"ppt_fdcs_cross_{sfx}")(
+    win = baseline_window(nbin)
+    if arm == "fft":
+        tw, = device_weights("fft", dev, nbin, dts)
+        _check(getattr(lib, f"ppt_fcs_fft_spectrum_{sfx}")(
+            model.data_ptr(), nchan, nbin, tw.data_ptr(), K, mr.data_ptr(),
+            mi.data_ptr(), stream), f"{kname} FFT spectrum")
+        _count(kname, arm)
+        _check(getattr(lib, f"ppt_fdcs_fft_{sfx}")(
+            raw.data_ptr(), M, nbin, bpc, nbit, win, scl.data_ptr(),
+            offs.data_ptr(), tw.data_ptr(), K, mr.data_ptr(), mi.data_ptr(),
+            nchan, w.data_ptr(), w_mod, Xr.data_ptr(), Xi.data_ptr(),
+            S0.data_ptr(), x0.data_ptr(), pwr.data_ptr(), stream),
+            f"{kname} FFT")
+        _count(kname, arm)
+        return Xr, Xi, S0, pwr, x0
+    Wc, Ws, sgn, L, fold = _gemm_weights(fold, dev, nbin, dts, K)
+    base = torch.empty(M, dtype=dt, device=dev)
+    _check(getattr(lib, f"ppt_fdcs_stats_{sfx}")(
+        raw.data_ptr(), M, nbin, bpc, nbit, win, scl.data_ptr(),
+        offs.data_ptr(), base.data_ptr(), x0.data_ptr(), pwr.data_ptr(),
+        stream), f"{kname} stats")
+    _count(kname, arm)
+    _check(getattr(lib, f"ppt_fcs_spectrum_{sfx}")(
+        model.data_ptr(), nchan, nbin, Wc.data_ptr(), Ws.data_ptr(),
+        sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
+        stream), f"{kname} spectrum")
+    _count(kname, arm)
+    _check(getattr(lib, f"ppt_fdcs_cross_{sfx}")(
         raw.data_ptr(), M, nbin, bpc, nbit, scl.data_ptr(),
         offs.data_ptr(), base.data_ptr(), Wc.data_ptr(), Ws.data_ptr(),
         sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
         nchan, w.data_ptr(), w_mod, Xr.data_ptr(), Xi.data_ptr(),
-        S0.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_decode_cross_spectrum cross launch "
-                           f"failed: cudaError {rc}")
-    _launches["fused_decode_cross_spectrum"] += 1
+        S0.data_ptr(), stream), f"{kname} cross")
+    _count(kname, arm)
     return Xr, Xi, S0, pwr, x0
 
 
 def decode_rows_cuda(raw, scl, offs, base, *, code, nbin, dtype):
-    """The samples B2's GEMM stages, written out: (..., nchan, bpc)
-    packed rows -> (..., nchan, nbin) x = s scl + offs - base in
-    ``dtype``, by the kernel's own decode.  A check of the kernel
-    against the plain decode; the fused path never calls it, and it
-    counts no launch."""
+    """The samples B2 stages (both arms decode with the same device
+    function), written out: (..., nchan, bpc) packed rows ->
+    (..., nchan, nbin) x = s scl + offs - base in ``dtype``, by the
+    kernel's own decode.  A check of the kernel against the plain
+    decode; the fused path never calls it, and it counts no launch."""
     name = "decode_rows_cuda"
     nbit, bpc, M, scl, offs = _packed_args(raw, scl, offs, code, nbin,
                                            dtype, name)
@@ -490,10 +572,8 @@ def decode_rows_cuda(raw, scl, offs, base, *, code, nbin, dtype):
                       device=raw.device)
     lib = build_kernels()
     sfx = "f32" if dtype == torch.float32 else "f64"
-    rc = getattr(lib, f"ppt_fdcs_decode_{sfx}")(
+    _check(getattr(lib, f"ppt_fdcs_decode_{sfx}")(
         raw.data_ptr(), M, nbin, bpc, nbit, scl.data_ptr(), offs.data_ptr(),
         base.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(raw.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        torch.cuda.current_stream(raw.device).cuda_stream), name)
     return out
