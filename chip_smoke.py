@@ -43,7 +43,23 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
 7. B2's, its GEMM arm's, its plain version's and two torch
    equivalents' (the decode as torch ops, then torch.matmul or
    torch.fft.rfft) times at the stream path's bucket shape (256 x 512 x
-   2048), each output held to its tolerance.
+   2048), each output held to its tolerance;
+8. scattering path: 4 int16 and 4 2-bit (dithered) archives of 64 x 512
+   x 2048 with (phi, dDM) and a scattering timescale of 20 us at 1500
+   MHz (index -4) injected, measured by ``pptoas --stream --fit_scat
+   --scat_guess auto`` in this process: one full 256-subint bucket per
+   kind through the complex-free scatter lane; B1 must have been
+   launched in its want_m2 form through its FFT arm only and B2 never;
+   every TOA must recover the injected phase within 5 phi_err (and to
+   1e-4 rot for int16 data), tau at 1500 MHz and alpha within 5 sigma,
+   every return code in {0, 1, 2}; GetTOAs (the complex engine, in
+   complex64) on one int16 archive must agree with the stream within
+   0.1 sigma, 2 % in tau and 0.05 in alpha; then the campaign under the
+   profiler (busy time, idle share, the Newton evaluator's share);
+9. B1's want_m2 form, its GEMM arm, its plain version and the
+   torch.matmul and cuFFT equivalents at the scattering bucket's shape
+   (256 x 512 x 2048, K from the derived window), each output held to
+   its tolerance.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -77,6 +93,11 @@ SEED = 20261016
 # the stream path: NARCH 2-bit archives beside the main path's archive,
 # in buckets of the JAX package's default nsub_batch
 NARCH, NOISE_2BIT, NSUB_BATCH = 8, 1.0, 256
+# the scattering path: NARCH_SCAT int16 and NARCH_SCAT 2-bit (dithered)
+# archives with the main path's injection plus a scattering timescale
+# T_SCAT [s] at 1500 MHz and index ALPHA_INJ: one full bucket per kind
+NARCH_SCAT, T_SCAT, ALPHA_INJ = 4, 2.0e-5, -4.0
+NOISE_SCAT_I16, NOISE_SCAT_2BIT = 1.0, 0.5
 
 
 def log(msg):
@@ -231,21 +252,27 @@ def check_cross_spectrum_case(c):
         f" max abs err {text})")
 
 
-def library_equivalent(port, model, w, K, W):
+def _cross_epilogue(dr, di, mr, mi, w, want_m2):
+    """(Xr, Xi, S0) or, with want_m2, (Xr, Xi, M2w) from the spectra."""
+    import torch
+
+    m2 = (mr * mr + mi * mi) * w
+    return ((dr * mr + di * mi) * w, (di * mr - dr * mi) * w,
+            m2 if want_m2 else torch.sum(m2, dim=-1))
+
+
+def library_equivalent(port, model, w, K, W, want_m2=False):
     """One torch.matmul-based computation of the same function (the
     yardstick; the port never calls it)."""
     import torch
 
     D = torch.matmul(port, W)
     Mm = torch.matmul(model, W)
-    dr, di = D[..., :K], D[..., K:]
-    mr, mi = Mm[..., :K], Mm[..., K:]
-    Xr = (dr * mr + di * mi) * w
-    Xi = (di * mr - dr * mi) * w
-    return Xr, Xi, torch.sum((mr * mr + mi * mi) * w, dim=-1)
+    return _cross_epilogue(D[..., :K], D[..., K:], Mm[..., :K],
+                           Mm[..., K:], w, want_m2)
 
 
-def cufft_equivalent(port, model, w, K):
+def cufft_equivalent(port, model, w, K, want_m2=False):
     """The same function with torch.fft.rfft (cuFFT) of data and
     template sliced to K and the same epilogue (the yardstick; the port
     never calls it)."""
@@ -253,10 +280,7 @@ def cufft_equivalent(port, model, w, K):
 
     D = torch.fft.rfft(port)[..., :K]
     Mm = torch.fft.rfft(model)[..., :K]
-    dr, di, mr, mi = D.real, D.imag, Mm.real, Mm.imag
-    Xr = (dr * mr + di * mi) * w
-    Xi = (di * mr - dr * mi) * w
-    return Xr, Xi, torch.sum((mr * mr + mi * mi) * w, dim=-1)
+    return _cross_epilogue(D.real, D.imag, Mm.real, Mm.imag, w, want_m2)
 
 
 def cross_spectrum_bound_ms(nb, nchan, nbin, K, itemsize, want_m2,
@@ -955,6 +979,346 @@ def stream_profile(meta, gmodel, device, nsub_batch):
         log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
+def scatter_archives(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
+                     narch=NARCH_SCAT):
+    """The scattering path's campaign: narch int16 and narch 2-bit
+    archives of nsub x nchan x nbin with the main path's (phi, dDM) and
+    band plus T_SCAT at 1500 MHz with index ALPHA_INJ, each with its own
+    epoch and seeded generator; the 2-bit ones quantized with dither.
+    Returns (metafile, int16 paths, 2-bit paths, .gmodel path)."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.io.gmodel import write_gmodel
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    os.makedirs(WORK, exist_ok=True)
+    model = default_test_model(1500.0)
+    gmodel = os.path.join(WORK, "model.gmodel")
+    write_gmodel(model, gmodel, quiet=True)
+    kinds = {16: [], 2: []}
+    for nbit, base, noise in ((16, 55500, NOISE_SCAT_I16),
+                              (2, 55600, NOISE_SCAT_2BIT)):
+        for i in range(narch):
+            path = os.path.join(WORK, f"scat{nbit}-{i}.fits")
+            make_fake_pulsar(model, PAR, outfile=path, nsub=nsub,
+                             nchan=nchan, nbin=nbin, nu0=1500.0, bw=800.0,
+                             tsub=60.0, phase=PHI_INJ, dDM=DDM_INJ,
+                             t_scat=T_SCAT, alpha=ALPHA_INJ,
+                             start_MJD=MJD(base + i, 0.1), noise_stds=noise,
+                             dedispersed=False, quiet=True,
+                             rng=np.random.default_rng(SEED + base + i),
+                             nbit=nbit, dither=nbit != 16, device=device)
+            kinds[nbit].append(path)
+    meta = os.path.join(WORK, "scatter_meta.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join(kinds[16] + kinds[2]) + "\n")
+    return meta, kinds[16], kinds[2], gmodel
+
+
+def tau_at(flags, nu):
+    """(tau [us] at nu [MHz], its sigma) from a TOA's -scat_* flags of a
+    log10-tau fit, re-referenced from the fit's zero-covariance frequency
+    along the fitted index; the sigma carries the index's error, which
+    the flag's own error (at the zero-covariance frequency, where tau
+    and alpha are uncorrelated) leaves out."""
+    tau, nu0, a = flags["scat_time"], flags["scat_ref_freq"], \
+        flags["scat_ind"]
+    r = (nu / nu0) ** a
+    s_tau0 = tau * math.log(10.0) * flags["log10_scat_time_err"]
+    s = math.hypot(s_tau0 * r,
+                   tau * r * math.log(nu / nu0) * flags["scat_ind_err"])
+    return tau * r, s
+
+
+def check_scatter_toa(t, nbit):
+    """Injection recovery of one scattering TOA (flags as floats):
+    |dphi| < 5 phi_err, and < 1e-4 rot for int16 data (the 2-bit
+    data's phi_err floor, ~4e-5 rot, puts 1e-4 at ~2 sigma); tau at
+    1500 MHz and alpha within 5 sigma.  Returns the pulls."""
+    f = t.flags
+    dphi = (f["phs"] - expected_phase(t.frequency) + 0.5) % 1.0 - 0.5
+    tau, s_tau = tau_at(f, 1500.0)
+    pulls = (dphi / f["phs_err"], (tau - T_SCAT * 1e6) / s_tau,
+             (f["scat_ind"] - ALPHA_INJ) / f["scat_ind_err"])
+    if not (all(math.isfinite(p) and abs(p) < 5.0 for p in pulls)
+            and (nbit != 16 or abs(dphi) < 1e-4)):
+        raise AssertionError(
+            f"scattering TOA {t.archive} subint {f['subint']}: dphi "
+            f"{dphi:.3e} rot, pulls (phi, tau@1500, alpha) "
+            f"{tuple(round(p, 2) for p in pulls)}")
+    return dphi, pulls
+
+
+def phase_scatter(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
+                  narch=NARCH_SCAT, nsub_batch=NSUB_BATCH):
+    """The scattering path: ``pptoas --stream --fit_scat --scat_guess
+    auto`` over narch int16 and narch 2-bit scattered archives, in this
+    process, with the counters set to 0 just before it and read just
+    after (on CUDA: B1 launched in its want_m2 form through the FFT arm
+    only, B2 never); every TOA checked against the injection; the
+    library call again (return codes, Newton trips) and under the
+    profiler (busy time, idle share, the evaluator's share); GetTOAs on
+    the first int16 archive (the complex engine) against the stream's
+    TOAs.  Returns the counters of the CLI run."""
+    import numpy as np
+    import torch
+    from pulseportraiture_tpu_torch.fit import portrait as FP
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline import GetTOAs
+    from pulseportraiture_tpu_torch.pipeline import stream as S
+
+    t0 = time.perf_counter()
+    meta, i16, p2, gmodel = scatter_archives(device, nsub, nchan, nbin,
+                                             narch)
+    log(f"scattering archives: {narch} int16 + {narch} 2-bit x "
+        f"{nsub}x{nchan}x{nbin}, t_scat {T_SCAT * 1e6:.1f} us at 1500 MHz, "
+        f"alpha {ALPHA_INJ}, noise {NOISE_SCAT_I16} / {NOISE_SCAT_2BIT} "
+        f"(2-bit dithered) written in {time.perf_counter() - t0:.2f} s")
+    tim = os.path.join(WORK, "scatter.tim")
+    if os.path.exists(tim):
+        os.remove(tim)
+    F.reset_kernel_launches()
+    argv = sys.argv
+    sys.argv = ["pptoas", "--stream", "--fit_scat", "--scat_guess", "auto",
+                "-d", meta, "-m", gmodel, "-o", tim, "--quiet",
+                "--print_phase", "--quality_flags", "--device", device]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("pulseportraiture_tpu_torch.cli.pptoas",
+                         run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise RuntimeError(f"pptoas --stream --fit_scat exited with "
+                               f"{e.code!r}")
+    finally:
+        sys.argv = argv
+    sync(device)
+    cli_s = time.perf_counter() - t0
+    launches = F.kernel_launches()
+    ntoa = 2 * narch * nsub
+    log(f"scattering path (pptoas --stream --fit_scat): {ntoa} TOAs in "
+        f"{cli_s:.3f} s wall incl. load and first use = {ntoa / cli_s:.1f} "
+        f"TOAs/s, kernel launches {launches}")
+    if device_type(device) == "cuda":
+        fft_only(launches, ("fused_cross_spectrum",), "the scattering path")
+        if launches["fused_cross_spectrum.m2"] != \
+                launches["fused_cross_spectrum"]:
+            raise AssertionError(
+                f"the scattering path launched B1 {launches} times: not "
+                "all in its want_m2 form")
+        if launches["fused_decode_cross_spectrum"]:
+            raise AssertionError("the scattering path launched B2")
+    with open(tim) as f:
+        lines = [ln.split() for ln in f if ln.strip()]
+    if len(lines) != ntoa:
+        raise AssertionError(f"{len(lines)} scattering TOAs for {ntoa}")
+    nfev_cli = [int(dict(zip(tok[5::2], tok[6::2]))["-nfev"])
+                for tok in lines]
+
+    # the library call, warm: every TOA against the injection, the
+    # return codes, the Newton trips
+    rcs = []
+    orig = S._assemble_archive
+
+    def assemble(m, results, *a, **k):
+        rcs.extend(int(results[(m.iarch, int(i))]["return_code"])
+                   for i in m.ok if (m.iarch, int(i)) in results)
+        return orig(m, results, *a, **k)
+
+    S._assemble_archive = assemble
+    try:
+        t0 = time.perf_counter()
+        res = S.stream_wideband_TOAs(meta, gmodel, nsub_batch=nsub_batch,
+                                     fit_scat=True, scat_guess="auto",
+                                     print_phase=True, quality_flags=True,
+                                     device=device, quiet=True)
+        sync(device)
+        lib_s = time.perf_counter() - t0
+    finally:
+        S._assemble_archive = orig
+    if len(res.TOA_list) != ntoa or len(rcs) != ntoa:
+        raise AssertionError(f"{len(res.TOA_list)} TOAs, {len(rcs)} return "
+                             f"codes for {ntoa} subints")
+    if not set(rcs) <= {0, 1, 2}:
+        raise AssertionError(f"scattering return codes {sorted(set(rcs))}")
+    worst = {16: [0.0, 0.0], 2: [0.0, 0.0]}
+    for t in res.TOA_list:
+        nbit = 16 if t.archive in i16 else 2
+        dphi, pulls = check_scatter_toa(t, nbit)
+        worst[nbit][0] = max(worst[nbit][0], abs(dphi))
+        worst[nbit][1] = max(worst[nbit][1], max(abs(p) for p in pulls))
+    nfev = np.asarray([t.flags["nfev"] for t in res.TOA_list])
+    log(f"scattering recovery: int16 max |dphi| {worst[16][0]:.3e} rot "
+        f"(limit 1e-4), 2-bit {worst[2][0]:.3e} rot; max |pull| over "
+        f"(phi, tau@1500, alpha) int16 {worst[16][1]:.2f}, 2-bit "
+        f"{worst[2][1]:.2f} (limit 5); return codes {sorted(set(rcs))}")
+    log(f"scattering path (library, warm): {ntoa} TOAs in {lib_s:.3f} s = "
+        f"{ntoa / lib_s:.1f} TOAs/s; {res.nfit} dispatches "
+        f"{res.dispatch_shapes}, h2d {res.h2d_bytes} bytes in "
+        f"{res.h2d_duration:.3f} s, {res.fit_duration:.3f} s blocked on the "
+        f"device; Newton trips per fit max {int(nfev.max())} median "
+        f"{float(np.median(nfev))} (plain loop; the compensated polish is "
+        f"{'on' if FP.use_scatter_compensated() else 'off'}), CLI run "
+        f"max {max(nfev_cli)}")
+
+    # GetTOAs on the first int16 archive: the complex engine
+    gt = GetTOAs(i16[0], gmodel, quiet=True, device=device)
+    t0 = time.perf_counter()
+    gt.get_TOAs(quiet=True, fit_scat=True, scat_guess="auto",
+                print_phase=True)
+    sync(device)
+    gt_s = time.perf_counter() - t0
+    ref = {t.flags["subint"]: t for t in gt.TOA_list}
+    worst_s = worst_tau = worst_a = 0.0
+    for t in res.TOA_list:
+        if t.archive != i16[0]:
+            continue
+        r = ref[t.flags["subint"]]
+        worst_s = max(worst_s, toa_sigma_offset(r, t))
+        worst_tau = max(worst_tau, abs(tau_at(t.flags, 1500.0)[0]
+                                       / tau_at(r.flags, 1500.0)[0] - 1.0))
+        worst_a = max(worst_a, abs(t.flags["scat_ind"]
+                                   - r.flags["scat_ind"]))
+    rcs_gt = np.asarray(gt.rcs[0])[gt.ok_isubs[0]]
+    if not (worst_s <= 0.1 and worst_tau <= 0.02 and worst_a <= 0.05
+            and len(ref) == nsub and set(rcs_gt.tolist()) <= {0, 1, 2}):
+        raise AssertionError(
+            f"stream vs GetTOAs (complex engine): {worst_s:.3f} sigma "
+            f"(limit 0.1), scat_time {worst_tau:.4f} (0.02), scat_ind "
+            f"{worst_a:.4f} (0.05), {len(ref)} TOAs, return codes "
+            f"{sorted(set(rcs_gt.tolist()))}")
+    log(f"scattering stream vs GetTOAs (complex engine, "
+        f"{'complex64' if device_type(device) == 'cuda' else 'complex128'})"
+        f": max |dTOA| {worst_s:.4f} sigma (limit 0.1), scat_time at 1500 "
+        f"MHz {worst_tau:.2e} (limit 0.02), scat_ind {worst_a:.2e} (limit "
+        f"0.05) over {nsub} TOAs; GetTOAs fit {gt.fit_durations[0]:.4f} s, "
+        f"{gt_s:.3f} s wall incl. load, nfeval max "
+        f"{int(np.max(gt.nfevals[0]))}")
+    if device_type(device) == "cuda":
+        scatter_profile(meta, gmodel, device, nsub_batch)
+    return launches
+
+
+def scatter_profile(meta, gmodel, device, nsub_batch):
+    """The scattering library call under torch.profiler: device busy time
+    against the wall, the top device ops, the peak device memory, and
+    the Newton evaluator's device time (CUDA events around each of its
+    calls on the fit worker's stream; the profiler's CPU annotations do
+    not reach that thread)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pulseportraiture_tpu_torch.fit import portrait as FP
+    from pulseportraiture_tpu_torch.pipeline.stream import (
+        stream_wideband_TOAs)
+
+    orig = FP._cgh_scatter
+    events = []
+
+    def evaluator(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **k)
+        end.record()
+        events.append((start, end))
+        return out
+
+    FP._cgh_scatter = evaluator
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            stream_wideband_TOAs(meta, gmodel, nsub_batch=nsub_batch,
+                                 fit_scat=True, scat_guess="auto",
+                                 device=device, quiet=True)
+            sync(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        FP._cgh_scatter = orig
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    evaluator_ms = sum(a.elapsed_time(b) for a, b in events)
+    rows = []
+    for e in prof.key_averages():
+        self_us = getattr(e, "self_device_time_total", None)
+        if self_us is None:
+            self_us = getattr(e, "self_cuda_time_total", 0.0)
+        if self_us > 0:
+            rows.append((self_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(f"scattering profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} "
+        f"ms wall (idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on); "
+        f"Newton evaluator (_cgh_scatter) {evaluator_ms:.3f} ms over "
+        f"{len(events)} evaluations ({evaluator_ms / max(len(events), 1):.3f}"
+        f" ms each) = {100.0 * evaluator_ms / busy_ms:.1f} % of the device "
+        f"time; peak device memory {peak_gb:.2f} GB")
+    for us, key, n in rows[:14]:
+        log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
+
+
+def phase_m2_timing(K):
+    """B1's want_m2 form at the scattering bucket's shape (NSUB_BATCH x
+    512 x 2048, one shared template, per-element weights, the derived
+    window K, float32): the kernel (FFT arm), its GEMM arm, the plain
+    version and the torch.matmul and cuFFT equivalents, each output held
+    to 1e-5 x max|ref| of plain_oracle first (the GEMM arm and the
+    matmul equivalent, which sum in the float32 plain version's order,
+    to that version), then timed (median of 20 samples of 5 calls issued
+    back to back)."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.ops.fourier import device_weights
+
+    name = f"want_m2 {NSUB_BATCH}x{NCHAN}x{NBIN} K={K}"
+    c = cross_spectrum_case(name, NSUB_BATCH, NCHAN, NBIN, K,
+                            torch.float32, want_m2=True, seed=50)
+    args = (c["port"], c["model"], c["w"], K)
+    kw = dict(want_m2=True)
+    Wc, Ws = device_weights("rfft", c["port"].device, NBIN, "float32", K)
+    W = torch.cat([Wc, Ws], dim=1).contiguous()
+    parts = ("Xr", "Xi", "M2w")
+    before = F.kernel_launches()
+    got = F.fused_cross_spectrum_cuda(*args, **kw)
+    arm = expect_arm("fused_cross_spectrum", before, "fft", name)
+    ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, kw, arm)
+    errs, text = check_outputs(name, "fused_cross_spectrum", got, ref, ref32,
+                               parts)
+    del got
+    check_outputs(f"{name} GEMM arm", "fused_cross_spectrum",
+                  F.fused_cross_spectrum_cuda(*args, arm="gemm", **kw),
+                  ref32, ref32, parts)
+    check_outputs(f"{name} torch.matmul equivalent", "library_equivalent",
+                  library_equivalent(c["port"], c["model"], c["w"], K, W,
+                                     want_m2=True), ref32, ref32, parts)
+    check_outputs(f"{name} cuFFT equivalent", "cufft_equivalent",
+                  cufft_equivalent(c["port"], c["model"], c["w"], K,
+                                   want_m2=True), ref, ref32, parts)
+    del ref, ref32
+    err, scale, _ = max(errs, key=lambda t: t[0] / max(t[1], 1e-300))
+    ms = median_ms(lambda: F.fused_cross_spectrum_cuda(*args, **kw))
+    gemm_ms = median_ms(lambda: F.fused_cross_spectrum_cuda(
+        *args, arm="gemm", **kw))
+    plain_ms = median_ms(lambda: F.fused_cross_spectrum_ref(*args, **kw))
+    lib_ms = median_ms(lambda: library_equivalent(
+        c["port"], c["model"], c["w"], K, W, want_m2=True))
+    cufft_ms = median_ms(lambda: cufft_equivalent(
+        c["port"], c["model"], c["w"], K, want_m2=True))
+    ms2 = median_ms(lambda: F.fused_cross_spectrum_cuda(*args, **kw))
+    bound, by = cross_spectrum_bound_ms(NSUB_BATCH, NCHAN, NBIN, K, 4, True)
+    log(f"timing fused_cross_spectrum {name} f32: kernel ({arm} arm) "
+        f"{ms:.4f} ms (again {ms2:.4f}), GEMM arm {gemm_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.matmul equivalent {lib_ms:.4f} ms, cuFFT "
+        f"equivalent {cufft_ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel "
+        f"at {100.0 * bound / ms:.1f} % of its bound; max abs err {text} "
+        f"(tol 1e-5 x max|ref| of the plain version in float64)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                cufft_ms=cufft_ms, gemm_arm_ms=gemm_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=err, max_abs_ref=scale, arm=arm,
+                shape=[NSUB_BATCH, NCHAN, NBIN, K])
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -1019,6 +1383,12 @@ def main():
     t0 = time.perf_counter()
     rec2 = phase_decode_timing(K)
     log(f"phase timing B2: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    scat_launches = phase_scatter()
+    log(f"phase scattering path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    rec_m2 = phase_m2_timing(K)
+    log(f"phase timing B1 want_m2: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -1036,6 +1406,12 @@ def main():
         "cufft_ms": rec["cufft_ms"],
         "gemm_arm_ms": rec["gemm_ms"],
         "arm": rec["arm"],
+        "launches_by_path": {
+            "main": launches,
+            "stream": stream_launches["fused_cross_spectrum"],
+            "scattering": scat_launches["fused_cross_spectrum"]},
+        "want_m2": dict(rec_m2, launches=scat_launches[
+            "fused_cross_spectrum.m2"]),
     }, {
         "name": "fused_decode_cross_spectrum",
         "route": "cuda",

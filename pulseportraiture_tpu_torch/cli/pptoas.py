@@ -1,11 +1,11 @@
 """pptoas — measure wideband TOAs and DMs on the GPU.
 
-The wideband options of the JAX package's pptoas that map onto the
-ported fast lane: GetTOAs per archive, or with --stream the campaign
-lane (pipeline/stream.py) that pools subints across the archives of
-a metafile into batched fits.  Narrowband TOAs (ROADMAP A8), the
-transport codec (A7), scattering fits (A6) and telemetry (A13) are not
-ported yet and are refused.
+The wideband options of the JAX package's pptoas: GetTOAs per archive,
+or with --stream the campaign lane (pipeline/stream.py) that pools
+subints across the archives of a metafile into batched fits, both with
+the scattering fits (--fit_scat).  Narrowband TOAs (ROADMAP A8), the
+transport codec (A7) and telemetry (A13) are not ported yet and are
+refused.
 
     python -m pulseportraiture_tpu_torch.cli.pptoas -d archive.fits \\
         -m model.gmodel -o out.tim [--device cuda|cpu]
@@ -74,7 +74,17 @@ def build_parser():
     p.add_argument("--fit_dt4", dest="fit_GM", action="store_true",
                    default=False, help="Fit nu**-4 'GM' delays.")
     p.add_argument("--fit_scat", action="store_true", default=False,
-                   help="Fit scattering (not ported yet).")
+                   help="Fit scattering timescale and index per TOA.")
+    p.add_argument("--no_logscat", dest="log10_tau", action="store_false",
+                   default=True, help="Fit tau linearly, not log10(tau).")
+    p.add_argument("--scat_guess", default=None,
+                   help="'tau[s],freq[MHz],alpha' initial scattering "
+                        "guess, or 'auto' to estimate it per subint from "
+                        "the data's harmonic amplitude decay.")
+    p.add_argument("--fix_alpha", action="store_true", default=False,
+                   help="Hold the scattering index fixed (with --fit_scat).")
+    p.add_argument("--nu_tau", dest="nu_ref_tau", default=None, type=float,
+                   help="Output reference frequency [MHz] for tau.")
     p.add_argument("--print_phase", action="store_true", default=False,
                    help="Add -phs/-phs_err flags to TOA lines.")
     p.add_argument("--print_flux", action="store_true", default=False,
@@ -96,9 +106,11 @@ def build_parser():
     p.add_argument("--bound", action="append", default=[],
                    metavar="PARAM:LO,HI",
                    help="Box bound on a fit parameter (repeatable): "
-                        "PARAM in {phi,dm,gm}; LO/HI are floats or "
-                        "'None' (open).  A fit converging on a bound "
-                        "reports return code 0.")
+                        "PARAM in {phi,dm,gm,tau,alpha}; LO/HI are floats "
+                        "or 'None' (open).  tau bounds are in "
+                        "log10(rotations) under the default log-tau "
+                        "fit.  A fit converging on a bound reports "
+                        "return code 0.")
     p.add_argument("--telemetry", metavar="trace.jsonl", default=None,
                    help="JSONL campaign trace (not ported yet).")
     p.add_argument("--quality_flags", action="store_true", default=False,
@@ -156,7 +168,13 @@ def main(argv=None):
     if nu_ref_DM is not None:
         nu_ref_DM = np.inf if str(nu_ref_DM).lower() == "inf" \
             else float(nu_ref_DM)
-    nu_refs = None if nu_ref_DM is None else (nu_ref_DM, None)
+    nu_refs = None
+    if nu_ref_DM is not None or args.nu_ref_tau is not None:
+        nu_refs = (nu_ref_DM, args.nu_ref_tau)
+    scat_guess = None
+    if args.scat_guess:
+        scat_guess = ("auto" if args.scat_guess.strip() == "auto"
+                      else [float(x) for x in args.scat_guess.split(",")])
     addtnl = {}
     if args.flags:
         parts = args.flags.split(",")
@@ -174,13 +192,16 @@ def main(argv=None):
         config.fit_fused = table[v]
 
     if args.stream:
-        return _run_stream(args, nu_ref_DM, addtnl, stream_devices)
+        return _run_stream(args, nu_ref_DM, addtnl, stream_devices,
+                           scat_guess)
 
     gt = GetTOAs(args.datafiles, args.modelfile, quiet=args.quiet,
                  device=args.device)
     gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=args.DM0,
                 bary=args.bary, fit_DM=args.fit_DM, fit_GM=args.fit_GM,
-                fit_scat=args.fit_scat, print_phase=args.print_phase,
+                fit_scat=args.fit_scat, log10_tau=args.log10_tau,
+                scat_guess=scat_guess, fix_alpha=args.fix_alpha,
+                print_phase=args.print_phase,
                 print_flux=args.print_flux,
                 print_parangle=args.print_parangle,
                 addtnl_toa_flags=addtnl, prefetch=args.prefetch,
@@ -237,17 +258,13 @@ def _stream_options(args):
             raise SystemExit("--pipeline-depth: depth must be >= 1, got "
                              f"{args.pipeline_depth}")
     if args.stream and (args.one_DM or args.print_parangle):
-        raise SystemExit("--stream supports the wideband (phi, DM[, GM]), "
-                         "flux and phase campaign configuration only (no "
-                         "one_DM/parangle flags)")
-    if args.stream and args.fit_scat:
-        raise NotImplementedError(
-            "pptoas --stream --fit_scat: scattering fits are not ported "
-            "yet (ROADMAP A6)")
+        raise SystemExit("--stream supports the wideband (phi, DM[, GM, "
+                         "scattering]), flux and phase campaign "
+                         "configuration only (no one_DM/parangle flags)")
     return stream_devices
 
 
-def _run_stream(args, nu_ref_DM, addtnl, stream_devices):
+def _run_stream(args, nu_ref_DM, addtnl, stream_devices, scat_guess):
     """pptoas --stream: the campaign lane over every archive named."""
     from ..io.tim import write_princeton_TOAs, write_TOAs
     from ..pipeline.stream import stream_wideband_TOAs
@@ -255,8 +272,11 @@ def _run_stream(args, nu_ref_DM, addtnl, stream_devices):
     res = stream_wideband_TOAs(
         args.datafiles, args.modelfile, fit_DM=args.fit_DM,
         fit_GM=args.fit_GM, print_flux=args.print_flux,
-        print_phase=args.print_phase, nu_ref_DM=nu_ref_DM, DM0=args.DM0,
-        bary=args.bary, tscrunch=args.tscrunch, addtnl_toa_flags=addtnl,
+        print_phase=args.print_phase, nu_ref_DM=nu_ref_DM,
+        nu_ref_tau=args.nu_ref_tau, DM0=args.DM0, bary=args.bary,
+        tscrunch=args.tscrunch, fit_scat=args.fit_scat,
+        log10_tau=args.log10_tau, scat_guess=scat_guess,
+        fix_alpha=args.fix_alpha, addtnl_toa_flags=addtnl,
         stream_devices=stream_devices, device=args.device,
         pipeline_depth=args.pipeline_depth,
         quality_flags=args.quality_flags, quiet=args.quiet)

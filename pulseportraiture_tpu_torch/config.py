@@ -1,7 +1,8 @@
 """Behaviour-defining constants and knobs of the ported path.
 
 The subset of ``pulseportraiture_tpu/config.py`` that the wideband TOA
-fast lane reads, with the same defaults.  A tri-state whose ``'auto'``
+lanes read (the fast fit, the scattering fits and the complex engine),
+with the same defaults.  A tri-state whose ``'auto'``
 arm meant "on a TPU" there means "on a CUDA device" here
 (device.resolve_auto).
 """
@@ -23,10 +24,16 @@ scattering_alpha = -4.0
 F0_fact = 0.0
 
 # Route no-scattering pipeline fits through the complex-free fast fit
-# (fit.portrait.fit_portrait_batch_fast).  'auto' = on CUDA devices;
-# True/False force.  The complex engine is not ported yet, so a run
-# where this resolves False raises NotImplementedError.
+# (fit.portrait.fit_portrait_batch_fast), and the stream lane's
+# scattering buckets through its complex-free scatter lane.  'auto' =
+# on CUDA devices; True/False force.  Where it resolves False the
+# pipelines run the complex engine (fit.portrait.fit_portrait_batch).
+# GetTOAs always fits scattering groups with the complex engine.
 use_fast_fit = "auto"
+
+# Dot2-compensated k-reductions in scattering fits (hybrid: the plain
+# loop to convergence, then a short compensated polish; float32 X).
+scatter_compensated = False
 
 # Fused DFT -> cross-spectrum stage of the fast fit (ops/fused.py):
 # one hand-written CUDA kernel on a CUDA device, its plain PyTorch

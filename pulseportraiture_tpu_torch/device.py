@@ -24,6 +24,7 @@ KNOB_POLARITY = {
     "fast_fit": "cuda",     # complex-free fast fit in the pipeline
     "dft_fold": "not_cuda",  # fold-symmetry half-length DFT
     "bucket_pad": "cuda",   # stream bucket channel-count coarsening
+    "device_f32": "cuda",   # the complex engine runs float64 as float32
 }
 
 

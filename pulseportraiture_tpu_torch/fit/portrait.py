@@ -1,20 +1,29 @@
-"""The wideband portrait fit, fast lane (counterpart of pulseportraiture_tpu/fit/portrait.py).
+"""The wideband portrait fit (counterpart of pulseportraiture_tpu/fit/portrait.py).
 
-(phi, DM[, GM]) per subint in the Fourier domain with per-channel
-amplitudes profiled out analytically:
+(phi, DM[, GM, tau, alpha]) per subint in the Fourier domain with
+per-channel amplitudes profiled out analytically:
 
     t_n(theta)  = phi + (Dconst DM / P)(nu_n^-2 - nu_fit^-2)
                       + (Dconst^2 GM / P)(nu_n^-4 - nu_fit^-4)
-    C_n         = Re sum_k d_nk conj(m_nk) e^{2 pi i k t_n} w_nk
-    S_n         = sum_k |m_nk|^2 w_nk
+    B_nk        = 1 / (1 + 2 pi i k tau_n) * IR_nk,
+                  tau_n = tau (nu_n / nu_fit)^alpha
+    C_n         = Re sum_k d_nk conj(m_nk B_nk) e^{2 pi i k t_n} w_nk
+    S_n         = sum_k |m_nk B_nk|^2 w_nk
     chi2        = sum_nk |d_nk|^2 w_nk - sum_n C_n^2 / S_n
 
-This is the complex-free fast lane only (the JAX package's
-fit_portrait_batch_fast -> fast_fit_one): matmul DFTs or the fused
-DFT -> cross-spectrum kernel, the CCF phase seed, a damped Newton loop
-over the three harmonic moments, and the covariance / zero-covariance
-frequency / chi2 packaging.  The scattering lane and the complex engine
-are not ported yet (ROADMAP A6) and raise NotImplementedError.
+Three engines, routed as in the JAX package:
+
+- the complex-free fast lane (fit_portrait_batch_fast -> fast_fit_batched):
+  matmul DFTs or the fused DFT -> cross-spectrum kernel (B1), the CCF
+  phase seed, and a damped Newton loop over three harmonic moments;
+- its scattering twin (fit_portrait_batch_fast with tau/alpha free, a
+  log10 tau, a nonzero tau seed or an instrumental response ->
+  fast_scatter_fit_batched): B1 in its want_m2 form (the weighted model
+  power per harmonic), the tau-matched CCF seed, and the analytic
+  nine-reduction evaluator _cgh_scatter, optionally Dot2-compensated;
+- the complex engine (fit_portrait_batch, fit_portrait): complex
+  spectra from torch.fft, the complex CCF seed, and either the three
+  complex moments or _cgh_scatter on the complex cross-spectrum.
 
 Batching: the subint batch is a leading tensor dimension (the JAX
 package vmaps a per-element function).  A shared template stays 2-D.
@@ -32,19 +41,34 @@ import torch
 from .. import config
 from ..config import Dconst, F0_fact
 from ..device import resolve_auto, resolve_device
-from ..ops.fourier import irfft_mm, rfft_mm, use_dft_fold
+from ..ops.fourier import irfft_c, irfft_mm, rfft_c, rfft_mm, use_dft_fold
+from ..ops.scattering import scattering_portrait_FT
 
 __all__ = ["FitFlags", "FitResult", "fit_portrait_batch_fast",
            "fast_fit_batched", "prepare_portrait_fit_real",
            "fast_fit_batched_packed", "prepare_portrait_fit_real_packed",
-           "make_weights",
+           "fast_scatter_fit_batched", "prepare_scatter_fit_real",
+           "fit_portrait_batch", "fit_portrait", "chi2_prime",
+           "estimate_tau", "estimate_tau_batch", "make_weights",
            "model_harmonic_window", "resolve_harmonic_window",
            "use_fast_fit_default", "use_bf16_cross_spectrum",
+           "use_scatter_compensated", "effective_x_bf16",
+           "derive_use_scatter", "reject_fixed_tau_seed", "split_ir_host",
            "resolve_fit_fused", "warn_bf16_high_snr"]
 
-# Per-iteration step bound for (phi, DM, GM, theta3, alpha); only the
-# scattering parameters are capped, and they are never free here.
+# Per-iteration step bound for (phi, DM, GM, theta3, alpha): one decade
+# of log10 tau (or one rotation) and 2 units of alpha per trip keep the
+# soft tau-alpha valley and the extreme-tau descent path out of reach;
+# phi/DM/GM enter the phasor linearly and need no cap.
 _STEP_CAP = (float("inf"), float("inf"), float("inf"), 1.0, 2.0)
+
+# Initial Levenberg damping of SCATTERING fits (the JAX package's
+# measured choice: a well-seeded trajectory needs fewer trips than
+# from 1e-3; rejections still grow lam 8x per trip).
+_SCATTER_LAM0 = 1e-5
+
+# Trip budget of the compensated polish after the plain scattering loop.
+_POLISH_MAX_ITER = 6
 
 
 def _tiny(dtype):
@@ -107,6 +131,54 @@ def _t_coeffs(freqs, P, nu_fit):
     return cvec, gvec
 
 
+def _tau_of(theta, log10_tau):
+    """The scattering timescale [rot] of theta (B, 5)."""
+    return 10.0 ** theta[:, 3] if log10_tau else theta[:, 3]
+
+
+def _cexp(x):
+    """exp(i x) with the complex dtype matching x."""
+    return torch.complex(torch.cos(x), torch.sin(x))
+
+
+def _scatter_B(theta, freqs, nu_fit, nharm, ir_FT, log10_tau):
+    """Per-channel scattering (+ instrumental) kernel B (B, nchan,
+    nharm), complex."""
+    tau = _tau_of(theta, log10_tau)
+    taus = tau[:, None] * (freqs / nu_fit[:, None]) ** theta[:, 4:5]
+    B = scattering_portrait_FT(taus, nharm)
+    if ir_FT is not None:
+        B = B * ir_FT
+    return B
+
+
+def _CS_general(theta, X, M2, freqs, P, nu_fit, ir_FT, log10_tau):
+    """C_n, S_n (B, nchan) with scattering / instrumental response
+    active, from the complex cross-spectrum X and model power M2."""
+    nharm = X.shape[-1]
+    k = torch.arange(nharm, dtype=M2.dtype, device=M2.device)
+    B = _scatter_B(theta, freqs, nu_fit, nharm, ir_FT, log10_tau)
+    cvec, gvec = _t_coeffs(freqs, P, nu_fit)
+    t_n = theta[:, 0:1] + cvec * theta[:, 1:2] + gvec * theta[:, 2:3]
+    ph = _cexp(2.0 * math.pi * t_n[..., None] * k)
+    C = torch.sum((X * torch.conj(B) * ph).real, dim=-1)
+    S = torch.sum(M2 * (B.real**2 + B.imag**2), dim=-1)
+    return C, S
+
+
+def chi2_prime(theta, dFT, mFT, w, freqs, P, nu_fit, ir_FT=None,
+               log10_tau=False):
+    """The profiled-amplitude objective chi2' (B,) of complex spectra
+    dFT (B, nchan, nharm) against mFT (shared or per element); theta
+    (B, 5), P and nu_fit (B,)."""
+    X = dFT * torch.conj(mFT) * w
+    M2 = (mFT.real**2 + mFT.imag**2) * w
+    C, S = _CS_general(theta, X, M2, freqs, P, nu_fit, ir_FT, log10_tau)
+    good = S > 0.0
+    S_safe = torch.where(good, S, 1.0)
+    return -torch.sum(torch.where(good, C**2.0 / S_safe, 0.0), dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # knobs
 
@@ -135,6 +207,42 @@ def use_fast_fit_default(device):
     if setting is True or setting is False:
         return setting
     return resolve_auto("fast_fit", "auto", device)
+
+
+def use_scatter_compensated():
+    """Whether scattering fits run the Dot2-compensated reductions
+    (config.scatter_compensated)."""
+    return bool(config.scatter_compensated)
+
+
+def effective_x_bf16(compensated, x_bf16=None):
+    """The bf16 cross-spectrum storage flag in effect for a scattering
+    fit: compensated mode keeps X in the working dtype, so the bf16 knob
+    is dead under it."""
+    if x_bf16 is None:
+        x_bf16 = use_bf16_cross_spectrum()
+    return bool(x_bf16) and not bool(compensated)
+
+
+def split_ir_host(ir_FT, dt, device):
+    """A host (or tensor) instrumental-response FT, complex or real, as
+    two real tensors (ir_r, ir_i) of dtype dt on device; None -> (None,
+    None)."""
+    if ir_FT is None:
+        return None, None
+    ir = np.asarray(_host(ir_FT))
+    return (torch.as_tensor(np.array(ir.real), dtype=dt, device=device),
+            torch.as_tensor(np.array(ir.imag), dtype=dt, device=device))
+
+
+def _canonical_real_dtype(x, device):
+    """float64 -> float32 where config's device_f32 knob resolves on
+    (CUDA devices: the complex engine runs complex64 there); unchanged
+    otherwise."""
+    if x.dtype != torch.float64 or not resolve_auto("device_f32", "auto",
+                                                    device):
+        return x
+    return x.float()
 
 
 # Calibrated channel-S/N envelope of the bf16 cross-spectrum default.
@@ -434,10 +542,255 @@ def _cgh_tail(C, C1, C2, S0inv, cvec, gvec):
     return f, g5, H5
 
 
+def _moments_complex(t_n, X):
+    """Harmonic moments (C, C1, C2), each (B, nchan), of the complex
+    cross-spectrum X under rotation t_n (B, nchan): the JAX package's
+    _moments_xla."""
+    nharm = X.shape[-1]
+    dt = t_n.dtype
+    k2pi = 2.0 * math.pi * torch.arange(nharm, dtype=dt, device=t_n.device)
+    W = X * _cexp(t_n[..., None] * k2pi)
+    return (torch.sum(W, dim=-1).real,
+            -torch.sum(W * k2pi, dim=-1).imag,
+            -torch.sum(W * k2pi**2, dim=-1).real)
+
+
+def _cgh_fast(theta, X, S0inv, cvec, gvec):
+    """(f, grad, hess) of chi2' in one pass over the complex X: the
+    complex engine's no-scattering evaluator."""
+    t_n = theta[:, 0:1] + cvec * theta[:, 1:2] + gvec * theta[:, 2:3]
+    C, C1, C2 = _moments_complex(t_n, X)
+    return _cgh_tail(C, C1, C2, S0inv, cvec, gvec)
+
+
+# ---------------------------------------------------------------------------
+# Dot2: compensated k-reductions for float32 scattering fits.  Eager
+# PyTorch runs each operation as its own kernel, so nothing fuses or
+# re-associates the error-free transforms (they must never be compiled).
+
+def _two_sum(ah, al, bh, bl):
+    """Double-word (hi, lo) addition: Knuth TwoSum on the hi words, the
+    lows accumulated."""
+    s = ah + bh
+    bb = s - ah
+    err = (ah - (s - bb)) + (bh - bb)
+    return s, al + bl + err
+
+
+def _pair_sum_df64(x, lo=None):
+    """Sum the last axis through a double-word reduction tree that
+    combines contiguous halves with TwoSum, carrying the rounding
+    residue in a lo word; odd lengths are zero-padded by one."""
+    hi = x
+    lo = torch.zeros_like(x) if lo is None else lo
+    while hi.shape[-1] > 1:
+        if hi.shape[-1] % 2:
+            hi = torch.nn.functional.pad(hi, (0, 1))
+            lo = torch.nn.functional.pad(lo, (0, 1))
+        half = hi.shape[-1] // 2
+        hi, lo = _two_sum(hi[..., :half], lo[..., :half],
+                          hi[..., half:], lo[..., half:])
+    return hi[..., 0] + lo[..., 0]
+
+
+def _two_product(a, b):
+    """Exact product splitting: (p, e) with p = fl(a b) and p + e = a b
+    exactly (Dekker's TwoProduct through the Veltkamp split, constant
+    2^12 + 1 in float32 and 2^27 + 1 in float64)."""
+    dt = torch.result_type(a, b)
+    c = 134217729.0 if dt == torch.float64 else 4097.0
+    p = a * b
+    ac = a * c
+    ah = ac - (ac - a)
+    al = a - ah
+    bc = b * c
+    bh = bc - (bc - b)
+    bl = b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, e
+
+
+def _dot2(a, b):
+    """sum_k a_k b_k with the product errors captured (_two_product) and
+    the sum taken double-word pairwise (_pair_sum_df64): Dot2."""
+    p, e = _two_product(a, b)
+    return _pair_sum_df64(p, e)
+
+
+def _wJJ(w, A, B):
+    """sum_n w_n A_in B_jn per batch element: (B, 5, 5)."""
+    return torch.einsum("bn,bin,bjn->bij", w, A, B)
+
+
+def _cgh_scatter(theta, Xr, Xi, M2, freqs, nu_fit, cvec, gvec, log10_tau,
+                 compensated=False):
+    """(f (B,), grad (B, 5), hess (B, 5, 5), (C, S)) of chi2' with the
+    scattering kernel active, in one pass over the split cross-spectrum.
+
+    theta (B, 5); Xr/Xi (B, nchan, nharm) in the working dtype or
+    bfloat16 (every product with the float32 kernel terms promotes to
+    float32); M2 (B, nchan, nharm) the weighted model power; freqs
+    (nchan,) or (B, nchan); nu_fit (B,); cvec/gvec (B, nchan).  Any
+    instrumental response is already folded into X and M2.
+
+    Chain (the JAX package's, re-derived there from the reference):
+      t_n   = phi + c_n DM + g_n GM
+      tau_n = T(theta3) (nu_n/nu_fit)^alpha
+      B_k   = 1/(1 + 2 pi i tau_n k), dB/dtau = -2 pi i k B^2
+      C_n   = sum_k Re[X conj(B) e^{2 pi i t k}], S_n = sum_k M2 |B|^2
+    Nine k-reductions per channel give the exact 5x5 curvature;
+    compensated=True takes each through Dot2."""
+    dt = M2.dtype
+    nharm = Xr.shape[-1]
+    k = torch.arange(nharm, dtype=dt, device=M2.device)
+    twopi = 2.0 * math.pi
+
+    # kernel path
+    r = (freqs / nu_fit[:, None]).to(dt)
+    logr = torch.log(r)
+    if log10_tau:
+        T = 10.0 ** theta[:, 3:4]
+        tau_n = T * r ** theta[:, 4:5]
+        ln10 = math.log(10.0)
+        s1 = ln10 * tau_n
+        s11 = ln10 ** 2.0 * tau_n
+        s12 = ln10 * tau_n * logr
+    else:
+        T = theta[:, 3:4]
+        ra = r ** theta[:, 4:5]
+        tau_n = T * ra
+        s1 = ra
+        s11 = torch.zeros_like(ra)
+        s12 = ra * logr
+    s2 = tau_n * logr
+    s22 = tau_n * logr ** 2.0
+
+    # phasor path
+    t_n = theta[:, 0:1] + cvec * theta[:, 1:2] + gvec * theta[:, 2:3]
+
+    bk = (twopi * tau_n)[..., None] * k
+    q = 1.0 / (1.0 + bk * bk)  # |B|^2; conj(B) = (1 + i bk) q
+    cBi = bk.mul_(q)
+    del bk
+    ang = twopi * t_n[..., None] * k
+    c = torch.cos(ang)
+    s = ang.sin_()
+    er = Xr * c - Xi * s  # Re[X e]
+    ei = Xr * s + Xi * c  # Im[X e]
+    del ang, c, s
+    # U = X conj(B) e
+    Ur = er * q - ei * cBi
+    Ui = er * cBi + ei * q
+    del er, ei
+    # U conj(B), and the real part of U conj(B)^2
+    UBr = Ur * q - Ui * cBi
+    UBi = Ur * cBi + Ui * q
+    UB2r = UBr * q - UBi * cBi
+    del cBi
+
+    k2 = k * k
+    if compensated:
+        red1 = _pair_sum_df64
+        red = _dot2
+    else:
+        def red1(x):
+            return torch.sum(x, dim=-1)
+
+        def red(a, b):
+            return torch.sum(a * b, dim=-1)
+    C = red1(Ur)
+    C_t = -twopi * red(k, Ui)
+    C_tt = -(twopi ** 2.0) * red(k2, Ur)
+    del Ur, Ui
+    C_tau = -twopi * red(k, UBi)
+    C_taut = -(twopi ** 2.0) * red(k2, UBr)
+    C_tautau = -2.0 * twopi ** 2.0 * red(k2, UB2r)
+    del UBr, UBi, UB2r
+
+    M2q = M2 * q
+    S = red1(M2q)
+    Sk2q2 = red(M2q * q, k2)
+    Sk4q3 = red(M2q, (q * k2) ** 2.0)
+    del M2q, q
+    S_tau = -2.0 * twopi ** 2.0 * tau_n * Sk2q2
+    S_tautau = (-2.0 * twopi ** 2.0 * Sk2q2
+                + 8.0 * twopi ** 4.0 * tau_n ** 2.0 * Sk4q3)
+
+    # chain to (phi, DM, GM, theta3, alpha)
+    ones = torch.ones_like(cvec)
+    zeros = torch.zeros_like(cvec)
+    Jt = torch.stack([ones, cvec, gvec, zeros, zeros], dim=-2)   # (B,5,n)
+    Jtau = torch.stack([zeros, zeros, zeros, s1, s2], dim=-2)
+    Cp = Jt * C_t[:, None, :] + Jtau * C_tau[:, None, :]
+    Sp = Jtau * S_tau[:, None, :]
+
+    good = S > 0.0
+    Sinv = torch.where(good, 1.0 / torch.where(good, S, 1.0), 0.0)
+    CS = C * Sinv
+    f = -torch.sum(C * CS, dim=-1)
+
+    g = (-2.0 * torch.matmul(Cp, CS[..., None])[..., 0]
+         + torch.matmul(Sp, (CS ** 2.0)[..., None])[..., 0])
+
+    w_tt = -2.0 * (C * C_tt) * Sinv
+    w_taut = -2.0 * (C * C_taut) * Sinv
+    w_tautau = -2.0 * (C * C_tautau) * Sinv
+    H = (_wJJ(w_tt, Jt, Jt) + _wJJ(w_taut, Jt, Jtau)
+         + _wJJ(w_taut, Jtau, Jt) + _wJJ(w_tautau, Jtau, Jtau))
+    # -2 C_p C_q / S
+    H = H - 2.0 * torch.einsum("bin,bn,bjn->bij", Cp, Sinv, Cp)
+    # + 2 C (C_p S_q + C_q S_p) / S^2
+    CpSq = torch.einsum("bin,bn,bjn->bij", Cp, 2.0 * CS * Sinv, Sp)
+    H = H + CpSq + CpSq.transpose(-1, -2)
+    # + C^2 S_pq / S^2 - 2 C^2 S_p S_q / S^3
+    w_sp = CS ** 2.0
+    H = H + _wJJ(w_sp * S_tautau, Jtau, Jtau)
+    H = H - 2.0 * torch.einsum("bin,bn,bjn->bij", Sp, w_sp * Sinv, Sp)
+    # second derivatives of the tau(theta3, alpha) chain itself
+    chain_C = -2.0 * CS * C_tau + w_sp * S_tau
+    h33 = torch.sum(chain_C * s11, dim=-1)
+    h34 = torch.sum(chain_C * s12, dim=-1)
+    h44 = torch.sum(chain_C * s22, dim=-1)
+    H[:, 3, 3] += h33
+    H[:, 3, 4] += h34
+    H[:, 4, 3] += h34
+    H[:, 4, 4] += h44
+    return f, g, H, (C, S)
+
+
+def _scatter_ftol(dt, compensated=False):
+    """Convergence threshold of SCATTERING fits: float32 runs to 1e-9
+    (1e-10 with the compensated reductions), far tighter than the
+    generic 50 eps (|f| + 1), which stops a float32 tau fit ~0.3 % short
+    of its minimum; float64 keeps 50 eps."""
+    if dt == torch.float32:
+        return 1e-10 if compensated else 1e-9
+    return 50.0 * float(torch.finfo(dt).eps)
+
+
+def _aux_map(fn, aux):
+    """fn over an aux: a tensor or a (possibly empty) tuple of tensors."""
+    if isinstance(aux, tuple):
+        return tuple(_aux_map(fn, a) for a in aux)
+    return fn(aux)
+
+
+def _aux_where(mask, new, old):
+    """Per-element torch.where over an aux, the (B,) mask broadcast
+    along each tensor's trailing axes."""
+    if isinstance(new, tuple):
+        return tuple(_aux_where(mask, n, o) for n, o in zip(new, old))
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)),
+                       new, old)
+
+
 def _newton_loop(cgh, theta0, flags_arr, max_iter, ftol, lam0=1.0e-3,
                  stall_max=4, bounds=None):
     """Levenberg-damped Newton minimization over a batch, given a fused
-    (f, grad, hess, aux) evaluator — one cgh() call per trip.
+    (f, grad, hess, aux) evaluator — one cgh() call per trip.  aux is a
+    tensor or a tuple of tensors with the batch as leading axis (the
+    per-channel moments the packaging needs); the state carries the aux
+    that matches theta.
 
     Semantics are the JAX package's _newton_loop under vmap: damping
     H + lam diag|H|, convergence when 0.5 g^T diag(H)^-1 g < ftol
@@ -520,7 +873,7 @@ def _newton_loop(cgh, theta0, flags_arr, max_iter, ftol, lam0=1.0e-3,
                                     theta_new)
         f_new, g_new, H_new, aux_new = cgh(theta_new)
         if aux is None:  # bootstrap placeholder, never committed
-            aux = torch.zeros_like(aux_new)
+            aux = _aux_map(torch.zeros_like, aux_new)
         accept_f = (f_new < f) & ~conv_now
         gm, Hm = mask_gH(g_new, H_new)
         gm, _ = project_active(theta_new, gm, Hm)
@@ -545,7 +898,7 @@ def _newton_loop(cgh, theta0, flags_arr, max_iter, ftol, lam0=1.0e-3,
         f = torch.where(acc, f_new, f)
         g = torch.where(acc[:, None], g_new, g)
         H = torch.where(acc[:, None, None], H_new, H)
-        aux = torch.where(acc[:, None], aux_new, aux)
+        aux = _aux_where(acc, aux_new, aux)
         lam = torch.where(active, lam_new, lam)
         it = it + active.to(it.dtype)
         nfev = nfev + active.to(nfev.dtype)
@@ -563,15 +916,36 @@ def _newton_loop(cgh, theta0, flags_arr, max_iter, ftol, lam0=1.0e-3,
                                        torch.ones_like(code)), code)
     bad = ~torch.isfinite(f)
     H = torch.where(bad[:, None, None], math.nan, H)
-    aux = torch.where(bad[:, None], math.nan, aux)
+    aux = _aux_where(bad, _aux_map(lambda a: torch.full_like(a, math.nan),
+                                   aux), aux)
     return theta, f, H, aux, nfev, code
 
 
+def _hybrid_scatter_loop(cgh_plain, cgh_comp, theta0, flags_arr, max_iter,
+                         ftol_comp, dt, lam0=_SCATTER_LAM0, bounds=None):
+    """Two-stage scattering Newton: the plain loop to its own convergence
+    floor, then a short compensated polish (_POLISH_MAX_ITER trips, a
+    fresh bootstrap trip: plain and compensated objectives differ by
+    more than ftol |f| near the floor).  nfev is the sum of both stages.
+    The code is the polish's, except that a polish that ran out of trips
+    (3) after a plain stage that ended normally reports the plain
+    stage's code."""
+    th1, _, _, _, nfev1, code1 = _newton_loop(
+        cgh_plain, theta0, flags_arr, max_iter, _scatter_ftol(dt, False),
+        lam0=lam0, bounds=bounds)
+    theta, f, H, aux, nfev2, code2 = _newton_loop(
+        cgh_comp, th1, flags_arr, _POLISH_MAX_ITER, ftol_comp, lam0=lam0,
+        bounds=bounds)
+    code = torch.where((code2 == 3) & (code1 != 3), code1, code2)
+    return theta, f, H, aux, nfev1 + nfev2, code
+
+
 def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
-                  nu_fit, nu_out, nfev, code):
+                  nu_fit, nu_out, nfev, code, log10_tau=False):
     """Covariance, zero-covariance frequencies, re-referencing, scales,
-    S/N and chi2 packaging (no log10-tau: the fast lane never scatters).
-    Every input carries the batch as its leading axis."""
+    S/N and chi2 packaging, shared by every engine; theta[:, 3] is
+    log10 tau when log10_tau.  Every input carries the batch as its
+    leading axis."""
     dt = theta.dtype
     dev = theta.device
     tiny = _tiny(dt)
@@ -609,12 +983,15 @@ def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
     if not fit_flags[2]:
         nu_zero_GM = nu_fit
 
-    # tau/alpha zero-covariance frequency (only when both are fitted,
-    # which the fast lane never does: dlog is then 0)
+    # tau/alpha zero-covariance frequency: Cov(log tau_ref, alpha) = 0
+    # (only when both are fitted)
     vA = covI[:, 4, 4]
     cTA = covI[:, 3, 4]
-    tau_fit = theta[:, 3]
-    dlog = -cTA / torch.clamp(tau_fit * vA * math.log(10.0), min=tiny)
+    tau_fit = _tau_of(theta, log10_tau)
+    if log10_tau:
+        dlog = -cTA / torch.clamp(vA, min=tiny)
+    else:
+        dlog = -cTA / torch.clamp(tau_fit * vA * math.log(10.0), min=tiny)
     if not (fit_flags[3] and fit_flags[4]):
         dlog = torch.zeros_like(dlog)
     dlog = torch.clamp(dlog, -1.0, 1.0)
@@ -641,10 +1018,17 @@ def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
 
     r_tau = (nu_tau_out / nu_fit) ** theta[:, 4]
     tau_out = tau_fit * r_tau
-    ut = torch.stack([zero, zero, zero, r_tau,
-                      tau_out * torch.log(nu_tau_out / nu_fit)], dim=-1)
-    tau_err = torch.sqrt(torch.clamp(
-        torch.einsum("bi,bij,bj->b", ut, covI, ut), min=0.0))
+    if log10_tau:
+        ut = torch.stack([zero, zero, zero, torch.ones_like(zero),
+                          torch.log10(nu_tau_out / nu_fit)], dim=-1)
+        taup_var = torch.einsum("bi,bij,bj->b", ut, covI, ut)
+        tau_err = (torch.sqrt(torch.clamp(taup_var, min=0.0)) * tau_out
+                   * math.log(10.0))
+    else:
+        ut = torch.stack([zero, zero, zero, r_tau,
+                          tau_out * torch.log(nu_tau_out / nu_fit)], dim=-1)
+        tau_err = torch.sqrt(torch.clamp(
+            torch.einsum("bi,bij,bj->b", ut, covI, ut), min=0.0))
 
     DM_err = torch.sqrt(torch.clamp(cov[:, 1, 1], min=0.0))
     GM_err = torch.sqrt(torch.clamp(cov[:, 2, 2], min=0.0))
@@ -760,10 +1144,226 @@ def fast_fit_batched_packed(raw, scl, offs, model, noise_stds, chan_masks,
         fit_flags=fit_flags, max_iter=max_iter, nharm_total=nbin // 2 + 1)
 
 
+# ---------------------------------------------------------------------------
+# the complex-free scattering lane
+
+def _initial_phase_guess_scatter(Xr, Xi, cvec, DM0, tau_n, nbin,
+                                 derotate=True, oversamp=2):
+    """The CCF phase seed matched to the scattering kernel: the
+    channel-summed CCF of X conj(B(tau_seed)) is sum_n C_n(phi) on the
+    lag grid, so its argmax is the objective's own at the seeded tau
+    (the unmatched CCF peaks early by O(tau)).  tau_n (B, nchan): the
+    per-channel seed timescale in rotations (0 gives the plain seed)."""
+    nharm = Xr.shape[-1]
+    dt = cvec.dtype
+    k = torch.arange(nharm, dtype=dt, device=cvec.device)
+    bk = (2.0 * math.pi * tau_n)[..., None] * k
+    q = 1.0 / (1.0 + bk * bk)
+    cBi = bk * q
+    Yr = Xr * q - Xi * cBi
+    Yi = Xr * cBi + Xi * q
+    return _initial_phase_guess_real(Yr, Yi, cvec, DM0, derotate=derotate,
+                                     nbin=nbin, oversamp=oversamp)
+
+
+def prepare_scatter_fit_real(port, model, noise_stds, chan_mask, freqs, P,
+                             nu_fit, theta0, ir_r=None, ir_i=None, *,
+                             fit_flags, log10_tau=False, compensated=False,
+                             x_bf16=None, nharm_eff=None, seed_derotate=True,
+                             dft_fold=None, fit_fused=None):
+    """Everything before the scattering Newton loop, batched, in real
+    arithmetic: weights, the windowed DFT -> cross-spectrum with the
+    weighted model power per harmonic (B1 in its want_m2 form on the
+    fused lane, two rfft_mm matmuls otherwise), the instrumental
+    response folded in (X' = X conj(ir), M2' = M2 |ir|^2), the
+    full-spectrum Sd, and the tau-matched CCF seed at theta0's (tau,
+    alpha).  X is stored in bfloat16 when the knob says so, unless the
+    fit is compensated.  port (B, nchan, nbin); model shared (nchan,
+    nbin) or per element; ir_r/ir_i (nchan, nharm_w) sliced to the
+    window.  Returns (Xr, Xi, M2w, Sd, theta0)."""
+    if x_bf16 is None:
+        x_bf16 = use_bf16_cross_spectrum()
+    nbin = port.shape[-1]
+    dt = port.dtype
+    w = make_weights(noise_stds, nbin, chan_mask, dtype=dt,
+                     nharm=nharm_eff)
+    if fit_fused is None:
+        fit_fused = resolve_fit_fused(nharm_eff, port.device)
+    if fit_fused and nharm_eff is not None:
+        from ..ops.fused import fused_cross_spectrum
+
+        Xr, Xi, M2w = fused_cross_spectrum(
+            port, model.to(dt).contiguous(), w, nharm_eff, fold=dft_fold,
+            want_m2=True)
+        Sd = _parseval_Sd(port, w)
+    else:
+        dr, di = rfft_mm(port, nharm=nharm_eff, fold=dft_fold)
+        mr, mi = rfft_mm(model.to(dt), nharm=nharm_eff, fold=dft_fold)
+        Xr = (dr * mr + di * mi) * w
+        Xi = (di * mr - dr * mi) * w
+        M2w = (mr**2 + mi**2) * w
+        if nharm_eff is None:
+            Sd = torch.sum((dr**2 + di**2) * w, dim=(-2, -1))
+        else:
+            Sd = _parseval_Sd(port, w)
+        del dr, di
+    if ir_r is not None:
+        Xr, Xi = Xr * ir_r + Xi * ir_i, Xi * ir_r - Xr * ir_i
+        M2w = M2w * (ir_r**2 + ir_i**2)
+    cvec, _ = _t_coeffs(freqs, P, nu_fit)
+    theta0 = theta0.to(dt)
+    if fit_flags[0]:
+        # per-channel seed timescale from theta0's (tau, alpha): the
+        # kernel the first Newton evaluation sees
+        tau0 = 10.0 ** theta0[:, 3] if log10_tau else theta0[:, 3]
+        tau_n = tau0[:, None] * (freqs.to(dt) / nu_fit[:, None]) \
+            ** theta0[:, 4:5]
+        phi0 = _initial_phase_guess_scatter(
+            Xr, Xi, cvec.to(dt), theta0[:, 1], tau_n, nbin,
+            derotate=seed_derotate)
+        theta0 = theta0.clone()
+        theta0[:, 0] = phi0
+    xdt = (dt if compensated
+           else torch.bfloat16 if (x_bf16 and dt == torch.float32) else dt)
+    return Xr.to(xdt), Xi.to(xdt), M2w, Sd, theta0
+
+
+def _fit_portrait_core_real_scatter(Xr, Xi, M2w, Sd, freqs, P, nu_fit,
+                                    nu_out, theta0, fit_flags=FitFlags(),
+                                    log10_tau=False, max_iter=40, ftol=None,
+                                    compensated=False, nharm_total=None,
+                                    bounds=None):
+    """Stage 2 of the split scattering fit, batched: the (phi, DM, GM,
+    tau, alpha) Newton loop on _cgh_scatter (hybrid plain + compensated
+    polish when compensated) and the packaging, with (C, S) riding the
+    loop state as aux.  nharm_total: the full spectrum's harmonic count
+    when the spectra are band-limited (the unscattered template's
+    window holds for every tau: the kernel never widens the spectrum)."""
+    dt = M2w.dtype
+    nharm = nharm_total if nharm_total is not None else Xr.shape[-1]
+    flags_arr = FitFlags(*fit_flags).as_tensor(dt, M2w.device)
+    if ftol is None:
+        ftol = _scatter_ftol(dt, compensated)
+    cvec, gvec = _t_coeffs(freqs, P, nu_fit)
+    cvec = cvec.to(dt)
+    gvec = gvec.to(dt)
+
+    def mk_cgh(comp):
+        def cgh(theta):
+            return _cgh_scatter(theta, Xr, Xi, M2w, freqs, nu_fit, cvec,
+                                gvec, log10_tau, comp)
+        return cgh
+
+    if compensated:
+        theta, f, H, (C, S), nfev, code = _hybrid_scatter_loop(
+            mk_cgh(False), mk_cgh(True), theta0.to(dt), flags_arr,
+            max_iter, ftol, dt, bounds=bounds)
+    else:
+        theta, f, H, (C, S), nfev, code = _newton_loop(
+            mk_cgh(False), theta0.to(dt), flags_arr, max_iter, ftol,
+            lam0=_SCATTER_LAM0, bounds=bounds)
+    return _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr,
+                         fit_flags, P, nu_fit, nu_out, nfev, code,
+                         log10_tau)
+
+
+def fast_scatter_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
+                             nu_fit, nu_out, theta0, ir_r=None, ir_i=None,
+                             bounds=None, *, fit_flags, log10_tau, max_iter,
+                             compensated=False, x_bf16=None, nharm_eff=None,
+                             seed_derotate=True, dft_fold=None,
+                             fit_fused=None):
+    """The JAX package's fast_scatter_fit_one with the batch as a leading
+    dimension: prepare_scatter_fit_real, then the scattering Newton
+    core.  The (tau, alpha) seeds arrive in theta0's columns 3 and 4."""
+    nbin = ports.shape[-1]
+    Xr, Xi, M2w, Sd, th0 = prepare_scatter_fit_real(
+        ports, model, noise_stds, chan_masks, freqs, P, nu_fit, theta0,
+        ir_r, ir_i, fit_flags=fit_flags, log10_tau=log10_tau,
+        compensated=compensated, x_bf16=x_bf16, nharm_eff=nharm_eff,
+        seed_derotate=seed_derotate, dft_fold=dft_fold, fit_fused=fit_fused)
+    return _fit_portrait_core_real_scatter(
+        Xr, Xi, M2w, Sd, freqs, P, nu_fit, nu_out, th0, fit_flags=fit_flags,
+        log10_tau=log10_tau, max_iter=max_iter, compensated=compensated,
+        nharm_total=nbin // 2 + 1 if nharm_eff is not None else None,
+        bounds=bounds)
+
+
 def _as_tensor(x, dtype, device):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _nu_out_tensor(nu_out, nb, dt, dev):
+    """nu_out (None = the zero-covariance frequencies, a scalar, or a
+    (nb,) tensor) as a (nb,) tensor; -1 marks "none"."""
+    if nu_out is None:
+        return torch.full((nb,), -1.0, dtype=dt, device=dev)
+    if isinstance(nu_out, torch.Tensor):
+        return nu_out.to(device=dev, dtype=dt).expand(nb).contiguous()
+    return torch.full((nb,), float(nu_out), dtype=dt, device=dev)
+
+
+def _stage_batch(ports, models, noise_stds, freqs, P, nu_fit, nu_out,
+                 theta0, chan_masks, bounds, dev, canonical=False):
+    """The batch wrappers' host staging: every input as a tensor on dev
+    in the ports' dtype (float64 made float32 first where
+    _canonical_real_dtype says so, with canonical), P / nu_fit / nu_out
+    broadcast to (nb,), theta0 zeros when None, masks ones when None,
+    bounds checked.  seed_derotate: whether any DM guess is nonzero (the
+    CCF seed's derotation is the identity otherwise)."""
+    ports_t = ports if isinstance(ports, torch.Tensor) else \
+        torch.as_tensor(np.asarray(ports))
+    ports_t = ports_t.to(dev)
+    if canonical:
+        ports_t = _canonical_real_dtype(ports_t, dev)
+    dt = ports_t.dtype
+    nb, nchan, _ = ports_t.shape
+    if theta0 is None:
+        theta0_t = torch.zeros((nb, 5), dtype=dt, device=dev)
+        seed_derotate = False
+    else:
+        theta0_t = _as_tensor(theta0, dt, dev)
+        seed_derotate = bool(np.any(np.asarray(_host(theta0))[..., 1]
+                                    != 0.0))
+    if bounds is not None:
+        bounds = _as_tensor(bounds, dt, dev)
+        if bounds.shape[-2:] != (5, 2) or bounds.dim() not in (2, 3):
+            raise ValueError(f"bounds must be (5, 2) or (nb, 5, 2); got "
+                             f"{tuple(bounds.shape)}")
+    return dict(
+        ports=ports_t.contiguous(),
+        models=_as_tensor(models, dt, dev).contiguous(),
+        noise=_as_tensor(noise_stds, dt, dev),
+        masks=(torch.ones((nb, nchan), dtype=dt, device=dev)
+               if chan_masks is None else _as_tensor(chan_masks, dt, dev)),
+        freqs=_as_tensor(freqs, dt, dev),
+        P=_as_tensor(P, dt, dev).expand(nb).contiguous(),
+        nu_fit=_as_tensor(nu_fit, dt, dev).expand(nb).contiguous(),
+        nu_out=_nu_out_tensor(nu_out, nb, dt, dev), theta0=theta0_t,
+        bounds=bounds, seed_derotate=seed_derotate)
+
+
+def derive_use_scatter(fit_flags, log10_tau, theta0):
+    """True when the scattering kernel must be active: tau/alpha fitted,
+    the log10 parameterization (tau = 10^theta3 > 0 always), or a fixed
+    nonzero tau seeded in theta0."""
+    if bool(fit_flags[3]) or bool(fit_flags[4]) or log10_tau:
+        return True
+    if theta0 is not None:
+        return bool(np.any(np.asarray(_host(theta0))[..., 3] != 0.0))
+    return False
+
+
+def reject_fixed_tau_seed(theta0, caller):
+    """The no-scattering core has no kernel: a fixed nonzero tau seed
+    is refused, not silently dropped."""
+    if theta0 is not None and bool(np.any(np.asarray(_host(theta0))[..., 3]
+                                          != 0.0)):
+        raise ValueError(
+            f"{caller}: fixed nonzero tau in theta0 requires the "
+            "scattering kernel; use the complex engine instead")
 
 
 def fit_portrait_batch_fast(ports, models, noise_stds, freqs, P, nu_fit,
@@ -772,63 +1372,351 @@ def fit_portrait_batch_fast(ports, models, noise_stds, freqs, P, nu_fit,
                             ir_FT=None, use_scatter=None, compensated=None,
                             harmonic_window=None, bounds=None,
                             device=None):
-    """Batched (phi, DM[, GM]) fit through the complex-free fast lane.
+    """Batched fit through the complex-free lanes, on ``device`` (default
+    cuda):
+
+    - no scattering: the three-moment fast fit (fast_fit_batched);
+    - scattering active (tau/alpha fitted, log10_tau, a fixed nonzero
+      tau seed, or an instrumental response ir_FT (nchan, nharm)): the
+      scattering lane (fast_scatter_fit_batched).  compensated: None ->
+      config.scatter_compensated (nfeval may then exceed max_iter by the
+      polish budget).
 
     ports (nb, nchan, nbin) numpy or tensor (its dtype is the working
     dtype); models (nb, nchan, nbin) or a shared (nchan, nbin) template
     (kept 2-D); noise_stds/chan_masks (nb, nchan); freqs (nchan,) or
     (nb, nchan); P and nu_fit scalars or (nb,).  harmonic_window: None
     -> config.fit_harmonic_window; 'auto' derives K from the model only
-    when it is host numpy.  bounds: (5, 2) or (nb, 5, 2) [lo, hi] box.
-    Runs on ``device`` (default cuda).  Scattering (tau/alpha fitted,
-    log10_tau, a nonzero tau seed, an instrumental response) is the
-    unported ROADMAP A6 lane and raises NotImplementedError."""
+    when it is host numpy.  bounds: (5, 2) or (nb, 5, 2) [lo, hi] box."""
+    if use_scatter is None:
+        use_scatter = (derive_use_scatter(fit_flags, log10_tau, theta0)
+                       or ir_FT is not None)
+    if not use_scatter and ir_FT is not None:
+        raise ValueError(
+            "fit_portrait_batch_fast: an instrumental response needs the "
+            "scatter-shaped engine; do not pass use_scatter=False with "
+            "ir_FT")
+    if use_scatter:
+        return _fit_batch_fast_scatter(
+            ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
+            fit_flags, chan_masks, max_iter, log10_tau, ir_FT, compensated,
+            harmonic_window, bounds, device)
+    reject_fixed_tau_seed(theta0, "fit_portrait_batch_fast")
+    args, bounds, common = _stage_fast(
+        ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
+        fit_flags, chan_masks, max_iter, harmonic_window, bounds, device)
+    return fast_fit_batched(*args, bounds, x_bf16=use_bf16_cross_spectrum(),
+                            **common)
+
+
+def _stage_fast(ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
+                fit_flags, chan_masks, max_iter, harmonic_window, bounds,
+                device):
+    """The fast lanes' staging: the batch's tensors (_stage_batch) as
+    positional args, the bounds, and the keywords both lanes share
+    (flags, the resolved window, fold and fused knobs)."""
     dev = resolve_device(device)
-    scatter = (bool(use_scatter) or bool(fit_flags[3]) or bool(fit_flags[4])
-               or log10_tau or ir_FT is not None
-               or (theta0 is not None
-                   and bool(np.any(np.asarray(_host(theta0))[..., 3]
-                                   != 0.0))))
+    st = _stage_batch(ports, models, noise_stds, freqs, P, nu_fit, nu_out,
+                      theta0, chan_masks, bounds, dev)
+    nharm_eff = resolve_harmonic_window(harmonic_window, models,
+                                        st["ports"].shape[-1])
+    common = dict(fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
+                  max_iter=int(max_iter), seed_derotate=st["seed_derotate"],
+                  nharm_eff=nharm_eff, dft_fold=use_dft_fold(dev),
+                  fit_fused=resolve_fit_fused(nharm_eff, dev))
+    args = (st["ports"], st["models"], st["noise"], st["masks"],
+            st["freqs"], st["P"], st["nu_fit"], st["nu_out"], st["theta0"])
+    return args, st["bounds"], common
+
+
+def _fit_batch_fast_scatter(ports, models, noise_stds, freqs, P, nu_fit,
+                            nu_out, theta0, fit_flags, chan_masks, max_iter,
+                            log10_tau, ir_FT, compensated, harmonic_window,
+                            bounds, device):
+    """Batch wrapper of the complex-free scattering lane (see
+    fit_portrait_batch_fast, which routes here): the response is cut to
+    the harmonic window and split into real parts."""
+    args, bounds, common = _stage_fast(
+        ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
+        fit_flags, chan_masks, max_iter, harmonic_window, bounds, device)
+    if compensated is None:
+        compensated = use_scatter_compensated()
+    nharm_eff = common["nharm_eff"]
+    if ir_FT is not None and nharm_eff is not None:
+        ir_FT = np.asarray(_host(ir_FT))[..., :nharm_eff]
+    ir_r, ir_i = split_ir_host(ir_FT, args[0].dtype, args[0].device)
+    return fast_scatter_fit_batched(
+        *args, ir_r, ir_i, bounds, log10_tau=bool(log10_tau),
+        compensated=bool(compensated), x_bf16=effective_x_bf16(compensated),
+        **common)
+
+
+# ---------------------------------------------------------------------------
+# the complex engine
+
+def _initial_phase_guess(X, cvec, DM0, oversamp=2):
+    """Dense-CCF phase seed of the complex cross-spectrum X (B, nchan,
+    nharm): derotate by DM0 (B,), sum channels, inverse FFT onto a 2x
+    oversampled lag grid, first argmax."""
+    nharm = X.shape[-1]
+    nbin = 2 * (nharm - 1)
+    dt = cvec.dtype
+    k = torch.arange(nharm, dtype=dt, device=cvec.device)
+    ph = _cexp(2.0 * math.pi * (cvec * DM0[:, None])[..., None] * k)
+    x = torch.sum(X * ph, dim=-2)
+    nlag = nbin * oversamp
+    ccf = irfft_c(x, n=nlag)
+    j0 = torch.argmax(ccf, dim=-1)
+    phi0 = j0.to(dt) / nlag
+    return torch.remainder(phi0 + 0.5, 1.0) - 0.5
+
+
+def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
+                       ir_FT=None, fit_flags=FitFlags(), log10_tau=False,
+                       max_iter=40, ftol=None, use_ir=False,
+                       use_scatter=False, auto_seed=True, compensated=False,
+                       bounds=None):
+    """The complex engine, batched: dFT (B, nchan, nharm) complex data
+    spectra, mFT the template's (shared (nchan, nharm) or per element),
+    w (B, nchan, nharm) weights, ir_FT complex (nchan, nharm) or None.
+    No scattering: the three complex moments (_cgh_fast).  Scattering
+    (tau/alpha free, log10_tau, a fixed tau seed or the response):
+    _cgh_scatter on X conj(ir) and M2 |ir|^2, the hybrid compensated
+    loop when compensated.  C and S are re-evaluated at the solution
+    from the complex spectra (_CS_general)."""
+    dt = w.dtype
+    flags_arr = FitFlags(*fit_flags).as_tensor(dt, w.device)
+    ir = ir_FT if use_ir else None
+    # log10_tau implies tau = 10^theta3 > 0, so the no-scatter path would
+    # disagree with the packaging's scales and chi2
+    scatter = (use_scatter or use_ir or fit_flags[3] or fit_flags[4]
+               or log10_tau)
+    if ftol is None:
+        ftol = (_scatter_ftol(dt, compensated) if scatter
+                else 50.0 * float(torch.finfo(dt).eps))
+
+    X = dFT * torch.conj(mFT) * w
+    cvec, gvec = _t_coeffs(freqs, P, nu_fit)
+    cvec = cvec.to(dt)
+    gvec = gvec.to(dt)
+    M2s = (mFT.real**2 + mFT.imag**2) * w
+
     if scatter:
-        raise NotImplementedError(
-            "fit_portrait_batch_fast: the scattering lane (tau/alpha, "
-            "log10_tau, fixed tau seeds, instrumental response) is not "
-            "ported yet (ROADMAP A6)")
-    ports_t = ports if isinstance(ports, torch.Tensor) else \
-        torch.as_tensor(np.asarray(ports))
-    dt = ports_t.dtype
-    ports_t = ports_t.to(dev)
-    nb, nchan, nbin = ports_t.shape
-    nharm_eff = resolve_harmonic_window(harmonic_window, models, nbin)
-    models_t = _as_tensor(models, dt, dev).contiguous()
-    freqs_t = _as_tensor(freqs, dt, dev)
-    P_t = _as_tensor(P, dt, dev).expand(nb).contiguous()
-    nu_fit_t = _as_tensor(nu_fit, dt, dev).expand(nb).contiguous()
-    if theta0 is None:
-        theta0_t = torch.zeros((nb, 5), dtype=dt, device=dev)
-        seed_derotate = False
+        if ir is not None:
+            Xs = X * torch.conj(ir)
+            M2s_ = M2s * (ir.real**2.0 + ir.imag**2.0)
+        else:
+            Xs, M2s_ = X, M2s
+        Xs_r = Xs.real.contiguous()
+        Xs_i = Xs.imag.contiguous()
+        del Xs
+
+        def mk_cgh(comp):
+            def cgh(theta):
+                f, g, H, _ = _cgh_scatter(theta, Xs_r, Xs_i, M2s_, freqs,
+                                          nu_fit, cvec, gvec, log10_tau,
+                                          comp)
+                return f, g, H, ()
+            return cgh
+
+        cgh = mk_cgh(False)
     else:
-        theta0_t = _as_tensor(theta0, dt, dev)
-        # an all-zero DM guess makes the seed's derotation the identity
-        seed_derotate = bool(np.any(np.asarray(_host(theta0))[..., 1]
-                                    != 0.0))
-    nu_out_t = torch.full((nb,), -1.0 if nu_out is None else float(nu_out),
-                          dtype=dt, device=dev)
-    masks_t = (torch.ones((nb, nchan), dtype=dt, device=dev)
-               if chan_masks is None else _as_tensor(chan_masks, dt, dev))
-    if bounds is not None:
-        bounds = _as_tensor(bounds, dt, dev)
-        if bounds.shape[-2:] != (5, 2) or bounds.dim() not in (2, 3):
-            raise ValueError(f"bounds must be (5, 2) or (nb, 5, 2); got "
-                             f"{tuple(bounds.shape)}")
-    return fast_fit_batched(
-        ports_t.contiguous(), models_t, _as_tensor(noise_stds, dt, dev),
-        masks_t, freqs_t, P_t, nu_fit_t, nu_out_t, theta0_t, bounds,
+        S0 = torch.sum(M2s, dim=-1)
+        good0 = S0 > 0.0
+        S0inv = torch.where(good0, 1.0 / torch.where(good0, S0, 1.0), 0.0)
+
+        def cgh(theta):
+            return _cgh_fast(theta, X, S0inv, cvec, gvec) + ((),)
+
+    theta0 = theta0.to(dt)
+    if auto_seed and fit_flags[0]:
+        phi0 = _initial_phase_guess(X, cvec, theta0[:, 1])
+        theta0 = theta0.clone()
+        theta0[:, 0] = phi0
+
+    if scatter and compensated:
+        theta, f, H, _, nfev, code = _hybrid_scatter_loop(
+            cgh, mk_cgh(True), theta0, flags_arr, max_iter, ftol, dt,
+            bounds=bounds)
+    else:
+        theta, f, H, _, nfev, code = _newton_loop(
+            cgh, theta0, flags_arr, max_iter, ftol,
+            lam0=_SCATTER_LAM0 if scatter else 1.0e-3, bounds=bounds)
+    C, S = _CS_general(theta, X, M2s, freqs, P, nu_fit, ir, log10_tau)
+    Sd = torch.sum((dFT.real**2 + dFT.imag**2) * w, dim=(-2, -1))
+    return _finalize_fit(theta, f, H, C, S, Sd, dFT.shape[-1], flags_arr,
+                         fit_flags, P, nu_fit, nu_out, nfev, code,
+                         log10_tau)
+
+
+def _complex_ir(ir_FT, dt, dev):
+    """A host or tensor response as the complex tensor of dtype dt's
+    complex counterpart on dev (None passes through)."""
+    if ir_FT is None:
+        return None
+    cdt = torch.complex64 if dt == torch.float32 else torch.complex128
+    if not isinstance(ir_FT, torch.Tensor):
+        ir_FT = torch.as_tensor(np.asarray(ir_FT))
+    return ir_FT.to(device=dev, dtype=cdt)
+
+
+def fit_portrait_batch(ports, models, noise_stds, freqs, P, nu_fit,
+                       nu_out=None, theta0=None, fit_flags=FitFlags(),
+                       chan_masks=None, log10_tau=False, max_iter=40,
+                       use_scatter=None, ir_FT=None, compensated=None,
+                       bounds=None, device=None):
+    """The complex engine over a batch, on ``device`` (default cuda).
+
+    ports (nb, nchan, nbin); models shared (nchan, nbin) (kept 2-D) or
+    (nb, nchan, nbin); noise_stds/chan_masks (nb, nchan); freqs (nchan,)
+    or (nb, nchan); P, nu_fit scalars or (nb,); nu_out None, a scalar
+    or (nb,).  use_scatter None -> derived from fit_flags/log10_tau/
+    theta0 (a fixed nonzero tau seed still scatters the model).  ir_FT:
+    an (nchan, nharm) instrumental response shared by the batch.
+    compensated None -> config.scatter_compensated.  float64 inputs run
+    as float32 (complex64) where config's device_f32 knob resolves on:
+    CUDA devices.  The body of the JAX package's _complex_batch_fn
+    (weights, spectra, the batched core) runs here eagerly."""
+    dev = resolve_device(device)
+    if use_scatter is None:
+        use_scatter = derive_use_scatter(fit_flags, log10_tau, theta0)
+    if compensated is None:
+        compensated = use_scatter_compensated()
+    st = _stage_batch(ports, models, noise_stds, freqs, P, nu_fit, nu_out,
+                      theta0, chan_masks, bounds, dev, canonical=True)
+    dt = st["ports"].dtype
+    w = make_weights(st["noise"], st["ports"].shape[-1], st["masks"],
+                     dtype=dt)
+    return _fit_portrait_core(
+        rfft_c(st["ports"]), rfft_c(st["models"]), w, st["freqs"], st["P"],
+        st["nu_fit"], st["nu_out"], st["theta0"], _complex_ir(ir_FT, dt, dev),
         fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
-        max_iter=int(max_iter), seed_derotate=seed_derotate,
-        x_bf16=use_bf16_cross_spectrum(), nharm_eff=nharm_eff,
-        dft_fold=use_dft_fold(dev),
-        fit_fused=resolve_fit_fused(nharm_eff, dev))
+        log10_tau=bool(log10_tau), max_iter=int(max_iter),
+        use_ir=ir_FT is not None, use_scatter=bool(use_scatter),
+        compensated=bool(compensated), bounds=st["bounds"])
+
+
+def guess_fit_freq(freqs, SNRs=None):
+    """S/N- and nu^-2-weighted mean frequency: (sum w / sum w nu^-2)^0.5
+    with w = SNR nu^-2."""
+    if SNRs is None:
+        SNRs = torch.ones_like(freqs)
+    w = SNRs * freqs**-2.0
+    return (torch.sum(w) / torch.sum(w * freqs**-2.0)) ** 0.5
+
+
+def fit_portrait(port, model, noise_stds, freqs, P, nu_fit=None, nu_out=None,
+                 phi0=None, DM0=0.0, GM0=0.0, tau0=0.0, alpha0=None,
+                 fit_flags=FitFlags(), chan_mask=None, ir_FT=None,
+                 log10_tau=False, max_iter=40, dtype=None, bounds=None,
+                 device=None):
+    """Fit (phi, DM[, GM, tau, alpha]) of one (nchan, nbin) portrait with
+    the complex engine.  nu_fit None -> guess_fit_freq(freqs); nu_out
+    None -> the zero-covariance frequencies; phi0 None -> the CCF seed;
+    tau0 in rotations (seeded as log10 with log10_tau); alpha0 None ->
+    config.scattering_alpha.  Returns a FitResult of 0-d tensors."""
+    from ..config import scattering_alpha
+
+    dev = resolve_device(device)
+    port_t = _canonical_real_dtype(_as_tensor(port, None, dev), dev)
+    dt = dtype or port_t.dtype
+    nbin = port_t.shape[-1]
+    w = make_weights(_as_tensor(noise_stds, dt, dev)[None], nbin,
+                     None if chan_mask is None
+                     else _as_tensor(chan_mask, dt, dev)[None], dtype=dt)
+    freqs_t = _as_tensor(freqs, dt, dev)
+    if nu_fit is None:
+        nu_fit = guess_fit_freq(freqs_t)
+    if alpha0 is None:
+        alpha0 = scattering_alpha
+    taup0 = math.log10(max(float(tau0), 1e-30)) if log10_tau else tau0
+    theta0 = torch.tensor([[0.0 if phi0 is None else phi0, DM0, GM0, taup0,
+                            alpha0]], dtype=dt, device=dev)
+    use_scatter = (bool(fit_flags[3]) or bool(fit_flags[4])
+                   or float(tau0) != 0.0)
+    r = _fit_portrait_core(
+        rfft_c(port_t.to(dt))[None], rfft_c(_as_tensor(model, dt, dev)), w,
+        freqs_t, _as_tensor(P, dt, dev).reshape(1),
+        _as_tensor(nu_fit, dt, dev).reshape(1),
+        _nu_out_tensor(nu_out, 1, dt, dev), theta0,
+        _complex_ir(ir_FT, dt, dev),
+        fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
+        log10_tau=bool(log10_tau), max_iter=int(max_iter),
+        use_ir=ir_FT is not None, use_scatter=use_scatter,
+        auto_seed=phi0 is None, compensated=use_scatter_compensated(),
+        bounds=None if bounds is None else _as_tensor(bounds, dt, dev))
+    return FitResult(*[v[0] for v in r])
+
+
+# ---------------------------------------------------------------------------
+# scattering-timescale seeds
+
+def estimate_tau_batch(ports, models, noise_stds, chan_masks=None):
+    """Seed-quality broadband scattering timescales [rot], (B,), on the
+    ports' device: the channel-summed weighted cross-spectrum amplitude
+    ratio q(k) = sum_n w|d conj(m)| / sum_n w|m|^2, the analytic Rice
+    floor of |X| under pure noise subtracted in quadrature, matched to
+    the kernel's Lorentzian amplitude |B(k)| = (1 + (2 pi k tau)^2)^-1/2
+    by profiled-amplitude least squares on a 64-point log-tau grid from
+    a quarter bin to half a turn, refined by a parabola through the
+    argmin.  Unscattered data return the neutral half-bin seed.
+
+    ports (B, nchan, nbin); models shared (nchan, nbin) or per element;
+    noise_stds/chan_masks (B, nchan)."""
+    dt = ports.dtype
+    nbin = ports.shape[-1]
+    nharm = nbin // 2 + 1
+    tiny = _tiny(dt)
+    w = make_weights(noise_stds.to(dt), nbin, chan_masks, dtype=dt)
+    dr, di = rfft_mm(ports)
+    mr, mi = rfft_mm(models.to(dt))
+    mabs = torch.sqrt(mr**2.0 + mi**2.0)
+    Xa = torch.sqrt((dr * mr + di * mi) ** 2.0 + (di * mr - dr * mi) ** 2.0)
+    del dr, di
+    num = torch.sum(w * Xa, dim=-2)
+    del Xa
+    den = torch.sum(w * mabs**2.0, dim=-2)
+    den_safe = torch.clamp(den, min=tiny)
+    q = num / den_safe
+    floor = math.sqrt(math.pi / 2.0) * torch.sum(
+        torch.sqrt(w) * mabs, dim=-2) / den_safe
+    del w
+    q_sig = torch.sqrt(torch.clamp(q**2.0 - floor**2.0, min=0.0))
+    k = torch.arange(nharm, dtype=dt, device=ports.device)
+    ngrid = 64
+    taus = torch.as_tensor(np.logspace(np.log10(0.25 / nbin),
+                                       np.log10(0.5), ngrid),
+                           dtype=dt, device=ports.device)
+    b = (1.0 + (2.0 * math.pi * taus[:, None] * k) ** 2.0) ** -0.5
+    u = den[:, None, :]
+    A = torch.sum(u * q_sig[:, None, :] * b, dim=-1) / torch.clamp(
+        torch.sum(u * b**2.0, dim=-1), min=tiny)
+    sse = torch.sum(u * (q_sig[:, None, :] - A[..., None] * b) ** 2.0,
+                    dim=-1)
+    i0 = torch.argmin(sse, dim=-1)
+    im = torch.clamp(i0 - 1, 0, ngrid - 1)
+    ip = torch.clamp(i0 + 1, 0, ngrid - 1)
+
+    def at(i):
+        return torch.gather(sse, 1, i[:, None])[:, 0]
+
+    f0, fm, fp = at(i0), at(im), at(ip)
+    denom = fm - 2.0 * f0 + fp
+    ok = (i0 > 0) & (i0 < ngrid - 1) & (denom > 0.0)
+    delta = torch.where(ok, 0.5 * (fm - fp) / torch.where(ok, denom, 1.0),
+                        0.0)
+    delta = torch.clamp(delta, -0.5, 0.5)
+    ltaus = torch.log10(taus)
+    dlog = (ltaus[-1] - ltaus[0]) / (ngrid - 1.0)
+    tau = 10.0 ** (ltaus[i0] + delta * dlog)
+    return torch.clamp(tau, min=0.5 / nbin)
+
+
+def estimate_tau(port, model, noise_stds, chan_mask=None):
+    """estimate_tau_batch for one (nchan, nbin) portrait: a 0-d tensor."""
+    return estimate_tau_batch(
+        port[None], model, noise_stds[None],
+        None if chan_mask is None else chan_mask[None])[0]
 
 
 def _host(x):

@@ -550,8 +550,9 @@ class Archive:
         arch._par_angs_from_file = self._par_angs_from_file
         return arch
 
-    def unload(self, path, nbit=16, levels=None):
-        write_archive_file(path, self, nbit=nbit, levels=levels)
+    def unload(self, path, nbit=16, levels=None, dither=None):
+        write_archive_file(path, self, nbit=nbit, levels=levels,
+                           dither=dither)
 
     def refresh(self):
         """Reload from disk if this archive came from a file."""
@@ -893,7 +894,7 @@ def parse_parfile(path_or_lines):
 # Writing
 # --------------------------------------------------------------------------
 
-def write_archive_file(path, arch, nbit=16, levels=None):
+def write_archive_file(path, arch, nbit=16, levels=None, dither=None):
     """Serialize an Archive to a PSRFITS fold-mode file (16-bit scaled
     DATA by default; PSRPARAM/POLYCO HDUs preserved).
 
@@ -904,7 +905,12 @@ def write_archive_file(path, arch, nbit=16, levels=None):
     levels: quantize to this many amplitude levels instead of the full
     2**nbit range (must fit the width) — what a coarsely-quantizing
     backend stores, and the corpus knob the transport-compression
-    bench uses (a 4-level byte column packs 4x)."""
+    bench uses (a 4-level byte column packs 4x).
+    dither: a numpy Generator to quantize with rectangular dither (one
+    uniform draw in [-1/2, 1/2) of a level added before rounding), which
+    makes the mean of each quantized sample the unquantized value: a
+    coarse quantizer's nonlinearity then adds noise instead of
+    distorting the profile.  Not for the exact int16 path."""
     nsub, npol, nchan, nbin = arch.amps.shape
     if nbit not in (1, 2, 4, 8, 16):
         raise ValueError(f"write_archive_file: nbit must be one of "
@@ -933,8 +939,10 @@ def write_archive_file(path, arch, nbit=16, levels=None):
         span = float((levels or 2 ** nbit) - 1)
         offs = lo
         scl = np.maximum((hi - lo) / span, 1e-30)
-        q = np.clip(np.round((arch.amps - offs[..., None])
-                             / scl[..., None]), 0, span)
+        y = (arch.amps - offs[..., None]) / scl[..., None]
+        if dither is not None:
+            y = y + dither.uniform(-0.5, 0.5, y.shape)
+        q = np.clip(np.round(y), 0, span)
         if nbit == 16:
             data = q.astype(">i2")
         elif nbit == 8:

@@ -6,8 +6,11 @@ harmonic window is active.  The twiddles are built once per shape on
 the host in float64 numpy and then cast, exactly as in the JAX package,
 so both packages contract against the same numbers.
 
-API is split-real throughout: rfft_mm(x) -> (Xr, Xi),
+The matmul API is split-real: rfft_mm(x) -> (Xr, Xi),
 irfft_mm(Xr, Xi, n) -> x, matching numpy's rfft/irfft conventions.
+The complex fit engine and the scattering ops take the complex
+interface, rfft_c / irfft_c (torch.fft), as the JAX package's do off
+the TPU.
 """
 
 from functools import lru_cache
@@ -18,8 +21,8 @@ import torch
 from .. import config
 from ..device import resolve_auto
 
-__all__ = ["rfft_mm", "irfft_mm", "use_dft_fold", "check_dft_precision",
-           "device_weights"]
+__all__ = ["rfft_mm", "irfft_mm", "rfft_c", "irfft_c", "use_dft_fold",
+           "check_dft_precision", "device_weights"]
 
 
 def _dtype_str(dtype):
@@ -153,3 +156,17 @@ def irfft_mm(Xr, Xi, n=None, precision=None):
     Vc, Vs = device_weights("irfft", Xr.device, nharm, n,
                             _dtype_str(Xr.dtype))
     return torch.matmul(Xr, Vc) + torch.matmul(Xi, Vs)
+
+
+def rfft_c(x):
+    """numpy-convention rfft of the last axis as a complex tensor
+    (torch.fft; bfloat16 and float16 inputs are taken in float32)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.float()
+    return torch.fft.rfft(x, dim=-1)
+
+
+def irfft_c(X, n=None):
+    """Inverse of rfft_c: complex (..., nharm) -> real (..., n), the
+    spectrum zero-padded or cut to n // 2 + 1 harmonics."""
+    return torch.fft.irfft(X, n=n, dim=-1)

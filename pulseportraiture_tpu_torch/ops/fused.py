@@ -78,10 +78,12 @@ FFT_NBIN_MIN, FFT_NBIN_MAX = 16, 8192
 
 _KERNELS = ("fused_cross_spectrum", "fused_decode_cross_spectrum")
 # kernel launches since the last reset, counted where the wrapper
-# launches the kernel and nowhere else: each kernel's total and its
-# arms' ("<name>.fft", "<name>.gemm")
+# launches the kernel and nowhere else: each kernel's total, its arms'
+# ("<name>.fft", "<name>.gemm") and, for B1, the launches of its want_m2
+# form ("fused_cross_spectrum.m2", the scattering lane's)
 _launches = {f"{k}{arm}": 0 for k in _KERNELS
              for arm in ("", ".fft", ".gemm")}
+_launches["fused_cross_spectrum.m2"] = 0
 
 
 def kernel_launches():
@@ -94,9 +96,11 @@ def reset_kernel_launches():
         _launches[k] = 0
 
 
-def _count(kernel, arm):
+def _count(kernel, arm, m2=False):
     _launches[kernel] += 1
     _launches[f"{kernel}.{arm}"] += 1
+    if m2:
+        _launches[f"{kernel}.m2"] += 1
 
 
 def fft_arm(nbin, nharm):
@@ -351,25 +355,25 @@ def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
         _check(getattr(lib, f"ppt_fcs_fft_spectrum_{sfx}")(
             model.data_ptr(), Mm, nbin, tw.data_ptr(), K, mr.data_ptr(),
             mi.data_ptr(), stream), "fused_cross_spectrum FFT spectrum")
-        _count("fused_cross_spectrum", arm)
+        _count("fused_cross_spectrum", arm, want_m2)
         _check(getattr(lib, f"ppt_fcs_fft_cross_{sfx}")(
             port.data_ptr(), M, nbin, tw.data_ptr(), K, mr.data_ptr(),
             mi.data_ptr(), m_mod, w.data_ptr(), w_mod, *outs, stream),
             "fused_cross_spectrum FFT cross")
-        _count("fused_cross_spectrum", arm)
+        _count("fused_cross_spectrum", arm, want_m2)
         return Xr, Xi, o2
     Wc, Ws, sgn, L, fold = _gemm_weights(fold, port.device, nbin, dts, K)
     _check(getattr(lib, f"ppt_fcs_spectrum_{sfx}")(
         model.data_ptr(), Mm, nbin, Wc.data_ptr(), Ws.data_ptr(),
         sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
         stream), "fused_cross_spectrum spectrum")
-    _count("fused_cross_spectrum", arm)
+    _count("fused_cross_spectrum", arm, want_m2)
     _check(getattr(lib, f"ppt_fcs_cross_{sfx}")(
         port.data_ptr(), M, nbin, Wc.data_ptr(), Ws.data_ptr(),
         sgn.data_ptr(), L, K, int(fold), mr.data_ptr(), mi.data_ptr(),
         m_mod, w.data_ptr(), w_mod, *outs, stream),
         "fused_cross_spectrum cross")
-    _count("fused_cross_spectrum", arm)
+    _count("fused_cross_spectrum", arm, want_m2)
     return Xr, Xi, o2
 
 

@@ -14,10 +14,16 @@ fit per full bucket:
 - in raw mode the host never decodes the data: the undecoded DATA
   column (int16, bytes, float32, or sub-byte NBIT=1/2/4 samples PACKED)
   ships to the device, and one bucket program decodes, baselines,
-  estimates noise, S/N and nu_fit, and fits.  Sub-byte buckets with a
-  harmonic window take the decode-fused stage (ops.fused kernel B2 on a
-  CUDA device), which re-decodes the packed bytes inside the fit's
-  DFT; every other bucket runs B1 on the decoded portrait;
+  estimates noise, S/N, nu_fit (and with scat_guess='auto' the tau
+  seeds), and fits.  Sub-byte buckets of a run without scattering and
+  with a harmonic window take the decode-fused stage (ops.fused kernel
+  B2 on a CUDA device), which re-decodes the packed bytes inside the
+  fit's DFT; every other bucket runs B1 on the decoded portrait, in its
+  want_m2 form on the scattering lane;
+- scattering runs (fit_scat, a tau seed, an instrumental response)
+  route every bucket to the scatter-shaped engine: the complex-free
+  scatter lane (fit.portrait.fast_scatter_fit_batched) where
+  config.use_fast_fit resolves on, the complex engine otherwise;
 - each device runs a COPY worker (stack, pin, host->device copy on a
   side CUDA stream) double-buffered against its FIT worker (the bucket
   program on its own CUDA stream), _DevicePipeline.
@@ -27,11 +33,9 @@ planes, packed + FITS-scaled columns, sub-byte + channel padding) fall
 back to the host-decoded lane, as in the JAX package.
 
 Not ported yet, and refused with NotImplementedError naming the
-ROADMAP item: scattering fits and the instrumental response (A6), the
-transport codec (A7), inline zapping and the post-fit cut (A8),
-telemetry (A13), narrowband streaming (A8), and the executor's service
-mode (A13).  The complex fit engine (config.use_fast_fit resolving
-False) is not ported either (A6).
+ROADMAP item: the transport codec (A7), inline zapping and the post-fit
+cut (A8), telemetry (A13), narrowband streaming (A8), and the
+executor's service mode (A13).
 """
 
 import concurrent.futures as cf
@@ -47,10 +51,12 @@ import torch
 from .. import config
 from ..config import Dconst, scattering_alpha
 from ..device import resolve_auto, resolve_device
-from ..fit.portrait import (FitFlags, fast_fit_batched,
-                            fast_fit_batched_packed, fit_portrait_batch_fast,
-                            resolve_fit_fused, resolve_harmonic_window,
-                            use_bf16_cross_spectrum, use_fast_fit_default,
+from ..fit.portrait import (FitFlags, estimate_tau_batch, fast_fit_batched,
+                            fast_fit_batched_packed,
+                            fast_scatter_fit_batched, fit_portrait_batch,
+                            fit_portrait_batch_fast, resolve_fit_fused,
+                            resolve_harmonic_window, use_bf16_cross_spectrum,
+                            use_fast_fit_default, use_scatter_compensated,
                             warn_bf16_high_snr)
 from ..io.psrfits import read_archive
 from ..io.tim import TOA, write_TOAs
@@ -60,9 +66,12 @@ from ..ops.noise import get_noise_PS, get_SNR
 from ..utils.bunch import DataBunch
 from ..utils.log import log
 from .models import TemplateModel
-from .toas import (_is_metafile, _iter_archives, _read_metafile,
-                   delta_dm_stats, doppler_corrected_DM_GM,
-                   effective_fit_flags, load_for_toas, snr_weighted_nu_fit)
+from .toas import (DEFAULT_IR_DICT, _is_metafile, _iter_archives,
+                   _read_metafile, _validate_scat_guess,
+                   build_instrumental_response_FT, delta_dm_stats,
+                   doppler_corrected_DM_GM, effective_fit_flags,
+                   load_for_toas, scat_seed_tau0, scattering_toa_flags,
+                   snr_weighted_nu_fit)
 
 __all__ = ["stream_wideband_TOAs", "stream_narrowband_TOAs",
            "make_wideband_lane", "checkpoint_completed",
@@ -128,12 +137,14 @@ class _Bucket:
     carry the two summand pols of an AA+BB/Coherence archive."""
 
     def __init__(self, freqs, nbin, modelx, flags, kind="dec",
-                 raw_code="i16", pol_sum=False, col_scaled=False):
+                 ir_FT=None, raw_code="i16", pol_sum=False,
+                 col_scaled=False):
         self.freqs = freqs          # (nchan,)
         self.nbin = int(nbin)
         self.modelx = modelx        # (nchan, nbin) host template
         self.flags = flags          # effective FitFlags tuple
         self.kind = kind
+        self.ir_FT = ir_FT          # (nchan, nharm) host response or None
         self.raw_code = raw_code
         self.pol_sum = bool(pol_sum)
         self.col_scaled = bool(col_scaled)
@@ -691,34 +702,53 @@ def _raw_stats(x, cmask, freqs, ft):
 def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
                 redisp=False, want_flux=False, nharm_eff=None,
                 seed_derotate=True, raw_code="i16", pol_sum=False,
-                col_scaled=False):
+                col_scaled=False, log10_tau=False, tau_mode="none",
+                use_fast=True, use_ir=False, compensated=False):
     """The raw bucket program for one bucket's geometry: decode ->
-    baseline -> noise -> S/N -> nu_fit -> fit -> one packed
+    baseline -> noise -> S/N -> nu_fit -> tau seeds -> fit -> one packed
     (nfield, nb) result, so a bucket costs one copy of wire bytes and
     one small pull.  Eager PyTorch: no jit and no program cache.
 
-    Branch selection as in the JAX package, with "fit_fused resolved
+    tau_mode: 'none' (no scattering), 'neutral' (the half-bin seed),
+    'explicit' (a (tau_s, nu, alpha) triple passed at run time) or
+    'auto' (estimate_tau_batch on the decoded bucket, on the device).
+    Any mode but 'none', a fitted tau/alpha, log10_tau or a response
+    (use_ir) makes the bucket a scattering one: the complex-free scatter
+    lane (fit.portrait.fast_scatter_fit_batched, B1 in its want_m2 form
+    when fit_fused resolves True) with use_fast, else the complex
+    engine (fit.portrait.fit_portrait_batch).
+
+    Without scattering, as in the JAX package with "fit_fused resolved
     True on this device" in place of its Pallas mode: sub-byte packed
     buckets with a harmonic window, byte-aligned channels, and no pol
     sum, column scaling or re-dispersion take the DECODE-FUSED fit
     (fit.portrait.fast_fit_batched_packed, B2), which re-decodes the
     packed bytes inside the DFT stage; the stats above still decode
-    once, since the noise and S/N need the time-domain portrait.
-    Every other bucket fits the decoded portrait
-    (fit.portrait.fast_fit_batched, B1 when fit_fused resolves True).
-    The returned function carries the choice as ``run.decode_fused``."""
-    fit_fused = resolve_fit_fused(nharm_eff, device)
+    once, since the noise and S/N need the time-domain portrait.  Every
+    other bucket fits the decoded portrait (fit.portrait
+    .fast_fit_batched, B1 when fit_fused resolves True).  The returned
+    function carries the choice as ``run.decode_fused``."""
+    scat_engine = bool(flags[3] or flags[4] or log10_tau
+                       or tau_mode != "none" or use_ir)
+    compensated = bool(compensated) and scat_engine
+    if compensated:
+        x_bf16 = False
+    if not use_fast:
+        nharm_eff = None  # the complex engine is never band-limited
+        seed_derotate = True
+    fit_fused = resolve_fit_fused(nharm_eff, device) if use_fast else False
     dft_fold = use_dft_fold(device)
     nbit = PACKED_BITS.get(raw_code)
     decode_fused = bool(
-        fit_fused and nbit is not None and (nbin * nbit) % 8 == 0
-        and not pol_sum and not col_scaled and not redisp
-        and nharm_eff is not None)
+        fit_fused and use_fast and not scat_engine and nbit is not None
+        and (nbin * nbit) % 8 == 0 and not pol_sum and not col_scaled
+        and not redisp and nharm_eff is not None)
     fit_flags = FitFlags(*flags)
     keys = _result_keys(flags)
 
     def run(raw, scl, offs, cmask, modelx, freqs, Ps, DMg, nu_out, alpha0,
-            redisp_turns, tscal=None, tzero=None):
+            redisp_turns, tscal=None, tzero=None, tau_args=(0.0, 1.0, 0.0),
+            ir_r=None, ir_i=None):
         x = _raw_decode(raw, scl, offs, nbin, ft, redisp=redisp,
                         redisp_turns=redisp_turns, dft_fold=dft_fold,
                         code=raw_code, pol_sum=pol_sum,
@@ -727,7 +757,18 @@ def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
         noise, snr, nu_fit = _raw_stats(x, cmask, freqs, ft)
         nb = x.shape[0]
         zeros = torch.zeros(nb, dtype=ft, device=x.device)
-        theta0 = torch.stack([zeros, DMg.to(ft), zeros, zeros,
+        if tau_mode == "none":
+            tau0 = zeros
+        elif tau_mode == "neutral":
+            tau0 = torch.full_like(zeros, 0.5 / nbin)
+        elif tau_mode == "explicit":
+            tau_s, tau_nu, tau_a = tau_args
+            tau0 = ((tau_s / Ps) * (nu_fit / tau_nu) ** tau_a).to(ft)
+        else:  # auto
+            tau0 = estimate_tau_batch(x, modelx, noise, cmask).to(ft)
+        th3 = (torch.log10(torch.clamp(tau0, min=1e-12)) if log10_tau
+               else tau0)
+        theta0 = torch.stack([zeros, DMg.to(ft), zeros, th3,
                               torch.full_like(zeros, alpha0)], dim=1)
         nu_out_arr = torch.full_like(zeros, nu_out)
         if decode_fused:
@@ -739,16 +780,33 @@ def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
                 max_iter=max_iter, nharm_eff=nharm_eff,
                 seed_derotate=seed_derotate, x_bf16=x_bf16,
                 dft_fold=dft_fold)
-        else:
+        elif use_fast and not scat_engine:
             r = fast_fit_batched(
                 x, modelx, noise, cmask, freqs, Ps, nu_fit, nu_out_arr,
                 theta0, fit_flags=fit_flags, max_iter=max_iter,
                 seed_derotate=seed_derotate, x_bf16=x_bf16,
                 nharm_eff=nharm_eff, dft_fold=dft_fold,
                 fit_fused=fit_fused)
+        elif use_fast:
+            r = fast_scatter_fit_batched(
+                x, modelx, noise, cmask, freqs, Ps, nu_fit, nu_out_arr,
+                theta0, ir_r if use_ir else None,
+                ir_i if use_ir else None, fit_flags=fit_flags,
+                log10_tau=log10_tau, max_iter=max_iter,
+                compensated=compensated, x_bf16=x_bf16,
+                nharm_eff=nharm_eff, seed_derotate=seed_derotate,
+                dft_fold=dft_fold, fit_fused=fit_fused)
+        else:
+            r = fit_portrait_batch(
+                x, modelx, noise, freqs, Ps, nu_fit, nu_out=nu_out_arr,
+                theta0=theta0, fit_flags=fit_flags, chan_masks=cmask,
+                log10_tau=log10_tau, max_iter=max_iter,
+                use_scatter=scat_engine,
+                ir_FT=torch.complex(ir_r, ir_i) if use_ir else None,
+                compensated=compensated, device=x.device)
         fields = [getattr(r, k).to(ft) for k in keys]
         if want_flux:
-            fields += list(_flux_rows(r.scales, r.scale_errs,
+            fields += list(_flux_rows(r.scales.to(ft), r.scale_errs.to(ft),
                                       torch.mean(modelx, dim=-1), cmask,
                                       freqs))
         return torch.stack(fields)
@@ -766,6 +824,8 @@ def _result_keys(flags):
     keys = _RESULT_KEYS
     if flags[2]:
         keys = keys + ("GM", "GM_err")
+    if flags[3]:
+        keys = keys + ("tau", "tau_err", "alpha", "alpha_err", "nu_tau")
     return keys
 
 
@@ -918,13 +978,16 @@ class _DevicePipeline:
 
 
 def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
-            alpha0=0.0, seq=0):
+            alpha0=0.0, seq=0, log10_tau=False, tau_mode="none",
+            tau_args=(0.0, 1.0, 0.0)):
     """Launch ONE dispatch for a bucket's pending subints through
     ``pipeline`` and return its in-flight record without waiting for
     the device.  A partial bucket dispatches its own rows only: the
     JAX package pads it to nsub_batch with copies of subint 0 to keep
     its compiled shapes canonical, and eager PyTorch compiles nothing
-    per shape."""
+    per shape.  Buckets run in float32 where config.use_fast_fit
+    resolves on for the device, in float64 through the complex engine
+    otherwise (float32 again on CUDA: fit.portrait.fit_portrait_batch)."""
     if len(bucket) == 0:
         return None
     device = pipeline.device
@@ -936,8 +999,12 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
         keys = keys + ("flux", "flux_err", "flux_ref_freq")
     nu_out = -1.0 if nu_ref_DM is None else float(nu_ref_DM)
     modelx, freqs = bucket.modelx, bucket.freqs
-    hwin = bucket.harmonic_window()
-    ft, ft_np = torch.float32, np.float32
+    ir_FT = bucket.ir_FT
+    use_fast = use_fast_fit_default(device)
+    # only the fast lanes band-limit; the complex engine never does
+    hwin = bucket.harmonic_window() if use_fast else None
+    ft, ft_np = ((torch.float32, np.float32) if use_fast
+                 else (torch.float64, np.float64))
     put = pipeline.put
 
     if bucket.kind == "raw":
@@ -946,6 +1013,7 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
         col_scaled = bucket.col_scaled
         tscal_h = np.asarray(bucket.tscal) if col_scaled else None
         tzero_h = np.asarray(bucket.tzero) if col_scaled else None
+        use_ir = ir_FT is not None
         fn = _raw_fit_fn(
             len(np.asarray(freqs)), bucket.nbin,
             tuple(bool(f) for f in bucket.flags), int(max_iter), ft,
@@ -955,7 +1023,15 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
             # identity, so the fit skips that pass
             seed_derotate=bool(np.any(DMg != 0.0)),
             raw_code=bucket.raw_code, pol_sum=bucket.pol_sum,
-            col_scaled=col_scaled)
+            col_scaled=col_scaled, log10_tau=log10_tau, tau_mode=tau_mode,
+            use_fast=use_fast, use_ir=use_ir,
+            compensated=use_scatter_compensated())
+        if use_ir:
+            # the response ships as two real arrays, cut to the window
+            ir_src = np.asarray(ir_FT)
+            if hwin is not None:
+                ir_src = ir_src[..., :hwin]
+            ir_r_h, ir_i_h = ir_src.real, ir_src.imag
 
         def copy():
             raw, scl, offs, turns = _stack_rows(rows, dedisp, redisp, Ps,
@@ -966,18 +1042,25 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
                     put(freqs, ft_np), put(Ps, ft_np), put(DMg, ft_np),
                     put(turns, ft_np),
                     put(tscal_h, ft_np) if col_scaled else None,
-                    put(tzero_h, ft_np) if col_scaled else None)
+                    put(tzero_h, ft_np) if col_scaled else None,
+                    put(ir_r_h, ft_np) if use_ir else None,
+                    put(ir_i_h, ft_np) if use_ir else None)
 
         def fit(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d, Ps_d,
-                DMg_d, turns_d, tscal_d, tzero_d):
+                DMg_d, turns_d, tscal_d, tzero_d, ir_r_d, ir_i_d):
             return fn(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d,
                       Ps_d, DMg_d, nu_out, alpha0, turns_d, tscal_d,
-                      tzero_d)
+                      tzero_d, tau_args=tau_args, ir_r=ir_r_d, ir_i=ir_i_d)
     else:
         ports_rows = list(bucket.ports)
         noise_rows = list(bucket.noise)
         nu_fit = np.asarray(bucket.nu_fits)
         theta0 = np.stack(bucket.theta0)
+        # scattering (fitted, a fixed nonzero or log10 tau seed in a
+        # degenerate group of a scattering run, or a response) routes to
+        # the scatter-shaped engine
+        scat = bool(flags[3] or flags[4] or log10_tau
+                    or np.any(theta0[:, 3] != 0.0) or ir_FT is not None)
 
         def copy():
             return (put(np.stack(ports_rows), ft_np), put(modelx, ft_np),
@@ -987,15 +1070,24 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
 
         def fit(ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
                 theta0_d, masks_d):
-            r = fit_portrait_batch_fast(
-                ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
-                nu_out=nu_ref_DM, theta0=theta0_d, fit_flags=flags,
-                chan_masks=masks_d, max_iter=max_iter,
-                harmonic_window=hwin if hwin is not None else False,
-                device=device)
+            if use_fast:
+                r = fit_portrait_batch_fast(
+                    ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
+                    nu_out=nu_ref_DM, theta0=theta0_d, fit_flags=flags,
+                    chan_masks=masks_d, max_iter=max_iter,
+                    log10_tau=log10_tau, ir_FT=ir_FT, use_scatter=scat,
+                    harmonic_window=hwin if hwin is not None else False,
+                    device=device)
+            else:
+                r = fit_portrait_batch(
+                    ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
+                    nu_out=nu_ref_DM, theta0=theta0_d, fit_flags=flags,
+                    chan_masks=masks_d, log10_tau=log10_tau,
+                    max_iter=max_iter, ir_FT=ir_FT, device=device)
             fields = [getattr(r, k).to(ft) for k in _result_keys(flags)]
             if want_flux:
-                fields += list(_flux_rows(r.scales, r.scale_errs,
+                fields += list(_flux_rows(r.scales.to(ft),
+                                          r.scale_errs.to(ft),
                                           torch.mean(modelx_d, dim=-1),
                                           masks_d, freqs_d))
             return torch.stack(fields)
@@ -1031,7 +1123,8 @@ def _flux_rows(scales, scale_errs, means, cmask, freqs):
 
 
 def _assemble_archive(m, results, modelfile, fit_DM, bary,
-                      addtnl_toa_flags, fit_GM=False, print_flux=False,
+                      addtnl_toa_flags, log10_tau=False, alpha_fitted=False,
+                      nu_ref_tau=None, fit_GM=False, print_flux=False,
                       print_phase=False, quiet=False, quality_flags=False):
     """The TOA objects and DeltaDM statistics of one archive from the
     scattered fit results."""
@@ -1051,6 +1144,12 @@ def _assemble_archive(m, results, modelfile, fit_DM, bary,
         if fit_GM:
             flags["gm"] = GM_j
             flags["gm_err"] = float(r.get("GM_err", 0.0))
+        if "tau" in r:
+            # GetTOAs' flag assembly, with the -nu_tau re-reference
+            flags.update(scattering_toa_flags(
+                float(r["tau"]), float(r["tau_err"]), float(r["nu_tau"]),
+                float(r["alpha"]), float(r.get("alpha_err", 0.0)), P, df,
+                log10_tau, alpha_fitted, nu_ref_tau=nu_ref_tau))
         flags.update({
             "be": m.backend, "fe": m.frontend,
             "f": f"{m.frontend}_{m.backend}",
@@ -1101,21 +1200,10 @@ def _collect_wideband(meta, assembled):
     return TOA_list, order, DM0s, means, errs
 
 
-def _refuse_unported(fit_scat=False, scat_guess=None,
-                     instrumental_response_dict=None, telemetry=None,
-                     zap_inline=False, zap_nstd=None, zap_channels=None,
-                     postfit_cut=False):
+def _refuse_unported(telemetry=None, zap_inline=False, zap_nstd=None,
+                     zap_channels=None, postfit_cut=False):
     """NotImplementedError naming the ROADMAP item of every option whose
     lane is not ported; none is ever ignored."""
-    ird = instrumental_response_dict or {}
-    if fit_scat or scat_guess is not None:
-        raise NotImplementedError(
-            "stream_wideband_TOAs: scattering fits (fit_scat, scat_guess) "
-            "are not ported yet (ROADMAP A6)")
-    if ird.get("DM-smear") or ird.get("wids") or ird.get("irf_types"):
-        raise NotImplementedError(
-            "stream_wideband_TOAs: an instrumental response is not ported "
-            "yet (ROADMAP A6)")
     if telemetry is not None:
         raise NotImplementedError(
             "stream_wideband_TOAs: telemetry traces are not ported yet "
@@ -1131,9 +1219,11 @@ def _refuse_unported(fit_scat=False, scat_guess=None,
 
 
 def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
-                       nu_ref_DM=None, DM0=None, bary=True,
-                       tscrunch=False, max_iter=25, print_flux=False,
-                       print_phase=False, addtnl_toa_flags={},
+                       nu_ref_DM=None, nu_ref_tau=None, DM0=None, bary=True,
+                       tscrunch=False, fit_scat=False, log10_tau=True,
+                       scat_guess=None, fix_alpha=False, max_iter=25,
+                       print_flux=False, print_phase=False,
+                       instrumental_response_dict=None, addtnl_toa_flags={},
                        quiet=False, quality_flags=False, device=None):
     """The wideband physics lane and archive loader for a template and
     option set: returns ``(lane, loader)``, the lane supplying
@@ -1141,17 +1231,34 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
     (default cuda) is where the template is built and where the 'auto'
     knobs (fast fit, fused lane, bucket padding) resolve."""
     dev = resolve_device(device)
-    if not use_fast_fit_default(dev):
-        raise NotImplementedError(
-            "stream_wideband_TOAs: config.use_fast_fit resolves False on "
-            f"{dev.type}, and the complex fit engine is not ported yet "
-            "(ROADMAP A6); set config.use_fast_fit = True")
+    ird = {**DEFAULT_IR_DICT, **(instrumental_response_dict or {})}
+    if len(ird["wids"]) != len(ird["irf_types"]):
+        raise ValueError(
+            "instrumental_response_dict: wids and irf_types must pair "
+            f"up (got {len(ird['wids'])} widths, "
+            f"{len(ird['irf_types'])} kinds)")
+    use_ir = bool(ird["wids"] or ird["DM-smear"])
+    ir_cache = {}  # response signature -> (nchan, nharm) host kernel
+    scat_guess = _validate_scat_guess(scat_guess, fit_scat)
+    if not fit_scat:
+        log10_tau = False
     model = TemplateModel(modelfile, quiet=quiet, device=dev)
     # scattering baked into the template makes the portrait depend on
     # the folding period, so such templates key buckets by P too
     p_dependent = model.has_scattering()
-    alpha0_run = float(model.gauss.alpha if model.is_gaussian
-                       else scattering_alpha)
+    default_alpha = float(model.gauss.alpha if model.is_gaussian
+                          else scattering_alpha)
+    # the tau seeding mode of both lanes
+    if scat_guess is not None and not isinstance(scat_guess, str):
+        tau_mode = "explicit"
+        tau_args = tuple(float(v) for v in scat_guess)
+        alpha0_run = tau_args[2]
+    else:
+        tau_mode = ("auto" if fit_scat and scat_guess == "auto"
+                    else "neutral" if fit_scat else "none")
+        tau_args, alpha0_run = (0.0, 1.0, 0.0), default_alpha
+    # the host-decoded lane loads in the fit's dtype
+    load_dtype = np.float32 if use_fast_fit_default(dev) else np.float64
 
     def _loader(f):
         if not tscrunch:
@@ -1160,9 +1267,8 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                 return _load_raw(f, dev)
             except (ValueError, KeyError):
                 pass
-        # the host-decoded lane, in float32 like the fit it feeds
         return load_for_toas(f, tscrunch=tscrunch, quiet=True,
-                             dtype=np.float32)
+                             dtype=load_dtype)
 
     class _WidebandLane:
         """The wideband physics hooks for _StreamExecutor."""
@@ -1189,6 +1295,20 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
             DM_stored = float(d.DM)
             DM0_arch = DM_stored if DM0 is None else float(DM0)
             DM_guess = DM_stored if DM_stored != 0.0 else DM0_arch
+            # the response of this layout, built once per signature;
+            # DM smearing makes it archive-specific, so it joins the key
+            ir_FT = None
+            if use_ir:
+                ir_sig = ((nchan + pad_c, nbin, freqs_b.tobytes(),
+                           tuple(ird["wids"]), tuple(ird["irf_types"]))
+                          + ((round(DM_guess, 9), round(P_mean, 12))
+                             if ird["DM-smear"] else ()))
+                if ir_sig not in ir_cache:
+                    ir_cache[ir_sig] = build_instrumental_response_FT(
+                        ird, freqs_b, nbin, DM_guess, P_mean,
+                        bw=d.get("bw", 0.0))
+                ir_FT = ir_cache[ir_sig]
+                base_key += (ir_sig[3:],)
             masks = np.asarray(d.weights[ok] > 0.0, float)
             raw_mode = bool(d.get("raw_mode", False))
             masks_b = (np.pad(masks, ((0, 0), (0, pad_c))) if pad_c
@@ -1210,6 +1330,12 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                 noise = np.asarray(d.noise_stds[ok, 0], float)
                 snrs_chan = np.asarray(d.SNRs[ok, 0], float) * masks
                 nu_fit_arr = snr_weighted_nu_fit(snrs_chan, freqs0)
+                # tau/alpha seeds from the true layout (GetTOAs' helper)
+                tau0, alpha0 = scat_seed_tau0(
+                    scat_guess, fit_scat, len(ok), nbin, P_mean,
+                    nu_fit_arr, default_alpha, ports=ports,
+                    modelx=modelx[:nchan], noise=noise, masks=masks,
+                    device=dev)
                 if pad_c:
                     # edge-replicated data and noise: masked channels
                     # must carry ordinary finite noise
@@ -1217,7 +1343,8 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                                    mode="edge")
                     noise = np.pad(noise, ((0, 0), (0, pad_c)),
                                    mode="edge")
-            base_flags = (True, bool(fit_DM), bool(fit_GM), False, False)
+            base_flags = (True, bool(fit_DM), bool(fit_GM), bool(fit_scat),
+                          bool(fit_scat and not fix_alpha))
             kind = "raw" if raw_mode else "dec"
             # raw payloads bucket by wire sample type, pol reduction and
             # column-scaling presence: each is its own decode stage
@@ -1236,12 +1363,13 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                     key += (raw_code, pol_sum, col_scaled)
 
                 def factory(freqs_b=freqs_b, nbin=nbin, modelx=modelx,
-                            eff_flags=eff_flags, kind=kind,
+                            eff_flags=eff_flags, kind=kind, ir_FT=ir_FT,
                             raw_code=raw_code, pol_sum=pol_sum,
                             col_scaled=col_scaled):
                     return _Bucket(freqs_b, nbin, modelx, eff_flags,
-                                   kind=kind, raw_code=raw_code,
-                                   pol_sum=pol_sum, col_scaled=col_scaled)
+                                   kind=kind, ir_FT=ir_FT,
+                                   raw_code=raw_code, pol_sum=pol_sum,
+                                   col_scaled=col_scaled)
 
                 def fill(b, j=j, isub=int(isub), d=d, masks_b=masks_b,
                          DM_guess=DM_guess, raw_mode=raw_mode, iarch=iarch,
@@ -1280,7 +1408,9 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                     else:
                         th = np.zeros(5)
                         th[1] = DM_guess
-                        th[4] = alpha0_run
+                        th[3] = (np.log10(max(tau0[j], 1e-12))
+                                 if log10_tau else tau0[j])
+                        th[4] = alpha0
                         b.ports.append(ports[j])
                         b.noise.append(noise[j])
                         b.nu_fits.append(float(nu_fit_arr[j]))
@@ -1295,7 +1425,9 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
 
         def launch(self, b, pipeline, seq):
             return _launch(b, nu_ref_DM, max_iter, pipeline,
-                           want_flux=print_flux, alpha0=alpha0_run, seq=seq)
+                           want_flux=print_flux, alpha0=alpha0_run, seq=seq,
+                           log10_tau=log10_tau, tau_mode=tau_mode,
+                           tau_args=tau_args)
 
         def scatter(self, out, owners, keys, results):
             for i, owner in enumerate(owners):
@@ -1304,7 +1436,9 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
         def assemble(self, m, results):
             return _assemble_archive(
                 m, results, modelfile, fit_DM, bary, addtnl_toa_flags,
-                fit_GM=fit_GM, print_flux=print_flux,
+                log10_tau=log10_tau,
+                alpha_fitted=bool(fit_scat and not fix_alpha),
+                nu_ref_tau=nu_ref_tau, fit_GM=fit_GM, print_flux=print_flux,
                 print_phase=print_phase, quiet=quiet,
                 quality_flags=quality_flags)
 
@@ -1324,8 +1458,8 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
                          quality_flags=False, pipeline_depth=None,
                          zap_inline=False, zap_nstd=None, zap_channels=None,
                          postfit_cut=False, device=None):
-    """Measure wideband (phi, DM[, GM]) TOAs for many archives with
-    cross-archive batched dispatches.
+    """Measure wideband (phi, DM[, GM, tau, alpha]) TOAs for many
+    archives with cross-archive batched dispatches.
 
     Options follow the JAX package's stream_wideband_TOAs.  Devices:
     ``stream_devices`` ('auto' = every visible CUDA device, an int N the
@@ -1333,9 +1467,15 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
     when it is None, ``device`` alone (e.g. device='cpu') names the one
     device, and with neither config.stream_devices applies.  There is
     no CPU fallback: with no card the CUDA default raises.
-    nu_ref_tau, log10_tau and fix_alpha only act on scattering fits,
-    which are refused (ROADMAP A6), as are the instrumental response,
-    telemetry (A13) and zapping / the post-fit cut (A8).
+
+    fit_scat/log10_tau/scat_guess/fix_alpha follow GetTOAs.get_TOAs
+    (scat_guess: (tau_s, nu, alpha), 'auto' for the data-driven seed on
+    the device, or None for the neutral half bin); nu_ref_tau
+    re-references the reported tau; instrumental_response_dict as
+    GetTOAs.instrumental_response_dict.  Scattering buckets take the
+    complex-free scatter lane where config.use_fast_fit resolves on,
+    the complex engine otherwise.  Telemetry (A13) and zapping / the
+    post-fit cut (A8) are refused.
 
     tim_out: .tim checkpoint; each archive's TOA lines are appended as
     soon as all its subints are fitted, in archive order, each archive
@@ -1347,9 +1487,7 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
     devices_used, peak_inflight, dispatch_shapes ({bucket shape: number
     of dispatches}), h2d_bytes, h2d_duration, h2d_overlap_duration and
     wall."""
-    _refuse_unported(fit_scat=fit_scat, scat_guess=scat_guess,
-                     instrumental_response_dict=instrumental_response_dict,
-                     telemetry=telemetry, zap_inline=zap_inline,
+    _refuse_unported(telemetry=telemetry, zap_inline=zap_inline,
                      zap_nstd=zap_nstd, zap_channels=zap_channels,
                      postfit_cut=postfit_cut)
     if isinstance(datafiles, str):
@@ -1363,8 +1501,11 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
     t_start = time.time()
     lane, loader = make_wideband_lane(
         modelfile, fit_DM=fit_DM, fit_GM=fit_GM,
-        nu_ref_DM=nu_ref_DM, DM0=DM0, bary=bary, tscrunch=tscrunch,
-        max_iter=max_iter, print_flux=print_flux, print_phase=print_phase,
+        nu_ref_DM=nu_ref_DM, nu_ref_tau=nu_ref_tau, DM0=DM0, bary=bary,
+        tscrunch=tscrunch, fit_scat=fit_scat, log10_tau=log10_tau,
+        scat_guess=scat_guess, fix_alpha=fix_alpha, max_iter=max_iter,
+        print_flux=print_flux, print_phase=print_phase,
+        instrumental_response_dict=instrumental_response_dict,
         addtnl_toa_flags=addtnl_toa_flags, quiet=quiet,
         quality_flags=quality_flags, device=devices[0])
     ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,

@@ -1,15 +1,17 @@
 """Wideband TOA measurement pipeline (counterpart of pulseportraiture_tpu/pipeline/toas.py).
 
 GetTOAs.get_TOAs: per archive, all usable subints are stacked into one
-(nsub, nchan, nbin) batch per fit-flag group and fitted by one call of
-the fast lane (fit.portrait.fit_portrait_batch_fast) on the device;
-TOAs, DMs, flags and the per-archive DeltaDM statistics are assembled
-on the host exactly as in the JAX package.
+(nsub, nchan, nbin) batch per fit-flag group and fitted on the device
+by one call, routed as in the JAX package: groups without scattering
+take the fast lane (fit.portrait.fit_portrait_batch_fast) where
+config.use_fast_fit resolves on, every other group (tau/alpha free, a
+tau seed, an instrumental response, or the fast fit off) the complex
+engine (fit.portrait.fit_portrait_batch).  TOAs, DMs, scattering flags
+and the per-archive DeltaDM statistics are assembled on the host
+exactly as in the JAX package.
 
 Not ported yet, and refused with NotImplementedError naming the
-ROADMAP item instead of being ignored: scattering fits (fit_scat,
-scat_guess) and the instrumental response (A6), config.use_fast_fit
-resolving False (the complex engine, A6), telemetry traces (A13), and
+ROADMAP item instead of being ignored: telemetry traces (A13) and
 narrowband TOAs (A8).
 """
 
@@ -19,8 +21,9 @@ import numpy as np
 
 from ..config import scattering_alpha
 from ..device import resolve_device
-from ..fit.portrait import (FitFlags, fit_portrait_batch_fast,
-                            use_fast_fit_default, warn_bf16_high_snr)
+from ..fit.portrait import (FitFlags, estimate_tau_batch, fit_portrait_batch,
+                            fit_portrait_batch_fast, use_fast_fit_default,
+                            warn_bf16_high_snr)
 from ..io.psrfits import load_data
 from ..io.tim import TOA
 from ..utils.log import log
@@ -28,7 +31,9 @@ from .models import TemplateModel
 
 __all__ = ["GetTOAs", "weighted_mean", "effective_fit_flags",
            "doppler_corrected_DM_GM", "snr_weighted_nu_fit",
-           "load_for_toas", "delta_dm_stats"]
+           "load_for_toas", "delta_dm_stats", "scat_time_flags",
+           "scat_seed_tau0", "scattering_toa_flags", "reref_tau",
+           "DEFAULT_IR_DICT", "build_instrumental_response_FT"]
 
 MAX_NFILE = 999  # parity: cfitsio open-file guard
 
@@ -44,6 +49,124 @@ def weighted_mean(values, errs):
         return float(np.mean(values)), np.inf
     mean = float((values * w).sum() / wsum)
     return mean, float(wsum ** -0.5)
+
+
+def scat_time_flags(tau_rot, tau_err_rot, seconds_per_rot, log10_tau):
+    """TOA flags of a fitted scattering timescale (tau and its error in
+    linear rotations; seconds_per_rot: P or P / doppler_factor);
+    scat_time in microseconds."""
+    flags = {"scat_time": tau_rot * seconds_per_rot * 1e6}
+    if log10_tau:
+        safe = max(tau_rot, 1e-300)
+        flags["log10_scat_time"] = np.log10(safe * seconds_per_rot)
+        flags["log10_scat_time_err"] = tau_err_rot / (safe * np.log(10.0))
+    else:
+        flags["scat_time_err"] = tau_err_rot * seconds_per_rot * 1e6
+    return flags
+
+
+def _validate_scat_guess(scat_guess, fit_scat):
+    """scat_guess as a (tau_s, nu_MHz, alpha) triple, the literal 'auto'
+    (which needs fit_scat), or None; anything else raises."""
+    if isinstance(scat_guess, str):
+        if scat_guess.strip().lower() != "auto":
+            raise ValueError(
+                f"scat_guess string must be 'auto', got {scat_guess!r}")
+        if not fit_scat:
+            raise ValueError("scat_guess='auto' requires fit_scat=True")
+        return "auto"
+    if scat_guess is not None and len(tuple(scat_guess)) != 3:
+        raise ValueError(
+            "scat_guess must be (tau_s, nu_MHz, alpha), 'auto', or None")
+    return scat_guess
+
+
+def scat_seed_tau0(scat_guess, fit_scat, nok, nbin, P_mean, nu_fit_arr,
+                   default_alpha, ports=None, modelx=None, noise=None,
+                   masks=None, device=None):
+    """(tau0 [rot at nu_fit] per subint, alpha0), shared by GetTOAs and
+    the stream's decoded lane: a (tau_s, nu, alpha) triple scaled to
+    each nu_fit; 'auto' the data-driven estimate_tau_batch in float32
+    on ``device``; None the neutral half bin when fitting, else zeros."""
+    alpha0 = default_alpha
+    if scat_guess is not None and not isinstance(scat_guess, str):
+        t_s, nu_s, a_s = scat_guess
+        tau0 = (t_s / P_mean) * (np.asarray(nu_fit_arr) / nu_s) ** a_s
+        alpha0 = a_s
+    elif fit_scat and scat_guess == "auto":
+        import torch
+
+        dev = resolve_device(device)
+
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+        tau0 = estimate_tau_batch(
+            f32(ports), f32(modelx), f32(noise),
+            None if masks is None else f32(masks)).cpu().numpy()
+    elif fit_scat:
+        tau0 = np.full(nok, 0.5 / nbin)
+    else:
+        tau0 = np.zeros(nok)
+    return tau0, alpha0
+
+
+def reref_tau(tau, tau_err, nu_from, nu_to, alpha):
+    """Re-reference a scattering timescale and its error between
+    frequencies along its own power law: tau' = tau (nu'/nu)^alpha, the
+    error scaled by the same factor (the alpha covariance neglected)."""
+    r = (np.asarray(nu_to, float) / np.asarray(nu_from, float)) \
+        ** np.asarray(alpha, float)
+    return tau * r, tau_err * np.abs(r)
+
+
+def scattering_toa_flags(tau, tau_err, nu_tau, alpha, alpha_err, P, df,
+                         log10_tau, alpha_fitted, nu_ref_tau=None):
+    """The scat_* TOA flags of one fitted subint: scat_time [us] (and
+    its log10 form), the Doppler-corrected reference frequency, the
+    index and, when fitted, its error.  nu_ref_tau re-references tau
+    first; None when the caller already did."""
+    if nu_ref_tau is not None:
+        tau, tau_err = reref_tau(tau, tau_err, nu_tau, nu_ref_tau, alpha)
+        nu_tau = float(nu_ref_tau)
+    flags = scat_time_flags(tau, tau_err, P / df, log10_tau)
+    flags["scat_ref_freq"] = nu_tau * df
+    flags["scat_ind"] = alpha
+    if alpha_fitted:
+        flags["scat_ind_err"] = alpha_err
+    return flags
+
+
+DEFAULT_IR_DICT = {"DM-smear": False, "wids": [], "irf_types": []}
+
+
+def build_instrumental_response_FT(ird, freqs0, nbin, DM_guess, P_mean,
+                                   bw=0.0):
+    """(nchan, nharm) float64 host instrumental-response FT of one
+    archive layout, or None when the dict requests nothing: the product
+    of the achromatic (width [rot], kind) kernels and, with "DM-smear",
+    per-channel DM-smearing sincs.  Unpaired wids/kinds raise."""
+    ird = {**DEFAULT_IR_DICT, **(ird or {})}
+    if len(ird["wids"]) != len(ird["irf_types"]):
+        raise ValueError(
+            "instrumental_response_dict: wids and irf_types must pair "
+            f"up (got {len(ird['wids'])} widths, "
+            f"{len(ird['irf_types'])} kinds)")
+    if not (ird["wids"] or ird["DM-smear"]):
+        return None
+    import torch
+
+    from ..ops.gaussian import instrumental_response_port_FT
+
+    freqs0 = np.asarray(freqs0, float)
+    nchan = len(freqs0)
+    chan_bw = float(np.abs(np.median(np.diff(freqs0)))) if nchan > 1 \
+        else float(bw) / max(nchan, 1)
+    return instrumental_response_port_FT(
+        nbin // 2 + 1, torch.as_tensor(freqs0),
+        widths=tuple(ird["wids"]), kinds=tuple(ird["irf_types"]),
+        DM_smear=DM_guess if ird["DM-smear"] else None,
+        chan_bw=chan_bw, P=P_mean).numpy()
 
 
 def effective_fit_flags(nchx_i, base):
@@ -190,9 +313,9 @@ class GetTOAs:
         self.modelfile = str(modelfile)
         self.model = TemplateModel(modelfile, quiet=quiet,
                                    device=self.device)
-        # instrumental-response config (set "DM-smear" True and/or
-        # append (width, kind) pairs); only the empty response is
-        # ported, anything else raises in get_TOAs
+        # instrumental-response config: set "DM-smear" True and/or
+        # append (width [rot], kind) pairs to wids/irf_types before
+        # get_TOAs
         self.instrumental_response_dict = {
             "DM-smear": False, "wids": [], "irf_types": []}
         for name in ("obs", "doppler_fs", "nu0s", "nu_fits", "nu_refs",
@@ -215,30 +338,24 @@ class GetTOAs:
                  print_parangle=False, addtnl_toa_flags={},
                  nu_fits=None, max_iter=40, prefetch=False, quiet=None,
                  bounds=None, quality_flags=False, telemetry=None):
-        """Measure wideband TOAs (the JAX package's get_TOAs, fast lane
-        only).  bounds: optional (5, 2) [lo, hi] box on (phi, DM, GM,
-        tau, alpha); a fit converging ON a bound reports return code 0.
-        quality_flags=True adds per-TOA -nfev and -chi2 flags."""
+        """Measure wideband TOAs (the JAX package's get_TOAs).
+
+        fit_scat fits the scattering timescale (log10 tau by default,
+        linear with log10_tau=False) and, unless fix_alpha, its index;
+        scat_guess: a (tau_s, nu_MHz, alpha) seed, 'auto' for the
+        per-subint data-driven estimate (fit.portrait.estimate_tau_batch)
+        or None (the neutral half bin).  nu_refs: (nu_DM, nu_tau)
+        output reference frequencies, None for the zero-covariance ones.
+        bounds: optional (5, 2) [lo, hi] box on (phi, DM, GM,
+        tau-or-log10-tau, alpha); a fit converging ON a bound reports
+        return code 0.  quality_flags=True adds per-TOA -nfev and -chi2
+        flags."""
         if quiet is None:
             quiet = self.quiet
-        if fit_scat or scat_guess is not None:
-            raise NotImplementedError(
-                "get_TOAs: scattering fits (fit_scat, scat_guess) are not "
-                "ported yet (ROADMAP A6)")
-        ird = self.instrumental_response_dict
-        if ird.get("DM-smear") or ird.get("wids") or ird.get("irf_types"):
-            raise NotImplementedError(
-                "get_TOAs: an instrumental response is not ported yet "
-                "(ROADMAP A6)")
         if telemetry is not None:
             raise NotImplementedError(
                 "get_TOAs: telemetry traces are not ported yet "
                 "(ROADMAP A13)")
-        if not use_fast_fit_default(self.device):
-            raise NotImplementedError(
-                "get_TOAs: config.use_fast_fit resolves False on "
-                f"{self.device.type}, and the complex fit engine is not "
-                "ported yet (ROADMAP A6); set config.use_fast_fit = True")
         if bounds is not None:
             bounds = np.asarray(bounds, float)
             if bounds.shape != (5, 2):
@@ -251,14 +368,21 @@ class GetTOAs:
             if np.any(bounds[:, 0] > bounds[:, 1]):
                 raise ValueError("bounds: a lower bound exceeds its "
                                  "upper bound")
-        log10_tau = False
-        self.fit_flags = [1, int(fit_DM), int(fit_GM), 0, 0]
+        scat_guess = _validate_scat_guess(scat_guess, fit_scat)
+        if not fit_scat:
+            log10_tau = False
+        self.fit_flags = [1, int(fit_DM), int(fit_GM), int(fit_scat),
+                          int(fit_scat and not fix_alpha)]
         self.log10_tau = log10_tau
         self.tscrunch = tscrunch
         self.bary = bary
         self.DM0 = DM0
         datafiles = self.datafiles if datafile is None else [datafile]
         nu_ref_DM = nu_refs[0] if nu_refs is not None else None
+        nu_ref_tau = nu_refs[1] if nu_refs is not None else None
+        scat = dict(fit_scat=bool(fit_scat), log10_tau=bool(log10_tau),
+                    scat_guess=scat_guess, fix_alpha=bool(fix_alpha),
+                    nu_ref_tau=nu_ref_tau)
         load_times = {}
 
         def _loader(f):
@@ -281,12 +405,14 @@ class GetTOAs:
                               nu_fits, nu_ref_DM, max_iter, bounds,
                               print_phase, print_flux, print_parangle,
                               addtnl_toa_flags, quality_flags, quiet,
-                              t_start, load_times)
+                              t_start, load_times, **scat)
 
     def _fit_archive(self, datafile, d, DM0, bary, fit_DM, fit_GM, nu_fits,
                      nu_ref_DM, max_iter, bounds, print_phase, print_flux,
                      print_parangle, addtnl_toa_flags, quality_flags,
-                     quiet, t_start, load_times):
+                     quiet, t_start, load_times, fit_scat=False,
+                     log10_tau=False, scat_guess=None, fix_alpha=False,
+                     nu_ref_tau=None):
         nsub, nchan, nbin = d.nsub, d.nchan, d.nbin
         ok = np.asarray(d.ok_isubs, int)
         nok = len(ok)
@@ -312,17 +438,32 @@ class GetTOAs:
         else:
             nu_fit_arr = snr_weighted_nu_fit(snrs_chan, freqs0)
 
+        # tau seed [rot at nu_fit]; 'auto' estimates it per subint from
+        # the data (|X| is phase-invariant: no alignment needed first)
+        tau0, alpha0 = scat_seed_tau0(
+            scat_guess, fit_scat, nok, nbin, P_mean, nu_fit_arr,
+            self.model.gauss.alpha if self.model.is_gaussian
+            else scattering_alpha,
+            ports=ports, modelx=modelx, noise=noise, masks=masks,
+            device=self.device)
+
         theta0 = np.zeros((nok, 5))
         theta0[:, 1] = DM_guess
-        theta0[:, 4] = (self.model.gauss.alpha if self.model.is_gaussian
-                        else scattering_alpha)
+        theta0[:, 3] = (np.log10(np.maximum(tau0, 1e-12)) if log10_tau
+                        else tau0)
+        theta0[:, 4] = alpha0
 
         nchx = masks.sum(axis=1).astype(int)
-        base = (True, bool(fit_DM), bool(fit_GM), False, False)
+        base = (True, bool(fit_DM), bool(fit_GM), bool(fit_scat),
+                bool(fit_scat and not fix_alpha))
         groups = {}
         for i in range(nok):
             groups.setdefault(
                 effective_fit_flags(nchx[i], base), []).append(i)
+
+        ir_FT = build_instrumental_response_FT(
+            self.instrumental_response_dict, freqs0, nbin, DM_guess, P_mean,
+            bw=d.bw)
 
         fit_duration = 0.0
         res_arrays = {k: np.full(nok, np.nan) for k in
@@ -339,23 +480,39 @@ class GetTOAs:
         for flags, idx in groups.items():
             idx = np.asarray(idx, int)
             tfit = time.time()
-            r = fit_portrait_batch_fast(
-                np.asarray(ports[idx], np.float32),
-                # host numpy template: lets the harmonic-window 'auto'
-                # derivation see the model's spectrum
-                np.asarray(modelx, np.float32),
-                np.asarray(noise[idx], np.float32),
-                np.asarray(freqs0, np.float32),
-                np.asarray(d.Ps[ok][idx], np.float32),
-                np.asarray(nu_fit_arr[idx], np.float32),
-                nu_out=nu_ref_DM,
-                theta0=np.asarray(theta0[idx], np.float32),
-                fit_flags=FitFlags(*flags),
-                chan_masks=np.asarray(masks[idx], np.float32),
-                max_iter=max_iter,
-                bounds=bounds,
-                device=self.device,
-            )
+            # groups without scattering take the fast lane where
+            # config.use_fast_fit resolves on; a fixed nonzero tau seed
+            # (a scattering run's degenerate group) still needs the
+            # scattering kernel, so it goes to the complex engine
+            use_fast = (not flags[3] and not flags[4] and ir_FT is None
+                        and not np.any(theta0[idx][:, 3] != 0.0)
+                        and use_fast_fit_default(self.device))
+            if use_fast:
+                r = fit_portrait_batch_fast(
+                    np.asarray(ports[idx], np.float32),
+                    # host numpy template: lets the harmonic-window 'auto'
+                    # derivation see the model's spectrum
+                    np.asarray(modelx, np.float32),
+                    np.asarray(noise[idx], np.float32),
+                    np.asarray(freqs0, np.float32),
+                    np.asarray(d.Ps[ok][idx], np.float32),
+                    np.asarray(nu_fit_arr[idx], np.float32),
+                    nu_out=nu_ref_DM,
+                    theta0=np.asarray(theta0[idx], np.float32),
+                    fit_flags=FitFlags(*flags),
+                    chan_masks=np.asarray(masks[idx], np.float32),
+                    max_iter=max_iter, bounds=bounds, device=self.device)
+            else:
+                # float64 in; the engine runs it as float32 on CUDA.  The
+                # template stays 2-D (shared by the batch).  log10_tau
+                # unconditionally: a degenerate group of a log10 run
+                # still carries its fixed tau seed in log10
+                r = fit_portrait_batch(
+                    ports[idx], modelx, noise[idx], freqs0, d.Ps[ok][idx],
+                    nu_fit_arr[idx], nu_out=nu_ref_DM, theta0=theta0[idx],
+                    fit_flags=FitFlags(*flags), chan_masks=masks[idx],
+                    log10_tau=log10_tau, max_iter=max_iter, ir_FT=ir_FT,
+                    bounds=bounds, device=self.device)
             r = {k: v.detach().cpu().numpy()
                  for k, v in r._asdict().items()}
             fit_duration += time.time() - tfit
@@ -373,6 +530,14 @@ class GetTOAs:
         with np.errstate(invalid="ignore"):
             warn_bf16_high_snr(float(np.nanmax(
                 channel_snrs_arr, initial=0.0)), quiet=quiet)
+
+        # user-requested tau output reference (None keeps each fit's
+        # zero-covariance frequency)
+        if fit_scat and nu_ref_tau is not None:
+            res_arrays["tau"], res_arrays["tau_err"] = reref_tau(
+                res_arrays["tau"], res_arrays["tau_err"],
+                res_arrays["nu_tau"], nu_ref_tau, res_arrays["alpha"])
+            res_arrays["nu_tau"] = np.full(nok, float(nu_ref_tau))
 
         phis = np.full(nsub, np.nan)
         phi_errs = np.full(nsub, np.nan)
@@ -461,6 +626,14 @@ class GetTOAs:
             if self.fit_flags[2]:
                 toa_flags["gm"] = GM_j
                 toa_flags["gm_err"] = float(GM_errs[isub])
+            if self.fit_flags[3]:
+                toa_flags.update(scattering_toa_flags(
+                    float(res_arrays["tau"][j]),
+                    float(res_arrays["tau_err"][j]),
+                    float(res_arrays["nu_tau"][j]),
+                    float(res_arrays["alpha"][j]),
+                    float(res_arrays["alpha_err"][j]), P, df, log10_tau,
+                    bool(self.fit_flags[4])))
             toa_flags["be"] = d.backend
             toa_flags["fe"] = d.frontend
             toa_flags["f"] = f"{d.frontend}_{d.backend}"

@@ -72,7 +72,7 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
                      nu_DM=np.inf, state="Stokes", telescope="GBT",
                      quiet=False, rng=None, barycentred=True,
                      spin_coherent=False, nbit=16, levels=None,
-                     device=None):
+                     dither=False, device=None):
     """Generate a fake fold-mode PSRFITS archive with known injected
     parameters and write it to ``outfile``.  Returns the Archive.
 
@@ -89,6 +89,10 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
     the sub-byte packed archives the raw streaming lane ships 32x
     smaller; levels=4 with nbit=8 forges the coarsely-quantized byte
     archives the transport-compression cost model packs on the fly.
+    dither=True quantizes the sub-byte or level-limited samples with
+    rectangular dither drawn from ``rng`` after the noise
+    (io/psrfits.write_archive_file), so their mean is the unquantized
+    profile.
     """
     if spin_coherent:
         raise NotImplementedError(
@@ -182,7 +186,8 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
         arch.primary["PPTBARY"] = True
     if not dedispersed:
         arch.dededisperse()
-    arch.unload(outfile, nbit=nbit, levels=levels)
+    arch.unload(outfile, nbit=nbit, levels=levels,
+                dither=rng if dither else None)
     if not quiet:
         print(f"\nUnloaded {outfile}.\n")
     return arch

@@ -168,14 +168,6 @@ def test_fit_recovers_injection(fast_path_config):
     assert np.all(np.abs(got["GM"] - [0.3, -0.2, 0.1]) < 5 * got["GM_err"])
 
 
-def test_scattering_lane_is_refused(fast_path_config):
-    ports, model, noise, freqs, P, nu_fit, masks, theta0 = _dataset()
-    with pytest.raises(NotImplementedError, match="A6"):
-        tfit(ports, model, noise, freqs, P, nu_fit,
-             fit_flags=TFlags(True, True, False, True, False),
-             device="cpu")
-
-
 def test_degenerate_all_masked_element(fast_path_config):
     """A fully masked subint behaves as in the JAX package: no finite
     optimum, and the same return code and eval count as the reference

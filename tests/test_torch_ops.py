@@ -37,10 +37,11 @@ from pulseportraiture_tpu.ops import noise as JN
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the kernels' launch counters: each kernel's total and its two arms
+# the kernels' launch counters: each kernel's total and its two arms,
+# and B1's want_m2 form
 LAUNCH_KEYS = [f"{k}{arm}" for k in ("fused_cross_spectrum",
                                      "fused_decode_cross_spectrum")
-               for arm in ("", ".fft", ".gemm")]
+               for arm in ("", ".fft", ".gemm")] + ["fused_cross_spectrum.m2"]
 
 
 def _problem(nchan, nbin, dt, seed=0, nb=None):

@@ -12,7 +12,11 @@ TOA and DM within 0.05 sigma, flags equal (fit-derived numbers within
 one unit of their last printed digit).
 
 Spies on the plain B2 version show which buckets took the decode-fused
-branch; the executor tests (resume after a torn tail, a degenerate
+branch.  The scattering runs (fit_scat) compare the port's stream with
+the JAX package's on scattered int16 and 2-bit archives, with the
+limits of tests/test_stream.py's fast-lane scattering parity or
+tighter; a spy on the plain B1 version shows the scatter lane ran its
+want_m2 form and B2 never ran.  The executor tests (resume after a torn tail, a degenerate
 one-channel subint, the exact in-flight bound, one device vs two) run
 the port alone on make_fake_pulsar archives.
 """
@@ -385,9 +389,6 @@ class TestRefusals:
     item; the CUDA default raises without a card."""
 
     @pytest.mark.parametrize("kw,item", [
-        ({"fit_scat": True}, "A6"), ({"scat_guess": "auto"}, "A6"),
-        ({"instrumental_response_dict": {"wids": [0.1],
-                                         "irf_types": ["rect"]}}, "A6"),
         ({"telemetry": "t.jsonl"}, "A13"), ({"zap_inline": True}, "A8"),
         ({"zap_channels": {}}, "A8"), ({"postfit_cut": True}, "A8")])
     def test_options(self, campaign, kw, item):
@@ -435,3 +436,173 @@ class TestRefusals:
             torch.device("cpu")] * 2
         with pytest.raises(ValueError):
             TS.resolve_stream_devices(3)
+
+
+# ---------------------------------------------------------------------
+# the scattering lane: stream_wideband_TOAs(fit_scat=True)
+
+@pytest.fixture(scope="module")
+def scat_campaign(tmp_path_factory):
+    """A scattered int16 archive and a scattered 2-bit one (t_scat 0.3 ms
+    at 1500 MHz, alpha -4; 2 subints x 32 channels x 256 bins)."""
+    from pulseportraiture_tpu_torch.io.gmodel import write_gmodel
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    root = tmp_path_factory.mktemp("torch_scat_stream")
+    model = default_test_model(1500.0)
+    gmodel = str(root / "model.gmodel")
+    write_gmodel(model, gmodel, quiet=True)
+    files = []
+    for i, nbit in enumerate((16, 2)):
+        path = str(root / f"scat{i}.fits")
+        make_fake_pulsar(model, PAR, outfile=path, nsub=2, nchan=32,
+                         nbin=256, nu0=1500.0, bw=800.0, tsub=60.0,
+                         phase=0.02 * i, dDM=1e-4 * i, t_scat=3e-4,
+                         alpha=-4.0, start_MJD=MJD(55300 + 10 * i, 0.1),
+                         noise_stds=0.02 if nbit == 16 else 0.5,
+                         dedispersed=False, quiet=True, rng=700 + i,
+                         nbit=nbit, device="cpu")
+        files.append(path)
+    return root, files, gmodel
+
+
+def _spy_b1(monkeypatch):
+    """Record the want_m2 flag of every call of the plain B1 version."""
+    calls = []
+    orig = TFu.fused_cross_spectrum_ref
+
+    def spy(*a, **k):
+        calls.append(bool(k.get("want_m2", False)))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(TFu, "fused_cross_spectrum_ref", spy)
+    return calls
+
+
+def _assert_scat_parity(ref, got):
+    """The JAX fast-lane scattering parity's limits (|dTOA| < 5e-7 s,
+    |dDM| < 5e-4, scat_time within 2 %, scat_ind within 0.05, snr within
+    1 %), tightened: TOA and DM within 0.05 sigma and every -scat_* flag
+    within one unit of its last printed digit plus 1e-5 relative
+    (test_torch_toas).  -gof (not checked there) within 1 %: chi2 =
+    Sd + f cancels to ~1e-3 of its terms at these S/Ns, and both
+    packages sum the terms in float32 in different orders."""
+    from test_torch_toas import SCAT_DERIVED
+
+    ref = _tim_lines(ref, ref + ".lines")
+    got = _tim_lines(got, got + ".lines")
+    _assert_tim_parity(ref, got, derived=SCAT_DERIVED,
+                       rel_tol={"gof": 0.01})
+    for r, g in zip(_parse_tim(ref), _parse_tim(got)):
+        assert "-scat_time" in g[5]
+        assert float(g[5]["-scat_time"]) == pytest.approx(
+            float(r[5]["-scat_time"]), rel=0.02)
+        assert abs(float(g[5]["-scat_ind"]) - float(r[5]["-scat_ind"])) \
+            < 0.05
+
+
+@pytest.mark.parametrize("run", ["auto_ir", "triple_fix_alpha_nu_tau"])
+def test_stream_fit_scat_parity_with_jax(scat_campaign, stream_config,
+                                         monkeypatch, run):
+    """int16 and 2-bit raw buckets through the complex-free scatter lane
+    on both sides (use_fast_fit on): the plain B1 ran in its want_m2
+    form once per bucket, B2 never (no decode-fused bucket in a
+    scattering run)."""
+    from pulseportraiture_tpu.pipeline import stream as JS
+
+    root, files, gmodel = scat_campaign
+    if run == "auto_ir":
+        kw = dict(fit_scat=True, scat_guess="auto",
+                  instrumental_response_dict={"wids": [0.2e-3],
+                                              "irf_types": ["rect"]})
+    else:
+        kw = dict(fit_scat=True, scat_guess=(3e-4, 1500.0, -4.0),
+                  fix_alpha=True, nu_ref_tau=1400.0)
+    ref, got = str(root / f"jax_{run}.tim"), str(root / f"torch_{run}.tim")
+    JS.stream_wideband_TOAs(files, gmodel, nsub_batch=4, quiet=True,
+                            tim_out=ref, **kw)
+    b1 = _spy_b1(monkeypatch)
+    b2 = _spy_b2(monkeypatch)
+    res = TS.stream_wideband_TOAs(files, gmodel, nsub_batch=4, quiet=True,
+                                  tim_out=got, device="cpu", **kw)
+    flags = "11010" if kw.get("fix_alpha") else "11011"
+    assert res.dispatch_shapes == {f"32x256:raw:i16:{flags}": 1,
+                                   f"32x256:raw:p2:{flags}": 1}
+    assert b1 == [True, True] and b2 == []
+    _assert_scat_parity(ref, got)
+    if kw.get("nu_ref_tau"):
+        assert all(t.flags["scat_ref_freq"] == 1400.0
+                   for t in res.TOA_list)
+
+
+def test_stream_fit_scat_decoded_lane(scat_campaign, stream_config,
+                                      monkeypatch):
+    """Archives the raw lane refuses go through the host-decoded lane,
+    whose 'auto' tau seeds come from the host data (scat_seed_tau0);
+    the JAX package's decoded lane is the reference."""
+    from pulseportraiture_tpu.pipeline import stream as JS
+
+    root, files, gmodel = scat_campaign
+
+    def refuse(f, *a):
+        raise ValueError("forced decoded lane")
+
+    monkeypatch.setattr(JS, "_load_raw", refuse)
+    monkeypatch.setattr(TS, "_load_raw", refuse)
+    kw = dict(fit_scat=True, scat_guess="auto")
+    ref, got = str(root / "jax_dec.tim"), str(root / "torch_dec.tim")
+    JS.stream_wideband_TOAs(files[:1], gmodel, nsub_batch=4, quiet=True,
+                            tim_out=ref, **kw)
+    b1 = _spy_b1(monkeypatch)
+    res = TS.stream_wideband_TOAs(files[:1], gmodel, nsub_batch=4,
+                                  quiet=True, tim_out=got, device="cpu",
+                                  **kw)
+    assert res.dispatch_shapes == {"32x256:dec:11011": 1}
+    assert b1 == [True]
+    _assert_scat_parity(ref, got)
+
+
+def test_stream_complex_engine(scat_campaign, stream_config):
+    """config.use_fast_fit=False: the raw buckets decode in float64 and
+    fit through the complex engine, scattering and not, as the JAX
+    package's stream does on the CPU."""
+    from pulseportraiture_tpu.pipeline import stream as JS
+
+    root, files, gmodel = scat_campaign
+    jcfg.use_fast_fit = tcfg.use_fast_fit = False
+    for kw in (dict(fit_scat=True, scat_guess="auto"), dict()):
+        ref, got = str(root / "jax_cx.tim"), str(root / "torch_cx.tim")
+        JS.stream_wideband_TOAs(files[:1], gmodel, nsub_batch=4,
+                                quiet=True, tim_out=ref, **kw)
+        TS.stream_wideband_TOAs(files[:1], gmodel, nsub_batch=4,
+                                quiet=True, tim_out=got, device="cpu", **kw)
+        if kw:
+            _assert_scat_parity(ref, got)
+        else:
+            _assert_tim_parity(_tim_lines(ref, ref + ".lines"),
+                               _tim_lines(got, got + ".lines"))
+
+
+def test_cli_stream_fit_scat(scat_campaign, stream_config, tmp_path):
+    """pptoas --stream --fit_scat on the CPU writes the library call's
+    scattering TOAs."""
+    from pulseportraiture_tpu_torch.cli.pptoas import main
+
+    root, files, gmodel = scat_campaign
+    meta = tmp_path / "meta.txt"
+    meta.write_text("\n".join(files) + "\n")
+    out = str(tmp_path / "cli.tim")
+    assert main(["--stream", "-d", str(meta), "-m", gmodel, "-o", out,
+                 "--device", "cpu", "--quiet", "--fit_scat",
+                 "--scat_guess", "3e-4,1500,-4", "--no_logscat"]) == 0
+    lib = TS.stream_wideband_TOAs(files, gmodel, device="cpu", quiet=True,
+                                  fit_scat=True, log10_tau=False,
+                                  scat_guess=(3e-4, 1500.0, -4.0))
+    got = _parse_tim(out)
+    assert len(got) == len(lib.TOA_list) == 4
+    for g, t in zip(got, lib.TOA_list):
+        assert g[0] == t.archive and "-scat_time_err" in g[5]
+        assert float(g[5]["-scat_time"]) == pytest.approx(
+            t.flags["scat_time"], abs=1e-3)

@@ -15,7 +15,11 @@ cross-spectrum in bfloat16 (the default).
 - flags: equal, except -tmplt (the model path) and the fit-derived
   numbers -snr, -gof, -phi_DM_cov, which are float32 results printed
   to a fixed number of digits and agree to within one unit of the last
-  printed digit.
+  printed digit (plus 1e-5 relative).
+
+The scattering runs (fit_scat) take the complex engine on both sides,
+in float64 on the CPU; their -scat_* flags are fit-derived numbers too
+and held to the same last-digit rule.
 """
 
 import numpy as np
@@ -34,7 +38,10 @@ from pulseportraiture_tpu_torch.io.tim import write_TOAs as twrite
 from pulseportraiture_tpu_torch.pipeline import GetTOAs as TGetTOAs
 
 DDMS = [2e-4, -3e-4]
-FIT_DERIVED = {"snr": 1e-3, "gof": 1e-3, "phi_DM_cov": None}
+FIT_DERIVED = {"snr", "gof", "phi_DM_cov"}
+SCAT_DERIVED = FIT_DERIVED | {
+    "scat_time", "scat_time_err", "log10_scat_time", "log10_scat_time_err",
+    "scat_ref_freq", "scat_ind", "scat_ind_err"}
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +103,12 @@ def _last_digit(s):
     return 10.0 ** (exp - dec)
 
 
-def _assert_tim_parity(ref_path, got_path):
+def _assert_tim_parity(ref_path, got_path, derived=FIT_DERIVED,
+                       rel_tol=None):
+    """Field-by-field .tim parity (module docstring); rel_tol: {flag name:
+    relative tolerance} for fit-derived flags held to that instead of
+    the last-digit rule."""
+    rel_tol = rel_tol or {}
     ref = _parse_tim(ref_path)
     got = _parse_tim(got_path)
     assert len(got) == len(ref) > 0
@@ -119,8 +131,10 @@ def _assert_tim_parity(ref_path, got_path):
             name = key.lstrip("-")
             if name in ("tmplt", "pp_dm", "pp_dme"):
                 continue
-            if name in FIT_DERIVED:
+            if name in derived:
                 tol = _last_digit(val) + 1e-5 * abs(float(val))
+                if name in rel_tol:
+                    tol = rel_tol[name] * abs(float(val))
                 assert abs(float(g[5][key]) - float(val)) <= tol, key
             else:
                 assert g[5][key] == val, key
@@ -191,26 +205,10 @@ class TestUnportedOptionsRaise:
         meta, gmodel, files = dataset
         return TGetTOAs(files[0], gmodel, quiet=True, device="cpu")
 
-    def test_fit_scat(self, dataset, fast_config):
-        with pytest.raises(NotImplementedError, match="A6"):
-            self._gt(dataset).get_TOAs(fit_scat=True, quiet=True)
-
-    def test_instrumental_response(self, dataset, fast_config):
-        gt = self._gt(dataset)
-        gt.instrumental_response_dict["wids"].append(0.05)
-        gt.instrumental_response_dict["irf_types"].append("rect")
-        with pytest.raises(NotImplementedError, match="A6"):
-            gt.get_TOAs(quiet=True)
-
     def test_telemetry(self, dataset, fast_config, tmp_path):
         with pytest.raises(NotImplementedError, match="A13"):
             self._gt(dataset).get_TOAs(quiet=True,
                                        telemetry=str(tmp_path / "t.jsonl"))
-
-    def test_complex_engine(self, dataset, fast_config):
-        tcfg.use_fast_fit = False
-        with pytest.raises(NotImplementedError, match="A6"):
-            self._gt(dataset).get_TOAs(quiet=True)
 
     @pytest.mark.parametrize("flag,item", [("--narrowband", "A8"),
                                            ("--stream", "A7")])
@@ -233,3 +231,109 @@ class TestUnportedOptionsRaise:
         np.savez(p, x=np.zeros(3))
         with pytest.raises(NotImplementedError, match="A3"):
             TemplateModel(str(p), device="cpu")
+
+
+# ---------------------------------------------------------------------
+# the scattering lane: GetTOAs(fit_scat=True) through the complex engine
+
+@pytest.fixture(scope="module")
+def scat_dataset(tmp_path_factory):
+    """A scattered archive (t_scat 0.3 ms at 1500 MHz, alpha -4) with a
+    one-channel subint (the degenerate phase-only group, whose fixed
+    tau seed still scatters the model)."""
+    root = tmp_path_factory.mktemp("torch_scat_toas")
+    model = default_test_model(1500.0)
+    gmodel = str(root / "model.gmodel")
+    write_gmodel(model, gmodel, quiet=True)
+    w = np.ones((3, 32))
+    w[2, 1:] = 0.0
+    path = str(root / "scat.fits")
+    make_fake_pulsar(model, PAR, outfile=path, nsub=3, nchan=32, nbin=256,
+                     nu0=1500.0, bw=800.0, tsub=60.0, phase=0.01, dDM=2e-4,
+                     t_scat=3e-4, alpha=-4.0, start_MJD=MJD(55100, 0.1),
+                     noise_stds=0.05, weights=w, dedispersed=False,
+                     quiet=True, rng=5)
+    return path, gmodel
+
+
+SCAT_RUNS = {
+    "neutral_seed": dict(fit_scat=True),
+    "auto_seed": dict(fit_scat=True, scat_guess="auto"),
+    "triple_fix_alpha": dict(fit_scat=True, scat_guess=(3e-4, 1500.0, -4.0),
+                             fix_alpha=True),
+    "linear_tau": dict(fit_scat=True, log10_tau=False,
+                       scat_guess=(3e-4, 1500.0, -4.0)),
+    "nu_tau": dict(fit_scat=True, scat_guess="auto",
+                   nu_refs=(None, 1400.0)),
+    "ir_dm_smear": dict(fit_scat=True, scat_guess="auto"),
+}
+
+
+@pytest.mark.parametrize("run", sorted(SCAT_RUNS))
+def test_tim_parity_fit_scat(scat_dataset, fast_config, tmp_path, run):
+    """GetTOAs(fit_scat=True) .tim files, field by field, against the JAX
+    GetTOAs: both take the complex engine for every group (the
+    degenerate subint's phase-only group included) even with the fast
+    fit on, as the JAX package routes them."""
+    path, gmodel = scat_dataset
+    kw = SCAT_RUNS[run]
+    jg = JGetTOAs(path, gmodel, quiet=True)
+    tg = TGetTOAs(path, gmodel, quiet=True, device="cpu")
+    if run == "ir_dm_smear":
+        for gt in (jg, tg):
+            gt.instrumental_response_dict.update(
+                {"DM-smear": True, "wids": [0.002], "irf_types": ["rect"]})
+    jg.get_TOAs(quiet=True, **kw)
+    tg.get_TOAs(quiet=True, **kw)
+    ref_tim, got_tim = str(tmp_path / "ref.tim"), str(tmp_path / "got.tim")
+    jwrite(jg.TOA_list, outfile=ref_tim)
+    twrite(tg.TOA_list, outfile=got_tim)
+    _assert_tim_parity(ref_tim, got_tim, derived=SCAT_DERIVED)
+    np.testing.assert_array_equal(tg.nfevals[0], jg.nfevals[0])
+    np.testing.assert_array_equal(tg.rcs[0], jg.rcs[0])
+    toas = _parse_tim(got_tim)
+    assert all("-scat_time" in t[5] for t in toas)
+    assert ("-scat_ind_err" in toas[0][5]) == (not kw.get("fix_alpha"))
+    if "nu_refs" in kw:
+        assert all(t[5]["-scat_ref_freq"] == "1400.000" for t in toas)
+    # the degenerate subint reports its fixed seed, phase only
+    assert toas[2][5]["-nchx"] == "1" and toas[2][5]["-pp_dme"] == \
+        "0.0000000"
+
+
+def test_complex_engine_without_scattering(dataset, fast_config, tmp_path):
+    """config.use_fast_fit=False sends every group through the complex
+    engine, in float64 on both sides."""
+    meta, gmodel, files = dataset
+    jcfg.use_fast_fit = tcfg.use_fast_fit = False
+    jg = JGetTOAs(files[0], gmodel, quiet=True)
+    jg.get_TOAs(quiet=True)
+    tg = TGetTOAs(files[0], gmodel, quiet=True, device="cpu")
+    tg.get_TOAs(quiet=True)
+    ref_tim, got_tim = str(tmp_path / "ref.tim"), str(tmp_path / "got.tim")
+    jwrite(jg.TOA_list, outfile=ref_tim)
+    twrite(tg.TOA_list, outfile=got_tim)
+    _assert_tim_parity(ref_tim, got_tim)
+    np.testing.assert_array_equal(tg.nfevals[0], jg.nfevals[0])
+
+
+def test_cli_fit_scat(scat_dataset, fast_config, tmp_path):
+    """pptoas --fit_scat --scat_guess auto --nu_tau on the CPU writes the
+    library call's scattering TOAs; a bad --scat_guess string raises."""
+    from pulseportraiture_tpu_torch.cli.pptoas import main
+
+    path, gmodel = scat_dataset
+    out = str(tmp_path / "cli.tim")
+    assert main(["-d", path, "-m", gmodel, "-o", out, "--device", "cpu",
+                 "--quiet", "--fit_scat", "--scat_guess", "auto",
+                 "--nu_tau", "1400"]) == 0
+    tg = TGetTOAs(path, gmodel, quiet=True, device="cpu")
+    tg.get_TOAs(quiet=True, fit_scat=True, scat_guess="auto",
+                nu_refs=(None, 1400.0))
+    lib = str(tmp_path / "lib.tim")
+    twrite(tg.TOA_list, outfile=lib)
+    with open(out) as f, open(lib) as g:
+        assert f.read() == g.read()
+    with pytest.raises(ValueError, match="auto"):
+        main(["-d", path, "-m", gmodel, "--device", "cpu", "--quiet",
+              "--scat_guess", "auto"])
