@@ -59,7 +59,22 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
 9. B1's want_m2 form, its GEMM arm, its plain version and the
    torch.matmul and cuFFT equivalents at the scattering bucket's shape
    (256 x 512 x 2048, K from the derived window), each output held to
-   its tolerance.
+   its tolerance;
+10. spline path: a .spl template built from the .gmodel portrait at the
+   main archive's 512 channels x 2048 bins (the port's pca in float64
+   on the card, fit_spline_curve on the host), its evaluation timed,
+   then ``pptoas -m model.spl`` on the main archive and ``pptoas
+   --stream -m model.spl`` on the stream metafile: B1 (and B2 on the
+   stream) through their FFT arms only, every TOA within 1e-4 rot of
+   the injection and 0.1 sigma of the .gmodel run's TOA;
+11. narrowband path (no kernel of the port runs on it): ``pptoas
+   --narrowband`` on the main archive (32768 per-channel TOAs), its
+   pulls against the injection held to fixed bounds, cold and warm
+   TOAs/s, the dense CCF's time and memory, the device's idle share;
+   ``pptoas --stream --narrowband`` over the main archive and two 2-bit
+   archives within 0.1 sigma of GetTOAs; and ``--narrowband --fit_scat
+   --scat_guess auto`` on an 8-subint scattered archive, GetTOAs
+   against the stream within 0.1 sigma and 2 % in tau.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -98,6 +113,19 @@ NARCH, NOISE_2BIT, NSUB_BATCH = 8, 1.0, 256
 # T_SCAT [s] at 1500 MHz and index ALPHA_INJ: one full bucket per kind
 NARCH_SCAT, T_SCAT, ALPHA_INJ = 4, 2.0e-5, -4.0
 NOISE_SCAT_I16, NOISE_SCAT_2BIT = 1.0, 0.5
+# the spline path: the template keeps the fewest PCA components whose
+# reconstruction holds the .gmodel portrait to SPL_RECON_RMS of its
+# peak, and the largest smoothing factor of SPL_SFACS whose spline
+# rebuilds it to SPL_RMS of its peak
+SPL_RECON_RMS, SPL_RMS = 1e-6, 1e-4
+SPL_SFACS = (1e-2, 1e-4, 1e-6, 1e-8, 1e-10)
+# the narrowband path: bounds on the mean and standard deviation of the
+# per-channel pulls on the main archive, fixed from a CPU run before the
+# first chip run (PERF.md section 4), and the scattering run's depth
+NB_PULL_MEAN, NB_PULL_STD = 0.05, (0.95, 1.06)
+NSUB_NB_SCAT = 8
+# a channel measures tau when its log10 error is below this [dex]
+NB_TAU_MEASURED = 1.0
 
 
 def log(msg):
@@ -594,22 +622,9 @@ def phase_main_path(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN):
         os.remove(tim)
 
     # the CLI, exactly as `python -m ... cli.pptoas`, in this process
-    F.reset_kernel_launches()
-    argv = sys.argv
-    sys.argv = ["pptoas", "-d", arch, "-m", gmodel, "-o", tim, "--quiet",
-                "--print_phase", "--quality_flags", "--device", device]
-    t0 = time.perf_counter()
-    try:
-        runpy.run_module("pulseportraiture_tpu_torch.cli.pptoas",
-                         run_name="__main__")
-    except SystemExit as e:
-        if e.code not in (0, None):
-            raise RuntimeError(f"pptoas exited with {e.code!r}")
-    finally:
-        sys.argv = argv
-    sync(device)
-    cli_s = time.perf_counter() - t0
-    launches = F.kernel_launches()
+    cli_s, launches = run_cli(
+        ["-d", arch, "-m", gmodel, "-o", tim, "--quiet", "--print_phase",
+         "--quality_flags", "--device", device], "pptoas")
     log(f"main path (pptoas CLI): {cli_s:.3f} s wall incl. load and "
         f"first use, kernel launches {launches}")
     if launches["fused_cross_spectrum"] < 1:
@@ -734,15 +749,7 @@ def phase_fit_profile(arch, gmodel, device="cuda"):
         fit_portrait_batch_fast(*args, **kw)
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dt_us = getattr(e, "self_device_time_total", None)
-        if dt_us is None:
-            dt_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dt_us > 0:
-            rows.append((dt_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    busy_ms, rows = profile_rows(prof)
     log(f"profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
         f"(idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on)")
     for us, key, n in rows[:8]:
@@ -862,7 +869,6 @@ def phase_stream(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
     dispatches up to nsub_batch subints, so no B1 launch of this path is
     larger."""
     import torch
-    from pulseportraiture_tpu_torch.ops import fused as F
     from pulseportraiture_tpu_torch.pipeline import GetTOAs
     from pulseportraiture_tpu_torch.pipeline.stream import (
         stream_wideband_TOAs)
@@ -875,23 +881,10 @@ def phase_stream(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
     tim = os.path.join(WORK, "stream.tim")
     if os.path.exists(tim):
         os.remove(tim)
-    F.reset_kernel_launches()
-    argv = sys.argv
-    sys.argv = ["pptoas", "--stream", "-d", meta, "-m", gmodel, "-o", tim,
-                "--quiet", "--print_phase", "--quality_flags", "--device",
-                device]
-    t0 = time.perf_counter()
-    try:
-        runpy.run_module("pulseportraiture_tpu_torch.cli.pptoas",
-                         run_name="__main__")
-    except SystemExit as e:
-        if e.code not in (0, None):
-            raise RuntimeError(f"pptoas --stream exited with {e.code!r}")
-    finally:
-        sys.argv = argv
-    sync(device)
-    cli_s = time.perf_counter() - t0
-    launches = F.kernel_launches()
+    cli_s, launches = run_cli(
+        ["--stream", "-d", meta, "-m", gmodel, "-o", tim, "--quiet",
+         "--print_phase", "--quality_flags", "--device", device],
+        "pptoas --stream")
     ntoa = (narch + 1) * nsub
     log(f"stream path (pptoas --stream): {ntoa} TOAs from {narch + 1} "
         f"archives in {cli_s:.3f} s wall incl. load and first use = "
@@ -964,15 +957,7 @@ def stream_profile(meta, gmodel, device, nsub_batch):
                              device=device, quiet=True)
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dt_us = getattr(e, "self_device_time_total", None)
-        if dt_us is None:
-            dt_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dt_us > 0:
-            rows.append((dt_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    busy_ms, rows = profile_rows(prof)
     log(f"stream profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
         f"wall (idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on)")
     for us, key, n in rows[:14]:
@@ -1062,9 +1047,7 @@ def phase_scatter(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
     the first int16 archive (the complex engine) against the stream's
     TOAs.  Returns the counters of the CLI run."""
     import numpy as np
-    import torch
     from pulseportraiture_tpu_torch.fit import portrait as FP
-    from pulseportraiture_tpu_torch.ops import fused as F
     from pulseportraiture_tpu_torch.pipeline import GetTOAs
     from pulseportraiture_tpu_torch.pipeline import stream as S
 
@@ -1078,24 +1061,11 @@ def phase_scatter(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
     tim = os.path.join(WORK, "scatter.tim")
     if os.path.exists(tim):
         os.remove(tim)
-    F.reset_kernel_launches()
-    argv = sys.argv
-    sys.argv = ["pptoas", "--stream", "--fit_scat", "--scat_guess", "auto",
-                "-d", meta, "-m", gmodel, "-o", tim, "--quiet",
-                "--print_phase", "--quality_flags", "--device", device]
-    t0 = time.perf_counter()
-    try:
-        runpy.run_module("pulseportraiture_tpu_torch.cli.pptoas",
-                         run_name="__main__")
-    except SystemExit as e:
-        if e.code not in (0, None):
-            raise RuntimeError(f"pptoas --stream --fit_scat exited with "
-                               f"{e.code!r}")
-    finally:
-        sys.argv = argv
-    sync(device)
-    cli_s = time.perf_counter() - t0
-    launches = F.kernel_launches()
+    cli_s, launches = run_cli(
+        ["--stream", "--fit_scat", "--scat_guess", "auto", "-d", meta,
+         "-m", gmodel, "-o", tim, "--quiet", "--print_phase",
+         "--quality_flags", "--device", device],
+        "pptoas --stream --fit_scat")
     ntoa = 2 * narch * nsub
     log(f"scattering path (pptoas --stream --fit_scat): {ntoa} TOAs in "
         f"{cli_s:.3f} s wall incl. load and first use = {ntoa / cli_s:.1f} "
@@ -1239,15 +1209,7 @@ def scatter_profile(meta, gmodel, device, nsub_batch):
         FP._cgh_scatter = orig
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     evaluator_ms = sum(a.elapsed_time(b) for a, b in events)
-    rows = []
-    for e in prof.key_averages():
-        self_us = getattr(e, "self_device_time_total", None)
-        if self_us is None:
-            self_us = getattr(e, "self_cuda_time_total", 0.0)
-        if self_us > 0:
-            rows.append((self_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    busy_ms, rows = profile_rows(prof)
     log(f"scattering profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} "
         f"ms wall (idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on); "
         f"Newton evaluator (_cgh_scatter) {evaluator_ms:.3f} ms over "
@@ -1317,6 +1279,439 @@ def phase_m2_timing(K):
                 cufft_ms=cufft_ms, gemm_arm_ms=gemm_ms, bound_ms=bound,
                 bound_by=by, max_abs_err=err, max_abs_ref=scale, arm=arm,
                 shape=[NSUB_BATCH, NCHAN, NBIN, K])
+
+
+def read_tim(path):
+    """.tim lines -> {(archive, subint[, chan]): TOA record}: frequency,
+    MJD day and fraction, error [us], DM (None without -pp_dm) and the
+    flags as strings."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            tok = line.split()
+            if not tok or tok[0] == "C":
+                continue
+            day, _, frac = tok[2].partition(".")
+            flags = dict(zip(tok[5::2], tok[6::2]))
+            key = (tok[0], int(flags["-subint"]))
+            if "-chan" in flags:
+                key += (int(flags["-chan"]),)
+            out[key] = dict(
+                freq=float(tok[1]), day=int(day), frac=float("0." + frac),
+                err=float(tok[3]), flags=flags,
+                DM=float(flags["-pp_dm"]) if "-pp_dm" in flags else None)
+    return out
+
+
+def tim_sigma_offset(a, b):
+    """|TOA(a) - TOA(b)| over a's TOA error, for two read_tim records of
+    one subint (or channel); with DMs, b is referenced to a's frequency
+    along b's own DM."""
+    from pulseportraiture_tpu_torch.config import Dconst
+
+    dt = ((b["day"] - a["day"]) + (b["frac"] - a["frac"])) * 86400.0
+    if b["DM"] is not None:
+        dt += Dconst * b["DM"] * (a["freq"] ** -2.0 - b["freq"] ** -2.0)
+    return abs(dt) * 1e6 / a["err"]
+
+
+def run_cli(args, label):
+    """``python -m pulseportraiture_tpu_torch.cli.pptoas args`` in this
+    process (so the kernels' counters can be read), with the counters
+    set to 0 just before it; returns (wall seconds, counters after)."""
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    F.reset_kernel_launches()
+    argv = sys.argv
+    sys.argv = ["pptoas"] + list(args)
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("pulseportraiture_tpu_torch.cli.pptoas",
+                         run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise RuntimeError(f"{label} exited with {e.code!r}")
+    finally:
+        sys.argv = argv
+    device = args[args.index("--device") + 1]
+    sync(device)
+    return time.perf_counter() - t0, F.kernel_launches()
+
+
+def profile_rows(prof):
+    """(device busy ms, rows (us, name, count) sorted by device time)
+    from a torch.profiler run, over the device-side events only
+    (kernels, copies, memsets): a CPU operator's self device time is
+    the time of the kernels it launched, which are rows of their own."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        dt_us = getattr(e, "self_device_time_total", None)
+        if dt_us is None:
+            dt_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dt_us > 0:
+            rows.append((dt_us, e.key, e.count))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows) / 1e3, rows
+
+
+def build_spline_template(device, arch, gmodel, path):
+    """A spline template of the .gmodel portrait at the archive's channel
+    frequencies and bins: the port's pca in float64 on ``device``, the
+    leading components (the fewest whose reconstruction holds the
+    portrait to SPL_RECON_RMS of its peak), fit_spline_curve on the
+    host with the largest sfac of SPL_SFACS whose rebuilt portrait
+    holds it to SPL_RMS of its peak; written as .spl.  Returns
+    (ncomp, sfac, rms / peak, seconds, channel frequencies)."""
+    import numpy as np
+    import torch
+    from pulseportraiture_tpu_torch.io.psrfits import read_archive
+    from pulseportraiture_tpu_torch.io.splmodel import (SplineModel,
+                                                        write_spline_model)
+    from pulseportraiture_tpu_torch.models import spline as SP
+    from pulseportraiture_tpu_torch.pipeline.models import TemplateModel
+
+    a = read_archive(arch, decode=False)
+    freqs = np.asarray(a.freqs_table[0], float)
+    order = np.argsort(freqs)
+    t0 = time.perf_counter()
+    port = torch.as_tensor(TemplateModel(gmodel, device=device).portrait(
+        freqs, a.nbin), device=device)
+    peak = float(torch.max(torch.abs(port)))
+    eigval, eigvec = SP.pca(port)
+    mean_prof = port.mean(dim=0)
+    for ncomp in range(1, 17):
+        rec = SP.reconstruct_portrait(port, mean_prof, eigvec[:, :ncomp])
+        if float(torch.sqrt(torch.mean((rec - port) ** 2))) \
+                < SPL_RECON_RMS * peak:
+            break
+    eigvec = eigvec[:, :ncomp]
+    proj = ((port - mean_prof) @ eigvec).cpu().numpy()
+    for sfac in SPL_SFACS:
+        tck = SP.fit_spline_curve(proj[order], freqs[order], sfac=sfac)
+        rebuilt = SP.gen_spline_portrait(mean_prof, freqs, eigvec, tck,
+                                         device=device)
+        rms = float(torch.sqrt(torch.mean((rebuilt - port) ** 2))) / peak
+        if rms < SPL_RMS:
+            break
+    else:
+        raise AssertionError(f"no sfac of {SPL_SFACS} rebuilds the "
+                             f"template to {SPL_RMS} of its peak")
+    write_spline_model(SplineModel(
+        "default_test_model", PAR["PSR"], gmodel,
+        mean_prof.cpu().numpy(), eigvec.cpu().numpy(), tck), path,
+        quiet=True)
+    sync(device)
+    secs = time.perf_counter() - t0
+    log(f"spline template: pca of the .gmodel portrait ({len(freqs)}x"
+        f"{a.nbin}, float64 on {device_type(device)}), eigenvalues "
+        f"{', '.join(f'{v:.3e}' for v in eigval[:5].tolist())}; ncomp "
+        f"{ncomp}, sfac {sfac:g} ({len(tck[0])} knots), rebuilt rms "
+        f"{rms:.3e} of the peak (limit {SPL_RMS:g}); built and written in "
+        f"{secs:.3f} s")
+    return ncomp, sfac, rms, secs, freqs
+
+
+def time_spline_eval(path, freqs, nbin, device):
+    """gen_spline_portrait of the template at the archive's layout:
+    median of 20 host-clock samples of one synchronized call (on CUDA),
+    or of 5 on the CPU."""
+    from pulseportraiture_tpu_torch.io.splmodel import read_spline_model
+    from pulseportraiture_tpu_torch.models.spline import gen_spline_portrait
+
+    m = read_spline_model(path, quiet=True)
+    n = 20 if device_type(device) == "cuda" else 5
+    ts = []
+    for _ in range(n + 2):
+        t0 = time.perf_counter()
+        gen_spline_portrait(m.mean_prof, freqs, m.eigvec, m.tck, nbin=nbin,
+                            device=device)
+        sync(device)
+        ts.append(time.perf_counter() - t0)
+    ts = sorted(ts[2:])
+    return ts[len(ts) // 2] * 1e3
+
+
+def phase_spline(device="cuda", nsub=NSUB, nbin=NBIN, narch=NARCH):
+    """The spline path (phase 10): a .spl template built from the
+    .gmodel portrait (build_spline_template), then ``pptoas -m
+    model.spl`` on the main path's archive and ``pptoas --stream -m
+    model.spl`` on the stream path's metafile, each in this process with
+    the counters set to 0 just before it and read just after.  On CUDA
+    B1 (both runs) and B2 (the stream) must have been launched through
+    their FFT arms only.  Every TOA must recover the injection to 1e-4
+    rot and lie within 0.1 sigma of the .gmodel run's TOA for the same
+    subint (phases 4 and 6).  Returns the counters of both runs."""
+    arch = os.path.join(WORK, "fake.fits")
+    gmodel = os.path.join(WORK, "model.gmodel")
+    meta = os.path.join(WORK, "stream_meta.txt")
+    spl = os.path.join(WORK, "model.spl")
+    ncomp, sfac, rms, build_s, freqs = build_spline_template(
+        device, arch, gmodel, spl)
+    eval_ms = time_spline_eval(spl, freqs, nbin, device)
+    log(f"spline template evaluation (gen_spline_portrait "
+        f"{len(freqs)}x{nbin}, float64): {eval_ms:.3f} ms median")
+    out = {}
+    for label, args, ref_tim in (
+            ("main", ["-d", arch], os.path.join(WORK, "toas.tim")),
+            ("stream", ["--stream", "-d", meta],
+             os.path.join(WORK, "stream.tim"))):
+        tim = os.path.join(WORK, f"spline_{label}.tim")
+        if os.path.exists(tim):
+            os.remove(tim)
+        wall, launches = run_cli(
+            args + ["-m", spl, "-o", tim, "--quiet", "--print_phase",
+                    "--device", device], f"pptoas -m model.spl ({label})")
+        got, ref = read_tim(tim), read_tim(ref_tim)
+        ntoa = nsub * (1 if label == "main" else narch + 1)
+        if len(got) != ntoa or set(got) != set(ref):
+            raise AssertionError(f"spline {label}: {len(got)} TOAs for "
+                                 f"{ntoa} subints")
+        worst = max(abs((float(r["flags"]["-phs"])
+                         - expected_phase(r["freq"]) + 0.5) % 1.0 - 0.5)
+                    for r in got.values())
+        offs = max(tim_sigma_offset(ref[k], got[k]) for k in got)
+        cmd = "pptoas --stream" if label == "stream" else "pptoas"
+        log(f"spline path ({label}, {cmd} -m model.spl): {ntoa} TOAs in {wall:.3f} s wall incl. load "
+            f"and first use; max |dphi| {worst:.3e} rot (limit 1e-4); "
+            f"max |TOA(.spl) - TOA(.gmodel)| {offs:.4f} sigma (limit 0.1); "
+            f"kernel launches {launches}")
+        if not (worst < 1e-4 and offs <= 0.1):
+            raise AssertionError(f"spline {label}: |dphi| {worst:.3e}, "
+                                 f"{offs:.3f} sigma from the .gmodel run")
+        if device_type(device) == "cuda":
+            fft_only(launches, ("fused_cross_spectrum",) + (
+                ("fused_decode_cross_spectrum",) if label == "stream"
+                else ()), f"the spline {label} path")
+        out[label] = launches
+    return out, dict(ncomp=ncomp, sfac=sfac, rms=rms, build_s=build_s,
+                     eval_ms=eval_ms)
+
+
+def pull_stats(tim):
+    """(count, mean, standard deviation) of the narrowband pulls
+    (phs - injected phase at the channel frequency) / phs_err."""
+    import numpy as np
+
+    pulls = np.asarray([
+        ((float(r["flags"]["-phs"]) - expected_phase(r["freq"]) + 0.5)
+         % 1.0 - 0.5) / float(r["flags"]["-phs_err"])
+        for r in read_tim(tim).values()])
+    if not np.all(np.isfinite(pulls)):
+        raise AssertionError("non-finite narrowband pulls")
+    return len(pulls), float(pulls.mean()), float(pulls.std())
+
+
+def time_ccf(device, nb, nchan, nbin, oversamp=8):
+    """The phase-shift fit's dense CCF (irfft to nbin * oversamp lags and
+    the first maximum) at the GetTOAs narrowband shape, float32 on the
+    card: median CUDA-event time, and the whole fit_phase_shift_batch
+    call's time and peak device memory on device-resident inputs."""
+    import torch
+    from pulseportraiture_tpu_torch.fit.phase_shift import \
+        fit_phase_shift_batch
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    data = torch.randn((nb, nchan, nbin), generator=g, device=device)
+    model = torch.randn((nchan, nbin), generator=g, device=device)
+    noise = torch.ones((nb, nchan), device=device)
+    x = torch.fft.rfft(data) * torch.conj(torch.fft.rfft(model))
+    nlag = nbin * oversamp
+
+    def ccf():
+        return torch.argmax(torch.fft.irfft(x, n=nlag) * nlag, dim=-1)
+
+    ccf_ms = median_ms(ccf, n=10, reps=2)
+    fit_ms = median_ms(lambda: fit_phase_shift_batch(data, model, noise,
+                                                     device=device),
+                       n=5, reps=1)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fit_phase_shift_batch(data, model, noise, device=device)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"narrowband CCF ({nb}x{nchan} rows, {nlag} lags, float32): "
+        f"irfft + argmax {ccf_ms:.3f} ms (CUDA events, median); the whole "
+        f"fit_phase_shift_batch {fit_ms:.3f} ms, its peak device memory "
+        f"above its inputs {peak_gb:.2f} GB")
+    return ccf_ms, fit_ms, peak_gb
+
+
+def nb_scatter_archive(device, nsub, nchan=NCHAN, nbin=NBIN):
+    """Phase 11's scattering archive: phase 8's first int16 archive's
+    injection, noise and generator, at nsub subints."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    path = os.path.join(WORK, f"nb_scat16-{nsub}.fits")
+    make_fake_pulsar(default_test_model(1500.0), PAR, outfile=path,
+                     nsub=nsub, nchan=nchan, nbin=nbin, nu0=1500.0,
+                     bw=800.0, tsub=60.0, phase=PHI_INJ, dDM=DDM_INJ,
+                     t_scat=T_SCAT, alpha=ALPHA_INJ,
+                     start_MJD=MJD(55500, 0.1), noise_stds=NOISE_SCAT_I16,
+                     dedispersed=False, quiet=True,
+                     rng=np.random.default_rng(SEED + 55500), nbit=16,
+                     device=device)
+    return path
+
+
+def phase_narrowband(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
+                     nsub_scat=NSUB_NB_SCAT):
+    """The narrowband path (phase 11), every run with the counters set to
+    0 just before it (no kernel of the port runs on it, as no Pallas
+    kernel does in the JAX package):
+    1. ``pptoas --narrowband`` on the main path's archive (one TOA per
+       channel), cold; the library call warm and under the profiler;
+       the pulls held to NB_PULL_MEAN / NB_PULL_STD; the dense CCF timed;
+    2. ``pptoas --stream --narrowband`` on the main archive and two of
+       the stream path's 2-bit archives, every TOA within 0.1 sigma of
+       GetTOAs' on the same archive;
+    3. ``pptoas --narrowband --fit_scat --scat_guess auto`` through
+       GetTOAs and through the stream on an nsub_scat-subint scattered
+       archive: within 0.1 sigma in phase and 2 % in tau.
+    Returns {run: counters}."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from pulseportraiture_tpu_torch.pipeline import GetTOAs
+
+    arch = os.path.join(WORK, "fake.fits")
+    gmodel = os.path.join(WORK, "model.gmodel")
+    launches = {}
+    # 1. GetTOAs, full width
+    tim = os.path.join(WORK, "nb.tim")
+    if os.path.exists(tim):
+        os.remove(tim)
+    wall, launches["gettoas"] = run_cli(
+        ["--narrowband", "-d", arch, "-m", gmodel, "-o", tim, "--quiet",
+         "--print_phase", "--device", device], "pptoas --narrowband")
+    n, mean, std = pull_stats(tim)
+    log(f"narrowband path (pptoas --narrowband): {n} TOAs in {wall:.3f} s "
+        f"wall incl. load and first use = {n / wall:.1f} TOAs/s; pulls "
+        f"(phs - injection) / phs_err: mean {mean:.4f} (limit "
+        f"|mean| < {NB_PULL_MEAN}), standard deviation {std:.4f} (limit "
+        f"{NB_PULL_STD[0]}-{NB_PULL_STD[1]}); kernel launches "
+        f"{launches['gettoas']}")
+    if not (n == nsub * nchan and abs(mean) < NB_PULL_MEAN
+            and NB_PULL_STD[0] < std < NB_PULL_STD[1]):
+        raise AssertionError(f"narrowband pulls: {n} TOAs, mean {mean:.4f},"
+                             f" std {std:.4f}")
+    gt = GetTOAs(arch, gmodel, quiet=True, device=device)
+    t0 = time.perf_counter()
+    gt.get_narrowband_TOAs(quiet=True, print_phase=True)
+    sync(device)
+    warm = time.perf_counter() - t0
+    log(f"narrowband path (GetTOAs, warm): {len(gt.TOA_list)} TOAs in "
+        f"{warm:.3f} s = {len(gt.TOA_list) / warm:.1f} TOAs/s incl. load")
+    if device_type(device) == "cuda":
+        time_ccf(device, nsub, nchan, nbin)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            GetTOAs(arch, gmodel, quiet=True,
+                    device=device).get_narrowband_TOAs(quiet=True)
+            sync(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, rows = profile_rows(prof)
+        log(f"narrowband profile (GetTOAs, warm): device busy {busy_ms:.3f} "
+            f"ms of {wall_ms:.3f} ms wall (idle share "
+            f"{1.0 - busy_ms / wall_ms:.3f}, profiler on)")
+        for us, key, cnt in rows[:10]:
+            log(f"  {us / 1e3:9.3f} ms  x{cnt:<5d} {key[:90]}")
+    # 2. the stream, depth cut to the int16 archive and two 2-bit ones
+    two_bit = [os.path.join(WORK, f"fake2bit-{i}.fits") for i in range(2)]
+    meta = os.path.join(WORK, "nb_meta.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join([arch] + two_bit) + "\n")
+    stim = os.path.join(WORK, "nb_stream.tim")
+    if os.path.exists(stim):
+        os.remove(stim)
+    wall, launches["stream"] = run_cli(
+        ["--stream", "--narrowband", "-d", meta, "-m", gmodel, "-o", stim,
+         "--quiet", "--print_phase", "--device", device],
+        "pptoas --stream --narrowband")
+    got = read_tim(stim)
+    # GetTOAs' TOAs of the same archives: the main one's from run 1
+    meta2 = os.path.join(WORK, "nb_meta_2bit.txt")
+    with open(meta2, "w") as f:
+        f.write("\n".join(two_bit) + "\n")
+    ref_tim = os.path.join(WORK, "nb_2bit.tim")
+    if os.path.exists(ref_tim):
+        os.remove(ref_tim)
+    run_cli(["--narrowband", "-d", meta2, "-m", gmodel, "-o", ref_tim,
+             "--quiet", "--print_phase", "--device", device],
+            "pptoas --narrowband (2-bit archives)")
+    ref = {**read_tim(tim), **read_tim(ref_tim)}
+    if set(got) != set(ref) or not got:
+        raise AssertionError(f"narrowband stream: {len(got)} TOAs, GetTOAs "
+                             f"{len(ref)}")
+    offs = max(tim_sigma_offset(ref[k], got[k]) for k in got)
+    from pulseportraiture_tpu_torch.pipeline.stream import \
+        stream_narrowband_TOAs
+
+    t0 = time.perf_counter()
+    res = stream_narrowband_TOAs(meta, gmodel, device=device, quiet=True)
+    sync(device)
+    warm = time.perf_counter() - t0
+    log(f"narrowband stream (pptoas --stream --narrowband, 3 archives): "
+        f"{len(got)} TOAs in {wall:.3f} s wall cold = {len(got) / wall:.1f} "
+        f"TOAs/s; warm library call {warm:.3f} s = "
+        f"{len(res.TOA_list) / warm:.1f} TOAs/s, {res.nfit} dispatches "
+        f"{res.dispatch_shapes}, h2d {res.h2d_bytes} bytes; max |TOA(stream)"
+        f" - TOA(GetTOAs)| {offs:.4f} sigma (limit 0.1); kernel launches "
+        f"{launches['stream']}")
+    if not offs <= 0.1:
+        raise AssertionError(f"narrowband stream vs GetTOAs: {offs:.3f} "
+                             "sigma")
+    # 3. scattering, depth cut to nsub_scat subints
+    sarch = nb_scatter_archive(device, nsub_scat, nchan=nchan, nbin=nbin)
+    tims = {}
+    for label, extra in (("gettoas", []), ("stream", ["--stream"])):
+        tims[label] = os.path.join(WORK, f"nb_scat_{label}.tim")
+        if os.path.exists(tims[label]):
+            os.remove(tims[label])
+        wall, launches[f"scat_{label}"] = run_cli(
+            extra + ["--narrowband", "--fit_scat", "--scat_guess", "auto",
+                     "-d", sarch, "-m", gmodel, "-o", tims[label], "--quiet",
+                     "--print_phase", "--device", device],
+            f"pptoas {' '.join(extra)} --narrowband --fit_scat")
+        log(f"narrowband scattering ({label}): {nsub_scat} subints, "
+            f"{len(read_tim(tims[label]))} single-channel fits in "
+            f"{wall:.3f} s wall incl. load = "
+            f"{len(read_tim(tims[label])) / wall:.1f} TOAs/s")
+    ref, got = read_tim(tims["gettoas"]), read_tim(tims["stream"])
+    if set(got) != set(ref) or not got:
+        raise AssertionError("narrowband scattering: TOA sets differ")
+    offs = max(tim_sigma_offset(ref[k], got[k]) for k in got)
+    # tau within 2 % where a channel measures it (its log10 error below
+    # NB_TAU_MEASURED dex); at the top of the band a single channel does
+    # not constrain tau, and there the two float32 fits stop at
+    # different points of a flat objective (printed, not held)
+    rows = np.asarray([[float(got[k]["flags"]["-scat_time"]),
+                        float(ref[k]["flags"]["-scat_time"]),
+                        float(ref[k]["flags"]["-log10_scat_time_err"])]
+                       for k in got])
+    dtau = np.abs(rows[:, 0] / rows[:, 1] - 1.0)
+    dsig = np.abs(np.log10(rows[:, 0] / rows[:, 1])) / rows[:, 2]
+    measured = rows[:, 2] < NB_TAU_MEASURED
+    worst_tau = float(np.max(dtau[measured], initial=0.0))
+    worst_sig = float(np.max(dsig))
+    log(f"narrowband scattering stream vs GetTOAs: max |dTOA| {offs:.4f} "
+        f"sigma (limit 0.1); tau measured (log10 error < "
+        f"{NB_TAU_MEASURED} dex) in {int(measured.sum())} of {len(got)} "
+        f"channels, max |d tau / tau| there {worst_tau:.2e} (limit 0.02), "
+        f"{int((dtau > 0.02).sum())} channels beyond 2 % overall; max "
+        f"|d log10 tau| {worst_sig:.4f} of its error")
+    if not (offs <= 0.1 and worst_tau <= 0.02 and measured.any()):
+        raise AssertionError(f"narrowband scattering: {offs:.3f} sigma, "
+                             f"tau {worst_tau:.3e} where measured")
+    return launches
 
 
 def fft_only(launches, kernels, path):
@@ -1389,6 +1784,15 @@ def main():
     t0 = time.perf_counter()
     rec_m2 = phase_m2_timing(K)
     log(f"phase timing B1 want_m2: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    spl_launches, spl = phase_spline()
+    log(f"phase spline path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    nb_launches = phase_narrowband()
+    log(f"phase narrowband path: {time.perf_counter() - t0:.1f} s wall")
+    nb_total = {k: sum(c[k] for c in nb_launches.values())
+                for k in ("fused_cross_spectrum",
+                          "fused_decode_cross_spectrum")}
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -1409,7 +1813,11 @@ def main():
         "launches_by_path": {
             "main": launches,
             "stream": stream_launches["fused_cross_spectrum"],
-            "scattering": scat_launches["fused_cross_spectrum"]},
+            "scattering": scat_launches["fused_cross_spectrum"],
+            "spline_main": spl_launches["main"]["fused_cross_spectrum"],
+            "spline_stream": spl_launches["stream"][
+                "fused_cross_spectrum"],
+            "narrowband": nb_total["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {
@@ -1429,6 +1837,12 @@ def main():
         "cufft_ms": rec2["cufft_ms"],
         "gemm_arm_ms": rec2["gemm_ms"],
         "arm": rec2["arm"],
+        "launches_by_path": {
+            "stream": stream_launches["fused_decode_cross_spectrum"],
+            "scattering": scat_launches["fused_decode_cross_spectrum"],
+            "spline_stream": spl_launches["stream"][
+                "fused_decode_cross_spectrum"],
+            "narrowband": nb_total["fused_decode_cross_spectrum"]},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

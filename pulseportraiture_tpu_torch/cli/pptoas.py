@@ -1,16 +1,17 @@
 """pptoas — measure wideband TOAs and DMs on the GPU.
 
-The wideband options of the JAX package's pptoas: GetTOAs per archive,
-or with --stream the campaign lane (pipeline/stream.py) that pools
-subints across the archives of a metafile into batched fits, both with
-the scattering fits (--fit_scat).  Narrowband TOAs (ROADMAP A8), the
-transport codec (A7) and telemetry (A13) are not ported yet and are
-refused.
+The options of the JAX package's pptoas: GetTOAs per archive, or with
+--stream the campaign lane (pipeline/stream.py) that pools subints
+across the archives of a metafile into batched fits, both with the
+scattering fits (--fit_scat); --narrowband (or --psrchive) measures one
+TOA per channel instead, with or without --stream.  Templates are
+.gmodel, spline (.spl/.npz) or PSRFITS files.  The transport codec
+(ROADMAP A7) and telemetry (A13) are not ported yet and are refused.
 
     python -m pulseportraiture_tpu_torch.cli.pptoas -d archive.fits \\
-        -m model.gmodel -o out.tim [--device cuda|cpu]
+        -m model.gmodel -o out.tim [--device cuda|cpu] [--narrowband]
     python -m pulseportraiture_tpu_torch.cli.pptoas --stream \\
-        -d metafile -m model.gmodel -o out.tim [--stream-devices auto|N]
+        -d metafile -m model.spl -o out.tim [--stream-devices auto|N]
 """
 
 import argparse
@@ -25,13 +26,13 @@ def build_parser():
     p.add_argument("-d", "--datafiles", metavar="archive", required=True,
                    help="PSRFITS archive or metafile of archive names.")
     p.add_argument("-m", "--modelfile", metavar="model", required=True,
-                   help=".gmodel or PSRFITS template.")
+                   help=".gmodel, spline model, or PSRFITS template.")
     p.add_argument("-o", "--outfile", metavar="timfile", default=None,
                    help="Output .tim file (appends). [default=stdout]")
     p.add_argument("--device", default="cuda",
                    help="torch device the fits run on. [default=cuda]")
     p.add_argument("--narrowband", action="store_true", default=False,
-                   help="Narrowband TOAs (not ported yet).")
+                   help="Make narrowband (per-channel) TOAs instead.")
     p.add_argument("--stream", action="store_true", default=False,
                    help="Cross-archive batched dispatches for large "
                         "campaigns (wideband phi/DM fits only).")
@@ -116,6 +117,11 @@ def build_parser():
     p.add_argument("--quality_flags", action="store_true", default=False,
                    help="Add per-TOA -nfev/-chi2 fit-diagnostic flags.")
     p.add_argument("--quiet", action="store_true", default=False)
+    # accepted for reference-script compatibility: --psrchive routes to
+    # the narrowband TOAs, --method is ignored
+    p.add_argument("--psrchive", action="store_true", default=False,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--method", default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -155,10 +161,6 @@ def main(argv=None):
     from ..io.tim import write_princeton_TOAs, write_TOAs
     from ..pipeline import GetTOAs
 
-    if args.narrowband:
-        raise NotImplementedError(
-            "pptoas --narrowband: narrowband TOAs are not ported yet "
-            "(ROADMAP A8)")
     if args.telemetry is not None:
         raise NotImplementedError(
             "pptoas --telemetry: telemetry traces are not ported yet "
@@ -180,9 +182,10 @@ def main(argv=None):
         parts = args.flags.split(",")
         addtnl = dict(zip(parts[0::2], parts[1::2]))
     bounds = parse_bounds(args.bound)
-    if bounds is not None and args.stream:
+    if bounds is not None and (args.stream or args.narrowband
+                               or args.psrchive):
         raise SystemExit("--bound applies to the standard wideband "
-                         "GetTOAs path (no --stream)")
+                         "GetTOAs path (no --stream/--narrowband)")
     if args.fit_fused is not None:
         table = {"off": False, "auto": "auto", "on": True}
         v = str(args.fit_fused).lower()
@@ -190,25 +193,40 @@ def main(argv=None):
             raise SystemExit("--fit-fused expected one of off/auto/on, "
                              f"got {args.fit_fused!r}")
         config.fit_fused = table[v]
+    if args.quality_flags and args.narrowband:
+        raise SystemExit("--quality_flags applies to the wideband "
+                         "paths (per-channel lines already carry "
+                         "-snr/-gof)")
 
+    if args.stream and args.narrowband:
+        return _run_stream_narrowband(args, addtnl, stream_devices,
+                                      scat_guess)
     if args.stream:
         return _run_stream(args, nu_ref_DM, addtnl, stream_devices,
                            scat_guess)
 
     gt = GetTOAs(args.datafiles, args.modelfile, quiet=args.quiet,
                  device=args.device)
-    gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=args.DM0,
-                bary=args.bary, fit_DM=args.fit_DM, fit_GM=args.fit_GM,
-                fit_scat=args.fit_scat, log10_tau=args.log10_tau,
-                scat_guess=scat_guess, fix_alpha=args.fix_alpha,
-                print_phase=args.print_phase,
-                print_flux=args.print_flux,
-                print_parangle=args.print_parangle,
-                addtnl_toa_flags=addtnl, prefetch=args.prefetch,
-                quiet=args.quiet, bounds=bounds,
-                quality_flags=args.quality_flags)
-    if args.one_DM:
-        gt.apply_one_DM()
+    if args.narrowband or args.psrchive:
+        gt.get_narrowband_TOAs(tscrunch=args.tscrunch,
+                               fit_scat=args.fit_scat,
+                               log10_tau=args.log10_tau,
+                               scat_guess=scat_guess,
+                               print_phase=args.print_phase,
+                               addtnl_toa_flags=addtnl, quiet=args.quiet)
+    else:
+        gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=args.DM0,
+                    bary=args.bary, fit_DM=args.fit_DM, fit_GM=args.fit_GM,
+                    fit_scat=args.fit_scat, log10_tau=args.log10_tau,
+                    scat_guess=scat_guess, fix_alpha=args.fix_alpha,
+                    print_phase=args.print_phase,
+                    print_flux=args.print_flux,
+                    print_parangle=args.print_parangle,
+                    addtnl_toa_flags=addtnl, prefetch=args.prefetch,
+                    quiet=args.quiet, bounds=bounds,
+                    quality_flags=args.quality_flags)
+        if args.one_DM:
+            gt.apply_one_DM()
     if args.format == "princeton":
         dDMs = [toa.DM - gt.DM0s[gt.order.index(toa.archive)]
                 if toa.DM is not None else 0.0 for toa in gt.TOA_list]
@@ -257,11 +275,41 @@ def _stream_options(args):
         if args.pipeline_depth < 1:
             raise SystemExit("--pipeline-depth: depth must be >= 1, got "
                              f"{args.pipeline_depth}")
-    if args.stream and (args.one_DM or args.print_parangle):
+    if args.stream and args.narrowband:
+        if (args.psrchive or args.one_DM or args.print_flux
+                or args.print_parangle or args.fit_GM):
+            raise SystemExit(
+                "--stream --narrowband supports per-channel (phi[, tau]) "
+                "fits only (no psrchive/one_DM/flux/parangle/GM flags)")
+    elif args.stream and (args.psrchive or args.one_DM
+                          or args.print_parangle):
         raise SystemExit("--stream supports the wideband (phi, DM[, GM, "
                          "scattering]), flux and phase campaign "
-                         "configuration only (no one_DM/parangle flags)")
+                         "configuration only (no psrchive/one_DM/parangle "
+                         "flags)")
     return stream_devices
+
+
+def _run_stream_narrowband(args, addtnl, stream_devices, scat_guess):
+    """pptoas --stream --narrowband: per-channel TOAs over every archive
+    named."""
+    from ..io.tim import write_princeton_TOAs, write_TOAs
+    from ..pipeline.stream import stream_narrowband_TOAs
+
+    res = stream_narrowband_TOAs(
+        args.datafiles, args.modelfile, fit_scat=args.fit_scat,
+        log10_tau=args.log10_tau, scat_guess=scat_guess,
+        tscrunch=args.tscrunch, stream_devices=stream_devices,
+        device=args.device, pipeline_depth=args.pipeline_depth,
+        print_phase=args.print_phase, addtnl_toa_flags=addtnl,
+        quiet=args.quiet)
+    if args.format == "princeton":
+        write_princeton_TOAs(res.TOA_list, outfile=args.outfile,
+                             dDMs=[0.0] * len(res.TOA_list))
+    else:
+        write_TOAs(res.TOA_list, SNR_cutoff=args.snr_cutoff,
+                   outfile=args.outfile, append=True)
+    return 0
 
 
 def _run_stream(args, nu_ref_DM, addtnl, stream_devices, scat_guess):

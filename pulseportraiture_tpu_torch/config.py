@@ -1,8 +1,8 @@
 """Behaviour-defining constants and knobs of the ported path.
 
-The subset of ``pulseportraiture_tpu/config.py`` that the wideband TOA
-lanes read (the fast fit, the scattering fits and the complex engine),
-with the same defaults.  A tri-state whose ``'auto'``
+The subset of ``pulseportraiture_tpu/config.py`` that the ported TOA
+lanes read (the fast fit, the scattering fits, the complex engine, the
+stream's raw transport), with the same defaults.  A tri-state whose ``'auto'``
 arm meant "on a TPU" there means "on a CUDA device" here
 (device.resolve_auto).
 """
@@ -70,6 +70,12 @@ stream_pipeline_depth = 2
 # channels.  False (default): exact shapes; 'auto': pad on CUDA
 # devices; True: always pad.
 bucket_pad = False
+
+# Ship NBIT=1/2/4 DATA columns PACKED to the device in the stream's raw
+# lane (decoded there).  False refuses the sub-byte layouts in
+# io.psrfits.read_archive(decode=False), and the stream falls back to
+# the host-decoded lane per archive.
+raw_subbyte = True
 
 # Fold-symmetry matmul DFT (half-length contraction).
 #   False (default): direct matmul.  'auto': fold off CUDA only.

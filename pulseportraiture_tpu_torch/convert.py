@@ -4,16 +4,21 @@ The wideband TOA path has no trained weights: its parameters are the
 template.  A Gaussian template crosses as its fields — a JAX-package
 ``GaussianModel`` (duck-typed: name, code, nu_ref, dc, tau, alpha, the
 component arrays and fit_flags) or the flat vectors of its
-``io.gmodel.model_to_flat`` — and becomes the port's GaussianModel, so
-both packages build the same portrait.  Nothing here imports JAX.
+``io.gmodel.model_to_flat`` — and becomes the port's GaussianModel; a
+spline template crosses as a JAX-package ``SplineModel`` (duck-typed:
+the names, mean_prof, eigvec and tck) and becomes the port's
+SplineModel.  Both packages then build the same portrait.  Nothing here
+imports JAX.
 """
 
 import numpy as np
 
 from .io.gmodel import model_from_flat
+from .io.splmodel import SplineModel, _normalize_tck
 from .models.gaussian import GaussianModel
 
-__all__ = ["gaussian_model_from_fields", "gaussian_model_from_flat"]
+__all__ = ["gaussian_model_from_fields", "gaussian_model_from_flat",
+           "spline_model_from_fields"]
 
 _ARRAYS = ("locs", "wids", "amps", "mlocs", "mwids", "mamps")
 
@@ -38,3 +43,15 @@ def gaussian_model_from_flat(name, code, nu_ref, params, fit_flags, alpha,
     mwid, amp, mamp) * ngauss] and their fit flags) -> GaussianModel."""
     return model_from_flat(name, code, nu_ref, params, fit_flags, alpha,
                            fit_alpha)
+
+
+def spline_model_from_fields(model):
+    """Any object with the SplineModel fields -> the port's SplineModel,
+    arrays copied to float64 host numpy."""
+    return SplineModel(
+        modelname=str(model.modelname), source=str(model.source),
+        datafile=str(model.datafile),
+        mean_prof=np.array(np.asarray(model.mean_prof), dtype=np.float64),
+        eigvec=np.array(np.asarray(model.eigvec), dtype=np.float64),
+        tck=_normalize_tck(model.tck),
+        extra=dict(getattr(model, "extra", {}) or {}))

@@ -42,6 +42,7 @@ from .. import config
 from ..config import Dconst, F0_fact
 from ..device import resolve_auto, resolve_device
 from ..ops.fourier import irfft_c, irfft_mm, rfft_c, rfft_mm, use_dft_fold
+from ..ops.phasor import cexp, guess_fit_freq
 from ..ops.scattering import scattering_portrait_FT
 
 __all__ = ["FitFlags", "FitResult", "fit_portrait_batch_fast",
@@ -136,11 +137,6 @@ def _tau_of(theta, log10_tau):
     return 10.0 ** theta[:, 3] if log10_tau else theta[:, 3]
 
 
-def _cexp(x):
-    """exp(i x) with the complex dtype matching x."""
-    return torch.complex(torch.cos(x), torch.sin(x))
-
-
 def _scatter_B(theta, freqs, nu_fit, nharm, ir_FT, log10_tau):
     """Per-channel scattering (+ instrumental) kernel B (B, nchan,
     nharm), complex."""
@@ -160,7 +156,7 @@ def _CS_general(theta, X, M2, freqs, P, nu_fit, ir_FT, log10_tau):
     B = _scatter_B(theta, freqs, nu_fit, nharm, ir_FT, log10_tau)
     cvec, gvec = _t_coeffs(freqs, P, nu_fit)
     t_n = theta[:, 0:1] + cvec * theta[:, 1:2] + gvec * theta[:, 2:3]
-    ph = _cexp(2.0 * math.pi * t_n[..., None] * k)
+    ph = cexp(2.0 * math.pi * t_n[..., None] * k)
     C = torch.sum((X * torch.conj(B) * ph).real, dim=-1)
     S = torch.sum(M2 * (B.real**2 + B.imag**2), dim=-1)
     return C, S
@@ -549,7 +545,7 @@ def _moments_complex(t_n, X):
     nharm = X.shape[-1]
     dt = t_n.dtype
     k2pi = 2.0 * math.pi * torch.arange(nharm, dtype=dt, device=t_n.device)
-    W = X * _cexp(t_n[..., None] * k2pi)
+    W = X * cexp(t_n[..., None] * k2pi)
     return (torch.sum(W, dim=-1).real,
             -torch.sum(W * k2pi, dim=-1).imag,
             -torch.sum(W * k2pi**2, dim=-1).real)
@@ -941,14 +937,17 @@ def _hybrid_scatter_loop(cgh_plain, cgh_comp, theta0, flags_arr, max_iter,
 
 
 def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
-                  nu_fit, nu_out, nfev, code, log10_tau=False):
+                  nu_fit, nu_out, nfev, code, log10_tau=False,
+                  out_dtype=None):
     """Covariance, zero-covariance frequencies, re-referencing, scales,
     S/N and chi2 packaging, shared by every engine; theta[:, 3] is
     log10 tau when log10_tau.  Every input carries the batch as its
-    leading axis."""
+    leading axis.  out_dtype: the dtype the result is cast to when it
+    differs from theta's (its tiny floors the divisions, so a masked
+    channel's scale error stays finite there)."""
     dt = theta.dtype
     dev = theta.device
-    tiny = _tiny(dt)
+    tiny = _tiny(out_dtype or dt)
     B = theta.shape[0]
     fo = torch.outer(flags_arr, flags_arr)
     Hm = H * fo + torch.diag(1.0 - flags_arr)
@@ -1056,6 +1055,21 @@ def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
         covariance=cov, chi2=chi2, dof=dof, nfeval=nfev, return_code=code)
 
 
+def _newton_dtype(fit_flags, dt):
+    """The dtype the Newton loop and _finalize_fit run in: float64 when
+    GM is fitted.  The (phi, DM, GM) normal equations are so
+    ill-conditioned that a float32 Hessian moves the TOA errors by
+    percents; the moments are then summed in float64 from the stored
+    (float32 or bfloat16) cross-spectrum, a 3x3 system per subint."""
+    return torch.float64 if fit_flags[2] else dt
+
+
+def _result_dtype(r, dt):
+    """A FitResult with its floating fields cast to dt."""
+    return FitResult(*[v.to(dt) if v.is_floating_point() else v
+                       for v in r])
+
+
 def _fit_portrait_core_real(Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out,
                             theta0, fit_flags=FitFlags(), max_iter=40,
                             ftol=None, nharm_total=None, bounds=None):
@@ -1067,15 +1081,18 @@ def _fit_portrait_core_real(Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out,
         raise ValueError("the real core handles the no-scattering path "
                          "only")
     dt = S0.dtype
+    wdt = _newton_dtype(fit_flags, dt)
     nharm = nharm_total if nharm_total is not None else Xr.shape[-1]
-    flags_arr = FitFlags(*fit_flags).as_tensor(dt, S0.device)
+    flags_arr = FitFlags(*fit_flags).as_tensor(wdt, S0.device)
     if ftol is None:
         ftol = 50.0 * float(torch.finfo(dt).eps)
+    S0, Sd, P, nu_fit, nu_out = (v.to(wdt) for v in (S0, Sd, P, nu_fit,
+                                                      nu_out))
     good0 = S0 > 0.0
     S0inv = torch.where(good0, 1.0 / torch.where(good0, S0, 1.0), 0.0)
     cvec, gvec = _t_coeffs(freqs, P, nu_fit)
-    cvec = cvec.to(dt)
-    gvec = gvec.to(dt)
+    cvec = cvec.to(wdt)
+    gvec = gvec.to(wdt)
 
     def cgh(theta):
         t_n = (theta[:, 0:1] + cvec * theta[:, 1:2]
@@ -1085,9 +1102,11 @@ def _fit_portrait_core_real(Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out,
         return f, g, H, C
 
     theta, f, H, C, nfev, code = _newton_loop(
-        cgh, theta0.to(dt), flags_arr, max_iter, ftol, bounds=bounds)
-    return _finalize_fit(theta, f, H, C, S0, Sd, nharm, flags_arr,
-                         fit_flags, P, nu_fit, nu_out, nfev, code)
+        cgh, theta0.to(wdt), flags_arr, max_iter, ftol,
+        bounds=None if bounds is None else bounds.to(wdt))
+    return _result_dtype(_finalize_fit(
+        theta, f, H, C, S0, Sd, nharm, flags_arr, fit_flags, P, nu_fit,
+        nu_out, nfev, code, out_dtype=dt), dt)
 
 
 def fast_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
@@ -1462,7 +1481,7 @@ def _initial_phase_guess(X, cvec, DM0, oversamp=2):
     nbin = 2 * (nharm - 1)
     dt = cvec.dtype
     k = torch.arange(nharm, dtype=dt, device=cvec.device)
-    ph = _cexp(2.0 * math.pi * (cvec * DM0[:, None])[..., None] * k)
+    ph = cexp(2.0 * math.pi * (cvec * DM0[:, None])[..., None] * k)
     x = torch.sum(X * ph, dim=-2)
     nlag = nbin * oversamp
     ccf = irfft_c(x, n=nlag)
@@ -1485,20 +1504,22 @@ def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
     loop when compensated.  C and S are re-evaluated at the solution
     from the complex spectra (_CS_general)."""
     dt = w.dtype
-    flags_arr = FitFlags(*fit_flags).as_tensor(dt, w.device)
     ir = ir_FT if use_ir else None
     # log10_tau implies tau = 10^theta3 > 0, so the no-scatter path would
     # disagree with the packaging's scales and chi2
     scatter = (use_scatter or use_ir or fit_flags[3] or fit_flags[4]
                or log10_tau)
+    wdt = dt if scatter else _newton_dtype(fit_flags, dt)
+    flags_arr = FitFlags(*fit_flags).as_tensor(wdt, w.device)
     if ftol is None:
         ftol = (_scatter_ftol(dt, compensated) if scatter
                 else 50.0 * float(torch.finfo(dt).eps))
 
     X = dFT * torch.conj(mFT) * w
+    P, nu_fit, nu_out = (v.to(wdt) for v in (P, nu_fit, nu_out))
     cvec, gvec = _t_coeffs(freqs, P, nu_fit)
-    cvec = cvec.to(dt)
-    gvec = gvec.to(dt)
+    cvec = cvec.to(wdt)
+    gvec = gvec.to(wdt)
     M2s = (mFT.real**2 + mFT.imag**2) * w
 
     if scatter:
@@ -1521,14 +1542,14 @@ def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
 
         cgh = mk_cgh(False)
     else:
-        S0 = torch.sum(M2s, dim=-1)
+        S0 = torch.sum(M2s, dim=-1).to(wdt)
         good0 = S0 > 0.0
         S0inv = torch.where(good0, 1.0 / torch.where(good0, S0, 1.0), 0.0)
 
         def cgh(theta):
             return _cgh_fast(theta, X, S0inv, cvec, gvec) + ((),)
 
-    theta0 = theta0.to(dt)
+    theta0 = theta0.to(wdt)
     if auto_seed and fit_flags[0]:
         phi0 = _initial_phase_guess(X, cvec, theta0[:, 1])
         theta0 = theta0.clone()
@@ -1541,12 +1562,14 @@ def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
     else:
         theta, f, H, _, nfev, code = _newton_loop(
             cgh, theta0, flags_arr, max_iter, ftol,
-            lam0=_SCATTER_LAM0 if scatter else 1.0e-3, bounds=bounds)
+            lam0=_SCATTER_LAM0 if scatter else 1.0e-3,
+            bounds=None if bounds is None else bounds.to(wdt))
     C, S = _CS_general(theta, X, M2s, freqs, P, nu_fit, ir, log10_tau)
     Sd = torch.sum((dFT.real**2 + dFT.imag**2) * w, dim=(-2, -1))
-    return _finalize_fit(theta, f, H, C, S, Sd, dFT.shape[-1], flags_arr,
-                         fit_flags, P, nu_fit, nu_out, nfev, code,
-                         log10_tau)
+    return _result_dtype(_finalize_fit(
+        theta, f, H, C.to(wdt), S.to(wdt), Sd.to(wdt), dFT.shape[-1],
+        flags_arr, fit_flags, P, nu_fit, nu_out, nfev, code, log10_tau,
+        out_dtype=dt), dt)
 
 
 def _complex_ir(ir_FT, dt, dev):
@@ -1594,15 +1617,6 @@ def fit_portrait_batch(ports, models, noise_stds, freqs, P, nu_fit,
         log10_tau=bool(log10_tau), max_iter=int(max_iter),
         use_ir=ir_FT is not None, use_scatter=bool(use_scatter),
         compensated=bool(compensated), bounds=st["bounds"])
-
-
-def guess_fit_freq(freqs, SNRs=None):
-    """S/N- and nu^-2-weighted mean frequency: (sum w / sum w nu^-2)^0.5
-    with w = SNR nu^-2."""
-    if SNRs is None:
-        SNRs = torch.ones_like(freqs)
-    w = SNRs * freqs**-2.0
-    return (torch.sum(w) / torch.sum(w * freqs**-2.0)) ** 0.5
 
 
 def fit_portrait(port, model, noise_stds, freqs, P, nu_fit=None, nu_out=None,

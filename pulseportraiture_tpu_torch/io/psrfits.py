@@ -610,9 +610,8 @@ def read_archive(path, dtype=np.float64, decode=True):
 
     Raises ValueError for the remaining unrepresentable layouts
     (sub-byte planes that do not byte-align, packed + FITS-scaled
-    columns, or config.raw_subbyte / PPT_RAW_SUBBYTE=off — the escape
-    hatch forcing the decoded lane); the caller falls back to
-    decoding.
+    columns, or config.raw_subbyte = False — the escape hatch forcing
+    the decoded lane); the caller falls back to decoding.
 
     When the native decoder (io/native.py) is available, the DATA
     column is decoded straight from the wire bytes with DAT_SCL /
@@ -681,11 +680,10 @@ def read_archive(path, dtype=np.float64, decode=True):
             # plane must byte-align; the row byte-pad is trimmed here.
             from .. import config as _cfg
 
-            if not getattr(_cfg, "raw_subbyte", True):
+            if not _cfg.raw_subbyte:
                 raise ValueError(
                     f"{path}: sub-byte raw transport disabled "
-                    "(config.raw_subbyte / PPT_RAW_SUBBYTE=off); "
-                    "decode on host instead")
+                    "(config.raw_subbyte = False); decode on host instead")
             per = 8 // nbit
             plane = nchan * nbin
             row_bytes = (npol * plane + per - 1) // per

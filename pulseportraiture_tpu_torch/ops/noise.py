@@ -15,7 +15,8 @@ PyTorch is the port.  Two differences in idiom, none in semantics:
 import torch
 
 __all__ = ["median_lastaxis", "get_noise_PS", "BASELINE_FRAC",
-           "baseline_window", "min_window_baseline", "get_SNR"]
+           "baseline_window", "min_window_baseline", "get_SNR",
+           "fourier_noise"]
 
 # the min-window baseline's window, as a fraction of the profile length;
 # the decode-fused kernel (ops.fused) reads the same window
@@ -48,6 +49,14 @@ def get_noise_PS(data, frac=0.25):
     kc = int((1.0 - frac) * nharm)
     power = torch.abs(X[..., kc:]) ** 2.0
     return torch.sqrt(torch.mean(power, dim=-1) / nbin)
+
+
+def fourier_noise(noise_std, nbin):
+    """Std of the real and imaginary parts of the unnormalised rfft
+    coefficients of white noise of time-domain std ``noise_std``:
+    noise_std * sqrt(nbin / 2).  The phase-shift fit's chi2 is
+    calibrated only with exactly this scaling."""
+    return noise_std * (nbin / 2.0) ** 0.5
 
 
 def min_window_baseline(profiles, frac=BASELINE_FRAC):

@@ -1,14 +1,14 @@
 """Template-model dispatch (counterpart of pulseportraiture_tpu/pipeline/models.py).
 
-One entry point for a .gmodel text file or a PSRFITS archive as the
-template, keyed on file magic.  Spline templates (.spl pickle / .npz)
-are not ported yet (ROADMAP A3) and raise NotImplementedError.
+One entry point for a .gmodel text file, a spline model (.spl pickle
+or .npz) or a PSRFITS archive as the template, keyed on file magic.
 """
 
 import numpy as np
 
 from ..device import resolve_device
 from ..io.gmodel import gen_gmodel_portrait, read_gmodel
+from ..io.splmodel import read_spline_model
 
 __all__ = ["TemplateModel", "sniff_model_type"]
 
@@ -33,10 +33,10 @@ def sniff_model_type(path):
 
 class TemplateModel:
     """A loaded template, evaluated lazily per (freqs, nbin, P) and
-    cached per unique frequency layout.  A .gmodel portrait is built in
-    float64 on ``device``; the cached portrait is host numpy (the fast
-    fit derives its harmonic window from it there, and moves it to the
-    device once per fit call)."""
+    cached per unique frequency layout.  A .gmodel or spline portrait is
+    built in float64 on ``device``; the cached portrait is host numpy
+    (the fast fit derives its harmonic window from it there, and moves
+    it to the device once per fit call)."""
 
     def __init__(self, modelfile, quiet=True, device=None):
         self.modelfile = str(modelfile)
@@ -44,6 +44,7 @@ class TemplateModel:
         self.kind = sniff_model_type(modelfile)
         self._cache = {}
         self.gauss = None
+        self.spline = None
         self.fits_port = None
         self.fits_freqs = None
         if self.kind == "gmodel":
@@ -51,9 +52,10 @@ class TemplateModel:
             self.name = self.gauss.name
             self.nu_ref_model = self.gauss.nu_ref
         elif self.kind == "spline":
-            raise NotImplementedError(
-                f"{modelfile}: spline templates are not ported yet "
-                "(ROADMAP A3); use a .gmodel or PSRFITS template")
+            self.spline = read_spline_model(modelfile, quiet=quiet)
+            self.name = self.spline.modelname
+            lo, hi = self.spline.freq_range()
+            self.nu_ref_model = 0.5 * (lo + hi)
         else:
             from ..io.psrfits import load_data
 
@@ -83,6 +85,8 @@ class TemplateModel:
         if self.kind == "gmodel":
             port = gen_gmodel_portrait(self.gauss, np.arange(nbin), freqs,
                                        P=P, quiet=True, device=self.device)
+        elif self.kind == "spline":
+            port = self.spline.portrait(freqs, nbin=nbin, device=self.device)
         else:
             if self.fits_port.shape[-1] != nbin:
                 raise ValueError(

@@ -32,10 +32,13 @@ Archives the raw lane cannot carry (tscrunch, misaligned sub-byte pol
 planes, packed + FITS-scaled columns, sub-byte + channel padding) fall
 back to the host-decoded lane, as in the JAX package.
 
+stream_narrowband_TOAs runs the same executor with a per-channel lane:
+one TOA per usable channel (fit.phase_shift, or with fit_scat the
+complex engine over single-channel portraits).
+
 Not ported yet, and refused with NotImplementedError naming the
 ROADMAP item: the transport codec (A7), inline zapping and the post-fit
-cut (A8), telemetry (A13), narrowband streaming (A8), and the
-executor's service mode (A13).
+cut (A8), telemetry (A13), and the executor's service mode (A13).
 """
 
 import concurrent.futures as cf
@@ -70,11 +73,12 @@ from .toas import (DEFAULT_IR_DICT, _is_metafile, _iter_archives,
                    _read_metafile, _validate_scat_guess,
                    build_instrumental_response_FT, delta_dm_stats,
                    doppler_corrected_DM_GM, effective_fit_flags,
-                   load_for_toas, scat_seed_tau0, scattering_toa_flags,
-                   snr_weighted_nu_fit)
+                   load_for_toas, scat_seed_tau0, scat_time_flags,
+                   scattering_toa_flags, snr_weighted_nu_fit)
 
 __all__ = ["stream_wideband_TOAs", "stream_narrowband_TOAs",
-           "make_wideband_lane", "checkpoint_completed",
+           "make_wideband_lane", "make_narrowband_lane",
+           "checkpoint_completed",
            "sanitize_checkpoint", "resolve_stream_devices", "bucket_pad_to",
            "CKPT_STALENESS_HORIZON"]
 
@@ -1201,21 +1205,21 @@ def _collect_wideband(meta, assembled):
 
 
 def _refuse_unported(telemetry=None, zap_inline=False, zap_nstd=None,
-                     zap_channels=None, postfit_cut=False):
+                     zap_channels=None, postfit_cut=False,
+                     caller="stream_wideband_TOAs"):
     """NotImplementedError naming the ROADMAP item of every option whose
     lane is not ported; none is ever ignored."""
     if telemetry is not None:
         raise NotImplementedError(
-            "stream_wideband_TOAs: telemetry traces are not ported yet "
-            "(ROADMAP A13)")
+            f"{caller}: telemetry traces are not ported yet (ROADMAP A13)")
     if zap_inline or zap_nstd is not None or zap_channels is not None:
         raise NotImplementedError(
-            "stream_wideband_TOAs: inline and offline zapping (zap_inline, "
-            "zap_nstd, zap_channels) are not ported yet (ROADMAP A8)")
+            f"{caller}: inline and offline zapping (zap_inline, zap_nstd, "
+            "zap_channels) are not ported yet (ROADMAP A8)")
     if postfit_cut:
         raise NotImplementedError(
-            "stream_wideband_TOAs: the post-fit quality cut is not ported "
-            "yet (ROADMAP A8)")
+            f"{caller}: the post-fit quality cut is not ported yet "
+            "(ROADMAP A8)")
 
 
 def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
@@ -1536,8 +1540,351 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
                      wall=wall)
 
 
-def stream_narrowband_TOAs(*args, **kwargs):
-    """The narrowband streaming driver is not ported yet (ROADMAP A8)."""
-    raise NotImplementedError(
-        "stream_narrowband_TOAs: narrowband streaming is not ported yet "
-        "(ROADMAP A8)")
+# ---------------------------------------------------------------------------
+# narrowband streaming: per-channel fits at campaign scale
+
+_NB_KEYS = ("phase", "phase_err", "snr", "gof")
+_NB_SCAT_KEYS = _NB_KEYS + ("tau", "tau_err")
+
+
+def _nb_fit_fields(x, modelx, noise, cmask, freqs, Ps, ft, nbin, fit_scat,
+                   log10_tau, tau_mode, max_iter, tau_args=(0.0, 1.0, 0.0)):
+    """The per-channel fit fields of one narrowband bucket, shared by
+    the raw and the host-decoded lanes: fit_phase_shift_batch without
+    scattering, else the complex engine on (nb * nchan) single-channel
+    portraits with (phi, tau) free (GetTOAs.get_narrowband_TOAs' path).
+    Returns (phase, phase_err, snr, gof[, tau, tau_err]), each (nb,
+    nchan)."""
+    from ..fit.phase_shift import fit_phase_shift_batch
+
+    nb, nchan = x.shape[0], x.shape[1]
+    if not fit_scat:
+        r = fit_phase_shift_batch(x, modelx, noise, device=x.device)
+        return (r.phase, r.phase_err, r.snr, r.red_chi2)
+    n = nb * nchan
+    flat_freqs = freqs.expand(nb, nchan).reshape(n, 1)
+    flat_P = Ps.repeat_interleave(nchan)
+    if tau_mode == "auto":
+        # the broadband estimate per subint, scaled to each channel with
+        # the default index
+        tau_sub = estimate_tau_batch(x, modelx, noise, cmask)
+        tau_seed = (tau_sub[:, None] * (freqs[None, :] / torch.mean(freqs))
+                    ** scattering_alpha).reshape(n)
+    elif tau_mode == "explicit":
+        tau_s, tau_nu, tau_a = tau_args
+        tau_seed = (tau_s / flat_P) * (flat_freqs[:, 0] / tau_nu) ** tau_a
+    else:
+        tau_seed = torch.full((n,), 0.5 / nbin, dtype=ft, device=x.device)
+    th0 = torch.zeros((n, 5), dtype=ft, device=x.device)
+    th0[:, 3] = (torch.log10(torch.clamp(tau_seed, min=1e-12)) if log10_tau
+                 else tau_seed)
+    r = fit_portrait_batch(
+        x.reshape(n, 1, nbin),
+        modelx.expand(nb, nchan, nbin).reshape(n, 1, nbin),
+        noise.reshape(n, 1), flat_freqs, flat_P, flat_freqs[:, 0],
+        theta0=th0, fit_flags=FitFlags(True, False, False, True, False),
+        chan_masks=cmask.reshape(n, 1), log10_tau=log10_tau,
+        max_iter=max_iter, device=x.device)
+    dof = torch.clamp(r.dof, min=1.0)
+    return tuple(v.reshape(nb, nchan) for v in (
+        r.phi, r.phi_err, r.snr, r.chi2 / dof, r.tau, r.tau_err))
+
+
+def _raw_nb_fn(nbin, fit_scat, log10_tau, tau_mode, max_iter, ft, device,
+               redisp=False, raw_code="i16", pol_sum=False,
+               col_scaled=False):
+    """The raw narrowband bucket program: the plain sample decode
+    (_raw_decode, shared with the wideband program: sample types,
+    sub-byte unpack, column scaling, the pol reduction, re-dispersion),
+    the power-spectrum noise, then _nb_fit_fields.  Returns one packed
+    (nfield, nb, nchan) tensor."""
+    tiny = torch.finfo(ft).tiny
+    dft_fold = use_dft_fold(device)
+
+    def run(raw, scl, offs, cmask, modelx, freqs, Ps, redisp_turns,
+            tscal=None, tzero=None, tau_args=(0.0, 1.0, 0.0)):
+        x = _raw_decode(raw, scl, offs, nbin, ft, redisp=redisp,
+                        redisp_turns=redisp_turns, dft_fold=dft_fold,
+                        code=raw_code, pol_sum=pol_sum,
+                        tscal=tscal if col_scaled else None,
+                        tzero=tzero if col_scaled else None)
+        noise = torch.clamp(get_noise_PS(x), min=tiny)
+        fields = _nb_fit_fields(x, modelx, noise, cmask, freqs, Ps, ft,
+                                nbin, fit_scat, log10_tau, tau_mode,
+                                max_iter, tau_args)
+        return torch.stack([f.to(ft) for f in fields])
+
+    return run
+
+
+def _launch_nb(b, pipeline, seq, fit_scat, log10_tau, tau_mode, tau_args,
+               max_iter):
+    """Launch one narrowband dispatch through ``pipeline`` (the rows of
+    a partial bucket only, as _launch does) and return its in-flight
+    record.  float32 where config.use_fast_fit resolves on for the
+    device, float64 otherwise."""
+    if len(b) == 0:
+        return None
+    device = pipeline.device
+    ft, ft_np = ((torch.float32, np.float32) if use_fast_fit_default(device)
+                 else (torch.float64, np.float64))
+    put = pipeline.put
+    masks_rows = list(b.masks)
+    Ps = np.asarray(b.Ps)
+    modelx, freqs, nbin = b.modelx, b.freqs, b.nbin
+    if b.kind == "raw":
+        rows, dedisp, redisp = _raw_rows(b)
+        col_scaled = b.col_scaled
+        tscal_h = np.asarray(b.tscal) if col_scaled else None
+        tzero_h = np.asarray(b.tzero) if col_scaled else None
+        fn = _raw_nb_fn(nbin, fit_scat, log10_tau, tau_mode, max_iter, ft,
+                        device, redisp=redisp, raw_code=b.raw_code,
+                        pol_sum=b.pol_sum, col_scaled=col_scaled)
+
+        def copy():
+            raw, scl, offs, turns = _stack_rows(rows, dedisp, redisp, Ps,
+                                                freqs)
+            return (put(raw), put(scl, ft_np), put(offs, ft_np),
+                    put(np.stack(masks_rows), ft_np), put(modelx, ft_np),
+                    put(freqs, ft_np), put(Ps, ft_np), put(turns, ft_np),
+                    put(tscal_h, ft_np) if col_scaled else None,
+                    put(tzero_h, ft_np) if col_scaled else None)
+
+        def fit(*dev_args):
+            return fn(*dev_args, tau_args=tau_args)
+    else:
+        ports_rows = list(b.ports)
+        noise_rows = list(b.noise)
+
+        def copy():
+            return (put(np.stack(ports_rows), ft_np), put(modelx, ft_np),
+                    put(np.stack(noise_rows), ft_np),
+                    put(np.stack(masks_rows), ft_np), put(freqs, ft_np),
+                    put(Ps, ft_np))
+
+        def fit(*dev_args):
+            return torch.stack([f.to(ft) for f in _nb_fit_fields(
+                *dev_args, ft, nbin, fit_scat, log10_tau, tau_mode,
+                max_iter, tau_args)])
+
+    rec = (pipeline.submit(copy, fit, seq), list(b.owners), None)
+    b.clear()
+    return rec
+
+
+def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
+                         scat_guess=None, tscrunch=False, max_iter=25,
+                         print_phase=False, addtnl_toa_flags={}, quiet=False,
+                         device=None):
+    """The narrowband physics lane and archive loader for a template and
+    option set: ``(lane, loader)`` for _StreamExecutor, as
+    make_wideband_lane.  log10_tau only matters with fit_scat."""
+    dev = resolve_device(device)
+    scat_guess = _validate_scat_guess(scat_guess, fit_scat)
+    if fit_scat and not log10_tau and scat_guess is None:
+        raise ValueError(
+            "stream_narrowband_TOAs: log10_tau=False needs scat_guess")
+    if not fit_scat:
+        log10_tau = False
+    model = TemplateModel(modelfile, quiet=quiet, device=dev)
+    p_dependent = model.has_scattering()
+    if scat_guess is not None and not isinstance(scat_guess, str):
+        tau_mode = "explicit"
+        tau_args = tuple(float(v) for v in scat_guess)
+    else:
+        tau_mode = ("auto" if fit_scat and scat_guess == "auto"
+                    else "neutral" if fit_scat else "none")
+        tau_args = (0.0, 1.0, 0.0)
+    keys = _NB_SCAT_KEYS if fit_scat else _NB_KEYS
+    load_dtype = np.float32 if use_fast_fit_default(dev) else np.float64
+
+    def _loader(f):
+        if not tscrunch:
+            try:
+                return _load_raw(f, dev)
+            except (ValueError, KeyError):
+                pass
+        return load_for_toas(f, tscrunch=tscrunch, quiet=True,
+                             dtype=load_dtype)
+
+    class _NarrowbandLane:
+        """The narrowband physics hooks for _StreamExecutor."""
+
+        def prepare(self, iarch, datafile, d, ok):
+            nchan, nbin = d.nchan, d.nbin
+            freqs0 = np.asarray(d.freqs[0], float)
+            P_mean = float(np.mean(d.Ps[ok]))
+            try:
+                modelx = model.portrait(freqs0, nbin, P=P_mean)
+            except ValueError as e:
+                log(f"Skipping {datafile}: {e}", level="warn")
+                return None
+            raw_mode = bool(d.get("raw_mode", False))
+            raw_code = str(d.get("raw_code") or "i16")
+            pol_sum = bool(d.get("pol_sum", False))
+            col_scaled = raw_mode and (d.get("tscal") is not None
+                                       or d.get("tzero") is not None)
+            tscal_val = float(d.get("tscal") or 1.0) if raw_mode else 1.0
+            tzero_val = float(d.get("tzero") or 0.0) if raw_mode else 0.0
+            masks = np.asarray(d.weights[ok] > 0.0, float)
+            key = (nchan, nbin, freqs0.tobytes(),
+                   "raw" if raw_mode else "dec")
+            if raw_mode:
+                key += (raw_code, pol_sum, col_scaled)
+            if p_dependent:
+                key += (round(P_mean, 12),)
+            m = DataBunch(
+                datafile=datafile, iarch=iarch, ok=ok, nbin=nbin,
+                freqs0=freqs0,
+                okc=[np.flatnonzero(masks[j] > 0) for j in range(len(ok))],
+                epochs=[d.epochs[isub] for isub in ok],
+                Ps=[float(d.Ps[isub]) for isub in ok],
+                subtimes=[float(d.subtimes[isub]) for isub in ok],
+                backend_delay=d.backend_delay, backend=d.backend,
+                frontend=d.frontend, telescope=d.telescope,
+                telescope_code=d.telescope_code)
+
+            def factory():
+                return _Bucket(freqs0, nbin, modelx, (),
+                               kind="raw" if raw_mode else "dec",
+                               raw_code=raw_code, pol_sum=pol_sum,
+                               col_scaled=col_scaled)
+
+            def fill(b, j, isub):
+                if raw_mode:
+                    b.raw.append(d.raw[isub])
+                    b.scl.append(d.scl[isub])
+                    b.offs.append(d.offs[isub])
+                    if col_scaled:
+                        b.tscal.append(tscal_val)
+                        b.tzero.append(tzero_val)
+                    # dedispersed on disk: the bucket program restores
+                    # the stored DM's delays (REF_FREQ honoured)
+                    b.dedisp.append(
+                        (float(d.DM) if d.get("dmc") else 0.0,
+                         float(d.get("dedisp_nu") or d.get("nu0", 0.0)
+                               or 0.0)))
+                else:
+                    b.ports.append(np.asarray(d.subints[isub, 0]))
+                    b.noise.append(np.asarray(d.noise_stds[isub, 0], float))
+                b.masks.append(masks[j])
+                b.Ps.append(float(d.Ps[isub]))
+                b.owners.append((iarch, isub))
+
+            return m, [(key, factory,
+                        lambda b, j=j, isub=int(isub): fill(b, j, isub))
+                       for j, isub in enumerate(ok)]
+
+        def launch(self, b, pipeline, seq):
+            return _launch_nb(b, pipeline, seq, fit_scat, log10_tau,
+                              tau_mode, tau_args, max_iter)
+
+        def scatter(self, out, owners, extra, results):
+            for i, owner in enumerate(owners):
+                results[owner] = out[:, i]  # (nfield, nchan)
+
+        def assemble(self, m, results):
+            toas = []
+            for j, isub in enumerate(m.ok):
+                r = results.get((m.iarch, int(isub)))
+                if r is None:
+                    continue
+                vals = dict(zip(keys, r))
+                P = m.Ps[j]
+                for ichan in m.okc[j]:
+                    flags = {
+                        "be": m.backend, "fe": m.frontend,
+                        "f": f"{m.frontend}_{m.backend}",
+                        "nbin": int(m.nbin), "subint": int(isub),
+                        "chan": int(ichan), "tobs": m.subtimes[j],
+                        "tmplt": str(modelfile),
+                        "snr": float(vals["snr"][ichan]),
+                        "gof": float(vals["gof"][ichan]),
+                    }
+                    if fit_scat:
+                        flags.update(scat_time_flags(
+                            float(vals["tau"][ichan]),
+                            float(vals["tau_err"][ichan]), P, log10_tau))
+                        flags["scat_ref_freq"] = float(m.freqs0[ichan])
+                    if print_phase:
+                        flags["phs"] = float(vals["phase"][ichan])
+                        flags["phs_err"] = float(vals["phase_err"][ichan])
+                    flags.update(addtnl_toa_flags)
+                    toas.append(TOA(
+                        m.datafile, float(m.freqs0[ichan]),
+                        m.epochs[j].add_seconds(
+                            float(vals["phase"][ichan]) * P
+                            + m.backend_delay),
+                        float(vals["phase_err"][ichan]) * P * 1e6,
+                        m.telescope, m.telescope_code, None, None, flags))
+            return (toas,)
+
+    return _NarrowbandLane(), _loader
+
+
+def stream_narrowband_TOAs(datafiles, modelfile, nsub_batch=64,
+                           fit_scat=False, log10_tau=True, scat_guess=None,
+                           tscrunch=False, max_iter=25, prefetch=True,
+                           max_inflight=None, print_phase=False,
+                           addtnl_toa_flags={}, tim_out=None, quiet=False,
+                           resume=False, skip_archives=None,
+                           stream_devices=None, telemetry=None,
+                           pipeline_depth=None, zap_inline=False,
+                           zap_nstd=None, device=None):
+    """Campaign-scale narrowband TOAs: one TOA per usable channel of
+    every subint (GetTOAs.get_narrowband_TOAs semantics, fit_scat
+    included), with stream_wideband_TOAs' raw-lane loads, bucketing,
+    per-device copy -> fit pipelines, in-order checkpoints and resume.
+    Raw buckets decode on the device (the plain decode; no kernel of the
+    port runs on this lane, as no Pallas kernel does in the JAX
+    package); archives the raw lane refuses go through the host-decoded
+    lane with the same fits.  Devices as stream_wideband_TOAs.
+    Telemetry (A13) and inline zapping (zap_inline, zap_nstd: A8) are
+    refused.  Returns a DataBunch(TOA_list, order, fit_duration,
+    scatter_duration, nfit, devices_used, peak_inflight,
+    dispatch_shapes, h2d_bytes, h2d_duration, h2d_overlap_duration,
+    wall)."""
+    _refuse_unported(telemetry=telemetry, zap_inline=zap_inline,
+                     zap_nstd=zap_nstd, caller="stream_narrowband_TOAs")
+    if isinstance(datafiles, str):
+        datafiles = (_read_metafile(datafiles) if _is_metafile(datafiles)
+                     else [datafiles])
+    else:
+        datafiles = list(datafiles)
+    if stream_devices is None and device is not None:
+        stream_devices = [device]
+    devices = resolve_stream_devices(stream_devices)
+    t_start = time.time()
+    lane, loader = make_narrowband_lane(
+        modelfile, fit_scat=fit_scat, log10_tau=log10_tau,
+        scat_guess=scat_guess, tscrunch=tscrunch, max_iter=max_iter,
+        print_phase=print_phase, addtnl_toa_flags=addtnl_toa_flags,
+        quiet=quiet, device=devices[0])
+    ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,
+                         max_inflight=max_inflight, prefetch=prefetch,
+                         tim_out=tim_out, resume=resume,
+                         skip_archives=skip_archives, quiet=quiet,
+                         stream_devices=devices,
+                         pipeline_depth=pipeline_depth)
+    meta, assembled = ex.run()
+    TOA_list, order = [], []
+    for m in meta:
+        TOA_list.extend(assembled[m.iarch][0])
+        order.append(m.datafile)
+    wall = time.time() - t_start
+    n = len(TOA_list)
+    log(f"streamed {n} narrowband TOAs from {len(order)} archives in "
+        f"{wall:.2f} s ({ex.nfit} dispatches across "
+        f"{len(ex.devices_used)} device(s), {ex.fit_duration:.2f} s blocked "
+        f"on devices, {n / max(wall, 1e-9):.1f} TOAs/s end to end)",
+        quiet=quiet)
+    return DataBunch(TOA_list=TOA_list, order=order,
+                     fit_duration=ex.fit_duration,
+                     scatter_duration=ex.scatter_duration, nfit=ex.nfit,
+                     devices_used=len(ex.devices_used),
+                     peak_inflight=ex.peak_inflight,
+                     dispatch_shapes=dict(ex.dispatch_shapes),
+                     h2d_bytes=int(ex.h2d_bytes),
+                     h2d_duration=ex.h2d_duration,
+                     h2d_overlap_duration=ex.h2d_overlap_duration,
+                     wall=wall)

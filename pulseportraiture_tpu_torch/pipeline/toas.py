@@ -10,16 +10,22 @@ engine (fit.portrait.fit_portrait_batch).  TOAs, DMs, scattering flags
 and the per-archive DeltaDM statistics are assembled on the host
 exactly as in the JAX package.
 
+GetTOAs.get_narrowband_TOAs: one TOA per usable (subint, channel),
+every profile of an archive fitted by one batched phase-shift call on
+the device (fit.phase_shift.fit_phase_shift_batch), or with fit_scat
+the complex engine over single-channel portraits with (phi, tau) free.
+get_crosscheck_TOAs (and its get_psrchive_TOAs shim) is the JAX
+package's independent host NumPy estimator.
+
 Not ported yet, and refused with NotImplementedError naming the
-ROADMAP item instead of being ignored: telemetry traces (A13) and
-narrowband TOAs (A8).
+ROADMAP item instead of being ignored: telemetry traces (A13).
 """
 
 import time
 
 import numpy as np
 
-from ..config import scattering_alpha
+from ..config import Dconst, scattering_alpha
 from ..device import resolve_device
 from ..fit.portrait import (FitFlags, estimate_tau_batch, fit_portrait_batch,
                             fit_portrait_batch_fast, use_fast_fit_default,
@@ -290,12 +296,14 @@ def _is_metafile(path):
 
 
 class GetTOAs:
-    """Measure wideband TOAs + DMs (+ GM) from archives.
+    """Measure wideband TOAs + DMs (+ GM), or narrowband TOAs, from
+    archives.
 
     Construct with datafiles (single archive, metafile, or list), a
-    modelfile (.gmodel or PSRFITS template) and the device the fits run
-    on (default cuda), call get_TOAs(), read the per-archive parallel
-    result lists, pass TOA_list to io.tim.write_TOAs.
+    modelfile (.gmodel, spline model or PSRFITS template) and the device
+    the fits run on (default cuda), call get_TOAs() (or
+    get_narrowband_TOAs()), read the per-archive parallel result lists,
+    pass TOA_list to io.tim.write_TOAs.
     """
 
     def __init__(self, datafiles, modelfile, quiet=False, device=None):
@@ -730,4 +738,241 @@ class GetTOAs:
                     toa.DM = one_DM
                     toa.DM_error = self.DeltaDM_errs[iarch]
                     toa.flags["one_DM"] = "True"
+
+    def get_narrowband_TOAs(self, datafile=None, tscrunch=False,
+                            fit_scat=False, log10_tau=True,
+                            scat_guess=None, print_phase=False,
+                            addtnl_toa_flags={}, max_iter=40, quiet=None):
+        """Per-channel FFTFIT TOAs (the JAX package's
+        get_narrowband_TOAs): every (subint, channel) profile of an
+        archive in one batched fit_phase_shift_batch call on the device.
+
+        fit_scat fits a per-channel scattering timescale beside the
+        phase: the complex engine on (nsub * nchan) single-channel
+        portraits with (phi, tau) free, each tau referenced to its
+        channel's frequency.  scat_guess: a (tau [s], freq [MHz], alpha)
+        seed, 'auto' (the broadband estimate_tau_batch per subint scaled
+        to each channel with the default index) or None (half a bin).
+        The linear parameterization (log10_tau=False) needs scat_guess."""
+        from ..fit.phase_shift import fit_phase_shift_batch
+
+        scat_guess = _validate_scat_guess(scat_guess, fit_scat)
+        if quiet is None:
+            quiet = self.quiet
+        if fit_scat and not log10_tau and scat_guess is None:
+            raise ValueError(
+                "get_narrowband_TOAs: log10_tau=False needs scat_guess "
+                "(the linear parameterization cannot converge from the "
+                "neutral half-bin seed)")
+        datafiles = self.datafiles if datafile is None else [datafile]
+        for datafile in datafiles:
+            try:
+                d = load_for_toas(datafile, tscrunch=tscrunch, quiet=quiet)
+            except Exception as e:
+                log(f"Skipping {datafile}: {e}", level="warn")
+                continue
+            ok = np.asarray(d.ok_isubs, int)
+            if len(ok) == 0:
+                continue
+            nchan, nbin = d.nchan, d.nbin
+            nok = len(ok)
+            freqs0 = np.asarray(d.freqs[0], float)
+            P_mean = float(np.mean(d.Ps[ok]))
+            modelx = self.model.portrait(freqs0, nbin, P=P_mean)
+            ports = np.asarray(d.subints[ok, 0])
+            noise = np.asarray(d.noise_stds[ok, 0])
+            taus = tau_errs = None
+            if fit_scat:
+                r = self._narrowband_scatter_fit(
+                    ports, modelx, noise, freqs0, np.asarray(d.Ps[ok]),
+                    np.asarray(d.weights[ok] > 0.0, float), P_mean,
+                    scat_guess, log10_tau, max_iter)
+                phase, phase_err, snr, red_chi2, taus, tau_errs = r
+            else:
+                r = fit_phase_shift_batch(ports, modelx, noise,
+                                          device=self.device)
+                phase, phase_err, snr, red_chi2 = (
+                    v.cpu().numpy() for v in (r.phase, r.phase_err, r.snr,
+                                              r.red_chi2))
+            self.order.append(datafile)
+            self.ok_isubs.append(ok)
+            for j, isub in enumerate(ok):
+                P = float(d.Ps[isub])
+                for ichan in np.asarray(d.ok_ichans[isub], int):
+                    toa_mjd = d.epochs[isub].add_seconds(
+                        float(phase[j, ichan]) * P + d.backend_delay)
+                    toa_flags = {
+                        "be": d.backend, "fe": d.frontend,
+                        "f": f"{d.frontend}_{d.backend}",
+                        "nbin": int(nbin), "subint": int(isub),
+                        "chan": int(ichan),
+                        "tobs": float(d.subtimes[isub]),
+                        "tmplt": self.modelfile,
+                        "snr": float(snr[j, ichan]),
+                        "gof": float(red_chi2[j, ichan]),
+                    }
+                    if fit_scat:
+                        toa_flags.update(scat_time_flags(
+                            float(taus[j, ichan]),
+                            float(tau_errs[j, ichan]), P, log10_tau))
+                        # each channel's tau is referenced to its own
+                        # frequency
+                        toa_flags["scat_ref_freq"] = float(freqs0[ichan])
+                    if print_phase:
+                        toa_flags["phs"] = float(phase[j, ichan])
+                        toa_flags["phs_err"] = float(phase_err[j, ichan])
+                    toa_flags.update(addtnl_toa_flags)
+                    self.TOA_list.append(TOA(
+                        datafile, float(freqs0[ichan]), toa_mjd,
+                        float(phase_err[j, ichan]) * P * 1e6,
+                        d.telescope, d.telescope_code, None, None,
+                        toa_flags))
+
+    def _narrowband_scatter_fit(self, ports, modelx, noise, freqs0, Ps,
+                                masks, P_mean, scat_guess, log10_tau,
+                                max_iter):
+        """get_narrowband_TOAs' fit_scat branch: (phase, phase_err, snr,
+        red_chi2, tau, tau_err), each (nok, nchan) host numpy."""
+        import torch
+
+        nok, nchan, nbin = ports.shape
+        n = nok * nchan
+        flat_freqs = np.broadcast_to(freqs0, (nok, nchan)).reshape(n, 1)
+        if scat_guess == "auto":
+            # the broadband estimate per subint, scaled to each channel
+            # with the default index
+            def f32(x):
+                return torch.as_tensor(np.asarray(x, np.float32),
+                                       device=self.device)
+
+            tau_sub = estimate_tau_batch(f32(ports), f32(modelx),
+                                         f32(noise)).cpu().numpy()
+            nu_mid = float(np.mean(freqs0))
+            tau_seed = (tau_sub[:, None] * (freqs0[None, :] / nu_mid)
+                        ** scattering_alpha).reshape(n)
+        elif scat_guess is not None:
+            t_s, nu_s, a_s = scat_guess
+            tau_seed = (t_s / P_mean) * (flat_freqs[:, 0] / nu_s) ** a_s
+        else:
+            tau_seed = np.full(n, 0.5 / nbin)
+        th0 = np.zeros((n, 5))
+        th0[:, 3] = (np.log10(np.maximum(tau_seed, 1e-12)) if log10_tau
+                     else tau_seed)
+        models = torch.as_tensor(np.asarray(modelx)).expand(
+            nok, nchan, nbin).reshape(n, 1, nbin)
+        r = fit_portrait_batch(
+            ports.reshape(n, 1, nbin), models, noise.reshape(n, 1),
+            flat_freqs, np.repeat(Ps, nchan), flat_freqs[:, 0],
+            theta0=th0, fit_flags=FitFlags(True, False, False, True, False),
+            chan_masks=masks.reshape(n, 1), log10_tau=log10_tau,
+            max_iter=max_iter, device=self.device)
+        r = {k: v.detach().cpu().numpy() for k, v in r._asdict().items()}
+        dof = np.maximum(r["dof"], 1.0)
+        return tuple(np.reshape(v, (nok, nchan)) for v in (
+            r["phi"], r["phi_err"], r["snr"], r["chi2"] / dof, r["tau"],
+            r["tau_err"]))
+
+    def get_crosscheck_TOAs(self, datafile=None, tscrunch=False, DM0=None,
+                            oversamp=16, addtnl_toa_flags={},
+                            append_to_list=False, quiet=None):
+        """Independent-algorithm wideband TOAs on the host (NumPy,
+        float64), sharing no code with the fit engines: channels are
+        derotated by the header DM and frequency-scrunched with 1/sigma^2
+        weights, the phase is the argmax of the oversampled circular CCF
+        with the scrunched template refined by a parabola, and the error
+        the FFTFIT curvature formula.  Returns the TOA list;
+        append_to_list=True also appends it to TOA_list."""
+        if quiet is None:
+            quiet = self.quiet
+        datafiles = self.datafiles if datafile is None else [datafile]
+        out = []
+        for datafile in datafiles:
+            try:
+                d = load_for_toas(datafile, tscrunch=tscrunch, quiet=quiet)
+            except Exception as e:
+                log(f"Skipping {datafile}: {e}", level="warn")
+                continue
+            ok = np.asarray(d.ok_isubs, int)
+            if len(ok) == 0:
+                continue
+            nchan, nbin = d.nchan, d.nbin
+            nharm = nbin // 2 + 1
+            freqs0 = np.asarray(d.freqs[0], float)
+            P_mean = float(np.mean(d.Ps[ok]))
+            modelx = np.asarray(
+                self.model.portrait(freqs0, nbin, P=P_mean), float)
+            DM_guess = float(d.DM) if d.DM else (DM0 or 0.0)
+            k = np.arange(nharm)
+            nlag = nbin * oversamp
+            Mf_chan = np.fft.rfft(modelx, axis=-1)
+            for isub in ok:
+                P = float(d.Ps[isub])
+                okc = np.asarray(d.ok_ichans[isub], int)
+                if len(okc) == 0:
+                    continue
+                port = np.asarray(d.subints[isub, 0], float)
+                sig = np.asarray(d.noise_stds[isub, 0], float)
+                wch = np.zeros(nchan)
+                wch[okc] = np.where(sig[okc] > 0, sig[okc] ** -2.0, 0.0)
+                # derotate the data by the header DM so its channels add
+                # coherently; the template's channels are aligned
+                delays = (Dconst * DM_guess / P) * (
+                    freqs0 ** -2.0 - float(d.nu0) ** -2.0)
+                ph = np.exp(2.0j * np.pi * np.outer(delays, k))
+                Df = (np.fft.rfft(port, axis=-1) * ph * wch[:, None]).sum(0)
+                Mf = (Mf_chan * wch[:, None]).sum(0)
+                cc = np.fft.irfft(Df * np.conj(Mf), n=nlag)
+                j0 = int(np.argmax(cc))
+                ym, y0, yp = cc[(j0 - 1) % nlag], cc[j0], cc[(j0 + 1) % nlag]
+                denom = ym - 2.0 * y0 + yp
+                frac = 0.5 * (ym - yp) / denom if denom != 0.0 else 0.0
+                phi = (j0 + frac) / nlag
+                phi = (phi + 0.5) % 1.0 - 0.5
+                # FFTFIT curvature error from the scrunched profile's
+                # noise (E|rfft_k|^2 = nbin sigma^2 for white noise)
+                prof = np.fft.irfft(Df / max(wch.sum(), 1e-300), n=nbin)
+                spec = np.abs(np.fft.rfft(prof)) ** 2
+                noise = np.sqrt(np.mean(spec[-len(spec) // 4:]) / nbin)
+                sigF = noise * np.sqrt(nbin / 2.0) * max(wch.sum(), 1e-300)
+                e = np.exp(2.0j * np.pi * k * phi)
+                p = (np.abs(Mf) ** 2).sum() / sigF ** 2
+                c = np.real(Df * np.conj(Mf) * e).sum() / sigF ** 2
+                c2 = np.real(Df * np.conj(Mf) * e
+                             * (2.0 * np.pi * k) ** 2).sum() / sigF ** 2
+                scale = max(c, 0.0) / p
+                phi_err = (abs(scale * c2)) ** -0.5 \
+                    if scale > 0 and c2 != 0 else 1.0 / nbin
+                toa_mjd = d.epochs[isub].add_seconds(
+                    phi * P + d.backend_delay)
+                toa_flags = {
+                    "be": d.backend, "fe": d.frontend,
+                    "f": f"{d.frontend}_{d.backend}",
+                    "nbin": int(nbin), "subint": int(isub),
+                    "tobs": float(d.subtimes[isub]),
+                    "tmplt": self.modelfile, "alg": "ccf-parabolic",
+                }
+                toa_flags.update(addtnl_toa_flags)
+                toa = TOA(datafile, float(d.nu0), toa_mjd,
+                          phi_err * P * 1e6, d.telescope,
+                          d.telescope_code, None, None, toa_flags)
+                out.append(toa)
+                if append_to_list:
+                    self.TOA_list.append(toa)
+        return out
+
+    def get_psrchive_TOAs(self, datafile=None, tscrunch=False,
+                          algorithm="PGS", addtnl_toa_flags={},
+                          quiet=None, **kwargs):
+        """The reference's PSRCHIVE-delegating cross-check, answered by
+        get_crosscheck_TOAs (PSRCHIVE is not a dependency).  algorithm
+        and any pat-oriented keywords are accepted and ignored, with a
+        log line; each TOA's -alg flag names the estimator."""
+        if (algorithm != "PGS" or kwargs) and not (quiet or self.quiet):
+            ignored = ([f"algorithm={algorithm!r}"] if algorithm != "PGS"
+                       else []) + [f"{k}=..." for k in kwargs]
+            log("get_psrchive_TOAs: ignoring PSRCHIVE-specific "
+                f"option(s) {', '.join(ignored)}")
+        return self.get_crosscheck_TOAs(
+            datafile=datafile, tscrunch=tscrunch,
+            addtnl_toa_flags=addtnl_toa_flags, quiet=quiet)
 

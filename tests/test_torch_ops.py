@@ -505,7 +505,8 @@ def test_import_hygiene():
         "    importlib.import_module(m.name)\n"
         "    names.add(m.name)\n"
         "new = {p.__name__ + '.' + n for n in ('ops.decode', 'ops.noise',"
-        " 'pipeline.stream')}\n"
+        " 'pipeline.stream', 'ops.phasor', 'ops.rotation', 'models.spline',"
+        " 'io.splmodel', 'fit.phase_shift', 'convert')}\n"
         "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "

@@ -398,8 +398,9 @@ class TestRefusals:
 
     def test_narrowband_and_service_mode(self, campaign, stream_config):
         root, files, gmodel = campaign
-        with pytest.raises(NotImplementedError, match="A8"):
-            TS.stream_narrowband_TOAs(files, gmodel)
+        for kw in ({"zap_inline": True}, {"zap_nstd": 3.0}):
+            with pytest.raises(NotImplementedError, match="A8"):
+                TS.stream_narrowband_TOAs(files, gmodel, device="cpu", **kw)
         lane, loader = TS.make_wideband_lane(gmodel, device="cpu")
         with pytest.raises(NotImplementedError, match="A13"):
             TS._StreamExecutor(lane, files, loader, 4,

@@ -10,8 +10,10 @@ cross-spectrum in bfloat16 (the default).
 .tim lines are parsed and compared field by field:
 - TOA: |dTOA| <= 0.05 x TOA error, after referencing the port's TOA to
   the reference's frequency with the port's own DM (each side reports
-  at its own zero-covariance frequency, which agree to ~1e-7);
-- DM: |dDM| <= 0.05 x DM error;
+  at its own zero-covariance frequency, which agree to ~1e-7); TOAs
+  without a DM (fit_DM=False, narrowband TOAs) are compared as they
+  stand;
+- DM: |dDM| <= 0.05 x DM error, where the TOAs carry one;
 - flags: equal, except -tmplt (the model path) and the fit-derived
   numbers -snr, -gof, -phi_DM_cov, which are float32 results printed
   to a fixed number of digits and agree to within one unit of the last
@@ -42,6 +44,9 @@ FIT_DERIVED = {"snr", "gof", "phi_DM_cov"}
 SCAT_DERIVED = FIT_DERIVED | {
     "scat_time", "scat_time_err", "log10_scat_time", "log10_scat_time_err",
     "scat_ref_freq", "scat_ind", "scat_ind_err"}
+# per-channel (narrowband) TOAs: -chan is an integer and stays exact
+NB_DERIVED = FIT_DERIVED | {"phs", "phs_err"}
+NB_SCAT_DERIVED = NB_DERIVED | SCAT_DERIVED
 
 
 @pytest.fixture(scope="module")
@@ -115,15 +120,17 @@ def _assert_tim_parity(ref_path, got_path, derived=FIT_DERIVED,
     for r, g in zip(ref, got):
         assert g[0] == r[0] and g[4] == r[4]
         assert g[1] == pytest.approx(r[1], rel=1e-5)
-        dm_g = float(g[5]["-pp_dm"])
-        dm_r = float(r[5]["-pp_dm"])
-        dme_r = float(r[5]["-pp_dme"])
-        assert abs(dm_g - dm_r) <= 0.05 * dme_r
-        assert float(g[5]["-pp_dme"]) == pytest.approx(dme_r, rel=1e-3)
-        # TOA difference [s], the port's TOA moved to the reference's
-        # frequency along its own dispersion law
+        # TOA difference [s]; with a DM, the port's TOA moved to the
+        # reference's frequency along its own dispersion law
         dt = ((g[2][0] - r[2][0]) + (g[2][1] - r[2][1])) * 86400.0
-        dt += tcfg.Dconst * dm_g * (r[1] ** -2.0 - g[1] ** -2.0)
+        assert ("-pp_dm" in g[5]) == ("-pp_dm" in r[5])
+        if "-pp_dm" in r[5]:
+            dm_g = float(g[5]["-pp_dm"])
+            dm_r = float(r[5]["-pp_dm"])
+            dme_r = float(r[5]["-pp_dme"])
+            assert abs(dm_g - dm_r) <= 0.05 * dme_r
+            assert float(g[5]["-pp_dme"]) == pytest.approx(dme_r, rel=1e-3)
+            dt += tcfg.Dconst * dm_g * (r[1] ** -2.0 - g[1] ** -2.0)
         assert abs(dt) * 1e6 <= 0.05 * r[3], (dt, r[3])
         assert g[3] == pytest.approx(r[3], rel=1e-3)
         assert set(g[5]) == set(r[5])
@@ -198,6 +205,101 @@ def test_one_DM_and_princeton(dataset, fast_config, tmp_path):
         assert len(f.read().splitlines()) == 3
 
 
+# ROADMAP C2: options the port and the JAX package agree on, as cases of
+# one test.  GetTOAs cases on the dataset through the fused lane
+# (window 128); stream cases through stream_wideband_TOAs' raw lane.
+C2_CASES = {
+    "fit_DM_off": ("gettoas", dict(fit_DM=False)),
+    "tscrunch": ("gettoas", dict(tscrunch=True)),
+    "DM0": ("gettoas", dict(DM0=3.0)),
+    "no_bary": ("gettoas", dict(bary=False)),
+    "nu_refs": ("gettoas", dict(nu_refs=(1400.0, None))),
+    "nsub_batch_3": ("stream", dict(nsub_batch=3)),
+    "max_inflight_1": ("stream", dict(max_inflight=1)),
+    "no_prefetch": ("stream", dict(prefetch=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(C2_CASES))
+def test_options_tim_parity(dataset, fast_config, tmp_path, case):
+    from pulseportraiture_tpu.pipeline import stream as JS
+    from pulseportraiture_tpu_torch.pipeline import stream as TS
+
+    meta, gmodel, files = dataset
+    jcfg.fit_harmonic_window = tcfg.fit_harmonic_window = 128
+    jcfg.fit_fused = tcfg.fit_fused = True
+    lane, kw = C2_CASES[case]
+    if lane == "gettoas":
+        jg = JGetTOAs(meta, gmodel, quiet=True)
+        jg.get_TOAs(quiet=True, **kw)
+        tg = TGetTOAs(meta, gmodel, quiet=True, device="cpu")
+        tg.get_TOAs(quiet=True, **kw)
+        ref_toas, got_toas = jg.TOA_list, tg.TOA_list
+    else:
+        ref_toas = JS.stream_wideband_TOAs(meta, gmodel, quiet=True,
+                                           **kw).TOA_list
+        got_toas = TS.stream_wideband_TOAs(meta, gmodel, quiet=True,
+                                           device="cpu", **kw).TOA_list
+    ref_tim, got_tim = str(tmp_path / "ref.tim"), str(tmp_path / "got.tim")
+    jwrite(ref_toas, outfile=ref_tim)
+    twrite(got_toas, outfile=got_tim)
+    _assert_tim_parity(ref_tim, got_tim)
+    nsub = 1 if kw.get("tscrunch") else 3
+    assert len(got_toas) == nsub * len(files)
+    assert all((t.DM is None) == (kw.get("fit_DM") is False)
+               for t in got_toas)
+
+
+def _rel_dist(errs, ref):
+    return max(abs(errs[k] / ref[k] - 1.0) for k in errs)
+
+
+def test_fit_GM_float32_toa_errors(tmp_path, fast_config):
+    """ROADMAP C1: float32 (phi, DM, GM) fits on the forged 8-channel x
+    256-bin int16 and 4-bit archives (header DM 0), fast lane, fused,
+    window 128.  The TOA errors of GetTOAs and of the stream, in each
+    package, against the float64 complex engine's on the same subints:
+    the port's largest relative distance may exceed the JAX package's
+    own float32 one by at most 1e-3."""
+    import os
+
+    from test_torch_stream import _forge_set
+
+    from pulseportraiture_tpu.pipeline import stream as JS
+    from pulseportraiture_tpu_torch.pipeline import stream as TS
+
+    meta, files, tmpl = _forge_set(tmp_path, ("int16", "nbit4"), 0.0)
+
+    def errs(toas, lane):
+        return {(lane, os.path.basename(t.archive), t.flags["subint"]):
+                t.TOA_error for t in toas}
+
+    jcfg.use_fast_fit = tcfg.use_fast_fit = False
+    ref = {}
+    for f in files:
+        jg = JGetTOAs(f, tmpl, quiet=True)
+        jg.get_TOAs(quiet=True, fit_GM=True)
+        for lane in ("gettoas", "stream"):
+            ref.update(errs(jg.TOA_list, lane))
+    jcfg.use_fast_fit = tcfg.use_fast_fit = True
+    jcfg.fit_fused = tcfg.fit_fused = True
+    jcfg.fit_harmonic_window = tcfg.fit_harmonic_window = 128
+    dist = {}
+    for name, G, S, kw in (("jax", JGetTOAs, JS, {}),
+                           ("port", TGetTOAs, TS, {"device": "cpu"})):
+        e = {}
+        for f in files:
+            g = G(f, tmpl, quiet=True, **kw)
+            g.get_TOAs(quiet=True, fit_GM=True)
+            e.update(errs(g.TOA_list, "gettoas"))
+        e.update(errs(S.stream_wideband_TOAs(
+            files, tmpl, nsub_batch=4, quiet=True, fit_GM=True,
+            **kw).TOA_list, "stream"))
+        assert set(e) == set(ref)
+        dist[name] = _rel_dist(e, ref)
+    assert dist["port"] <= dist["jax"] + 1e-3, dist
+
+
 class TestUnportedOptionsRaise:
     """Options whose lanes are not ported are refused, never ignored."""
 
@@ -213,24 +315,44 @@ class TestUnportedOptionsRaise:
     @pytest.mark.parametrize("flag,item", [("--narrowband", "A8"),
                                            ("--stream", "A7")])
     def test_cli_lanes(self, dataset, flag, item):
-        """--narrowband is refused; --stream runs (tests/
-        test_torch_stream.py), and what it still refuses is its
+        """--narrowband and --stream run (tests/test_torch_narrowband.py,
+        tests/test_torch_stream.py); what their lanes still refuse is
+        inline zapping (the narrowband stream's zap_inline) and the
         transport codec."""
         from pulseportraiture_tpu_torch.cli.pptoas import main
+        from pulseportraiture_tpu_torch.pipeline.stream import \
+            stream_narrowband_TOAs
 
         meta, gmodel, files = dataset
-        extra = ["--transport-compress", "on"] if flag == "--stream" else []
         with pytest.raises(NotImplementedError, match=item):
-            main(["-d", files[0], "-m", gmodel, "--device", "cpu", flag]
-                 + extra)
+            if flag == "--narrowband":
+                stream_narrowband_TOAs(files[0], gmodel, device="cpu",
+                                       zap_inline=True)
+            else:
+                main(["-d", files[0], "-m", gmodel, "--device", "cpu", flag,
+                      "--transport-compress", "on"])
 
     def test_spline_template(self, tmp_path):
+        """Spline templates are read (tests/test_torch_spline.py holds
+        their portraits); a .npz that is no spline model raises."""
+        from pulseportraiture_tpu_torch.io.splmodel import (
+            SplineModel, write_spline_model)
         from pulseportraiture_tpu_torch.pipeline import TemplateModel
 
         p = tmp_path / "m.npz"
         np.savez(p, x=np.zeros(3))
-        with pytest.raises(NotImplementedError, match="A3"):
+        with pytest.raises(KeyError):
             TemplateModel(str(p), device="cpu")
+        good = tmp_path / "flat.npz"
+        write_spline_model(SplineModel(
+            "flat", "src", "data", np.linspace(0.0, 1.0, 16),
+            np.zeros((16, 0)), (np.array([1000.0, 2000.0]),
+                                np.zeros((0, 2)), 1)), str(good), quiet=True)
+        tm = TemplateModel(str(good), device="cpu")
+        assert tm.kind == "spline" and tm.nu_ref_model == 1500.0
+        np.testing.assert_array_equal(
+            tm.portrait([1100.0, 1900.0], 16),
+            np.tile(np.linspace(0.0, 1.0, 16), (2, 1)))
 
 
 # ---------------------------------------------------------------------
