@@ -74,7 +74,23 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    ``pptoas --stream --narrowband`` over the main archive and two 2-bit
    archives within 0.1 sigma of GetTOAs; and ``--narrowband --fit_scat
    --scat_guess auto`` on an 8-subint scattered archive, GetTOAs
-   against the stream within 0.1 sigma and 2 % in tau.
+   against the stream within 0.1 sigma and 2 % in tau;
+12. zap path: one int16 and two dithered 2-bit archives at the main
+   archive's widths with RFI from synth.inject_rfi (white tones on 8
+   channels, two of them also structured, one burst); ``ppzap``
+   model-less with --zap-device on and off (the same lists, every
+   injected channel flagged, at most one channel per subint beyond what
+   the cut flags on that subint's clean channels);
+   ``stream_wideband_TOAs(zap_inline=True)`` with the counters set to 0
+   just before it (B2 on the 2-bit bucket, B1 on the int16 one, FFT arms
+   only; the inline cut's device time and host syncs per bucket), its
+   cut counts equal to ppzap's, its TOAs within 1e-4 rot of the
+   injection and 0.1 sigma of the ``zap_channels=`` run, B2 held to its
+   plain version on the zapped bucket, warm TOAs/s with and without the
+   cut; ``stream_narrowband_TOAs(zap_inline=True)`` emitting no TOA for
+   a flagged channel; ``ppzap -m`` with the device lane on and off (the
+   same lists) against ``stream_wideband_TOAs(postfit_cut=True)``, equal
+   but for channels within 1e-4 of the cut.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -126,6 +142,16 @@ NB_PULL_MEAN, NB_PULL_STD = 0.05, (0.95, 1.06)
 NSUB_NB_SCAT = 8
 # a channel measures tau when its log10 error is below this [dex]
 NB_TAU_MEASURED = 1.0
+# the zap path: one int16 and NARCH_ZAP_2BIT 2-bit archives at the main
+# archive's widths (depth cut from the stream path's 9 archives to 3),
+# white RFI tones of ZAP_WHITE x the median channel noise on ZAP_TONES,
+# ZAP_STRUCTURED of them also a structured ZAP_STRUCT x tone, and one
+# broadband burst (subint, channels, strength)
+NARCH_ZAP_2BIT = 2
+ZAP_TONES = (37, 101, 160, 222, 290, 333, 401, 470)
+ZAP_STRUCTURED = (101, 333)
+ZAP_WHITE, ZAP_STRUCT = 8.0, 60.0
+ZAP_BURST = (1, (250, 251, 252, 253), 20.0)
 
 
 def log(msg):
@@ -1714,6 +1740,406 @@ def phase_narrowband(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
     return launches
 
 
+def zap_archives(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN):
+    """The zap path's campaign: one int16 and NARCH_ZAP_2BIT dithered
+    2-bit archives with the main path's injection (each its own epoch
+    and noise draw), RFI injected by synth.inject_rfi: white tones on
+    ZAP_TONES (ZAP_WHITE x the median channel noise), ZAP_STRUCTURED of
+    them also structured (ZAP_STRUCT x), and one burst (ZAP_BURST).  The
+    injector writes 16 bits, so the 2-bit archives are re-quantized
+    after it with io.psrfits.write_archive_file(nbit=2, dither=rng).
+    Returns (metafile, [int16, 2-bit...], .gmodel, {path: zap_truth})."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.io.psrfits import (read_archive,
+                                                       write_archive_file)
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  inject_rfi,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    model = default_test_model(1500.0)
+    files, truths = [], {}
+    white_only = [c for c in ZAP_TONES if c not in ZAP_STRUCTURED]
+    for i in range(1 + NARCH_ZAP_2BIT):
+        nbit = 16 if i == 0 else 2
+        path = os.path.join(WORK, f"zap-{nbit}bit-{i}.fits")
+        make_fake_pulsar(model, PAR, outfile=path, nsub=nsub, nchan=nchan,
+                         nbin=nbin, nu0=1500.0, bw=800.0, tsub=60.0,
+                         phase=PHI_INJ, dDM=DDM_INJ,
+                         start_MJD=MJD(55300 + i, 0.1), noise_stds=1.0,
+                         dedispersed=False, quiet=True,
+                         rng=np.random.default_rng(SEED + 50 + i),
+                         device=device)
+        a = inject_rfi(path, tone_channels=white_only, tone_white=ZAP_WHITE,
+                       rng=SEED + 60 + i)
+        b = inject_rfi(path, tone_channels=ZAP_STRUCTURED,
+                       tone_white=ZAP_WHITE, tone_structured=ZAP_STRUCT,
+                       bursts=[ZAP_BURST], rng=SEED + 70 + i)
+        if nbit == 2:
+            write_archive_file(path, read_archive(path), nbit=2,
+                               dither=np.random.default_rng(SEED + 80 + i))
+        truths[path] = [sorted(set(x) | set(y))
+                        for x, y in zip(a.zap_truth, b.zap_truth)]
+        files.append(path)
+    meta = os.path.join(WORK, "zap_meta.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return meta, files, os.path.join(WORK, "model.gmodel"), truths
+
+
+def run_ppzap(args, label):
+    """``python -m pulseportraiture_tpu_torch.cli.ppzap args --modify -o
+    file`` in this process; returns (wall seconds, {archive: [subint]
+    [channels]} parsed from the paz commands, the command file's text)."""
+    out = os.path.join(WORK, "paz.sh")
+    argv = sys.argv
+    sys.argv = ["ppzap"] + list(args) + ["--modify", "-o", out, "--quiet"]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("pulseportraiture_tpu_torch.cli.ppzap",
+                         run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise RuntimeError(f"{label} exited with {e.code!r}")
+    finally:
+        sys.argv = argv
+    wall = time.perf_counter() - t0
+    lists = {}
+    with open(out) as f:
+        text = f.read()
+    for line in text.splitlines():
+        tok = line.split()  # paz -m -I -z <chan> -w <subint> <archive>
+        lists.setdefault(tok[-1], {}).setdefault(int(tok[6]), []).append(
+            int(tok[4]))
+    return wall, lists, text
+
+
+def postfit_margins(rchi2, snr, snr_tot, okc, SNR_threshold=8.0,
+                    rchi2_threshold=1.3):
+    """Per channel, the relative distance of its reduced chi^2 to the
+    post-fit cut's final chi^2 threshold and of its S/N to the S/N
+    floor, whichever is smaller (quality.postfit.postfit_cut_np's rounds,
+    keeping the thresholds)."""
+    import numpy as np
+
+    nsub, nchan = rchi2.shape
+    nchx = np.maximum(okc.sum(axis=1), 1.0)
+    floor = np.where(np.isfinite(snr_tot),
+                     np.sqrt(np.maximum(snr_tot, 0.0) ** 2 / nchx),
+                     SNR_threshold)
+    floor = np.minimum(SNR_threshold, floor)
+    out = np.full((nsub, nchan), np.inf)
+    for i in range(nsub):
+        oi = np.flatnonzero(okc[i])
+        if not oi.size:
+            continue
+        bad = np.zeros(nchan, bool)
+        cut = rchi2_threshold
+        for _ in range(8):
+            new_bad = okc[i] & ((rchi2[i] > cut) | (snr[i] < floor[i]))
+            if np.array_equal(new_bad, bad):
+                break
+            bad = new_bad
+            good = oi[~bad[oi]]
+            if not good.size:
+                break
+            cut = max(rchi2_threshold, float(np.median(rchi2[i, good])) * 3)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            out[i] = np.minimum(np.abs(rchi2[i] / cut - 1.0),
+                                np.abs(snr[i] / floor[i] - 1.0))
+    return out
+
+
+def cut_profile(cut, args):
+    """One bucket's inline cut again, warm, under torch.profiler: the
+    device time of its kernels against its CUDA-event span and its host
+    wall (the cut launches ~20 small kernels a pass)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cut(*args)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        a.record()
+        cut(*args)
+        b.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, rows = profile_rows(prof)
+    log(f"zap path inline cut alone (warm, {tuple(args[0].shape)} noise "
+        f"rows): kernels {busy_ms:.3f} ms of a {a.elapsed_time(b):.3f} ms "
+        f"event span, {wall_ms:.3f} ms host wall, {sum(r[2] for r in rows)}"
+        f" device ops (profiler on); top: "
+        + "; ".join(f"{us / 1e3:.3f} ms x{n} {key[:40]}"
+                    for us, key, n in rows[:4]))
+
+
+def phase_zap(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
+              nsub_batch=NSUB_BATCH):
+    """The zap path (phase 12) on an int16 and two 2-bit archives with
+    RFI (zap_archives):
+    1. ``ppzap`` model-less with --zap-device on and off: the same
+       lists; every injected white channel flagged, and per subint at
+       most one channel more than the same cut flags on that subint's
+       clean channels alone;
+    2. ``stream_wideband_TOAs(zap_inline=True)``, the counters set to 0
+       just before it and read just after (on CUDA: B2 on the 2-bit
+       bucket and B1 on the int16 bucket, FFT arms only), the inline
+       cut's device time (CUDA events on the fit worker's stream) and
+       host syncs per bucket; its per-archive cut counts equal to the
+       model-less lists', every TOA within 1e-4 rot of the injection
+       with return codes in {0, 1, 2}, and within 0.1 sigma of the run
+       with ``zap_channels=`` those lists; B2 held to its plain version
+       on the zapped 2-bit bucket; warm TOAs/s with and without the cut;
+    3. ``stream_narrowband_TOAs(zap_inline=True)`` on the int16 archive:
+       no TOA for a flagged channel;
+    4. ``ppzap -m`` (GetTOAs + get_channels_to_zap) with the device lane
+       on and off: the same lists; ``stream_wideband_TOAs(postfit_cut=
+       True).postfit_zaps`` equal to them except channels whose reduced
+       chi^2 or S/N lies within 1e-4 (relative) of the cut.
+    Returns the counters of run 2."""
+    import numpy as np
+    import torch
+    from pulseportraiture_tpu_torch.io.psrfits import load_data
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline import stream as S
+    from pulseportraiture_tpu_torch.quality import excision as E
+    from pulseportraiture_tpu_torch.quality import postfit as Q
+
+    cuda = device_type(device) == "cuda"
+    t0 = time.perf_counter()
+    meta, files, gmodel, truths = zap_archives(device, nsub, nchan, nbin)
+    log(f"zap archives: 1 int16 + {NARCH_ZAP_2BIT} 2-bit (dithered) x "
+        f"{nsub}x{nchan}x{nbin}, white tones x{ZAP_WHITE} on {ZAP_TONES} "
+        f"(structured x{ZAP_STRUCT} on {ZAP_STRUCTURED}), burst {ZAP_BURST}"
+        f", written in {time.perf_counter() - t0:.2f} s")
+
+    # 1. model-less ppzap, the torch lane on and off
+    wall_on, zl_on, text_on = run_ppzap(
+        ["-d", meta, "--device", device, "--zap-device", "on"], "ppzap")
+    wall_off, zl_off, text_off = run_ppzap(
+        ["-d", meta, "--device", device, "--zap-device", "off"], "ppzap")
+    if text_on != text_off:
+        raise AssertionError("ppzap --zap-device on and off flagged "
+                             "different channels")
+    lists = {f: [sorted(zl_on.get(f, {}).get(s, [])) for s in range(nsub)]
+             for f in files}
+    extras, worst_excess = [], 0
+    for f in files:
+        d = load_data(f, dedisperse=False, dededisperse=True, pscrunch=True,
+                      quiet=True)
+        noise = d.noise_stds[:, 0]
+        for s in range(nsub):
+            truth, got = set(truths[f][s]), set(lists[f][s])
+            if not truth <= got:
+                raise AssertionError(f"ppzap missed injected channels "
+                                     f"{sorted(truth - got)} of {f} subint "
+                                     f"{s}")
+            clean = d.weights[s] > 0
+            clean[sorted(truth)] = False
+            k, _ = E.zap_keep_np(noise[s][None], clean[None], 3.0)
+            null = int(clean.sum() - k.sum())
+            extras.append(len(got - truth))
+            worst_excess = max(worst_excess, len(got - truth) - null)
+    if worst_excess > 1:
+        raise AssertionError(f"ppzap flagged {worst_excess} channels more "
+                             "than the cut flags on a subint's clean "
+                             "channels (limit 1)")
+    log(f"zap path (ppzap, model-less): {sum(map(len, truths[files[0]]))} "
+        f"injected (subint, channel) cells per archive all flagged; "
+        f"--zap-device on {wall_on:.3f} s, off {wall_off:.3f} s wall incl. "
+        f"load, same lists; extra channels per subint "
+        f"{np.bincount(extras).tolist()} (count of subints with 0, 1, ...)"
+        f"; at most {worst_excess} more than the cut flags on the clean "
+        f"channels alone (limit 1)")
+
+    # 2. the inline cut through the stream, instrumented
+    nzap, rcs = {}, []
+    orig_assemble = S._assemble_archive
+
+    def assemble(m, results, *a, **k):
+        rows = [results[(m.iarch, int(i))] for i in m.ok
+                if (m.iarch, int(i)) in results]
+        if rows and "nzap" in rows[0]:
+            nzap[m.datafile] = sum(int(r["nzap"]) for r in rows)
+        rcs.extend(int(r["return_code"]) for r in rows)
+        return orig_assemble(m, results, *a, **k)
+
+    orig_cut, orig_b2 = E.zap_keep_mask, F.fused_decode_cross_spectrum
+    events, b2_args, cut_args = [], [], []
+
+    def cut(*a, **k):
+        if not cut_args:
+            cut_args.append((a[0].clone(), a[1].clone()) + tuple(a[2:]))
+        if not cuda:
+            return orig_cut(*a, **k)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_cut(*a, **k)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def b2(raw, scl, offs, model, w, nharm, **k):
+        if not b2_args:
+            b2_args.append(dict(raw=raw.clone(), scl=scl.clone(),
+                                offs=offs.clone(), model=model.clone(),
+                                w=w.clone(), K=nharm, **k))
+        return orig_b2(raw, scl, offs, model, w, nharm, **k)
+
+    S._assemble_archive, E.zap_keep_mask = assemble, cut
+    F.fused_decode_cross_spectrum = b2
+    E.reset_zap_stats()
+    F.reset_kernel_launches()
+    try:
+        t0 = time.perf_counter()
+        inline = S.stream_wideband_TOAs(meta, gmodel, nsub_batch=nsub_batch,
+                                        zap_inline=True, print_phase=True,
+                                        device=device, quiet=True)
+        sync(device)
+        inline_s = time.perf_counter() - t0
+        launches = F.kernel_launches()
+    finally:
+        S._assemble_archive, E.zap_keep_mask = orig_assemble, orig_cut
+        F.fused_decode_cross_spectrum = orig_b2
+    stats = E.zap_stats()
+    ntoa = len(files) * nsub
+    log(f"zap path (stream_wideband_TOAs zap_inline, first use): {ntoa} "
+        f"TOAs in {inline_s:.3f} s wall; kernel launches {launches}")
+    counts = {f: sum(map(len, lists[f])) for f in files}
+    if nzap != counts:
+        raise AssertionError(f"inline cut counts {nzap} != ppzap's {counts}")
+    if len(inline.TOA_list) != ntoa or not set(rcs) <= {0, 1, 2}:
+        raise AssertionError(f"{len(inline.TOA_list)} inline TOAs for "
+                             f"{ntoa}; return codes {sorted(set(rcs))}")
+    worst = max(abs((t.flags["phs"] - expected_phase(t.frequency) + 0.5)
+                    % 1.0 - 0.5) for t in inline.TOA_list)
+    if not worst < 1e-4:
+        raise AssertionError(f"zap path phase recovery |dphi| = "
+                             f"{worst:.3e} rot >= 1e-4")
+    if cuda:
+        fft_only(launches, ("fused_decode_cross_spectrum",
+                            "fused_cross_spectrum"), "the zap path")
+        dev_ms = [a.elapsed_time(b) for a, b in events]
+        log(f"zap path inline cut: {stats['calls']} buckets, device "
+            f"{', '.join(f'{x:.3f}' for x in dev_ms)} ms per bucket (CUDA "
+            f"events on the fit worker's stream: the span from the cut's "
+            f"first kernel to its last), {stats['passes']} passes, "
+            f"{stats['syncs']} host syncs "
+            f"({stats['syncs'] / stats['calls']:.1f} per bucket, an exit "
+            f"test every {E.ZAP_CHECK_EVERY} passes)")
+        cut_profile(orig_cut, cut_args[0])
+    log(f"zap path inline: per-archive cut counts {list(nzap.values())} "
+        f"equal ppzap's; max |dphi| {worst:.3e} rot over {ntoa} TOAs "
+        f"(limit 1e-4); return codes {sorted(set(rcs))}")
+
+    t0 = time.perf_counter()
+    offline = S.stream_wideband_TOAs(meta, gmodel, nsub_batch=nsub_batch,
+                                     zap_channels=lists, device=device,
+                                     quiet=True)
+    sync(device)
+    offline_s = time.perf_counter() - t0
+    ref = {(t.archive, t.flags["subint"]): t for t in offline.TOA_list}
+    offs = [toa_sigma_offset(ref[(t.archive, t.flags["subint"])], t)
+            for t in inline.TOA_list]
+    if len(offs) != ntoa or not max(offs) <= 0.1:
+        raise AssertionError(f"inline vs zap_channels: {len(offs)} TOAs, "
+                             f"max {max(offs):.3f} sigma (limit 0.1)")
+    timed = {"without the cut": [], "zap_inline": []}
+    for label in ("without the cut", "zap_inline", "zap_inline",
+                  "without the cut"):
+        t0 = time.perf_counter()
+        S.stream_wideband_TOAs(meta, gmodel, nsub_batch=nsub_batch,
+                               device=device, quiet=True,
+                               zap_inline=label == "zap_inline")
+        sync(device)
+        timed[label].append(time.perf_counter() - t0)
+    log(f"zap path inline vs zap_channels= (offline lists, {offline_s:.3f} "
+        f"s): max |dTOA| {max(offs):.4f} sigma over {ntoa} TOAs (limit 0.1)"
+        f"; warm stream (host clock, runs in the order without, with, "
+        f"with, without) "
+        + ", ".join(f"{k} " + " / ".join(f"{ntoa / v:.1f}" for v in ts)
+                    + " TOAs/s" for k, ts in timed.items()))
+    if cuda:
+        check_decode_case(dict(b2_args[0], name="zapped 2-bit bucket "
+                               f"{tuple(b2_args[0]['raw'].shape)}",
+                               arm=None))
+        w = b2_args[0]["w"]
+        dead = int(((w == 0).all(dim=-1)).sum())
+        log(f"zap path B2 bucket: {dead} zero-weight (subint, channel) "
+            f"rows reach B2 (zapped or weight-0), its bytes unchanged")
+
+    # 3. the narrowband stream's inline cut on the int16 archive
+    t0 = time.perf_counter()
+    nb = S.stream_narrowband_TOAs(files[0], gmodel, device=device,
+                                  quiet=True, zap_inline=True)
+    sync(device)
+    got = {(t.flags["subint"], t.flags["chan"]) for t in nb.TOA_list}
+    d = load_data(files[0], pscrunch=True, quiet=True)
+    want = {(s, c) for s in range(nsub) for c in d.ok_ichans[s]
+            if c not in lists[files[0]][s]}
+    if got != want:
+        raise AssertionError(f"narrowband inline: {len(got)} TOAs, "
+                             f"{len(got - want)} unexpected, "
+                             f"{len(want - got)} missing")
+    log(f"zap path narrowband (zap_inline): {len(got)} TOAs in "
+        f"{time.perf_counter() - t0:.3f} s, none for the "
+        f"{counts[files[0]]} flagged channels")
+
+    # 4. the model-based cut: ppzap -m, the device lane on and off
+    captured = []
+    orig_np = Q.postfit_cut_np
+
+    def capture(*a, **k):
+        captured.append(tuple(np.array(x) for x in a[:4]))
+        return orig_np(*a, **k)
+
+    Q.postfit_cut_np = capture
+    try:
+        wall_off, pl_off, text_off = run_ppzap(
+            ["-d", meta, "-m", gmodel, "--device", device, "--zap-device",
+             "off"], "ppzap -m")
+    finally:
+        Q.postfit_cut_np = orig_np
+    wall_on, pl_on, text_on = run_ppzap(
+        ["-d", meta, "-m", gmodel, "--device", device, "--zap-device", "on"],
+        "ppzap -m")
+    if text_on != text_off:
+        raise AssertionError("ppzap -m --zap-device on and off flagged "
+                             "different channels")
+    t0 = time.perf_counter()
+    pf = S.stream_wideband_TOAs(meta, gmodel, nsub_batch=nsub_batch,
+                                postfit_cut=True, device=device, quiet=True)
+    sync(device)
+    pf_s = time.perf_counter() - t0
+    n_flag = n_diff = n_border = 0
+    for f, (rchi2, snr, snr_tot, okc) in zip(files, captured):
+        margin = postfit_margins(rchi2, snr, snr_tot, okc)
+        for s in range(nsub):
+            a = set(pl_on.get(f, {}).get(s, []))
+            b = set(pf.postfit_zaps[f].get(s, []))
+            n_flag += len(a)
+            for c in a ^ b:
+                n_diff += 1
+                if not margin[s, c] < 1e-4:
+                    raise AssertionError(
+                        f"postfit_cut vs ppzap -m: {f} subint {s} channel "
+                        f"{c} differs {margin[s, c]:.2e} from the cut "
+                        "(limit 1e-4)")
+                n_border += 1
+    log(f"zap path model-based (ppzap -m): {n_flag} (subint, channel) "
+        f"cells flagged, --zap-device on {wall_on:.3f} s, off "
+        f"{wall_off:.3f} s wall, same lists; stream postfit_cut "
+        f"({pf_s:.3f} s) differs in {n_diff} cells, {n_border} of them "
+        f"within 1e-4 of the cut (allowed)")
+    return launches
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -1793,6 +2219,9 @@ def main():
     nb_total = {k: sum(c[k] for c in nb_launches.values())
                 for k in ("fused_cross_spectrum",
                           "fused_decode_cross_spectrum")}
+    t0 = time.perf_counter()
+    zap_launches = phase_zap()
+    log(f"phase zap path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -1817,7 +2246,8 @@ def main():
             "spline_main": spl_launches["main"]["fused_cross_spectrum"],
             "spline_stream": spl_launches["stream"][
                 "fused_cross_spectrum"],
-            "narrowband": nb_total["fused_cross_spectrum"]},
+            "narrowband": nb_total["fused_cross_spectrum"],
+            "zap": zap_launches["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {
@@ -1842,7 +2272,8 @@ def main():
             "scattering": scat_launches["fused_decode_cross_spectrum"],
             "spline_stream": spl_launches["stream"][
                 "fused_decode_cross_spectrum"],
-            "narrowband": nb_total["fused_decode_cross_spectrum"]},
+            "narrowband": nb_total["fused_decode_cross_spectrum"],
+            "zap": zap_launches["fused_decode_cross_spectrum"]},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

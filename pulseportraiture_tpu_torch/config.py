@@ -5,6 +5,10 @@ lanes read (the fast fit, the scattering fits, the complex engine, the
 stream's raw transport), with the same defaults.  A tri-state whose ``'auto'``
 arm meant "on a TPU" there means "on a CUDA device" here
 (device.resolve_auto).
+
+The PPT_* environment hooks (:func:`env_overrides`) are applied once at
+import, as in the JAX package; a script that sets its own defaults calls
+env_overrides() again afterwards so the environment wins.
 """
 
 # --- Dispersion constant [MHz^2 s cm^3 / pc] ------------------------------
@@ -93,3 +97,254 @@ harmonic_window_tail = 1e-12
 # clear this many sigma of the template's own white-noise floor.
 # None or 0 disables floor awareness.
 harmonic_window_floor_sigma = 20.0
+
+# --- Channel zapping (quality/, pipeline/zap.py) -------------------------
+# Route the median-algorithm zap statistics (pipeline/zap.py,
+# quality/excision.py) through the batched torch cut on the device, every
+# subint of an archive at once.  'auto' = on CUDA devices; True/False
+# force.  The host lane (the reference loop vectorized in numpy) is the
+# oracle: the masked median is exact on both, the std agrees to ~1 ulp
+# of accumulation, and the flagged lists are gated equal by the tests.
+zap_device = "auto"
+
+# Threshold [standard deviations] of the median-algorithm channel cut
+# (the reference's nstd=3): a channel whose noise level exceeds
+# median + zap_nstd*std of the surviving channels is flagged,
+# iteratively.  Shared by ppzap and the stream drivers' zap_inline.
+zap_nstd = 3.0
+
+
+# --- Environment hooks ----------------------------------------------------
+# One A/B switch per knob, applied once at import (env_overrides):
+#
+#   PPT_FIT_FUSED=off|auto|on       -> fit_fused
+#   PPT_FUSED_BLOCK=<N>             -> fused_block
+#   PPT_XSPEC=float32|bfloat16      -> cross_spectrum_dtype
+#   PPT_DFT_PRECISION=highest|high|default -> dft_precision
+#   PPT_DFT_FOLD=off|auto|on        -> dft_fold
+#   PPT_ZAP_DEVICE=off|auto|on      -> zap_device
+#   PPT_ZAP_NSTD=<float>            -> zap_nstd
+#   PPT_STREAM_DEVICES=auto|<N>     -> stream_devices
+#   PPT_MAX_INFLIGHT=<N>            -> stream_max_inflight
+#   PPT_PIPELINE_DEPTH=<N>          -> stream_pipeline_depth
+#   PPT_BUCKET_PAD=off|auto|on      -> bucket_pad
+#   PPT_RAW_SUBBYTE=on|off          -> raw_subbyte
+#
+# Unset variables leave the module values untouched; a bad value of a
+# hooked variable raises ValueError (a silent fallback would quietly
+# invalidate an A/B run).  The JAX package reads more PPT_* variables
+# (KNOWN_PPT_ENV) whose knobs the port does not have yet: each warns once
+# with the ROADMAP item that brings it (UNPORTED_PPT_ENV).  Any other
+# PPT_*-prefixed name warns once as unrecognized, with the closest known
+# name.
+
+# Every PPT_* variable the JAX package reads: its config hooks plus its
+# benchmark and smoke-test shape knobs.
+KNOWN_PPT_ENV = frozenset({
+    "PPT_LM_JACOBIAN", "PPT_FIT_FUSED",
+    "PPT_FIT_PALLAS", "PPT_FUSED_BLOCK",
+    "PPT_XSPEC", "PPT_DFT_PRECISION", "PPT_DFT_FOLD",
+    "PPT_ALIGN_DEVICE", "PPT_GAUSS_DEVICE",
+    "PPT_GLS_DEVICE", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD",
+    "PPT_QUALITY_REFIT", "PPT_QUALITY_MAX_GOF", "PPT_QUALITY_MIN_SNR",
+    "PPT_STREAM_DEVICES", "PPT_MAX_INFLIGHT",
+    "PPT_PIPELINE_DEPTH", "PPT_COMPILE_CACHE", "PPT_TELEMETRY",
+    "PPT_SERVE_MAX_WAIT_MS", "PPT_SERVE_QUEUE_DEPTH", "PPT_BUCKET_PAD",
+    "PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS",
+    "PPT_ALERT_CUSUM_K", "PPT_ALERT_CUSUM_H", "PPT_GLS_RESOLVE_EVERY",
+    "PPT_ROUTER_HOSTS", "PPT_ROUTER_RETRY_MAX", "PPT_SERVE_LISTEN",
+    "PPT_ROUTER_PROBE_MS", "PPT_ROUTER_HEDGE_MS",
+    "PPT_ROUTER_FLEET_FILE", "PPT_SERVE_TENANT_QUOTA",
+    "PPT_SERVE_TENANT_WEIGHT",
+    "PPT_RAW_SUBBYTE", "PPT_TRANSPORT_COMPRESS",
+    "PPT_RESULT_CACHE", "PPT_CACHE_DIR", "PPT_CACHE_MAX_MB",
+    "PPT_TUNE_DB", "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS",
+    "PPT_METRICS", "PPT_SLO_TARGETS", "PPT_MON_INTERVAL_MS",
+    # benchmark / smoke-test shape and mode knobs
+    "PPT_NB", "PPT_NE", "PPT_NPSR", "PPT_NARCH", "PPT_NSUB",
+    "PPT_NSUBB", "PPT_NCHAN", "PPT_NBIN", "PPT_NITER", "PPT_K",
+    "PPT_NREQ", "PPT_NHOSTS", "PPT_DEVICES", "PPT_CAMPAIGN_CACHE",
+    "PPT_ALIGN_CACHE",
+    "PPT_GAUSS_CACHE", "PPT_NGAUSS",
+    "PPT_TEMPLATE_NOISE", "PPT_STREAM_SPEEDUP_GATE",
+    "PPT_HARMONIC_WINDOW", "PPT_TUNNEL_EMU", "PPT_RETUNE",
+    "PPT_ZIPF_S", "PPT_CACHE_SPEEDUP_GATE",
+    "PPT_NSEEDS", "PPT_INGEST_P99_GATE",
+    "PPT_TUNE_NRUN", "PPT_SLOW_MS", "PPT_OBS_OVERHEAD_GATE",
+})
+
+# The hooks env_overrides applies here.
+HOOKED_PPT_ENV = frozenset({
+    "PPT_FIT_FUSED", "PPT_FUSED_BLOCK", "PPT_XSPEC", "PPT_DFT_PRECISION",
+    "PPT_DFT_FOLD", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD", "PPT_STREAM_DEVICES",
+    "PPT_MAX_INFLIGHT", "PPT_PIPELINE_DEPTH", "PPT_BUCKET_PAD",
+    "PPT_RAW_SUBBYTE"})
+
+
+def _unported_ppt_env():
+    """{KNOWN_PPT_ENV name without a hook here: why, and its ROADMAP
+    item}."""
+    why = {}
+    for name in ("PPT_LM_JACOBIAN", "PPT_GAUSS_DEVICE"):
+        why[name] = "template building (ROADMAP A9)"
+    why["PPT_ALIGN_DEVICE"] = "align (ROADMAP A10)"
+    for name in ("PPT_GLS_DEVICE", "PPT_GLS_RESOLVE_EVERY"):
+        why[name] = "timing (ROADMAP A11)"
+    why["PPT_TRANSPORT_COMPRESS"] = "the transport codec (ROADMAP A7)"
+    why["PPT_FIT_PALLAS"] = (
+        "the JAX package's Pallas mode; the port's kernels run wherever "
+        "fit_fused resolves on (PPT_FIT_FUSED)")
+    why["PPT_COMPILE_CACHE"] = (
+        "the JAX compilation cache; eager PyTorch compiles no programs "
+        "(ROADMAP A5)")
+    for name in ("PPT_QUALITY_REFIT", "PPT_QUALITY_MAX_GOF",
+                 "PPT_QUALITY_MIN_SNR", "PPT_TELEMETRY",
+                 "PPT_SERVE_MAX_WAIT_MS", "PPT_SERVE_QUEUE_DEPTH",
+                 "PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS",
+                 "PPT_ALERT_CUSUM_K", "PPT_ALERT_CUSUM_H",
+                 "PPT_ROUTER_HOSTS", "PPT_ROUTER_RETRY_MAX",
+                 "PPT_SERVE_LISTEN", "PPT_ROUTER_PROBE_MS",
+                 "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE",
+                 "PPT_SERVE_TENANT_QUOTA", "PPT_SERVE_TENANT_WEIGHT",
+                 "PPT_RESULT_CACHE", "PPT_CACHE_DIR", "PPT_CACHE_MAX_MB",
+                 "PPT_TUNE_DB", "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS",
+                 "PPT_METRICS", "PPT_SLO_TARGETS", "PPT_MON_INTERVAL_MS"):
+        why[name] = "the serving and operations plane (ROADMAP A13)"
+    for name in KNOWN_PPT_ENV - HOOKED_PPT_ENV - set(why):
+        why[name] = ("a shape knob of the JAX package's benchmarks; the "
+                     "port's bench is ROADMAP A5")
+    return why
+
+
+UNPORTED_PPT_ENV = _unported_ppt_env()
+
+_warned_ppt = set()  # warn ONCE per process per variable
+
+_TRISTATE = {"off": False, "false": False, "auto": "auto", "on": True,
+             "true": True}
+_ONOFF = {"off": False, "false": False, "on": True, "true": True}
+
+
+def _warn_ppt_vars(environ):
+    """Warn (once, stderr) about PPT_* variables the port reads nothing
+    from: known JAX-package hooks without a knob here (with their
+    ROADMAP item) and unrecognized names (with the closest known one)."""
+    import difflib
+    import sys as _sys
+
+    for name in sorted(environ):
+        if (not name.startswith("PPT_") or name in HOOKED_PPT_ENV
+                or name in _warned_ppt):
+            continue
+        _warned_ppt.add(name)
+        if name in UNPORTED_PPT_ENV:
+            print(f"pulseportraiture_tpu_torch.config: ignoring {name}, "
+                  f"which the port does not read yet: "
+                  f"{UNPORTED_PPT_ENV[name]}", file=_sys.stderr)
+            continue
+        close = difflib.get_close_matches(name, KNOWN_PPT_ENV, n=1)
+        hint = f" (did you mean {close[0]}?)" if close else ""
+        print(f"pulseportraiture_tpu_torch.config: ignoring unrecognized "
+              f"environment variable {name}{hint} -- known PPT_* hooks "
+              "are listed in config.KNOWN_PPT_ENV", file=_sys.stderr)
+
+
+def _table(environ, name, table, what):
+    val = environ.get(name, "").lower()
+    if not val:
+        return None
+    if val not in table:
+        raise ValueError(f"{name} must be {what}, got {val!r}")
+    return (table[val],)
+
+
+def _int_env(environ, name, what):
+    raw = environ.get(name, "")
+    if not raw:
+        return None
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be {what}, got {raw!r}")
+    return n
+
+
+def env_overrides():
+    """Apply the PPT_* environment hooks to this module (the JAX
+    package's env_overrides for the knobs the port has, with its
+    ValueErrors); returns the names of the knobs it set."""
+    import os as _os
+    import sys as _sys
+
+    cfg = _sys.modules[__name__]
+    env = _os.environ
+    changed = []
+
+    def put(attr, val):
+        if val is not None:
+            setattr(cfg, attr, val[0])
+            changed.append(attr)
+
+    _warn_ppt_vars(env)
+    put("fit_fused", _table(env, "PPT_FIT_FUSED", _TRISTATE,
+                            "'off', 'auto' or 'on'"))
+    n = _int_env(env, "PPT_FUSED_BLOCK",
+                      "a positive integer channel block size")
+    if n is not None:
+        if not n > 0:
+            raise ValueError(f"PPT_FUSED_BLOCK must be > 0, got {n}")
+        put("fused_block", (n,))
+    put("cross_spectrum_dtype", _table(
+        env, "PPT_XSPEC", {"float32": None, "none": None,
+                           "bfloat16": "bfloat16"},
+        "'float32' or 'bfloat16'"))
+    put("dft_precision", _table(
+        env, "PPT_DFT_PRECISION",
+        {v: v for v in ("highest", "high", "default")},
+        "'highest', 'high' or 'default'"))
+    put("dft_fold", _table(env, "PPT_DFT_FOLD", _TRISTATE,
+                           "'off', 'auto' or 'on'"))
+    put("zap_device", _table(env, "PPT_ZAP_DEVICE", _TRISTATE,
+                             "'off', 'auto' or 'on'"))
+    znstd = env.get("PPT_ZAP_NSTD", "")
+    if znstd:
+        try:
+            v = float(znstd)
+        except ValueError:
+            raise ValueError(
+                "PPT_ZAP_NSTD must be a positive number of standard "
+                f"deviations, got {znstd!r}")
+        if not v > 0:
+            raise ValueError(f"PPT_ZAP_NSTD must be > 0, got {v}")
+        put("zap_nstd", (v,))
+    sdev = env.get("PPT_STREAM_DEVICES", "").lower()
+    if sdev:
+        if sdev == "auto":
+            put("stream_devices", ("auto",))
+        else:
+            try:
+                n = int(sdev)
+            except ValueError:
+                raise ValueError(
+                    "PPT_STREAM_DEVICES must be 'auto' or a positive "
+                    f"device count, got {sdev!r}")
+            if n < 1:
+                raise ValueError(
+                    "PPT_STREAM_DEVICES must be >= 1 when numeric, "
+                    f"got {n}")
+            put("stream_devices", (n,))
+    for name, attr in (("PPT_MAX_INFLIGHT", "stream_max_inflight"),
+                       ("PPT_PIPELINE_DEPTH", "stream_pipeline_depth")):
+        n = _int_env(env, name, "a positive integer")
+        if n is not None:
+            if n < 1:
+                raise ValueError(f"{name} must be >= 1, got {n}")
+            put(attr, (n,))
+    put("bucket_pad", _table(env, "PPT_BUCKET_PAD", _TRISTATE,
+                             "'off', 'auto' or 'on'"))
+    put("raw_subbyte", _table(env, "PPT_RAW_SUBBYTE", _ONOFF,
+                              "'on' or 'off'"))
+    return changed
+
+
+env_overrides()

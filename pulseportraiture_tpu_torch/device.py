@@ -25,6 +25,7 @@ KNOB_POLARITY = {
     "dft_fold": "not_cuda",  # fold-symmetry half-length DFT
     "bucket_pad": "cuda",   # stream bucket channel-count coarsening
     "device_f32": "cuda",   # the complex engine runs float64 as float32
+    "zap_device": "cuda",   # the batched torch zap cut (quality/excision)
 }
 
 

@@ -36,9 +36,17 @@ stream_narrowband_TOAs runs the same executor with a per-channel lane:
 one TOA per usable channel (fit.phase_shift, or with fit_scat the
 complex engine over single-channel portraits).
 
+Channel zapping and the post-fit quality cut (quality/): with
+``zap_inline`` the raw bucket program cuts channels on the noise levels
+it computed (quality.excision.zap_keep_mask) before the S/N, the nu_fit
+seed and the fit (B1 or B2) read the mask, and the decoded lane cuts at
+prepare; ``zap_channels`` applies offline lists at load
+(quality.zap_bunch); ``postfit_cut`` appends each bucket's per-channel
+post-fit bad mask (quality.postfit) to its packed result.
+
 Not ported yet, and refused with NotImplementedError naming the
-ROADMAP item: the transport codec (A7), inline zapping and the post-fit
-cut (A8), telemetry (A13), and the executor's service mode (A13).
+ROADMAP item: the transport codec (A7), telemetry (A13), and the
+executor's service mode (A13).
 """
 
 import concurrent.futures as cf
@@ -687,12 +695,20 @@ def _raw_decode(raw, scl, offs, nbin, ft, redisp=False, redisp_turns=None,
     return x
 
 
-def _raw_stats(x, cmask, freqs, ft):
+def _raw_noise(x, ft):
+    """Power-spectrum noise of every decoded row, clamped to tiny."""
+    return torch.clamp(get_noise_PS(x), min=torch.finfo(ft).tiny)
+
+
+def _raw_stats(x, cmask, freqs, ft, noise=None):
     """Stage 2 of a raw bucket: power-spectrum noise, equivalent-width
     S/N, and the S/N-weighted nu_fit seed (host mirror:
-    pipeline.toas.snr_weighted_nu_fit).  Returns (noise, snr, nu_fit)."""
-    tiny = torch.finfo(ft).tiny
-    noise = torch.clamp(get_noise_PS(x), min=tiny)
+    pipeline.toas.snr_weighted_nu_fit).  Returns (noise, snr, nu_fit).
+    ``noise`` given lets the inline zap reuse the noise it cut on while
+    the S/N and nu_fit derive from the post-zap mask, the order an
+    offline-zapped archive's load gives."""
+    if noise is None:
+        noise = _raw_noise(x, ft)
     snr = get_SNR(x, noise) * cmask
     w_nf = torch.clamp(snr, min=0.0) * freqs[None, :] ** -2.0
     den = torch.sum(w_nf * freqs[None, :] ** -2.0, dim=1)
@@ -703,11 +719,42 @@ def _raw_stats(x, cmask, freqs, ft):
     return noise, snr, nu_fit
 
 
+def _postfit_bad_mask(x, r, noise, cmask, modelx, freqs, Ps, dfs, bary,
+                      fit_DM, nbin):
+    """The stream's twin of GetTOAs.get_channels_to_zap's per-subint
+    residual (reference pptoas.py:1266-1343) over a whole bucket: the
+    model rotated onto the dispersed data at each subint's fitted (phi,
+    DM) in one batched call, scaled per channel, the per-channel reduced
+    chi^2, and the iterative cut (quality.postfit.postfit_cut_mask).
+    Returns the (nb, nchan) bool bad mask.
+
+    The DM offline rotation uses is GetTOAs' DMs, the doppler-corrected
+    value (DM_fit * df when barycentred and the RUN's fit_DM is set),
+    divided back by df in the rotation; the multiply-then-divide is kept
+    as the JAX package keeps it."""
+    from ..ops.rotation import rotate_portrait
+    from ..quality.postfit import postfit_cut_mask
+
+    ft = x.dtype
+    df = dfs.to(ft) if bary else torch.ones_like(Ps)
+    DM = r.DM.to(ft)
+    DM_corr = DM * df if (bary and fit_DM) else DM
+    aligned = rotate_portrait(
+        modelx, -r.phi.to(ft)[:, None], -(DM_corr / df)[:, None],
+        Ps[:, None], freqs, r.nu_DM.to(ft)[:, None])
+    nz = torch.where(noise > 0, noise, torch.ones_like(noise))
+    resid = x - r.scales.to(ft)[..., None] * aligned
+    chan_rchi2 = torch.sum(resid ** 2, dim=-1) / nz ** 2 / max(nbin - 1, 1)
+    return postfit_cut_mask(chan_rchi2, r.channel_snrs.to(ft),
+                            r.snr.to(ft), cmask > 0)
+
+
 def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
                 redisp=False, want_flux=False, nharm_eff=None,
                 seed_derotate=True, raw_code="i16", pol_sum=False,
                 col_scaled=False, log10_tau=False, tau_mode="none",
-                use_fast=True, use_ir=False, compensated=False):
+                use_fast=True, use_ir=False, compensated=False,
+                zap_nstd=None, postfit=None):
     """The raw bucket program for one bucket's geometry: decode ->
     baseline -> noise -> S/N -> nu_fit -> tau seeds -> fit -> one packed
     (nfield, nb) result, so a bucket costs one copy of wire bytes and
@@ -731,7 +778,16 @@ def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
     once, since the noise and S/N need the time-domain portrait.  Every
     other bucket fits the decoded portrait (fit.portrait
     .fast_fit_batched, B1 when fit_fused resolves True).  The returned
-    function carries the choice as ``run.decode_fused``."""
+    function carries the choice as ``run.decode_fused``.
+
+    zap_nstd (not None) runs the inline cut: the iterative median +
+    zap_nstd*std cut (quality.excision.zap_keep_mask) on the noise
+    levels, whose kept mask zeroes ``cmask`` before the S/N, the nu_fit
+    seed, the tau seeds and the fit (B1 or B2) read it; two rows follow
+    the result fields, the channels cut per subint ('nzap') and the
+    passes that flagged ('zap_iter').  postfit ((bary, fit_DM) of the
+    run, or None) appends nchan rows of the post-fit bad mask
+    (_postfit_bad_mask)."""
     scat_engine = bool(flags[3] or flags[4] or log10_tau
                        or tau_mode != "none" or use_ir)
     compensated = bool(compensated) and scat_engine
@@ -752,13 +808,24 @@ def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
 
     def run(raw, scl, offs, cmask, modelx, freqs, Ps, DMg, nu_out, alpha0,
             redisp_turns, tscal=None, tzero=None, tau_args=(0.0, 1.0, 0.0),
-            ir_r=None, ir_i=None):
+            ir_r=None, ir_i=None, dfs=None):
         x = _raw_decode(raw, scl, offs, nbin, ft, redisp=redisp,
                         redisp_turns=redisp_turns, dft_fold=dft_fold,
                         code=raw_code, pol_sum=pol_sum,
                         tscal=tscal if col_scaled else None,
                         tzero=tzero if col_scaled else None)
-        noise, snr, nu_fit = _raw_stats(x, cmask, freqs, ft)
+        nzap = zap_iter = None
+        if zap_nstd is None:
+            noise, snr, nu_fit = _raw_stats(x, cmask, freqs, ft)
+        else:
+            from ..quality.excision import zap_keep_mask
+
+            noise = _raw_noise(x, ft)
+            keep, zap_iter = zap_keep_mask(noise, cmask > 0, zap_nstd)
+            pre = torch.sum(cmask, dim=1)
+            cmask = cmask * keep.to(ft)
+            nzap = pre - torch.sum(cmask, dim=1)
+            _, snr, nu_fit = _raw_stats(x, cmask, freqs, ft, noise=noise)
         nb = x.shape[0]
         zeros = torch.zeros(nb, dtype=ft, device=x.device)
         if tau_mode == "none":
@@ -813,7 +880,14 @@ def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
             fields += list(_flux_rows(r.scales.to(ft), r.scale_errs.to(ft),
                                       torch.mean(modelx, dim=-1), cmask,
                                       freqs))
-        return torch.stack(fields)
+        if nzap is not None:
+            fields += [nzap, zap_iter.to(ft)]
+        packed = torch.stack(fields)
+        if postfit is not None:
+            bad = _postfit_bad_mask(x, r, noise, cmask, modelx, freqs, Ps,
+                                    dfs, postfit[0], postfit[1], nbin)
+            packed = torch.cat([packed, bad.T.to(ft)], dim=0)
+        return packed
 
     run.decode_fused = decode_fused
     return run
@@ -983,7 +1057,7 @@ class _DevicePipeline:
 
 def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
             alpha0=0.0, seq=0, log10_tau=False, tau_mode="none",
-            tau_args=(0.0, 1.0, 0.0)):
+            tau_args=(0.0, 1.0, 0.0), zap_nstd=None, postfit=None):
     """Launch ONE dispatch for a bucket's pending subints through
     ``pipeline`` and return its in-flight record without waiting for
     the device.  A partial bucket dispatches its own rows only: the
@@ -991,16 +1065,24 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
     its compiled shapes canonical, and eager PyTorch compiles nothing
     per shape.  Buckets run in float32 where config.use_fast_fit
     resolves on for the device, in float64 through the complex engine
-    otherwise (float32 again on CUDA: fit.portrait.fit_portrait_batch)."""
+    otherwise (float32 again on CUDA: fit.portrait.fit_portrait_batch).
+    zap_nstd: the inline cut of a raw bucket (_raw_fit_fn; decoded
+    buckets were cut at prepare); postfit: (bary, fit_DM) of the run for
+    the post-fit cut's rows, or None."""
     if len(bucket) == 0:
         return None
     device = pipeline.device
     masks_rows = list(bucket.masks)
     Ps = np.asarray(bucket.Ps)
+    # doppler factors ride only when the post-fit cut rotates by the
+    # doppler-corrected DM
+    dfs = np.asarray(bucket.dfs) if postfit is not None else None
     flags = FitFlags(*bucket.flags)
     keys = _result_keys(flags)
     if want_flux:
         keys = keys + ("flux", "flux_err", "flux_ref_freq")
+    if zap_nstd is not None and bucket.kind == "raw":
+        keys = keys + ("nzap", "zap_iter")
     nu_out = -1.0 if nu_ref_DM is None else float(nu_ref_DM)
     modelx, freqs = bucket.modelx, bucket.freqs
     ir_FT = bucket.ir_FT
@@ -1029,7 +1111,8 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
             raw_code=bucket.raw_code, pol_sum=bucket.pol_sum,
             col_scaled=col_scaled, log10_tau=log10_tau, tau_mode=tau_mode,
             use_fast=use_fast, use_ir=use_ir,
-            compensated=use_scatter_compensated())
+            compensated=use_scatter_compensated(), zap_nstd=zap_nstd,
+            postfit=postfit)
         if use_ir:
             # the response ships as two real arrays, cut to the window
             ir_src = np.asarray(ir_FT)
@@ -1048,13 +1131,15 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
                     put(tscal_h, ft_np) if col_scaled else None,
                     put(tzero_h, ft_np) if col_scaled else None,
                     put(ir_r_h, ft_np) if use_ir else None,
-                    put(ir_i_h, ft_np) if use_ir else None)
+                    put(ir_i_h, ft_np) if use_ir else None,
+                    put(dfs, ft_np) if dfs is not None else None)
 
         def fit(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d, Ps_d,
-                DMg_d, turns_d, tscal_d, tzero_d, ir_r_d, ir_i_d):
+                DMg_d, turns_d, tscal_d, tzero_d, ir_r_d, ir_i_d, dfs_d):
             return fn(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d,
                       Ps_d, DMg_d, nu_out, alpha0, turns_d, tscal_d,
-                      tzero_d, tau_args=tau_args, ir_r=ir_r_d, ir_i=ir_i_d)
+                      tzero_d, tau_args=tau_args, ir_r=ir_r_d, ir_i=ir_i_d,
+                      dfs=dfs_d)
     else:
         ports_rows = list(bucket.ports)
         noise_rows = list(bucket.noise)
@@ -1070,10 +1155,11 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
             return (put(np.stack(ports_rows), ft_np), put(modelx, ft_np),
                     put(np.stack(noise_rows), ft_np), put(freqs, ft_np),
                     put(Ps, ft_np), put(nu_fit, ft_np),
-                    put(theta0, ft_np), put(np.stack(masks_rows), ft_np))
+                    put(theta0, ft_np), put(np.stack(masks_rows), ft_np),
+                    put(dfs, ft_np) if dfs is not None else None)
 
         def fit(ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
-                theta0_d, masks_d):
+                theta0_d, masks_d, dfs_d):
             if use_fast:
                 r = fit_portrait_batch_fast(
                     ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
@@ -1094,7 +1180,14 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
                                           r.scale_errs.to(ft),
                                           torch.mean(modelx_d, dim=-1),
                                           masks_d, freqs_d))
-            return torch.stack(fields)
+            packed = torch.stack(fields)
+            if postfit is not None:
+                bad = _postfit_bad_mask(ports_d, r, noise_d, masks_d,
+                                        modelx_d, freqs_d, Ps_d, dfs_d,
+                                        postfit[0], postfit[1],
+                                        int(ports_d.shape[-1]))
+                packed = torch.cat([packed, bad.T.to(ft)], dim=0)
+            return packed
 
     handle = pipeline.submit(copy, fit, seq)
     rec = (handle, list(bucket.owners), keys)
@@ -1204,22 +1297,28 @@ def _collect_wideband(meta, assembled):
     return TOA_list, order, DM0s, means, errs
 
 
-def _refuse_unported(telemetry=None, zap_inline=False, zap_nstd=None,
-                     zap_channels=None, postfit_cut=False,
-                     caller="stream_wideband_TOAs"):
+def _zap_decoded(d, ok, masks, nstd, device):
+    """The decoded lane's inline cut at prepare: ``masks`` (nok, nchan)
+    times the kept mask of the median cut on the archive's host noise
+    levels, through the torch lane on ``device`` or the numpy oracle as
+    the zap_device knob resolves there."""
+    from ..quality.excision import zap_keep_device, zap_keep_np
+    from .zap import resolve_zap_device
+
+    noise = np.asarray(d.noise_stds[ok, 0])
+    if resolve_zap_device(None, device):
+        keep, _ = zap_keep_device(noise, masks > 0, nstd, device=device)
+    else:
+        keep, _ = zap_keep_np(noise, masks > 0, nstd)
+    return masks * keep
+
+
+def _refuse_unported(telemetry=None, caller="stream_wideband_TOAs"):
     """NotImplementedError naming the ROADMAP item of every option whose
     lane is not ported; none is ever ignored."""
     if telemetry is not None:
         raise NotImplementedError(
             f"{caller}: telemetry traces are not ported yet (ROADMAP A13)")
-    if zap_inline or zap_nstd is not None or zap_channels is not None:
-        raise NotImplementedError(
-            f"{caller}: inline and offline zapping (zap_inline, zap_nstd, "
-            "zap_channels) are not ported yet (ROADMAP A8)")
-    if postfit_cut:
-        raise NotImplementedError(
-            f"{caller}: the post-fit quality cut is not ported yet "
-            "(ROADMAP A8)")
 
 
 def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
@@ -1228,13 +1327,27 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                        scat_guess=None, fix_alpha=False, max_iter=25,
                        print_flux=False, print_phase=False,
                        instrumental_response_dict=None, addtnl_toa_flags={},
-                       quiet=False, quality_flags=False, device=None):
+                       quiet=False, quality_flags=False, zap_inline=False,
+                       zap_nstd=None, zap_channels=None, postfit_cut=False,
+                       device=None):
     """The wideband physics lane and archive loader for a template and
     option set: returns ``(lane, loader)``, the lane supplying
     _StreamExecutor's prepare/launch/scatter/assemble hooks.  ``device``
     (default cuda) is where the template is built and where the 'auto'
-    knobs (fast fit, fused lane, bucket padding) resolve."""
+    knobs (fast fit, fused lane, bucket padding, the zap lane) resolve.
+    Options as stream_wideband_TOAs; the lane's ``postfit_zaps`` collects
+    the post-fit cut's lists."""
+    from ..quality.excision import zap_bunch
+    from .zap import resolve_zap_nstd
+
     dev = resolve_device(device)
+    # inline zap: raw buckets cut inside the bucket program, decoded
+    # archives at prepare; zap_channels applies offline lists at load
+    zap_nstd_run = resolve_zap_nstd(zap_nstd) if zap_inline else None
+    # the post-fit cut's rotation needs the run's barycentring and fit_DM
+    postfit_run = (bool(bary), bool(fit_DM)) if postfit_cut else None
+    zap_map = {os.path.abspath(k): v
+               for k, v in (zap_channels or {}).items()}
     ird = {**DEFAULT_IR_DICT, **(instrumental_response_dict or {})}
     if len(ird["wids"]) != len(ird["irf_types"]):
         raise ValueError(
@@ -1268,14 +1381,28 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
         if not tscrunch:
             try:
                 # raw lane: undecoded wire samples straight to the device
-                return _load_raw(f, dev)
+                return _apply_zap_map(f, _load_raw(f, dev))
             except (ValueError, KeyError):
                 pass
-        return load_for_toas(f, tscrunch=tscrunch, quiet=True,
-                             dtype=load_dtype)
+        return _apply_zap_map(f, load_for_toas(f, tscrunch=tscrunch,
+                                               quiet=True, dtype=load_dtype))
+
+    def _apply_zap_map(f, d):
+        """Offline zap lists as in-memory weight zaps at load: the same
+        as loading an archive whose DAT_WTS were zeroed
+        (quality.zap_bunch)."""
+        z = zap_map.get(os.path.abspath(f))
+        if z is not None and sum(len(c) for c in z):
+            zap_bunch(d, z)
+        return d
 
     class _WidebandLane:
         """The wideband physics hooks for _StreamExecutor."""
+
+        def __init__(self):
+            # {datafile: {subint: [bad channels]}} with postfit_cut: the
+            # stream's counterpart of GetTOAs.get_channels_to_zap's lists
+            self.postfit_zaps = {}
 
         def prepare(self, iarch, datafile, d, ok):
             nchan, nbin = d.nchan, d.nbin
@@ -1315,6 +1442,11 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                 base_key += (ir_sig[3:],)
             masks = np.asarray(d.weights[ok] > 0.0, float)
             raw_mode = bool(d.get("raw_mode", False))
+            if zap_nstd_run is not None and not raw_mode and len(ok):
+                # decoded-lane inline zap: cut BEFORE any mask-derived
+                # quantity (nu_fit seed, tau seeds, flag demotion), as an
+                # offline-zapped archive's load would
+                masks = _zap_decoded(d, ok, masks, zap_nstd_run, dev)
             masks_b = (np.pad(masks, ((0, 0), (0, pad_c))) if pad_c
                        else masks)
             # keep only what TOA assembly needs, not the data cube
@@ -1431,13 +1563,28 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
             return _launch(b, nu_ref_DM, max_iter, pipeline,
                            want_flux=print_flux, alpha0=alpha0_run, seq=seq,
                            log10_tau=log10_tau, tau_mode=tau_mode,
-                           tau_args=tau_args)
+                           tau_args=tau_args, zap_nstd=zap_nstd_run,
+                           postfit=postfit_run)
 
         def scatter(self, out, owners, keys, results):
+            nk = len(keys)
             for i, owner in enumerate(owners):
-                results[owner] = {k: out[j, i] for j, k in enumerate(keys)}
+                res = {k: out[j, i] for j, k in enumerate(keys)}
+                if out.shape[0] > nk:
+                    # the post-fit cut's per-channel bad mask
+                    res["postfit_bad"] = out[nk:, i]
+                results[owner] = res
 
         def assemble(self, m, results):
+            if postfit_run is not None:
+                # ppzap-style {subint: [channels]} lists; TOAs unchanged
+                zaps = {}
+                for isub in m.ok:
+                    r = results.get((m.iarch, int(isub)))
+                    if r is not None and "postfit_bad" in r:
+                        zaps[int(isub)] = [int(c) for c in np.flatnonzero(
+                            r["postfit_bad"][:m.nchan] > 0)]
+                self.postfit_zaps[m.datafile] = zaps
             return _assemble_archive(
                 m, results, modelfile, fit_DM, bary, addtnl_toa_flags,
                 log10_tau=log10_tau,
@@ -1478,8 +1625,31 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
     re-references the reported tau; instrumental_response_dict as
     GetTOAs.instrumental_response_dict.  Scattering buckets take the
     complex-free scatter lane where config.use_fast_fit resolves on,
-    the complex engine otherwise.  Telemetry (A13) and zapping / the
-    post-fit cut (A8) are refused.
+    the complex engine otherwise.  Telemetry (A13) is refused.
+
+    zap_inline=True runs the ppzap median algorithm inline: raw buckets
+    cut on the noise levels the bucket program computed on the device
+    (quality.excision.zap_keep_mask) and zero the flagged channels'
+    masks before the S/N, the nu_fit seed and the fit (B1, or B2 on the
+    decode-fused lane) read them; decoded-lane archives cut at prepare,
+    before any mask-derived quantity.  The TOAs equal those of
+    zap_channels= with the same lists, with two edges: a subint the cut
+    empties keeps its (all-masked) TOA row where an offline-zapped load
+    would drop the subint, and a raw-lane subint cut down to <= 2 usable
+    channels keeps its pre-zap fit-flag group.  zap_nstd: the threshold
+    in stds (None = config.zap_nstd / PPT_ZAP_NSTD); read only with
+    zap_inline.
+
+    zap_channels: {archive path: [subint][channel indices]} of offline
+    lists (e.g. pipeline.zap.get_zap_channels) applied as in-memory
+    weight zaps at load (quality.zap_bunch), the same as loading an
+    archive whose DAT_WTS were zeroed.
+
+    postfit_cut=True runs the model-based post-fit cut in every bucket
+    program (the residual's per-channel reduced chi^2 and the channel
+    S/N, GetTOAs.get_channels_to_zap's recipe) and returns its lists as
+    ``postfit_zaps``: {archive path: {subint: [channel indices]}}.
+    TOAs are not changed.
 
     tim_out: .tim checkpoint; each archive's TOA lines are appended as
     soon as all its subints are fitted, in archive order, each archive
@@ -1489,11 +1659,9 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
     Returns a DataBunch: TOA_list (archive order), order, DM0s,
     DeltaDM_means, DeltaDM_errs, fit_duration, scatter_duration, nfit,
     devices_used, peak_inflight, dispatch_shapes ({bucket shape: number
-    of dispatches}), h2d_bytes, h2d_duration, h2d_overlap_duration and
-    wall."""
-    _refuse_unported(telemetry=telemetry, zap_inline=zap_inline,
-                     zap_nstd=zap_nstd, zap_channels=zap_channels,
-                     postfit_cut=postfit_cut)
+    of dispatches}), h2d_bytes, h2d_duration, h2d_overlap_duration, wall
+    and postfit_zaps ({} without postfit_cut)."""
+    _refuse_unported(telemetry=telemetry)
     if isinstance(datafiles, str):
         datafiles = (_read_metafile(datafiles) if _is_metafile(datafiles)
                      else [datafiles])
@@ -1511,7 +1679,9 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
         print_flux=print_flux, print_phase=print_phase,
         instrumental_response_dict=instrumental_response_dict,
         addtnl_toa_flags=addtnl_toa_flags, quiet=quiet,
-        quality_flags=quality_flags, device=devices[0])
+        quality_flags=quality_flags, zap_inline=zap_inline,
+        zap_nstd=zap_nstd, zap_channels=zap_channels,
+        postfit_cut=postfit_cut, device=devices[0])
     ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,
                          max_inflight=max_inflight, prefetch=prefetch,
                          tim_out=tim_out, resume=resume,
@@ -1537,7 +1707,7 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
                      h2d_bytes=int(ex.h2d_bytes),
                      h2d_duration=ex.h2d_duration,
                      h2d_overlap_duration=ex.h2d_overlap_duration,
-                     wall=wall)
+                     wall=wall, postfit_zaps=lane.postfit_zaps)
 
 
 # ---------------------------------------------------------------------------
@@ -1592,13 +1762,17 @@ def _nb_fit_fields(x, modelx, noise, cmask, freqs, Ps, ft, nbin, fit_scat,
 
 def _raw_nb_fn(nbin, fit_scat, log10_tau, tau_mode, max_iter, ft, device,
                redisp=False, raw_code="i16", pol_sum=False,
-               col_scaled=False):
+               col_scaled=False, zap_nstd=None):
     """The raw narrowband bucket program: the plain sample decode
     (_raw_decode, shared with the wideband program: sample types,
     sub-byte unpack, column scaling, the pol reduction, re-dispersion),
     the power-spectrum noise, then _nb_fit_fields.  Returns one packed
-    (nfield, nb, nchan) tensor."""
-    tiny = torch.finfo(ft).tiny
+    (nfield, nb, nchan) tensor.  zap_nstd (not None) runs the inline cut
+    on the noise (quality.excision.zap_keep_mask), zeroes the cut
+    channels in ``cmask`` and appends the (nb, nchan) kept mask as a
+    last field, from which assembly drops the cut channels' TOAs; each
+    channel's fit reads only its own row, so the surviving TOAs equal
+    those of an offline zap of the same lists."""
     dft_fold = use_dft_fold(device)
 
     def run(raw, scl, offs, cmask, modelx, freqs, Ps, redisp_turns,
@@ -1608,17 +1782,25 @@ def _raw_nb_fn(nbin, fit_scat, log10_tau, tau_mode, max_iter, ft, device,
                         code=raw_code, pol_sum=pol_sum,
                         tscal=tscal if col_scaled else None,
                         tzero=tzero if col_scaled else None)
-        noise = torch.clamp(get_noise_PS(x), min=tiny)
-        fields = _nb_fit_fields(x, modelx, noise, cmask, freqs, Ps, ft,
-                                nbin, fit_scat, log10_tau, tau_mode,
-                                max_iter, tau_args)
+        noise = _raw_noise(x, ft)
+        keep = None
+        if zap_nstd is not None:
+            from ..quality.excision import zap_keep_mask
+
+            keep, _ = zap_keep_mask(noise, cmask > 0, zap_nstd)
+            cmask = cmask * keep.to(ft)
+        fields = list(_nb_fit_fields(x, modelx, noise, cmask, freqs, Ps, ft,
+                                     nbin, fit_scat, log10_tau, tau_mode,
+                                     max_iter, tau_args))
+        if keep is not None:
+            fields.append(keep)
         return torch.stack([f.to(ft) for f in fields])
 
     return run
 
 
 def _launch_nb(b, pipeline, seq, fit_scat, log10_tau, tau_mode, tau_args,
-               max_iter):
+               max_iter, zap_nstd=None):
     """Launch one narrowband dispatch through ``pipeline`` (the rows of
     a partial bucket only, as _launch does) and return its in-flight
     record.  float32 where config.use_fast_fit resolves on for the
@@ -1639,7 +1821,8 @@ def _launch_nb(b, pipeline, seq, fit_scat, log10_tau, tau_mode, tau_args,
         tzero_h = np.asarray(b.tzero) if col_scaled else None
         fn = _raw_nb_fn(nbin, fit_scat, log10_tau, tau_mode, max_iter, ft,
                         device, redisp=redisp, raw_code=b.raw_code,
-                        pol_sum=b.pol_sum, col_scaled=col_scaled)
+                        pol_sum=b.pol_sum, col_scaled=col_scaled,
+                        zap_nstd=zap_nstd)
 
         def copy():
             raw, scl, offs, turns = _stack_rows(rows, dedisp, redisp, Ps,
@@ -1675,11 +1858,15 @@ def _launch_nb(b, pipeline, seq, fit_scat, log10_tau, tau_mode, tau_args,
 def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
                          scat_guess=None, tscrunch=False, max_iter=25,
                          print_phase=False, addtnl_toa_flags={}, quiet=False,
-                         device=None):
+                         zap_inline=False, zap_nstd=None, device=None):
     """The narrowband physics lane and archive loader for a template and
     option set: ``(lane, loader)`` for _StreamExecutor, as
-    make_wideband_lane.  log10_tau only matters with fit_scat."""
+    make_wideband_lane.  log10_tau only matters with fit_scat;
+    zap_inline/zap_nstd as stream_narrowband_TOAs."""
+    from .zap import resolve_zap_nstd
+
     dev = resolve_device(device)
+    zap_nstd_run = resolve_zap_nstd(zap_nstd) if zap_inline else None
     scat_guess = _validate_scat_guess(scat_guess, fit_scat)
     if fit_scat and not log10_tau and scat_guess is None:
         raise ValueError(
@@ -1696,6 +1883,10 @@ def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
                     else "neutral" if fit_scat else "none")
         tau_args = (0.0, 1.0, 0.0)
     keys = _NB_SCAT_KEYS if fit_scat else _NB_KEYS
+    if zap_nstd_run is not None:
+        # raw buckets append the kept mask; a decoded bucket's packed
+        # result is one row shorter and zip() leaves the key out
+        keys = keys + ("keep",)
     load_dtype = np.float32 if use_fast_fit_default(dev) else np.float64
 
     def _loader(f):
@@ -1727,6 +1918,11 @@ def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
             tscal_val = float(d.get("tscal") or 1.0) if raw_mode else 1.0
             tzero_val = float(d.get("tzero") or 0.0) if raw_mode else 0.0
             masks = np.asarray(d.weights[ok] > 0.0, float)
+            if zap_nstd_run is not None and not raw_mode and len(ok):
+                # decoded-lane inline zap: cut before the usable-channel
+                # lists are derived, so assembly emits the TOAs an
+                # offline-zapped load would
+                masks = _zap_decoded(d, ok, masks, zap_nstd_run, dev)
             key = (nchan, nbin, freqs0.tobytes(),
                    "raw" if raw_mode else "dec")
             if raw_mode:
@@ -1777,7 +1973,8 @@ def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
 
         def launch(self, b, pipeline, seq):
             return _launch_nb(b, pipeline, seq, fit_scat, log10_tau,
-                              tau_mode, tau_args, max_iter)
+                              tau_mode, tau_args, max_iter,
+                              zap_nstd=zap_nstd_run)
 
         def scatter(self, out, owners, extra, results):
             for i, owner in enumerate(owners):
@@ -1792,6 +1989,9 @@ def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
                 vals = dict(zip(keys, r))
                 P = m.Ps[j]
                 for ichan in m.okc[j]:
+                    if "keep" in vals and not vals["keep"][ichan] > 0:
+                        # cut by the raw bucket's inline zap
+                        continue
                     flags = {
                         "be": m.backend, "fe": m.frontend,
                         "f": f"{m.frontend}_{m.backend}",
@@ -1839,13 +2039,17 @@ def stream_narrowband_TOAs(datafiles, modelfile, nsub_batch=64,
     port runs on this lane, as no Pallas kernel does in the JAX
     package); archives the raw lane refuses go through the host-decoded
     lane with the same fits.  Devices as stream_wideband_TOAs.
-    Telemetry (A13) and inline zapping (zap_inline, zap_nstd: A8) are
-    refused.  Returns a DataBunch(TOA_list, order, fit_duration,
+    zap_inline=True runs the ppzap median noise cut inline: raw buckets
+    cut on the noise the bucket program computed on the device, decoded
+    archives at prepare, and no TOA is emitted for a cut channel; the
+    surviving channels' TOAs equal an unzapped run's.  zap_nstd: the
+    threshold in stds (None = config.zap_nstd / PPT_ZAP_NSTD); read only
+    with zap_inline.  Telemetry (A13) is refused.
+    Returns a DataBunch(TOA_list, order, fit_duration,
     scatter_duration, nfit, devices_used, peak_inflight,
     dispatch_shapes, h2d_bytes, h2d_duration, h2d_overlap_duration,
     wall)."""
-    _refuse_unported(telemetry=telemetry, zap_inline=zap_inline,
-                     zap_nstd=zap_nstd, caller="stream_narrowband_TOAs")
+    _refuse_unported(telemetry=telemetry, caller="stream_narrowband_TOAs")
     if isinstance(datafiles, str):
         datafiles = (_read_metafile(datafiles) if _is_metafile(datafiles)
                      else [datafiles])
@@ -1859,7 +2063,8 @@ def stream_narrowband_TOAs(datafiles, modelfile, nsub_batch=64,
         modelfile, fit_scat=fit_scat, log10_tau=log10_tau,
         scat_guess=scat_guess, tscrunch=tscrunch, max_iter=max_iter,
         print_phase=print_phase, addtnl_toa_flags=addtnl_toa_flags,
-        quiet=quiet, device=devices[0])
+        quiet=quiet, zap_inline=zap_inline, zap_nstd=zap_nstd,
+        device=devices[0])
     ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,
                          max_inflight=max_inflight, prefetch=prefetch,
                          tim_out=tim_out, resume=resume,

@@ -17,6 +17,9 @@ the complex engine over single-channel portraits with (phi, tau) free.
 get_crosscheck_TOAs (and its get_psrchive_TOAs shim) is the JAX
 package's independent host NumPy estimator.
 
+GetTOAs.get_channels_to_zap (after get_TOAs): the model-based post-fit
+channel cut behind ``ppzap -m`` (quality/postfit).
+
 Not ported yet, and refused with NotImplementedError naming the
 ROADMAP item instead of being ignored: telemetry traces (A13).
 """
@@ -24,6 +27,7 @@ ROADMAP item instead of being ignored: telemetry traces (A13).
 import time
 
 import numpy as np
+import torch
 
 from ..config import Dconst, scattering_alpha
 from ..device import resolve_device
@@ -32,6 +36,8 @@ from ..fit.portrait import (FitFlags, estimate_tau_batch, fit_portrait_batch,
                             warn_bf16_high_snr)
 from ..io.psrfits import load_data
 from ..io.tim import TOA
+from ..ops.rotation import rotate_portrait
+from ..ops.scattering import scattering_portrait_FT, scattering_times
 from ..utils.log import log
 from .models import TemplateModel
 
@@ -727,6 +733,120 @@ class GetTOAs:
                 f"~{fit_duration / max(nok, 1):.4f} sec/TOA (fit), "
                 f"{tot:.2f} sec total\n"
                 f"Med. TOA error is {med:.3f} us", quiet=quiet)
+
+    def _fitted_model(self, iarch, isub, d, modelx, freqs0):
+        """The template rotated onto the (dispersed) data at the fitted
+        (phi, DM), including any fitted scattering: the reconstruction
+        the reference's show_fit draws (pptoas.py:1375-1476).  Host
+        float64 out; the rotation runs on self.device."""
+        nbin = modelx.shape[-1]
+        dev = self.device
+        tau_r = float(self.taus[iarch][isub])
+        port_model = np.array(modelx, float)
+        if np.isfinite(tau_r) and tau_r > 0.0:
+            tt = scattering_times(
+                tau_r, float(self.alphas[iarch][isub]),
+                torch.as_tensor(freqs0, dtype=torch.float64, device=dev),
+                float(self.nu_refs[iarch][isub][2]))
+            B = scattering_portrait_FT(tt, nbin // 2 + 1).cpu().numpy()
+            port_model = np.fft.irfft(B * np.fft.rfft(port_model, axis=-1),
+                                      n=nbin, axis=-1)
+        phi = float(self.phis[iarch][isub])
+        DM = float(self.DMs[iarch][isub])
+        df = float(self.doppler_fs[iarch][isub]) if self.bary else 1.0
+        return rotate_portrait(
+            torch.as_tensor(port_model, device=dev), -phi, -DM / df,
+            float(self.Ps[iarch][isub]),
+            torch.as_tensor(freqs0, dtype=torch.float64, device=dev),
+            float(self.nu_refs[iarch][isub][0])).cpu().numpy()
+
+    def get_channels_to_zap(self, SNR_threshold=8.0, rchi2_threshold=1.3,
+                            iterate=True, show=False, zap_device=None,
+                            telemetry=None):
+        """Flag channels with bad per-channel reduced chi2 or low S/N
+        (reference pptoas.py:1266-1343).  Requires get_TOAs() results;
+        fills self.zap_channels as [archive][subint] index lists.
+
+        Per archive, the template is rotated onto every usable subint at
+        its fitted (phi, DM/df) in one batched float64 call on
+        self.device, and the per-channel reduced chi^2 of the residual
+        feeds the cut of quality/postfit: the host numpy oracle, or with
+        the ``zap_device`` tri-state (None follows config.zap_device;
+        'auto' = on CUDA devices) its torch twin on self.device, which
+        flags the same channels.  show (plots) and telemetry are not
+        ported (ROADMAP A13)."""
+        from ..quality.postfit import postfit_cut_device, postfit_cut_np
+        from .zap import resolve_zap_device
+
+        if show:
+            raise NotImplementedError(
+                "get_channels_to_zap: show (plots) is not ported yet "
+                "(ROADMAP A13)")
+        if telemetry is not None:
+            raise NotImplementedError(
+                "get_channels_to_zap: telemetry traces are not ported yet "
+                "(ROADMAP A13)")
+        use_device = resolve_zap_device(zap_device, self.device)
+        dev = self.device
+        self.zap_channels = []
+        for iarch, datafile in enumerate(self.order):
+            d = load_data(datafile, dedisperse=False, dededisperse=True,
+                          tscrunch=self.tscrunch, pscrunch=True, quiet=True)
+            nbin, nchan = d.nbin, d.nchan
+            freqs0 = np.asarray(d.freqs[0], float)
+            modelx = self.model.portrait(freqs0, nbin,
+                                         P=float(np.mean(d.Ps)))
+            ok = np.asarray(self.ok_isubs[iarch], int)
+            nok = len(ok)
+            chan_rchi2 = np.zeros((nok, nchan))
+            chan_snr = np.zeros((nok, nchan))
+            snr_tot = np.full(nok, np.nan)
+            okc_mask = np.zeros((nok, nchan), bool)
+            for j, isub in enumerate(ok):
+                okc_mask[j, np.asarray(d.ok_ichans[isub], int)] = True
+            rows = np.flatnonzero(okc_mask.any(axis=1))
+            if len(rows):
+                subs = ok[rows]
+                f64 = dict(dtype=torch.float64, device=dev)
+                df = (np.asarray(self.doppler_fs[iarch])[subs] if self.bary
+                      else np.ones(len(subs)))
+                phi = torch.as_tensor(self.phis[iarch][subs], **f64)
+                DM = torch.as_tensor(self.DMs[iarch][subs], **f64)
+                P = torch.as_tensor(np.asarray(d.Ps)[subs], **f64)
+                nu_ref = torch.as_tensor(self.nu_refs[iarch][subs, 0], **f64)
+                aligned = rotate_portrait(
+                    torch.as_tensor(modelx, **f64), -phi[:, None],
+                    (-DM / torch.as_tensor(df, **f64))[:, None], P[:, None],
+                    torch.as_tensor(freqs0, **f64), nu_ref[:, None])
+                port = torch.as_tensor(
+                    np.asarray(d.subints[subs, 0], float), **f64)
+                scales = torch.as_tensor(self.scales[iarch][subs], **f64)
+                noise = np.asarray(d.noise_stds[subs, 0], float)
+                noise = torch.as_tensor(np.where(noise > 0, noise, 1.0),
+                                        **f64)
+                resid = port - scales[..., None] * aligned
+                chan_rchi2[rows] = ((resid ** 2).sum(dim=-1) / noise ** 2
+                                    / max(nbin - 1, 1)).cpu().numpy()
+                chan_snr[rows] = self.channel_snrs[iarch][subs]
+                snr_tot[rows] = self.snrs[iarch][subs]
+            if not nok:
+                bad = np.zeros((0, nchan), bool)
+            elif use_device:
+                bad = postfit_cut_device(
+                    chan_rchi2, chan_snr, snr_tot, okc_mask,
+                    SNR_threshold=SNR_threshold,
+                    rchi2_threshold=rchi2_threshold, iterate=iterate,
+                    device=dev)
+            else:
+                bad = postfit_cut_np(
+                    chan_rchi2, chan_snr, snr_tot, okc_mask,
+                    SNR_threshold=SNR_threshold,
+                    rchi2_threshold=rchi2_threshold, iterate=iterate)
+            arch_zaps = [[] for _ in range(d.nsub)]
+            for j, isub in enumerate(ok):
+                arch_zaps[isub] = sorted(int(c) for c in np.flatnonzero(bad[j]))
+            self.zap_channels.append(arch_zaps)
+        return self.zap_channels
 
     def apply_one_DM(self):
         """Replace each TOA's DM with the per-archive DM0 + weighted

@@ -2,3 +2,4 @@
 
 from .archive import add_scintillation, make_fake_pulsar  # noqa: F401
 from .fake import default_test_model  # noqa: F401
+from .rfi import inject_rfi  # noqa: F401

@@ -506,7 +506,9 @@ def test_import_hygiene():
         "    names.add(m.name)\n"
         "new = {p.__name__ + '.' + n for n in ('ops.decode', 'ops.noise',"
         " 'pipeline.stream', 'ops.phasor', 'ops.rotation', 'models.spline',"
-        " 'io.splmodel', 'fit.phase_shift', 'convert')}\n"
+        " 'io.splmodel', 'fit.phase_shift', 'convert', 'quality.excision',"
+        " 'quality.postfit', 'pipeline.zap', 'pipeline.portrait',"
+        " 'synth.rfi', 'cli.ppzap')}\n"
         "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "

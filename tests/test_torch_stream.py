@@ -386,21 +386,51 @@ def test_cli_stream(campaign, stream_config, tmp_path):
 
 class TestRefusals:
     """Unported options raise NotImplementedError naming their ROADMAP
-    item; the CUDA default raises without a card."""
+    item; the CUDA default raises without a card.  The zap options
+    (ROADMAP A8, the cases named A8) are ported: they run on the CPU and
+    agree with the JAX driver."""
 
     @pytest.mark.parametrize("kw,item", [
-        ({"telemetry": "t.jsonl"}, "A13"), ({"zap_inline": True}, "A8"),
-        ({"zap_channels": {}}, "A8"), ({"postfit_cut": True}, "A8")])
-    def test_options(self, campaign, kw, item):
-        root, files, gmodel = campaign
-        with pytest.raises(NotImplementedError, match=item):
-            TS.stream_wideband_TOAs(files, gmodel, device="cpu", **kw)
+        pytest.param({"telemetry": "t.jsonl"}, "A13", id="kw0-A13"),
+        pytest.param({"zap_inline": True}, None, id="kw1-A8"),
+        pytest.param({"zap_channels": {}}, None, id="kw2-A8"),
+        pytest.param({"postfit_cut": True}, None, id="kw3-A8")])
+    def test_options(self, campaign, tmp_path, kw, item):
+        from pulseportraiture_tpu.pipeline import stream as JS
 
-    def test_narrowband_and_service_mode(self, campaign, stream_config):
         root, files, gmodel = campaign
-        for kw in ({"zap_inline": True}, {"zap_nstd": 3.0}):
-            with pytest.raises(NotImplementedError, match="A8"):
-                TS.stream_narrowband_TOAs(files, gmodel, device="cpu", **kw)
+        if item is not None:
+            with pytest.raises(NotImplementedError, match=item):
+                TS.stream_wideband_TOAs(files, gmodel, device="cpu", **kw)
+            return
+        ref, got = str(tmp_path / "jax.tim"), str(tmp_path / "torch.tim")
+        rj = JS.stream_wideband_TOAs(files, gmodel, nsub_batch=4,
+                                     quiet=True, tim_out=ref, **kw)
+        rt = TS.stream_wideband_TOAs(files, gmodel, nsub_batch=4,
+                                     quiet=True, tim_out=got, device="cpu",
+                                     **kw)
+        _assert_tim_parity(_tim_lines(ref, tmp_path / "jax_lines.tim"),
+                           _tim_lines(got, tmp_path / "torch_lines.tim"))
+        assert rt.postfit_zaps == rj.postfit_zaps
+        assert bool(rt.postfit_zaps) == bool(kw.get("postfit_cut"))
+
+    def test_narrowband_and_service_mode(self, campaign, stream_config,
+                                         tmp_path):
+        from pulseportraiture_tpu.pipeline import stream as JS
+        from test_torch_toas import NB_DERIVED
+
+        root, files, gmodel = campaign
+        for i, kw in enumerate(({"zap_inline": True}, {"zap_nstd": 3.0})):
+            ref = str(tmp_path / f"jax{i}.tim")
+            got = str(tmp_path / f"torch{i}.tim")
+            JS.stream_narrowband_TOAs(files, gmodel, quiet=True,
+                                      tim_out=ref, **kw)
+            TS.stream_narrowband_TOAs(files, gmodel, device="cpu",
+                                      quiet=True, tim_out=got, **kw)
+            _assert_tim_parity(
+                _tim_lines(ref, tmp_path / f"jax{i}_lines.tim"),
+                _tim_lines(got, tmp_path / f"torch{i}_lines.tim"),
+                derived=NB_DERIVED)
         lane, loader = TS.make_wideband_lane(gmodel, device="cpu")
         with pytest.raises(NotImplementedError, match="A13"):
             TS._StreamExecutor(lane, files, loader, 4,

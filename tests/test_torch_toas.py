@@ -312,25 +312,33 @@ class TestUnportedOptionsRaise:
             self._gt(dataset).get_TOAs(quiet=True,
                                        telemetry=str(tmp_path / "t.jsonl"))
 
-    @pytest.mark.parametrize("flag,item", [("--narrowband", "A8"),
-                                           ("--stream", "A7")])
-    def test_cli_lanes(self, dataset, flag, item):
+    @pytest.mark.parametrize("flag,item", [
+        pytest.param("--narrowband", None, id="--narrowband-A8"),
+        pytest.param("--stream", "A7", id="--stream-A7")])
+    def test_cli_lanes(self, dataset, tmp_path, flag, item):
         """--narrowband and --stream run (tests/test_torch_narrowband.py,
-        tests/test_torch_stream.py); what their lanes still refuse is
-        inline zapping (the narrowband stream's zap_inline) and the
-        transport codec."""
+        tests/test_torch_stream.py); what their lanes still refuse is the
+        transport codec.  The narrowband stream's inline zapping (ROADMAP
+        A8) is ported: it agrees with the JAX driver."""
+        from pulseportraiture_tpu.pipeline.stream import \
+            stream_narrowband_TOAs as jstream
         from pulseportraiture_tpu_torch.cli.pptoas import main
         from pulseportraiture_tpu_torch.pipeline.stream import \
             stream_narrowband_TOAs
 
         meta, gmodel, files = dataset
-        with pytest.raises(NotImplementedError, match=item):
-            if flag == "--narrowband":
-                stream_narrowband_TOAs(files[0], gmodel, device="cpu",
-                                       zap_inline=True)
-            else:
+        if flag == "--stream":
+            with pytest.raises(NotImplementedError, match=item):
                 main(["-d", files[0], "-m", gmodel, "--device", "cpu", flag,
                       "--transport-compress", "on"])
+            return
+        ref, got = str(tmp_path / "jax.tim"), str(tmp_path / "torch.tim")
+        rj = jstream(files[0], gmodel, quiet=True, zap_inline=True)
+        rt = stream_narrowband_TOAs(files[0], gmodel, device="cpu",
+                                    quiet=True, zap_inline=True)
+        jwrite(rj.TOA_list, outfile=ref)
+        twrite(rt.TOA_list, outfile=got)
+        _assert_tim_parity(ref, got, derived=NB_DERIVED)
 
     def test_spline_template(self, tmp_path):
         """Spline templates are read (tests/test_torch_spline.py holds
