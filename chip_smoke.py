@@ -90,7 +90,24 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    cut; ``stream_narrowband_TOAs(zap_inline=True)`` emitting no TOA for
    a flagged channel; ``ppzap -m`` with the device lane on and off (the
    same lists) against ``stream_wideband_TOAs(postfit_cut=True)``, equal
-   but for channels within 1e-4 of the cut.
+   but for channels within 1e-4 of the cut;
+13. align path: 4 int16 epochs of 32 x 512 x 2048 with their own
+   injected phases and dDMs; ``ppalign -g 0.05 --niter 2`` (B1 through
+   its FFT arm in every iteration, the window resolving from the
+   Gaussian seed) and ``ppalign --niter 2 -s -N rms`` (the first archive
+   as the seed), each with K and B1's launches per iteration and the
+   wall by stage (load, template, phase guess, fit, accumulate,
+   finalize, write); no archive skipped, each output with DM 0, dmc 1,
+   unit weights and shape (1, 512, 2048), the -g average correlating
+   with the clean .gmodel portrait > 0.95; align_archives with the
+   card's float32 accumulate (under the profiler: busy time, idle
+   share) against the host's float64 lane (corr > 0.99999, max |d| <
+   0.02 max |avg|); B1 against its plain version at the align fit's
+   shape; the accumulate's time against its byte bound; ``pptoas -m``
+   the aligned archive on the main path's archive and ``pptoas
+   --stream`` the same: TOAs a constant offset from the .gmodel run's
+   plus a scatter below the bound PERF.md fixed, the stream within 0.1
+   sigma, return codes in {0, 1, 2}.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -152,6 +169,18 @@ ZAP_TONES = (37, 101, 160, 222, 290, 333, 401, 470)
 ZAP_STRUCTURED = (101, 333)
 ZAP_WHITE, ZAP_STRUCT = 8.0, 60.0
 ZAP_BURST = (1, (250, 251, 252, 253), 20.0)
+# the align path: NARCH_ALIGN int16 epochs of NSUB_ALIGN subints at the
+# main archive's widths (depth cut from its 64 subints), each with its
+# own injected phase and dDM, at noise NOISE_ALIGN; ppalign's -g seed
+# FWHM [rot] and iteration count; the bound on the scatter of
+# TOA(aligned template) - TOA(.gmodel) about their mean offset, in units
+# of the TOA error, fixed before the first chip run from a CPU rehearsal
+# (tools/align_toa_scatter.py; PERF.md section 6)
+NARCH_ALIGN, NSUB_ALIGN, NOISE_ALIGN = 4, 32, 1.0
+ALIGN_PHASES = (0.0, 0.11, -0.07, 0.23)
+ALIGN_DDMS = (0.0, 1e-4, 2e-4, -1e-4)
+ALIGN_FWHM, ALIGN_NITER = 0.05, 2
+ALIGN_TOA_SCATTER = 3.0
 
 
 def log(msg):
@@ -1329,16 +1358,21 @@ def read_tim(path):
     return out
 
 
-def tim_sigma_offset(a, b):
-    """|TOA(a) - TOA(b)| over a's TOA error, for two read_tim records of
-    one subint (or channel); with DMs, b is referenced to a's frequency
-    along b's own DM."""
+def tim_offset_us(a, b):
+    """TOA(b) - TOA(a) [us] for two read_tim records of one subint (or
+    channel); with DMs, b is referenced to a's frequency along b's own
+    DM."""
     from pulseportraiture_tpu_torch.config import Dconst
 
     dt = ((b["day"] - a["day"]) + (b["frac"] - a["frac"])) * 86400.0
     if b["DM"] is not None:
         dt += Dconst * b["DM"] * (a["freq"] ** -2.0 - b["freq"] ** -2.0)
-    return abs(dt) * 1e6 / a["err"]
+    return dt * 1e6
+
+
+def tim_sigma_offset(a, b):
+    """|TOA(a) - TOA(b)| over a's TOA error (tim_offset_us)."""
+    return abs(tim_offset_us(a, b)) / a["err"]
 
 
 def run_cli(args, label):
@@ -2140,6 +2174,325 @@ def phase_zap(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
     return launches
 
 
+def align_epochs(device="cuda", nsub=NSUB_ALIGN, nchan=NCHAN, nbin=NBIN):
+    """The align path's epochs: NARCH_ALIGN int16 archives of the .gmodel
+    at the main archive's widths, each with its own injected phase
+    (ALIGN_PHASES) and dDM (ALIGN_DDMS), epoch and noise draw (noise
+    NOISE_ALIGN).  Returns (metafile, files)."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    model = default_test_model(1500.0)
+    files = []
+    for i in range(NARCH_ALIGN):
+        path = os.path.join(WORK, f"epoch-{i}.fits")
+        make_fake_pulsar(model, PAR, outfile=path, nsub=nsub, nchan=nchan,
+                         nbin=nbin, nu0=1500.0, bw=800.0, tsub=60.0,
+                         phase=ALIGN_PHASES[i], dDM=ALIGN_DDMS[i],
+                         start_MJD=MJD(55400 + i, 0.1),
+                         noise_stds=NOISE_ALIGN,
+                         dedispersed=False, quiet=True,
+                         rng=np.random.default_rng(SEED + 90 + i),
+                         device=device)
+        files.append(path)
+    meta = os.path.join(WORK, "align_meta.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return meta, files
+
+
+def run_ppalign(args, label):
+    """``python -m pulseportraiture_tpu_torch.cli.ppalign args`` in this
+    process, with the counters set to 0 just before it; returns (wall
+    seconds, counters after, pipeline.align.align_stats())."""
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline.align import align_stats
+
+    F.reset_kernel_launches()
+    argv = sys.argv
+    sys.argv = ["ppalign"] + list(args)
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("pulseportraiture_tpu_torch.cli.ppalign",
+                         run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise RuntimeError(f"{label} exited with {e.code!r}")
+    finally:
+        sys.argv = argv
+    sync(args[args.index("--device") + 1])
+    return time.perf_counter() - t0, F.kernel_launches(), align_stats()
+
+
+def align_walls(stats):
+    return ", ".join(f"{k} {v:.3f}" for k, v in stats["walls"].items())
+
+
+def check_aligned_archive(path, nchan, nbin):
+    """ppalign's output read back: DM 0, dmc 1, unit weights, one subint
+    of one polarization at the epochs' widths; returns the portrait."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.io.psrfits import load_data
+
+    d = load_data(path, quiet=True)
+    if not (d.DM == 0.0 and d.dmc and np.all(d.weights == 1.0)
+            and d.subints.shape == (1, 1, nchan, nbin)
+            and np.all(np.isfinite(d.subints))):
+        raise AssertionError(
+            f"{path}: DM {d.DM}, dmc {d.dmc}, weights "
+            f"{np.unique(d.weights).tolist()}, shape {d.subints.shape}")
+    return d.subints[0, 0], np.asarray(d.freqs[0])
+
+
+def clean_correlation(avg, freqs, device):
+    """tests/test_pipeline_align.py's recovery statistic: the per-channel
+    correlation of the average with the clean .gmodel portrait,
+    maximised over one common lag, and the residual rms at that lag."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.io.gmodel import gen_gmodel_portrait
+    from pulseportraiture_tpu_torch.synth import default_test_model
+
+    nbin = avg.shape[-1]
+    clean = gen_gmodel_portrait(default_test_model(1500.0), np.arange(nbin),
+                                freqs, P=PAR["P0"], device=device)
+    a = avg - avg.mean(axis=1, keepdims=True)
+    c = clean - clean.mean(axis=1, keepdims=True)
+    ccf = np.fft.irfft(np.fft.rfft(a, axis=1).conj()
+                       * np.fft.rfft(c, axis=1), n=nbin, axis=1).sum(axis=0)
+    corr = ccf.max() / np.sqrt((a ** 2).sum() * (c ** 2).sum())
+    resid = np.sqrt(((a - np.roll(c, np.argmax(ccf), axis=1)) ** 2).mean())
+    return float(corr), float(resid)
+
+
+def align_iterations(stats, label, cuda, from_first):
+    """Log K and B1's launches per iteration of a ppalign run; on CUDA
+    B1 must have run through its FFT arm only, and with from_first in
+    every iteration.  Returns B1's launches over the run."""
+    total = 0
+    for i, it in enumerate(stats["iterations"]):
+        n = it["launches"]
+        log(f"align path ({label}) iteration {i + 1}: K = {it['K']}, "
+            f"{it['archives']} archives, B1 launches "
+            f"{n['fused_cross_spectrum.fft']} FFT arm, "
+            f"{n['fused_cross_spectrum.gemm']} GEMM arm")
+        if cuda and from_first:
+            fft_only(n, ("fused_cross_spectrum",),
+                     f"{label} iteration {i + 1}")
+        elif cuda and n["fused_cross_spectrum.gemm"]:
+            raise AssertionError(f"{label}: iteration {i + 1} launched B1 "
+                                 "through its GEMM arm")
+        total += n["fused_cross_spectrum"]
+    return total
+
+
+def time_accumulate(nsub, nchan, nbin):
+    """One align_accumulate_archive call at the align path's archive
+    shape ((nsub, 1, nchan, nbin) float32 on the card: one chunk),
+    CUDA events (median_ms), against its bound: the cube and the fit
+    leaves read once and the three accumulators written once at
+    PEAK_HBM_BYTES, or the rfft's 2.5 n log2 n and the rotation's and
+    weighted sum's operations at PEAK_FP32_FLOPS, whichever is larger."""
+    import torch
+    from pulseportraiture_tpu_torch.parallel.batch import (
+        align_accumulate_archive, align_accumulator_init)
+
+    f32 = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=g,
+                                           device="cuda", dtype=f32)
+
+    cube = torch.randn((nsub, 1, nchan, nbin), generator=g, device="cuda",
+                       dtype=f32)
+    leaves = (rand(nsub, lo=-0.5, hi=0.5), rand(nsub, lo=3.0, hi=3.3),
+              rand(nsub, lo=1300.0, hi=1600.0), rand(nsub, lo=0.004,
+                                                     hi=0.0041),
+              torch.linspace(1100.0, 1900.0, nchan, device="cuda"),
+              rand(nsub, nchan, lo=0.5, hi=2.0),
+              (rand(nsub, nchan) > 0.05).to(f32), rand(nsub, nchan, hi=2.0))
+    acc = align_accumulator_init(1, nchan, nbin, f32, "cuda")
+    ms = median_ms(lambda: align_accumulate_archive(acc, cube, *leaves))
+    nharm = nbin // 2 + 1
+    nbytes = 4 * (cube.numel() + sum(x.numel() for x in leaves)
+                  + sum(a.numel() for a in acc))
+    flops = nsub * nchan * (2.5 * nbin * math.log2(nbin) + 12.0 * nharm)
+    by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    bound, by = ((by_bytes, "bytes") if by_bytes >= by_ops
+                 else (by_ops, "operations"))
+    return ms, bound, by
+
+
+def phase_align(device="cuda", nsub=NSUB_ALIGN, nchan=NCHAN, nbin=NBIN):
+    """The align path (phase 13) on NARCH_ALIGN epochs (align_epochs):
+    1. ``ppalign -g ALIGN_FWHM --niter ALIGN_NITER`` (the Gaussian seed
+       resolves a harmonic window, so B1 runs from iteration 1) and
+    2. ``ppalign --niter ALIGN_NITER -s -N rms`` (the first archive as
+       the seed), each in this process with the counters set to 0 just
+       before it: K and B1's launches per iteration (FFT arm only on
+       CUDA, every iteration of run 1), the wall by stage, no archive
+       skipped, each output with DM 0, dmc 1, unit weights and shape
+       (1, nchan, nbin); run 1's average correlates with the clean
+       .gmodel portrait > 0.95 over one common lag;
+    3. align_archives(niter=1) with the card's accumulate (float32 on
+       CUDA; under the profiler: busy time and idle share of the
+       iteration) and with the host lane (float64 on the CPU): corr >
+       0.99999 and max |d| < 0.02 max |avg|; B1 against its plain
+       version at the align fit's shape; the accumulate's time against
+       its bound;
+    4. ``pptoas -m`` run 1's output on the main path's archive and 5.
+       ``pptoas --stream`` the same: every TOA minus the .gmodel run's
+       TOA (phase 4) is one offset plus a scatter below
+       ALIGN_TOA_SCATTER sigma, the stream within 0.1 sigma of pptoas,
+       return codes in {0, 1, 2} (GetTOAs).
+    Returns B1's launches in runs 1 and 2."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pulseportraiture_tpu_torch.pipeline import GetTOAs
+    from pulseportraiture_tpu_torch.pipeline.align import (
+        align_archives, align_stats, gaussian_seed_portrait)
+
+    cuda = device_type(device) == "cuda"
+    t0 = time.perf_counter()
+    meta, files = align_epochs(device, nsub, nchan, nbin)
+    log(f"align epochs: {NARCH_ALIGN} int16 x {nsub}x{nchan}x{nbin}, "
+        f"phases {ALIGN_PHASES} rot, dDM {ALIGN_DDMS}, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # 1-2. the CLI
+    b1 = 0
+    outs = {}
+    for label, extra, from_first in (
+            ("ppalign -g", ["-g", str(ALIGN_FWHM)], True),
+            ("ppalign -s -N rms", ["-s", "-N", "rms"], False)):
+        out = os.path.join(WORK, f"aligned-{len(outs)}.fits")
+        wall, launches, stats = run_ppalign(
+            ["-M", meta, "-o", out, "--niter", str(ALIGN_NITER),
+             "--device", device] + extra, label)
+        if stats["skipped"]:
+            raise AssertionError(f"{label} skipped {stats['skipped']}")
+        n = align_iterations(stats, label, cuda, from_first)
+        if n != launches["fused_cross_spectrum"]:
+            raise AssertionError(f"{label}: {n} B1 launches by iteration, "
+                                 f"{launches['fused_cross_spectrum']} in "
+                                 "all")
+        if launches["fused_decode_cross_spectrum"]:
+            raise AssertionError(f"{label} launched B2")
+        b1 += n
+        avg, freqs = check_aligned_archive(out, nchan, nbin)
+        outs[label] = out
+        log(f"align path ({label} --niter {ALIGN_NITER}): {wall:.3f} s "
+            f"wall; by stage [s]: {align_walls(stats)}; no archive "
+            f"skipped; output DM 0, dmc 1, unit weights, (1, {nchan}, "
+            f"{nbin})")
+        if "-s" in extra:
+            check_aligned_archive(out[:-len(".fits")] + ".sm.fits", nchan,
+                                  nbin)
+        else:
+            K1 = stats["iterations"][0]["K"]
+            corr, resid = clean_correlation(avg, freqs, device)
+            expect = NOISE_ALIGN / math.sqrt(NARCH_ALIGN * nsub)
+            log(f"align path ({label}): correlation with the clean "
+                f".gmodel portrait {corr:.6f} (limit 0.95), residual rms "
+                f"{resid:.4f} at the best lag (white noise of "
+                f"{NARCH_ALIGN * nsub} subints averaged: {expect:.4f})")
+            if not corr > 0.95:
+                raise AssertionError(f"{label}: correlation {corr:.4f}")
+
+    # 3. the library call, the card's accumulate (under the profiler on
+    # CUDA: one iteration's busy time and idle share) against the host's
+    seed = gaussian_seed_portrait(nchan, nbin, ALIGN_FWHM, device=device)
+    lanes = {}
+    for lane in (True, False):
+        kw = dict(niter=1, quiet=True, align_device=lane, device=device,
+                  outfile=os.path.join(WORK, f"lane-{int(lane)}.fits"))
+        prof = None
+        t0 = time.perf_counter()
+        if lane and cuda:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                lanes[lane] = align_archives(meta, seed, **kw)
+        else:
+            lanes[lane] = align_archives(meta, seed, **kw)
+        wall = time.perf_counter() - t0
+        log(f"align path (align_archives niter=1, "
+            f"{'card' if lane else 'host'} accumulate"
+            f"{', profiler on' if prof is not None else ''}): {wall:.3f} s "
+            f"wall; by stage [s]: {align_walls(align_stats())}")
+        if prof is not None:
+            busy_ms, rows = profile_rows(prof)
+            log(f"align profile (one iteration, card lane): device busy "
+                f"{busy_ms:.3f} ms of {wall * 1e3:.3f} ms wall (idle share "
+                f"{1.0 - busy_ms / (wall * 1e3):.3f})")
+            for us, key, cnt in rows[:10]:
+                log(f"  {us / 1e3:9.3f} ms  x{cnt:<5d} {key[:90]}")
+    card, host = lanes[True], lanes[False]
+    corr = float(np.corrcoef((card - card.mean()).ravel(),
+                             (host - host.mean()).ravel())[0, 1])
+    dmax = float(np.abs(card - host).max() / np.abs(host).max())
+    log(f"align path: card lane vs host lane corr {corr:.8f} (limit "
+        f"0.99999), max |d| {dmax:.3e} x max|avg| (limit 0.02)")
+    if not (corr > 0.99999 and dmax < 0.02):
+        raise AssertionError(f"card vs host lane: corr {corr}, {dmax}")
+    if cuda:
+        check_cross_spectrum_case(cross_spectrum_case(
+            f"align fit {nsub}x{nchan}x{nbin} K={K1}", nsub, nchan, nbin,
+            K1, torch.float32, seed=40))
+        ms, bound, by = time_accumulate(nsub, nchan, nbin)
+        log(f"timing align accumulate ({nsub}x1x{nchan}x{nbin} float32, "
+            f"one chunk; rfft, rotation, weighted sum): {ms:.4f} ms "
+            f"median, bound {bound:.4f} ms ({by}), "
+            f"{100.0 * bound / ms:.1f} % of its bound")
+
+    # 4-5. pptoas with the aligned template, on the main path's archive
+    arch = os.path.join(WORK, "fake.fits")
+    main_meta = os.path.join(WORK, "align_main_meta.txt")
+    with open(main_meta, "w") as f:
+        f.write(arch + "\n")
+    tmpl = outs["ppalign -g"]
+    ref = read_tim(os.path.join(WORK, "toas.tim"))
+    got = {}
+    for label, args in (("pptoas", ["-d", arch]),
+                        ("pptoas --stream", ["--stream", "-d", main_meta])):
+        tim = os.path.join(WORK, f"align_{len(got)}.tim")
+        if os.path.exists(tim):
+            os.remove(tim)
+        wall, launches = run_cli(args + ["-m", tmpl, "-o", tim, "--quiet",
+                                          "--device", device],
+                                 f"{label} -m aligned")
+        got[label] = read_tim(tim)
+        if set(got[label]) != set(ref):
+            raise AssertionError(f"{label} -m aligned: TOAs for "
+                                 f"{sorted(got[label])[:3]}...")
+        log(f"align path ({label} -m aligned.fits): {len(got[label])} TOAs "
+            f"in {wall:.3f} s wall incl. load; kernel launches {launches}")
+    al = got["pptoas"]
+    d = np.array([tim_offset_us(ref[k], al[k]) for k in sorted(ref)])
+    err = np.array([al[k]["err"] for k in sorted(ref)])
+    scatter = np.abs(d - d.mean()) / err
+    stream_off = max(tim_sigma_offset(al[k], got["pptoas --stream"][k])
+                     for k in al)
+    gt = GetTOAs(arch, tmpl, quiet=True, device=device)
+    gt.get_TOAs(quiet=True)
+    rcs = np.asarray(gt.rcs[0])[gt.ok_isubs[0]]
+    log(f"align path (TOA(aligned) - TOA(.gmodel)): offset "
+        f"{d.mean():.4f} us, scatter about it rms "
+        f"{float(np.sqrt(np.mean(scatter ** 2))):.4f}, max "
+        f"{float(scatter.max()):.4f} sigma (limit {ALIGN_TOA_SCATTER}); "
+        f"stream vs pptoas max {stream_off:.4f} sigma (limit 0.1); "
+        f"return codes {sorted(set(rcs.tolist()))}")
+    if not (scatter.max() < ALIGN_TOA_SCATTER and stream_off <= 0.1
+            and np.all(np.isin(rcs, (0, 1, 2)))):
+        raise AssertionError(f"pptoas -m aligned: scatter "
+                             f"{scatter.max():.3f} sigma, stream "
+                             f"{stream_off:.3f} sigma, rcs {set(rcs)}")
+    return b1
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -2222,6 +2575,9 @@ def main():
     t0 = time.perf_counter()
     zap_launches = phase_zap()
     log(f"phase zap path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    align_launches = phase_align()
+    log(f"phase align path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -2247,7 +2603,8 @@ def main():
             "spline_stream": spl_launches["stream"][
                 "fused_cross_spectrum"],
             "narrowband": nb_total["fused_cross_spectrum"],
-            "zap": zap_launches["fused_cross_spectrum"]},
+            "zap": zap_launches["fused_cross_spectrum"],
+            "align": align_launches},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {

@@ -107,6 +107,13 @@ harmonic_window_floor_sigma = 20.0
 # of accumulation, and the flagged lists are gated equal by the tests.
 zap_device = "auto"
 
+# Run ppalign's rotate-and-accumulate template update (parallel/batch.py)
+# on the align's device: the split-real harmonic accumulate in float32
+# where device_f32 resolves on (CUDA), float64 elsewhere.  'auto' = on
+# CUDA devices; False is the host lane, a float64 accumulate on the CPU
+# (the fits still run on the align's device).
+align_device = "auto"
+
 # Threshold [standard deviations] of the median-algorithm channel cut
 # (the reference's nstd=3): a channel whose noise level exceeds
 # median + zap_nstd*std of the surviving channels is flagged,
@@ -122,6 +129,7 @@ zap_nstd = 3.0
 #   PPT_XSPEC=float32|bfloat16      -> cross_spectrum_dtype
 #   PPT_DFT_PRECISION=highest|high|default -> dft_precision
 #   PPT_DFT_FOLD=off|auto|on        -> dft_fold
+#   PPT_ALIGN_DEVICE=off|auto|on    -> align_device
 #   PPT_ZAP_DEVICE=off|auto|on      -> zap_device
 #   PPT_ZAP_NSTD=<float>            -> zap_nstd
 #   PPT_STREAM_DEVICES=auto|<N>     -> stream_devices
@@ -176,9 +184,9 @@ KNOWN_PPT_ENV = frozenset({
 # The hooks env_overrides applies here.
 HOOKED_PPT_ENV = frozenset({
     "PPT_FIT_FUSED", "PPT_FUSED_BLOCK", "PPT_XSPEC", "PPT_DFT_PRECISION",
-    "PPT_DFT_FOLD", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD", "PPT_STREAM_DEVICES",
-    "PPT_MAX_INFLIGHT", "PPT_PIPELINE_DEPTH", "PPT_BUCKET_PAD",
-    "PPT_RAW_SUBBYTE"})
+    "PPT_DFT_FOLD", "PPT_ALIGN_DEVICE", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD",
+    "PPT_STREAM_DEVICES", "PPT_MAX_INFLIGHT", "PPT_PIPELINE_DEPTH",
+    "PPT_BUCKET_PAD", "PPT_RAW_SUBBYTE"})
 
 
 def _unported_ppt_env():
@@ -187,7 +195,6 @@ def _unported_ppt_env():
     why = {}
     for name in ("PPT_LM_JACOBIAN", "PPT_GAUSS_DEVICE"):
         why[name] = "template building (ROADMAP A9)"
-    why["PPT_ALIGN_DEVICE"] = "align (ROADMAP A10)"
     for name in ("PPT_GLS_DEVICE", "PPT_GLS_RESOLVE_EVERY"):
         why[name] = "timing (ROADMAP A11)"
     why["PPT_TRANSPORT_COMPRESS"] = "the transport codec (ROADMAP A7)"
@@ -304,6 +311,8 @@ def env_overrides():
         "'highest', 'high' or 'default'"))
     put("dft_fold", _table(env, "PPT_DFT_FOLD", _TRISTATE,
                            "'off', 'auto' or 'on'"))
+    put("align_device", _table(env, "PPT_ALIGN_DEVICE", _TRISTATE,
+                               "'off', 'auto' or 'on'"))
     put("zap_device", _table(env, "PPT_ZAP_DEVICE", _TRISTATE,
                              "'off', 'auto' or 'on'"))
     znstd = env.get("PPT_ZAP_NSTD", "")

@@ -26,6 +26,7 @@ KNOB_POLARITY = {
     "bucket_pad": "cuda",   # stream bucket channel-count coarsening
     "device_f32": "cuda",   # the complex engine runs float64 as float32
     "zap_device": "cuda",   # the batched torch zap cut (quality/excision)
+    "align_device": "cuda",  # ppalign's accumulate on the align's device
 }
 
 

@@ -19,7 +19,7 @@ from ..ops.gaussian import gaussian_profile_FT
 from ..ops.scattering import scattering_portrait_FT, scattering_times
 
 __all__ = ["GaussianModel", "gen_gaussian_portrait",
-           "gen_gaussian_portrait_FT"]
+           "gen_gaussian_portrait_FT", "gen_gaussian_profile"]
 
 
 def power_law_evolution(value, mod_index, freqs, nu_ref):
@@ -117,3 +117,19 @@ def gen_gaussian_portrait(params, freqs, nu_ref, nbin, P=None, code="000",
     pFT = gen_gaussian_portrait_FT(params, freqs, nu_ref, nharm, P, code,
                                    scattered)
     return torch.fft.irfft(pFT, n=nbin, dim=-1)
+
+
+def gen_gaussian_profile(params, nbin, nu_ref=None, code="000", P=None,
+                         scattered=True, device=None):
+    """Single-frequency profile (nbin,) at nu_ref (1.0 when None): DC +
+    components + scattering.  params is a dict of numbers, numpy arrays
+    or tensors (those made float64 tensors on ``device``, default
+    cuda), with the keys of GaussianModel.params."""
+    dev = resolve_device(device)
+    params = {k: v.to(dev) if isinstance(v, torch.Tensor) else
+              torch.as_tensor(np.asarray(v, float), dtype=torch.float64,
+                              device=dev) for k, v in params.items()}
+    nu = 1.0 if nu_ref is None else nu_ref
+    freqs = torch.tensor([nu], dtype=params["locs"].dtype, device=dev)
+    return gen_gaussian_portrait(params, freqs, nu, nbin, P, code,
+                                 scattered)[0]

@@ -10,7 +10,9 @@ The matmul API is split-real: rfft_mm(x) -> (Xr, Xi),
 irfft_mm(Xr, Xi, n) -> x, matching numpy's rfft/irfft conventions.
 The complex fit engine and the scattering ops take the complex
 interface, rfft_c / irfft_c (torch.fft), as the JAX package's do off
-the TPU.
+the TPU.  The split-real interface of the align accumulate, rfft_sr /
+irfft_sr, is torch.fft too: the JAX package's matmul arm of it exists
+for TPUs only, whose programs cannot hold complex values.
 """
 
 from functools import lru_cache
@@ -21,8 +23,9 @@ import torch
 from .. import config
 from ..device import resolve_auto
 
-__all__ = ["rfft_mm", "irfft_mm", "rfft_c", "irfft_c", "use_dft_fold",
-           "check_dft_precision", "device_weights"]
+__all__ = ["rfft_mm", "irfft_mm", "rfft_c", "irfft_c", "rfft_sr",
+           "irfft_sr", "use_dft_fold", "check_dft_precision",
+           "device_weights"]
 
 
 def _dtype_str(dtype):
@@ -170,3 +173,19 @@ def irfft_c(X, n=None):
     """Inverse of rfft_c: complex (..., nharm) -> real (..., n), the
     spectrum zero-padded or cut to n // 2 + 1 harmonics."""
     return torch.fft.irfft(X, n=n, dim=-1)
+
+
+def rfft_sr(x, precision=None):
+    """Split-real rfft of the last axis: (..., n) -> (Re, Im), each
+    (..., n//2+1) real, through torch.fft (the JAX package's arm for
+    backends with a working FFT).  precision is checked as for the
+    matmul DFTs and changes nothing here."""
+    check_dft_precision(precision, x.device)
+    X = torch.fft.rfft(x, dim=-1)
+    return X.real, X.imag
+
+
+def irfft_sr(Xr, Xi, n=None, precision=None):
+    """Inverse of rfft_sr: (Re, Im) -> (..., n) real."""
+    check_dft_precision(precision, Xr.device)
+    return torch.fft.irfft(torch.complex(Xr, Xi), n=n, dim=-1)

@@ -1,0 +1,6 @@
+"""Batched device programs of the align pipeline (the single-device part
+of pulseportraiture_tpu/parallel; the sharded fits are ROADMAP A12)."""
+
+from .batch import (ALIGN_DEVICE_CHUNK, align_accumulate_archive,  # noqa: F401
+                    align_accumulator_init, align_finalize,
+                    use_align_device)

@@ -508,7 +508,8 @@ def test_import_hygiene():
         " 'pipeline.stream', 'ops.phasor', 'ops.rotation', 'models.spline',"
         " 'io.splmodel', 'fit.phase_shift', 'convert', 'quality.excision',"
         " 'quality.postfit', 'pipeline.zap', 'pipeline.portrait',"
-        " 'synth.rfi', 'cli.ppzap')}\n"
+        " 'synth.rfi', 'cli.ppzap', 'parallel.batch', 'pipeline.align',"
+        " 'models.wavelet', 'cli.ppalign')}\n"
         "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "
@@ -553,3 +554,18 @@ class TestDeviceRule:
         write_gmodel(default_test_model(), g, quiet=True)
         with pytest.raises(RuntimeError):
             GetTOAs(g, g, quiet=True)
+
+    def test_align_entry_point(self, tmp_path):
+        from pulseportraiture_tpu_torch.cli.ppalign import main
+        from pulseportraiture_tpu_torch.pipeline import (
+            align_archives, gaussian_seed_portrait)
+
+        with pytest.raises(RuntimeError):
+            align_archives([str(tmp_path / "a.fits")], np.ones((4, 64)),
+                           outfile=str(tmp_path / "out.fits"), quiet=True)
+        with pytest.raises(RuntimeError):
+            gaussian_seed_portrait(4, 64, 0.05)
+        meta = tmp_path / "meta.txt"
+        meta.write_text(str(tmp_path / "a.fits") + "\n")
+        with pytest.raises(RuntimeError):
+            main(["-M", str(meta), "-o", str(tmp_path / "out.fits")])

@@ -717,6 +717,7 @@ HOOKS = {
     "PPT_BUCKET_PAD": ("auto", "bucket_pad", "yes"),
     "PPT_RAW_SUBBYTE": ("off", "raw_subbyte", "auto"),
     "PPT_ZAP_DEVICE": ("on", "zap_device", "gpu"),
+    "PPT_ALIGN_DEVICE": ("off", "align_device", "gpu"),
     "PPT_ZAP_NSTD": ("4.5", "zap_nstd", "-1"),
 }
 
