@@ -107,7 +107,26 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    the aligned archive on the main path's archive and ``pptoas
    --stream`` the same: TOAs a constant offset from the .gmodel run's
    plus a scatter below the bound PERF.md fixed, the stream within 0.1
-   sigma, return codes in {0, 1, 2}.
+   sigma, return codes in {0, 1, 2};
+14. template path: an averaged archive (1 x 512 x 2048 at the noise of
+   a 128-subint ppalign average) and a JOIN pair of 256-channel
+   receivers (the second with an injected phase and dDM);
+   ``ppgauss --niter 2 --fitloc`` on the batched LM lane, the serial
+   lane (--gauss-device off) and the torch.func Jacobian (--lm-jacobian
+   ad): the same ngauss and parameters within 1e-6 x their errors;
+   ``ppgauss -M --fitloc`` recovering the injected JOIN (phase, dDM)
+   within 5 sigma; ``ppspline`` (-N prof) and ``ppspline -s``; each with its
+   wall by stage and, per LM call, iterations, nfev, host reads of the
+   loop state and compaction classes; the built .gmodel and .spl
+   correlating with the clean .gmodel portrait above the bound PERF.md
+   fixed; ``pptoas -m`` the built .gmodel and .spl and ``pptoas
+   --stream -m`` the .gmodel on the main path's archive: TOAs a constant
+   offset from the .gmodel run's plus a scatter below the bound PERF.md
+   fixed, B1 through its FFT arm only, the stream within 0.1 sigma,
+   return codes in {0, 1, 2}; the first portrait fit under the profiler
+   (busy, idle share, peak memory, the DGEMM and solve shares); and
+   fit_gaussian_portrait on 64 channels on the card and on the CPU
+   (float64 both) within 1e-6 x the errors, chi2 within 1e-9.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -181,6 +200,20 @@ ALIGN_PHASES = (0.0, 0.11, -0.07, 0.23)
 ALIGN_DDMS = (0.0, 1e-4, 2e-4, -1e-4)
 ALIGN_FWHM, ALIGN_NITER = 0.05, 2
 ALIGN_TOA_SCATTER = 3.0
+# the template path: an averaged archive of 1 subint at the main
+# archive's widths with the white noise per bin of a 128-subint ppalign
+# average of epochs at NOISE_ALIGN, and a JOIN pair of receivers of
+# half its channels each (1100-1500 and 1500-1900 MHz, the second with
+# an injected phase and dDM); ppgauss's --niter; the bounds on the
+# built templates' correlation with the clean .gmodel portrait and on
+# the scatter of TOA(built template) - TOA(.gmodel) about their mean
+# offset [sigma], per template kind, fixed before the first chip run
+# from a CPU rehearsal (tools/template_toa_scatter.py; PERF.md section 6)
+NOISE_TEMPLATE = NOISE_ALIGN / math.sqrt(128)
+JOIN_PHASE, JOIN_DDM = 0.05, 1e-4
+TEMPLATE_NITER = 2
+TEMPLATE_CORR = {"gmodel": 0.9999, "spl": 0.9999}
+TEMPLATE_TOA_SCATTER = {"gmodel": 0.5, "spl": 3.0}
 
 
 def log(msg):
@@ -2246,10 +2279,11 @@ def check_aligned_archive(path, nchan, nbin):
     return d.subints[0, 0], np.asarray(d.freqs[0])
 
 
-def clean_correlation(avg, freqs, device):
+def clean_correlation(avg, freqs, device, scale=None):
     """tests/test_pipeline_align.py's recovery statistic: the per-channel
     correlation of the average with the clean .gmodel portrait,
-    maximised over one common lag, and the residual rms at that lag."""
+    maximised over one common lag, and the residual rms at that lag;
+    scale, when given, is applied to the clean portrait first."""
     import numpy as np
     from pulseportraiture_tpu_torch.io.gmodel import gen_gmodel_portrait
     from pulseportraiture_tpu_torch.synth import default_test_model
@@ -2257,6 +2291,8 @@ def clean_correlation(avg, freqs, device):
     nbin = avg.shape[-1]
     clean = gen_gmodel_portrait(default_test_model(1500.0), np.arange(nbin),
                                 freqs, P=PAR["P0"], device=device)
+    if scale is not None:
+        clean = scale(clean)
     a = avg - avg.mean(axis=1, keepdims=True)
     c = clean - clean.mean(axis=1, keepdims=True)
     ccf = np.fft.irfft(np.fft.rfft(a, axis=1).conj()
@@ -2493,6 +2529,428 @@ def phase_align(device="cuda", nsub=NSUB_ALIGN, nchan=NCHAN, nbin=NBIN):
     return b1
 
 
+def template_archives(device="cuda", nchan=NCHAN, nbin=NBIN):
+    """The template path's inputs, from seeded generators: avg.fits, 1
+    subint x nchan x nbin of the .gmodel, dedispersed, at
+    NOISE_TEMPLATE; and join.meta, two receivers of 1 x nchan/2 x nbin
+    (1100-1500 and 1500-1900 MHz) at the same noise, the second with
+    JOIN_PHASE and JOIN_DDM injected.  Returns (avg, join metafile)."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    model = default_test_model(1500.0)
+    avg = os.path.join(WORK, "avg.fits")
+    make_fake_pulsar(model, PAR, outfile=avg, nsub=1, nchan=nchan,
+                     nbin=nbin, nu0=1500.0, bw=800.0, tsub=3840.0,
+                     start_MJD=MJD(55500, 0.1), noise_stds=NOISE_TEMPLATE,
+                     dedispersed=True, quiet=True,
+                     rng=np.random.default_rng(SEED + 140), device=device)
+    rcvrs = []
+    for i, (nu0, phase, dDM) in enumerate(((1300.0, 0.0, 0.0),
+                                           (1700.0, JOIN_PHASE, JOIN_DDM))):
+        path = os.path.join(WORK, f"rcvr-{i}.fits")
+        make_fake_pulsar(model, PAR, outfile=path, nsub=1,
+                         nchan=nchan // 2, nbin=nbin, nu0=nu0, bw=400.0,
+                         tsub=3840.0, phase=phase, dDM=dDM,
+                         start_MJD=MJD(55500, 0.1),
+                         noise_stds=NOISE_TEMPLATE, dedispersed=False,
+                         quiet=True, rng=np.random.default_rng(SEED + 141 + i),
+                         device=device)
+        rcvrs.append(path)
+    meta = os.path.join(WORK, "join.meta")
+    with open(meta, "w") as f:
+        f.write("\n".join(rcvrs) + "\n")
+    return avg, meta
+
+
+def run_template_cli(tool, args, label):
+    """``python -m pulseportraiture_tpu_torch.cli.<tool> args`` in this
+    process, with the kernel counters, the stage walls and the LM
+    records set to 0 just before it; returns (wall seconds, counters,
+    walls by stage, LM records, the DataPortrait the run built, whose
+    fitted values the check reads at full precision: the .gmodel prints
+    8 decimals)."""
+    from pulseportraiture_tpu_torch.fit.lm import lm_stats, reset_lm_stats
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline import portrait as PP
+
+    F.reset_kernel_launches()
+    PP.reset_template_stats()
+    reset_lm_stats()
+    made = []
+    init = PP.DataPortrait.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    PP.DataPortrait.__init__ = spy
+    argv = sys.argv
+    sys.argv = [tool] + list(args)
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module(f"pulseportraiture_tpu_torch.cli.{tool}",
+                         run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise RuntimeError(f"{label} exited with {e.code!r}")
+    finally:
+        sys.argv = argv
+        PP.DataPortrait.__init__ = init
+    sync(args[args.index("--device") + 1])
+    return (time.perf_counter() - t0, F.kernel_launches(),
+            PP.template_stats(), lm_stats(), made[-1])
+
+
+def log_template_run(label, wall, walls, lms):
+    """The wall by stage and, per LM call, its iterations, nfev, host
+    reads of the loop state and compaction classes."""
+    log(f"template path ({label}): {wall:.3f} s wall; by stage [s]: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    calls = {}
+    for st in lms:
+        calls.setdefault(st["B"], []).append(st)
+    for B, sts in calls.items():
+        log(f"  LM calls at B={B}: {len(sts)}, iterations "
+            f"{[st['it'] for st in sts]}, nfev {[st['nfev'] for st in sts]}"
+            f", host reads {[st['host_reads'] for st in sts]}"
+            + (f", classes {[st['classes'] for st in sts]}" if B > 1
+               else ""))
+
+
+def built_correlation(kind, path, freqs, nbin, device):
+    """A built template's portrait at the main archive's frequencies, its
+    correlation with the clean .gmodel portrait over one common lag
+    (clean_correlation, each channel of both scaled to unit rms first:
+    the fit takes a scale per channel, and ppspline's default -N prof
+    normalizes every channel) and whether it is finite."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.io.gmodel import (gen_gmodel_portrait,
+                                                      read_gmodel)
+    from pulseportraiture_tpu_torch.io.splmodel import read_spline_model
+
+    if kind == "gmodel":
+        port = gen_gmodel_portrait(read_gmodel(path, quiet=True),
+                                   np.arange(nbin), freqs, P=PAR["P0"],
+                                   device=device)
+    else:
+        port = read_spline_model(path, quiet=True).portrait(
+            freqs, nbin, device=device)
+    port = np.asarray(port)
+    finite = bool(np.all(np.isfinite(port)))
+    corr, _ = clean_correlation(unit_rms_rows(port), freqs, device,
+                                scale=unit_rms_rows)
+    return corr, finite
+
+
+def unit_rms_rows(port):
+    """Each row of a portrait less its mean, over its rms."""
+    import numpy as np
+
+    a = port - port.mean(axis=1, keepdims=True)
+    return a / np.maximum(np.sqrt((a ** 2).mean(axis=1, keepdims=True)),
+                          1e-300)
+
+
+def template_fit_inputs(avg, device):
+    """The first portrait fit of ``ppgauss -d avg --fitloc``: the data,
+    errors, flags and seed of its iteration 0 (the breadth-first profile
+    trials on ``device``, the batched lane on CUDA)."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.pipeline.gauss import (
+        GaussPortrait, portrait_fit_flags, profile_to_portrait_params)
+
+    dp = GaussPortrait(avg, quiet=True, device=device)
+    profile, nu_ref = dp.select_ref_profile()
+    dp.auto_fit_profile(profile)
+    okc = dp.ok_ichans
+    errs = np.where(dp.noise_stds > 0, dp.noise_stds,
+                    np.median(dp.noise_stds[okc]))
+    return dict(data=dp.port[okc], x0=profile_to_portrait_params(
+                    dp.init_params),
+                errs=errs[okc], flags=portrait_fit_flags(dp.ngauss,
+                                                         fixloc=False),
+                freqs=dp.freqsxs[0], nu_ref=nu_ref, P=float(dp.Ps[0]))
+
+
+def profile_portrait_fit(inp, device):
+    """The first portrait fit under torch.profiler: device busy time,
+    idle share, top rows, peak memory, the LM's record, and the share of
+    the device time in the Jacobian products (DGEMM) and the small
+    batched solves.  The profiler's own host cost stretches the wall, so
+    the idle share is also given against the wall of the same call
+    without it (host clock, synchronized)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pulseportraiture_tpu_torch.config import scattering_alpha
+    from pulseportraiture_tpu_torch.fit.gauss import fit_gaussian_portrait
+    from pulseportraiture_tpu_torch.fit.lm import lm_stats, reset_lm_stats
+
+    def fit():
+        return fit_gaussian_portrait(
+            inp["data"], inp["x0"], scattering_alpha, inp["errs"],
+            inp["flags"], 0, inp["freqs"], inp["nu_ref"], P=inp["P"],
+            device=device)
+
+    fit()  # first use
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_lm_stats()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fit()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy_ms, rows = profile_rows(prof)
+    st = lm_stats()[-1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gemm = sum(r[0] for r in rows if "gemm" in r[1].lower()) / 1e3
+    solve = sum(r[0] for r in rows if any(
+        w in r[1].lower() for w in ("getr", "getf", "trsm", "solve",
+                                    "lu_", "pivot", "laswp"))) / 1e3
+    log(f"template profile (the first portrait fit, {inp['data'].shape[0]}"
+        f"x{inp['data'].shape[1]}, {len(inp['x0']) + 1} parameters, "
+        f"float64): device busy {busy_ms:.3f} ms of {wall * 1e3:.3f} ms wall "
+        f"(idle share {1.0 - busy_ms / (wall * 1e3):.3f}; without the "
+        f"profiler the call takes {plain_wall * 1e3:.3f} ms, idle share "
+        f"{1.0 - busy_ms / (plain_wall * 1e3):.3f}); {st['it']} "
+        f"iterations, nfev {st['nfev']}, {st['host_reads']} host reads; "
+        f"peak memory {peak:.2f} GiB; DGEMM {gemm:.3f} ms "
+        f"({100 * gemm / busy_ms:.1f} %), batched solves {solve:.3f} ms "
+        f"({100 * solve / busy_ms:.1f} %)")
+    for us, key, cnt in rows[:10]:
+        log(f"  {us / 1e3:9.3f} ms  x{cnt:<5d} {key[:90]}")
+
+
+def card_vs_cpu_fit(inp, device, nchan=64):
+    """fit_gaussian_portrait on the first nchan channels on ``device``
+    and on the CPU (float64 both) from the same start: every parameter
+    within 1e-6 x its error, chi2 within 1e-9 relative."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.config import scattering_alpha
+    from pulseportraiture_tpu_torch.fit.gauss import fit_gaussian_portrait
+
+    out = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = fit_gaussian_portrait(
+            inp["data"][:nchan], inp["x0"], scattering_alpha,
+            inp["errs"][:nchan], inp["flags"], 0, inp["freqs"][:nchan],
+            inp["nu_ref"], P=inp["P"], device=dev)
+        out[dev]["wall"] = time.perf_counter() - t0
+    a, b = out[device], out["cpu"]
+    err = np.where(b.fit_errs > 0, b.fit_errs, np.inf)
+    dist = float(np.max(np.abs(a.fitted_params - b.fitted_params) / err))
+    dchi = abs(a.chi2 - b.chi2) / b.chi2
+    log(f"template path (fit_gaussian_portrait, first {nchan} channels, "
+        f"{device_type(device)} vs cpu, float64): nfev {a.nfev} / {b.nfev}, "
+        f"max |dparam| {dist:.3e} x err (limit 1e-6), chi2 rel. diff "
+        f"{dchi:.3e} (limit 1e-9); walls {a.wall:.3f} / {b.wall:.3f} s")
+    if not (dist <= 1e-6 and dchi <= 1e-9):
+        raise AssertionError(f"card vs cpu portrait fit: {dist:.3e} x err, "
+                             f"chi2 {dchi:.3e}")
+
+
+def phase_template(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN):
+    """The template path (phase 14): avg.fits and join.meta from
+    template_archives, then
+    1-3. ``ppgauss -d avg.fits --niter TEMPLATE_NITER --fitloc -e`` on
+       the batched lane (gauss_device auto, on for CUDA), with
+       ``--gauss-device off`` (the serial lane) and with ``--lm-jacobian
+       ad`` (torch.func): the same ngauss, every parameter of runs 2 and
+       3 within 1e-6 x its error of run 1's; run 1's portrait at the main
+       archive's frequencies correlates with the clean .gmodel portrait
+       above TEMPLATE_CORR;
+    4. ``ppgauss -M join.meta --niter 1 --fitloc`` (the .gmodel's loc
+       evolution is not zero, so a fit without it moves the JOIN dDM by
+       15 sigma, in the JAX package as in the port): the second
+       receiver's (phase, dDM) within 5 sigma of the injection, in the
+       JAX package's convention (the phase at the model's nu_ref);
+    5. ``ppspline -d avg.fits`` (-N prof) and ``ppspline -s``: ncomp >=
+       0, finite, correlation above TEMPLATE_CORR;
+    6. ``pptoas -m`` run 1's .gmodel and run 5's .spl on the main path's
+       archive and ``pptoas --stream -m`` the .gmodel: TOAs a constant
+       offset from the true .gmodel run's (phase 4) plus a scatter below
+       TEMPLATE_TOA_SCATTER[kind] sigma, the stream within 0.1 sigma, B1
+       through its FFT arm only, return codes in {0, 1, 2};
+    7. the first portrait fit under the profiler (busy, idle share, peak
+       memory) and fit_gaussian_portrait on 64 channels on the card and
+       on the CPU.
+    Every CLI run runs in this process with the counters set to 0 just
+    before it.  Returns B1's launches over the pptoas runs of step 6."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.config import Dconst
+    from pulseportraiture_tpu_torch.pipeline import GetTOAs
+
+    cuda = device_type(device) == "cuda"
+    t0 = time.perf_counter()
+    avg, join = template_archives(device, nchan, nbin)
+    log(f"template archives: avg.fits 1x{nchan}x{nbin} at noise "
+        f"{NOISE_TEMPLATE:.4f}, join.meta 2 x 1x{nchan // 2}x{nbin} "
+        f"(second: phase {JOIN_PHASE}, dDM {JOIN_DDM}), written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    P = PAR["P0"]
+
+    # 1-3. ppgauss, three lanes
+    runs, dps = {}, {}
+    for label, extra in (("batched", []),
+                         ("serial", ["--gauss-device", "off"]),
+                         ("ad", ["--lm-jacobian", "ad"])):
+        out = os.path.join(WORK, f"a-{label}.gmodel")
+        wall, _, walls, lms, dp = run_template_cli(
+            "ppgauss", ["-d", avg, "--niter", str(TEMPLATE_NITER),
+                        "--fitloc", "-o", out, "-e", out + "_errs",
+                        "--device", device] + extra,
+            f"ppgauss ({label})")
+        log_template_run(f"ppgauss --niter {TEMPLATE_NITER} --fitloc, "
+                         f"{label} lane", wall, walls, lms)
+        runs[label], dps[label] = out, dp
+    from pulseportraiture_tpu_torch import config as cfg
+
+    cfg.lm_jacobian = "auto"  # --lm-jacobian set it for this process
+    d1 = dps["batched"]
+    e1 = np.where(d1.fit_errs > 0, d1.fit_errs, np.inf)
+    worst = 0.0
+    for label in ("serial", "ad"):
+        d = dps[label]
+        if d.ngauss != d1.ngauss:
+            raise AssertionError(f"ppgauss {label}: ngauss {d.ngauss}, "
+                                 f"batched {d1.ngauss}")
+        worst = max(worst, float(np.max(np.abs(d.fitted_params
+                                               - d1.fitted_params) / e1)))
+    margin = d1.trials.red_chi2s
+    log(f"template path (ppgauss lanes): ngauss {d1.ngauss} on all three "
+        f"(trial reduced chi2 {', '.join(f'{r:.4f}' for r in margin)}; "
+        f"converged {d1.trials.success.tolist()}); largest |param - "
+        f"batched| {worst:.3e} x err (limit 1e-6); iterations "
+        f"{[(it['nfev'], it['converged']) for it in d1.iterations]}")
+    if not worst <= 1e-6:
+        raise AssertionError(f"ppgauss lanes differ by {worst:.3e} x err")
+    from pulseportraiture_tpu_torch.io.psrfits import read_archive
+
+    freqs = np.asarray(read_archive(os.path.join(WORK, "fake.fits"),
+                                    decode=False).freqs_table[0], float)
+    corr, finite = built_correlation("gmodel", runs["batched"], freqs, nbin,
+                                     device)
+    log(f"template path (a.gmodel): correlation with the clean .gmodel "
+        f"portrait {corr:.8f}, 1 - corr {1.0 - corr:.3e} (limit "
+        f"{TEMPLATE_CORR['gmodel']})")
+    if not (corr > TEMPLATE_CORR["gmodel"] and finite):
+        raise AssertionError(f"a.gmodel: correlation {corr}, finite "
+                             f"{finite}")
+
+    # 4. the JOIN fit
+    jout = os.path.join(WORK, "j.gmodel")
+    wall, _, walls, lms, jdp = run_template_cli(
+        "ppgauss", ["-M", join, "--niter", "1", "--fitloc", "-o", jout,
+                    "-e", jout + "_errs", "--device", device], "ppgauss -M")
+    log_template_run("ppgauss -M join.meta --niter 1 --fitloc", wall, walls,
+                     lms)
+    phi, ddm = jdp.join_params[2], jdp.join_params[3]
+    sphi, sddm = jdp.join_fit_errs[2], jdp.join_fit_errs[3]
+    # the JAX package's convention: the JOIN phase is the receiver's
+    # delay at the model's nu_ref, so the injected dDM (referenced to
+    # infinite frequency once the header DM is removed) adds to it
+    phi_inj = JOIN_PHASE + Dconst * JOIN_DDM * jdp.nu_ref ** -2.0 / P
+    log(f"template path (JOIN): second receiver phase {phi:.7f} +/- "
+        f"{sphi:.2e} rot (injected {phi_inj:.7f} at nu_ref "
+        f"{jdp.nu_ref:.2f} MHz, {abs(phi - phi_inj) / sphi:.2f} sigma), "
+        f"dDM {ddm:.3e} +/- {sddm:.1e} (injected {JOIN_DDM}, "
+        f"{abs(ddm - JOIN_DDM) / sddm:.2f} sigma; limit 5 sigma)")
+    if not (abs(phi - phi_inj) < 5 * sphi
+            and abs(ddm - JOIN_DDM) < 5 * sddm):
+        raise AssertionError(f"JOIN recovery: phase {phi}, dDM {ddm}")
+
+    # 5. ppspline
+    spls = {}
+    for label, extra in (("-N prof", []), ("-s", ["-s"])):
+        out = os.path.join(WORK, "a.spl" if not extra else "s.spl")
+        wall, _, walls, lms, sdp = run_template_cli(
+            "ppspline", ["-d", avg, "-o", out, "--quiet", "--device",
+                         device] + extra, f"ppspline {label}")
+        from pulseportraiture_tpu_torch.io.splmodel import read_spline_model
+
+        ncomp = read_spline_model(out, quiet=True).ncomp
+        if ncomp != sdp.ncomp:
+            raise AssertionError(f"{out}: ncomp {ncomp}, built {sdp.ncomp}")
+        corr, finite = built_correlation("spl", out, freqs, nbin, device)
+        log_template_run(f"ppspline {label}", wall, walls, lms)
+        log(f"template path (ppspline {label}): ncomp {ncomp}; correlation "
+            f"with the clean .gmodel portrait {corr:.8f}, 1 - corr "
+            f"{1.0 - corr:.3e} (limit {TEMPLATE_CORR['spl']}); finite "
+            f"{finite}")
+        if not (ncomp >= 0 and finite and corr > TEMPLATE_CORR["spl"]):
+            raise AssertionError(f"ppspline {label}: ncomp {ncomp}, corr "
+                                 f"{corr}, finite {finite}")
+        spls[label] = out
+
+    # 6. pptoas with the built templates, on the main path's archive
+    arch = os.path.join(WORK, "fake.fits")
+    main_meta = os.path.join(WORK, "template_main_meta.txt")
+    with open(main_meta, "w") as f:
+        f.write(arch + "\n")
+    ref = read_tim(os.path.join(WORK, "toas.tim"))
+    b1 = 0
+    got = {}
+    for label, kind, tmpl, args in (
+            ("pptoas -m a.gmodel", "gmodel", runs["batched"], ["-d", arch]),
+            ("pptoas -m a.spl", "spl", spls["-N prof"], ["-d", arch]),
+            ("pptoas --stream -m a.gmodel", "gmodel", runs["batched"],
+             ["--stream", "-d", main_meta])):
+        tim = os.path.join(WORK, f"template_{len(got)}.tim")
+        if os.path.exists(tim):
+            os.remove(tim)
+        wall, launches = run_cli(args + ["-m", tmpl, "-o", tim, "--quiet",
+                                          "--device", device], label)
+        if cuda:
+            fft_only(launches, ("fused_cross_spectrum",), label)
+        b1 += launches["fused_cross_spectrum"]
+        got[label] = read_tim(tim)
+        if set(got[label]) != set(ref):
+            raise AssertionError(f"{label}: TOAs for "
+                                 f"{sorted(got[label])[:3]}...")
+        t = got[label]
+        d = np.array([tim_offset_us(ref[k], t[k]) for k in sorted(ref)])
+        err = np.array([t[k]["err"] for k in sorted(ref)])
+        scatter = np.abs(d - d.mean()) / err
+        log(f"template path ({label}): {len(t)} TOAs in {wall:.3f} s wall "
+            f"incl. load; TOA(built) - TOA(.gmodel) offset {d.mean():.4f} "
+            f"us, scatter about it rms "
+            f"{float(np.sqrt(np.mean(scatter ** 2))):.4f}, max "
+            f"{float(scatter.max()):.4f} sigma (limit "
+            f"{TEMPLATE_TOA_SCATTER[kind]}); kernel launches {launches}")
+        if not scatter.max() < TEMPLATE_TOA_SCATTER[kind]:
+            raise AssertionError(f"{label}: scatter {scatter.max():.3f} "
+                                 "sigma")
+    a = got["pptoas -m a.gmodel"]
+    stream_off = max(tim_sigma_offset(a[k],
+                                      got["pptoas --stream -m a.gmodel"][k])
+                     for k in a)
+    gt = GetTOAs(arch, runs["batched"], quiet=True, device=device)
+    gt.get_TOAs(quiet=True)
+    rcs = np.asarray(gt.rcs[0])[gt.ok_isubs[0]]
+    log(f"template path: stream vs pptoas with a.gmodel max "
+        f"{stream_off:.4f} sigma (limit 0.1); return codes "
+        f"{sorted(set(rcs.tolist()))}")
+    if not (stream_off <= 0.1 and np.all(np.isin(rcs, (0, 1, 2)))):
+        raise AssertionError(f"a.gmodel: stream {stream_off:.3f} sigma, "
+                             f"rcs {set(rcs)}")
+
+    # 7. the first portrait fit under the profiler; card vs CPU
+    inp = template_fit_inputs(avg, device)
+    if cuda:
+        profile_portrait_fit(inp, device)
+    card_vs_cpu_fit(inp, device)
+    return b1
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -2578,6 +3036,9 @@ def main():
     t0 = time.perf_counter()
     align_launches = phase_align()
     log(f"phase align path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    template_launches = phase_template()
+    log(f"phase template path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -2604,7 +3065,8 @@ def main():
                 "fused_cross_spectrum"],
             "narrowband": nb_total["fused_cross_spectrum"],
             "zap": zap_launches["fused_cross_spectrum"],
-            "align": align_launches},
+            "align": align_launches,
+            "template": template_launches},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {

@@ -114,6 +114,35 @@ zap_device = "auto"
 # (the fits still run on the align's device).
 align_device = "auto"
 
+# --- Template building (fit/lm.py, fit/gauss.py, pipeline/gauss.py) ------
+# Upper bound on Gaussian FWHM [rotations] in template fits.
+wid_max = 0.25
+
+# The .gmodel evolution code of a new model: power laws in loc, wid and
+# amp.
+default_model_code = "000"
+
+# Run template building's Gaussian LM fits (the breadth-first profile
+# trials of pipeline/gauss.auto_fit_profile) through the BATCHED engine
+# (fit/lm.levenberg_marquardt_batched): every trial in one batched
+# dispatch instead of one serial LM per trial.  'auto' = on CUDA
+# devices; True/False force.  The serial lane, the same padded problems
+# through the single-problem engine one at a time, is the oracle.
+gauss_device = "auto"
+
+# The LM engine's Jacobian source:
+#   'auto' (default): the closed-form residual Jacobian whenever the
+#          caller provides one; torch.func.jacfwd otherwise.
+#   'analytic': require the closed form (a fit without one raises).
+#   'ad': force torch.func.jacfwd, the oracle lane.
+lm_jacobian = "auto"
+
+# Straggler-compaction chunk length of the batched template LM fits:
+# the still-iterating problems are re-batched every this many
+# iterations.  The results do not depend on it (the split falls on
+# exact iteration boundaries); None = one uninterrupted dispatch.
+lm_compact_every = 16
+
 # Threshold [standard deviations] of the median-algorithm channel cut
 # (the reference's nstd=3): a channel whose noise level exceeds
 # median + zap_nstd*std of the surviving channels is flagged,
@@ -130,6 +159,8 @@ zap_nstd = 3.0
 #   PPT_DFT_PRECISION=highest|high|default -> dft_precision
 #   PPT_DFT_FOLD=off|auto|on        -> dft_fold
 #   PPT_ALIGN_DEVICE=off|auto|on    -> align_device
+#   PPT_GAUSS_DEVICE=off|auto|on    -> gauss_device
+#   PPT_LM_JACOBIAN=auto|analytic|ad -> lm_jacobian
 #   PPT_ZAP_DEVICE=off|auto|on      -> zap_device
 #   PPT_ZAP_NSTD=<float>            -> zap_nstd
 #   PPT_STREAM_DEVICES=auto|<N>     -> stream_devices
@@ -183,8 +214,9 @@ KNOWN_PPT_ENV = frozenset({
 
 # The hooks env_overrides applies here.
 HOOKED_PPT_ENV = frozenset({
-    "PPT_FIT_FUSED", "PPT_FUSED_BLOCK", "PPT_XSPEC", "PPT_DFT_PRECISION",
-    "PPT_DFT_FOLD", "PPT_ALIGN_DEVICE", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD",
+    "PPT_LM_JACOBIAN", "PPT_GAUSS_DEVICE", "PPT_FIT_FUSED",
+    "PPT_FUSED_BLOCK", "PPT_XSPEC", "PPT_DFT_PRECISION", "PPT_DFT_FOLD",
+    "PPT_ALIGN_DEVICE", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD",
     "PPT_STREAM_DEVICES", "PPT_MAX_INFLIGHT", "PPT_PIPELINE_DEPTH",
     "PPT_BUCKET_PAD", "PPT_RAW_SUBBYTE"})
 
@@ -193,8 +225,6 @@ def _unported_ppt_env():
     """{KNOWN_PPT_ENV name without a hook here: why, and its ROADMAP
     item}."""
     why = {}
-    for name in ("PPT_LM_JACOBIAN", "PPT_GAUSS_DEVICE"):
-        why[name] = "template building (ROADMAP A9)"
     for name in ("PPT_GLS_DEVICE", "PPT_GLS_RESOLVE_EVERY"):
         why[name] = "timing (ROADMAP A11)"
     why["PPT_TRANSPORT_COMPRESS"] = "the transport codec (ROADMAP A7)"
@@ -293,6 +323,9 @@ def env_overrides():
             changed.append(attr)
 
     _warn_ppt_vars(env)
+    put("lm_jacobian", _table(
+        env, "PPT_LM_JACOBIAN", {v: v for v in ("auto", "analytic", "ad")},
+        "'auto', 'analytic' or 'ad'"))
     put("fit_fused", _table(env, "PPT_FIT_FUSED", _TRISTATE,
                             "'off', 'auto' or 'on'"))
     n = _int_env(env, "PPT_FUSED_BLOCK",
@@ -312,6 +345,8 @@ def env_overrides():
     put("dft_fold", _table(env, "PPT_DFT_FOLD", _TRISTATE,
                            "'off', 'auto' or 'on'"))
     put("align_device", _table(env, "PPT_ALIGN_DEVICE", _TRISTATE,
+                               "'off', 'auto' or 'on'"))
+    put("gauss_device", _table(env, "PPT_GAUSS_DEVICE", _TRISTATE,
                                "'off', 'auto' or 'on'"))
     put("zap_device", _table(env, "PPT_ZAP_DEVICE", _TRISTATE,
                              "'off', 'auto' or 'on'"))

@@ -27,6 +27,7 @@ KNOB_POLARITY = {
     "device_f32": "cuda",   # the complex engine runs float64 as float32
     "zap_device": "cuda",   # the batched torch zap cut (quality/excision)
     "align_device": "cuda",  # ppalign's accumulate on the align's device
+    "gauss_device": "cuda",  # the batched LM engine for template trials
 }
 
 

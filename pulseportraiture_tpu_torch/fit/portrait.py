@@ -1628,11 +1628,16 @@ def fit_portrait(port, model, noise_stds, freqs, P, nu_fit=None, nu_out=None,
     the complex engine.  nu_fit None -> guess_fit_freq(freqs); nu_out
     None -> the zero-covariance frequencies; phi0 None -> the CCF seed;
     tau0 in rotations (seeded as log10 with log10_tau); alpha0 None ->
-    config.scattering_alpha.  Returns a FitResult of 0-d tensors."""
+    config.scattering_alpha.  dtype None runs in the data's dtype (made
+    float32 where device_f32 resolves on); an explicit dtype runs the
+    whole fit in it, on every device.  Returns a FitResult of 0-d
+    tensors."""
     from ..config import scattering_alpha
 
     dev = resolve_device(device)
-    port_t = _canonical_real_dtype(_as_tensor(port, None, dev), dev)
+    port_t = _as_tensor(port, None, dev)
+    if dtype is None:
+        port_t = _canonical_real_dtype(port_t, dev)
     dt = dtype or port_t.dtype
     nbin = port_t.shape[-1]
     w = make_weights(_as_tensor(noise_stds, dt, dev)[None], nbin,

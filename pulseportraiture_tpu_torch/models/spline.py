@@ -6,7 +6,9 @@ reconstruction, the B-spline basis (Cox-de Boor, clamped to the knot
 range) and the Fourier resample.  The one-off knot selection
 (``fit_spline_curve``, scipy's splprep) stays on the host, as in the
 JAX package.  The eigenvector selection of template building
-(``find_significant_eigvec``) is not ported yet (ROADMAP A9).
+(``find_significant_eigvec``) smooths its candidates in one batched
+``smart_smooth`` on the device and runs its accept/veto loop on the
+host, as there.
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["pca", "reconstruct_portrait", "count_crossings",
-           "bspline_eval", "gen_spline_portrait", "fit_spline_curve",
+           "find_significant_eigvec", "bspline_eval", "gen_spline_portrait", "fit_spline_curve",
            "fft_resample"]
 
 
@@ -56,6 +58,61 @@ def count_crossings(x, threshold):
     direction."""
     x = np.asarray(x)
     return int(np.sum(np.diff(np.sign(x - threshold)) != 0))
+
+
+def find_significant_eigvec(eigvec, check_max=10, return_max=10,
+                            snr_cutoff=150.0, check_crossings=True,
+                            check_acorr=False, return_smooth=True,
+                            device=None, **kwargs):
+    """Select "significant" eigenvectors by smoothed Fourier S/N with a
+    crossing-count veto (reference pplib.py:1625-1689).  eigvec: (nbin,
+    ncomp) column eigenvectors (array or tensor).  The first check_max
+    candidates are smoothed at once by models.wavelet.smart_smooth
+    (kwargs) on ``device`` (default: eigvec's if a tensor, else cuda);
+    check_acorr enables the reference's unreachable autocorrelation veto
+    (off by default, as in the JAX package).  Returns (ieig,
+    smooth_eigvec) when return_smooth, else ieig; smooth_eigvec is host
+    numpy."""
+    from ..ops.noise import get_noise_PS
+    from .wavelet import smart_smooth
+
+    if device is None and isinstance(eigvec, torch.Tensor):
+        device = eigvec.device
+    dev = resolve_device(device)
+    eigvec = (eigvec.detach().cpu().numpy() if isinstance(
+        eigvec, torch.Tensor) else np.asarray(eigvec))
+    nbin = eigvec.shape[0]
+    # the loop never examines candidates past check_max: smooth only those
+    ncheck = min(check_max, eigvec.shape[1])
+    cands = _f64(np.ascontiguousarray(eigvec.T[:ncheck]), dev)
+    smoothed = smart_smooth(cands, device=dev, **kwargs).cpu().numpy()
+    noises = (get_noise_PS(cands) * np.sqrt(nbin / 2.0)).cpu().numpy()
+    smooth_eigvec = np.zeros_like(eigvec)
+    ieig = []
+    for ivec in range(ncheck):
+        ev = smoothed[ivec]
+        ev_noise = float(noises[ivec])
+        if ev_noise <= 0.0:
+            continue
+        ev_snr = float(np.sum(np.abs(np.fft.rfft(ev)[1:]) ** 2.0)) / ev_noise
+        add = False
+        if ev_snr >= snr_cutoff:
+            add = True
+            if check_crossings and ev_snr < 3.0 * snr_cutoff:
+                ncross = count_crossings(np.abs(ev), 0.1 * np.abs(ev).max())
+                add = ncross < int(0.02 * nbin)
+            if add and check_acorr and ev_snr < 3.0 * snr_cutoff:
+                acorr = np.correlate(ev, ev, "same")
+                half = np.where(acorr > acorr.max() / 2.0)[0]
+                fwhm = acorr.argmax() - half.min() if len(half) else 0
+                add = fwhm > 5
+        if add:
+            ieig.append(ivec)
+            smooth_eigvec[:, ivec] = ev
+        if ivec + 1 == check_max or len(ieig) == return_max:
+            break
+    ieig = np.array(ieig, dtype=int)
+    return (ieig, smooth_eigvec) if return_smooth else ieig
 
 
 def _bspline_basis(x, t, k):

@@ -1,7 +1,8 @@
 """Gaussian profile kernels (counterpart of pulseportraiture_tpu/ops/gaussian.py).
 
-The analytic Fourier transform of a periodic Gaussian in the FWHM
-parameterization (the Gaussian template generator), and the
+Phase-domain periodic Gaussians (FWHM parameterization) and their
+analytic Fourier transform (the Gaussian template generator) with its
+closed-form Jacobian (the LM template engine's), and the
 instrumental-response kernels the scattering fits fold into the
 template spectrum (boxcar or Gaussian smearing, per-channel DM
 smearing).
@@ -11,10 +12,28 @@ import math
 
 import torch
 
-__all__ = ["FWHM2SIGMA", "gaussian_profile_FT", "instrumental_response_FT",
-           "dm_smearing_width", "instrumental_response_port_FT"]
+__all__ = ["FWHM2SIGMA", "gaussian_profile", "gaussian_profile_FT",
+           "gaussian_profile_FT_jac", "instrumental_response_FT",
+           "dm_smearing_width", "instrumental_response_port_FT",
+           "gaussian_function"]
 
 FWHM2SIGMA = 1.0 / (8.0 * math.log(2.0)) ** 0.5  # sigma = FWHM * this
+
+
+def gaussian_profile(nbin, loc, wid, amp=1.0, dtype=torch.float64,
+                     device=None):
+    """Periodic Gaussian profile amp * exp(-4 ln2 d^2 / wid^2), d the
+    phase distance to loc through the nearer edge; wid is the FWHM
+    [rot], its magnitude floored at sqrt(tiny).  loc/wid/amp are numbers
+    or tensors that broadcast against the trailing bin axis."""
+    if device is None and isinstance(loc, torch.Tensor):
+        device = loc.device
+    phases = torch.arange(nbin, dtype=dtype, device=device) / nbin
+    d = torch.remainder(phases - loc + 0.5, 1.0) - 0.5
+    wid = torch.clamp(torch.abs(torch.as_tensor(wid, dtype=dtype,
+                                                device=device)),
+                      min=torch.finfo(dtype).tiny ** 0.5)
+    return amp * torch.exp(-4.0 * math.log(2.0) * (d / wid) ** 2.0)
 
 
 def gaussian_profile_FT(nharm, loc, wid, amp=1.0):
@@ -34,6 +53,36 @@ def gaussian_profile_FT(nharm, loc, wid, amp=1.0):
            * torch.exp(-2.0 * (math.pi * k * sigma) ** 2.0))
     ang = -2.0 * math.pi * k * loc
     return torch.complex(mag * torch.cos(ang), mag * torch.sin(ang))
+
+
+def gaussian_profile_FT_jac(nharm, loc, wid, amp):
+    """Closed-form (G, dG/dloc, dG/dwid, dG/damp) of gaussian_profile_FT,
+    broadcasting the same way.  With U(k) = nbin sqrt(2 pi)
+    exp(-2 (pi k sigma)^2) e^{-2 pi i k loc} and sigma = |wid| FWHM2SIGMA:
+
+        G = amp sigma U,  dG/dloc = -2 pi i k G,  dG/damp = sigma U,
+        dG/dwid = amp U (1 - (2 pi k sigma)^2) FWHM2SIGMA sign(wid).
+
+    The dwid form multiplies by sigma instead of dividing, so a
+    zero-width or zero-amplitude component gives finite zeros.
+    sign(wid) is +1 at exactly 0, the JAX package's autodiff convention
+    for |.| (grad(abs)(0) == 1 there; torch's autograd gives 0), so these
+    columns equal the JAX package's in every case."""
+    nbin = 2 * (nharm - 1)
+    k = torch.arange(nharm, dtype=loc.dtype, device=loc.device)
+    sigma = torch.abs(wid) * FWHM2SIGMA
+    mag = nbin * math.sqrt(2.0 * math.pi) * torch.exp(
+        -2.0 * (math.pi * k * sigma) ** 2.0)
+    ang = -2.0 * math.pi * k * loc
+    U = torch.complex(mag * torch.cos(ang), mag * torch.sin(ang))
+    G = amp * sigma * U
+    two_pi_k = 2.0 * math.pi * k
+    dloc = G * torch.complex(torch.zeros_like(two_pi_k), -two_pi_k)
+    sign = torch.where(wid >= 0.0, 1.0, -1.0).to(loc.dtype)
+    dwid = (amp * U * (1.0 - (two_pi_k * sigma) ** 2.0)
+            * FWHM2SIGMA * sign)
+    damp = sigma * U
+    return G, dloc, dwid, damp
 
 
 def instrumental_response_FT(width, nharm, kind="rect"):
@@ -76,3 +125,15 @@ def instrumental_response_port_FT(nharm, freqs, widths=(), kinds=(),
         k = torch.arange(nharm, dtype=freqs.dtype, device=freqs.device)
         out = out * torch.sinc(k[None, :] * w[:, None])
     return out
+
+
+def gaussian_function(xs, loc, wid, norm=False):
+    """Plain (non-wrapped) Gaussian of FWHM ``wid`` at xs: peak 1, or
+    unit area with norm=True.  xs a tensor (or array, made float64)."""
+    xs = xs if isinstance(xs, torch.Tensor) else torch.as_tensor(
+        xs, dtype=torch.float64)
+    sigma = wid * FWHM2SIGMA
+    y = torch.exp(-0.5 * ((xs - loc) / sigma) ** 2.0)
+    if norm:
+        y = y / (sigma * math.sqrt(2.0 * math.pi))
+    return y

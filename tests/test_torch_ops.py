@@ -509,7 +509,9 @@ def test_import_hygiene():
         " 'io.splmodel', 'fit.phase_shift', 'convert', 'quality.excision',"
         " 'quality.postfit', 'pipeline.zap', 'pipeline.portrait',"
         " 'synth.rfi', 'cli.ppzap', 'parallel.batch', 'pipeline.align',"
-        " 'models.wavelet', 'cli.ppalign')}\n"
+        " 'models.wavelet', 'cli.ppalign', 'fit.lm', 'fit.gauss',"
+        " 'fit.powlaw', 'pipeline.gauss', 'pipeline.spline',"
+        " 'cli.ppgauss', 'cli.ppspline')}\n"
         "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "
@@ -554,6 +556,21 @@ class TestDeviceRule:
         write_gmodel(default_test_model(), g, quiet=True)
         with pytest.raises(RuntimeError):
             GetTOAs(g, g, quiet=True)
+
+    def test_template_entry_points(self, tmp_path):
+        from pulseportraiture_tpu_torch.cli.ppgauss import main as ppgauss
+        from pulseportraiture_tpu_torch.cli.ppspline import main as ppspline
+        from pulseportraiture_tpu_torch.pipeline.gauss import GaussPortrait
+        from pulseportraiture_tpu_torch.pipeline.spline import (
+            SplinePortrait)
+
+        path = str(tmp_path / "a.fits")
+        for cls in (GaussPortrait, SplinePortrait):
+            with pytest.raises(RuntimeError):
+                cls(path, quiet=True)
+        for main in (ppgauss, ppspline):
+            with pytest.raises(RuntimeError):
+                main(["-d", path])
 
     def test_align_entry_point(self, tmp_path):
         from pulseportraiture_tpu_torch.cli.ppalign import main
