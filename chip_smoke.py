@@ -126,7 +126,28 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    return codes in {0, 1, 2}; the first portrait fit under the profiler
    (busy, idle share, peak memory, the DGEMM and solve shares); and
    fit_gaussian_portrait on 64 channels on the card and on the CPU
-   (float64 both) within 1e-6 x the errors, chi2 within 1e-9.
+   (float64 both) within 1e-6 x the errors, chi2 within 1e-9;
+15. pta path: 8 averaged archives (1 x 512 x 2048, each of its own
+   seeded Gaussian model, one of them with overlapping components, at
+   the template path's noise) through ``ppfactory --max-ngauss 8
+   --niter 1 --fitloc`` on the batched and the serial LM lane and
+   ``--kind spline``: the same ngauss and LM convergence on both lanes
+   for every job, every job's parameters within 1e-9 x their errors,
+   every separated-component job's LM fits converged (the overlapping
+   one's trials may cap: they did on the CPU at cut widths), every
+   built template of the separated-component jobs correlating with its
+   clean portrait > 0.9999, fewer LM calls batched than serial; a
+   spin-coherent campaign of 10 epochs x 4 subints for
+   pulsar A (isolated, int16) and pulsar B (ELL1, dithered 2-bit),
+   timed by ``pptoas -m`` and ``pptoas --stream -m`` the factory's
+   templates (B1 and B2 through their FFT arms only, each held to its
+   plain version on the largest bucket the path gave it and on random
+   data at that shape, return codes in {0, 1, 2}); ``pptime -j`` on
+   both with F0 (and B's PB) perturbed: the JAX tests' gates on chi2,
+   residuals, DMX, F0 and PB; fleet_gls_fit on 45 pulsars (A, B and 43
+   synthetic campaigns of 120-121 epochs) on the batched, serial and
+   host lanes: batched vs serial <= 1e-10, vs host <= 1e-8, fewer
+   batched calls; and the batch-width probe of the fleet solve.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -135,6 +156,7 @@ Exits non-zero without a result when no CUDA device is available or the
 package is missing.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -214,6 +236,24 @@ JOIN_PHASE, JOIN_DDM = 0.05, 1e-4
 TEMPLATE_NITER = 2
 TEMPLATE_CORR = {"gmodel": 0.9999, "spl": 0.9999}
 TEMPLATE_TOA_SCATTER = {"gmodel": 0.5, "spl": 3.0}
+# the pta path: PTA_NFLEET averaged archives (1 subint at the main
+# archive's widths, each of its own seeded Gaussian model, at
+# NOISE_TEMPLATE) through ppfactory; pulsars A (isolated, the main PAR)
+# and B (ELL1, PAR_B) timed over PTA_NEP spin-coherent epochs of
+# PTA_NSUB subints at noise 1.0 with per-epoch dDMs of std PTA_DDM; the
+# timing parfiles' F0 (both) and PB (B) perturbed; the fleet GLS at
+# BASELINE config 5's pulsar count, PTA_NGLS, over PTA_GLS_NEP epochs
+PTA_NFLEET, PTA_NEP, PTA_NSUB, PTA_DDM = 8, 10, 4, 3e-4
+# the fleet job with overlapping components (default_test_model's), on
+# which the factory's breadth-first scan can stop early (PERF.md section
+# 7): held on its lanes, left out of the correlation gate
+PTA_OVERLAP = PTA_NFLEET - 1
+PAR_B = {"PSR": "J1012+5307", "RAJ": "10:12:33.4", "DECJ": "53:07:02.5",
+         "P0": 0.004, "PEPOCH": 55000.0, "DM": 9.0233, "BINARY": "ELL1",
+         "PB": 1.0, "A1": 0.05, "TASC": 55000.3, "EPS1": 2e-6,
+         "EPS2": -1e-6}
+PTA_F0_REL, PTA_DPB = 3e-12, 2e-9
+PTA_NGLS, PTA_GLS_NEP, PTA_GLS_SPAN = 45, 120, 3650.0
 
 
 def log(msg):
@@ -1412,23 +1452,7 @@ def run_cli(args, label):
     """``python -m pulseportraiture_tpu_torch.cli.pptoas args`` in this
     process (so the kernels' counters can be read), with the counters
     set to 0 just before it; returns (wall seconds, counters after)."""
-    from pulseportraiture_tpu_torch.ops import fused as F
-
-    F.reset_kernel_launches()
-    argv = sys.argv
-    sys.argv = ["pptoas"] + list(args)
-    t0 = time.perf_counter()
-    try:
-        runpy.run_module("pulseportraiture_tpu_torch.cli.pptoas",
-                         run_name="__main__")
-    except SystemExit as e:
-        if e.code not in (0, None):
-            raise RuntimeError(f"{label} exited with {e.code!r}")
-    finally:
-        sys.argv = argv
-    device = args[args.index("--device") + 1]
-    sync(device)
-    return time.perf_counter() - t0, F.kernel_launches()
+    return run_tool("pptoas", args, label)[:2]
 
 
 def profile_rows(prof):
@@ -2279,18 +2303,20 @@ def check_aligned_archive(path, nchan, nbin):
     return d.subints[0, 0], np.asarray(d.freqs[0])
 
 
-def clean_correlation(avg, freqs, device, scale=None):
+def clean_correlation(avg, freqs, device, scale=None, model=None):
     """tests/test_pipeline_align.py's recovery statistic: the per-channel
-    correlation of the average with the clean .gmodel portrait,
-    maximised over one common lag, and the residual rms at that lag;
-    scale, when given, is applied to the clean portrait first."""
+    correlation of the average with the clean .gmodel portrait (of
+    ``model``, default_test_model unless given), maximised over one
+    common lag, and the residual rms at that lag; scale, when given, is
+    applied to the clean portrait first."""
     import numpy as np
     from pulseportraiture_tpu_torch.io.gmodel import gen_gmodel_portrait
     from pulseportraiture_tpu_torch.synth import default_test_model
 
     nbin = avg.shape[-1]
-    clean = gen_gmodel_portrait(default_test_model(1500.0), np.arange(nbin),
-                                freqs, P=PAR["P0"], device=device)
+    clean = gen_gmodel_portrait(model or default_test_model(1500.0),
+                                np.arange(nbin), freqs, P=PAR["P0"],
+                                device=device)
     if scale is not None:
         clean = scale(clean)
     a = avg - avg.mean(axis=1, keepdims=True)
@@ -2572,42 +2598,35 @@ def run_template_cli(tool, args, label):
     walls by stage, LM records, the DataPortrait the run built, whose
     fitted values the check reads at full precision: the .gmodel prints
     8 decimals)."""
-    from pulseportraiture_tpu_torch.fit.lm import lm_stats, reset_lm_stats
-    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.fit.lm import lm_stats
     from pulseportraiture_tpu_torch.pipeline import portrait as PP
 
-    F.reset_kernel_launches()
-    PP.reset_template_stats()
-    reset_lm_stats()
+    with spy_instances(PP.DataPortrait) as made:
+        wall, launches, _ = run_tool(tool, args, label)
+    return wall, launches, PP.template_stats(), lm_stats(), made[-1]
+
+
+@contextlib.contextmanager
+def spy_instances(cls):
+    """Collect the instances of ``cls`` built inside the block."""
     made = []
-    init = PP.DataPortrait.__init__
+    init = cls.__init__
 
     def spy(self, *a, **k):
         init(self, *a, **k)
         made.append(self)
 
-    PP.DataPortrait.__init__ = spy
-    argv = sys.argv
-    sys.argv = [tool] + list(args)
-    t0 = time.perf_counter()
+    cls.__init__ = spy
     try:
-        runpy.run_module(f"pulseportraiture_tpu_torch.cli.{tool}",
-                         run_name="__main__")
-    except SystemExit as e:
-        if e.code not in (0, None):
-            raise RuntimeError(f"{label} exited with {e.code!r}")
+        yield made
     finally:
-        sys.argv = argv
-        PP.DataPortrait.__init__ = init
-    sync(args[args.index("--device") + 1])
-    return (time.perf_counter() - t0, F.kernel_launches(),
-            PP.template_stats(), lm_stats(), made[-1])
+        cls.__init__ = init
 
 
-def log_template_run(label, wall, walls, lms):
+def log_template_run(label, wall, walls, lms, path="template"):
     """The wall by stage and, per LM call, its iterations, nfev, host
     reads of the loop state and compaction classes."""
-    log(f"template path ({label}): {wall:.3f} s wall; by stage [s]: "
+    log(f"{path} path ({label}): {wall:.3f} s wall; by stage [s]: "
         + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
     calls = {}
     for st in lms:
@@ -2620,7 +2639,7 @@ def log_template_run(label, wall, walls, lms):
                else ""))
 
 
-def built_correlation(kind, path, freqs, nbin, device):
+def built_correlation(kind, path, freqs, nbin, device, model=None):
     """A built template's portrait at the main archive's frequencies, its
     correlation with the clean .gmodel portrait over one common lag
     (clean_correlation, each channel of both scaled to unit rms first:
@@ -2641,7 +2660,7 @@ def built_correlation(kind, path, freqs, nbin, device):
     port = np.asarray(port)
     finite = bool(np.all(np.isfinite(port)))
     corr, _ = clean_correlation(unit_rms_rows(port), freqs, device,
-                                scale=unit_rms_rows)
+                                scale=unit_rms_rows, model=model)
     return corr, finite
 
 
@@ -2951,6 +2970,605 @@ def phase_template(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN):
     return b1
 
 
+def pta_models(n):
+    """Phase 15's fleet models, from a seeded generator: 1-3 components
+    (cycling 2, 3, 1), 0.12 rot apart with a random start and jitter,
+    widths 0.012-0.035 rot, amplitudes 3-10, and their own evolution
+    (index 0 is pulsar A's, 1 pulsar B's).  Separated components: the
+    factory's breadth-first trials seed each trial by matching pursuit,
+    and on overlapping components a g+1 trial can land in a worse
+    minimum than g and stop the scan early, in the JAX package as in
+    the port (PERF.md section 7).  Index PTA_OVERLAP is that case,
+    default_test_model's three overlapping components: its lanes are
+    held, its correlation is not."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.models.gaussian import GaussianModel
+    from pulseportraiture_tpu_torch.synth import default_test_model
+
+    rng = np.random.default_rng(SEED + 150)
+    out = []
+    for i in range(n):
+        ng = (2, 3, 1)[i % 3]
+        if i == PTA_OVERLAP:
+            m = default_test_model()
+            m.name = f"PTA_{i}"
+            out.append(m)
+            continue
+        out.append(GaussianModel(
+            name=f"PTA_{i}", code="000", nu_ref=1500.0, dc=0.0, tau=0.0,
+            alpha=-4.0,
+            locs=rng.uniform(0.3, 0.4) + 0.12 * np.arange(ng)
+            + rng.uniform(-0.01, 0.01, ng),
+            wids=rng.uniform(0.012, 0.035, ng),
+            amps=rng.uniform(3.0, 10.0, ng),
+            mlocs=rng.uniform(-0.004, 0.004, ng),
+            mwids=rng.uniform(-0.25, 0.25, ng),
+            mamps=rng.uniform(-1.8, -0.6, ng)))
+    return out
+
+
+def pta_pars(n):
+    """The fleet's true parfiles: A the main PAR, B PAR_B, the others
+    isolated at periods 2-9 ms."""
+    pars = [dict(PAR), dict(PAR_B)]
+    for i in range(2, n):
+        pars.append({"PSR": f"J{1000 + 37 * i:04d}+0000", "P0":
+                     0.002 + 0.001 * i, "PEPOCH": 55000.0,
+                     "DM": 5.0 + 3.0 * i})
+    return pars
+
+
+def pta_fleet(device="cuda", nchan=NCHAN, nbin=NBIN, n=PTA_NFLEET):
+    """The factory's inputs: n averaged archives, 1 subint x nchan x
+    nbin each, of pta_models at NOISE_TEMPLATE, dedispersed; returns
+    (fleet metafile, archive paths, models)."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.synth import make_fake_pulsar
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    models, pars, files = pta_models(n), pta_pars(n), []
+    for i, (model, par) in enumerate(zip(models, pars)):
+        name = "A" if i == 0 else "B" if i == 1 else f"P{i}"
+        path = os.path.join(WORK, f"pta-{name}.fits")
+        make_fake_pulsar(model, par, outfile=path, nsub=1, nchan=nchan,
+                         nbin=nbin, nu0=1500.0, bw=800.0, tsub=3840.0,
+                         start_MJD=MJD(55500, 0.1),
+                         noise_stds=NOISE_TEMPLATE, dedispersed=True,
+                         quiet=True, rng=np.random.default_rng(SEED + 160 + i),
+                         device=device)
+        files.append(path)
+    meta = os.path.join(WORK, "fleet.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return meta, files, models
+
+
+def pta_campaign(model, par, name, nbit, device="cuda", nchan=NCHAN,
+                 nbin=NBIN, nsub=PTA_NSUB, nep=PTA_NEP):
+    """One pulsar's spin-coherent campaign: nep epochs of nsub subints
+    of 1800 s, 60 days apart at fractional days that walk B's orbit, at
+    noise 1.0 with per-epoch dDMs of std PTA_DDM, written with nbit (2:
+    dithered); returns (metafile, paths, injected dDMs).  The spacing
+    and the subint length set the F0 error: with 30 days and 600 s,
+    B's F0 error beside its five orbital elements is 0.5-0.7 % of the
+    injected offset at these widths (a design-matrix computation), too
+    close to the 1 % gate; with these, 0.1-0.2 %."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.synth import make_fake_pulsar
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    rng = np.random.default_rng(SEED + 170 + nbit)
+    ddms = PTA_DDM * rng.standard_normal(nep)
+    files = []
+    for k in range(nep):
+        path = os.path.join(WORK, f"pta-{name}-{k:02d}.fits")
+        make_fake_pulsar(model, par, outfile=path, nsub=nsub, nchan=nchan,
+                         nbin=nbin, nu0=1500.0, bw=800.0, tsub=1800.0,
+                         dDM=float(ddms[k]),
+                         start_MJD=MJD(55100 + 60 * k, (0.2 + 0.137 * k) % 1),
+                         noise_stds=1.0, dedispersed=False, quiet=True,
+                         rng=rng, spin_coherent=True, nbit=nbit,
+                         dither=nbit < 16, device=device)
+        files.append(path)
+    meta = os.path.join(WORK, f"pta-{name}.meta")
+    with open(meta, "w") as f:
+        f.write("\n".join(files) + "\n")
+    return meta, files, ddms
+
+
+def timing_par(par):
+    """A timing parfile from a true one: F0 instead of P0, perturbed by
+    PTA_F0_REL; a binary's PB by PTA_DPB."""
+    out = {k: v for k, v in par.items() if k != "P0"}
+    out["F0"] = repr((1.0 / par["P0"]) * (1.0 + PTA_F0_REL))
+    if "PB" in par:
+        out["PB"] = repr(par["PB"] + PTA_DPB)
+    return out
+
+
+def run_tool(tool, args, label, spy=()):
+    """``python -m pulseportraiture_tpu_torch.cli.<tool> args`` in this
+    process with the kernel counters, stage walls and LM records set to
+    0 just before it; spy: (module, function name) pairs whose return
+    values are collected.  Returns (wall seconds, counters, returns by
+    name)."""
+    import importlib
+
+    from pulseportraiture_tpu_torch.fit.lm import reset_lm_stats
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline import portrait as PP
+
+    got, saved = {}, []
+    for modname, name in spy:
+        mod = importlib.import_module(modname)
+        fn = getattr(mod, name)
+
+        def wrap(*a, _fn=fn, _name=name, **k):
+            out = _fn(*a, **k)
+            got.setdefault(_name, []).append(out)
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrap)
+    F.reset_kernel_launches()
+    PP.reset_template_stats()
+    reset_lm_stats()
+    argv = sys.argv
+    sys.argv = [tool] + list(args)
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module(f"pulseportraiture_tpu_torch.cli.{tool}",
+                         run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise RuntimeError(f"{label} exited with {e.code!r}")
+    finally:
+        sys.argv = argv
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    sync(args[args.index("--device") + 1])
+    return time.perf_counter() - t0, F.kernel_launches(), got
+
+
+def factory_run(meta, outdir, extra, label, device):
+    """One ppfactory run: wall, LM calls and buckets, walls by stage, LM
+    records, peak memory; returns (results, DataPortraits, LM calls)."""
+    import torch
+    from pulseportraiture_tpu_torch.fit.lm import lm_stats
+    from pulseportraiture_tpu_torch.pipeline import portrait as PP
+    from pulseportraiture_tpu_torch.pipeline.factory import factory_stats
+
+    cuda = device_type(device) == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with spy_instances(PP.DataPortrait) as made:
+        wall, _, got = run_tool(
+            "ppfactory", ["-M", meta, "-O", outdir, "--max-ngauss", "8",
+                          "--niter", "1", "--fitloc", "--device", device]
+            + extra, f"ppfactory {label}",
+            spy=[("pulseportraiture_tpu_torch.pipeline.factory",
+                  "build_templates")])
+    st = factory_stats()
+    walls, lms = PP.template_stats(), lm_stats()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+            else float("nan"))
+    log(f"pta path (ppfactory {label}): {wall:.3f} s wall, {st['lm_calls']}"
+        f" LM calls over {len(st['buckets'])} buckets (stage, (nbin[, "
+        f"nchan class], ngauss class[, code]), rows, padded rows) "
+        f"{st['buckets']}; peak memory {peak:.2f} GiB")
+    log_template_run(f"ppfactory {label}", wall, walls, lms, path="pta")
+    return got["build_templates"][-1], made, st["lm_calls"]
+
+
+def pta_factory(meta, files, models, device, nchan, nbin):
+    """Step 1 of phase 15: the factory's three runs and their checks;
+    returns the batched run's .gmodel paths."""
+    import numpy as np
+
+    out = {}
+    for label, sub, extra in (
+            ("gauss, batched", "tmpl", ["--gauss-device", "on"]),
+            ("gauss, serial", "tmpl-serial", ["--gauss-device", "off"]),
+            ("spline, batched", "tmpl-spline",
+             ["--kind", "spline", "--gauss-device", "on"])):
+        out[label] = factory_run(meta, os.path.join(WORK, sub), extra,
+                                 label, device)
+    (rb, db, nb), (rs, ds, ns) = out["gauss, batched"], out["gauss, serial"]
+    worst, rows, ncmp = 0.0, [], 0
+    for a, b, pa, pb in zip(rb, rs, db, ds):
+        if a.ngauss != b.ngauss or a.fit_converged != b.fit_converged:
+            raise AssertionError(
+                f"{a.datafile}: ngauss {a.ngauss} batched, {b.ngauss} "
+                f"serial; LM converged {a.fit_converged} batched, "
+                f"{b.fit_converged} serial")
+        err = np.where(pa.fit_errs > 0, pa.fit_errs, np.inf)
+        d = float(np.max(np.abs(pa.fitted_params - pb.fitted_params)
+                         / err))
+        worst, ncmp = max(worst, d), ncmp + a.fit_converged
+        rows.append(f"{os.path.basename(a.datafile)}: ngauss {a.ngauss}, "
+                    f"iters {a.iters}/{b.iters}, converged "
+                    f"{a.converged}/{b.converged}, LM converged "
+                    f"{a.fit_converged}, {d:.2e} x err")
+    sep = [i for i in range(len(files)) if i != PTA_OVERLAP]
+    sep_conv = all(rb[i].fit_converged for i in sep)
+    log("pta path (factory lanes): " + "; ".join(rows)
+        + f"; largest |batched - serial| {worst:.3e} x err over the "
+        f"{len(rb)} jobs (limit 1e-9); {ncmp} of them with every LM fit "
+        f"converged (every separated-component job must be: {sep_conv}); "
+        f"LM calls batched {nb}, serial {ns}")
+    if not (worst <= 1e-9 and len(rb) == len(files) and sep_conv
+            and nb < ns):
+        raise AssertionError(f"factory lanes: {worst:.3e} x err over "
+                             f"{len(rb)} jobs, {ncmp} converged, separated "
+                             f"jobs all "
+                             f"converged {sep_conv}, LM calls {nb} batched "
+                             f"vs {ns} serial")
+    from pulseportraiture_tpu_torch.io.psrfits import read_archive
+
+    freqs = np.asarray(read_archive(files[0], decode=False).freqs_table[0],
+                       float)
+    for label, kind in (("gauss, batched", "gmodel"),
+                        ("gauss, serial", "gmodel"),
+                        ("spline, batched", "spl")):
+        corrs = []
+        for i, (r, model) in enumerate(zip(out[label][0], models)):
+            corr, finite = built_correlation(kind, r.outfile, freqs, nbin,
+                                             device, model=model)
+            if not (finite and (i == PTA_OVERLAP
+                                or corr > TEMPLATE_CORR[kind])):
+                raise AssertionError(f"{r.outfile}: correlation {corr}, "
+                                     f"finite {finite}")
+            corrs.append(1.0 - corr)
+        log(f"pta path ({label} templates): 1 - corr with the clean "
+            f"portraits {', '.join(f'{c:.2e}' for c in corrs)} (limit "
+            f"{1.0 - TEMPLATE_CORR[kind]:.0e}; job {PTA_OVERLAP}, "
+            f"overlapping components, not held)")
+    return [r.outfile for r in rb]
+
+
+@contextlib.contextmanager
+def capture_largest(name):
+    """Inside the block, keep a copy of the inputs of the call to
+    ``ops.fused.<name>`` whose first tensor is the largest (the first
+    such call): [(args, kwargs)], empty if it was not called.  The call
+    itself, and its launch count, are unchanged."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    kept = []
+    orig = getattr(F, name)
+
+    def spy(*a, **k):
+        if not kept or a[0].numel() > kept[0][0][0].numel():
+            kept[:] = [(tuple(x.clone() if torch.is_tensor(x) else x
+                              for x in a), dict(k))]
+        return orig(*a, **k)
+
+    setattr(F, name, spy)
+    try:
+        yield kept
+    finally:
+        setattr(F, name, orig)
+
+
+def check_pta_kernels(b1_call, b2_call):
+    """B1 and B2 against their plain versions at the pta path's shapes:
+    on the inputs of the largest bucket each got on the path, and on
+    random data of that shape and K (check_cross_spectrum_case,
+    check_decode_case: 1e-5 x max|ref| in float32)."""
+    import torch
+
+    (port, model, w, K), k = b1_call[0][0][:4], b1_call[0][1]
+    shape = tuple(port.shape)
+    check_cross_spectrum_case(dict(
+        name=f"pta A bucket {shape} K={K}", port=port, model=model, w=w,
+        K=K, fold=k.get("fold"), want_m2=k.get("want_m2", False), arm=None))
+    check_cross_spectrum_case(cross_spectrum_case(
+        f"pta A shape {shape} K={K} random", shape[0], shape[1], shape[2],
+        K, port.dtype, seed=50))
+    (raw, scl, offs, model, w, K), k = b2_call[0]
+    shape = tuple(raw.shape)
+    check_decode_case(dict(
+        name=f"pta B stream bucket {shape} K={K}", raw=raw, scl=scl,
+        offs=offs, model=model, w=w, K=K, code=k["code"], nbin=k["nbin"],
+        fold=k.get("fold"), arm=None))
+    check_decode_case(decode_case(
+        f"pta B shape {shape[:2]}x{k['nbin']} {k['code']} K={K} random",
+        shape[0], shape[1], k["nbin"], K, w.dtype, k["code"], seed=51))
+    del b1_call[:], b2_call[:]
+    torch.cuda.empty_cache()
+
+
+def pta_toas(args, label, device):
+    """pptoas on a campaign in this process, the GetTOAs objects it made
+    spied; returns (wall, counters, GetTOAs objects)."""
+    from pulseportraiture_tpu_torch.pipeline.toas import GetTOAs
+
+    with spy_instances(GetTOAs) as made:
+        wall, launches, _ = run_tool("pptoas", args + ["--quiet",
+                                                       "--device", device],
+                                     label)
+    return wall, launches, made
+
+
+def fleet_delta(a, b):
+    """tests/test_timing_binary.py's fleet distance: the largest
+    |a - b| / max(|b|, err) over every pulsar's parameters and DMX."""
+    worst = 0.0
+    for name in a.pulsars:
+        ra, rc = a.results[name], b.results[name]
+        pairs = [(ra.params[k], rc.params[k], ra.param_errs[k])
+                 for k in ra.params]
+        pairs += list(zip(ra.dmx, rc.dmx, ra.dmx_errs))
+        for va, vc, err in pairs:
+            worst = max(worst, abs(va - vc)
+                        / max(abs(vc), float(err), 1e-300))
+    return worst
+
+
+def gls_fleet(n, nep, span):
+    """benchmarks/bench_gls._fleet's recipe for n synthetic pulsars: an
+    ELL1 / BT / isolated mix with F0 (and PB) truths off the nominal
+    parfile, nep or nep + 1 epochs of 2 TOAs over span days."""
+    from pulseportraiture_tpu_torch.synth import fake_timing_campaign
+
+    jobs = []
+    for i in range(n):
+        par = {"PSR": f"B{i:03d}", "F0": str(180.0 + 17.3 * i),
+               "PEPOCH": "55500", "DM": str(8.0 + 1.5 * i)}
+        kind = i % 3
+        if kind == 0:
+            par.update({"BINARY": "ELL1", "PB": str(0.4 + 0.07 * i),
+                        "A1": str(0.04 + 0.005 * i), "TASC": "55499.13",
+                        "EPS1": "1.5e-6", "EPS2": "-6e-7"})
+        elif kind == 1:
+            par.update({"BINARY": "BT", "PB": str(0.9 + 0.05 * i),
+                        "A1": str(0.3 + 0.02 * i), "T0": "55499.4",
+                        "ECC": "0.12", "OM": str(20.0 + 10.0 * i)})
+        truth = {"F0": float(par["F0"]) * (1.0 + 1e-13)}
+        if kind != 2:
+            truth["PB"] = float(par["PB"]) + 2e-9
+        toas, _ = fake_timing_campaign(
+            par, truth=truth, n_epochs=nep + (i % 2), toas_per_epoch=2,
+            span_days=span, toa_err_us=0.1, dmx=2e-4, rng=400 + i)
+        jobs.append((par["PSR"], toas, par))
+    return jobs
+
+
+def check_pad_systems(device):
+    """The fleet solve on an all-zero pad system and a zero pad column:
+    finite, and exactly zero where padded."""
+    import torch
+    from pulseportraiture_tpu_torch.timing.fleet import _solve_program
+
+    g = torch.Generator().manual_seed(SEED)
+    A = torch.zeros(4, 64, 16, dtype=torch.float64)
+    A[:3, :40, :12] = torch.randn(3, 40, 12, generator=g,
+                                  dtype=torch.float64)
+    r = torch.zeros(4, 64, dtype=torch.float64)
+    r[:3, :40] = torch.randn(3, 40, generator=g, dtype=torch.float64)
+    x, perr, post, chi2 = (v.cpu() for v in _solve_program(
+        A.to(device), r.to(device)))
+    ok = all(bool(torch.isfinite(v).all()) for v in (x, perr, post, chi2))
+    zero = (not x[3].any() and not perr[3].any() and not post[3].any()
+            and not x[:, 12:].any() and not perr[:, 12:].any())
+    log(f"pta path (fleet pad systems, {device_type(device)}): finite "
+        f"{ok}, pad system and pad columns exactly zero {zero}")
+    if not (ok and zero):
+        raise AssertionError("the fleet solve's pad systems are not finite "
+                             "zeros")
+
+
+def _einsum_solve(A, r):
+    """timing.fleet._solve_program with its three matrix-vector products
+    as einsum (the batch-width probe's foil)."""
+    import torch
+
+    col = torch.sqrt(torch.sum(A * A, dim=-2))
+    col = torch.where(col > 0, col, torch.ones_like(col))
+    An = A / col[..., None, :]
+    G = An.transpose(-1, -2) @ An
+    p = G.shape[-1]
+    N = torch.linalg.pinv(G, rtol=10.0 * p * torch.finfo(G.dtype).eps)
+    xn = torch.einsum("bpq,bq->bp", N, torch.einsum("bmp,bm->bp", An, r))
+    post = r - torch.einsum("bmp,bp->bm", An, xn)
+    return xn / col, post
+
+
+def batch_width_probe(device, B=64, m=512, p=128, rows=8):
+    """The fleet solve's rows at batch width B against the same rows
+    solved alone (B = 1), on random ill-conditioned systems at the
+    decade fleet's largest bucket shape (two nearly collinear columns,
+    scales over 12 decades): the largest |x_B - x_1| / max|x| and
+    |post_B - post_1| / max|post| for _solve_program and for the einsum
+    form.  _solve_program's rows are held to 1e-10 (the fleet gate);
+    the einsum form's are printed, as the reason for the design."""
+    import torch
+    from pulseportraiture_tpu_torch.timing.fleet import _solve_program
+
+    g = torch.Generator().manual_seed(SEED + 180)
+    A = torch.randn(B, m, p, generator=g, dtype=torch.float64)
+    A[..., 1] = A[..., 0] + 1e-4 * A[..., 1]
+    A = A * 10.0 ** (12.0 * torch.rand(B, 1, p, generator=g,
+                                       dtype=torch.float64) - 6.0)
+    r = torch.randn(B, m, generator=g, dtype=torch.float64)
+    A, r = A.to(device), r.to(device)
+    out = {}
+    for label, fn in (("solve", lambda a, b: _solve_program(a, b)[::2]),
+                      ("einsum", _einsum_solve)):
+        full = fn(A, r)
+        d = [0.0, 0.0]
+        for i in range(rows):
+            one = fn(A[i:i + 1], r[i:i + 1])
+            for j in range(2):
+                d[j] = max(d[j], float((full[j][i] - one[j][0]).abs().max()
+                                       / full[j][i].abs().max()))
+        out[label] = d
+    log(f"pta fleet GLS batch-width probe ({device_type(device)}, {rows} "
+        f"rows of B={B} x {m}x{p} vs B=1): _solve_program x "
+        f"{out['solve'][0]:.3e}, post {out['solve'][1]:.3e} (limit 1e-10);"
+        f" the einsum form x {out['einsum'][0]:.3e}, post "
+        f"{out['einsum'][1]:.3e} (not held)")
+    if not max(out["solve"]) <= 1e-10:
+        raise AssertionError(f"the fleet solve depends on the batch width: "
+                             f"{out['solve']}")
+
+
+def phase_pta(device="cuda", nchan=NCHAN, nbin=NBIN, nsub=PTA_NSUB,
+              nep=PTA_NEP, ngls=PTA_NGLS, gls_nep=PTA_GLS_NEP):
+    """The pta path (phase 15): the factory builds every template of a
+    fleet, pptoas / pptoas --stream time pulsars A and B with theirs,
+    pptime fits their timing solutions, and the fleet GLS runs at
+    BASELINE config 5's pulsar count.
+    1. ``ppfactory`` (pta_factory) on PTA_NFLEET averaged archives;
+    2. A's campaign (int16) through ``pptoas -m`` (B1) and B's (2-bit,
+       dithered) through ``pptoas --stream -m`` (B2), each with its
+       factory .gmodel: FFT arms only, each kernel held to its plain
+       version on the path's largest bucket (check_pta_kernels), return
+       codes in {0, 1, 2} (B's read from GetTOAs on the same archives);
+    3. ``pptime -j jobs.txt --gls-device on`` with timing_par's
+       parfiles: tests/test_timing.py's and test_timing_binary.py's
+       gates (red chi2 in (0.3, 3), every residual < 5 sigma, every DMX
+       within max(4 sigma, 3e-5) of its injection, dF0 to 1 %, dPB
+       within 5 sigma);
+    4. fleet_gls_fit on A, B and ngls - 2 gls_fleet pulsars on the
+       batched, serial and host lanes: batched vs serial <= 1e-10, vs
+       host <= 1e-8 (test_timing_binary.py's gates), fewer batched
+       calls than the serial lane's ngls; the pad systems checked and
+       the batch-width probe.
+    Every CLI run runs in this process with the counters set to 0 just
+    before it.  Returns the B1 and B2 launches of step 2."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.timing import fleet as FL
+
+    cuda = device_type(device) == "cuda"
+    os.makedirs(WORK, exist_ok=True)
+    t0 = time.perf_counter()
+    meta, files, models = pta_fleet(device, nchan, nbin)
+    log(f"pta fleet: {len(files)} averaged archives 1x{nchan}x{nbin} at "
+        f"noise {NOISE_TEMPLATE:.4f} written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tmpl = pta_factory(meta, files, models, device, nchan, nbin)
+
+    # 2. the campaigns, timed with the factory's templates
+    t0 = time.perf_counter()
+    metaA, filesA, ddmA = pta_campaign(models[0], PAR, "A", 16, device,
+                                       nchan, nbin, nsub, nep)
+    metaB, filesB, ddmB = pta_campaign(models[1], PAR_B, "B", 2, device,
+                                       nchan, nbin, nsub, nep)
+    log(f"pta campaigns: 2 x {nep} epochs x {nsub}x{nchan}x{nbin} (A int16,"
+        f" B dithered 2-bit) written in {time.perf_counter() - t0:.2f} s")
+    tims = {n: os.path.join(WORK, f"pta-{n}.tim") for n in "AB"}
+    for t in tims.values():
+        if os.path.exists(t):
+            os.remove(t)
+    with capture_largest("fused_cross_spectrum") as b1_call:
+        wA, lA, gtA = pta_toas(["-d", metaA, "-m", tmpl[0], "-o",
+                                tims["A"]], "pptoas (A)", device)
+    with capture_largest("fused_decode_cross_spectrum") as b2_call:
+        wB, lB, _ = pta_toas(["--stream", "-d", metaB, "-m", tmpl[1], "-o",
+                              tims["B"]], "pptoas --stream (B)", device)
+    from pulseportraiture_tpu_torch.pipeline import GetTOAs
+
+    gtB = GetTOAs(filesB, tmpl[1], quiet=True, device=device)
+    gtB.get_TOAs(quiet=True)
+    rcs = np.concatenate([np.asarray(g.rcs[i])[g.ok_isubs[i]]
+                          for g in (gtA[-1], gtB)
+                          for i in range(len(g.rcs))])
+    log(f"pta path (pptoas -m A.gmodel): {nep * nsub} TOAs in {wA:.3f} s, "
+        f"kernel launches {lA}; (pptoas --stream -m B.gmodel): {wB:.3f} s, "
+        f"kernel launches {lB}; return codes {sorted(set(rcs.tolist()))}")
+    if cuda:
+        fft_only(lA, ("fused_cross_spectrum",), "pptoas (A)")
+        fft_only(lB, ("fused_decode_cross_spectrum",), "pptoas --stream (B)")
+        if lB["fused_cross_spectrum.gemm"]:
+            raise AssertionError("pptoas --stream (B) launched B1's GEMM arm")
+        check_pta_kernels(b1_call, b2_call)
+    if not np.all(np.isin(rcs, (0, 1, 2))):
+        raise AssertionError(f"return codes {sorted(set(rcs.tolist()))}")
+
+    # 3. pptime on A and B
+    from pulseportraiture_tpu_torch.io.psrfits import parse_parfile
+
+    jobs_txt = os.path.join(WORK, "jobs.txt")
+    with open(jobs_txt, "w") as f:
+        for n, par in (("A", PAR), ("B", PAR_B)):
+            pf = os.path.join(WORK, f"pta-{n}.par")
+            with open(pf, "w") as g:
+                g.write("".join(f"{k} {v}\n"
+                                for k, v in timing_par(par).items()))
+            f.write(f"{n} {tims[n]} {pf}\n")
+    wall, _, got = run_tool(
+        "pptime", ["-j", jobs_txt, "--gls-device", "on", "--quiet",
+                   "--device", device], "pptime",
+        spy=[("pulseportraiture_tpu_torch.timing.fleet", "fleet_gls_fit")])
+    fit = got["fleet_gls_fit"][-1]
+    for n, par, ddms in (("A", PAR, ddmA), ("B", PAR_B, ddmB)):
+        r = fit.results[n]
+        f0 = 1.0 / par["P0"]
+        dF0 = -f0 * PTA_F0_REL
+        pulls = np.abs(r.time_resids_us) / r.toa_errs_us
+        dmx_off = np.abs(r.dmx - ddms)
+        dmx_lim = np.maximum(4.0 * r.dmx_errs, 3e-5)
+        f0_rel = abs(r.params["F0"] / dF0 - 1.0)
+        line = (f"pta path (pptime {n}): {len(r.time_resids_us)} TOAs, red "
+                f"chi2 {r.red_chi2:.3f} (limit (0.3, 3)), wrms "
+                f"{r.wrms_us:.4f} us, max |resid| {pulls.max():.2f} sigma "
+                f"(limit 5), max |DMX - dDM| / limit "
+                f"{float(np.max(dmx_off / dmx_lim)):.3f}, dF0 "
+                f"{r.params['F0']:.4e} +/- {r.param_errs['F0']:.2e} "
+                f"(injected {dF0:.4e}, off {100 * f0_rel:.3f} %, limit "
+                f"1 %)")
+        ok = (0.3 < r.red_chi2 < 3.0 and pulls.max() < 5.0
+              and np.all(dmx_off <= dmx_lim) and f0_rel <= 0.01)
+        if "PB" in par:
+            dpb = abs(r.params["PB"] + PTA_DPB) / r.param_errs["PB"]
+            line += (f", dPB {r.params['PB']:.3e} +/- "
+                     f"{r.param_errs['PB']:.1e} (injected {-PTA_DPB:.1e}, "
+                     f"{dpb:.2f} sigma, limit 5)")
+            ok = ok and dpb < 5.0
+        log(line)
+        if not ok:
+            raise AssertionError(line)
+    log(f"pta path (pptime -j, {fit.n_dispatches} solve calls): "
+        f"{wall:.3f} s wall")
+
+    # 4. the fleet GLS at BASELINE config 5's pulsar count
+    t0 = time.perf_counter()
+    jobs = [FL.TimingJob(n, tims[n], parse_parfile(
+        os.path.join(WORK, f"pta-{n}.par"))) for n in "AB"]
+    jobs += [FL.TimingJob(*j) for j in gls_fleet(ngls - 2, gls_nep,
+                                                 PTA_GLS_SPAN)]
+    log(f"pta fleet GLS: {len(jobs)} pulsars ({sum(len(j.toas) for j in jobs)}"
+        f" TOAs) made in {time.perf_counter() - t0:.2f} s")
+    lanes = {}
+    for label, kw in (("batched", dict(gls_device=True)),
+                      ("serial", dict(gls_device=True, batched=False)),
+                      ("host", dict(gls_device=False))):
+        lanes[label] = FL.fleet_gls_fit(jobs, device=device, **kw)
+        st = FL.fleet_stats()
+        solves = st["solves"]
+        log(f"pta fleet GLS ({label}): {lanes[label].n_dispatches} solve "
+            f"calls in {lanes[label].wall_s:.3f} s wall, linearization "
+            f"{st['linearize_s']:.3f} s (host), solves "
+            f"{sum(s['wall_s'] for s in solves):.3f} s"
+            + ("; buckets " + ", ".join(
+                f"{s['bucket']} B={s['B']} ({s['rows']} real)"
+                + (f" {s['ms']:.3f} ms (CUDA events)" if "ms" in s else "")
+                for s in solves) if label == "batched" else ""))
+    dser = fleet_delta(lanes["batched"], lanes["serial"])
+    dhost = fleet_delta(lanes["batched"], lanes["host"])
+    nb, ns = lanes["batched"].n_dispatches, lanes["serial"].n_dispatches
+    log(f"pta fleet GLS: batched vs serial {dser:.3e} (limit 1e-10), vs "
+        f"host {dhost:.3e} (limit 1e-8); calls batched {nb}, serial {ns}")
+    if not (dser <= 1e-10 and dhost <= 1e-8 and nb < ns == len(jobs)):
+        raise AssertionError(f"fleet GLS: {dser:.3e} / {dhost:.3e}, calls "
+                             f"{nb} / {ns}")
+    check_pad_systems(device)
+    batch_width_probe(device)
+    return lA, lB
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -3039,6 +3657,9 @@ def main():
     t0 = time.perf_counter()
     template_launches = phase_template()
     log(f"phase template path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    pta_a, pta_b = phase_pta()
+    log(f"phase pta path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -3066,7 +3687,9 @@ def main():
             "narrowband": nb_total["fused_cross_spectrum"],
             "zap": zap_launches["fused_cross_spectrum"],
             "align": align_launches,
-            "template": template_launches},
+            "template": template_launches,
+            "pta": pta_a["fused_cross_spectrum"]
+            + pta_b["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {
@@ -3092,7 +3715,9 @@ def main():
             "spline_stream": spl_launches["stream"][
                 "fused_decode_cross_spectrum"],
             "narrowband": nb_total["fused_decode_cross_spectrum"],
-            "zap": zap_launches["fused_decode_cross_spectrum"]},
+            "zap": zap_launches["fused_decode_cross_spectrum"],
+            "pta": pta_a["fused_decode_cross_spectrum"]
+            + pta_b["fused_decode_cross_spectrum"]},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,0 +1,200 @@
+"""ppfactory: build templates for a whole fleet of pulsars on a CUDA
+device, batching the Gaussian/spline LM fits across archives
+(pipeline/factory.py; counterpart of
+pulseportraiture_tpu/cli/ppfactory.py).  One archive per line in the
+metafile, one template out per archive (this is NOT ppgauss's JOIN
+metafile mode — multi-receiver fits keep ppgauss).
+
+    python -m pulseportraiture_tpu_torch.cli.ppfactory -M fleet.txt \\
+        [-O outdir] [--kind gauss|spline] [--max-ngauss N] [--niter n] \\
+        [--mcode 000] [--fitloc] [--fixwid] [--fixamp] [--fitscat] \\
+        [--fitalpha] [--norm prof] [--gauss-device off|auto|on] \\
+        [--lm-jacobian auto|analytic|ad] [--device cuda|cpu] [--verbose]
+
+Flag parity with the JAX CLI plus --device.  --telemetry and the result
+cache flags (--result-cache, --cache-dir, --cache-max-mb) parse; a value
+that would write a trace or turn the cache on exits naming ROADMAP A13.
+"""
+
+import argparse
+import os
+import sys
+
+GAUSS_DEVICE_CHOICES = ("off", "auto", "on")
+_GAUSS_DEVICE_TABLE = {"off": False, "auto": "auto", "on": True}
+LM_JACOBIAN_CHOICES = ("auto", "analytic", "ad")
+_RESULT_CACHE_TABLE = {"off": False, "auto": "auto", "on": True}
+
+
+def parse_gauss_device(value):
+    """Strict --gauss-device parse shared by ppfactory/ppgauss/
+    ppspline: 'off' | 'auto' | 'on' -> the config tri-state value;
+    anything else exits before any file I/O."""
+    v = str(value).lower()
+    if v not in _GAUSS_DEVICE_TABLE:
+        raise SystemExit(f"--gauss-device expected one of "
+                         f"{'/'.join(GAUSS_DEVICE_CHOICES)}, got "
+                         f"{value!r}")
+    return _GAUSS_DEVICE_TABLE[v]
+
+
+def parse_lm_jacobian(value):
+    """Strict --lm-jacobian parse shared by ppfactory/ppgauss:
+    'auto' | 'analytic' | 'ad' -> config.lm_jacobian; anything else
+    exits before any file I/O."""
+    v = str(value).lower()
+    if v not in LM_JACOBIAN_CHOICES:
+        raise SystemExit(f"--lm-jacobian expected one of "
+                         f"{'/'.join(LM_JACOBIAN_CHOICES)}, got "
+                         f"{value!r}")
+    return v
+
+
+def apply_lm_jacobian(value):
+    """Apply a parsed --lm-jacobian to config (read by the LM per call,
+    so setting the module value routes every LM fit of this process)."""
+    if value is None:
+        return None
+    from .. import config
+
+    config.lm_jacobian = parse_lm_jacobian(value)
+    return config.lm_jacobian
+
+
+def add_cache_flags(p):
+    """The JAX package's result-cache flags (its cli/ppserve.py)."""
+    p.add_argument("--result-cache", dest="result_cache", default=None,
+                   metavar="off|auto|on",
+                   help="Content-addressed result cache: 'off', "
+                        "'auto' (on iff a cache dir is set — the "
+                        "default), or 'on' (not ported yet: a value "
+                        "that turns the cache on exits). [default: "
+                        "auto]")
+    p.add_argument("--cache-dir", dest="cache_dir", default=None,
+                   metavar="DIR",
+                   help="On-disk store directory (not ported yet). "
+                        "[default: off]")
+    p.add_argument("--cache-max-mb", dest="cache_max_mb", type=float,
+                   default=None, metavar="MB",
+                   help="Store size bound (must be > 0).")
+
+
+def refuse_cache(args, prog):
+    """Validate the cache flags as the JAX package does, and exit naming
+    ROADMAP A13 when they would turn the cache on.
+
+    The JAX package's serve/cache.resolve_result_cache (serve/cache.py:
+    337) returns no cache for 'off', and for 'auto' (its default) when
+    no cache directory is configured; so at the flags' defaults the JAX
+    ppfactory builds every template with no cache, which is what the
+    port does."""
+    mode = "auto"
+    if args.result_cache is not None:
+        v = str(args.result_cache).lower()
+        if v not in _RESULT_CACHE_TABLE:
+            raise SystemExit(
+                f"{prog}: --result-cache: expected 'off', 'auto' or "
+                f"'on', got {args.result_cache!r}")
+        mode = _RESULT_CACHE_TABLE[v]
+    if args.cache_max_mb is not None and args.cache_max_mb <= 0:
+        raise SystemExit(f"{prog}: --cache-max-mb: must be > 0, got "
+                         f"{args.cache_max_mb}")
+    if mode is True or (mode == "auto" and args.cache_dir):
+        raise SystemExit(
+            f"{prog}: the content-addressed result cache (serve/cache) is "
+            "not ported yet (ROADMAP A13); leave --result-cache and "
+            "--cache-dir unset or pass --result-cache off")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="ppfactory", description=__doc__.splitlines()[0])
+    p.add_argument("-M", "--metafile", required=True,
+                   help="Metafile: one archive per line, one template "
+                        "per archive.")
+    p.add_argument("-O", "--outdir", default=None,
+                   help="Directory for the output model files "
+                        "[default: next to each archive].")
+    p.add_argument("--kind", default="gauss",
+                   choices=("gauss", "spline"),
+                   help="Template type for every job.")
+    p.add_argument("--max-ngauss", type=int, default=8,
+                   help="Trial component counts 1..N fit per pulsar "
+                        "in one breadth-first call.")
+    p.add_argument("--niter", type=int, default=0,
+                   help="Portrait iterations after the initial fit.")
+    p.add_argument("--mcode", dest="model_code", default="000",
+                   help="Three-digit evolution-function code.")
+    p.add_argument("--fitloc", dest="fixloc", action="store_false",
+                   default=True, help="Let component positions evolve.")
+    p.add_argument("--fixwid", action="store_true", default=False)
+    p.add_argument("--fixamp", action="store_true", default=False)
+    p.add_argument("--fitscat", dest="fixscat", action="store_false",
+                   default=True, help="Fit a scattering timescale.")
+    p.add_argument("--fitalpha", dest="fixalpha", action="store_false",
+                   default=True, help="Fit the scattering index.")
+    p.add_argument("--norm", dest="normalize", default=None,
+                   choices=(None, "mean", "max", "prof", "rms", "abs"))
+    p.add_argument("--gauss-device", default=None,
+                   help="LM lane: 'off' (serial oracle), 'auto' "
+                        "(batched on CUDA devices), 'on' (force batched) "
+                        "[default: config.gauss_device].")
+    p.add_argument("--lm-jacobian", dest="lm_jacobian", default=None,
+                   help="LM Jacobian source: 'auto' (analytic when the "
+                        "model provides one), 'analytic' (require it), "
+                        "'ad' (torch.func.jacfwd, the oracle) "
+                        "[default: config.lm_jacobian].")
+    p.add_argument("--telemetry", default=None,
+                   help="Write a JSONL event trace (not ported yet).")
+    add_cache_flags(p)
+    p.add_argument("--device", default="cuda",
+                   help="torch device the fits run on. [default=cuda]")
+    p.add_argument("--verbose", dest="quiet", action="store_false",
+                   default=True)
+    return p
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    gauss_device = None
+    if args.gauss_device is not None:
+        gauss_device = parse_gauss_device(args.gauss_device)
+    apply_lm_jacobian(args.lm_jacobian)
+    if args.max_ngauss < 1:
+        raise SystemExit(f"--max-ngauss must be >= 1, got "
+                         f"{args.max_ngauss}")
+    if args.niter < 0:
+        raise SystemExit(f"--niter must be >= 0, got {args.niter}")
+    if args.telemetry is not None:
+        raise SystemExit("ppfactory --telemetry writes a JSONL trace "
+                         "through the trace plane (telemetry.py), which "
+                         "the port does not have yet (ROADMAP A13)")
+    refuse_cache(args, "ppfactory")
+    if not os.path.exists(args.metafile):
+        raise SystemExit(f"ppfactory: metafile not found: "
+                         f"{args.metafile}")
+    from ..pipeline.toas import _read_metafile
+
+    files = _read_metafile(args.metafile)
+    if not files:
+        raise SystemExit(f"ppfactory: no archives listed in "
+                         f"{args.metafile}")
+    from ..device import resolve_device
+    from ..pipeline.factory import build_templates
+    from ..pipeline.portrait import reset_template_stats
+
+    dev = resolve_device(args.device)
+    reset_template_stats()
+    build_templates(
+        files, kind=args.kind, outdir=args.outdir,
+        max_ngauss=args.max_ngauss, niter=args.niter,
+        model_code=args.model_code, fixloc=args.fixloc,
+        fixwid=args.fixwid, fixamp=args.fixamp, fixscat=args.fixscat,
+        fixalpha=args.fixalpha, normalize=args.normalize,
+        gauss_device=gauss_device, quiet=args.quiet, device=dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

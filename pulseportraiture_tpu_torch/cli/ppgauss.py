@@ -8,46 +8,14 @@
         [--norm prof] [--max-ngauss N] [--gauss-device off|auto|on] \\
         [--lm-jacobian auto|analytic|ad] [--device cuda|cpu] [--verbose]
 
-Flag parity: reference ppgauss.py:666-812.  Refused, each by its ROADMAP
-item: --batch (the template factory, A9b) and --figure (viz/, A13).
-The output .gmodel is a template for ``pptoas -m``.
+Flag parity: reference ppgauss.py:666-812.  --batch -M fleet.txt builds
+one template per archive through the template factory
+(pipeline/factory.py), as the JAX CLI does.  Refused: --figure (viz/,
+ROADMAP A13).  The output .gmodel is a template for ``pptoas -m``.
 """
 
 import argparse
 import sys
-
-GAUSS_DEVICE_CHOICES = ("off", "auto", "on")
-_GAUSS_DEVICE_TABLE = {"off": False, "auto": "auto", "on": True}
-LM_JACOBIAN_CHOICES = ("auto", "analytic", "ad")
-
-
-def parse_gauss_device(value):
-    """Strict --gauss-device parse: 'off' | 'auto' | 'on' -> the config
-    tri-state value; anything else exits before any file I/O."""
-    v = str(value).lower()
-    if v not in _GAUSS_DEVICE_TABLE:
-        raise SystemExit(f"--gauss-device expected one of "
-                         f"{'/'.join(GAUSS_DEVICE_CHOICES)}, got "
-                         f"{value!r}")
-    return _GAUSS_DEVICE_TABLE[v]
-
-
-def apply_lm_jacobian(value):
-    """Apply a --lm-jacobian value to config.lm_jacobian (read by the LM
-    per call, so it routes every fit of this process); anything but
-    'auto' | 'analytic' | 'ad' exits before any file I/O."""
-    if value is None:
-        return None
-    from .. import config
-
-    v = str(value).lower()
-    if v not in LM_JACOBIAN_CHOICES:
-        raise SystemExit(f"--lm-jacobian expected one of "
-                         f"{'/'.join(LM_JACOBIAN_CHOICES)}, got "
-                         f"{value!r}")
-    config.lm_jacobian = v
-    return v
-
 
 def build_parser():
     p = argparse.ArgumentParser(
@@ -98,7 +66,8 @@ def build_parser():
                         "ported yet).")
     p.add_argument("--batch", action="store_true", default=False,
                    help="Fleet mode: one template per archive of -M "
-                        "(not ported yet).")
+                        "(the template factory, batched across "
+                        "archives).")
     p.add_argument("--max-ngauss", dest="max_ngauss", type=int,
                    default=8,
                    help="Trial component counts 1..N for the "
@@ -125,15 +94,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not args.datafile and not args.metafile:
         parser.error("need -d datafile or -M metafile")
-    if args.batch:
-        raise SystemExit("ppgauss --batch builds one template per archive "
-                         "through the template factory (pipeline/"
-                         "factory.py), which the port does not have yet "
-                         "(ROADMAP A9b)")
-    if args.figure:
-        raise SystemExit("ppgauss --figure needs the plotting package "
-                         "(viz/), which the port does not have yet "
-                         "(ROADMAP A13)")
+    from .ppfactory import apply_lm_jacobian, parse_gauss_device
+
     gauss_device = None
     if args.gauss_device is not None:
         gauss_device = parse_gauss_device(args.gauss_device)
@@ -141,6 +103,12 @@ def main(argv=None):
     if args.max_ngauss < 1:
         raise SystemExit(f"--max-ngauss must be >= 1, got "
                          f"{args.max_ngauss}")
+    if args.batch:
+        return _batch(args, gauss_device)
+    if args.figure:
+        raise SystemExit("ppgauss --figure needs the plotting package "
+                         "(viz/), which the port does not have yet "
+                         "(ROADMAP A13)")
     from ..device import resolve_device
     from ..pipeline.gauss import GaussPortrait
     from ..pipeline.portrait import reset_template_stats
@@ -162,6 +130,45 @@ def main(argv=None):
         writeerrfile=bool(args.errfile), errfile=args.errfile,
         model_name=args.model_name, gauss_device=gauss_device,
         max_ngauss=args.max_ngauss, quiet=args.quiet)
+    return 0
+
+
+def _batch(args, gauss_device):
+    """--batch: one template per archive of -M through the template
+    factory; options the factory does not take exit rather than being
+    dropped (each model is named per archive; JOIN/improve/reference-
+    slice modes keep the single-archive mode)."""
+    if not args.metafile:
+        raise SystemExit("--batch requires -M metafile (one "
+                         "archive per line)")
+    for flag, val in (("-I/--improve", args.modelfile),
+                      ("-o/--outfile", args.outfile),
+                      ("-e/--errfile", args.errfile),
+                      ("-j/--joinfile", args.joinfile),
+                      ("-m/--model_name", args.model_name),
+                      ("--nu_ref", args.nu_ref),
+                      ("--bw", args.bw_ref),
+                      ("--figure", args.figure or None)):
+        if val is not None:
+            raise SystemExit(
+                f"{flag} is not supported with --batch (models "
+                "are named per archive; use ppfactory -O for an "
+                "output directory, or the single-archive mode)")
+    from ..device import resolve_device
+    from ..pipeline.factory import build_templates
+    from ..pipeline.portrait import reset_template_stats
+    from ..pipeline.toas import _read_metafile
+
+    dev = resolve_device(args.device)
+    reset_template_stats()
+    build_templates(
+        _read_metafile(args.metafile), kind="gauss",
+        max_ngauss=args.max_ngauss, wid0=args.auto_gauss or 0.02,
+        tau=args.tau, fixloc=args.fixloc, fixwid=args.fixwid,
+        fixamp=args.fixamp, fixscat=args.fixscat, fixalpha=args.fixalpha,
+        model_code=args.model_code, niter=args.niter,
+        fiducial_gaussian=args.fgauss, normalize=args.normalize,
+        gauss_device=gauss_device, quiet=args.quiet, device=dev)
     return 0
 
 

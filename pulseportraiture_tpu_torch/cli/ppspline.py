@@ -4,12 +4,13 @@ of pulseportraiture_tpu/cli/ppspline.py).
     python -m pulseportraiture_tpu_torch.cli.ppspline -d avg.fits \\
         [-o out.spl] [-l name] [-a model.fits] [-N prof|None|mean|max|rms|abs] \\
         [-s] [-n max_ncomp] [-S snr] [-T rchi2_tol] [-k degree] [-f sfac] \\
-        [-t knots] [--device cuda|cpu] [--quiet]
+        [-t knots] [--gauss-device off|auto|on] [--device cuda|cpu] [--quiet]
 
 Flag parity: reference ppspline.py:291-397 (default norm 'prof', one
-phase-shift fit per channel).  Refused, each by its ROADMAP item:
---gauss-device (the template factory's Gaussian mean smoothing, A9b)
-and --plots (viz/, A13).  The output .spl is a template for
+phase-shift fit per channel).  With -s, --gauss-device smooths the mean
+profile by the template factory's Gaussian fit
+(pipeline/factory.gauss_smooth_mean), as the JAX CLI does.  Refused:
+--plots (viz/, ROADMAP A13).  The output .spl is a template for
 ``pptoas -m``.
 """
 
@@ -45,8 +46,11 @@ def build_parser():
                    help="Save eigenprofile and spline-projection plots "
                         "(not ported yet).")
     p.add_argument("--gauss-device", default=None,
-                   help="With -s: smooth the mean profile by the template "
-                        "factory's Gaussian fit (not ported yet).")
+                   help="With -s: smooth the MEAN profile by the template "
+                        "factory's Gaussian fit instead of wavelets — "
+                        "'off' (serial) | 'auto' | 'on' (batched) "
+                        "engine; eigenprofiles keep wavelet smoothing. "
+                        "[default: wavelet mean smoothing]")
     p.add_argument("--device", default="cuda",
                    help="torch device the model is built on. "
                         "[default=cuda]")
@@ -56,11 +60,17 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    gauss_device = None
     if args.gauss_device is not None:
-        raise SystemExit("ppspline --gauss-device smooths the mean profile "
-                         "through the template factory (pipeline/"
-                         "factory.gauss_smooth_mean), which the port does "
-                         "not have yet (ROADMAP A9b)")
+        from .ppfactory import parse_gauss_device
+
+        gauss_device = parse_gauss_device(args.gauss_device)
+        if not args.smooth:
+            # the flag selects the MEAN-smoothing lane, which only
+            # exists under -s/--smooth: exit rather than smooth nothing
+            raise SystemExit("--gauss-device requires -s/--smooth "
+                             "(it selects the lane that smooths the "
+                             "mean profile)")
     if args.make_plots:
         raise SystemExit("ppspline --plots needs the plotting package "
                          "(viz/), which the port does not have yet "
@@ -74,11 +84,18 @@ def main(argv=None):
     dp = SplinePortrait(args.datafile, quiet=args.quiet, device=dev)
     if args.norm and args.norm != "None":
         dp.normalize_portrait(args.norm)
+    smooth_mean = None
+    if args.gauss_device is not None:
+        from ..pipeline.factory import gauss_smooth_mean
+
+        smooth_mean = gauss_smooth_mean(dp, rchi2_tol=args.rchi2_tol,
+                                        gauss_device=gauss_device)
     dp.make_spline_model(
         max_ncomp=args.max_ncomp, smooth=args.smooth,
         snr_cutoff=args.snr_cutoff, rchi2_tol=args.rchi2_tol, k=args.k,
         sfac=args.sfac, max_nbreak=args.max_nbreak,
-        model_name=args.model_name, quiet=args.quiet)
+        model_name=args.model_name, smooth_mean_prof=smooth_mean,
+        quiet=args.quiet)
     outfile = args.modelfile or (args.datafile + ".spl")
     dp.write_model(outfile, quiet=args.quiet)
     if args.archive:

@@ -143,6 +143,22 @@ lm_jacobian = "auto"
 # exact iteration boundaries); None = one uninterrupted dispatch.
 lm_compact_every = 16
 
+# --- Timing (timing/fleet.py, timing/incremental.py) ---------------------
+# Route the fleet timing stage's GLS solves (timing/fleet.fleet_gls_fit,
+# pptime) through the BATCHED lane: per-pulsar whitened systems bucketed
+# by power-of-two (rows, params) class, zero-padded, each bucket solved
+# by one batched torch program on the fleet's device.  'auto' = on CUDA
+# devices; True/False force.  The host-NumPy per-pulsar path (False) is
+# the digit oracle and the CPU default.
+gls_device = "auto"
+
+# Full-resolve cadence of the incremental GLS lane
+# (timing/incremental.IncrementalGLS): every this-many sequential TOA
+# updates the lane rebuilds the batch system, compares, and raises
+# GLSDriftError beyond its tolerance; 0 disables the periodic gate
+# (structural resolves on epoch renumbering still happen).
+gls_resolve_every = 64
+
 # Threshold [standard deviations] of the median-algorithm channel cut
 # (the reference's nstd=3): a channel whose noise level exceeds
 # median + zap_nstd*std of the surviving channels is flagged,
@@ -160,6 +176,8 @@ zap_nstd = 3.0
 #   PPT_DFT_FOLD=off|auto|on        -> dft_fold
 #   PPT_ALIGN_DEVICE=off|auto|on    -> align_device
 #   PPT_GAUSS_DEVICE=off|auto|on    -> gauss_device
+#   PPT_GLS_DEVICE=off|auto|on      -> gls_device
+#   PPT_GLS_RESOLVE_EVERY=<N>       -> gls_resolve_every
 #   PPT_LM_JACOBIAN=auto|analytic|ad -> lm_jacobian
 #   PPT_ZAP_DEVICE=off|auto|on      -> zap_device
 #   PPT_ZAP_NSTD=<float>            -> zap_nstd
@@ -218,15 +236,14 @@ HOOKED_PPT_ENV = frozenset({
     "PPT_FUSED_BLOCK", "PPT_XSPEC", "PPT_DFT_PRECISION", "PPT_DFT_FOLD",
     "PPT_ALIGN_DEVICE", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD",
     "PPT_STREAM_DEVICES", "PPT_MAX_INFLIGHT", "PPT_PIPELINE_DEPTH",
-    "PPT_BUCKET_PAD", "PPT_RAW_SUBBYTE"})
+    "PPT_BUCKET_PAD", "PPT_RAW_SUBBYTE", "PPT_GLS_DEVICE",
+    "PPT_GLS_RESOLVE_EVERY"})
 
 
 def _unported_ppt_env():
     """{KNOWN_PPT_ENV name without a hook here: why, and its ROADMAP
     item}."""
     why = {}
-    for name in ("PPT_GLS_DEVICE", "PPT_GLS_RESOLVE_EVERY"):
-        why[name] = "timing (ROADMAP A11)"
     why["PPT_TRANSPORT_COMPRESS"] = "the transport codec (ROADMAP A7)"
     why["PPT_FIT_PALLAS"] = (
         "the JAX package's Pallas mode; the port's kernels run wherever "
@@ -350,6 +367,20 @@ def env_overrides():
                                "'off', 'auto' or 'on'"))
     put("zap_device", _table(env, "PPT_ZAP_DEVICE", _TRISTATE,
                              "'off', 'auto' or 'on'"))
+    put("gls_device", _table(env, "PPT_GLS_DEVICE", _TRISTATE,
+                             "'off', 'auto' or 'on'"))
+    rev = env.get("PPT_GLS_RESOLVE_EVERY", "")
+    if rev:
+        try:
+            n = int(rev)
+        except ValueError:
+            raise ValueError(
+                "PPT_GLS_RESOLVE_EVERY must be a non-negative "
+                f"integer (0 disables), got {rev!r}")
+        if n < 0:
+            raise ValueError(
+                f"PPT_GLS_RESOLVE_EVERY must be >= 0, got {n}")
+        put("gls_resolve_every", (n,))
     znstd = env.get("PPT_ZAP_NSTD", "")
     if znstd:
         try:

@@ -28,6 +28,7 @@ KNOB_POLARITY = {
     "zap_device": "cuda",   # the batched torch zap cut (quality/excision)
     "align_device": "cuda",  # ppalign's accumulate on the align's device
     "gauss_device": "cuda",  # the batched LM engine for template trials
+    "gls_device": "cuda",   # the fleet's batched GLS solve
 }
 
 

@@ -1,5 +1,5 @@
 """Synthetic data with known injected parameters."""
 
 from .archive import add_scintillation, make_fake_pulsar  # noqa: F401
-from .fake import default_test_model  # noqa: F401
+from .fake import default_test_model, fake_timing_campaign  # noqa: F401
 from .rfi import inject_rfi  # noqa: F401

@@ -12,8 +12,7 @@ referenced to nu_DM (default: infinite frequency) — is implemented.
 
 Host-side numpy except for the template portrait, which the torch
 generator builds in float64 on ``device``.  Noise comes from a seeded
-numpy Generator.  spin_coherent folding needs the timing package and is
-not ported yet (ROADMAP A11).
+numpy Generator.
 """
 
 import numpy as np
@@ -81,8 +80,28 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
     seed) makes the noise/scint draws reproducible.
 
     The template portrait is generated on ``device`` (default cuda).
-    spin_coherent=True (absolute phase tied to the spin ephemeris) needs
-    the timing package and raises NotImplementedError (ROADMAP A11).
+
+    spin_coherent=True ties the absolute pulse phase of every subint to
+    the spin ephemeris — each subint is additionally rotated by
+    -frac(F0 (epoch - PEPOCH)), computed in exact rational arithmetic
+    (the product is ~1e9 turns, beyond f64) — which is what
+    polyco-driven folding produces on real archives.  With it, measured
+    TOAs from different epochs phase-connect: a timing fit
+    (timing.wideband_gls_fit) yields white residuals.  Default False:
+    each archive's absolute phase is arbitrary (grid-aligned).
+
+    Binary pulsars: when the ephemeris carries a complete ELL1 or BT
+    element set (timing/binary.py semantics; partial sets and
+    unsupported models raise), spin_coherent folding additionally delays
+    each subint by the orbital Roemer delay — the pulse phase becomes
+    frac(F0 (epoch - Delta_R(epoch) - PEPOCH)).  The delay is evaluated
+    at the SUBINT EPOCH; the measurement reports the TOA up to half a
+    spin period away, where the true orbit has moved on — a mistiming
+    bounded by pi * A1 * P / PB seconds.  Keep the orbit mild enough
+    that this sits below the TOA noise (e.g. A1 = 0.05 lt-s, PB = 1 d,
+    P = 4 ms leaves < 0.01 us).  Binary keys without spin_coherent=True
+    are ignored.  The rotation comes before the noise, so it composes
+    with ``dither``.
 
     ``nbit``/``levels`` select the written DATA sample width and
     quantization depth (io/psrfits.write_archive_file): nbit=2 forges
@@ -94,10 +113,6 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
     (io/psrfits.write_archive_file), so their mean is the unquantized
     profile.
     """
-    if spin_coherent:
-        raise NotImplementedError(
-            "make_fake_pulsar: spin_coherent folding needs the timing "
-            "package, not ported yet (ROADMAP A11)")
     dev = resolve_device(device)
     rng = np.random.default_rng(rng)
     model = read_gmodel(modelfile, quiet=True) \
@@ -152,9 +167,35 @@ def make_fake_pulsar(modelfile, ephemeris, outfile="fake_pulsar.fits",
         rotmodel = np.fft.irfft(np.fft.rfft(rotmodel, axis=-1) * B,
                                 n=nbin, axis=-1)
 
+    spin_fracs = np.zeros(nsub)
+    if spin_coherent:
+        # frac(F0 * (epoch - PEPOCH)) per subint, exactly (~1e9 turns,
+        # beyond f64) — the rational helper the timing fit reduces with,
+        # so both use the identical F0 representation
+        from ..timing.binary import binary_delay_np, parse_binary
+        from ..utils.spin import rational, spin_F0, spin_phase_frac
+
+        F0r = spin_F0(par)
+        F0f = float(F0r)
+        pep = rational(par.get("PEPOCH", PEPOCH))  # parsed once
+        bp = parse_binary(par)  # None for isolated; loud on partial
+        for isub, e in enumerate(epochs):
+            frac = spin_phase_frac(F0r, pep, e.day, e.frac)
+            if bp is not None:
+                # the pulse is LATE by the orbital Roemer delay: phase
+                # at the epoch is F0*(t - Delta_R - PEPOCH).  F0*Delta
+                # is only ~1e2 turns, safe as a float product (and the
+                # SAME float F0 the timing fit's remainder term uses)
+                frac -= F0f * float(binary_delay_np(bp, e.day, e.frac))
+            spin_fracs[isub] = frac % 1.0
+
     amps = np.zeros((nsub, npol, nchan, nbin))
     for isub in range(nsub):
         port = rotmodel
+        if spin_coherent and spin_fracs[isub] != 0.0:
+            # pulse earlier by the ephemeris phase at this epoch, so
+            # epoch + phi*P phase-connects across the campaign
+            port = rotate_phase(port, spin_fracs[isub])
         if scint is not False:
             if scint is True:
                 port = add_scintillation(port, random=True, nsin=3,

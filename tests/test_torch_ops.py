@@ -511,7 +511,10 @@ def test_import_hygiene():
         " 'synth.rfi', 'cli.ppzap', 'parallel.batch', 'pipeline.align',"
         " 'models.wavelet', 'cli.ppalign', 'fit.lm', 'fit.gauss',"
         " 'fit.powlaw', 'pipeline.gauss', 'pipeline.spline',"
-        " 'cli.ppgauss', 'cli.ppspline')}\n"
+        " 'cli.ppgauss', 'cli.ppspline', 'utils.spin', 'timing',"
+        " 'timing.tim', 'timing.binary', 'timing.gls', 'timing.fleet',"
+        " 'timing.incremental', 'cli.pptime', 'pipeline.factory',"
+        " 'cli.ppfactory', 'synth.fake')}\n"
         "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "
@@ -571,6 +574,41 @@ class TestDeviceRule:
         for main in (ppgauss, ppspline):
             with pytest.raises(RuntimeError):
                 main(["-d", path])
+
+    def test_factory_and_timing_entry_points(self, tmp_path):
+        from pulseportraiture_tpu_torch.cli.ppfactory import main as ppfac
+        from pulseportraiture_tpu_torch.cli.pptime import main as pptime
+        from pulseportraiture_tpu_torch.pipeline import build_templates
+        from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                      fake_timing_campaign)
+        from pulseportraiture_tpu_torch.synth import make_fake_pulsar
+        from pulseportraiture_tpu_torch.timing import fleet_gls_fit
+        from pulseportraiture_tpu_torch.timing.binary import (
+            ell1_delay_and_partials)
+
+        path = str(tmp_path / "a.fits")
+        meta = tmp_path / "meta.txt"
+        meta.write_text(path + "\n")
+        with pytest.raises(RuntimeError):
+            build_templates([path])
+        with pytest.raises(RuntimeError):
+            ppfac(["-M", str(meta)])
+        par = {"PSR": "X", "F0": "200.0", "PEPOCH": "55000", "DM": "10"}
+        toas, _ = fake_timing_campaign(par, n_epochs=3, rng=1)
+        with pytest.raises(RuntimeError):
+            fleet_gls_fit([("X", toas, par)])
+        tim, pf = tmp_path / "x.tim", tmp_path / "x.par"
+        tim.write_text("a 0.0 55000.5 0.1 @ -pp_dm 10 -pp_dme 1e-4\n"
+                       "b 0.0 55001.5 0.1 @ -pp_dm 10 -pp_dme 1e-4\n")
+        pf.write_text("F0 200.0\nPEPOCH 55000\nDM 10\n")
+        with pytest.raises(RuntimeError):
+            pptime([str(tim), str(pf)])
+        with pytest.raises(RuntimeError):
+            ell1_delay_and_partials(np.zeros(3), 86400.0, 0.1, 0.0, 0.0)
+        with pytest.raises(RuntimeError):
+            make_fake_pulsar(default_test_model(), {"P0": 0.004,
+                                                    "PEPOCH": 55000.0},
+                             outfile=path, spin_coherent=True, quiet=True)
 
     def test_align_entry_point(self, tmp_path):
         from pulseportraiture_tpu_torch.cli.ppalign import main

@@ -721,6 +721,8 @@ HOOKS = {
     "PPT_ZAP_NSTD": ("4.5", "zap_nstd", "-1"),
     "PPT_GAUSS_DEVICE": ("on", "gauss_device", "gpu"),
     "PPT_LM_JACOBIAN": ("ad", "lm_jacobian", "numeric"),
+    "PPT_GLS_DEVICE": ("on", "gls_device", "gpu"),
+    "PPT_GLS_RESOLVE_EVERY": ("8", "gls_resolve_every", "-1"),
 }
 
 # Loads both packages' config.py by path (neither package's __init__, so
@@ -780,12 +782,14 @@ def test_env_unported_and_unknown_warn():
     """A JAX-package hook whose knob the port lacks warns with its
     ROADMAP item; a typo warns with the closest known name; both once."""
     out, err = _probe("PPT_ZAP_NSTD", "3", "zap_nstd", "2",
-                      {"PPT_TELEMETRY": "t.jsonl", "PPT_GLS_DEVICE": "on",
+                      {"PPT_TELEMETRY": "t.jsonl",
+                       "PPT_TRANSPORT_COMPRESS": "on",
                        "PPT_ZAP_NSTDS": "2"})
     port = [ln for ln in err.splitlines()
             if ln.startswith("pulseportraiture_tpu_torch.config")]
     assert any("PPT_TELEMETRY" in ln and "A13" in ln for ln in port)
-    assert any("PPT_GLS_DEVICE" in ln and "A11" in ln for ln in port)
+    assert any("PPT_TRANSPORT_COMPRESS" in ln and "A7" in ln
+               for ln in port)
     assert any("PPT_ZAP_NSTDS" in ln and "did you mean PPT_ZAP_NSTD" in ln
                for ln in port)
     assert len(port) == 3

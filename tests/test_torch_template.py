@@ -371,7 +371,9 @@ def test_ppspline_cli(ws, tmp_path, case):
 
 
 @pytest.mark.parametrize("argv,label", [
-    (["--batch", "-M", "x.meta"], "A9b"),
+    # --batch runs the template factory; without -M it exits
+    pytest.param(["--batch", "-d", "x.fits"], "requires -M",
+                 id="argv0-A9b"),
     (["--figure", "fig.png", "-d", "x.fits"], "A13"),
 ])
 def test_ppgauss_refusals(argv, label):
@@ -380,7 +382,8 @@ def test_ppgauss_refusals(argv, label):
 
 
 @pytest.mark.parametrize("argv,label", [
-    (["--gauss-device", "on", "-s"], "A9b"),
+    # --gauss-device smooths the mean through the factory, under -s only
+    pytest.param(["--gauss-device", "on"], "requires -s", id="argv0-A9b"),
     (["--plots"], "A13"),
 ])
 def test_ppspline_refusals(argv, label):
