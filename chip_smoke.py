@@ -147,7 +147,32 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    residuals, DMX, F0 and PB; fleet_gls_fit on 45 pulsars (A, B and 43
    synthetic campaigns of 120-121 epochs) on the batched, serial and
    host lanes: batched vs serial <= 1e-10, vs host <= 1e-8, fewer
-   batched calls; and the batch-width probe of the fleet solve.
+   batched calls; and the batch-width probe of the fleet solve;
+16. campaign path: stream_ipta_campaign over phase 15's pulsars A
+   (int16) and B (dithered 2-bit) and pulsar C (10 epochs x 4 x 512 x
+   2048 written with nbit=8, levels=4, dithered: bytes the transport
+   codec packs to 2 bits), each with its factory .gmodel,
+   nsub_batch=16, A and B timed by the campaign's fleet stage with
+   phase 15's parfiles; run 1 traced with the codec on (the counters
+   set to 0 just before it), run 2 untraced with it off, 4 alternating
+   untraced / traced pairs with it on (what tracing costs): run 1's
+   trace through the port's validate_trace and report (dispatches =
+   nfit = copies, the
+   copies' bytes = the results', codec engaged on C's dispatches only,
+   seqs unique across the executors and paired with the drains, one
+   timing_fit per solve, the counters last), C's shipped bytes below
+   its logical bytes, run 1's logical = run 2's shipped, every
+   pulsar's .tim identical between runs 1 and 2 and a lone
+   stream_wideband_TOAs of it (or within a repeat of run 2's spread),
+   B1 (on A's and C's unpacked bucket) and B2 (on B's) through their
+   FFT arms only (held to their plain versions on a rerun's buckets),
+   return codes in {0, 1, 2}, phase 15's timing gates, A within 0.1
+   sigma of phase 15's
+   ``pptoas -m``, C's residuals and DMX within 5 sigma of its
+   injection; C alone with transport_compress='auto' (the cost model's
+   decisions and learned link rate); ``pptoas --stream --telemetry
+   --transport-compress on`` on C, then ``python -m
+   pulseportraiture_tpu_torch.cli.pptrace report`` (exit 0).
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -253,6 +278,10 @@ PAR_B = {"PSR": "J1012+5307", "RAJ": "10:12:33.4", "DECJ": "53:07:02.5",
          "PB": 1.0, "A1": 0.05, "TASC": 55000.3, "EPS1": 2e-6,
          "EPS2": -1e-6}
 PTA_F0_REL, PTA_DPB = 3e-12, 2e-9
+# phase 16: the campaign's bucket size (each pulsar's 40 subints in
+# three dispatches, 16 + 16 + 8, so copies overlap fits) and the
+# untraced / traced pairs that time the trace
+CAMPAIGN_BATCH, CAMPAIGN_PAIRS = 16, 4
 PTA_NGLS, PTA_GLS_NEP, PTA_GLS_SPAN = 45, 120, 3650.0
 
 
@@ -3044,11 +3073,12 @@ def pta_fleet(device="cuda", nchan=NCHAN, nbin=NBIN, n=PTA_NFLEET):
 
 
 def pta_campaign(model, par, name, nbit, device="cuda", nchan=NCHAN,
-                 nbin=NBIN, nsub=PTA_NSUB, nep=PTA_NEP):
+                 nbin=NBIN, nsub=PTA_NSUB, nep=PTA_NEP, levels=None):
     """One pulsar's spin-coherent campaign: nep epochs of nsub subints
     of 1800 s, 60 days apart at fractional days that walk B's orbit, at
-    noise 1.0 with per-epoch dDMs of std PTA_DDM, written with nbit (2:
-    dithered); returns (metafile, paths, injected dDMs).  The spacing
+    noise 1.0 with per-epoch dDMs of std PTA_DDM, written with nbit and
+    levels (dithered below 16 bits); returns (metafile, paths, injected
+    dDMs).  The spacing
     and the subint length set the F0 error: with 30 days and 600 s,
     B's F0 error beside its five orbital elements is 0.5-0.7 % of the
     injected offset at these widths (a design-matrix computation), too
@@ -3068,7 +3098,7 @@ def pta_campaign(model, par, name, nbit, device="cuda", nchan=NCHAN,
                          start_MJD=MJD(55100 + 60 * k, (0.2 + 0.137 * k) % 1),
                          noise_stds=1.0, dedispersed=False, quiet=True,
                          rng=rng, spin_coherent=True, nbit=nbit,
-                         dither=nbit < 16, device=device)
+                         levels=levels, dither=nbit < 16, device=device)
         files.append(path)
     meta = os.path.join(WORK, f"pta-{name}.meta")
     with open(meta, "w") as f:
@@ -3227,11 +3257,12 @@ def pta_factory(meta, files, models, device, nchan, nbin):
 
 
 @contextlib.contextmanager
-def capture_largest(name):
+def capture_largest(name, last=False):
     """Inside the block, keep a copy of the inputs of the call to
     ``ops.fused.<name>`` whose first tensor is the largest (the first
-    such call): [(args, kwargs)], empty if it was not called.  The call
-    itself, and its launch count, are unchanged."""
+    such call, or with last=True the last): [(args, kwargs)], empty if
+    it was not called.  The call itself, and its launch count, are
+    unchanged."""
     import torch
     from pulseportraiture_tpu_torch.ops import fused as F
 
@@ -3239,7 +3270,9 @@ def capture_largest(name):
     orig = getattr(F, name)
 
     def spy(*a, **k):
-        if not kept or a[0].numel() > kept[0][0][0].numel():
+        n = a[0].numel()
+        if not kept or n > kept[0][0][0].numel() or (
+                last and n == kept[0][0][0].numel()):
             kept[:] = [(tuple(x.clone() if torch.is_tensor(x) else x
                               for x in a), dict(k))]
         return orig(*a, **k)
@@ -3437,7 +3470,9 @@ def phase_pta(device="cuda", nchan=NCHAN, nbin=NBIN, nsub=PTA_NSUB,
        calls than the serial lane's ngls; the pad systems checked and
        the batch-width probe.
     Every CLI run runs in this process with the counters set to 0 just
-    before it.  Returns the B1 and B2 launches of step 2."""
+    before it.  Returns the B1 and B2 launches of step 2 and what phase
+    16 reuses: the campaigns' metafiles, injected dDMs and parfiles, the
+    factory's templates and models, and A's pptoas -m .tim."""
     import numpy as np
     from pulseportraiture_tpu_torch.timing import fleet as FL
 
@@ -3504,32 +3539,8 @@ def phase_pta(device="cuda", nchan=NCHAN, nbin=NBIN, nsub=PTA_NSUB,
         spy=[("pulseportraiture_tpu_torch.timing.fleet", "fleet_gls_fit")])
     fit = got["fleet_gls_fit"][-1]
     for n, par, ddms in (("A", PAR, ddmA), ("B", PAR_B, ddmB)):
-        r = fit.results[n]
-        f0 = 1.0 / par["P0"]
-        dF0 = -f0 * PTA_F0_REL
-        pulls = np.abs(r.time_resids_us) / r.toa_errs_us
-        dmx_off = np.abs(r.dmx - ddms)
-        dmx_lim = np.maximum(4.0 * r.dmx_errs, 3e-5)
-        f0_rel = abs(r.params["F0"] / dF0 - 1.0)
-        line = (f"pta path (pptime {n}): {len(r.time_resids_us)} TOAs, red "
-                f"chi2 {r.red_chi2:.3f} (limit (0.3, 3)), wrms "
-                f"{r.wrms_us:.4f} us, max |resid| {pulls.max():.2f} sigma "
-                f"(limit 5), max |DMX - dDM| / limit "
-                f"{float(np.max(dmx_off / dmx_lim)):.3f}, dF0 "
-                f"{r.params['F0']:.4e} +/- {r.param_errs['F0']:.2e} "
-                f"(injected {dF0:.4e}, off {100 * f0_rel:.3f} %, limit "
-                f"1 %)")
-        ok = (0.3 < r.red_chi2 < 3.0 and pulls.max() < 5.0
-              and np.all(dmx_off <= dmx_lim) and f0_rel <= 0.01)
-        if "PB" in par:
-            dpb = abs(r.params["PB"] + PTA_DPB) / r.param_errs["PB"]
-            line += (f", dPB {r.params['PB']:.3e} +/- "
-                     f"{r.param_errs['PB']:.1e} (injected {-PTA_DPB:.1e}, "
-                     f"{dpb:.2f} sigma, limit 5)")
-            ok = ok and dpb < 5.0
-        log(line)
-        if not ok:
-            raise AssertionError(line)
+        check_timing_solution(fit.results[n], par, ddms,
+                              f"pta path (pptime {n})")
     log(f"pta path (pptime -j, {fit.n_dispatches} solve calls): "
         f"{wall:.3f} s wall")
 
@@ -3566,7 +3577,385 @@ def phase_pta(device="cuda", nchan=NCHAN, nbin=NBIN, nsub=PTA_NSUB,
                              f"{nb} / {ns}")
     check_pad_systems(device)
     batch_width_probe(device)
-    return lA, lB
+    ctx = dict(tmpl=tmpl, models=models, meta={"A": metaA, "B": metaB},
+               ddms={"A": ddmA, "B": ddmB},
+               par={n: os.path.join(WORK, f"pta-{n}.par") for n in "AB"},
+               true_par={"A": PAR, "B": PAR_B}, tim_A=tims["A"])
+    return lA, lB, ctx
+
+
+def campaign_tims(outdir, names):
+    """{pulsar: read_tim of outdir/<pulsar>.tim}."""
+    return {n: read_tim(os.path.join(outdir, f"{n}.tim")) for n in names}
+
+
+def tims_spread(a, b):
+    """The largest TOA or DM difference between two {pulsar: read_tim}
+    sets, in units of a's errors (0.0 when every line is identical);
+    raises when their lines differ in number or keys."""
+    worst = 0.0
+    for n in a:
+        if set(a[n]) != set(b[n]):
+            raise AssertionError(f"{n}: the two .tim files hold different "
+                                 "TOAs")
+        for key, ra in a[n].items():
+            rb = b[n][key]
+            if ra == rb:
+                continue
+            worst = max(worst, tim_sigma_offset(ra, rb))
+            if ra["DM"] is not None:
+                worst = max(worst, abs(rb["DM"] - ra["DM"])
+                            / float(ra["flags"]["-pp_dme"]))
+            worst = max(worst, 1e-300)
+    return worst
+
+
+def campaign_run(jobs, outdir, device, nsub_batch, compress, telemetry=None,
+                 timing_pars=None, rcs=None):
+    """One stream_ipta_campaign with config.transport_compress set to
+    ``compress`` for the call; rcs (a list) collects every subint's
+    return code.  Returns (result, wall seconds)."""
+    from pulseportraiture_tpu_torch import config as cfg
+    from pulseportraiture_tpu_torch.pipeline import stream as S
+    from pulseportraiture_tpu_torch.pipeline.ipta import stream_ipta_campaign
+
+    saved, orig = cfg.transport_compress, S._assemble_archive
+
+    def assemble(m, results, *a, **k):
+        rcs.extend(int(results[(m.iarch, int(i))]["return_code"])
+                   for i in m.ok if (m.iarch, int(i)) in results)
+        return orig(m, results, *a, **k)
+
+    cfg.transport_compress = compress
+    if rcs is not None:
+        S._assemble_archive = assemble
+    try:
+        t0 = time.perf_counter()
+        res = stream_ipta_campaign(
+            jobs, outdir=outdir, nsub_batch=nsub_batch, quiet=True,
+            telemetry=telemetry, timing_pars=timing_pars,
+            timing_kwargs={"gls_device": True}, device=device)
+        sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        cfg.transport_compress = saved
+        S._assemble_archive = orig
+    return res, wall
+
+
+def check_campaign_trace(trace, res, names, c_name):
+    """Phase 16's trace gates (module docstring); returns the report's
+    summary and its devices / queue-depth / link text."""
+    import io
+
+    from pulseportraiture_tpu_torch import telemetry as T
+
+    _, events = T.validate_trace(trace)
+    buf = io.StringIO()
+    summary = T.report(trace, file=buf)
+    seqs = [e["seq"] for e in events if e["type"] == "dispatch"]
+    drains = sorted(e["seq"] for e in events if e["type"] == "drain")
+    shipped = sum(res.per_pulsar[n].h2d_bytes for n in names)
+    n_tfit = sum(1 for e in events if e["type"] == "timing_fit")
+    engaged = summary["codec_decisions"].get("engaged", 0)
+    checks = {
+        "dispatches = nfit": summary["total_dispatches"] == res.nfit,
+        "n_h2d = dispatches": summary["n_h2d"] == res.nfit,
+        "h2d bytes = results'": summary["h2d_bytes"] == shipped,
+        "engaged = C's dispatches": engaged == res.per_pulsar[c_name].nfit,
+        "seqs unique": len(set(seqs)) == len(seqs) == res.nfit,
+        "drain seqs = dispatch seqs": drains == sorted(seqs),
+        "timing_fit = solves": n_tfit == res.timing.n_dispatches,
+        "counters last": events[-1]["type"] == "counters",
+    }
+    text = buf.getvalue().splitlines()
+    keep = []
+    for head in ("-- devices --", "-- queue depth", "-- h2d link"):
+        i = next(i for i, ln in enumerate(text) if ln.startswith(head))
+        j = next((k for k in range(i + 1, len(text))
+                  if text[k].startswith("--") or not text[k].strip()),
+                 len(text))
+        keep += text[i:j]
+    log("campaign path (trace report): " + " | ".join(
+        ln.strip() for ln in keep))
+    bad = [k for k, ok in checks.items() if not ok]
+    log(f"campaign path (trace gates): {len(events)} events, "
+        f"{res.nfit} dispatches, {summary['n_h2d']} copies, "
+        f"{summary['h2d_bytes']} bytes shipped of "
+        f"{summary['h2d_bytes_logical']} logical, codec decisions "
+        f"{summary['codec_decisions']}, {n_tfit} timing_fit events for "
+        f"{res.timing.n_dispatches} solves; failed: {bad or 'none'}")
+    if bad:
+        raise AssertionError(f"campaign trace gates failed: {bad}")
+    return summary
+
+
+def phase_campaign(ctx, device="cuda", nchan=NCHAN, nbin=NBIN,
+                   nsub=PTA_NSUB, nep=PTA_NEP, nsub_batch=CAMPAIGN_BATCH):
+    """The campaign path (phase 16): stream_ipta_campaign over phase 15's
+    pulsars A (int16) and B (dithered 2-bit) and pulsar C (nep epochs of
+    nsub x nchan x nbin written with nbit=8, levels=4, dithered: bytes the
+    transport codec packs to 2 bits), each with its factory .gmodel, A and
+    B timed by the campaign's fleet stage with phase 15's parfiles.
+    1. run 2 (untraced, codec off), a warm-up (untraced, codec on), run 1
+       (traced, codec on; the launch counters set to 0 just before it),
+       CAMPAIGN_PAIRS alternating untraced / traced codec-on pairs (the
+       tracing cost, medians):
+       run 1's trace through the port's validate_trace and report
+       (check_campaign_trace); C's shipped bytes below its logical
+       bytes, run 1's logical bytes = run 2's shipped bytes; every
+       pulsar's .tim identical between runs 1 and 2 (or, if they differ,
+       within the spread of a repeat of run 2); B1 and B2 through their
+       FFT arms only, held to their plain versions on the largest bucket
+       each got in one more untraced codec-on run (B1: A's and C's, B2:
+       B's); return codes in {0, 1, 2};
+       the timing stage held to phase 15's gates;
+    2. each pulsar alone through stream_wideband_TOAs under the same rule
+       as 1; A within 0.1 sigma of phase 15's pptoas -m; C against its
+       true parfile (fleet_gls_fit, F0 held): residuals < 5 sigma, DMX
+       within 5 sigma of the injection;
+    3. run 3: C alone with transport_compress='auto' (traced): the cost
+       model's decisions on this card's link and the link rate it
+       learned;
+    4. ``pptoas --stream --telemetry t.jsonl --transport-compress on`` on
+       C's metafile, then ``python -m pulseportraiture_tpu_torch.cli
+       .pptrace report t.jsonl`` (exit 0).
+    Returns the kernel launches of run 1."""
+    import io
+
+    import numpy as np
+    from pulseportraiture_tpu_torch import config as cfg
+    from pulseportraiture_tpu_torch.io.blockcodec import CostModel
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline.ipta import IPTAJob
+    from pulseportraiture_tpu_torch.pipeline.stream import \
+        stream_wideband_TOAs
+    from pulseportraiture_tpu_torch.telemetry import load_trace, report
+    from pulseportraiture_tpu_torch.timing import fleet as FL
+
+    cuda = device_type(device) == "cuda"
+    t0 = time.perf_counter()
+    c_par = pta_pars(3)[2]
+    metaC, filesC, ddmC = pta_campaign(ctx["models"][2], c_par, "C", 8,
+                                       device, nchan, nbin, nsub, nep,
+                                       levels=4)
+    log(f"campaign C: {nep} epochs x {nsub}x{nchan}x{nbin} (nbit 8, 4 "
+        f"levels, dithered) written in {time.perf_counter() - t0:.2f} s")
+    metas = dict(ctx["meta"], C=metaC)
+    tmpl = {"A": ctx["tmpl"][0], "B": ctx["tmpl"][1], "C": ctx["tmpl"][2]}
+    names = ("A", "B", "C")
+    jobs = [IPTAJob(n, metas[n], tmpl[n]) for n in names]
+    tpars = {n: ctx["par"][n] for n in ("A", "B")}
+    out = {k: os.path.join(WORK, f"campaign-{k}")
+           for k in ("1", "1b", "1c", "k", "2", "2r", "lone", "3")}
+    trace = os.path.join(WORK, "campaign.jsonl")
+
+    # 1. run 2, one untraced codec-on run (so that run 1 is warm: the
+    # codec's first unpack and its new pinned-buffer sizes), run 1
+    r2, w2 = campaign_run(jobs, out["2"], device, nsub_batch, False,
+                          timing_pars=tpars)
+    campaign_run(jobs, out["1b"], device, nsub_batch, True,
+                 timing_pars=tpars)
+    rcs = []
+    F.reset_kernel_launches()
+    r1, w1 = campaign_run(jobs, out["1"], device, nsub_batch, True,
+                          telemetry=trace, timing_pars=tpars, rcs=rcs)
+    launches = F.kernel_launches()
+    # what tracing costs: CAMPAIGN_PAIRS alternating untraced / traced
+    # codec-on runs (one pair's two walls differ by the host clock's
+    # spread as much as by the trace)
+    walls = {"untraced": [], "traced": []}
+    for i in range(CAMPAIGN_PAIRS):
+        for label in ("untraced", "traced") if i % 2 == 0 else (
+                "traced", "untraced"):
+            tr = (os.path.join(WORK, f"campaign-pair{i}.jsonl")
+                  if label == "traced" else None)
+            walls[label].append(campaign_run(
+                jobs, out["1c"], device, nsub_batch, True, telemetry=tr,
+                timing_pars=tpars)[1])
+    # the kernels' inputs, from one more untraced codec-on run (the
+    # copies would weigh on run 1's wall): B1's first full bucket is
+    # A's, its last C's (the pulsars run in order); nested spies on one
+    # function each see every call
+    with capture_largest("fused_cross_spectrum") as b1_a, \
+            capture_largest("fused_cross_spectrum", last=True) as b1_c, \
+            capture_largest("fused_decode_cross_spectrum") as b2_b:
+        campaign_run(jobs, out["k"], device, nsub_batch, True)
+    ntoa = len(names) * nep * nsub
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    txt = {k: ", ".join(f"{w:.3f}" for w in v) for k, v in walls.items()}
+    log(f"campaign path (run 2, untraced, codec off): {len(r2.TOA_list)} "
+        f"TOAs in {w2:.3f} s; (run 1, traced, codec on): "
+        f"{len(r1.TOA_list)} TOAs, {r1.nfit} dispatches in {w1:.3f} s, "
+        f"kernel launches {launches}; {CAMPAIGN_PAIRS} alternating pairs, "
+        f"codec on: untraced {txt['untraced']} s, traced {txt['traced']} s; "
+        f"tracing cost (medians) {med['traced'] - med['untraced']:+.3f} s "
+        f"({100 * (med['traced'] / med['untraced'] - 1):+.1f} %)")
+    if not (len(r1.TOA_list) == len(r2.TOA_list) == ntoa == len(rcs)):
+        raise AssertionError(f"{len(r1.TOA_list)} / {len(r2.TOA_list)} "
+                             f"TOAs, {len(rcs)} return codes for {ntoa}")
+    if not np.all(np.isin(rcs, (0, 1, 2))):
+        raise AssertionError(f"return codes {sorted(set(rcs))}")
+    if cuda:
+        fft_only(launches, ("fused_cross_spectrum",
+                            "fused_decode_cross_spectrum"), "campaign")
+    check_campaign_trace(trace, r1, names, "C")
+    pc = r1.per_pulsar["C"]
+    logical = {n: r1.per_pulsar[n].h2d_bytes_logical for n in names}
+    shipped2 = {n: r2.per_pulsar[n].h2d_bytes for n in names}
+    log(f"campaign path (codec): C shipped {pc.h2d_bytes} of "
+        f"{pc.h2d_bytes_logical} logical bytes "
+        f"({pc.h2d_bytes_logical / pc.h2d_bytes:.3f}x) in "
+        f"{pc.codec_duration:.3f} s of probe+encode; run 1 logical "
+        f"{logical}, run 2 shipped {shipped2}")
+    if not (pc.h2d_bytes < pc.h2d_bytes_logical and logical == shipped2):
+        raise AssertionError("codec byte accounting")
+    t1, t2 = campaign_tims(out["1"], names), campaign_tims(out["2"], names)
+    spread = tims_spread(t1, t2)
+    limit = 0.0
+    if spread:
+        campaign_run(jobs, out["2r"], device, nsub_batch, False,
+                     timing_pars=tpars)
+        limit = tims_spread(t2, campaign_tims(out["2r"], names))
+    log(f"campaign path (.tim, runs 1 vs 2: tracing and codec on vs "
+        f"off): largest difference {spread:.3e} sigma (limit {limit:.3e}, "
+        "the spread of a repeat of run 2; 0 = identical lines)")
+    if spread > limit:
+        raise AssertionError(f"runs 1 and 2 differ by {spread} sigma")
+    for n in ("A", "B"):
+        check_timing_solution(r1.timing.results[n], ctx["true_par"][n],
+                              ctx["ddms"][n], f"campaign path (timing {n})")
+    if cuda:
+        check_campaign_kernels(b1_a, b1_c, b2_b)
+
+    # 2. each pulsar alone; A against phase 15's GetTOAs; C's injection
+    os.makedirs(out["lone"], exist_ok=True)
+    t0 = time.perf_counter()
+    for n in names:
+        path = os.path.join(out["lone"], f"{n}.tim")
+        stream_wideband_TOAs(metas[n], tmpl[n], nsub_batch=nsub_batch,
+                             quiet=True, tim_out=path, device=device)
+    lone = campaign_tims(out["lone"], names)
+    d_lone = tims_spread(t1, lone)
+    ref_a = read_tim(ctx["tim_A"])
+    d_a = max(tim_sigma_offset(ref_a[k], t1["A"][k]) for k in ref_a)
+    cfit = FL.fleet_gls_fit([FL.TimingJob("C", os.path.join(
+        out["1"], "C.tim"), dict(c_par))], fit_f0=False, device=device)
+    rc_ = cfit.results["C"]
+    pulls = np.abs(rc_.time_resids_us) / rc_.toa_errs_us
+    dmx_pull = np.abs(rc_.dmx - ddmC) / rc_.dmx_errs
+    log(f"campaign path (lone runs, {time.perf_counter() - t0:.3f} s): "
+        f"largest difference from the campaign {d_lone:.3e} sigma (limit "
+        f"{limit:.3e}); A vs phase 15's pptoas -m {d_a:.4f} sigma (limit "
+        f"0.1); C against its true parfile: max |resid| "
+        f"{pulls.max():.2f} sigma, max |DMX - dDM| {dmx_pull.max():.2f} "
+        f"sigma (limits 5)")
+    if not (d_lone <= limit and d_a <= 0.1 and pulls.max() < 5.0
+            and dmx_pull.max() < 5.0):
+        raise AssertionError("campaign path: lone runs, A or C")
+
+    # 3. C alone, 'auto'
+    trace3 = os.path.join(WORK, "campaign-auto.jsonl")
+    _, w3 = campaign_run([jobs[2]], out["3"], device, nsub_batch, "auto",
+                         telemetry=trace3)
+    # the pipeline's cost model, replayed from its own h2d_done records
+    cm = CostModel()
+    for e in load_trace(trace3)[1]:
+        if e["type"] == "h2d_done":
+            cm.observe_link(e["bytes"], e["h2d_s"])
+    s3 = report(trace3, file=io.StringIO())
+    link = cm.link_bps / 1e9 if cm.link_bps else float("nan")
+    log(f"campaign path (run 3, C alone, transport_compress='auto'): "
+        f"{w3:.3f} s, decisions {s3['codec_decisions']}, shipped "
+        f"{s3['h2d_bytes']} of {s3['h2d_bytes_logical']} logical bytes; "
+        f"the cost model's learned link rate {link:.3f} GB/s (copy wall "
+        "incl. stacking and pinning), codec rate seed "
+        f"{CostModel.CODEC_BPS_SEED / 1e9:.3f} GB/s")
+
+    # 4. the CLI and pptrace
+    tcli = os.path.join(WORK, "campaign-cli.jsonl")
+    timc = os.path.join(WORK, "campaign-cli.tim")
+    if os.path.exists(timc):
+        os.remove(timc)
+    saved = cfg.transport_compress
+    try:
+        wc, lc, _ = run_tool("pptoas", [
+            "--stream", "-d", metaC, "-m", tmpl["C"], "-o", timc,
+            "--telemetry", tcli, "--transport-compress", "on", "--quiet",
+            "--device", device], "pptoas --stream --telemetry (C)")
+    finally:
+        cfg.transport_compress = saved
+    r = subprocess.run([sys.executable, "-m",
+                        "pulseportraiture_tpu_torch.cli.pptrace", "report",
+                        tcli], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    link_lines = [ln.strip() for ln in r.stdout.splitlines()
+                  if "compression" in ln or "decisions" in ln]
+    log(f"campaign path (pptoas --stream --telemetry --transport-compress "
+        f"on, C): {wc:.3f} s, kernel launches {lc}; pptrace report exit "
+        f"{r.returncode}: {' | '.join(link_lines)}")
+    if r.returncode != 0:
+        raise AssertionError(f"pptrace report failed: {r.stderr[-2000:]}")
+    # the CLI's default nsub_batch puts C in one bucket: held to 0.1
+    # sigma, not to identity
+    d_cli = tims_spread({"C": t1["C"]}, {"C": read_tim(timc)})
+    log(f"campaign path (pptoas --stream C vs the campaign's C): "
+        f"{d_cli:.3e} sigma (limit 0.1)")
+    if d_cli > 0.1:
+        raise AssertionError(f"pptoas --stream C vs the campaign: {d_cli}")
+    return launches
+
+
+def check_campaign_kernels(b1_a, b1_c, b2_b):
+    """B1 on A's and on C's (unpacked) largest bucket and B2 on B's,
+    each against its plain version (check_cross_spectrum_case,
+    check_decode_case: phase 15's tolerances)."""
+    import torch
+
+    for label, call in (("A", b1_a), ("C unpacked", b1_c)):
+        (port, model, w, K), k = call[0][0][:4], call[0][1]
+        check_cross_spectrum_case(dict(
+            name=f"campaign {label} bucket {tuple(port.shape)} K={K}",
+            port=port, model=model, w=w, K=K, fold=k.get("fold"),
+            want_m2=k.get("want_m2", False), arm=None))
+    (raw, scl, offs, model, w, K), k = b2_b[0]
+    check_decode_case(dict(
+        name=f"campaign B bucket {tuple(raw.shape)} K={K}", raw=raw,
+        scl=scl, offs=offs, model=model, w=w, K=K, code=k["code"],
+        nbin=k["nbin"], fold=k.get("fold"), arm=None))
+    del b1_a[:], b1_c[:], b2_b[:]
+    torch.cuda.empty_cache()
+
+
+def check_timing_solution(r, par, ddms, label):
+    """Phase 15's timing gates on one pulsar's solution (timing_par's
+    parfile: F0, and a binary's PB, perturbed): red chi2 in (0.3, 3),
+    every residual < 5 sigma, every DMX within max(4 sigma, 3e-5) of its
+    injected dDM, dF0 within 1 %, dPB within 5 sigma."""
+    import numpy as np
+
+    f0 = 1.0 / par["P0"]
+    dF0 = -f0 * PTA_F0_REL
+    pulls = np.abs(r.time_resids_us) / r.toa_errs_us
+    dmx_off = np.abs(r.dmx - ddms)
+    dmx_lim = np.maximum(4.0 * r.dmx_errs, 3e-5)
+    f0_rel = abs(r.params["F0"] / dF0 - 1.0)
+    line = (f"{label}: {len(r.time_resids_us)} TOAs, red chi2 "
+            f"{r.red_chi2:.3f} (limit (0.3, 3)), wrms {r.wrms_us:.4f} us, "
+            f"max |resid| {pulls.max():.2f} sigma (limit 5), max |DMX - "
+            f"dDM| / limit {float(np.max(dmx_off / dmx_lim)):.3f}, dF0 "
+            f"{r.params['F0']:.4e} +/- {r.param_errs['F0']:.2e} (injected "
+            f"{dF0:.4e}, off {100 * f0_rel:.3f} %, limit 1 %)")
+    ok = (0.3 < r.red_chi2 < 3.0 and pulls.max() < 5.0
+          and np.all(dmx_off <= dmx_lim) and f0_rel <= 0.01)
+    if "PB" in par:
+        dpb = abs(r.params["PB"] + PTA_DPB) / r.param_errs["PB"]
+        line += (f", dPB {r.params['PB']:.3e} +/- {r.param_errs['PB']:.1e}"
+                 f" (injected {-PTA_DPB:.1e}, {dpb:.2f} sigma, limit 5)")
+        ok = ok and dpb < 5.0
+    log(line)
+    if not ok:
+        raise AssertionError(line)
 
 
 def fft_only(launches, kernels, path):
@@ -3658,8 +4047,11 @@ def main():
     template_launches = phase_template()
     log(f"phase template path: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
-    pta_a, pta_b = phase_pta()
+    pta_a, pta_b, pta_ctx = phase_pta()
     log(f"phase pta path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    camp = phase_campaign(pta_ctx)
+    log(f"phase campaign path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -3689,7 +4081,8 @@ def main():
             "align": align_launches,
             "template": template_launches,
             "pta": pta_a["fused_cross_spectrum"]
-            + pta_b["fused_cross_spectrum"]},
+            + pta_b["fused_cross_spectrum"],
+            "campaign": camp["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {
@@ -3717,7 +4110,8 @@ def main():
             "narrowband": nb_total["fused_decode_cross_spectrum"],
             "zap": zap_launches["fused_decode_cross_spectrum"],
             "pta": pta_a["fused_decode_cross_spectrum"]
-            + pta_b["fused_decode_cross_spectrum"]},
+            + pta_b["fused_decode_cross_spectrum"],
+            "campaign": camp["fused_decode_cross_spectrum"]},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -11,9 +11,10 @@ metafile mode — multi-receiver fits keep ppgauss).
         [--fitalpha] [--norm prof] [--gauss-device off|auto|on] \\
         [--lm-jacobian auto|analytic|ad] [--device cuda|cpu] [--verbose]
 
-Flag parity with the JAX CLI plus --device.  --telemetry and the result
-cache flags (--result-cache, --cache-dir, --cache-max-mb) parse; a value
-that would write a trace or turn the cache on exits naming ROADMAP A13.
+Flag parity with the JAX CLI plus --device.  --telemetry writes the
+factory's template_fit/template_job/factory_end events to a JSONL trace.
+The result cache flags (--result-cache, --cache-dir, --cache-max-mb)
+parse; a value that would turn the cache on exits naming ROADMAP A13.
 """
 
 import argparse
@@ -145,7 +146,8 @@ def build_parser():
                         "'ad' (torch.func.jacfwd, the oracle) "
                         "[default: config.lm_jacobian].")
     p.add_argument("--telemetry", default=None,
-                   help="Write a JSONL event trace (not ported yet).")
+                   help="Write a JSONL event trace (template_fit per "
+                        "bucket dispatch, template_job, factory_end).")
     add_cache_flags(p)
     p.add_argument("--device", default="cuda",
                    help="torch device the fits run on. [default=cuda]")
@@ -166,10 +168,6 @@ def main(argv=None):
                          f"{args.max_ngauss}")
     if args.niter < 0:
         raise SystemExit(f"--niter must be >= 0, got {args.niter}")
-    if args.telemetry is not None:
-        raise SystemExit("ppfactory --telemetry writes a JSONL trace "
-                         "through the trace plane (telemetry.py), which "
-                         "the port does not have yet (ROADMAP A13)")
     refuse_cache(args, "ppfactory")
     if not os.path.exists(args.metafile):
         raise SystemExit(f"ppfactory: metafile not found: "
@@ -192,7 +190,8 @@ def main(argv=None):
         model_code=args.model_code, fixloc=args.fixloc,
         fixwid=args.fixwid, fixamp=args.fixamp, fixscat=args.fixscat,
         fixalpha=args.fixalpha, normalize=args.normalize,
-        gauss_device=gauss_device, quiet=args.quiet, device=dev)
+        gauss_device=gauss_device, telemetry=args.telemetry,
+        quiet=args.quiet, device=dev)
     return 0
 
 

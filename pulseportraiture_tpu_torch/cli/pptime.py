@@ -11,8 +11,8 @@ fitted; Shapiro/relativistic keys refused loudly).
 Single pulsar:    pptime psr.tim psr.par [--device cuda|cpu]
 Fleet:            pptime -j jobs.txt        # lines: <pulsar> <tim> <par>
 
-Flag parity with the JAX CLI plus --device; --telemetry parses and
-exits naming ROADMAP A13 (the trace plane is not ported yet).
+Flag parity with the JAX CLI plus --device; --telemetry writes the
+solves' timing_fit events and the fleet_end rollup to a JSONL trace.
 """
 
 import argparse
@@ -50,7 +50,7 @@ def build_parser():
                         "per bucket (the bench A/B arm).")
     p.add_argument("--telemetry", default=None,
                    help="Append timing_fit/fleet_end events to this "
-                        "JSONL trace (not ported yet).")
+                        "JSONL trace.")
     p.add_argument("--json", action="store_true", default=False,
                    help="Print one JSON line per pulsar instead of "
                         "the table.")
@@ -101,10 +101,6 @@ def _load_jobs(args, parser):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.telemetry is not None:
-        raise SystemExit("pptime --telemetry writes a JSONL trace through "
-                         "the trace plane (telemetry.py), which the port "
-                         "does not have yet (ROADMAP A13)")
     specs = _load_jobs(args, parser)
 
     from ..device import resolve_device
@@ -117,7 +113,8 @@ def main(argv=None):
         jobs, fit_f1=args.fit_f1, fit_binary=args.fit_binary,
         epoch_gap_days=args.epoch_gap, allow_wraps=args.allow_wraps,
         gls_device=gls_device, batched=not args.serial,
-        quiet=args.quiet, device=resolve_device(args.device))
+        telemetry=args.telemetry, quiet=args.quiet,
+        device=resolve_device(args.device))
 
     if args.json:
         import json

@@ -5,8 +5,10 @@ The options of the JAX package's pptoas: GetTOAs per archive, or with
 across the archives of a metafile into batched fits, both with the
 scattering fits (--fit_scat); --narrowband (or --psrchive) measures one
 TOA per channel instead, with or without --stream.  Templates are
-.gmodel, spline (.spl/.npz) or PSRFITS files.  The transport codec
-(ROADMAP A7) and telemetry (A13) are not ported yet and are refused.
+.gmodel, spline (.spl/.npz) or PSRFITS files.  --telemetry writes a
+JSONL trace of the wideband GetTOAs path or the --stream drivers (read
+it with ``python -m pulseportraiture_tpu_torch.cli.pptrace report``);
+--transport-compress switches the stream's lossless transport codec.
 
     python -m pulseportraiture_tpu_torch.cli.pptoas -d archive.fits \\
         -m model.gmodel -o out.tim [--device cuda|cpu] [--narrowband]
@@ -52,8 +54,15 @@ def build_parser():
                         "config.stream_pipeline_depth]")
     p.add_argument("--transport-compress", dest="transport_compress",
                    default=None, metavar="off|auto|on",
-                   help="With --stream: lossless transport codec (not "
-                        "ported yet).")
+                   help="With --stream: lossless transport codec for "
+                        "int16/byte payloads (packed narrower residuals "
+                        "+ per-subint minima, unpacked exactly on the "
+                        "device): 'off', 'auto' (a cost model fed from "
+                        "the measured link and codec rates decides per "
+                        "dispatch) or 'on' (whenever a payload is "
+                        "compressible).  .tim output is identical "
+                        "either way. [default: "
+                        "config.transport_compress]")
     p.add_argument("--errfile", metavar="errfile", default=None,
                    help="Write fitted DM errors to this file (appends).")
     p.add_argument("-T", "--tscrunch", action="store_true", default=False,
@@ -113,7 +122,13 @@ def build_parser():
                         "fit.  A fit converging on a bound reports "
                         "return code 0.")
     p.add_argument("--telemetry", metavar="trace.jsonl", default=None,
-                   help="JSONL campaign trace (not ported yet).")
+                   help="Write a JSONL campaign trace (per-dispatch "
+                        "device/queue/link records, per-archive events, "
+                        "fit quality) of the wideband GetTOAs path or "
+                        "the --stream drivers; read it with python -m "
+                        "pulseportraiture_tpu_torch.cli.pptrace report. "
+                        "[default: PPT_TELEMETRY / "
+                        "config.telemetry_path]")
     p.add_argument("--quality_flags", action="store_true", default=False,
                    help="Add per-TOA -nfev/-chi2 fit-diagnostic flags.")
     p.add_argument("--quiet", action="store_true", default=False)
@@ -161,10 +176,6 @@ def main(argv=None):
     from ..io.tim import write_princeton_TOAs, write_TOAs
     from ..pipeline import GetTOAs
 
-    if args.telemetry is not None:
-        raise NotImplementedError(
-            "pptoas --telemetry: telemetry traces are not ported yet "
-            "(ROADMAP A13)")
     stream_devices = _stream_options(args)
     nu_ref_DM = args.nu_ref_DM
     if nu_ref_DM is not None:
@@ -197,6 +208,21 @@ def main(argv=None):
         raise SystemExit("--quality_flags applies to the wideband "
                          "paths (per-channel lines already carry "
                          "-snr/-gof)")
+    if (args.narrowband or args.psrchive) and not args.stream:
+        if args.telemetry:
+            raise SystemExit("--telemetry covers the wideband GetTOAs "
+                             "path and the --stream drivers (use "
+                             "--stream --narrowband for traced "
+                             "per-channel campaigns)")
+        if config.telemetry_path:
+            # PPT_TELEMETRY set, but this path writes no trace: say so
+            # rather than be silently inert
+            from ..telemetry import log
+
+            log("pptoas: telemetry_path is set but the non-stream "
+                "narrowband path is untraced; use --stream "
+                "--narrowband for a traced per-channel campaign",
+                level="warn")
 
     if args.stream and args.narrowband:
         return _run_stream_narrowband(args, addtnl, stream_devices,
@@ -224,7 +250,8 @@ def main(argv=None):
                     print_parangle=args.print_parangle,
                     addtnl_toa_flags=addtnl, prefetch=args.prefetch,
                     quiet=args.quiet, bounds=bounds,
-                    quality_flags=args.quality_flags)
+                    quality_flags=args.quality_flags,
+                    telemetry=args.telemetry)
         if args.one_DM:
             gt.apply_one_DM()
     if args.format == "princeton":
@@ -249,9 +276,15 @@ def _stream_options(args):
         if not args.stream:
             raise SystemExit("--transport-compress requires --stream "
                              "(the codec rides the streaming copy stage)")
-        raise NotImplementedError(
-            "pptoas --transport-compress: the transport codec is not "
-            "ported yet (ROADMAP A7)")
+        table = {"off": False, "auto": "auto", "on": True}
+        v = str(args.transport_compress).lower()
+        if v not in table:
+            raise SystemExit("--transport-compress expected one of "
+                             "off/auto/on, got "
+                             f"{args.transport_compress!r}")
+        from .. import config
+
+        config.transport_compress = table[v]
     stream_devices = args.stream_devices
     if stream_devices is not None:
         if not args.stream:
@@ -302,7 +335,7 @@ def _run_stream_narrowband(args, addtnl, stream_devices, scat_guess):
         tscrunch=args.tscrunch, stream_devices=stream_devices,
         device=args.device, pipeline_depth=args.pipeline_depth,
         print_phase=args.print_phase, addtnl_toa_flags=addtnl,
-        quiet=args.quiet)
+        telemetry=args.telemetry, quiet=args.quiet)
     if args.format == "princeton":
         write_princeton_TOAs(res.TOA_list, outfile=args.outfile,
                              dDMs=[0.0] * len(res.TOA_list))
@@ -326,7 +359,7 @@ def _run_stream(args, nu_ref_DM, addtnl, stream_devices, scat_guess):
         log10_tau=args.log10_tau, scat_guess=scat_guess,
         fix_alpha=args.fix_alpha, addtnl_toa_flags=addtnl,
         stream_devices=stream_devices, device=args.device,
-        pipeline_depth=args.pipeline_depth,
+        pipeline_depth=args.pipeline_depth, telemetry=args.telemetry,
         quality_flags=args.quality_flags, quiet=args.quiet)
     if args.format == "princeton":
         dDMs = [toa.DM - res.DM0s[res.order.index(toa.archive)]

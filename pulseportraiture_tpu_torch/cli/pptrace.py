@@ -1,0 +1,23 @@
+"""pptrace: read a campaign trace written by the port's drivers.
+
+    python -m pulseportraiture_tpu_torch.cli.pptrace report   trace.jsonl
+    python -m pulseportraiture_tpu_torch.cli.pptrace validate trace.jsonl
+
+Traces are written when telemetry is on: a driver's ``telemetry=``
+argument (a path or a shared telemetry.Tracer), ``config.
+telemetry_path``, ``PPT_TELEMETRY=path``, or the ``--telemetry PATH``
+flag of pptoas, ppzap, ppfactory and pptime.  ``report`` prints the
+device timeline, queue depths, the h2d link and transport-codec
+ledger, checkpoint stalls, cold dispatches, the template factory, the
+timing stage, zapping and fit quality; ``validate`` checks the schema.
+The schema is the JAX package's, so either package's pptrace reads
+either package's traces.  ``merge`` (router + host traces) is not
+ported yet (ROADMAP A13) and raises.
+"""
+
+import sys
+
+from ..telemetry import main
+
+if __name__ == "__main__":
+    sys.exit(main())

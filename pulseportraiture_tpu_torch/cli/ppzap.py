@@ -9,8 +9,10 @@ Flag parity: reference ppzap.py:107-253.  The model-based path (-m) runs
 GetTOAs and flags channels by reduced chi^2 / S-N
 (GetTOAs.get_channels_to_zap); the model-less path runs the iterative
 median algorithm on the channels' noise levels (pipeline/zap).  Beyond
-the reference, --apply edits the archive weights directly.  --telemetry
-and --hist (matplotlib) are not ported yet (ROADMAP A13) and raise.
+the reference, --apply edits the archive weights directly, and
+--telemetry writes the proposals' ``zap_propose`` and the applied zaps'
+``zap_apply`` events to a JSONL trace.  --hist (matplotlib) is not
+ported yet (ROADMAP A13) and raises.
 """
 
 import argparse
@@ -55,7 +57,9 @@ def build_parser():
                         "PPT_ZAP_DEVICE, 'auto' = on CUDA devices; the "
                         "flagged lists are the same either way).")
     p.add_argument("--telemetry", metavar="trace.jsonl", default=None,
-                   help="Telemetry traces (not ported yet, ROADMAP A13).")
+                   help="Write a JSONL trace of the zap proposals and "
+                        "applications (default: PPT_TELEMETRY / "
+                        "config.telemetry_path; read it with pptrace).")
     p.add_argument("--device", default="cuda",
                    help="torch device the fits and the device lane run "
                         "on. [default=cuda]")
@@ -65,10 +69,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.telemetry is not None:
-        raise NotImplementedError(
-            "ppzap --telemetry: telemetry traces are not ported yet "
-            "(ROADMAP A13)")
     if args.hist:
         raise NotImplementedError(
             "ppzap --hist: plots (matplotlib) are not ported yet "
@@ -78,6 +78,7 @@ def main(argv=None):
     from ..pipeline.portrait import normalize_portrait
     from ..pipeline.toas import GetTOAs, _is_metafile, _read_metafile
     from ..pipeline.zap import apply_zaps, get_zap_channels, print_paz_cmds
+    from ..telemetry import resolve_tracer
 
     device = resolve_device(args.device)
     if _is_metafile(args.datafiles):
@@ -86,36 +87,46 @@ def main(argv=None):
         datafiles = [args.datafiles]
     zap_device = (None if args.zap_device is None else
                   {"off": False, "auto": "auto", "on": True}[args.zap_device])
-    if args.modelfile:
-        gt = GetTOAs(datafiles, args.modelfile, quiet=True, device=device)
-        gt.get_TOAs(tscrunch=args.tscrunch, quiet=True)
-        zap_list = gt.get_channels_to_zap(
-            SNR_threshold=args.SNR_threshold,
-            rchi2_threshold=args.rchi2_threshold, zap_device=zap_device)
-        # aligned with gt.order (the archives that fitted)
-        datafiles = list(gt.order)
-    else:
-        zap_list = []
-        for path in datafiles:
-            d = load_data(path, dedisperse=False, dededisperse=True,
-                          tscrunch=args.tscrunch, pscrunch=True, quiet=True)
-            if args.norm:
-                for isub in d.ok_isubs:
-                    d.subints[isub, 0] = normalize_portrait(
-                        d.subints[isub, 0], args.norm, device=device)
-                    d.noise_stds[isub, 0] = noise_std_ps(d.subints[isub, 0])
-            zap_list.append(get_zap_channels(
-                d, nstd=args.nstd, zap_device=zap_device, device=device))
+    tracer, own_tracer = resolve_tracer(args.telemetry, run="ppzap")
+    try:
+        if args.modelfile:
+            gt = GetTOAs(datafiles, args.modelfile, quiet=True, device=device)
+            gt.get_TOAs(tscrunch=args.tscrunch, quiet=True)
+            zap_list = gt.get_channels_to_zap(
+                SNR_threshold=args.SNR_threshold,
+                rchi2_threshold=args.rchi2_threshold, zap_device=zap_device,
+                telemetry=tracer)
+            # aligned with gt.order (the archives that fitted)
+            datafiles = list(gt.order)
+        else:
+            zap_list = []
+            for path in datafiles:
+                d = load_data(path, dedisperse=False, dededisperse=True,
+                              tscrunch=args.tscrunch, pscrunch=True,
+                              quiet=True)
+                if args.norm:
+                    for isub in d.ok_isubs:
+                        d.subints[isub, 0] = normalize_portrait(
+                            d.subints[isub, 0], args.norm, device=device)
+                        d.noise_stds[isub, 0] = noise_std_ps(
+                            d.subints[isub, 0])
+                zap_list.append(get_zap_channels(
+                    d, nstd=args.nstd, zap_device=zap_device, device=device,
+                    tracer=tracer))
 
-    total = sum(sum(len(z) for z in arch) for arch in zap_list)
-    if not args.quiet:
-        print(f"{total} channel entries flagged.")
-    print_paz_cmds(datafiles, zap_list, modify=args.modify,
-                   outfile=args.outfile, quiet=args.quiet,
-                   append=args.append)
-    if args.apply:
-        for iarch, path in enumerate(datafiles):
-            apply_zaps(path, zap_list[iarch], quiet=args.quiet)
+        total = sum(sum(len(z) for z in arch) for arch in zap_list)
+        if not args.quiet:
+            print(f"{total} channel entries flagged.")
+        print_paz_cmds(datafiles, zap_list, modify=args.modify,
+                       outfile=args.outfile, quiet=args.quiet,
+                       append=args.append)
+        if args.apply:
+            for iarch, path in enumerate(datafiles):
+                apply_zaps(path, zap_list[iarch], quiet=args.quiet,
+                           tracer=tracer)
+    finally:
+        if own_tracer:
+            tracer.close()
     return 0
 
 

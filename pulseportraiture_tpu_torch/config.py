@@ -2,7 +2,8 @@
 
 The subset of ``pulseportraiture_tpu/config.py`` that the ported TOA
 lanes read (the fast fit, the scattering fits, the complex engine, the
-stream's raw transport), with the same defaults.  A tri-state whose ``'auto'``
+stream's raw transport and its codec, the trace plane), with the same
+defaults.  A tri-state whose ``'auto'``
 arm meant "on a TPU" there means "on a CUDA device" here
 (device.resolve_auto).
 
@@ -74,6 +75,18 @@ stream_pipeline_depth = 2
 # channels.  False (default): exact shapes; 'auto': pad on CUDA
 # devices; True: always pad.
 bucket_pad = False
+
+# Lossless transport codec of the stream's raw copy stage
+# (io/blockcodec.py): an int16/byte payload whose subint rows all span
+# fewer levels than a narrower width ships as packed w-bit residuals
+# plus one per-subint minimum, unpacked exactly on the device.
+#   False (default): never.
+#   'auto': the per-pipeline cost model decides per dispatch from the
+#           link rate it measured on its own copies and the codec rate
+#           of its own encodes.
+#   True:  whenever a narrower width exists (the deterministic A/B arm).
+# .tim output is identical compressed or not.
+transport_compress = False
 
 # Ship NBIT=1/2/4 DATA columns PACKED to the device in the stream's raw
 # lane (decoded there).  False refuses the sub-byte layouts in
@@ -166,6 +179,16 @@ gls_resolve_every = 64
 zap_nstd = 3.0
 
 
+# --- Telemetry (telemetry.py) --------------------------------------------
+# Path of the JSONL event trace the campaign drivers (GetTOAs,
+# get_channels_to_zap, the stream drivers, stream_ipta_campaign, ppzap,
+# build_templates, fleet_gls_fit) write.  None (default) = off: one
+# attribute read per instrumentation site.  A driver's telemetry=
+# argument (a path or a shared telemetry.Tracer) overrides it per call;
+# read a trace with python -m pulseportraiture_tpu_torch.cli.pptrace.
+telemetry_path = None
+
+
 # --- Environment hooks ----------------------------------------------------
 # One A/B switch per knob, applied once at import (env_overrides):
 #
@@ -186,6 +209,8 @@ zap_nstd = 3.0
 #   PPT_PIPELINE_DEPTH=<N>          -> stream_pipeline_depth
 #   PPT_BUCKET_PAD=off|auto|on      -> bucket_pad
 #   PPT_RAW_SUBBYTE=on|off          -> raw_subbyte
+#   PPT_TRANSPORT_COMPRESS=off|auto|on -> transport_compress
+#   PPT_TELEMETRY=<path>|off|none|0 -> telemetry_path
 #
 # Unset variables leave the module values untouched; a bad value of a
 # hooked variable raises ValueError (a silent fallback would quietly
@@ -237,14 +262,13 @@ HOOKED_PPT_ENV = frozenset({
     "PPT_ALIGN_DEVICE", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD",
     "PPT_STREAM_DEVICES", "PPT_MAX_INFLIGHT", "PPT_PIPELINE_DEPTH",
     "PPT_BUCKET_PAD", "PPT_RAW_SUBBYTE", "PPT_GLS_DEVICE",
-    "PPT_GLS_RESOLVE_EVERY"})
+    "PPT_GLS_RESOLVE_EVERY", "PPT_TRANSPORT_COMPRESS", "PPT_TELEMETRY"})
 
 
 def _unported_ppt_env():
     """{KNOWN_PPT_ENV name without a hook here: why, and its ROADMAP
     item}."""
     why = {}
-    why["PPT_TRANSPORT_COMPRESS"] = "the transport codec (ROADMAP A7)"
     why["PPT_FIT_PALLAS"] = (
         "the JAX package's Pallas mode; the port's kernels run wherever "
         "fit_fused resolves on (PPT_FIT_FUSED)")
@@ -252,7 +276,7 @@ def _unported_ppt_env():
         "the JAX compilation cache; eager PyTorch compiles no programs "
         "(ROADMAP A5)")
     for name in ("PPT_QUALITY_REFIT", "PPT_QUALITY_MAX_GOF",
-                 "PPT_QUALITY_MIN_SNR", "PPT_TELEMETRY",
+                 "PPT_QUALITY_MIN_SNR",
                  "PPT_SERVE_MAX_WAIT_MS", "PPT_SERVE_QUEUE_DEPTH",
                  "PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS",
                  "PPT_ALERT_CUSUM_K", "PPT_ALERT_CUSUM_H",
@@ -419,6 +443,14 @@ def env_overrides():
                              "'off', 'auto' or 'on'"))
     put("raw_subbyte", _table(env, "PPT_RAW_SUBBYTE", _ONOFF,
                               "'on' or 'off'"))
+    put("transport_compress", _table(env, "PPT_TRANSPORT_COMPRESS",
+                                     _TRISTATE, "'off', 'auto' or 'on'"))
+    tel = env.get("PPT_TELEMETRY", "")
+    if tel:
+        # 'off'/'none'/'0' disable explicitly (a wrapper script can force
+        # telemetry off over a config default); anything else is the path
+        put("telemetry_path",
+            (None if tel.lower() in ("off", "none", "0") else tel,))
     return changed
 
 

@@ -17,8 +17,8 @@ import torch
 
 from .noise import min_window_baseline
 
-__all__ = ["RAW_CODES", "PACKED_BITS", "unpack_bitplanes", "affine_decode",
-           "decode_stokes_I"]
+__all__ = ["RAW_CODES", "PACKED_BITS", "unpack_bitplanes", "decode_transport",
+           "affine_decode", "decode_stokes_I"]
 
 RAW_CODES = ("i16", "u8", "i8", "f32", "p1", "p2", "p4")
 
@@ -42,6 +42,21 @@ def unpack_bitplanes(packed, nbit, nsamp):
     samples = samples.reshape(packed.shape[:-1]
                               + (packed.shape[-1] * per,))
     return samples[..., :nsamp]
+
+
+def decode_transport(packed, pack_w, vmin, shape, ft):
+    """The transport codec's device stage (io/blockcodec): (nb, nbytes)
+    uint8 residuals packed at ``pack_w`` bits (8: one residual per
+    byte) plus the per-subint minima ``vmin`` (nb,) -> the original
+    integer samples of ``shape`` (nb, ...) as ``ft``.  Every residual is
+    below 2**8 and every sample below 2**24, so the result is exact in
+    float32."""
+    nsamp = 1
+    for n in shape[1:]:
+        nsamp *= int(n)
+    v = packed if pack_w == 8 else unpack_bitplanes(packed, pack_w, nsamp)
+    v = v[:, :nsamp].reshape(tuple(shape)).to(ft)
+    return v + vmin.to(ft).reshape((-1,) + (1,) * (len(shape) - 1))
 
 
 def _bcast_row(v, x):

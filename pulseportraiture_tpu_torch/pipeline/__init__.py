@@ -1,11 +1,12 @@
 """Pipeline layer: template dispatch, wideband TOA measurement, the
-streaming campaign lane, zapping, align-and-average, and the template
-factory."""
+streaming campaign lane, the multi-pulsar campaign driver, zapping,
+align-and-average, and the template factory."""
 
 from .align import (align_archives, gaussian_seed_portrait,  # noqa: F401
                     make_constant_portrait, psradd_archives,
                     psrsmooth_archive)
 from .factory import build_templates  # noqa: F401
+from .ipta import IPTAJob, stream_ipta_campaign  # noqa: F401
 from .models import TemplateModel, sniff_model_type  # noqa: F401
 from .stream import stream_wideband_TOAs  # noqa: F401
 from .toas import GetTOAs  # noqa: F401

@@ -44,9 +44,24 @@ prepare; ``zap_channels`` applies offline lists at load
 (quality.zap_bunch); ``postfit_cut`` appends each bucket's per-channel
 post-fit bad mask (quality.postfit) to its packed result.
 
+The trace plane (telemetry.py): ``telemetry=`` (a path, a shared
+Tracer, or None for config.telemetry_path) records the JAX package's
+events: per-dispatch ``dispatch``/``dispatched``/``drain`` paired by a
+trace-global seq (several executors may share one trace), the copy
+stage's ``h2d_start``/``h2d_done`` with the codec's accounting,
+per-archive prepare/skip/done/checkpoint records, fit quality, the
+zap lanes' proposals, and ``run_end``.  Timestamps are taken only
+around calls that already block.
+
+The lossless transport codec (io/blockcodec.py,
+config.transport_compress): the copy worker may ship an int16/byte
+payload as packed narrower residuals plus per-subint minima, unpacked
+exactly by the bucket program (ops.decode.decode_transport) before
+the sample decode; such a bucket always takes B1 on the decoded
+portrait, never the decode-fused B2.
+
 Not ported yet, and refused with NotImplementedError naming the
-ROADMAP item: the transport codec (A7), telemetry (A13), and the
-executor's service mode (A13).
+ROADMAP item: the executor's service mode (A13).
 """
 
 import concurrent.futures as cf
@@ -69,13 +84,15 @@ from ..fit.portrait import (FitFlags, estimate_tau_batch, fast_fit_batched,
                             resolve_harmonic_window, use_bf16_cross_spectrum,
                             use_fast_fit_default, use_scatter_compensated,
                             warn_bf16_high_snr)
+from ..io.blockcodec import (CostModel, encode_rows, probe_width,
+                             resolve_transport_compress)
 from ..io.psrfits import read_archive
 from ..io.tim import TOA, write_TOAs
-from ..ops.decode import PACKED_BITS, decode_stokes_I
+from ..ops.decode import PACKED_BITS, decode_stokes_I, decode_transport
 from ..ops.fourier import irfft_mm, rfft_mm, use_dft_fold
 from ..ops.noise import get_noise_PS, get_SNR
+from ..telemetry import NULL_TRACER, finite, log, resolve_tracer
 from ..utils.bunch import DataBunch
-from ..utils.log import log
 from .models import TemplateModel
 from .toas import (DEFAULT_IR_DICT, _is_metafile, _iter_archives,
                    _read_metafile, _validate_scat_guess,
@@ -310,7 +327,8 @@ class _StreamExecutor:
     def __init__(self, lane, datafiles, loader, nsub_batch,
                  max_inflight=None, prefetch=True, tim_out=None,
                  resume=False, skip_archives=None, quiet=False,
-                 stream_devices=None, pipeline_depth=None, service=False):
+                 stream_devices=None, tracer=None, pipeline_depth=None,
+                 service=False):
         if service:
             raise NotImplementedError(
                 "_StreamExecutor(service=True): the serving mode is not "
@@ -326,6 +344,7 @@ class _StreamExecutor:
         self.prefetch = prefetch
         self.tim_out = tim_out
         self.quiet = quiet
+        self.tracer = NULL_TRACER if tracer is None else tracer
         done = {os.path.abspath(f) for f in (skip_archives or ())}
         if tim_out:
             if resume:
@@ -339,6 +358,10 @@ class _StreamExecutor:
             datafiles = [f for f in datafiles
                          if os.path.abspath(f) not in done]
             if n0 > len(datafiles):
+                if self.tracer.enabled:
+                    self.tracer.emit("resume_skip",
+                                     n_skipped=n0 - len(datafiles),
+                                     n_remaining=len(datafiles))
                 log(f"Resuming: {n0 - len(datafiles)} archive(s) already "
                     f"complete in checkpoints, {len(datafiles)} to go",
                     quiet=quiet)
@@ -355,16 +378,17 @@ class _StreamExecutor:
         # one copy->fit pipeline per device; the closure tells its copy
         # worker whether an EARLIER dispatch of the same device was still
         # unfinished when the copy started (the link hidden behind
-        # compute)
+        # compute).  Seqs are trace-global and monotonic (the tracer's,
+        # or the NULL tracer's own counter), so "earlier" holds across
+        # executors sharing one trace.
         self.pipelines = [
-            _DevicePipeline(dev, i, self.pipeline_depth,
+            _DevicePipeline(dev, i, self.pipeline_depth, self.tracer,
                             (lambda seq, q=self.in_flight[i]: any(
                                 r[3] < seq
                                 and not _StreamExecutor._head_ready(r)
                                 for r in list(q))))
             for i, dev in enumerate(self.devices)]
         self._rr = 0
-        self._seq = 0
         # iarch -> subints not yet launched; entries leave at zero
         self.undispatched = {}
         self._prep_idx = {}  # iarch -> prepared-archive sequence number
@@ -374,6 +398,8 @@ class _StreamExecutor:
         self.devices_used = set()
         self.peak_inflight = 0
         self.dispatch_shapes = {}    # bucket shape string -> dispatches
+        self.dispatch_counts = [0] * len(self.devices)
+        self._warm = set()           # (shape, idev) pairs dispatched
         self._ckpt_order = []
         self._ckpt_next = 0
 
@@ -415,7 +441,15 @@ class _StreamExecutor:
             ia = self._ckpt_order[self._ckpt_next]
             if ia not in self.assembled:
                 break
-            self._checkpoint(self.meta_by_iarch[ia], self.assembled[ia])
+            m, out = self.meta_by_iarch[ia], self.assembled[ia]
+            self._checkpoint(m, out)
+            if self.tracer.enabled:
+                # lag: archives PREPARED after this one by the time its
+                # in-order write landed (the straggler signal)
+                self.tracer.emit(
+                    "ckpt_flush", iarch=ia, datafile=m.datafile,
+                    n_toas=len(out[0]),
+                    lag=len(self._ckpt_order) - 1 - self._prep_idx[ia])
             self._ckpt_next += 1
 
     @staticmethod
@@ -435,10 +469,30 @@ class _StreamExecutor:
         t0 = time.time()
         handle, owners, extra, seq = self.in_flight[idev].popleft()
         out = handle.result().wait()
-        self.fit_duration += time.time() - t0
+        wait_s = time.time() - t0
+        self.fit_duration += wait_s
         t1 = time.time()
         self.lane.scatter(out, owners, extra, self.results)
-        self.scatter_duration += time.time() - t1
+        scat_s = time.time() - t1
+        self.scatter_duration += scat_s
+        tr = self.tracer
+        if tr.enabled:
+            # timestamps only around the two calls above, which block
+            # regardless of telemetry: no extra host sync
+            tr.emit("drain", seq=seq, device=idev, wait_s=round(wait_s, 6),
+                    scatter_s=round(scat_s, 6))
+            # per-TOA quality of this dispatch (the wideband lane's
+            # dict-shaped results; finite() maps NaN to JSON null)
+            snrs, gofs, nfevs = [], [], []
+            for ow in owners:
+                r = self.results.get(ow)
+                if isinstance(r, dict) and "snr" in r:
+                    snrs.append(finite(r["snr"], 3))
+                    gofs.append(finite(float(r["chi2"])
+                                       / max(float(r["dof"]), 1.0), 4))
+                    nfevs.append(int(r["nfeval"]))
+            if snrs:
+                tr.emit("quality", seq=seq, snr=snrs, gof=gofs, nfev=nfevs)
         touched = set()
         for iarch, _ in owners:
             if iarch in self.remaining:
@@ -450,6 +504,8 @@ class _StreamExecutor:
             if self.remaining.get(ia) == 0 and ia not in self.assembled:
                 m = self.meta_by_iarch[ia]
                 self.assembled[ia] = self.lane.assemble(m, self.results)
+                if tr.enabled:
+                    tr.emit("archive_done", iarch=ia, datafile=m.datafile)
                 for isub in m.ok:
                     self.results.pop((ia, int(isub)), None)
                 self._ckpt_flush()
@@ -499,14 +555,20 @@ class _StreamExecutor:
         while idev is None:
             self._drain_any()
             idev = self._pick_device()
-        self._seq += 1
-        seq = self._seq
+        tr = self.tracer
+        # seq comes from the TRACER: several executors may share one
+        # trace (stream_ipta_campaign), and the report pairs dispatch,
+        # h2d and drain events by seq; assigned before launch so the
+        # copy stage stamps its h2d events with it
+        seq = tr.next_seq()
         shape = _bucket_shape(b)  # before launch clears the bucket
+        n_subints = len(b)
         rec = self.lane.launch(b, self.pipelines[idev], seq)
         if rec is None:
             return
         self.nfit += 1
         self.dispatch_shapes[shape] = self.dispatch_shapes.get(shape, 0) + 1
+        self.dispatch_counts[idev] += 1
         self.devices_used.add(idev)
         for ia, _ in rec[1]:
             if ia in self.undispatched:
@@ -517,11 +579,39 @@ class _StreamExecutor:
         # seq at index 3: the copy-overlap closure reads r[3]
         q.append(rec + (seq,))
         self.peak_inflight = max(self.peak_inflight, len(q))
+        if tr.enabled:
+            # cold = first dispatch of this bucket shape on this device:
+            # its fit pays the kernels' first launch there (module load,
+            # FFT plans, allocator growth)
+            cold = (shape, idev) not in self._warm
+            self._warm.add((shape, idev))
+            tr.emit("dispatch", seq=seq, device=idev, shape=shape,
+                    n=n_subints, queue_depth=len(q), cold=cold)
+            tr.counter("dispatches")
+            tr.counter(f"dispatches_dev{idev}")
+            tr.gauge_max("peak_inflight", len(q))
+            # fires on the fit worker once the copy and the bucket
+            # program's enqueue finished (the tracer is thread-safe)
+            rec[0].add_done_callback(
+                lambda f, seq=seq, idev=idev: tr.emit(
+                    "dispatched", seq=seq, device=idev))
 
     @property
     def h2d_bytes(self):
         """Total bytes the copy stages shipped host -> device."""
         return sum(pl.h2d_bytes for pl in self.pipelines)
+
+    @property
+    def h2d_logical_bytes(self):
+        """Total bytes behind those copies without the transport codec
+        (equal to h2d_bytes when it never engaged)."""
+        return sum(pl.h2d_logical_bytes for pl in self.pipelines)
+
+    @property
+    def codec_duration(self):
+        """Total seconds the copy stages spent probing and encoding
+        for the transport codec."""
+        return sum(pl.codec_s for pl in self.pipelines)
 
     @property
     def h2d_duration(self):
@@ -542,9 +632,12 @@ class _StreamExecutor:
         """Prepare one loaded archive through the lane and fill its
         subints into the buckets, flushing any that reaches nsub_batch.
         Returns the number of per-subint entries, or None when the lane
-        skipped the archive."""
+        skipped the archive (it emitted the typed archive_skip)."""
+        tr = self.tracer
+        t_prep = time.time()
         prep = self.lane.prepare(iarch, datafile, d, ok)
         if prep is None:
+            tr.counter("archives_skipped")
             return None
         m, per_subint = prep
         self.meta.append(m)
@@ -553,6 +646,11 @@ class _StreamExecutor:
         self.meta_by_iarch[iarch] = m
         self.remaining[iarch] = len(ok)
         self.undispatched[iarch] = len(per_subint)
+        if tr.enabled:
+            tr.emit("archive_prepare", iarch=iarch, datafile=datafile,
+                    n_ok=len(ok), n_subints=len(per_subint),
+                    prep_s=round(time.time() - t_prep, 6))
+            tr.counter("archives_prepared")
         for key, factory, fill in per_subint:
             b = self.buckets.get(key)
             if b is None:
@@ -578,8 +676,12 @@ class _StreamExecutor:
         (e.g. every subint failed); idempotent."""
         if iarch in self.assembled:
             return self.assembled[iarch]
-        out = self.lane.assemble(self.meta_by_iarch[iarch], self.results)
+        m = self.meta_by_iarch[iarch]
+        out = self.lane.assemble(m, self.results)
         self.assembled[iarch] = out
+        if self.tracer.enabled:
+            self.tracer.emit("archive_done", iarch=iarch,
+                             datafile=m.datafile)
         return out
 
     def finalize(self):
@@ -593,14 +695,21 @@ class _StreamExecutor:
         # a failed dispatch or assembly must not leave a worker thread
         # grinding through queued copies while the exception propagates
         try:
+            tr = self.tracer
             for iarch, (datafile, d) in enumerate(
                     _iter_archives(self.datafiles, self.loader,
                                    self.prefetch)):
                 if isinstance(d, Exception):
+                    tr.emit("archive_skip", datafile=datafile,
+                            reason=str(d))
+                    tr.counter("archives_skipped")
                     log(f"Skipping {datafile}: {d}", level="warn")
                     continue
                 ok = np.asarray(d.ok_isubs, int)
                 if d.nsub == 0 or len(ok) == 0:
+                    tr.emit("archive_skip", datafile=datafile,
+                            reason="no subints to fit")
+                    tr.counter("archives_skipped")
                     log(f"No subints to fit in {datafile}; skipping.",
                         level="warn")
                     continue
@@ -612,6 +721,13 @@ class _StreamExecutor:
                 if head_d is not None and \
                         self._prep_idx[iarch] - self._prep_idx[head_d] \
                         >= CKPT_STALENESS_HORIZON:
+                    if tr.enabled:
+                        tr.emit(
+                            "force_flush",
+                            datafile=self.meta_by_iarch[head_d].datafile,
+                            lag=self._prep_idx[iarch]
+                            - self._prep_idx[head_d])
+                        tr.counter("force_flushes")
                     self.flush_all()
             self.flush_all()
             self.drain_all()
@@ -678,12 +794,20 @@ def _load_raw(f, device):
 
 def _raw_decode(raw, scl, offs, nbin, ft, redisp=False, redisp_turns=None,
                 dft_fold=None, code="i16", pol_sum=False, tscal=None,
-                tzero=None):
-    """Stage 1 of a raw bucket: sample decode (ops.decode), min-window
+                tzero=None, pack_w=None, vmin=None):
+    """Stage 1 of a raw bucket: the transport codec's unpack when the
+    copy stage shipped a width-reduced payload (``pack_w`` bits per
+    residual plus the per-subint minima ``vmin``; ops.decode
+    .decode_transport, exact), sample decode (ops.decode), min-window
     baseline, the Stokes-I pol reduction, and for dedispersed-on-disk
     archives the re-dispersion by the stored DM (a matmul-DFT phasor
     rotation by host-wrapped turns; the convention of
     io/psrfits.rotate_phase(amps, -delays))."""
+    if pack_w is not None:
+        nchan = scl.shape[-1]
+        shape = (raw.shape[0],) + ((2, nchan, nbin) if pol_sum
+                                   else (nchan, nbin))
+        raw = decode_transport(raw, pack_w, vmin, shape, ft)
     x = decode_stokes_I(raw, scl, offs, ft, code=code, pol_sum=pol_sum,
                         nbin=nbin, tscal=tscal, tzero=tzero)
     if redisp:
@@ -754,7 +878,7 @@ def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
                 seed_derotate=True, raw_code="i16", pol_sum=False,
                 col_scaled=False, log10_tau=False, tau_mode="none",
                 use_fast=True, use_ir=False, compensated=False,
-                zap_nstd=None, postfit=None):
+                zap_nstd=None, postfit=None, pack_w=None):
     """The raw bucket program for one bucket's geometry: decode ->
     baseline -> noise -> S/N -> nu_fit -> tau seeds -> fit -> one packed
     (nfield, nb) result, so a bucket costs one copy of wire bytes and
@@ -778,7 +902,10 @@ def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
     once, since the noise and S/N need the time-domain portrait.  Every
     other bucket fits the decoded portrait (fit.portrait
     .fast_fit_batched, B1 when fit_fused resolves True).  The returned
-    function carries the choice as ``run.decode_fused``.
+    function carries the choice as ``run.decode_fused``.  ``pack_w``
+    (not None: the transport codec engaged for this dispatch) unpacks
+    the payload first and, as in the JAX package, never takes the
+    decode-fused fit: B2 reads wire samples, not codec residuals.
 
     zap_nstd (not None) runs the inline cut: the iterative median +
     zap_nstd*std cut (quality.excision.zap_keep_mask) on the noise
@@ -802,18 +929,19 @@ def _raw_fit_fn(nchan, nbin, flags, max_iter, ft, x_bf16, device,
     decode_fused = bool(
         fit_fused and use_fast and not scat_engine and nbit is not None
         and (nbin * nbit) % 8 == 0 and not pol_sum and not col_scaled
-        and not redisp and nharm_eff is not None)
+        and not redisp and pack_w is None and nharm_eff is not None)
     fit_flags = FitFlags(*flags)
     keys = _result_keys(flags)
 
     def run(raw, scl, offs, cmask, modelx, freqs, Ps, DMg, nu_out, alpha0,
             redisp_turns, tscal=None, tzero=None, tau_args=(0.0, 1.0, 0.0),
-            ir_r=None, ir_i=None, dfs=None):
+            ir_r=None, ir_i=None, dfs=None, vmin=None):
         x = _raw_decode(raw, scl, offs, nbin, ft, redisp=redisp,
                         redisp_turns=redisp_turns, dft_fold=dft_fold,
                         code=raw_code, pol_sum=pol_sum,
                         tscal=tscal if col_scaled else None,
-                        tzero=tzero if col_scaled else None)
+                        tzero=tzero if col_scaled else None,
+                        pack_w=pack_w, vmin=vmin)
         nzap = zap_iter = None
         if zap_nstd is None:
             noise, snr, nu_fit = _raw_stats(x, cmask, freqs, ft)
@@ -970,12 +1098,23 @@ class _DevicePipeline:
     admission: 1 serializes copy and fit, 2 (default) double-buffers
     bucket N+1's copy against bucket N's fit.  Output is identical for
     any depth.  On the CPU both stages run synchronously on the two
-    worker threads."""
+    worker threads.
 
-    def __init__(self, device, idev, depth, inflight_fn):
+    Telemetry: ``h2d_start`` fires on the copy worker as a bucket's
+    move begins (``overlap``: an earlier dispatch of this device was
+    unfinished) and ``h2d_done`` carries the shipped and logical bytes,
+    the copy wall (up to and including the copy stream's own
+    synchronize, so the real link time) and the codec's wall and
+    decision.  The per-pipeline transport cost model (``cost``) learns
+    the link from every copy and the codec from every full encode.
+    (The JAX copy stage also feeds ppmon's live counters,
+    obs.metrics.record_h2d; obs/ is ROADMAP A13.)"""
+
+    def __init__(self, device, idev, depth, tracer, inflight_fn):
         self.device = torch.device(device)
         self.idev = idev
         self.depth = max(1, int(depth))
+        self.tracer = tracer
         self._inflight_fn = inflight_fn
         self._sem = threading.BoundedSemaphore(self.depth)
         self.copy_ex = ThreadPoolExecutor(max_workers=1)
@@ -985,9 +1124,21 @@ class _DevicePipeline:
             self.copy_stream = torch.cuda.Stream(self.device)
             self.fit_stream = torch.cuda.Stream(self.device)
         self.h2d_bytes = 0
+        self.h2d_logical_bytes = 0
         self.h2d_s = 0.0
         self.h2d_overlap_s = 0.0
+        self.codec_s = 0.0
+        self.cost = CostModel()
         self._nbytes = 0
+        self._codec = {}
+
+    def note_codec(self, bytes_logical, codec_s, decision):
+        """Called by a copy closure (on the copy worker) that ran the
+        transport codec: the bytes the copy would have shipped without
+        it, the probe/encode wall and the decision ('engaged', 'cost'
+        or 'ratio')."""
+        self._codec = {"bytes_logical": int(bytes_logical),
+                       "codec_s": float(codec_s), "codec": decision}
 
     def put(self, a, dtype=None):
         """Copy one host array to the device (on the copy worker),
@@ -1011,8 +1162,13 @@ class _DevicePipeline:
         return self.fit_ex.submit(self._run_fit, copy_fut, fit_fn)
 
     def _run_copy(self, copy_fn, seq):
+        tr = self.tracer
         overlap = bool(self._inflight_fn(seq))
+        if tr.enabled:
+            tr.emit("h2d_start", seq=seq, device=self.idev,
+                    overlap=overlap)
         self._nbytes = 0
+        self._codec = {}
         t0 = time.perf_counter()
         if self.cuda:
             with torch.cuda.device(self.device), \
@@ -1022,10 +1178,28 @@ class _DevicePipeline:
         else:
             dev_args = copy_fn()
         dt = time.perf_counter() - t0
-        self.h2d_bytes += self._nbytes
+        nbytes = self._nbytes
+        logical = self._codec.get("bytes_logical", nbytes)
+        codec_s = self._codec.get("codec_s", 0.0)
+        self.h2d_bytes += nbytes
+        self.h2d_logical_bytes += logical
         self.h2d_s += dt
+        self.codec_s += codec_s
         if overlap:
             self.h2d_overlap_s += dt
+        # the cost model learns THIS link from every copy (shipped bytes
+        # over the copy wall, stacking included: conservative)
+        self.cost.observe_link(nbytes, dt)
+        if tr.enabled:
+            ev = dict(seq=seq, device=self.idev, bytes=int(nbytes),
+                      h2d_s=round(dt, 6), overlap=overlap,
+                      bytes_logical=int(logical),
+                      codec_s=round(codec_s, 6))
+            if self._codec.get("codec") is not None:
+                # the cost-model decision ledger: 'engaged' | 'cost'
+                # (model declined) | 'ratio' (payload incompressible)
+                ev["codec"] = self._codec["codec"]
+            tr.emit("h2d_done", **ev)
         return dev_args
 
     def _run_fit(self, copy_fut, fit_fn):
@@ -1100,19 +1274,29 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
         tscal_h = np.asarray(bucket.tscal) if col_scaled else None
         tzero_h = np.asarray(bucket.tzero) if col_scaled else None
         use_ir = ir_FT is not None
-        fn = _raw_fit_fn(
-            len(np.asarray(freqs)), bucket.nbin,
-            tuple(bool(f) for f in bucket.flags), int(max_iter), ft,
-            use_bf16_cross_spectrum(), device, redisp=redisp,
-            want_flux=want_flux, nharm_eff=hwin,
-            # all-zero DM guesses make the CCF seed's derotation the
-            # identity, so the fit skips that pass
-            seed_derotate=bool(np.any(DMg != 0.0)),
-            raw_code=bucket.raw_code, pol_sum=bucket.pol_sum,
-            col_scaled=col_scaled, log10_tau=log10_tau, tau_mode=tau_mode,
-            use_fast=use_fast, use_ir=use_ir,
-            compensated=use_scatter_compensated(), zap_nstd=zap_nstd,
-            postfit=postfit)
+        raw_fn_args = (
+            (len(np.asarray(freqs)), bucket.nbin,
+             tuple(bool(f) for f in bucket.flags), int(max_iter), ft,
+             use_bf16_cross_spectrum(), device),
+            dict(redisp=redisp, want_flux=want_flux, nharm_eff=hwin,
+                 # all-zero DM guesses make the CCF seed's derotation
+                 # the identity, so the fit skips that pass
+                 seed_derotate=bool(np.any(DMg != 0.0)),
+                 raw_code=bucket.raw_code, pol_sum=bucket.pol_sum,
+                 col_scaled=col_scaled, log10_tau=log10_tau,
+                 tau_mode=tau_mode, use_fast=use_fast, use_ir=use_ir,
+                 compensated=use_scatter_compensated(), zap_nstd=zap_nstd,
+                 postfit=postfit))
+        # the transport codec: the copy worker decides per dispatch (the
+        # payload's dynamic range and the live link and codec rates are
+        # known only there) and ``sel`` carries the width to the fit
+        # stage, which runs strictly after this bucket's copy.  Packed
+        # sub-byte codes are already minimal and float32 payloads carry
+        # no integer residuals: integer wire types only.
+        compress_mode = resolve_transport_compress()
+        can_compress = (compress_mode is not False
+                        and bucket.raw_code in ("i16", "u8", "i8"))
+        sel = {}
         if use_ir:
             # the response ships as two real arrays, cut to the window
             ir_src = np.asarray(ir_FT)
@@ -1124,7 +1308,35 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
             raw, scl, offs, turns = _stack_rows(rows, dedisp, redisp, Ps,
                                                 freqs)
             masks = np.stack(masks_rows)
-            return (put(raw), put(scl, ft_np), put(offs, ft_np),
+            payload, vmin_h = raw, None
+            if can_compress:
+                t0c = time.perf_counter()
+                vmin_w, w = probe_width(raw)
+                decision = "ratio"  # no width below the wire dtype
+                if w is not None:
+                    shipped_est = raw.shape[0] * (
+                        (raw.size // raw.shape[0]) * w // 8 + 4)
+                    if compress_mode is True or \
+                            pipeline.cost.predict(raw.nbytes, shipped_est):
+                        payload = encode_rows(raw, vmin_w, w)
+                        vmin_h = vmin_w
+                        sel["pack"] = int(w)
+                        decision = "engaged"
+                    else:
+                        decision = "cost"
+                codec_s = time.perf_counter() - t0c
+                if "pack" in sel:
+                    # learn the encode rate from full encodes only (a
+                    # probe-only pass would flatter the model)
+                    pipeline.cost.observe_codec(raw.nbytes, codec_s)
+            n0 = pipeline._nbytes
+            # the payload and its vmin sidecar first, so the shipped
+            # payload splits off the shared arguments for the logical
+            # bytes below
+            payload_d = put(payload)
+            vmin_d = put(vmin_h, ft_np) if vmin_h is not None else None
+            shipped_payload = pipeline._nbytes - n0
+            args = (payload_d, put(scl, ft_np), put(offs, ft_np),
                     put(masks, ft_np), put(modelx, ft_np),
                     put(freqs, ft_np), put(Ps, ft_np), put(DMg, ft_np),
                     put(turns, ft_np),
@@ -1132,14 +1344,26 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
                     put(tzero_h, ft_np) if col_scaled else None,
                     put(ir_r_h, ft_np) if use_ir else None,
                     put(ir_i_h, ft_np) if use_ir else None,
-                    put(dfs, ft_np) if dfs is not None else None)
+                    put(dfs, ft_np) if dfs is not None else None, vmin_d)
+            if can_compress:
+                # what the dispatch would have shipped uncompressed: only
+                # the payload and its sidecar differ between the lanes
+                shipped = pipeline._nbytes - n0
+                pipeline.note_codec(shipped - shipped_payload + raw.nbytes,
+                                    codec_s, decision)
+            return args
 
         def fit(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d, Ps_d,
-                DMg_d, turns_d, tscal_d, tzero_d, ir_r_d, ir_i_d, dfs_d):
+                DMg_d, turns_d, tscal_d, tzero_d, ir_r_d, ir_i_d, dfs_d,
+                vmin_d):
+            # the copy stage has resolved by now: a compressed payload
+            # selects the width-keyed program
+            fn = _raw_fit_fn(*raw_fn_args[0], **raw_fn_args[1],
+                             pack_w=sel.get("pack"))
             return fn(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d,
                       Ps_d, DMg_d, nu_out, alpha0, turns_d, tscal_d,
                       tzero_d, tau_args=tau_args, ir_r=ir_r_d, ir_i=ir_i_d,
-                      dfs=dfs_d)
+                      dfs=dfs_d, vmin=vmin_d)
     else:
         ports_rows = list(bucket.ports)
         noise_rows = list(bucket.noise)
@@ -1297,28 +1521,31 @@ def _collect_wideband(meta, assembled):
     return TOA_list, order, DM0s, means, errs
 
 
-def _zap_decoded(d, ok, masks, nstd, device):
+def _zap_decoded(d, ok, masks, nstd, device, tracer, datafile):
     """The decoded lane's inline cut at prepare: ``masks`` (nok, nchan)
     times the kept mask of the median cut on the archive's host noise
     levels, through the torch lane on ``device`` or the numpy oracle as
-    the zap_device knob resolves there."""
+    the zap_device knob resolves there.  Emits the archive's
+    ``zap_propose`` (and ``zap_apply`` when it cut anything)."""
     from ..quality.excision import zap_keep_device, zap_keep_np
     from .zap import resolve_zap_device
 
     noise = np.asarray(d.noise_stds[ok, 0])
-    if resolve_zap_device(None, device):
-        keep, _ = zap_keep_device(noise, masks > 0, nstd, device=device)
+    use_dev = resolve_zap_device(None, device)
+    t0 = time.perf_counter()
+    if use_dev:
+        keep, iters = zap_keep_device(noise, masks > 0, nstd, device=device)
     else:
-        keep, _ = zap_keep_np(noise, masks > 0, nstd)
+        keep, iters = zap_keep_np(noise, masks > 0, nstd)
+    wall = time.perf_counter() - t0
+    n_cut = int(masks.sum() - (masks * keep).sum())
+    if tracer.enabled:
+        tracer.emit("zap_propose", datafile=datafile, n_channels=n_cut,
+                    n_iter=int(np.max(iters, initial=0)),
+                    device=bool(use_dev), wall_s=round(wall, 6))
+        if n_cut:
+            tracer.emit("zap_apply", datafile=datafile, n_channels=n_cut)
     return masks * keep
-
-
-def _refuse_unported(telemetry=None, caller="stream_wideband_TOAs"):
-    """NotImplementedError naming the ROADMAP item of every option whose
-    lane is not ported; none is ever ignored."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            f"{caller}: telemetry traces are not ported yet (ROADMAP A13)")
 
 
 def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
@@ -1329,17 +1556,19 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                        instrumental_response_dict=None, addtnl_toa_flags={},
                        quiet=False, quality_flags=False, zap_inline=False,
                        zap_nstd=None, zap_channels=None, postfit_cut=False,
-                       device=None):
+                       device=None, tracer=None):
     """The wideband physics lane and archive loader for a template and
     option set: returns ``(lane, loader)``, the lane supplying
     _StreamExecutor's prepare/launch/scatter/assemble hooks.  ``device``
     (default cuda) is where the template is built and where the 'auto'
     knobs (fast fit, fused lane, bucket padding, the zap lane) resolve.
     Options as stream_wideband_TOAs; the lane's ``postfit_zaps`` collects
-    the post-fit cut's lists."""
+    the post-fit cut's lists.  ``tracer`` receives the lane's typed
+    archive_skip and the zap lanes' zap_propose/zap_apply events."""
     from ..quality.excision import zap_bunch
     from .zap import resolve_zap_nstd
 
+    tracer = NULL_TRACER if tracer is None else tracer
     dev = resolve_device(device)
     # inline zap: raw buckets cut inside the bucket program, decoded
     # archives at prepare; zap_channels applies offline lists at load
@@ -1394,6 +1623,10 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
         z = zap_map.get(os.path.abspath(f))
         if z is not None and sum(len(c) for c in z):
             zap_bunch(d, z)
+            if tracer.enabled:
+                # on the prefetch threads: the tracer is thread-safe
+                tracer.emit("zap_apply", datafile=f,
+                            n_channels=sum(len(c) for c in z))
         return d
 
     class _WidebandLane:
@@ -1418,6 +1651,9 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
             try:
                 modelx = model.portrait(freqs_b, nbin, P=P_mean)
             except ValueError as e:
+                # a typed archive_skip, so the report names the mismatch
+                tracer.emit("archive_skip", datafile=datafile,
+                            reason=str(e))
                 log(f"Skipping {datafile}: {e}", level="warn")
                 return None
             base_key = (nchan + pad_c, nbin, freqs_b.tobytes())
@@ -1446,7 +1682,8 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                 # decoded-lane inline zap: cut BEFORE any mask-derived
                 # quantity (nu_fit seed, tau seeds, flag demotion), as an
                 # offline-zapped archive's load would
-                masks = _zap_decoded(d, ok, masks, zap_nstd_run, dev)
+                masks = _zap_decoded(d, ok, masks, zap_nstd_run, dev,
+                                     tracer, datafile)
             masks_b = (np.pad(masks, ((0, 0), (0, pad_c))) if pad_c
                        else masks)
             # keep only what TOA assembly needs, not the data cube
@@ -1576,6 +1813,24 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                 results[owner] = res
 
         def assemble(self, m, results):
+            if zap_nstd_run is not None and tracer.enabled:
+                # the raw buckets' inline cut: per-subint counts and
+                # passes came back in the packed 'nzap'/'zap_iter' rows
+                # (decoded archives emitted theirs at prepare); wall_s is
+                # 0: the cut runs inside the fit dispatch
+                rows = [r for r in (results.get((m.iarch, int(isub)))
+                                    for isub in m.ok)
+                        if isinstance(r, dict) and "nzap" in r]
+                if rows:
+                    nz = sum(int(r["nzap"]) for r in rows)
+                    tracer.emit(
+                        "zap_propose", datafile=m.datafile,
+                        n_channels=int(nz),
+                        n_iter=max(int(r["zap_iter"]) for r in rows),
+                        device=True, wall_s=0.0)
+                    if nz:
+                        tracer.emit("zap_apply", datafile=m.datafile,
+                                    n_channels=int(nz))
             if postfit_run is not None:
                 # ppzap-style {subint: [channels]} lists; TOAs unchanged
                 zaps = {}
@@ -1585,6 +1840,11 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                         zaps[int(isub)] = [int(c) for c in np.flatnonzero(
                             r["postfit_bad"][:m.nchan] > 0)]
                 self.postfit_zaps[m.datafile] = zaps
+                if tracer.enabled:
+                    tracer.emit(
+                        "zap_propose", datafile=m.datafile,
+                        n_channels=sum(len(v) for v in zaps.values()),
+                        n_iter=0, device=True, wall_s=0.0)
             return _assemble_archive(
                 m, results, modelfile, fit_DM, bary, addtnl_toa_flags,
                 log10_tau=log10_tau,
@@ -1625,7 +1885,14 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
     re-references the reported tau; instrumental_response_dict as
     GetTOAs.instrumental_response_dict.  Scattering buckets take the
     complex-free scatter lane where config.use_fast_fit resolves on,
-    the complex engine otherwise.  Telemetry (A13) is refused.
+    the complex engine otherwise.
+
+    telemetry: the JSONL event trace of the run -- a path (a new trace
+    is written there), a telemetry.Tracer to share (how
+    stream_ipta_campaign threads one trace through every pulsar), or
+    None to follow config.telemetry_path (default off; PPT_TELEMETRY /
+    pptoas --telemetry set it).  Tracing adds no host sync and changes
+    no TOA.
 
     zap_inline=True runs the ppzap median algorithm inline: raw buckets
     cut on the noise levels the bucket program computed on the device
@@ -1659,9 +1926,10 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
     Returns a DataBunch: TOA_list (archive order), order, DM0s,
     DeltaDM_means, DeltaDM_errs, fit_duration, scatter_duration, nfit,
     devices_used, peak_inflight, dispatch_shapes ({bucket shape: number
-    of dispatches}), h2d_bytes, h2d_duration, h2d_overlap_duration, wall
-    and postfit_zaps ({} without postfit_cut)."""
-    _refuse_unported(telemetry=telemetry)
+    of dispatches}), h2d_bytes (shipped), h2d_bytes_logical (what would
+    have shipped without the transport codec), codec_duration,
+    h2d_duration, h2d_overlap_duration, wall and postfit_zaps ({}
+    without postfit_cut)."""
     if isinstance(datafiles, str):
         datafiles = (_read_metafile(datafiles) if _is_metafile(datafiles)
                      else [datafiles])
@@ -1669,34 +1937,46 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
         datafiles = list(datafiles)
     if stream_devices is None and device is not None:
         stream_devices = [device]
-    devices = resolve_stream_devices(stream_devices)
+    tracer, own_tracer = resolve_tracer(telemetry,
+                                        run="stream_wideband_TOAs")
     t_start = time.time()
-    lane, loader = make_wideband_lane(
-        modelfile, fit_DM=fit_DM, fit_GM=fit_GM,
-        nu_ref_DM=nu_ref_DM, nu_ref_tau=nu_ref_tau, DM0=DM0, bary=bary,
-        tscrunch=tscrunch, fit_scat=fit_scat, log10_tau=log10_tau,
-        scat_guess=scat_guess, fix_alpha=fix_alpha, max_iter=max_iter,
-        print_flux=print_flux, print_phase=print_phase,
-        instrumental_response_dict=instrumental_response_dict,
-        addtnl_toa_flags=addtnl_toa_flags, quiet=quiet,
-        quality_flags=quality_flags, zap_inline=zap_inline,
-        zap_nstd=zap_nstd, zap_channels=zap_channels,
-        postfit_cut=postfit_cut, device=devices[0])
-    ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,
-                         max_inflight=max_inflight, prefetch=prefetch,
-                         tim_out=tim_out, resume=resume,
-                         skip_archives=skip_archives, quiet=quiet,
-                         stream_devices=devices,
-                         pipeline_depth=pipeline_depth)
-    meta, assembled = ex.run()
-    TOA_list, order, DM0s, means, errs = _collect_wideband(meta, assembled)
-    wall = time.time() - t_start
-    n = len(TOA_list)
-    log(f"streamed {n} TOAs from {len(order)} archives in {wall:.2f} s "
-        f"({ex.nfit} dispatches across {len(ex.devices_used)} device(s), "
-        f"{ex.fit_duration:.2f} s blocked on devices, "
-        f"{ex.scatter_duration:.2f} s in host scatter, "
-        f"{n / max(wall, 1e-9):.1f} TOAs/s end to end)", quiet=quiet)
+    try:
+        # inside the try: a failing constructor (bad options or devices,
+        # a corrupt checkpoint) still closes an owned trace
+        devices = resolve_stream_devices(stream_devices)
+        lane, loader = make_wideband_lane(
+            modelfile, fit_DM=fit_DM, fit_GM=fit_GM,
+            nu_ref_DM=nu_ref_DM, nu_ref_tau=nu_ref_tau, DM0=DM0, bary=bary,
+            tscrunch=tscrunch, fit_scat=fit_scat, log10_tau=log10_tau,
+            scat_guess=scat_guess, fix_alpha=fix_alpha, max_iter=max_iter,
+            print_flux=print_flux, print_phase=print_phase,
+            instrumental_response_dict=instrumental_response_dict,
+            addtnl_toa_flags=addtnl_toa_flags, quiet=quiet,
+            quality_flags=quality_flags, zap_inline=zap_inline,
+            zap_nstd=zap_nstd, zap_channels=zap_channels,
+            postfit_cut=postfit_cut, device=devices[0], tracer=tracer)
+        ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,
+                             max_inflight=max_inflight, prefetch=prefetch,
+                             tim_out=tim_out, resume=resume,
+                             skip_archives=skip_archives, quiet=quiet,
+                             stream_devices=devices, tracer=tracer,
+                             pipeline_depth=pipeline_depth)
+        meta, assembled = ex.run()
+        TOA_list, order, DM0s, means, errs = _collect_wideband(meta,
+                                                               assembled)
+        wall = time.time() - t_start
+        n = len(TOA_list)
+        log(f"streamed {n} TOAs from {len(order)} archives in {wall:.2f} s "
+            f"({ex.nfit} dispatches across {len(ex.devices_used)} "
+            f"device(s), {ex.fit_duration:.2f} s blocked on devices, "
+            f"{ex.scatter_duration:.2f} s in host scatter, "
+            f"{n / max(wall, 1e-9):.1f} TOAs/s end to end)", quiet=quiet,
+            tracer=tracer)
+        _emit_run_end(tracer, "stream_wideband_TOAs", ex, n, len(order),
+                      wall)
+    finally:
+        if own_tracer:
+            tracer.close()
     return DataBunch(TOA_list=TOA_list, order=order, DM0s=DM0s,
                      DeltaDM_means=means, DeltaDM_errs=errs,
                      fit_duration=ex.fit_duration,
@@ -1705,9 +1985,32 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
                      peak_inflight=ex.peak_inflight,
                      dispatch_shapes=dict(ex.dispatch_shapes),
                      h2d_bytes=int(ex.h2d_bytes),
+                     h2d_bytes_logical=int(ex.h2d_logical_bytes),
+                     codec_duration=ex.codec_duration,
                      h2d_duration=ex.h2d_duration,
                      h2d_overlap_duration=ex.h2d_overlap_duration,
                      wall=wall, postfit_zaps=lane.postfit_zaps)
+
+
+def _emit_run_end(tracer, driver, ex, n_toas, n_archives, wall):
+    """A stream driver's ``run_end`` rollup (the JAX package's fields)."""
+    if not tracer.enabled:
+        return
+    tracer.emit("run_end", driver=driver, n_toas=n_toas,
+                n_archives=n_archives, nfit=ex.nfit,
+                peak_inflight=ex.peak_inflight,
+                max_inflight=ex.max_inflight,
+                pipeline_depth=ex.pipeline_depth,
+                fit_s=round(ex.fit_duration, 6),
+                scatter_s=round(ex.scatter_duration, 6),
+                h2d_s=round(ex.h2d_duration, 6),
+                h2d_bytes=int(ex.h2d_bytes),
+                h2d_bytes_logical=int(ex.h2d_logical_bytes),
+                codec_s=round(ex.codec_duration, 6),
+                h2d_overlap_s=round(ex.h2d_overlap_duration, 6),
+                wall_s=round(wall, 6),
+                devices_used=len(ex.devices_used),
+                dispatches_per_device=ex.dispatch_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -1858,13 +2161,15 @@ def _launch_nb(b, pipeline, seq, fit_scat, log10_tau, tau_mode, tau_args,
 def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
                          scat_guess=None, tscrunch=False, max_iter=25,
                          print_phase=False, addtnl_toa_flags={}, quiet=False,
-                         zap_inline=False, zap_nstd=None, device=None):
+                         zap_inline=False, zap_nstd=None, device=None,
+                         tracer=None):
     """The narrowband physics lane and archive loader for a template and
     option set: ``(lane, loader)`` for _StreamExecutor, as
     make_wideband_lane.  log10_tau only matters with fit_scat;
     zap_inline/zap_nstd as stream_narrowband_TOAs."""
     from .zap import resolve_zap_nstd
 
+    tracer = NULL_TRACER if tracer is None else tracer
     dev = resolve_device(device)
     zap_nstd_run = resolve_zap_nstd(zap_nstd) if zap_inline else None
     scat_guess = _validate_scat_guess(scat_guess, fit_scat)
@@ -1908,6 +2213,8 @@ def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
             try:
                 modelx = model.portrait(freqs0, nbin, P=P_mean)
             except ValueError as e:
+                tracer.emit("archive_skip", datafile=datafile,
+                            reason=str(e))
                 log(f"Skipping {datafile}: {e}", level="warn")
                 return None
             raw_mode = bool(d.get("raw_mode", False))
@@ -1922,7 +2229,8 @@ def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
                 # decoded-lane inline zap: cut before the usable-channel
                 # lists are derived, so assembly emits the TOAs an
                 # offline-zapped load would
-                masks = _zap_decoded(d, ok, masks, zap_nstd_run, dev)
+                masks = _zap_decoded(d, ok, masks, zap_nstd_run, dev,
+                                     tracer, datafile)
             key = (nchan, nbin, freqs0.tobytes(),
                    "raw" if raw_mode else "dec")
             if raw_mode:
@@ -1982,15 +2290,19 @@ def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
 
         def assemble(self, m, results):
             toas = []
+            n_cut = 0
+            saw_keep = False
             for j, isub in enumerate(m.ok):
                 r = results.get((m.iarch, int(isub)))
                 if r is None:
                     continue
                 vals = dict(zip(keys, r))
+                saw_keep = saw_keep or "keep" in vals
                 P = m.Ps[j]
                 for ichan in m.okc[j]:
                     if "keep" in vals and not vals["keep"][ichan] > 0:
                         # cut by the raw bucket's inline zap
+                        n_cut += 1
                         continue
                     flags = {
                         "be": m.backend, "fe": m.frontend,
@@ -2017,6 +2329,15 @@ def make_narrowband_lane(modelfile, fit_scat=False, log10_tau=True,
                             + m.backend_delay),
                         float(vals["phase_err"][ichan]) * P * 1e6,
                         m.telescope, m.telescope_code, None, None, flags))
+            if saw_keep and tracer.enabled:
+                # the raw buckets' inline cut, one proposal per archive
+                # (decoded archives emitted theirs at prepare)
+                tracer.emit("zap_propose", datafile=m.datafile,
+                            n_channels=n_cut, n_iter=0, device=True,
+                            wall_s=0.0)
+                if n_cut:
+                    tracer.emit("zap_apply", datafile=m.datafile,
+                                n_channels=n_cut)
             return (toas,)
 
     return _NarrowbandLane(), _loader
@@ -2044,12 +2365,12 @@ def stream_narrowband_TOAs(datafiles, modelfile, nsub_batch=64,
     archives at prepare, and no TOA is emitted for a cut channel; the
     surviving channels' TOAs equal an unzapped run's.  zap_nstd: the
     threshold in stds (None = config.zap_nstd / PPT_ZAP_NSTD); read only
-    with zap_inline.  Telemetry (A13) is refused.
+    with zap_inline.  telemetry as stream_wideband_TOAs (the narrowband
+    copy stage never runs the transport codec, as in the JAX package).
     Returns a DataBunch(TOA_list, order, fit_duration,
     scatter_duration, nfit, devices_used, peak_inflight,
-    dispatch_shapes, h2d_bytes, h2d_duration, h2d_overlap_duration,
-    wall)."""
-    _refuse_unported(telemetry=telemetry, caller="stream_narrowband_TOAs")
+    dispatch_shapes, h2d_bytes, h2d_bytes_logical, h2d_duration,
+    h2d_overlap_duration, wall)."""
     if isinstance(datafiles, str):
         datafiles = (_read_metafile(datafiles) if _is_metafile(datafiles)
                      else [datafiles])
@@ -2057,32 +2378,40 @@ def stream_narrowband_TOAs(datafiles, modelfile, nsub_batch=64,
         datafiles = list(datafiles)
     if stream_devices is None and device is not None:
         stream_devices = [device]
-    devices = resolve_stream_devices(stream_devices)
+    tracer, own_tracer = resolve_tracer(telemetry,
+                                        run="stream_narrowband_TOAs")
     t_start = time.time()
-    lane, loader = make_narrowband_lane(
-        modelfile, fit_scat=fit_scat, log10_tau=log10_tau,
-        scat_guess=scat_guess, tscrunch=tscrunch, max_iter=max_iter,
-        print_phase=print_phase, addtnl_toa_flags=addtnl_toa_flags,
-        quiet=quiet, zap_inline=zap_inline, zap_nstd=zap_nstd,
-        device=devices[0])
-    ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,
-                         max_inflight=max_inflight, prefetch=prefetch,
-                         tim_out=tim_out, resume=resume,
-                         skip_archives=skip_archives, quiet=quiet,
-                         stream_devices=devices,
-                         pipeline_depth=pipeline_depth)
-    meta, assembled = ex.run()
-    TOA_list, order = [], []
-    for m in meta:
-        TOA_list.extend(assembled[m.iarch][0])
-        order.append(m.datafile)
-    wall = time.time() - t_start
-    n = len(TOA_list)
-    log(f"streamed {n} narrowband TOAs from {len(order)} archives in "
-        f"{wall:.2f} s ({ex.nfit} dispatches across "
-        f"{len(ex.devices_used)} device(s), {ex.fit_duration:.2f} s blocked "
-        f"on devices, {n / max(wall, 1e-9):.1f} TOAs/s end to end)",
-        quiet=quiet)
+    try:
+        devices = resolve_stream_devices(stream_devices)
+        lane, loader = make_narrowband_lane(
+            modelfile, fit_scat=fit_scat, log10_tau=log10_tau,
+            scat_guess=scat_guess, tscrunch=tscrunch, max_iter=max_iter,
+            print_phase=print_phase, addtnl_toa_flags=addtnl_toa_flags,
+            quiet=quiet, zap_inline=zap_inline, zap_nstd=zap_nstd,
+            device=devices[0], tracer=tracer)
+        ex = _StreamExecutor(lane, datafiles, loader, nsub_batch,
+                             max_inflight=max_inflight, prefetch=prefetch,
+                             tim_out=tim_out, resume=resume,
+                             skip_archives=skip_archives, quiet=quiet,
+                             stream_devices=devices, tracer=tracer,
+                             pipeline_depth=pipeline_depth)
+        meta, assembled = ex.run()
+        TOA_list, order = [], []
+        for m in meta:
+            TOA_list.extend(assembled[m.iarch][0])
+            order.append(m.datafile)
+        wall = time.time() - t_start
+        n = len(TOA_list)
+        log(f"streamed {n} narrowband TOAs from {len(order)} archives in "
+            f"{wall:.2f} s ({ex.nfit} dispatches across "
+            f"{len(ex.devices_used)} device(s), {ex.fit_duration:.2f} s "
+            f"blocked on devices, {n / max(wall, 1e-9):.1f} TOAs/s end to "
+            "end)", quiet=quiet, tracer=tracer)
+        _emit_run_end(tracer, "stream_narrowband_TOAs", ex, n, len(order),
+                      wall)
+    finally:
+        if own_tracer:
+            tracer.close()
     return DataBunch(TOA_list=TOA_list, order=order,
                      fit_duration=ex.fit_duration,
                      scatter_duration=ex.scatter_duration, nfit=ex.nfit,
@@ -2090,6 +2419,7 @@ def stream_narrowband_TOAs(datafiles, modelfile, nsub_batch=64,
                      peak_inflight=ex.peak_inflight,
                      dispatch_shapes=dict(ex.dispatch_shapes),
                      h2d_bytes=int(ex.h2d_bytes),
+                     h2d_bytes_logical=int(ex.h2d_logical_bytes),
                      h2d_duration=ex.h2d_duration,
                      h2d_overlap_duration=ex.h2d_overlap_duration,
                      wall=wall)

@@ -20,8 +20,9 @@ package's independent host NumPy estimator.
 GetTOAs.get_channels_to_zap (after get_TOAs): the model-based post-fit
 channel cut behind ``ppzap -m`` (quality/postfit).
 
-Not ported yet, and refused with NotImplementedError naming the
-ROADMAP item instead of being ignored: telemetry traces (A13).
+``telemetry=`` on get_TOAs and get_channels_to_zap writes the JAX
+package's trace events (telemetry.py): archive_load/archive_fit/
+quality/archive_skip/run_end, and zap_propose.
 """
 
 import time
@@ -38,7 +39,7 @@ from ..io.psrfits import load_data
 from ..io.tim import TOA
 from ..ops.rotation import rotate_portrait
 from ..ops.scattering import scattering_portrait_FT, scattering_times
-from ..utils.log import log
+from ..telemetry import finite, log, resolve_tracer
 from .models import TemplateModel
 
 __all__ = ["GetTOAs", "weighted_mean", "effective_fit_flags",
@@ -363,13 +364,11 @@ class GetTOAs:
         bounds: optional (5, 2) [lo, hi] box on (phi, DM, GM,
         tau-or-log10-tau, alpha); a fit converging ON a bound reports
         return code 0.  quality_flags=True adds per-TOA -nfev and -chi2
-        flags."""
+        flags.  telemetry: a trace path or telemetry.Tracer (None follows
+        config.telemetry_path; default off): per-archive load/fit events,
+        per-TOA quality and a run_end rollup."""
         if quiet is None:
             quiet = self.quiet
-        if telemetry is not None:
-            raise NotImplementedError(
-                "get_TOAs: telemetry traces are not ported yet "
-                "(ROADMAP A13)")
         if bounds is not None:
             bounds = np.asarray(bounds, float)
             if bounds.shape != (5, 2):
@@ -398,6 +397,13 @@ class GetTOAs:
                     scat_guess=scat_guess, fix_alpha=bool(fix_alpha),
                     nu_ref_tau=nu_ref_tau)
         load_times = {}
+        tracer, own_tracer = resolve_tracer(telemetry,
+                                            run="GetTOAs.get_TOAs")
+        ntoa_before = len(self.TOA_list)
+        narch_before = len(self.order)
+        # batched fit calls (one per flag group per archive): run_end's
+        # nfit has the stream drivers' per-dispatch meaning
+        nfit_calls = 0
 
         def _loader(f):
             t0 = time.time()
@@ -406,27 +412,50 @@ class GetTOAs:
             finally:
                 load_times[f] = time.time() - t0
 
-        for datafile, d in _iter_archives(datafiles, _loader, prefetch):
-            t_start = time.time()
-            if isinstance(d, Exception):
-                log(f"Skipping {datafile}: {d}", level="warn")
-                continue
-            if d.nsub == 0 or len(d.ok_isubs) == 0:
-                log(f"No subints to fit in {datafile}; skipping.",
-                    level="warn")
-                continue
-            self._fit_archive(datafile, d, DM0, bary, fit_DM, fit_GM,
-                              nu_fits, nu_ref_DM, max_iter, bounds,
-                              print_phase, print_flux, print_parangle,
-                              addtnl_toa_flags, quality_flags, quiet,
-                              t_start, load_times, **scat)
+        try:
+            for datafile, d in _iter_archives(datafiles, _loader, prefetch):
+                t_start = time.time()
+                if isinstance(d, Exception):
+                    tracer.emit("archive_skip", datafile=datafile,
+                                reason=str(d))
+                    log(f"Skipping {datafile}: {d}", level="warn")
+                    continue
+                if d.nsub == 0 or len(d.ok_isubs) == 0:
+                    tracer.emit("archive_skip", datafile=datafile,
+                                reason="no subints to fit")
+                    log(f"No subints to fit in {datafile}; skipping.",
+                        level="warn")
+                    continue
+                if tracer.enabled:
+                    tracer.emit("archive_load", datafile=datafile,
+                                load_s=round(load_times.get(datafile, 0.0),
+                                             6),
+                                n_ok=len(d.ok_isubs))
+                nfit_calls += self._fit_archive(
+                    datafile, d, DM0, bary, fit_DM, fit_GM, nu_fits,
+                    nu_ref_DM, max_iter, bounds, print_phase, print_flux,
+                    print_parangle, addtnl_toa_flags, quality_flags, quiet,
+                    t_start, load_times, tracer, **scat)
+            if tracer.enabled:
+                done = self.fit_durations[narch_before:]
+                tracer.emit("run_end", driver="GetTOAs.get_TOAs",
+                            n_toas=len(self.TOA_list) - ntoa_before,
+                            n_archives=len(self.order) - narch_before,
+                            nfit=nfit_calls, fit_s=round(sum(done), 6))
+        finally:
+            # an exception mid-campaign still leaves a closed,
+            # counter-bearing trace
+            if own_tracer:
+                tracer.close()
 
     def _fit_archive(self, datafile, d, DM0, bary, fit_DM, fit_GM, nu_fits,
                      nu_ref_DM, max_iter, bounds, print_phase, print_flux,
                      print_parangle, addtnl_toa_flags, quality_flags,
-                     quiet, t_start, load_times, fit_scat=False,
+                     quiet, t_start, load_times, tracer, fit_scat=False,
                      log10_tau=False, scat_guess=None, fix_alpha=False,
                      nu_ref_tau=None):
+        """Fit and assemble one loaded archive; returns the number of
+        batched fit calls (0 when the archive was skipped)."""
         nsub, nchan, nbin = d.nsub, d.nchan, d.nbin
         ok = np.asarray(d.ok_isubs, int)
         nok = len(ok)
@@ -439,8 +468,9 @@ class GetTOAs:
         try:
             modelx = self.model.portrait(freqs0, nbin, P=P_mean)
         except ValueError as e:
+            tracer.emit("archive_skip", datafile=datafile, reason=str(e))
             log(f"Skipping {datafile}: {e}", level="warn")
-            return
+            return 0
 
         ports = np.asarray(d.subints[ok, 0], float)
         masks = np.asarray(d.weights[ok] > 0.0, float)
@@ -540,6 +570,19 @@ class GetTOAs:
             scale_errs_arr[idx] = r["scale_errs"] * masks[idx]
             channel_snrs_arr[idx] = r["channel_snrs"] * masks[idx]
             covs[idx] = r["covariance"]
+
+        if tracer.enabled:
+            tracer.emit("archive_fit", datafile=datafile, n_ok=nok,
+                        fit_s=round(fit_duration, 6))
+            dofs = np.maximum(res_arrays["dof"], 1.0)
+            with np.errstate(invalid="ignore"):
+                # finite() maps NaN/Inf of degenerate fits to JSON null
+                tracer.emit(
+                    "quality", datafile=datafile,
+                    snr=[finite(v, 3) for v in res_arrays["snr"]],
+                    gof=[finite(float(c) / float(s), 4) for c, s in
+                         zip(res_arrays["chi2"], dofs)],
+                    nfev=[int(v) for v in res_arrays["nfeval"]])
 
         with np.errstate(invalid="ignore"):
             warn_bf16_high_snr(float(np.nanmax(
@@ -733,6 +776,7 @@ class GetTOAs:
                 f"~{fit_duration / max(nok, 1):.4f} sec/TOA (fit), "
                 f"{tot:.2f} sec total\n"
                 f"Med. TOA error is {med:.3f} us", quiet=quiet)
+        return len(groups)
 
     def _fitted_model(self, iarch, isub, d, modelx, freqs0):
         """The template rotated onto the (dispersed) data at the fitted
@@ -773,80 +817,98 @@ class GetTOAs:
         feeds the cut of quality/postfit: the host numpy oracle, or with
         the ``zap_device`` tri-state (None follows config.zap_device;
         'auto' = on CUDA devices) its torch twin on self.device, which
-        flags the same channels.  show (plots) and telemetry are not
-        ported (ROADMAP A13)."""
-        from ..quality.postfit import postfit_cut_device, postfit_cut_np
+        flags the same channels.  telemetry: a trace path or Tracer; one
+        ``zap_propose`` per archive.  show (plots) is not ported (ROADMAP
+        A13)."""
         from .zap import resolve_zap_device
 
         if show:
             raise NotImplementedError(
                 "get_channels_to_zap: show (plots) is not ported yet "
                 "(ROADMAP A13)")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "get_channels_to_zap: telemetry traces are not ported yet "
-                "(ROADMAP A13)")
         use_device = resolve_zap_device(zap_device, self.device)
         dev = self.device
+        tracer, own_tracer = resolve_tracer(telemetry,
+                                            run="get_channels_to_zap")
         self.zap_channels = []
-        for iarch, datafile in enumerate(self.order):
-            d = load_data(datafile, dedisperse=False, dededisperse=True,
-                          tscrunch=self.tscrunch, pscrunch=True, quiet=True)
-            nbin, nchan = d.nbin, d.nchan
-            freqs0 = np.asarray(d.freqs[0], float)
-            modelx = self.model.portrait(freqs0, nbin,
-                                         P=float(np.mean(d.Ps)))
-            ok = np.asarray(self.ok_isubs[iarch], int)
-            nok = len(ok)
-            chan_rchi2 = np.zeros((nok, nchan))
-            chan_snr = np.zeros((nok, nchan))
-            snr_tot = np.full(nok, np.nan)
-            okc_mask = np.zeros((nok, nchan), bool)
-            for j, isub in enumerate(ok):
-                okc_mask[j, np.asarray(d.ok_ichans[isub], int)] = True
-            rows = np.flatnonzero(okc_mask.any(axis=1))
-            if len(rows):
-                subs = ok[rows]
-                f64 = dict(dtype=torch.float64, device=dev)
-                df = (np.asarray(self.doppler_fs[iarch])[subs] if self.bary
-                      else np.ones(len(subs)))
-                phi = torch.as_tensor(self.phis[iarch][subs], **f64)
-                DM = torch.as_tensor(self.DMs[iarch][subs], **f64)
-                P = torch.as_tensor(np.asarray(d.Ps)[subs], **f64)
-                nu_ref = torch.as_tensor(self.nu_refs[iarch][subs, 0], **f64)
-                aligned = rotate_portrait(
-                    torch.as_tensor(modelx, **f64), -phi[:, None],
-                    (-DM / torch.as_tensor(df, **f64))[:, None], P[:, None],
-                    torch.as_tensor(freqs0, **f64), nu_ref[:, None])
-                port = torch.as_tensor(
-                    np.asarray(d.subints[subs, 0], float), **f64)
-                scales = torch.as_tensor(self.scales[iarch][subs], **f64)
-                noise = np.asarray(d.noise_stds[subs, 0], float)
-                noise = torch.as_tensor(np.where(noise > 0, noise, 1.0),
-                                        **f64)
-                resid = port - scales[..., None] * aligned
-                chan_rchi2[rows] = ((resid ** 2).sum(dim=-1) / noise ** 2
-                                    / max(nbin - 1, 1)).cpu().numpy()
-                chan_snr[rows] = self.channel_snrs[iarch][subs]
-                snr_tot[rows] = self.snrs[iarch][subs]
-            if not nok:
-                bad = np.zeros((0, nchan), bool)
-            elif use_device:
-                bad = postfit_cut_device(
-                    chan_rchi2, chan_snr, snr_tot, okc_mask,
-                    SNR_threshold=SNR_threshold,
-                    rchi2_threshold=rchi2_threshold, iterate=iterate,
-                    device=dev)
-            else:
-                bad = postfit_cut_np(
-                    chan_rchi2, chan_snr, snr_tot, okc_mask,
-                    SNR_threshold=SNR_threshold,
-                    rchi2_threshold=rchi2_threshold, iterate=iterate)
-            arch_zaps = [[] for _ in range(d.nsub)]
-            for j, isub in enumerate(ok):
-                arch_zaps[isub] = sorted(int(c) for c in np.flatnonzero(bad[j]))
-            self.zap_channels.append(arch_zaps)
+        try:
+            for iarch, datafile in enumerate(self.order):
+                self.zap_channels.append(self._archive_zaps(
+                    iarch, datafile, use_device, dev, tracer,
+                    SNR_threshold, rchi2_threshold, iterate))
+        finally:
+            if own_tracer:
+                tracer.close()
         return self.zap_channels
+
+    def _archive_zaps(self, iarch, datafile, use_device, dev, tracer,
+                      SNR_threshold, rchi2_threshold, iterate):
+        """One archive's post-fit cut for get_channels_to_zap: the
+        [subint] lists of flagged channels."""
+        from ..quality.postfit import postfit_cut_device, postfit_cut_np
+
+        d = load_data(datafile, dedisperse=False, dededisperse=True,
+                      tscrunch=self.tscrunch, pscrunch=True, quiet=True)
+        nbin, nchan = d.nbin, d.nchan
+        freqs0 = np.asarray(d.freqs[0], float)
+        modelx = self.model.portrait(freqs0, nbin,
+                                     P=float(np.mean(d.Ps)))
+        ok = np.asarray(self.ok_isubs[iarch], int)
+        nok = len(ok)
+        t0 = time.perf_counter()
+        chan_rchi2 = np.zeros((nok, nchan))
+        chan_snr = np.zeros((nok, nchan))
+        snr_tot = np.full(nok, np.nan)
+        okc_mask = np.zeros((nok, nchan), bool)
+        for j, isub in enumerate(ok):
+            okc_mask[j, np.asarray(d.ok_ichans[isub], int)] = True
+        rows = np.flatnonzero(okc_mask.any(axis=1))
+        if len(rows):
+            subs = ok[rows]
+            f64 = dict(dtype=torch.float64, device=dev)
+            df = (np.asarray(self.doppler_fs[iarch])[subs] if self.bary
+                  else np.ones(len(subs)))
+            phi = torch.as_tensor(self.phis[iarch][subs], **f64)
+            DM = torch.as_tensor(self.DMs[iarch][subs], **f64)
+            P = torch.as_tensor(np.asarray(d.Ps)[subs], **f64)
+            nu_ref = torch.as_tensor(self.nu_refs[iarch][subs, 0], **f64)
+            aligned = rotate_portrait(
+                torch.as_tensor(modelx, **f64), -phi[:, None],
+                (-DM / torch.as_tensor(df, **f64))[:, None], P[:, None],
+                torch.as_tensor(freqs0, **f64), nu_ref[:, None])
+            port = torch.as_tensor(
+                np.asarray(d.subints[subs, 0], float), **f64)
+            scales = torch.as_tensor(self.scales[iarch][subs], **f64)
+            noise = np.asarray(d.noise_stds[subs, 0], float)
+            noise = torch.as_tensor(np.where(noise > 0, noise, 1.0),
+                                    **f64)
+            resid = port - scales[..., None] * aligned
+            chan_rchi2[rows] = ((resid ** 2).sum(dim=-1) / noise ** 2
+                                / max(nbin - 1, 1)).cpu().numpy()
+            chan_snr[rows] = self.channel_snrs[iarch][subs]
+            snr_tot[rows] = self.snrs[iarch][subs]
+        if not nok:
+            bad = np.zeros((0, nchan), bool)
+        elif use_device:
+            bad = postfit_cut_device(
+                chan_rchi2, chan_snr, snr_tot, okc_mask,
+                SNR_threshold=SNR_threshold,
+                rchi2_threshold=rchi2_threshold, iterate=iterate,
+                device=dev)
+        else:
+            bad = postfit_cut_np(
+                chan_rchi2, chan_snr, snr_tot, okc_mask,
+                SNR_threshold=SNR_threshold,
+                rchi2_threshold=rchi2_threshold, iterate=iterate)
+        arch_zaps = [[] for _ in range(d.nsub)]
+        for j, isub in enumerate(ok):
+            arch_zaps[isub] = sorted(int(c) for c in np.flatnonzero(bad[j]))
+        if tracer.enabled:
+            tracer.emit("zap_propose", datafile=datafile,
+                        n_channels=int(bad.sum()), n_iter=0,
+                        device=bool(use_device),
+                        wall_s=round(time.perf_counter() - t0, 6))
+        return arch_zaps
 
     def apply_one_DM(self):
         """Replace each TOA's DM with the per-archive DM0 + weighted

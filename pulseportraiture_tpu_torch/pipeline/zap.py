@@ -13,9 +13,12 @@ runs inside the stream's raw bucket program (``zap_inline``).
 
 Two selectors: ``zap_device`` is the tri-state lane switch (None follows
 config.zap_device / PPT_ZAP_DEVICE; 'auto' = on CUDA devices), and
-``device`` is where the device lane runs (default cuda).  Telemetry
-events are not ported (ROADMAP A13): a tracer raises.
+``device`` is where the device lane runs (default cuda).  ``tracer``
+(a telemetry.Tracer) receives one ``zap_propose`` per proposal pass and
+one ``zap_apply`` per applied zap.
 """
+
+import time
 
 import numpy as np
 
@@ -24,15 +27,10 @@ from ..device import resolve_auto, resolve_device
 from ..io.psrfits import read_archive
 from ..quality.excision import (zap_bunch, zap_keep_device,  # noqa: F401
                                 zap_keep_np, zap_lists_from_masks)
+from ..telemetry import NULL_TRACER
 
 __all__ = ["resolve_zap_device", "resolve_zap_nstd", "get_zap_channels",
            "print_paz_cmds", "apply_zaps"]
-
-
-def _refuse_tracer(tracer, caller):
-    if tracer is not None:
-        raise NotImplementedError(
-            f"{caller}: telemetry traces are not ported yet (ROADMAP A13)")
 
 
 def resolve_zap_device(zap_device=None, device=None):
@@ -68,8 +66,8 @@ def get_zap_channels(data, nstd=None, zap_device=None, tracer=None,
     lane tri-state (resolve_zap_device); the device lane runs every
     subint's whole cut in torch on ``device`` (default cuda); the lists
     equal the host lane's (the median is exact, the std within ~1 ulp,
-    gated by the tests)."""
-    _refuse_tracer(tracer, "get_zap_channels")
+    gated by the tests).  tracer: optional telemetry sink; one
+    ``zap_propose`` (n_channels, n_iter, device, wall_s)."""
     nstd = resolve_zap_nstd(nstd)
     use_device = resolve_zap_device(zap_device, device)
     ok = np.asarray(data.ok_isubs, int)
@@ -78,13 +76,20 @@ def get_zap_channels(data, nstd=None, zap_device=None, tracer=None,
     keep0 = np.zeros((len(ok), nchan), bool)
     for j, isub in enumerate(ok):
         keep0[j, np.asarray(data.ok_ichans[isub], int)] = True
+    t0 = time.perf_counter()
     if use_device:
-        keep, _ = zap_keep_device(noise, keep0, nstd, device=device)
+        keep, iters = zap_keep_device(noise, keep0, nstd, device=device)
     else:
-        keep, _ = zap_keep_np(noise, keep0, nstd)
+        keep, iters = zap_keep_np(noise, keep0, nstd)
+    wall = time.perf_counter() - t0
     zap_channels = [[] for _ in range(int(data.nsub))]
     for isub, z in zip(ok, zap_lists_from_masks(keep0, keep)):
         zap_channels[int(isub)] = z
+    if tracer is not None and tracer.enabled:
+        tracer.emit("zap_propose", datafile=str(data.get("filename", "")),
+                    n_channels=sum(len(z) for z in zap_channels),
+                    n_iter=int(np.max(iters, initial=0)),
+                    device=bool(use_device), wall_s=round(wall, 6))
     return zap_channels
 
 
@@ -134,8 +139,9 @@ def apply_zaps(datafile, zap_channels, all_subs=False, outfile=None,
     [subint][channel indices].  The PSRFITS writer re-quantizes DATA
     from the decoded floats, so the data pick up ~half-LSB noise; for a
     lossless offline zap feed the lists to the stream drivers'
-    ``zap_channels=`` (quality.zap_bunch) instead."""
-    _refuse_tracer(tracer, "apply_zaps")
+    ``zap_channels=`` (quality.zap_bunch) instead.  tracer: one
+    ``zap_apply``."""
+    tracer = NULL_TRACER if tracer is None else tracer
     arch = read_archive(datafile)
     w = arch.get_weights()
     for isub, chans in enumerate(zap_channels):
@@ -148,6 +154,8 @@ def apply_zaps(datafile, zap_channels, all_subs=False, outfile=None,
     arch.set_weights(w)
     arch.unload(outfile or datafile)
     n = sum(map(len, zap_channels))
+    if tracer.enabled:
+        tracer.emit("zap_apply", datafile=str(datafile), n_channels=int(n))
     if not quiet:
         print(f"Zapped {n} channel entries in {outfile or datafile}.")
     return w

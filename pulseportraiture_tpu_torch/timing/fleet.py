@@ -23,9 +23,11 @@ milliseconds of math behind a full launch and transfer floor.  So:
 
 Where the JAX package names the lane tri-state ``device``, the port
 names it ``gls_device``: ``device`` is the torch device on every port
-entry point.  The JAX package's telemetry events (``timing_fit``,
-``fleet_end``) need the trace plane, which the port does not have yet:
-``telemetry=`` anything but None raises (ROADMAP A13).
+entry point.  ``telemetry=`` writes the JAX package's events
+(telemetry.py): one ``timing_fit`` per solve dispatch and a
+``fleet_end`` rollup, on whatever tracer the caller threads through
+(stream_ipta_campaign passes its campaign tracer, so archives -> TOAs
+-> timing solutions land in one trace).
 """
 
 import time
@@ -34,8 +36,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_auto, resolve_device
+from ..telemetry import log, resolve_tracer
 from ..utils.bunch import DataBunch
-from ..utils.log import log
 from .gls import build_gls_system, finalize_gls, gls_solve_np
 from .tim import TimTOA, read_tim
 
@@ -148,7 +150,8 @@ def _solve_program(A, r):
     return x, perr, post, chi2
 
 
-def _solve_bucket(systems, nrow, nparam, batched, key, dev, records):
+def _solve_bucket(systems, nrow, nparam, batched, key, dev, records,
+                  tracer):
     """Solve a list of (index, system) pairs in one padded call
     (batched=True) or one B=1 call per system (the serial A/B arm) on
     ``dev``.  Returns {index: (x, perr, post, chi2)}."""
@@ -178,6 +181,10 @@ def _solve_bucket(systems, nrow, nparam, batched, key, dev, records):
         if cuda:
             rec["ms"] = ev[0].elapsed_time(ev[1])
         records.append(rec)
+        if tracer.enabled:
+            tracer.emit("timing_fit", bucket=key, rows=len(group),
+                        pad=B - len(group), wall_s=round(rec["wall_s"], 6),
+                        batched=bool(batched))
         for b, (idx, s) in enumerate(group):
             m, p = s.A.shape
             out[idx] = (x[b, :p], perr[b, :p], post[b, :m],
@@ -202,7 +209,8 @@ def fleet_gls_fit(jobs, fit_f0=True, fit_f1=False, fit_binary=True,
     the SAME padded program per pulsar — the serial arm (only
     meaningful with the batched lane).
 
-    telemetry: must be None (the trace plane is ROADMAP A13).
+    telemetry: tracer or path (resolve_tracer semantics); one
+    ``timing_fit`` per solve dispatch and a ``fleet_end`` rollup.
 
     Returns DataBunch(pulsars, results={pulsar: WidebandGLSResult},
     n_dispatches, wall_s, device, batched), ``device`` True when the
@@ -210,11 +218,6 @@ def fleet_gls_fit(jobs, fit_f0=True, fit_f1=False, fit_binary=True,
     TOAs are invalid raises the underlying loud error naming it — a
     fleet with a broken member should fail visibly, not drop it.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "fleet_gls_fit: telemetry traces (timing_fit/fleet_end "
-            "events) need the trace plane, which the port does not have "
-            "yet (ROADMAP A13)")
     dev = resolve_device(device)
     jobs = [j if isinstance(j, TimingJob) else TimingJob(*j)
             for j in jobs]
@@ -222,52 +225,67 @@ def fleet_gls_fit(jobs, fit_f0=True, fit_f1=False, fit_binary=True,
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate pulsar names in jobs: {names}")
     use_device = resolve_gls_device(gls_device, dev)
+    tracer, own_tracer = resolve_tracer(telemetry, run="fleet_gls_fit")
     t0 = time.time()
-    systems = []
-    for j in jobs:
-        kw = dict(fit_f0=fit_f0, fit_f1=fit_f1, fit_binary=fit_binary,
-                  epoch_gap_days=epoch_gap_days, allow_wraps=allow_wraps)
-        kw.update(j.fit_kwargs)
-        try:
-            systems.append(build_gls_system(j.toas, j.par, **kw))
-        except Exception as e:
-            raise type(e)(f"fleet_gls_fit: pulsar {j.pulsar!r}: "
-                          f"{e}") from e
-    records = []
-    _STATS.clear()
-    _STATS.update(linearize_s=time.time() - t0, solves=records)
+    try:
+        systems = []
+        for j in jobs:
+            kw = dict(fit_f0=fit_f0, fit_f1=fit_f1, fit_binary=fit_binary,
+                      epoch_gap_days=epoch_gap_days,
+                      allow_wraps=allow_wraps)
+            kw.update(j.fit_kwargs)
+            try:
+                systems.append(build_gls_system(j.toas, j.par, **kw))
+            except Exception as e:
+                raise type(e)(f"fleet_gls_fit: pulsar {j.pulsar!r}: "
+                              f"{e}") from e
+        records = []
+        _STATS.clear()
+        _STATS.update(linearize_s=time.time() - t0, solves=records)
 
-    solved = {}
-    n_dispatches = 0
-    if not use_device:
-        for i, s in enumerate(systems):
-            t1 = time.perf_counter()
-            x, perr, _, post, chi2 = gls_solve_np(s.A, s.r)
-            solved[i] = (x, perr, post, chi2)
-            m, p = s.A.shape
-            records.append(dict(bucket=f"host:{m}x{p}", B=1, rows=1,
-                                wall_s=time.perf_counter() - t1))
-            n_dispatches += 1
-    else:
-        buckets = {}
-        for i, s in enumerate(systems):
-            m, p = s.A.shape
-            buckets.setdefault((_pow2(m), _pow2(p)), []).append((i, s))
-        for (mm, pp), group in sorted(buckets.items()):
-            solved.update(_solve_bucket(group, mm, pp, batched,
-                                        f"{mm}x{pp}", dev, records))
-            n_dispatches += 1 if batched else len(group)
+        solved = {}
+        n_dispatches = 0
+        if not use_device:
+            for i, s in enumerate(systems):
+                t1 = time.perf_counter()
+                x, perr, _, post, chi2 = gls_solve_np(s.A, s.r)
+                solved[i] = (x, perr, post, chi2)
+                m, p = s.A.shape
+                wall1 = time.perf_counter() - t1
+                records.append(dict(bucket=f"host:{m}x{p}", B=1, rows=1,
+                                    wall_s=wall1))
+                if tracer.enabled:
+                    tracer.emit("timing_fit", bucket=f"host:{m}x{p}",
+                                rows=1, pad=0, wall_s=round(wall1, 6),
+                                batched=False)
+                n_dispatches += 1
+        else:
+            buckets = {}
+            for i, s in enumerate(systems):
+                m, p = s.A.shape
+                buckets.setdefault((_pow2(m), _pow2(p)),
+                                   []).append((i, s))
+            for (mm, pp), group in sorted(buckets.items()):
+                solved.update(_solve_bucket(group, mm, pp, batched,
+                                            f"{mm}x{pp}", dev, records,
+                                            tracer))
+                n_dispatches += 1 if batched else len(group)
 
-    results = {}
-    for i, (j, s) in enumerate(zip(jobs, systems)):
-        x, perr, post, chi2 = solved[i]
-        results[j.pulsar] = finalize_gls(s, x, perr, post, chi2)
-    wall = time.time() - t0
-    log(f"fleet GLS: {len(jobs)} pulsar(s) solved in "
-        f"{n_dispatches} dispatch(es) "
-        f"({'device' if use_device else 'host'}"
-        f"{', batched' if use_device and batched else ''}) in "
-        f"{wall:.3f} s", quiet=quiet)
+        results = {}
+        for i, (j, s) in enumerate(zip(jobs, systems)):
+            x, perr, post, chi2 = solved[i]
+            results[j.pulsar] = finalize_gls(s, x, perr, post, chi2)
+        wall = time.time() - t0
+        tracer.emit("fleet_end", n_pulsars=len(jobs),
+                    n_dispatches=n_dispatches, wall_s=round(wall, 6))
+        log(f"fleet GLS: {len(jobs)} pulsar(s) solved in "
+            f"{n_dispatches} dispatch(es) "
+            f"({'device' if use_device else 'host'}"
+            f"{', batched' if use_device and batched else ''}) in "
+            f"{wall:.3f} s", quiet=quiet, tracer=tracer)
+    finally:
+        if own_tracer:
+            tracer.close()
     return DataBunch(pulsars=names, results=results,
                      n_dispatches=n_dispatches, wall_s=wall,
                      device=use_device, batched=bool(batched))

@@ -92,17 +92,14 @@ class IncrementalGLS:
     structural resolves on epoch renumbering still happen).
     drift_tol: max |x_inc - x_batch| (absolute + relative) tolerated
     at a resolve before GLSDriftError.
-    tracer: must be None (the JAX package's resolve counter needs the
-    trace plane, ROADMAP A13).
+    tracer: optional telemetry.Tracer; every full resolve bumps its
+    ``incremental_resolves`` counter.
     """
 
     def __init__(self, par, fit_f0=True, fit_f1=False, fit_binary=True,
                  epoch_gap_days=0.5, resolve_every=None,
                  drift_tol=1e-10, allow_wraps=False, tracer=None):
-        if tracer is not None:
-            raise NotImplementedError(
-                "IncrementalGLS: a tracer needs the trace plane, which "
-                "the port does not have yet (ROADMAP A13)")
+        self.tracer = tracer
         self.par = par
         self.fit_f0 = fit_f0
         self.fit_f1 = fit_f1
@@ -320,6 +317,8 @@ class IncrementalGLS:
         system = self._rebuild()
         x, perr, _cov, post, chi2 = gls_solve_np(system.A, system.r)
         self.n_resolves += 1
+        if self.tracer is not None and self.tracer.enabled:
+            self.tracer.counter("incremental_resolves")
         if x_inc is not None and len(x_inc) == len(x):
             scale = np.maximum(1.0, np.abs(x))
             drift = float(np.max(np.abs(x_inc - x) / scale))

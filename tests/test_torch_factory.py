@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import rel_err
+from test_torch_helpers import event_counts, rel_err, trace_events
 
 from pulseportraiture_tpu.cli import ppfactory as jppfactory
 from pulseportraiture_tpu.cli import ppgauss as jppgauss
@@ -365,7 +365,8 @@ def test_ppfactory_flags(fleet, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--telemetry", "t.jsonl"], "A13"),
+    # --telemetry is ported: the case holds the JAX CLI's trace
+    pytest.param(["--telemetry", "TRACE"], None, id="argv0-A13"),
     (["--result-cache", "on"], "A13"),
     (["--cache-dir", "CACHE"], "A13"),
     (["--result-cache", "auto", "--cache-dir", "CACHE"], "A13"),
@@ -377,7 +378,29 @@ def test_ppfactory_flags(fleet, tmp_path):
     (["--niter", "-1"], "niter"),
 ])
 def test_ppfactory_refusals(fleet, tmp_path, argv, match):
-    root, _, meta = fleet
+    root, files, meta = fleet
+    if match is None:
+        # ppfactory --telemetry: the JAX CLI's events, one job, serial
+        one = tmp_path / "one.txt"
+        one.write_text(files[0] + "\n")
+        traces = {}
+        for name, main, extra in (("jax", jppfactory.main, []),
+                                  ("torch", tppfactory.main,
+                                   ["--device", "cpu"])):
+            traces[name] = str(tmp_path / f"{name}.jsonl")
+            _cli(main, ["-M", str(one), "-O", str(tmp_path / name),
+                        "--max-ngauss", "2", "--gauss-device", "off",
+                        "--telemetry", traces[name]] + extra)
+        assert event_counts(traces["torch"]) == event_counts(traces["jax"])
+
+        def fits(path):
+            return [(e["stage"], e["bucket"], e["rows"], e["pad"],
+                     e["batched"], e["jac"]) for e in trace_events(path)
+                    if e["type"] == "template_fit"]
+
+        assert fits(traces["torch"]) == fits(traces["jax"])
+        assert len(fits(traces["torch"])) >= 2
+        return
     argv = [str(tmp_path / "c") if a == "CACHE" else a for a in argv]
     with pytest.raises(SystemExit, match=match):
         tppfactory.main(["-M", meta, "-O", str(tmp_path / "o"), "--device",
@@ -407,8 +430,24 @@ def test_factory_input_refusals(fleet, tmp_path):
                        "one entry per")):
         with pytest.raises(ValueError, match=match):
             TFAC.build_templates(device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A13"):
-        TFAC.build_templates(files, telemetry="t.jsonl", device="cpu")
+    # telemetry= is ported (ROADMAP A13's trace plane): build_templates
+    # writes the JAX package's template_fit/template_job/factory_end
+    traces = {n: str(tmp_path / f"{n}.jsonl") for n in ("jax", "torch")}
+    rj = JFAC.build_templates(files[:2], kind=["gauss", "spline"],
+                              max_ngauss=2, gauss_device=True, write=False,
+                              telemetry=traces["jax"])
+    rt = TFAC.build_templates(files[:2], kind=["gauss", "spline"],
+                              max_ngauss=2, gauss_device=True, write=False,
+                              telemetry=traces["torch"], device="cpu")
+    assert event_counts(traces["torch"]) == event_counts(traces["jax"])
+    jobs = {n: [(e["datafile"], e["kind"], e["ngauss"])
+                for e in trace_events(traces[n])
+                if e["type"] == "template_job"] for n in traces}
+    assert jobs["torch"] == jobs["jax"]
+    assert [r.ngauss for r in rt] == [r.ngauss for r in rj]
+    end = [e for e in trace_events(traces["torch"])
+           if e["type"] == "factory_end"]
+    assert len(end) == 1 and end[0]["n_jobs"] == 2
 
 
 @pytest.mark.parametrize("argv,match", [

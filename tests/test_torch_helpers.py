@@ -5,6 +5,9 @@ under several pytest-xdist workers, and torch's default thread pool per
 worker would oversubscribe the host.  No tests live here.
 """
 
+import json
+from collections import Counter
+
 import numpy as np
 import torch
 
@@ -13,6 +16,18 @@ torch.set_num_threads(1)
 # the pulsar of tests/test_pipeline_toas.py
 PAR = {"PSR": "J1744-1134", "RAJ": "17:44:29.4", "DECJ": "-11:34:54.6",
        "P0": 0.004074, "PEPOCH": 55000.0, "DM": 3.139}
+
+
+def trace_events(path):
+    """The events of a JSONL trace (its first record, the manifest,
+    dropped)."""
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()][1:]
+
+
+def event_counts(path):
+    """Event type -> count of a JSONL trace."""
+    return Counter(ev["type"] for ev in trace_events(path))
 
 
 def rel_err(got, ref):

@@ -451,23 +451,37 @@ REFUSALS = {
     "stream_psrchive": (["--stream", "--narrowband", "--psrchive"],
                         SystemExit),
     "wideband_stream_psrchive": (["--stream", "--psrchive"], SystemExit),
-    "telemetry": (["--narrowband", "--telemetry", "t.jsonl"],
-                  NotImplementedError),
+    # the trace covers GetTOAs' wideband path and the --stream drivers:
+    # the JAX CLI exits on a traced non-stream narrowband run
+    "telemetry": (["--narrowband", "--telemetry", "t.jsonl"], SystemExit),
+    # the transport codec (ported) rides the stream: the narrowband
+    # stream takes the flag and, as in the JAX package, ships plainly
     "transport": (["--stream", "--narrowband", "--transport-compress",
-                   "on"], NotImplementedError),
+                   "on"], None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_cli_refusals(nb_dataset, case):
-    """The JAX CLI's refusals; the unported options name their ROADMAP
-    item (A13 telemetry, A7 the transport codec)."""
+def test_cli_refusals(nb_dataset, case, tmp_path, monkeypatch):
+    """The JAX CLI's refusals, raised by both CLIs; the flags that run
+    ("transport") write the JAX CLI's .tim."""
+    from pulseportraiture_tpu.cli.pptoas import main as jmain
     from pulseportraiture_tpu_torch.cli.pptoas import main
 
     root, meta, files, gmodel = nb_dataset
     args, exc = REFUSALS[case]
-    with pytest.raises(exc) as e:
+    if exc is None:
+        for cfg in (tcfg, jcfg):
+            monkeypatch.setattr(cfg, "transport_compress",
+                                cfg.transport_compress)
+        ref, got = str(tmp_path / "jax.tim"), str(tmp_path / "torch.tim")
+        jmain(["-d", files[0], "-m", gmodel, "--quiet", "-o", ref] + args)
+        assert main(["-d", files[0], "-m", gmodel, "--device", "cpu",
+                     "--quiet", "-o", got] + args) == 0
+        _assert_tim_parity(ref, got, derived=NB_DERIVED)
+        return
+    with pytest.raises(exc):
         main(["-d", files[0], "-m", gmodel, "--device", "cpu",
               "--quiet"] + args)
-    if exc is NotImplementedError:
-        assert ("A13" if case == "telemetry" else "A7") in str(e.value)
+    with pytest.raises(exc):
+        jmain(["-d", files[0], "-m", gmodel, "--quiet"] + args)

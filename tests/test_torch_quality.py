@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import PAR
+from test_torch_helpers import PAR, event_counts, trace_events
 from test_torch_stream import _tim_lines
 from test_torch_toas import _assert_tim_parity, _parse_tim
 
@@ -303,10 +303,10 @@ def test_zap_bunch(corpus, tmp_path, kind):
 
 
 @pytest.mark.parametrize("zap_device", [False, True])
-def test_get_zap_channels(corpus, zap_device):
+def test_get_zap_channels(corpus, zap_device, tmp_path):
     """Port lists (host and torch lanes) equal the JAX package's and
     recover the injected white channels with at most one extra per
-    subint."""
+    subint; a tracer (ported) receives the JAX package's zap_propose."""
     from pulseportraiture_tpu.pipeline.zap import get_zap_channels as jget
     from pulseportraiture_tpu_torch.pipeline.zap import get_zap_channels
 
@@ -322,8 +322,23 @@ def test_get_zap_channels(corpus, zap_device):
             expect = truth.zap_truth[isub] if truth else []
             assert set(expect) <= set(flagged)
             assert len(flagged) <= len(expect) + 1
-    with pytest.raises(NotImplementedError, match="A13"):
-        get_zap_channels(d, tracer=object(), device="cpu")
+    from pulseportraiture_tpu import telemetry as JTel
+    from pulseportraiture_tpu_torch import telemetry as TTel
+
+    props = []
+    for mod, fn, load, kw in (
+            (JTel, jget, jload, {"device": False}),
+            (TTel, get_zap_channels, tload, {"zap_device": zap_device,
+                                             "device": "cpu"})):
+        path = str(tmp_path / f"{mod.__name__}.jsonl")
+        with mod.Tracer(path) as tr:
+            for f in files:
+                fn(load(f, dedisperse=False, dededisperse=True,
+                        pscrunch=True, quiet=True), tracer=tr, **kw)
+        props.append([(e["datafile"], e["n_channels"], e["n_iter"])
+                      for e in trace_events(path)
+                      if e["type"] == "zap_propose"])
+    assert props[1] == props[0] and len(props[1]) == len(files)
 
 
 def test_paz_cmds_and_apply_zaps(tmp_path):
@@ -420,14 +435,39 @@ def test_ppzap_main(corpus, tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("flag", ["--telemetry", "--hist"])
-def test_ppzap_refusals(corpus, flag):
+def test_ppzap_refusals(corpus, flag, tmp_path, capsys):
+    """--hist (plots, ROADMAP A13) is refused; --telemetry (ported)
+    writes the JAX CLI's zap_propose/zap_apply events."""
+    from pulseportraiture_tpu.cli.ppzap import main as jmain
     from pulseportraiture_tpu_torch.cli.ppzap import main
 
     files, gmodel, _ = corpus
-    argv = ["-d", files[0], "--device", "cpu", flag] + (
-        ["t.jsonl"] if flag == "--telemetry" else ["-m", gmodel])
-    with pytest.raises(NotImplementedError, match="A13"):
-        main(argv)
+    if flag == "--hist":
+        with pytest.raises(NotImplementedError, match="A13"):
+            main(["-d", files[0], "--device", "cpu", flag, "-m", gmodel])
+        return
+    traces = {}
+    for name, m, extra in (("jax", jmain, []),
+                           ("torch", main, ["--device", "cpu"])):
+        work = tmp_path / name
+        work.mkdir()
+        arch = [str(work / os.path.basename(f)) for f in files]
+        for src, dst in zip(files, arch):
+            with open(src, "rb") as fi, open(dst, "wb") as fo:
+                fo.write(fi.read())
+        meta = work / "meta.txt"
+        meta.write_text("\n".join(arch) + "\n")
+        traces[name] = str(work / "t.jsonl")
+        m(["-d", str(meta), "--apply", "--quiet", flag, traces[name]]
+          + extra)
+    capsys.readouterr()
+    assert event_counts(traces["torch"]) == event_counts(traces["jax"])
+    for typ in ("zap_propose", "zap_apply"):
+        got = [(os.path.basename(e["datafile"]), e["n_channels"])
+               for e in trace_events(traces["torch"]) if e["type"] == typ]
+        ref = [(os.path.basename(e["datafile"]), e["n_channels"])
+               for e in trace_events(traces["jax"]) if e["type"] == typ]
+        assert got == ref and len(got) == len(files)
 
 
 def test_get_channels_to_zap(corpus):
@@ -723,6 +763,9 @@ HOOKS = {
     "PPT_LM_JACOBIAN": ("ad", "lm_jacobian", "numeric"),
     "PPT_GLS_DEVICE": ("on", "gls_device", "gpu"),
     "PPT_GLS_RESOLVE_EVERY": ("8", "gls_resolve_every", "-1"),
+    "PPT_TRANSPORT_COMPRESS": ("auto", "transport_compress", "maybe"),
+    # any string is a trace path: 'off' is the value that turns it off
+    "PPT_TELEMETRY": ("t.jsonl", "telemetry_path", "off"),
 }
 
 # Loads both packages' config.py by path (neither package's __init__, so
@@ -775,21 +818,25 @@ def test_env_hook(name):
     default = repr(getattr(tcfg, knob))
     assert vt != default, (name, vt)
     ej, et = out["errors"]
-    assert ej is not None and et == ej
+    assert et == ej
+    if name == "PPT_TELEMETRY":
+        # no value of it is invalid; 'off' disables in both packages
+        assert ej is None
+    else:
+        assert ej is not None
 
 
 def test_env_unported_and_unknown_warn():
     """A JAX-package hook whose knob the port lacks warns with its
     ROADMAP item; a typo warns with the closest known name; both once."""
     out, err = _probe("PPT_ZAP_NSTD", "3", "zap_nstd", "2",
-                      {"PPT_TELEMETRY": "t.jsonl",
-                       "PPT_TRANSPORT_COMPRESS": "on",
+                      {"PPT_RESULT_CACHE": "on",
+                       "PPT_NCHAN": "64",
                        "PPT_ZAP_NSTDS": "2"})
     port = [ln for ln in err.splitlines()
             if ln.startswith("pulseportraiture_tpu_torch.config")]
-    assert any("PPT_TELEMETRY" in ln and "A13" in ln for ln in port)
-    assert any("PPT_TRANSPORT_COMPRESS" in ln and "A7" in ln
-               for ln in port)
+    assert any("PPT_RESULT_CACHE" in ln and "A13" in ln for ln in port)
+    assert any("PPT_NCHAN" in ln and "A5" in ln for ln in port)
     assert any("PPT_ZAP_NSTDS" in ln and "did you mean PPT_ZAP_NSTD" in ln
                for ln in port)
     assert len(port) == 3

@@ -387,11 +387,11 @@ def test_cli_stream(campaign, stream_config, tmp_path):
 class TestRefusals:
     """Unported options raise NotImplementedError naming their ROADMAP
     item; the CUDA default raises without a card.  The zap options
-    (ROADMAP A8, the cases named A8) are ported: they run on the CPU and
-    agree with the JAX driver."""
+    (ROADMAP A8, the cases named A8) and telemetry (A13, the trace plane)
+    are ported: they run on the CPU and agree with the JAX driver."""
 
     @pytest.mark.parametrize("kw,item", [
-        pytest.param({"telemetry": "t.jsonl"}, "A13", id="kw0-A13"),
+        pytest.param({"telemetry": "t.jsonl"}, None, id="kw0-A13"),
         pytest.param({"zap_inline": True}, None, id="kw1-A8"),
         pytest.param({"zap_channels": {}}, None, id="kw2-A8"),
         pytest.param({"postfit_cut": True}, None, id="kw3-A8")])
@@ -403,14 +403,31 @@ class TestRefusals:
             with pytest.raises(NotImplementedError, match=item):
                 TS.stream_wideband_TOAs(files, gmodel, device="cpu", **kw)
             return
+        if "telemetry" in kw:
+            kw_j = {"telemetry": str(tmp_path / "jax.jsonl"),
+                    "stream_devices": 1}
+            kw = {"telemetry": str(tmp_path / "torch.jsonl")}
+        else:
+            kw_j = kw
         ref, got = str(tmp_path / "jax.tim"), str(tmp_path / "torch.tim")
         rj = JS.stream_wideband_TOAs(files, gmodel, nsub_batch=4,
-                                     quiet=True, tim_out=ref, **kw)
+                                     quiet=True, tim_out=ref, **kw_j)
         rt = TS.stream_wideband_TOAs(files, gmodel, nsub_batch=4,
                                      quiet=True, tim_out=got, device="cpu",
                                      **kw)
         _assert_tim_parity(_tim_lines(ref, tmp_path / "jax_lines.tim"),
                            _tim_lines(got, tmp_path / "torch_lines.tim"))
+        if "telemetry" in kw:
+            # the trace: the JAX driver's event counts and counters
+            from collections import Counter
+
+            from pulseportraiture_tpu import telemetry as JT
+
+            ej = JT.load_trace(kw_j["telemetry"])[1]
+            et = JT.validate_trace(kw["telemetry"])[1]
+            assert Counter(e["type"] for e in et) == \
+                Counter(e["type"] for e in ej)
+            assert et[-1]["counters"] == ej[-1]["counters"]
         assert rt.postfit_zaps == rj.postfit_zaps
         assert bool(rt.postfit_zaps) == bool(kw.get("postfit_cut"))
 
@@ -443,13 +460,29 @@ class TestRefusals:
             ex.on_archive_done = print
         ex._shutdown(wait=True)
 
-    def test_cli_transport_compress(self, campaign):
+    def test_cli_transport_compress(self, campaign, tmp_path, monkeypatch):
+        """--transport-compress (ROADMAP A7, ported) runs with --stream
+        and writes the JAX CLI's .tim; without --stream it exits, as in
+        the JAX CLI, and so does --stream-devices."""
+        from pulseportraiture_tpu.cli.pptoas import main as jmain
         from pulseportraiture_tpu_torch.cli.pptoas import main
 
         root, files, gmodel = campaign
-        with pytest.raises(NotImplementedError, match="A7"):
-            main(["--stream", "-d", files[0], "-m", gmodel, "--device",
-                  "cpu", "--transport-compress", "on"])
+        for cfg in (tcfg, jcfg):
+            monkeypatch.setattr(cfg, "transport_compress",
+                                cfg.transport_compress)
+        ref, got = str(tmp_path / "jax.tim"), str(tmp_path / "torch.tim")
+        args = ["--stream", "-d", files[1], "-m", gmodel, "--quiet",
+                "--transport-compress", "on"]
+        jmain(args + ["-o", ref, "--stream-devices", "1"])
+        assert main(args + ["-o", got, "--device", "cpu"]) == 0
+        _assert_tim_parity(ref, got)
+        no_stream = ["-d", files[0], "-m", gmodel, "--transport-compress",
+                     "on"]
+        with pytest.raises(SystemExit):
+            main(no_stream + ["--device", "cpu"])
+        with pytest.raises(SystemExit):
+            jmain(no_stream)
         with pytest.raises(SystemExit):
             main(["-d", files[0], "-m", gmodel, "--device", "cpu",
                   "--stream-devices", "2"])

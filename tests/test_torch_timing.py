@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import rel_err
+from test_torch_helpers import event_counts, rel_err, trace_events
 
 from pulseportraiture_tpu.cli import pptime as jpptime
 from pulseportraiture_tpu.io import write_gmodel
@@ -527,10 +527,25 @@ def test_solve_program_pinv_cutoff():
     assert np.max(np.abs(kept.numpy())) > 1e3 * np.max(np.abs(x.numpy()))
 
 
-def test_fleet_refusals():
+def test_fleet_refusals(tmp_path):
+    """The JAX package's ValueErrors; telemetry= (ported) writes its
+    timing_fit per solve and the fleet_end rollup, on the host lane and
+    the batched lane, as the JAX fleet does."""
     jobs = _fleet_jobs()[:2]
-    with pytest.raises(NotImplementedError, match="A13"):
-        TF.fleet_gls_fit(jobs, telemetry="t.jsonl", device="cpu")
+    for lane in (False, True):
+        jt = str(tmp_path / f"jax{lane}.jsonl")
+        tt = str(tmp_path / f"torch{lane}.jsonl")
+        JF.fleet_gls_fit(jobs, device=lane, telemetry=jt)
+        TF.fleet_gls_fit(jobs, gls_device=lane, telemetry=tt, device="cpu")
+        assert event_counts(tt) == event_counts(jt)
+
+        def fits(path):
+            return [(e["bucket"], e["rows"], e["pad"], e["batched"])
+                    for e in trace_events(path) if e["type"] == "timing_fit"]
+
+        assert fits(tt) == fits(jt) and fits(tt)
+        end = [e for e in trace_events(tt) if e["type"] == "fleet_end"]
+        assert [e["n_pulsars"] for e in end] == [2]
     with pytest.raises(ValueError, match="duplicate"):
         TF.fleet_gls_fit(jobs + jobs[:1], device="cpu")
     with pytest.raises(ValueError, match="gls_device"):
@@ -591,10 +606,11 @@ def test_incremental_binary_against_jax():
     _inc_equal(lt.result, lj.result)
 
 
-def test_incremental_drift_and_refusals(monkeypatch):
+def test_incremental_drift_and_refusals(monkeypatch, tmp_path):
     """A corrupted accumulator raises GLSDriftError at the next periodic
     resolve, as in the JAX package; the cadence defaults to
-    config.gls_resolve_every; a tracer and an unusable par raise."""
+    config.gls_resolve_every; a tracer (ported) counts the resolves as
+    the JAX package's does; an unusable par raises."""
     from pulseportraiture_tpu_torch import config as tcfg
 
     toas = sorted(_inc_campaign(IPAR, 4),
@@ -607,8 +623,20 @@ def test_incremental_drift_and_refusals(monkeypatch):
             lane.update(toa)
     monkeypatch.setattr(tcfg, "gls_resolve_every", 7)
     assert TI.IncrementalGLS(IPAR).resolve_every == 7
-    with pytest.raises(NotImplementedError, match="A13"):
-        TI.IncrementalGLS(IPAR, tracer=object())
+    from pulseportraiture_tpu import telemetry as JTel
+    from pulseportraiture_tpu_torch import telemetry as TTel
+
+    counts = []
+    for mod, inc in ((JTel, JI), (TTel, TI)):
+        path = str(tmp_path / f"{mod.__name__}.jsonl")
+        with mod.Tracer(path) as tr:
+            lane = inc.IncrementalGLS(IPAR, fit_binary=False,
+                                      resolve_every=4, tracer=tr)
+            for toa in toas:
+                lane.update(toa)
+        counts.append(trace_events(path)[-1]["counters"])
+    assert counts[1] == counts[0]
+    assert counts[1]["incremental_resolves"] >= 2
     with pytest.raises(ValueError, match="PEPOCH"):
         TI.IncrementalGLS({"PSR": "X", "F0": "100"})
 
@@ -699,9 +727,13 @@ def test_pptime_table(pptime_ws):
 
 def test_pptime_refusals(pptime_ws, tmp_path):
     root, jobs = pptime_ws
-    with pytest.raises(SystemExit, match="A13"):
-        tpptime.main(["-j", jobs, "--telemetry", "t.jsonl", "--device",
-                      "cpu"])
+    # --telemetry (ported): the JAX CLI's events
+    jt, tt = str(tmp_path / "jax.jsonl"), str(tmp_path / "torch.jsonl")
+    _run(jpptime.main, ["-j", jobs, "--telemetry", jt, "--quiet"])
+    _run(tpptime.main, ["-j", jobs, "--telemetry", tt, "--device", "cpu",
+                        "--quiet"])
+    assert event_counts(tt) == event_counts(jt)
+    assert event_counts(tt)["fleet_end"] == 1
     with pytest.raises(SystemExit, match="not both"):
         tpptime.main(["-j", jobs, "a.tim", "a.par", "--device", "cpu"])
     with pytest.raises(SystemExit, match="need a timfile"):

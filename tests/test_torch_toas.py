@@ -217,7 +217,28 @@ C2_CASES = {
     "nsub_batch_3": ("stream", dict(nsub_batch=3)),
     "max_inflight_1": ("stream", dict(max_inflight=1)),
     "no_prefetch": ("stream", dict(prefetch=False)),
+    # the 14 options of ROADMAP C2's probe
+    "print_phase": ("gettoas", dict(print_phase=True)),
+    "print_flux": ("gettoas", dict(print_flux=True)),
+    "print_parangle": ("gettoas", dict(print_parangle=True)),
+    "addtnl_toa_flags": ("gettoas", dict(addtnl_toa_flags={
+        "pta": "TEST", "grp": "c2"})),
+    "nu_fits": ("gettoas", dict(nu_fits=(1400.0,))),
+    "quality_flags": ("gettoas", dict(quality_flags=True)),
+    "fit_GM": ("gettoas", dict(fit_GM=True)),
+    "stream_tscrunch": ("stream", dict(tscrunch=True)),
+    "stream_DM0": ("stream", dict(DM0=3.0)),
+    "stream_no_bary": ("stream", dict(bary=False)),
+    "stream_fit_DM_off": ("stream", dict(fit_DM=False)),
+    "stream_print_phase_flux": ("stream", dict(print_phase=True,
+                                               print_flux=True)),
+    "stream_nu_ref_DM": ("stream", dict(nu_ref_DM=1400.0)),
+    "stream_quality_flags": ("stream", dict(quality_flags=True)),
 }
+# -phs, -flux*, -chi2: float32 results printed to fixed digits, held to
+# the last-digit rule of the other fit-derived flags
+C2_DERIVED = FIT_DERIVED | {"phs", "phs_err", "flux", "flux_err",
+                            "flux_ref_freq", "chi2"}
 
 
 @pytest.mark.parametrize("case", sorted(C2_CASES))
@@ -243,7 +264,7 @@ def test_options_tim_parity(dataset, fast_config, tmp_path, case):
     ref_tim, got_tim = str(tmp_path / "ref.tim"), str(tmp_path / "got.tim")
     jwrite(ref_toas, outfile=ref_tim)
     twrite(got_toas, outfile=got_tim)
-    _assert_tim_parity(ref_tim, got_tim)
+    _assert_tim_parity(ref_tim, got_tim, derived=C2_DERIVED)
     nsub = 1 if kw.get("tscrunch") else 3
     assert len(got_toas) == nsub * len(files)
     assert all((t.DM is None) == (kw.get("fit_DM") is False)
@@ -301,25 +322,45 @@ def test_fit_GM_float32_toa_errors(tmp_path, fast_config):
 
 
 class TestUnportedOptionsRaise:
-    """Options whose lanes are not ported are refused, never ignored."""
+    """Options whose lanes are not ported are refused, never ignored;
+    the ported ones (telemetry, the transport codec) agree with the JAX
+    package."""
 
     def _gt(self, dataset):
         meta, gmodel, files = dataset
         return TGetTOAs(files[0], gmodel, quiet=True, device="cpu")
 
     def test_telemetry(self, dataset, fast_config, tmp_path):
-        with pytest.raises(NotImplementedError, match="A13"):
-            self._gt(dataset).get_TOAs(quiet=True,
-                                       telemetry=str(tmp_path / "t.jsonl"))
+        """get_TOAs(telemetry=): the JAX driver's events (archive_load,
+        archive_fit, quality, run_end) in the same counts, with the same
+        nfit; the port's trace passes the JAX validate_trace."""
+        from collections import Counter
+
+        from pulseportraiture_tpu import telemetry as JT
+
+        meta, gmodel, files = dataset
+        jt, tt = str(tmp_path / "jax.jsonl"), str(tmp_path / "torch.jsonl")
+        JGetTOAs(meta, gmodel, quiet=True).get_TOAs(quiet=True, telemetry=jt)
+        TGetTOAs(meta, gmodel, quiet=True, device="cpu").get_TOAs(
+            quiet=True, telemetry=tt)
+        ej, et = JT.load_trace(jt)[1], JT.validate_trace(tt)[1]
+        assert Counter(e["type"] for e in et) == \
+            Counter(e["type"] for e in ej)
+        ends = [[e for e in ev if e["type"] == "run_end"][0]
+                for ev in (ej, et)]
+        for k in ("driver", "n_toas", "n_archives", "nfit"):
+            assert ends[1][k] == ends[0][k], k
+        assert ends[1]["nfit"] == len(files)
 
     @pytest.mark.parametrize("flag,item", [
         pytest.param("--narrowband", None, id="--narrowband-A8"),
         pytest.param("--stream", "A7", id="--stream-A7")])
-    def test_cli_lanes(self, dataset, tmp_path, flag, item):
+    def test_cli_lanes(self, dataset, tmp_path, monkeypatch, flag, item):
         """--narrowband and --stream run (tests/test_torch_narrowband.py,
-        tests/test_torch_stream.py); what their lanes still refuse is the
-        transport codec.  The narrowband stream's inline zapping (ROADMAP
-        A8) is ported: it agrees with the JAX driver."""
+        tests/test_torch_stream.py).  The transport codec (ROADMAP A7) is
+        ported: pptoas --stream --transport-compress on writes the JAX
+        CLI's .tim.  The narrowband stream's inline zapping (ROADMAP A8)
+        is ported: it agrees with the JAX driver."""
         from pulseportraiture_tpu.pipeline.stream import \
             stream_narrowband_TOAs as jstream
         from pulseportraiture_tpu_torch.cli.pptoas import main
@@ -328,9 +369,20 @@ class TestUnportedOptionsRaise:
 
         meta, gmodel, files = dataset
         if flag == "--stream":
-            with pytest.raises(NotImplementedError, match=item):
-                main(["-d", files[0], "-m", gmodel, "--device", "cpu", flag,
-                      "--transport-compress", "on"])
+            from pulseportraiture_tpu.cli.pptoas import main as jmain
+
+            # the CLIs set config.transport_compress: restore it after
+            monkeypatch.setattr(tcfg, "transport_compress",
+                                tcfg.transport_compress)
+            monkeypatch.setattr(jcfg, "transport_compress",
+                                jcfg.transport_compress)
+            ref, got = str(tmp_path / "jax.tim"), str(tmp_path / "torch.tim")
+            args = ["-d", files[0], "-m", gmodel, flag, "--quiet",
+                    "--transport-compress", "on"]
+            jmain(args + ["-o", ref])
+            assert main(args + ["-o", got, "--device", "cpu"]) == 0
+            assert tcfg.transport_compress is True
+            _assert_tim_parity(ref, got)
             return
         ref, got = str(tmp_path / "jax.tim"), str(tmp_path / "torch.tim")
         rj = jstream(files[0], gmodel, quiet=True, zap_inline=True)
