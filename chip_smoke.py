@@ -172,7 +172,27 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    injection; C alone with transport_compress='auto' (the cost model's
    decisions and learned link rate); ``pptoas --stream --telemetry
    --transport-compress on`` on C, then ``python -m
-   pulseportraiture_tpu_torch.cli.pptrace report`` (exit 0).
+   pulseportraiture_tpu_torch.cli.pptrace report`` (exit 0);
+17. serve path: phase 6's archives as three requests (R1 three 2-bit
+   archives, R2 the other five, R3 the int16 archive) through the
+   continuous-batching server: ``python -m
+   pulseportraiture_tpu_torch.cli.ppserve -r requests.jsonl
+   --nsub-batch 256 --max-wait-ms 2000 --telemetry t1.jsonl`` in this
+   process (cold, traced, the counters set to 0 just before it), then a
+   library ToaServer warmed from that trace serving them three times
+   (the last pass ended by stop(drain=True), under the profiler), then
+   ``ppserve -r`` in two fresh processes, without and with
+   ``--warmup-manifest t1.jsonl``: every
+   served .tim byte-identical to the one-shot stream_wideband_TOAs of
+   its archives with the same nsub_batch, every TOA within 1e-4 rot of
+   the injection, return codes in {0, 1, 2}, a bucket shared by two
+   requests, no cold dispatch after the warm-up, every request
+   resolved by the drain, B2 on the 2-bit buckets and B1 on the int16
+   one through their FFT arms only, B2 held to its plain version on
+   the first mixed bucket and B1 on R3's padded bucket; the served and
+   one-shot warm TOAs/s, request latencies, the first dispatch's cost
+   per shape with and without the warm-up, bytes to the card, the idle
+   share and the host memory per pass.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -182,10 +202,12 @@ package is missing.
 """
 
 import contextlib
+import io
 import json
 import math
 import os
 import runpy
+import shutil
 import subprocess
 import sys
 import time
@@ -283,6 +305,10 @@ PTA_F0_REL, PTA_DPB = 3e-12, 2e-9
 # untraced / traced pairs that time the trace
 CAMPAIGN_BATCH, CAMPAIGN_PAIRS = 16, 4
 PTA_NGLS, PTA_GLS_NEP, PTA_GLS_SPAN = 45, 120, 3650.0
+# phase 17: the serve path's deadline [ms] (long enough that R1's and
+# R2's 2-bit subints share a bucket while the archives load) and the
+# 2-bit archives of its first request
+SERVE_WAIT_MS, SERVE_SPLIT = 2000.0, 3
 
 
 def log(msg):
@@ -3958,6 +3984,366 @@ def check_timing_solution(r, par, ddms, label):
         raise AssertionError(line)
 
 
+@contextlib.contextmanager
+def capture_calls(name):
+    """Inside the block, keep a copy of the inputs of every call to
+    ``ops.fused.<name>``, in call order: [(args, kwargs)].  The calls
+    themselves, and their launch counts, are unchanged."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    kept = []
+    orig = getattr(F, name)
+
+    def spy(*a, **k):
+        kept.append((tuple(x.clone() if torch.is_tensor(x) else x
+                           for x in a), dict(k)))
+        return orig(*a, **k)
+
+    setattr(F, name, spy)
+    try:
+        yield kept
+    finally:
+        setattr(F, name, orig)
+
+
+@contextlib.contextmanager
+def collect_return_codes(rcs):
+    """Inside the block, every assembled archive's subint return codes
+    are appended to ``rcs`` (the stream lane's _assemble_archive)."""
+    from pulseportraiture_tpu_torch.pipeline import stream as S
+
+    orig = S._assemble_archive
+
+    def assemble(m, results, *a, **k):
+        rcs.extend(int(results[(m.iarch, int(i))]["return_code"])
+                   for i in m.ok if (m.iarch, int(i)) in results)
+        return orig(m, results, *a, **k)
+
+    S._assemble_archive = assemble
+    try:
+        yield rcs
+    finally:
+        S._assemble_archive = orig
+
+
+def served_phase_recovery(tim):
+    """Largest |dphi| [rot] of a .tim's TOAs against the injection (the
+    -phs flag of print_phase) and its TOA count; raises on a non-finite
+    line."""
+    worst, n = 0.0, 0
+    for rec in read_tim(tim).values():
+        phi = float(rec["flags"]["-phs"])
+        if not all(math.isfinite(x) for x in (rec["err"], phi, rec["DM"])):
+            raise AssertionError(f"non-finite TOA line in {tim}")
+        worst = max(worst, abs((phi - expected_phase(rec["freq"]) + 0.5)
+                               % 1.0 - 0.5))
+        n += 1
+    return worst, n
+
+
+def serve_dispatches(trace):
+    """Per dispatch of a serve trace, in seq order: (seq, shape, cold,
+    worker seconds (dispatch -> dispatched: the copy, and the fit
+    worker's enqueue), drain wait seconds, requests)."""
+    from pulseportraiture_tpu_torch.telemetry import load_trace
+
+    events = load_trace(trace)[1]
+    by = {}
+    for e in events:
+        if e["type"] in ("dispatch", "dispatched", "drain",
+                         "batch_coalesce"):
+            by.setdefault(e["seq"], {})[e["type"]] = e
+    out = []
+    for seq in sorted(by):
+        r = by[seq]
+        if "dispatch" not in r:
+            continue
+        d = r["dispatch"]
+        out.append((seq, d["shape"], bool(d["cold"]),
+                    r["dispatched"]["t"] - d["t"], r["drain"]["wait_s"],
+                    tuple(r["batch_coalesce"]["requests"])))
+    return out
+
+
+def request_latencies(trace, suffix):
+    """(p50, p99, mean queue wait, mean serve) [s] of the requests of
+    one pass (names ending in ``suffix``) from its request_done events."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.telemetry import load_trace
+
+    done = [e for e in load_trace(trace)[1] if e["type"] == "request_done"
+            and e["req"].endswith(suffix)]
+    walls = np.asarray([e["wall_s"] for e in done])
+    queues = np.asarray([e["queue_s"] for e in done])
+    return (float(np.percentile(walls, 50)), float(np.percentile(walls, 99)),
+            float(queues.mean()), float((walls - queues).mean()))
+
+
+def host_memory():
+    """(resident set bytes of this process, pinned host bytes the
+    caching host allocator holds or None where torch does not report
+    it)."""
+    import torch
+
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    pinned = None
+    if stats is not None:
+        try:
+            st = stats()
+            pinned = st.get("reserved_bytes.current",
+                            st.get("allocated_bytes.current"))
+        except RuntimeError:
+            pinned = None
+    return rss, pinned
+
+
+def phase_serve(device="cuda", nsub=NSUB, narch=NARCH,
+                nsub_batch=NSUB_BATCH, max_wait_ms=SERVE_WAIT_MS):
+    """The serve path (phase 17), on phase 6's archives and .gmodel:
+    R1 = the first SERVE_SPLIT 2-bit archives, R2 = the other 2-bit
+    archives, R3 = the main path's int16 archive (a partial bucket the
+    deadline flushes), each with print_phase.
+    0. the one-shot stream_wideband_TOAs of each request's archives with
+       the same nsub_batch (the byte-identity references and their
+       dispatches), and of all of them (the one-shot warm TOAs/s);
+    1. round 1, cold and traced: ``ppserve -r requests.jsonl`` in this
+       process with the counters set to 0 just before it (the three
+       requests submitted at once): every .tim byte-identical to its
+       one-shot reference, every TOA within 1e-4 rot of the injection,
+       every return code in {0, 1, 2}, a bucket that coalesced >= 2
+       requests, B2 on the 2-bit buckets and B1 on the int16 one through
+       their FFT arms only, B2 held to its plain version on the first
+       mixed bucket and B1 on R3's padded bucket;
+    2. round 2: a library ToaServer warmed from round 1's trace serves
+       the three requests three times: pass 1 with no cold dispatch,
+       pass 2 timed (served TOAs/s, latencies, bytes to the card), pass
+       3 under the profiler and ended by stop(drain=True) right after
+       its submits (every request resolved by the drain); every .tim
+       byte-identical to its reference;
+    3. round 3, the cold start of a process: ``ppserve -r`` in two fresh
+       processes, without and with ``--warmup-manifest`` round 1's
+       trace: every .tim byte-identical to its reference, no cold
+       dispatch after the warm-up.
+    Prints the first dispatch's cost per shape in rounds 1 and 3 (cold)
+    and after the warm-ups against round 2's warm pass, the warm-ups'
+    wall per shape, and this process's host memory after each pass.
+    Returns round 1's kernel launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pulseportraiture_tpu_torch.pipeline.stream import \
+        stream_wideband_TOAs
+    from pulseportraiture_tpu_torch.serve import ToaServer
+    from pulseportraiture_tpu_torch.telemetry import (load_trace, report,
+                                                      validate_trace)
+
+    cuda = device_type(device) == "cuda"
+    files = [os.path.join(WORK, f"fake2bit-{i}.fits") for i in range(narch)]
+    int16 = os.path.join(WORK, "fake.fits")
+    gmodel = os.path.join(WORK, "model.gmodel")
+    split = min(SERVE_SPLIT, narch - 1)
+    reqs = [("R1", files[:split]), ("R2", files[split:]), ("R3", [int16])]
+    ntoa = (narch + 1) * nsub
+    sdir = os.path.join(WORK, "serve")
+    shutil.rmtree(sdir, ignore_errors=True)
+    os.makedirs(sdir)
+
+    # 0. the one-shot references
+    one, one_nfit = {}, 0
+    for name, fs in reqs:
+        one[name] = os.path.join(sdir, f"{name}-one.tim")
+        one_nfit += stream_wideband_TOAs(
+            fs, gmodel, nsub_batch=nsub_batch, tim_out=one[name],
+            quiet=True, print_phase=True, device=device).nfit
+    t0 = time.perf_counter()
+    r_all = stream_wideband_TOAs(files + [int16], gmodel,
+                                 nsub_batch=nsub_batch, quiet=True,
+                                 print_phase=True, device=device)
+    sync(device)
+    one_s = time.perf_counter() - t0
+
+    def check_tims(outdir, suffix=""):
+        worst = 0.0
+        for name, _ in reqs:
+            path = os.path.join(outdir, f"{name}{suffix}.tim")
+            with open(path, "rb") as a, open(one[name], "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"served {path} differs from the "
+                                         f"one-shot {one[name]}")
+            w, n = served_phase_recovery(path)
+            if not w < 1e-4:
+                raise AssertionError(f"{path}: |dphi| = {w:.3e} rot")
+            worst = max(worst, w)
+        return worst
+
+    # 1. round 1: the CLI, cold and traced
+    rq = os.path.join(sdir, "requests.jsonl")
+    with open(rq, "w") as f:
+        for name, fs in reqs:
+            f.write(json.dumps({"name": name, "datafiles": fs,
+                                "modelfile": gmodel,
+                                "options": {"print_phase": True}}) + "\n")
+    t1 = os.path.join(sdir, "t1.jsonl")
+    rcs = []
+    with collect_return_codes(rcs), \
+            capture_calls("fused_decode_cross_spectrum") as b2, \
+            capture_calls("fused_cross_spectrum") as b1:
+        w1, launches, _ = run_tool("ppserve", [
+            "-r", rq, "-O", os.path.join(sdir, "r1"), "--nsub-batch",
+            str(nsub_batch), "--max-wait-ms", str(max_wait_ms),
+            "--telemetry", t1, "--quiet", "--device", device],
+            "ppserve -r")
+    worst = check_tims(os.path.join(sdir, "r1"))
+    if len(rcs) != ntoa or not np.all(np.isin(rcs, (0, 1, 2))):
+        raise AssertionError(f"serve path: {len(rcs)} return codes for "
+                             f"{ntoa} TOAs, values {sorted(set(rcs))}")
+    validate_trace(t1)
+    s1 = report(t1, file=io.StringIO())
+    d1 = serve_dispatches(t1)
+    mixed = max(len(d[5]) for d in d1)
+    log(f"serve path (round 1, ppserve -r, cold, traced): "
+        f"{s1['n_requests']} requests, {ntoa} TOAs in {w1:.3f} s wall "
+        f"(incl. loads and the {max_wait_ms:.0f} ms deadline); "
+        f"{len(d1)} dispatches (one-shot runs: {one_nfit}), batch "
+        f"occupancy {s1['batch_occupancy']:.3f}, largest coalesce "
+        f"{mixed} requests; max |dphi| {worst:.3e} rot; every .tim "
+        f"byte-identical to its one-shot; kernel launches {launches}")
+    if mixed < 2:
+        raise AssertionError("serve path: no bucket coalesced two requests")
+    if cuda:
+        fft_only(launches, ("fused_decode_cross_spectrum",
+                            "fused_cross_spectrum"), "the serve path")
+        p2 = [d for d in d1 if ":raw:p2:" in d[1]]
+        k = next(i for i, d in enumerate(p2) if len(d[5]) >= 2)
+        if len(b2) != len(p2):
+            raise AssertionError(f"{len(b2)} B2 calls for {len(p2)} 2-bit "
+                                 "dispatches")
+        (raw, scl, offs, model, w, K), kw = b2[k]
+        check_decode_case(dict(
+            name=f"serve mixed bucket {tuple(raw.shape)} K={K}", raw=raw,
+            scl=scl, offs=offs, model=model, w=w, K=K, code=kw["code"],
+            nbin=kw["nbin"], fold=kw.get("fold"), arm=None))
+        (port, model, w, K), kw = b1[0][0][:4], b1[0][1]
+        check_cross_spectrum_case(dict(
+            name=f"serve R3 padded bucket {tuple(port.shape)} K={K}",
+            port=port, model=model, w=w, K=K, fold=kw.get("fold"),
+            want_m2=kw.get("want_m2", False), arm=None))
+    del b1[:], b2[:]
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 2. round 2: the library server, warmed from round 1's trace
+    t2 = os.path.join(sdir, "t2.jsonl")
+    tw = time.perf_counter()
+    srv = ToaServer(nsub_batch=nsub_batch, max_wait_ms=max_wait_ms,
+                    telemetry=t2, warmup_manifest=t1, warmup_model=gmodel,
+                    device=device).start()
+    warm_s = time.perf_counter() - tw
+    walls, h2d, mem = {}, {}, {}
+    handles = []
+    for p in (1, 2, 3):
+        outdir = os.path.join(sdir, f"r2-{p}")
+        os.makedirs(outdir, exist_ok=True)
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                if p == 3 else contextlib.nullcontext())
+        b0 = srv._ex.h2d_bytes
+        with prof:
+            t0 = time.perf_counter()
+            handles = [srv.submit(fs, gmodel, name=f"{name}-{p}",
+                                  tim_out=os.path.join(outdir,
+                                                       f"{name}.tim"),
+                                  print_phase=True) for name, fs in reqs]
+            if p == 3:
+                srv.stop(drain=True)
+                if not all(h.done() for h in handles):
+                    raise AssertionError("stop() left a request unresolved")
+            res = [h.result(600) for h in handles]
+            sync(device)
+            walls[p] = time.perf_counter() - t0
+        h2d[p] = srv._ex.h2d_bytes - b0
+        mem[p] = host_memory()
+        if sum(len(r.TOA_list) for r in res) != ntoa:
+            raise AssertionError(f"serve path pass {p}: TOA count")
+        check_tims(outdir)
+    validate_trace(t2)
+    d2 = serve_dispatches(t2)
+    cold2 = [d for d in d2 if d[2]]
+    warmups = [e for e in load_trace(t2)[1]
+               if e["type"] == "warmup_compile"]
+    lat = request_latencies(t2, "-2")
+    busy_ms, rows = profile_rows(prof)
+    log(f"serve path (round 2, library ToaServer warmed from round 1's "
+        f"trace): warm-up {warm_s:.3f} s, {len(warmups)} (shape x device) "
+        f"dispatch(es) {[(e['shape'], e['compile_s']) for e in warmups]}; "
+        f"pass 1 {walls[1]:.3f} s with {len(cold2)} cold dispatch(es); "
+        f"pass 2 (warm) {ntoa} TOAs in {walls[2]:.3f} s = "
+        f"{ntoa / walls[2]:.1f} TOAs/s served vs one-shot warm "
+        f"{len(r_all.TOA_list) / one_s:.1f} TOAs/s ({one_s:.3f} s, "
+        f"{r_all.nfit} dispatches); pass 2 requests p50 {lat[0]:.3f} s "
+        f"p99 {lat[1]:.3f} s, mean queue wait {lat[2]:.3f} s vs serve "
+        f"{lat[3]:.3f} s; h2d {h2d[2]} bytes (one-shot "
+        f"{r_all.h2d_bytes}); pass 3 (stop(drain=True) after the "
+        f"submits, profiler on) {walls[3]:.3f} s, device busy "
+        f"{busy_ms:.3f} ms (idle share "
+        f"{1.0 - busy_ms / (walls[3] * 1e3):.3f})")
+    for us, key, n in rows[:8]:
+        log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
+    log("serve path (host memory after passes 1, 2, 3: resident bytes, "
+        f"pinned bytes held): {[mem[p] for p in (1, 2, 3)]}")
+    if cold2:
+        raise AssertionError(f"serve path: {len(cold2)} cold dispatch(es) "
+                             "after the warm-up")
+
+    # 3. the cold start of a process: ppserve -r in fresh processes
+    fresh = {}
+    for tag, extra in (("cold", []), ("warm", [
+            "--warmup-manifest", t1, "--warmup-model", gmodel])):
+        tr = os.path.join(sdir, f"t3-{tag}.jsonl")
+        outdir = os.path.join(sdir, f"r3-{tag}")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "pulseportraiture_tpu_torch.cli.ppserve",
+             "-r", rq, "-O", outdir, "--nsub-batch", str(nsub_batch),
+             "--max-wait-ms", str(max_wait_ms), "--telemetry", tr,
+             "--quiet", "--device", device] + extra, cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if r.returncode:
+            raise AssertionError(f"ppserve -r ({tag}, a fresh process) "
+                                 f"exited {r.returncode}: {r.stderr[-2000:]}")
+        check_tims(outdir)
+        validate_trace(tr)
+        fresh[tag] = (time.perf_counter() - t0, serve_dispatches(tr), [
+            (e["shape"], e["compile_s"]) for e in load_trace(tr)[1]
+            if e["type"] == "warmup_compile"])
+    if any(d[2] for d in fresh["warm"][1]):
+        raise AssertionError("serve path: a cold dispatch after the "
+                             "warm-up in a fresh process")
+    log(f"serve path (round 3, ppserve -r in fresh processes): without a "
+        f"warm-up {fresh['cold'][0]:.3f} s, with --warmup-manifest "
+        f"{fresh['warm'][0]:.3f} s (warm-up {fresh['warm'][2]}); every "
+        ".tim byte-identical to its one-shot")
+    # the first dispatch's cost per shape (worker: dispatch -> dispatched;
+    # wait: the drain's), against round 2's warm pass
+    for shape in sorted({d[1] for d in d1}):
+        def first(ds, pred=lambda d: True):
+            d = next(d for d in ds if d[1] == shape and pred(d))
+            return f"{d[3]:.4f} + {d[4]:.4f} s (cold {d[2]})"
+
+        warm = [d for d in d2 if d[1] == shape and d[5][0].endswith("-2")]
+        log(f"serve path (first dispatch, {shape}, worker + drain wait): "
+            f"fresh process {first(fresh['cold'][1])}, after its warm-up "
+            f"{first(fresh['warm'][1])}; round 1 {first(d1)}, round 2 "
+            f"after the warm-up "
+            f"{first(d2, lambda d: d[5][0].endswith('-1'))}; round 2 "
+            f"warm pass average {np.mean([d[3] for d in warm]):.4f} + "
+            f"{np.mean([d[4] for d in warm]):.4f} s over {len(warm)}")
+    return launches
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -4052,6 +4438,9 @@ def main():
     t0 = time.perf_counter()
     camp = phase_campaign(pta_ctx)
     log(f"phase campaign path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    serve = phase_serve()
+    log(f"phase serve path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -4082,7 +4471,8 @@ def main():
             "template": template_launches,
             "pta": pta_a["fused_cross_spectrum"]
             + pta_b["fused_cross_spectrum"],
-            "campaign": camp["fused_cross_spectrum"]},
+            "campaign": camp["fused_cross_spectrum"],
+            "serve": serve["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {
@@ -4111,7 +4501,8 @@ def main():
             "zap": zap_launches["fused_decode_cross_spectrum"],
             "pta": pta_a["fused_decode_cross_spectrum"]
             + pta_b["fused_decode_cross_spectrum"],
-            "campaign": camp["fused_decode_cross_spectrum"]},
+            "campaign": camp["fused_decode_cross_spectrum"],
+            "serve": serve["fused_decode_cross_spectrum"]},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -14,12 +14,16 @@ metafile mode — multi-receiver fits keep ppgauss).
 Flag parity with the JAX CLI plus --device.  --telemetry writes the
 factory's template_fit/template_job/factory_end events to a JSONL trace.
 The result cache flags (--result-cache, --cache-dir, --cache-max-mb)
-parse; a value that would turn the cache on exits naming ROADMAP A13.
+parse; a value that would turn the cache on exits: the cache
+(serve/cache.py) is ported, its artifact store for built templates is
+not (ROADMAP A13.3).
 """
 
 import argparse
 import os
 import sys
+
+from .ppserve import add_cache_flags
 
 GAUSS_DEVICE_CHOICES = ("off", "auto", "on")
 _GAUSS_DEVICE_TABLE = {"off": False, "auto": "auto", "on": True}
@@ -62,34 +66,18 @@ def apply_lm_jacobian(value):
     return config.lm_jacobian
 
 
-def add_cache_flags(p):
-    """The JAX package's result-cache flags (its cli/ppserve.py)."""
-    p.add_argument("--result-cache", dest="result_cache", default=None,
-                   metavar="off|auto|on",
-                   help="Content-addressed result cache: 'off', "
-                        "'auto' (on iff a cache dir is set — the "
-                        "default), or 'on' (not ported yet: a value "
-                        "that turns the cache on exits). [default: "
-                        "auto]")
-    p.add_argument("--cache-dir", dest="cache_dir", default=None,
-                   metavar="DIR",
-                   help="On-disk store directory (not ported yet). "
-                        "[default: off]")
-    p.add_argument("--cache-max-mb", dest="cache_max_mb", type=float,
-                   default=None, metavar="MB",
-                   help="Store size bound (must be > 0).")
-
-
 def refuse_cache(args, prog):
     """Validate the cache flags as the JAX package does, and exit naming
-    ROADMAP A13 when they would turn the cache on.
+    ROADMAP A13.3 when they (or config.result_cache / cache_dir) would
+    turn the cache on.
 
-    The JAX package's serve/cache.resolve_result_cache (serve/cache.py:
-    337) returns no cache for 'off', and for 'auto' (its default) when
-    no cache directory is configured; so at the flags' defaults the JAX
-    ppfactory builds every template with no cache, which is what the
-    port does."""
-    mode = "auto"
+    serve/cache.resolve_result_cache returns no cache for 'off', and for
+    'auto' (the default) when no cache directory is configured; so at
+    the defaults the JAX ppfactory builds every template with no cache,
+    which is what the port does."""
+    from .. import config
+
+    mode = config.result_cache
     if args.result_cache is not None:
         v = str(args.result_cache).lower()
         if v not in _RESULT_CACHE_TABLE:
@@ -100,10 +88,12 @@ def refuse_cache(args, prog):
     if args.cache_max_mb is not None and args.cache_max_mb <= 0:
         raise SystemExit(f"{prog}: --cache-max-mb: must be > 0, got "
                          f"{args.cache_max_mb}")
-    if mode is True or (mode == "auto" and args.cache_dir):
+    cache_dir = args.cache_dir or config.cache_dir
+    if mode is True or (mode == "auto" and cache_dir):
         raise SystemExit(
-            f"{prog}: the content-addressed result cache (serve/cache) is "
-            "not ported yet (ROADMAP A13); leave --result-cache and "
+            f"{prog}: the result cache's store for built templates (the "
+            "JAX ppfactory's .gmodel/.spl blobs through serve/cache) is "
+            "not ported yet (ROADMAP A13.3); leave --result-cache and "
             "--cache-dir unset or pass --result-cache off")
 
 

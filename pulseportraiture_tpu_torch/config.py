@@ -2,10 +2,10 @@
 
 The subset of ``pulseportraiture_tpu/config.py`` that the ported TOA
 lanes read (the fast fit, the scattering fits, the complex engine, the
-stream's raw transport and its codec, the trace plane), with the same
-defaults.  A tri-state whose ``'auto'``
-arm meant "on a TPU" there means "on a CUDA device" here
-(device.resolve_auto).
+stream's raw transport and its codec, the trace plane, the serving loop
+and its result cache, metrics and SLOs), with the same defaults.  A
+tri-state whose ``'auto'`` arm meant "on a TPU" there means "on a CUDA
+device" here (device.resolve_auto).
 
 The PPT_* environment hooks (:func:`env_overrides`) are applied once at
 import, as in the JAX package; a script that sets its own defaults calls
@@ -179,6 +179,66 @@ gls_resolve_every = 64
 zap_nstd = 3.0
 
 
+# --- Quality-gated refit (serve/server.ToaServer) --------------------------
+# The serving loop's closed quality loop: a request archive whose fitted
+# TOAs trip the thresholds below gets exactly ONE automatic zap-and-refit
+# through the same warm lane before its .tim demuxes.  Off by default:
+# the .tim is byte-identical with the loop on or off for data that never
+# trips a gate.
+quality_refit = False
+
+# A TOA whose goodness-of-fit (reduced chi^2, the -gof flag) exceeds
+# this trips the refit gate (the reference's ppzap -R threshold).
+quality_max_gof = 1.3
+
+# A TOA whose S/N falls below this trips the refit gate; 0 disables the
+# S/N gate.
+quality_min_snr = 0.0
+
+
+# --- Serving (serve/) ------------------------------------------------------
+# Deadline of partially filled buckets in the serving loop: a bucket
+# launches when full (nsub_batch subints) or when its oldest pending
+# subint has waited this many milliseconds.  ToaServer(max_wait_ms=) /
+# ppserve --max-wait-ms override it per server.
+serve_max_wait_ms = 50.0
+
+# Admission-queue capacity of the serving loop in ARCHIVES across all
+# pending requests; a submit beyond it is rejected (serve.ServeRejected)
+# rather than queued into unbounded host memory.
+serve_queue_depth = 64
+
+# Per-tenant pending-archive quota inside the admission queue: an int
+# caps every tenant, a dict {tenant: cap} (with an optional '*' default)
+# caps named tenants, None applies only serve_queue_depth.
+serve_tenant_quota = None
+
+# Per-tenant weights of the admission queue's weighted-fair scheduler:
+# {tenant: weight} ('*' sets the default; unlisted tenants weigh 1.0),
+# in archives.  None = equal weights.
+serve_tenant_weight = None
+
+# Content-addressed result cache of completed .tim results
+# (serve/cache.py; a hit is byte-identical to a fresh fit).  Tri-state:
+# False off; 'auto' on iff cache_dir is set (so off out of the box);
+# True on, and an error without cache_dir.
+result_cache = "auto"
+# Directory of the on-disk store (created on demand); None = no store.
+cache_dir = None
+# Store size bound in MB: least-recently-used entries evict beyond it.
+cache_max_mb = 512.0
+
+# The serving loop's streaming metrics registry (obs/metrics.py:
+# counters and log-bucket latency histograms, ToaServer.metrics()).
+# The .tim is byte-identical either way.
+metrics = True
+
+# Per-tenant request-latency SLO targets in seconds for the burn-rate
+# engine (obs/slo.py): {tenant: seconds} with '*' as the default, or a
+# bare number for every tenant.  None = no SLO tracking.
+slo_targets = None
+
+
 # --- Telemetry (telemetry.py) --------------------------------------------
 # Path of the JSONL event trace the campaign drivers (GetTOAs,
 # get_channels_to_zap, the stream drivers, stream_ipta_campaign, ppzap,
@@ -211,6 +271,18 @@ telemetry_path = None
 #   PPT_RAW_SUBBYTE=on|off          -> raw_subbyte
 #   PPT_TRANSPORT_COMPRESS=off|auto|on -> transport_compress
 #   PPT_TELEMETRY=<path>|off|none|0 -> telemetry_path
+#   PPT_QUALITY_REFIT=off|on        -> quality_refit
+#   PPT_QUALITY_MAX_GOF=<float>     -> quality_max_gof
+#   PPT_QUALITY_MIN_SNR=<float>     -> quality_min_snr
+#   PPT_SERVE_MAX_WAIT_MS=<float>   -> serve_max_wait_ms
+#   PPT_SERVE_QUEUE_DEPTH=<N>       -> serve_queue_depth
+#   PPT_SERVE_TENANT_QUOTA=<N>|t:N,...|off -> serve_tenant_quota
+#   PPT_SERVE_TENANT_WEIGHT=t:W,...|off    -> serve_tenant_weight
+#   PPT_RESULT_CACHE=off|auto|on    -> result_cache
+#   PPT_CACHE_DIR=<dir>|off         -> cache_dir
+#   PPT_CACHE_MAX_MB=<float>        -> cache_max_mb
+#   PPT_METRICS=off|on              -> metrics
+#   PPT_SLO_TARGETS=t:S,...|<S>|off -> slo_targets
 #
 # Unset variables leave the module values untouched; a bad value of a
 # hooked variable raises ValueError (a silent fallback would quietly
@@ -262,7 +334,12 @@ HOOKED_PPT_ENV = frozenset({
     "PPT_ALIGN_DEVICE", "PPT_ZAP_DEVICE", "PPT_ZAP_NSTD",
     "PPT_STREAM_DEVICES", "PPT_MAX_INFLIGHT", "PPT_PIPELINE_DEPTH",
     "PPT_BUCKET_PAD", "PPT_RAW_SUBBYTE", "PPT_GLS_DEVICE",
-    "PPT_GLS_RESOLVE_EVERY", "PPT_TRANSPORT_COMPRESS", "PPT_TELEMETRY"})
+    "PPT_GLS_RESOLVE_EVERY", "PPT_TRANSPORT_COMPRESS", "PPT_TELEMETRY",
+    "PPT_QUALITY_REFIT", "PPT_QUALITY_MAX_GOF", "PPT_QUALITY_MIN_SNR",
+    "PPT_SERVE_MAX_WAIT_MS", "PPT_SERVE_QUEUE_DEPTH",
+    "PPT_SERVE_TENANT_QUOTA", "PPT_SERVE_TENANT_WEIGHT",
+    "PPT_RESULT_CACHE", "PPT_CACHE_DIR", "PPT_CACHE_MAX_MB",
+    "PPT_METRICS", "PPT_SLO_TARGETS"})
 
 
 def _unported_ppt_env():
@@ -275,19 +352,16 @@ def _unported_ppt_env():
     why["PPT_COMPILE_CACHE"] = (
         "the JAX compilation cache; eager PyTorch compiles no programs "
         "(ROADMAP A5)")
-    for name in ("PPT_QUALITY_REFIT", "PPT_QUALITY_MAX_GOF",
-                 "PPT_QUALITY_MIN_SNR",
-                 "PPT_SERVE_MAX_WAIT_MS", "PPT_SERVE_QUEUE_DEPTH",
-                 "PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS",
-                 "PPT_ALERT_CUSUM_K", "PPT_ALERT_CUSUM_H",
-                 "PPT_ROUTER_HOSTS", "PPT_ROUTER_RETRY_MAX",
+    for name in ("PPT_ROUTER_HOSTS", "PPT_ROUTER_RETRY_MAX",
                  "PPT_SERVE_LISTEN", "PPT_ROUTER_PROBE_MS",
-                 "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE",
-                 "PPT_SERVE_TENANT_QUOTA", "PPT_SERVE_TENANT_WEIGHT",
-                 "PPT_RESULT_CACHE", "PPT_CACHE_DIR", "PPT_CACHE_MAX_MB",
-                 "PPT_TUNE_DB", "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS",
-                 "PPT_METRICS", "PPT_SLO_TARGETS", "PPT_MON_INTERVAL_MS"):
-        why[name] = "the serving and operations plane (ROADMAP A13)"
+                 "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE"):
+        why[name] = "the router and its transport (ROADMAP A13.4)"
+    for name in ("PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS",
+                 "PPT_ALERT_CUSUM_K", "PPT_ALERT_CUSUM_H"):
+        why[name] = "online ingest (ROADMAP A13.5)"
+    why["PPT_MON_INTERVAL_MS"] = "the ppmon dashboard (ROADMAP A13.6)"
+    for name in ("PPT_TUNE_DB", "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS"):
+        why[name] = "the tuning database (ROADMAP A13.7)"
     for name in KNOWN_PPT_ENV - HOOKED_PPT_ENV - set(why):
         why[name] = ("a shape knob of the JAX package's benchmarks; the "
                      "port's bench is ROADMAP A5")
@@ -295,6 +369,57 @@ def _unported_ppt_env():
 
 
 UNPORTED_PPT_ENV = _unported_ppt_env()
+
+def parse_tenant_spec(raw, name, cast=int, allow_bare=True):
+    """Parse a tenant QoS spec: '<N>' (every tenant, needs allow_bare)
+    or 'tenantA:N,tenantB:M[,*:K]' -> int-or-dict, with the JAX
+    package's ValueErrors; shared by the PPT_SERVE_TENANT_* and
+    PPT_SLO_TARGETS hooks and the ppserve CLI."""
+    s = str(raw).strip()
+    if not s:
+        raise ValueError(f"{name}: empty tenant spec")
+    if ":" not in s:
+        if not allow_bare:
+            raise ValueError(
+                f"{name} must be 'tenant:value[,tenant:value...]' "
+                f"pairs, got {s!r} (a bare value is meaningless for "
+                "weights — equal weights are the default)")
+        try:
+            v = cast(s)
+        except ValueError:
+            raise ValueError(
+                f"{name} must be a number or tenant:value pairs, got "
+                f"{s!r}")
+        if not v > 0:
+            raise ValueError(f"{name} must be > 0, got {v}")
+        return v
+    out = {}
+    for part in s.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        tenant, sep, val = part.rpartition(":")
+        if not sep or not tenant:
+            raise ValueError(
+                f"{name}: expected 'tenant:value', got {part!r}")
+        try:
+            v = cast(val)
+        except ValueError:
+            raise ValueError(
+                f"{name}: expected a numeric value in {part!r}, got "
+                f"{val!r}")
+        if not v > 0:
+            raise ValueError(
+                f"{name}: value for tenant {tenant!r} must be > 0, "
+                f"got {v}")
+        if tenant in out:
+            raise ValueError(
+                f"{name}: tenant {tenant!r} listed twice")
+        out[tenant] = v
+    if not out:
+        raise ValueError(f"{name}: no tenant:value pairs in {raw!r}")
+    return out
+
 
 _warned_ppt = set()  # warn ONCE per process per variable
 
@@ -345,6 +470,31 @@ def _int_env(environ, name, what):
     except ValueError:
         raise ValueError(f"{name} must be {what}, got {raw!r}")
     return n
+
+
+def _float_env(environ, name, what, ok, bound):
+    """A float hook: None when unset; the JAX package's two ValueErrors
+    (unparseable, then ``ok(v)`` false, naming ``bound``)."""
+    raw = environ.get(name, "")
+    if not raw:
+        return None
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be {what}, got {raw!r}")
+    if not ok(v):
+        raise ValueError(f"{name} must be {bound}, got {v}")
+    return (v,)
+
+
+def _tenant_env(environ, name, cast, allow_bare):
+    """A tenant-spec hook: 'off'/'none' clear it to None."""
+    raw = environ.get(name, "")
+    if not raw:
+        return None
+    if raw.lower() in ("off", "none"):
+        return (None,)
+    return (parse_tenant_spec(raw, name, cast=cast, allow_bare=allow_bare),)
 
 
 def env_overrides():
@@ -445,6 +595,46 @@ def env_overrides():
                               "'on' or 'off'"))
     put("transport_compress", _table(env, "PPT_TRANSPORT_COMPRESS",
                                      _TRISTATE, "'off', 'auto' or 'on'"))
+    put("quality_refit", _table(env, "PPT_QUALITY_REFIT", _ONOFF,
+                                "'off' or 'on'"))
+    put("quality_max_gof", _float_env(
+        env, "PPT_QUALITY_MAX_GOF",
+        "a positive reduced-chi^2 threshold", lambda v: v > 0, "> 0"))
+    put("quality_min_snr", _float_env(
+        env, "PPT_QUALITY_MIN_SNR",
+        "a non-negative S/N threshold (0 disables)", lambda v: v >= 0,
+        ">= 0"))
+    put("serve_max_wait_ms", _float_env(
+        env, "PPT_SERVE_MAX_WAIT_MS",
+        "a non-negative number of milliseconds", lambda v: v >= 0,
+        ">= 0"))
+    n = _int_env(env, "PPT_SERVE_QUEUE_DEPTH", "a positive integer")
+    if n is not None:
+        if n < 1:
+            raise ValueError(f"PPT_SERVE_QUEUE_DEPTH must be >= 1, got {n}")
+        put("serve_queue_depth", (n,))
+    put("serve_tenant_quota", _tenant_env(env, "PPT_SERVE_TENANT_QUOTA",
+                                          int, True))
+    put("serve_tenant_weight", _tenant_env(env, "PPT_SERVE_TENANT_WEIGHT",
+                                           float, False))
+    put("result_cache", _table(env, "PPT_RESULT_CACHE", _TRISTATE,
+                               "'off', 'auto' or 'on'"))
+    cdir = env.get("PPT_CACHE_DIR", "")
+    if cdir:
+        put("cache_dir",
+            (None if cdir.lower() in ("off", "none", "0") else cdir,))
+    put("cache_max_mb", _float_env(
+        env, "PPT_CACHE_MAX_MB", "a positive number of megabytes",
+        lambda v: v > 0, "> 0"))
+    put("metrics", _table(env, "PPT_METRICS", {**_ONOFF, "0": False,
+                                               "1": True},
+                          "'off' or 'on'"))
+    slo = env.get("PPT_SLO_TARGETS", "")
+    if slo:
+        put("slo_targets", (None if slo.lower() in ("off", "none", "0")
+                            else parse_tenant_spec(
+                                slo, "PPT_SLO_TARGETS", cast=float,
+                                allow_bare=True),))
     tel = env.get("PPT_TELEMETRY", "")
     if tel:
         # 'off'/'none'/'0' disable explicitly (a wrapper script can force

@@ -209,7 +209,9 @@ def build_kernels(verbose=False):
     includes PyTorch headers, so the build takes seconds.  Idempotent
     per process; load() rebuilds when a source, a header (through the
     digest flag) or the flags change.  verbose prints ptxas's register,
-    shared-memory and spill report."""
+    shared-memory and spill report (-Xptxas=-v is always passed, so a
+    verbose and a quiet build of the same sources are one build, and a
+    second process loads the library the first one built)."""
     global _lib
     with _lib_lock:
         if _lib is not None:
@@ -222,9 +224,8 @@ def build_kernels(verbose=False):
             with open(path, "rb") as f:
                 digest.update(f.read())
         flags = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
-                 f"-DPPT_HEADERS_SHA1={digest.hexdigest()[:16]}"]
-        if verbose:
-            flags.append("-Xptxas=-v")
+                 f"-DPPT_HEADERS_SHA1={digest.hexdigest()[:16]}",
+                 "-Xptxas=-v"]
         name = "ppt_fused_kernels"
         load(name=name, sources=_SOURCES, extra_cuda_cflags=flags,
              build_directory=BUILD_DIR, verbose=verbose, with_cuda=True,

@@ -17,11 +17,14 @@ The orchestration layer above pipeline/stream.py:
   the listed pulsars feed timing.fleet.fleet_gls_fit on the same
   tracer, so archives -> TOAs -> timing solutions run as one pipeline.
 
+- **the thin-client mode** (``server=``): every pulsar's shard is one
+  request to a running serve.ToaServer, so the warm executor carries
+  across pulsars and small shards coalesce into shared dispatches.
+
 The port runs campaigns at world size 1 (parallel/multihost.py): the
 (pulsar, archive) grid sharding over processes is ROADMAP A12, and a
-``torch.distributed`` group of world size above 1 raises.  The thin-
-client modes (``server=``, ``router=``) need the serving plane (ROADMAP
-A13) and raise.
+``torch.distributed`` group of world size above 1 raises.  ``router=``
+(a fleet of servers) is ROADMAP A13.4 and raises.
 """
 
 import glob
@@ -71,6 +74,53 @@ class IPTAJob:
         self.kwargs = dict(kwargs)
 
 
+def _serve_campaign(server, jobs, by_psr, stream_kwargs, outdir, tim_name,
+                    tracer, per_pulsar, TOA_list):
+    """The thin-client path: submit every pulsar's shard to ``server``
+    (retrying on backpressure), then collect the results in job order
+    into ``per_pulsar`` and ``TOA_list``."""
+    from ..serve import ServeRejected
+
+    # executor-level knobs belong to the server (it was built with
+    # them); as lane options they would fail every request with a
+    # TypeError on the serving thread, so they are refused here by name
+    executor_kw = {"max_inflight", "pipeline_depth", "stream_devices",
+                   "prefetch", "tim_out", "resume", "skip_archives"}
+    bad = executor_kw & (set(stream_kwargs)
+                         | {k for j in jobs for k in j.kwargs})
+    if bad:
+        raise ValueError(
+            f"stream_ipta_campaign: {sorted(bad)} are executor-level "
+            "options — configure them on the ToaServer when using "
+            "server=")
+    handles = []
+    for job in jobs:
+        files = by_psr.get(job.pulsar, [])
+        if not files:
+            continue
+        kw = {**stream_kwargs, **job.kwargs}
+        kw.pop("telemetry", None)
+        while True:
+            try:
+                h = server.submit(files, job.modelfile,
+                                  tim_out=tim_name(job.pulsar) if outdir
+                                  else None, name=job.pulsar, **kw)
+                break
+            except ServeRejected as e:
+                if not e.retryable:
+                    raise
+                time.sleep(0.05)  # honour the backpressure
+        handles.append((job, time.time(), h))
+    for job, t_job, h in handles:
+        res = per_pulsar[job.pulsar] = h.result()
+        TOA_list.extend(res.TOA_list)
+        if tracer.enabled:
+            tracer.emit("pulsar_done", pulsar=job.pulsar,
+                        n_toas=len(res.TOA_list),
+                        n_archives=len(res.order), nfit=0,
+                        wall_s=round(time.time() - t_job, 6))
+
+
 def stream_ipta_campaign(jobs, outdir=None, shard=True, nsub_batch=256,
                          quiet=False, resume=False, telemetry=None,
                          server=None, router=None, timing_pars=None,
@@ -110,18 +160,28 @@ def stream_ipta_campaign(jobs, outdir=None, shard=True, nsub_batch=256,
     TOAs cover only this run's archives) and under multi-process
     sharding.
 
-    server= / router= (the thin-client modes over a serving loop or a
-    fleet of them) are not ported yet (ROADMAP A13) and raise.
+    server: a started serve.ToaServer: the campaign becomes its thin
+    client.  Each pulsar's shard is submitted as one request against
+    the shared warm executor (all shards first, then the results are
+    collected), and the per-request .tim files land in outdir as the
+    executor-per-pulsar path writes them.  The server's nsub_batch,
+    devices and telemetry govern the dispatches (their events ride the
+    SERVER's trace; this call's telemetry= records the campaign
+    rollup); job kwargs must be lane options (fit_scat=, DM0=, ...):
+    the executor-level ones raise ValueError, as does resume=True
+    (restart by submitting again; the request .tim files are the
+    durable artifact).  ``device`` then applies to the timing stage
+    only.  router= (a fleet of servers) is ROADMAP A13.4 and raises.
 
     Returns a DataBunch with pulsars (job order), per_pulsar ({pulsar:
     stream result DataBunch}), TOA_list (all pulsars), DeltaDM_summary
     ({pulsar: (means, errs)} of the per-archive offset-DM statistics,
     gathered over processes), timing, nfit, fit_duration and wall_s.
     """
-    if server is not None or router is not None:
+    if router is not None:
         raise NotImplementedError(
-            "stream_ipta_campaign: server=/router= need the serving "
-            "plane, which is not ported yet (ROADMAP A13 serve)")
+            "stream_ipta_campaign: router= needs the router and its "
+            "transport, which are not ported yet (ROADMAP A13.4)")
     jobs = [j if isinstance(j, IPTAJob) else IPTAJob(*j) for j in jobs]
     names = [j.pulsar for j in jobs]
     if len(set(names)) != len(names):
@@ -129,6 +189,11 @@ def stream_ipta_campaign(jobs, outdir=None, shard=True, nsub_batch=256,
     if resume and not outdir:
         raise ValueError("stream_ipta_campaign: resume=True needs "
                          "outdir (the checkpoints live there)")
+    if server is not None and resume:
+        raise ValueError(
+            "stream_ipta_campaign: resume=True is not supported with "
+            "server= — restart by re-submitting; the per-request .tim "
+            "files are the durable artifact")
     if outdir:
         os.makedirs(outdir, exist_ok=True)
 
@@ -207,7 +272,10 @@ def stream_ipta_campaign(jobs, outdir=None, shard=True, nsub_batch=256,
         TOA_list = []
         nfit = 0
         fit_duration = 0.0
-        for job in jobs:
+        if server is not None:
+            _serve_campaign(server, jobs, by_psr, stream_kwargs, outdir,
+                            _tim_name, tracer, per_pulsar, TOA_list)
+        for job in (jobs if server is None else ()):
             files = by_psr.get(job.pulsar, [])
             if not files:
                 continue

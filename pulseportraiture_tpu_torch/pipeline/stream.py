@@ -60,8 +60,15 @@ exactly by the bucket program (ops.decode.decode_transport) before
 the sample decode; such a bucket always takes B1 on the decoded
 portrait, never the decode-fused B2.
 
-Not ported yet, and refused with NotImplementedError naming the
-ROADMAP item: the executor's service mode (A13).
+The executor's service mode (``service=True``) is what the serving
+loop (serve/server.ToaServer) runs on: one executor lives for the
+process, each admitted archive brings its request's lane
+(``admit(..., lane=)``), partial buckets launch on a deadline
+(``flush_stale``), and the ``on_launch``/``on_archive_done`` hooks let
+the owner demultiplex completions.  Every dispatch pads a partial
+bucket to ``nsub_batch`` rows with copies of its first subint, as in the
+JAX package, so a subint's dispatch has the same shape whichever
+subints share its bucket; the pad rows reach no owner.
 """
 
 import concurrent.futures as cf
@@ -88,7 +95,9 @@ from ..io.blockcodec import (CostModel, encode_rows, probe_width,
                              resolve_transport_compress)
 from ..io.psrfits import read_archive
 from ..io.tim import TOA, write_TOAs
-from ..ops.decode import PACKED_BITS, decode_stokes_I, decode_transport
+from ..obs.metrics import record_h2d
+from ..ops.decode import (PACKED_BITS, RAW_CODES, decode_stokes_I,
+                          decode_transport)
 from ..ops.fourier import irfft_mm, rfft_mm, use_dft_fold
 from ..ops.noise import get_noise_PS, get_SNR
 from ..telemetry import NULL_TRACER, finite, log, resolve_tracer
@@ -103,7 +112,7 @@ from .toas import (DEFAULT_IR_DICT, _is_metafile, _iter_archives,
 
 __all__ = ["stream_wideband_TOAs", "stream_narrowband_TOAs",
            "make_wideband_lane", "make_narrowband_lane",
-           "checkpoint_completed",
+           "checkpoint_completed", "parse_shape_key",
            "sanitize_checkpoint", "resolve_stream_devices", "bucket_pad_to",
            "CKPT_STALENESS_HORIZON"]
 
@@ -194,6 +203,8 @@ class _Bucket:
         self.DM_guess = []          # 'raw'
         self.dfs = []
         self.owners = []            # (archive_index, isub)
+        self.key = None             # the executor's bucket key
+        self.lane = None            # the lane that prepared its subints
 
     def harmonic_window(self):
         """The template's harmonic window, derived once per bucket per
@@ -219,7 +230,9 @@ class _Bucket:
 def _bucket_shape(b):
     """A bucket's shape string: layout x payload kind (raw buckets name
     their wire sample type, pol reduction and column scaling) x
-    effective flag bits, e.g. '512x2048:raw:p2:11000'."""
+    effective flag bits, e.g. '512x2048:raw:p2:11000'.  The trace's
+    dispatch key and the manifest utils/device.warmup_from_manifest
+    reads: :func:`parse_shape_key` is its inverse."""
     shape = f"{len(b.freqs)}x{b.nbin}:{b.kind}"
     if b.kind == "raw":
         shape += f":{b.raw_code}"
@@ -230,6 +243,36 @@ def _bucket_shape(b):
     if b.flags:
         shape += ":" + "".join("1" if f else "0" for f in b.flags)
     return shape
+
+
+def parse_shape_key(shape):
+    """Inverse of :func:`_bucket_shape`: the bucket geometry (nchan,
+    nbin, kind, raw_code, pol_sum, col_scaled, flags) of a dispatch
+    shape string; flags is None for flagless (narrowband) shapes.
+    Raises ValueError on anything it cannot round-trip."""
+    parts = shape.split(":")
+    try:
+        nchan, nbin = (int(v) for v in parts[0].split("x"))
+        kind = parts[1]
+    except (ValueError, IndexError):
+        raise ValueError(f"unparseable dispatch shape {shape!r}")
+    if kind not in ("raw", "dec") or nchan < 1 or nbin < 1:
+        raise ValueError(f"unparseable dispatch shape {shape!r}")
+    raw_code, pol_sum, col_scaled, flags = "i16", False, False, None
+    for tok in parts[2:]:
+        if kind == "raw" and tok == "sum2":
+            pol_sum = True
+        elif kind == "raw" and tok == "tz":
+            col_scaled = True
+        elif kind == "raw" and tok in RAW_CODES:
+            raw_code = tok
+        elif tok and set(tok) <= {"0", "1"}:
+            flags = tuple(c == "1" for c in tok)
+        else:
+            raise ValueError(
+                f"unknown token {tok!r} in dispatch shape {shape!r}")
+    return dict(nchan=nchan, nbin=nbin, kind=kind, raw_code=raw_code,
+                pol_sum=pol_sum, col_scaled=col_scaled, flags=flags)
 
 
 def bucket_pad_to(nchan, device):
@@ -320,19 +363,26 @@ class _StreamExecutor:
     Checkpoints are written in ARCHIVE order, so .tim content does not
     depend on completion order or device count.
 
-    Run mode only: the JAX package's service mode (``service=True``,
-    ``flush_stale``, the ``on_launch``/``on_archive_done`` owner hooks)
-    is ROADMAP A13 and refused."""
+    The feeding interface: run() calls ``admit()`` per archive of a
+    fixed list; ``flush_stale()`` launches partial buckets past a
+    deadline, ``flush_all``/``drain_all``/``finalize`` end a stream, and
+    the ``on_launch(seq, owners, pad)`` / ``on_archive_done(iarch, m,
+    out)`` hooks let an owner demultiplex completions.  A long-lived
+    owner (serve/server.ToaServer) builds ONE executor with
+    ``service=True`` and no datafiles, keeps it warm across requests
+    (the device pipelines, their streams and workers, the allocator's
+    cached blocks and the FFT plans survive), and passes each admit its
+    request's ``lane``: lanes ride the buckets and the in-flight
+    records, so subints of different requests share a dispatch
+    whenever their bucket keys match.  In service mode the executor
+    keeps no per-archive lists that grow with the requests served; the
+    owner calls ``forget()`` as archives complete."""
 
     def __init__(self, lane, datafiles, loader, nsub_batch,
                  max_inflight=None, prefetch=True, tim_out=None,
                  resume=False, skip_archives=None, quiet=False,
                  stream_devices=None, tracer=None, pipeline_depth=None,
                  service=False):
-        if service:
-            raise NotImplementedError(
-                "_StreamExecutor(service=True): the serving mode is not "
-                "ported yet (ROADMAP A13)")
         self.lane = lane
         self.nsub_batch = int(nsub_batch)
         if max_inflight is None:
@@ -367,8 +417,13 @@ class _StreamExecutor:
                     quiet=quiet)
         self.datafiles = datafiles
         self.loader = loader
+        self.service = bool(service)
+        self.on_launch = None        # hook(seq, owners, pad) per dispatch
+        self.on_archive_done = None  # hook(iarch, m, out) per assembly
         self.devices = resolve_stream_devices(stream_devices)
         self.buckets = {}
+        self._bucket_t0 = {}  # bucket key -> first pending fill (mono s)
+        self._lane_by_iarch = {}
         self.results = {}
         self.meta = []
         self.meta_by_iarch = {}
@@ -399,33 +454,11 @@ class _StreamExecutor:
         self.peak_inflight = 0
         self.dispatch_shapes = {}    # bucket shape string -> dispatches
         self.dispatch_counts = [0] * len(self.devices)
-        self._warm = set()           # (shape, idev) pairs dispatched
+        # (shape, idev) pairs dispatched; an owner may add the shapes a
+        # warmup pass dispatched (utils/device.warmup_from_manifest)
+        self._warm = set()
         self._ckpt_order = []
         self._ckpt_next = 0
-
-    # the owner hooks of the JAX package's service mode
-    @property
-    def on_launch(self):
-        return None
-
-    @on_launch.setter
-    def on_launch(self, fn):
-        raise NotImplementedError("_StreamExecutor.on_launch: owner hooks "
-                                  "are not ported yet (ROADMAP A13)")
-
-    @property
-    def on_archive_done(self):
-        return None
-
-    @on_archive_done.setter
-    def on_archive_done(self, fn):
-        raise NotImplementedError("_StreamExecutor.on_archive_done: owner "
-                                  "hooks are not ported yet (ROADMAP A13)")
-
-    def flush_stale(self, max_age_s):
-        raise NotImplementedError("_StreamExecutor.flush_stale: deadline "
-                                  "flushes of the serving mode are not "
-                                  "ported yet (ROADMAP A13)")
 
     def _checkpoint(self, m, out):
         write_TOAs(out[0], outfile=self.tim_out, append=True)
@@ -467,12 +500,12 @@ class _StreamExecutor:
     def _drain_head(self, idev):
         """Drain device idev's oldest dispatch (blocking on it)."""
         t0 = time.time()
-        handle, owners, extra, seq = self.in_flight[idev].popleft()
+        handle, owners, extra, seq, lane = self.in_flight[idev].popleft()
         out = handle.result().wait()
         wait_s = time.time() - t0
         self.fit_duration += wait_s
         t1 = time.time()
-        self.lane.scatter(out, owners, extra, self.results)
+        lane.scatter(out, owners, extra, self.results)
         scat_s = time.time() - t1
         self.scatter_duration += scat_s
         tr = self.tracer
@@ -503,12 +536,19 @@ class _StreamExecutor:
             # O(bucket)); the checkpoint write still waits for order
             if self.remaining.get(ia) == 0 and ia not in self.assembled:
                 m = self.meta_by_iarch[ia]
-                self.assembled[ia] = self.lane.assemble(m, self.results)
+                out = self._lane_by_iarch.get(ia, self.lane).assemble(
+                    m, self.results)
+                self.assembled[ia] = out
                 if tr.enabled:
                     tr.emit("archive_done", iarch=ia, datafile=m.datafile)
                 for isub in m.ok:
                     self.results.pop((ia, int(isub)), None)
                 self._ckpt_flush()
+                if self.on_archive_done is not None:
+                    # the owner's demux hook, on the draining thread,
+                    # after the per-subint records folded, so the owner
+                    # may forget() the archive
+                    self.on_archive_done(ia, m, out)
 
     def _drain_ready(self):
         """Drain every dispatch that has finished, oldest first per
@@ -563,7 +603,9 @@ class _StreamExecutor:
         seq = tr.next_seq()
         shape = _bucket_shape(b)  # before launch clears the bucket
         n_subints = len(b)
-        rec = self.lane.launch(b, self.pipelines[idev], seq)
+        self._bucket_t0.pop(b.key, None)  # the deadline clock resets
+        lane = b.lane if b.lane is not None else self.lane
+        rec = lane.launch(b, self.pipelines[idev], seq)
         if rec is None:
             return
         self.nfit += 1
@@ -576,9 +618,13 @@ class _StreamExecutor:
                 if self.undispatched[ia] == 0:
                     del self.undispatched[ia]
         q = self.in_flight[idev]
-        # seq at index 3: the copy-overlap closure reads r[3]
-        q.append(rec + (seq,))
+        # seq at index 3 (the copy-overlap closure reads r[3]); the lane
+        # that launched the bucket scatters its result
+        q.append(rec + (seq, lane))
         self.peak_inflight = max(self.peak_inflight, len(q))
+        if self.on_launch is not None:
+            # the owner's hook: this dispatch's owners and pad rows
+            self.on_launch(seq, rec[1], (-len(rec[1])) % self.nsub_batch)
         if tr.enabled:
             # cold = first dispatch of this bucket shape on this device:
             # its fit pays the kernels' first launch there (module load,
@@ -628,22 +674,28 @@ class _StreamExecutor:
         for pl in self.pipelines:
             pl.shutdown(wait)
 
-    def admit(self, iarch, datafile, d, ok):
-        """Prepare one loaded archive through the lane and fill its
-        subints into the buckets, flushing any that reaches nsub_batch.
-        Returns the number of per-subint entries, or None when the lane
-        skipped the archive (it emitted the typed archive_skip)."""
+    def admit(self, iarch, datafile, d, ok, lane=None):
+        """Prepare one loaded archive through ``lane`` (default: the
+        executor's own) and fill its subints into the shared buckets,
+        flushing any that reaches nsub_batch.  Returns the number of
+        per-subint entries, or None when the lane skipped the archive
+        (it emitted the typed archive_skip)."""
+        lane = self.lane if lane is None else lane
         tr = self.tracer
         t_prep = time.time()
-        prep = self.lane.prepare(iarch, datafile, d, ok)
+        prep = lane.prepare(iarch, datafile, d, ok)
         if prep is None:
             tr.counter("archives_skipped")
             return None
         m, per_subint = prep
-        self.meta.append(m)
-        self._ckpt_order.append(iarch)
-        self._prep_idx[iarch] = len(self._ckpt_order) - 1
+        if not self.service:
+            # run()'s finalize order and the in-order checkpoint ledger;
+            # a serving owner keeps its own per-request order
+            self.meta.append(m)
+            self._ckpt_order.append(iarch)
+            self._prep_idx[iarch] = len(self._ckpt_order) - 1
         self.meta_by_iarch[iarch] = m
+        self._lane_by_iarch[iarch] = lane
         self.remaining[iarch] = len(ok)
         self.undispatched[iarch] = len(per_subint)
         if tr.enabled:
@@ -655,7 +707,13 @@ class _StreamExecutor:
             b = self.buckets.get(key)
             if b is None:
                 b = self.buckets[key] = factory()
+                b.key = key
+                b.lane = lane
             fill(b)
+            if key not in self._bucket_t0 and len(b):
+                # the deadline clock: when the bucket's oldest pending
+                # subint arrived (flush_stale); reset on every flush
+                self._bucket_t0[key] = time.monotonic()
             if len(b) >= self.nsub_batch:
                 self._flush(b)
         return len(per_subint)
@@ -666,6 +724,35 @@ class _StreamExecutor:
             if len(b):
                 self._flush(b)
 
+    def flush_stale(self, max_age_s):
+        """The serving loop's deadline: launch each partially filled
+        bucket whose oldest pending subint has waited at least
+        ``max_age_s`` seconds (a bucket dispatches when full or when
+        its head has waited long enough).  Returns the buckets
+        flushed."""
+        if not self._bucket_t0:
+            return 0
+        now = time.monotonic()
+        n = 0
+        for key, t0 in list(self._bucket_t0.items()):
+            if now - t0 < max_age_s:
+                continue
+            b = self.buckets.get(key)
+            if b is not None and len(b):
+                self._flush(b)
+                n += 1
+            else:
+                self._bucket_t0.pop(key, None)
+        return n
+
+    def oldest_bucket_age(self):
+        """Seconds the oldest pending bucket entry has waited, or None
+        when no bucket holds work (what a serving loop sleeps
+        against)."""
+        if not self._bucket_t0:
+            return None
+        return time.monotonic() - min(self._bucket_t0.values())
+
     def drain_all(self):
         """Block until every in-flight dispatch has drained."""
         while any(self.in_flight):
@@ -673,16 +760,31 @@ class _StreamExecutor:
 
     def assemble_leftover(self, iarch):
         """Assemble an archive that never completed through the drain
-        (e.g. every subint failed); idempotent."""
+        (e.g. a lane admitting fewer entries than ok subints);
+        idempotent."""
         if iarch in self.assembled:
             return self.assembled[iarch]
         m = self.meta_by_iarch[iarch]
-        out = self.lane.assemble(m, self.results)
+        out = self._lane_by_iarch.get(iarch, self.lane).assemble(
+            m, self.results)
         self.assembled[iarch] = out
         if self.tracer.enabled:
             self.tracer.emit("archive_done", iarch=iarch,
                              datafile=m.datafile)
+        if self.on_archive_done is not None:
+            self.on_archive_done(iarch, m, out)
         return out
+
+    def forget(self, iarch):
+        """Drop one archive's bookkeeping after its owner consumed the
+        assembly: what keeps a service-mode executor's memory O(live
+        requests), not O(requests ever served)."""
+        self.meta_by_iarch.pop(iarch, None)
+        self.assembled.pop(iarch, None)
+        self.remaining.pop(iarch, None)
+        self._lane_by_iarch.pop(iarch, None)
+        self.undispatched.pop(iarch, None)
+        self._prep_idx.pop(iarch, None)
 
     def finalize(self):
         """Late assemblies in archive order, then the final in-order
@@ -1106,9 +1208,18 @@ class _DevicePipeline:
     the copy wall (up to and including the copy stream's own
     synchronize, so the real link time) and the codec's wall and
     decision.  The per-pipeline transport cost model (``cost``) learns
-    the link from every copy and the codec from every full encode.
-    (The JAX copy stage also feeds ppmon's live counters,
-    obs.metrics.record_h2d; obs/ is ROADMAP A13.)"""
+    the link from every copy and the codec from every full encode, and
+    every copy is accounted in the process-global metrics registry
+    (obs.metrics.record_h2d: the link-stall fraction that
+    ToaServer.metrics() reports).
+
+    The pipeline lives as long as its executor: a serving loop's copy
+    and fit workers, streams and events serve every request.  Each
+    worker enters the pipeline's device and stream per bucket; the
+    pinned staging buffers (``put``) and the pinned result buffers come
+    from PyTorch's caching host allocator, which reuses a freed block
+    once the stream work recorded against it finished, so a long-lived
+    server's pinned memory does not grow with the requests served."""
 
     def __init__(self, device, idev, depth, tracer, inflight_fn):
         self.device = torch.device(device)
@@ -1190,6 +1301,7 @@ class _DevicePipeline:
         # the cost model learns THIS link from every copy (shipped bytes
         # over the copy wall, stacking included: conservative)
         self.cost.observe_link(nbytes, dt)
+        record_h2d(nbytes, dt, overlap)
         if tr.enabled:
             ev = dict(seq=seq, device=self.idev, bytes=int(nbytes),
                       h2d_s=round(dt, 6), overlap=overlap,
@@ -1229,23 +1341,33 @@ class _DevicePipeline:
         self.fit_ex.shutdown(wait=wait, cancel_futures=not wait)
 
 
-def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
-            alpha0=0.0, seq=0, log10_tau=False, tau_mode="none",
-            tau_args=(0.0, 1.0, 0.0), zap_nstd=None, postfit=None):
+def _launch(bucket, nu_ref_DM, max_iter, nsub_batch, pipeline,
+            want_flux=False, alpha0=0.0, seq=0, log10_tau=False,
+            tau_mode="none", tau_args=(0.0, 1.0, 0.0), zap_nstd=None,
+            postfit=None):
     """Launch ONE dispatch for a bucket's pending subints through
     ``pipeline`` and return its in-flight record without waiting for
-    the device.  A partial bucket dispatches its own rows only: the
-    JAX package pads it to nsub_batch with copies of subint 0 to keep
-    its compiled shapes canonical, and eager PyTorch compiles nothing
-    per shape.  Buckets run in float32 where config.use_fast_fit
+    the device.  The batch is padded to a multiple of nsub_batch with
+    copies of the bucket's first subint, as in the JAX package: no
+    row's fit depends on another's, so a subint's result is the same
+    whichever subints share its dispatch, and padding makes that
+    dispatch the same shape too (a served request's bucket-mates are
+    other requests' subints, a one-shot run's are pad rows), so the
+    kernels' launch configurations, and with them the float32 results,
+    cannot differ.  The pad rows are made on the device from the copied
+    first row (_pad_rows), so the link carries the real rows only; the
+    record's owners are the real rows only.
+    Buckets run in float32 where config.use_fast_fit
     resolves on for the device, in float64 through the complex engine
     otherwise (float32 again on CUDA: fit.portrait.fit_portrait_batch).
     zap_nstd: the inline cut of a raw bucket (_raw_fit_fn; decoded
     buckets were cut at prepare); postfit: (bary, fit_DM) of the run for
     the post-fit cut's rows, or None."""
-    if len(bucket) == 0:
+    n = len(bucket)
+    if n == 0:
         return None
     device = pipeline.device
+    nrows = n + (-n) % nsub_batch
     masks_rows = list(bucket.masks)
     Ps = np.asarray(bucket.Ps)
     # doppler factors ride only when the post-fit cut rotates by the
@@ -1356,6 +1478,11 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
         def fit(raw_d, scl_d, offs_d, masks_d, modelx_d, freqs_d, Ps_d,
                 DMg_d, turns_d, tscal_d, tzero_d, ir_r_d, ir_i_d, dfs_d,
                 vmin_d):
+            raw_d, scl_d, offs_d, masks_d, Ps_d, DMg_d, turns_d, \
+                tscal_d, tzero_d, dfs_d, vmin_d = (
+                    _pad_rows(t, nrows) for t in (
+                        raw_d, scl_d, offs_d, masks_d, Ps_d, DMg_d,
+                        turns_d, tscal_d, tzero_d, dfs_d, vmin_d))
             # the copy stage has resolved by now: a compressed payload
             # selects the width-keyed program
             fn = _raw_fit_fn(*raw_fn_args[0], **raw_fn_args[1],
@@ -1384,6 +1511,10 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
 
         def fit(ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
                 theta0_d, masks_d, dfs_d):
+            ports_d, noise_d, Ps_d, nu_fit_d, theta0_d, masks_d, dfs_d = (
+                _pad_rows(t, nrows) for t in (ports_d, noise_d, Ps_d,
+                                              nu_fit_d, theta0_d, masks_d,
+                                              dfs_d))
             if use_fast:
                 r = fit_portrait_batch_fast(
                     ports_d, modelx_d, noise_d, freqs_d, Ps_d, nu_fit_d,
@@ -1417,6 +1548,15 @@ def _launch(bucket, nu_ref_DM, max_iter, pipeline, want_flux=False,
     rec = (handle, list(bucket.owners), keys)
     bucket.clear()
     return rec
+
+
+def _pad_rows(t, nrows):
+    """A per-subint device tensor (subints on dim 0) padded to ``nrows``
+    rows with copies of its first row; None passes through."""
+    if t is None or t.shape[0] == nrows:
+        return t
+    pad = t[:1].expand((nrows - t.shape[0],) + tuple(t.shape[1:]))
+    return torch.cat([t, pad])
 
 
 def _flux_rows(scales, scale_errs, means, cmask, freqs):
@@ -1548,7 +1688,7 @@ def _zap_decoded(d, ok, masks, nstd, device, tracer, datafile):
     return masks * keep
 
 
-def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
+def make_wideband_lane(modelfile, nsub_batch=256, fit_DM=True, fit_GM=False,
                        nu_ref_DM=None, nu_ref_tau=None, DM0=None, bary=True,
                        tscrunch=False, fit_scat=False, log10_tau=True,
                        scat_guess=None, fix_alpha=False, max_iter=25,
@@ -1556,14 +1696,20 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                        instrumental_response_dict=None, addtnl_toa_flags={},
                        quiet=False, quality_flags=False, zap_inline=False,
                        zap_nstd=None, zap_channels=None, postfit_cut=False,
-                       device=None, tracer=None):
+                       device=None, tracer=None, key_prefix=()):
     """The wideband physics lane and archive loader for a template and
     option set: returns ``(lane, loader)``, the lane supplying
-    _StreamExecutor's prepare/launch/scatter/assemble hooks.  ``device``
-    (default cuda) is where the template is built and where the 'auto'
-    knobs (fast fit, fused lane, bucket padding, the zap lane) resolve.
-    Options as stream_wideband_TOAs; the lane's ``postfit_zaps`` collects
-    the post-fit cut's lists.  ``tracer`` receives the lane's typed
+    _StreamExecutor's prepare/launch/scatter/assemble hooks.  A lane is
+    a value: a serving loop builds one per (template, options) pair and
+    feeds every lane into one executor.  ``device`` (default cuda) is
+    where the template is built and where the 'auto' knobs (fast fit,
+    fused lane, bucket padding, the zap lane) resolve.  ``nsub_batch``:
+    the row count a partial bucket's dispatch pads to.  ``key_prefix``
+    namespaces the lane's bucket keys, so buckets of different
+    templates with the same layout never share a dispatch while
+    requests with the same template and options always can.  Options
+    as stream_wideband_TOAs; the lane's ``postfit_zaps`` collects the
+    post-fit cut's lists.  ``tracer`` receives the lane's typed
     archive_skip and the zap lanes' zap_propose/zap_apply events."""
     from ..quality.excision import zap_bunch
     from .zap import resolve_zap_nstd
@@ -1656,7 +1802,7 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
                             reason=str(e))
                 log(f"Skipping {datafile}: {e}", level="warn")
                 return None
-            base_key = (nchan + pad_c, nbin, freqs_b.tobytes())
+            base_key = key_prefix + (nchan + pad_c, nbin, freqs_b.tobytes())
             if p_dependent:
                 base_key += (round(P_mean, 12),)
             DM_stored = float(d.DM)
@@ -1797,7 +1943,7 @@ def make_wideband_lane(modelfile, fit_DM=True, fit_GM=False,
             return m, per_subint
 
         def launch(self, b, pipeline, seq):
-            return _launch(b, nu_ref_DM, max_iter, pipeline,
+            return _launch(b, nu_ref_DM, max_iter, nsub_batch, pipeline,
                            want_flux=print_flux, alpha0=alpha0_run, seq=seq,
                            log10_tau=log10_tau, tau_mode=tau_mode,
                            tau_args=tau_args, zap_nstd=zap_nstd_run,
@@ -1945,7 +2091,7 @@ def stream_wideband_TOAs(datafiles, modelfile, nsub_batch=256, fit_DM=True,
         # a corrupt checkpoint) still closes an owned trace
         devices = resolve_stream_devices(stream_devices)
         lane, loader = make_wideband_lane(
-            modelfile, fit_DM=fit_DM, fit_GM=fit_GM,
+            modelfile, nsub_batch=nsub_batch, fit_DM=fit_DM, fit_GM=fit_GM,
             nu_ref_DM=nu_ref_DM, nu_ref_tau=nu_ref_tau, DM0=DM0, bary=bary,
             tscrunch=tscrunch, fit_scat=fit_scat, log10_tau=log10_tau,
             scat_guess=scat_guess, fix_alpha=fix_alpha, max_iter=max_iter,
@@ -2105,7 +2251,8 @@ def _raw_nb_fn(nbin, fit_scat, log10_tau, tau_mode, max_iter, ft, device,
 def _launch_nb(b, pipeline, seq, fit_scat, log10_tau, tau_mode, tau_args,
                max_iter, zap_nstd=None):
     """Launch one narrowband dispatch through ``pipeline`` (the rows of
-    a partial bucket only, as _launch does) and return its in-flight
+    a partial bucket only: no served request shares a narrowband
+    bucket) and return its in-flight
     record.  float32 where config.use_fast_fit resolves on for the
     device, float64 otherwise."""
     if len(b) == 0:

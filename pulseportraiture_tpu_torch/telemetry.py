@@ -116,7 +116,7 @@ EVENT_FIELDS = {
     "pulsar_done": {"pulsar", "n_toas", "nfit"},
     "campaign_end": {"n_toas", "nfit", "wall_s"},
     # the serving loop (serve/server.py): request lifecycle, the
-    # cross-request coalescing proof, and the AOT warmup ledger the
+    # cross-request coalescing proof, and the warm-up ledger the
     # "serve" report section aggregates
     "serve_start": {"n_devices", "nsub_batch", "max_wait_ms",
                     "queue_depth"},
@@ -128,8 +128,9 @@ EVENT_FIELDS = {
     # pad = padded rows, n_requests = distinct requests sharing the
     # bucket (> 1 is continuous batching doing its job)
     "batch_coalesce": {"seq", "n_requests", "rows", "pad"},
-    # AOT warmup (utils/device.warmup_from_manifest): one per
-    # (manifest shape x device) compiled before serving started
+    # the warm-up (utils/device.warmup_from_manifest): one per
+    # (manifest shape x device) dispatched before serving started; the
+    # wall rides the schema's compile_s
     "warmup_compile": {"shape", "device", "compile_s"},
     # the cross-host router (serve/router.ToaRouter): router_start
     # once per router; route_submit per PLACED request (host = the
@@ -846,8 +847,8 @@ def report(path, file=None):
               "request")
         if warmups:
             w_s = sum(float(ev["compile_s"]) for ev in warmups)
-            p(f"  AOT warmup: {len(warmups)} (shape x device) "
-              f"program(s) compiled in {w_s:.3f} s before serving")
+            p(f"  warm-up: {len(warmups)} (shape x device) "
+              f"dispatch(es) in {w_s:.3f} s before serving")
 
     # ---- result cache (content-addressed .tim store) ----------------
     c_hit = by_type.get("cache_hit", [])

@@ -259,16 +259,22 @@ def test_gloo_world_size_one(tmp_path):
 
 
 def test_refusals(fleet, stream_config, monkeypatch):
-    """server=/router= name A13; a process group of world size > 1 names
-    A12; the JAX package's ValueErrors (duplicate names, unknown timing
-    pulsars, timing_pars with resume)."""
+    """router= names A13 (server= runs: tests/test_torch_serve.py); a
+    process group of world size > 1 names A12; the JAX package's
+    ValueErrors (duplicate names, unknown timing pulsars, timing_pars
+    with resume, server= with resume or an executor-level option)."""
     import torch.distributed as dist
 
     root, files, gmodel = fleet
     jobs = _jobs(files, gmodel, TI)
-    for kw in ({"server": object()}, {"router": object()}):
-        with pytest.raises(NotImplementedError, match="A13"):
-            TI.stream_ipta_campaign(jobs, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A13"):
+        TI.stream_ipta_campaign(jobs, device="cpu", router=object())
+    with pytest.raises(ValueError, match="resume"):
+        TI.stream_ipta_campaign(jobs, outdir=str(root / "r"), resume=True,
+                                device="cpu", server=object())
+    with pytest.raises(ValueError, match="max_inflight"):
+        TI.stream_ipta_campaign(jobs, device="cpu", server=object(),
+                                max_inflight=8)
     with pytest.raises(ValueError, match="duplicate"):
         TI.stream_ipta_campaign(jobs + jobs[:1], device="cpu")
     with pytest.raises(ValueError, match="not in jobs"):

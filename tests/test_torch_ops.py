@@ -514,7 +514,10 @@ def test_import_hygiene():
         " 'cli.ppgauss', 'cli.ppspline', 'utils.spin', 'timing',"
         " 'timing.tim', 'timing.binary', 'timing.gls', 'timing.fleet',"
         " 'timing.incremental', 'cli.pptime', 'pipeline.factory',"
-        " 'cli.ppfactory', 'synth.fake')}\n"
+        " 'cli.ppfactory', 'synth.fake', 'obs.trace', 'obs.metrics',"
+        " 'obs.slo', 'serve.queue', 'serve.codec', 'serve.cache',"
+        " 'serve.server', 'serve.client', 'utils.device',"
+        " 'cli.ppserve')}\n"
         "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "

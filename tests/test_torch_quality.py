@@ -565,13 +565,15 @@ def test_stream_zap_inline_2bit_decode_fused(corpus_2bit, fast_fused,
     _assert_tim_parity(ref, got)
     assert len(calls) == 1
     code, raw, w, S0 = calls[0]
-    assert code == "p2" and raw.shape[0] == 4
+    # the 4 subints, padded to nsub_batch with copies of the first
+    assert code == "p2" and raw.shape[0] == 8
+    assert torch.equal(raw[4:], raw[:1].expand(4, *raw.shape[1:]))
     zap_map = _zap_map(files, tload)
     rows = [(f, isub) for f in files for isub in range(2)]
     zapped = [(j, c) for j, (f, isub) in enumerate(rows)
               for c in zap_map[f][isub]]
     assert zapped
-    live = (w != 0).any(dim=-1)
+    live = (w[:4] != 0).any(dim=-1)
     assert int(live.sum()) == 4 * 32 - len(zapped)
     for j, c in zapped:
         assert not live[j, c] and S0[j, c] == 0.0
@@ -766,6 +768,19 @@ HOOKS = {
     "PPT_TRANSPORT_COMPRESS": ("auto", "transport_compress", "maybe"),
     # any string is a trace path: 'off' is the value that turns it off
     "PPT_TELEMETRY": ("t.jsonl", "telemetry_path", "off"),
+    "PPT_QUALITY_REFIT": ("on", "quality_refit", "maybe"),
+    "PPT_QUALITY_MAX_GOF": ("2.5", "quality_max_gof", "0"),
+    "PPT_QUALITY_MIN_SNR": ("8", "quality_min_snr", "-1"),
+    "PPT_SERVE_MAX_WAIT_MS": ("125.5", "serve_max_wait_ms", "-1"),
+    "PPT_SERVE_QUEUE_DEPTH": ("9", "serve_queue_depth", "0"),
+    "PPT_SERVE_TENANT_QUOTA": ("a:4,*:8", "serve_tenant_quota", "a:0"),
+    "PPT_SERVE_TENANT_WEIGHT": ("a:4,b:1", "serve_tenant_weight", "3"),
+    "PPT_RESULT_CACHE": ("on", "result_cache", "maybe"),
+    # any string is a directory: 'off' is the value that turns it off
+    "PPT_CACHE_DIR": ("cache", "cache_dir", "off"),
+    "PPT_CACHE_MAX_MB": ("64", "cache_max_mb", "0"),
+    "PPT_METRICS": ("off", "metrics", "maybe"),
+    "PPT_SLO_TARGETS": ("interactive:0.5,*:5", "slo_targets", "a:b"),
 }
 
 # Loads both packages' config.py by path (neither package's __init__, so
@@ -819,8 +834,8 @@ def test_env_hook(name):
     assert vt != default, (name, vt)
     ej, et = out["errors"]
     assert et == ej
-    if name == "PPT_TELEMETRY":
-        # no value of it is invalid; 'off' disables in both packages
+    if name in ("PPT_TELEMETRY", "PPT_CACHE_DIR"):
+        # no value of either is invalid; 'off' disables in both packages
         assert ej is None
     else:
         assert ej is not None
@@ -830,12 +845,12 @@ def test_env_unported_and_unknown_warn():
     """A JAX-package hook whose knob the port lacks warns with its
     ROADMAP item; a typo warns with the closest known name; both once."""
     out, err = _probe("PPT_ZAP_NSTD", "3", "zap_nstd", "2",
-                      {"PPT_RESULT_CACHE": "on",
+                      {"PPT_ROUTER_HOSTS": "h1:1,h2:2",
                        "PPT_NCHAN": "64",
                        "PPT_ZAP_NSTDS": "2"})
     port = [ln for ln in err.splitlines()
             if ln.startswith("pulseportraiture_tpu_torch.config")]
-    assert any("PPT_RESULT_CACHE" in ln and "A13" in ln for ln in port)
+    assert any("PPT_ROUTER_HOSTS" in ln and "A13" in ln for ln in port)
     assert any("PPT_NCHAN" in ln and "A5" in ln for ln in port)
     assert any("PPT_ZAP_NSTDS" in ln and "did you mean PPT_ZAP_NSTD" in ln
                for ln in port)

@@ -440,7 +440,8 @@ def test_stream_tim_parity_spl(forged_spl, fused_config):
                                       tim_out=got, device="cpu")
     finally:
         mp.undo()
-    assert calls == [("p2", 2)]
+    # one 2-bit bucket of 2 subints, padded to nsub_batch
+    assert calls == [("p2", 4)]
     assert len(res.TOA_list) == 4
     _assert_tim_parity(_tim_lines(ref, root / "jax_lines.tim"),
                        _tim_lines(got, root / "torch_lines.tim"))

@@ -138,9 +138,9 @@ def test_stream_tim_parity_with_jax(forged, stream_config, monkeypatch):
     calls = _spy_b2(monkeypatch)
     res = TS.stream_wideband_TOAs(meta, tmpl, nsub_batch=4, quiet=True,
                                   tim_out=got, device="cpu")
-    # one call per packed bucket, none for i16; a partial bucket
-    # dispatches its own subints, unpadded
-    assert sorted(calls) == [("p1", _NSUB), ("p2", _NSUB), ("p4", _NSUB)]
+    # one call per packed bucket, none for i16; a partial bucket pads to
+    # nsub_batch rows, as in the JAX package
+    assert sorted(calls) == [("p1", 4), ("p2", 4), ("p4", 4)]
     assert res.nfit == 4 and len(res.TOA_list) == 4 * _NSUB
     assert res.dispatch_shapes == {
         f"{_NCHAN}x{_NBIN}:raw:{c}:11000": 1 for c in _CODES.values()}
@@ -433,6 +433,8 @@ class TestRefusals:
 
     def test_narrowband_and_service_mode(self, campaign, stream_config,
                                          tmp_path):
+        """The narrowband zap options against the JAX driver, and the
+        executor's service mode against the JAX executor's."""
         from pulseportraiture_tpu.pipeline import stream as JS
         from test_torch_toas import NB_DERIVED
 
@@ -448,17 +450,55 @@ class TestRefusals:
                 _tim_lines(ref, tmp_path / f"jax{i}_lines.tim"),
                 _tim_lines(got, tmp_path / f"torch{i}_lines.tim"),
                 derived=NB_DERIVED)
-        lane, loader = TS.make_wideband_lane(gmodel, device="cpu")
-        with pytest.raises(NotImplementedError, match="A13"):
-            TS._StreamExecutor(lane, files, loader, 4,
-                               stream_devices=["cpu"], service=True)
-        ex = TS._StreamExecutor(lane, files, loader, 4,
-                                stream_devices=["cpu"])
-        with pytest.raises(NotImplementedError, match="A13"):
-            ex.flush_stale(1.0)
-        with pytest.raises(NotImplementedError, match="A13"):
-            ex.on_archive_done = print
-        ex._shutdown(wait=True)
+        # the executor's service mode (ported): the same archives fed
+        # one by one through admit(lane=) with the owner hooks, a
+        # deadline flush after the first, then flush_all/drain_all; the
+        # hooks see what the JAX executor's see
+        from pulseportraiture_tpu.io.tim import write_TOAs as jwrite
+        from pulseportraiture_tpu_torch.io.tim import write_TOAs as twrite
+
+        seen = {}
+        for tag, mod, kw in (("jax", JS, {"stream_devices": 1}),
+                             ("torch", TS, {"stream_devices": ["cpu"]})):
+            lane, loader = mod.make_wideband_lane(
+                gmodel, nsub_batch=4, quiet=True,
+                **({"device": "cpu"} if mod is TS else {}))
+            ex = mod._StreamExecutor(None, [], None, 4, quiet=True,
+                                     service=True, **kw)
+            launches, done = [], []
+            ex.on_launch = lambda seq, owners, pad: launches.append(
+                (list(owners), pad))
+
+            def on_done(ia, m, out, ex=ex, done=done):
+                done.append((ia, m.datafile, out))
+                ex.forget(ia)
+
+            ex.on_archive_done = on_done
+            assert ex.oldest_bucket_age() is None
+            for ia, f in enumerate(files):
+                d = loader(f)
+                assert ex.admit(ia, f, d, np.asarray(d.ok_isubs, int),
+                                lane=lane) == d.nsub
+                if ia == 0:
+                    assert ex.oldest_bucket_age() >= 0.0
+                    assert ex.flush_stale(0.0) == 1
+                    assert ex.oldest_bucket_age() is None
+            ex.flush_all()
+            ex.drain_all()
+            ex._shutdown(wait=True)
+            # nothing per archive is kept once the owner forgot it
+            assert not ex.meta and not ex._ckpt_order
+            assert not ex.meta_by_iarch and not ex.assembled
+            tim = str(tmp_path / f"svc_{tag}.tim")
+            open(tim, "w").close()
+            for _, _, out in sorted(done, key=lambda r: r[0]):
+                (jwrite if mod is JS else twrite)(out[0], outfile=tim,
+                                                  append=True)
+            seen[tag] = (launches, [(ia, f) for ia, f, _ in done], tim)
+        (lj, dj, tj), (lt, dt, tt) = seen["jax"], seen["torch"]
+        assert lt == lj and dt == dj
+        assert [pad for _, pad in lt] == [1, 1, 1]
+        _assert_tim_parity(tj, tt)
 
     def test_cli_transport_compress(self, campaign, tmp_path, monkeypatch):
         """--transport-compress (ROADMAP A7, ported) runs with --stream
