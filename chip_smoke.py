@@ -192,7 +192,34 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    the first mixed bucket and B1 on R3's padded bucket; the served and
    one-shot warm TOAs/s, request latencies, the first dispatch's cost
    per shape with and without the warm-up, bytes to the card, the idle
-   share and the host memory per pass.
+   share and the host memory per pass;
+18. router path: phase 17's three requests routed across a fleet of two
+   warm servers on the card: ``pproute -r requests.jsonl -H a,b
+   --telemetry`` over two in-process hosts behind TransportServers
+   (traced, the counters set to 0 just before it), the codec lane
+   (``--no-shared-fs --transport-compress on``), a failover (host A
+   behind a KillableTransport, killed after its first placement),
+   hedging (hedge_ms at half of round 1's p50), then two ``ppserve
+   --listen 127.0.0.1:0 --warmup-manifest`` processes routed by
+   ``pproute -H`` and by a router whose first host is killed by
+   SIGKILL; every routed .tim byte-identical to its one-shot with no
+   duplicated line, every TOA within 1e-4 rot of the injection, return
+   codes in {0, 1, 2}, both hosts placed in round 1, route_failover in
+   the failover rounds with every request resolved on the survivor,
+   route_hedge in the hedging round, B2 on the 2-bit buckets and B1 on
+   the int16 one through their FFT arms only (each held to its plain
+   version on a round 1 bucket; the kernels line counts the in-process
+   rounds' launches only), no replica left running;
+   stream_ipta_campaign(router=) on phase 15's pulsars A and B equal to
+   the server= run; ``ppfactory --result-cache on`` twice on two of
+   phase 15's averages, the second run served 2/2 from the cache with
+   the same bytes.  Printed: each host's share, the routed p50/p99, the
+   routed TOAs/s beside phase 17's served and one-shot ones (two
+   processes on one card measure how far their host work overlaps, not
+   scale-out), the router's overhead per request, the result frames'
+   bytes plain and zlib, the failover walls, hedges launched and won,
+   each replica's start and warm-up wall and GPU memory, the factory
+   cache's miss and hit walls.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -3604,6 +3631,7 @@ def phase_pta(device="cuda", nchan=NCHAN, nbin=NBIN, nsub=PTA_NSUB,
     check_pad_systems(device)
     batch_width_probe(device)
     ctx = dict(tmpl=tmpl, models=models, meta={"A": metaA, "B": metaB},
+               averages=files,
                ddms={"A": ddmA, "B": ddmB},
                par={n: os.path.join(WORK, f"pta-{n}.par") for n in "AB"},
                true_par={"A": PAR, "B": PAR_B}, tim_A=tims["A"])
@@ -4130,7 +4158,10 @@ def phase_serve(device="cuda", nsub=NSUB, narch=NARCH,
     Prints the first dispatch's cost per shape in rounds 1 and 3 (cold)
     and after the warm-ups against round 2's warm pass, the warm-ups'
     wall per shape, and this process's host memory after each pass.
-    Returns round 1's kernel launches."""
+    Returns round 1's kernel launches and what phase 18 reuses: the
+    requests, their one-shot references, the request file, round 1's
+    trace (the warm-up manifest), and the served and one-shot warm
+    TOAs/s."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4341,7 +4372,533 @@ def phase_serve(device="cuda", nsub=NSUB, narch=NARCH,
             f"{first(d2, lambda d: d[5][0].endswith('-1'))}; round 2 "
             f"warm pass average {np.mean([d[3] for d in warm]):.4f} + "
             f"{np.mean([d[4] for d in warm]):.4f} s over {len(warm)}")
-    return launches
+    ctx = dict(reqs=reqs, one=one, rq=rq, t1=t1, gmodel=gmodel, ntoa=ntoa,
+               nsub_batch=nsub_batch, max_wait_ms=max_wait_ms,
+               served_tps=ntoa / walls[2],
+               one_tps=len(r_all.TOA_list) / one_s)
+    return launches, ctx
+
+
+def check_routed_tims(outdir, one, names=None):
+    """Every routed ``<name>.tim`` of ``outdir`` byte-identical to its
+    one-shot reference, with no duplicated line, and every TOA within
+    1e-4 rot of the injection; returns the largest |dphi|."""
+    worst = 0.0
+    for name in (names or one):
+        path = os.path.join(outdir, f"{name}.tim")
+        with open(path, "rb") as a, open(one[name], "rb") as b:
+            got = a.read()
+            if got != b.read():
+                raise AssertionError(f"routed {path} differs from the "
+                                     f"one-shot {one[name]}")
+        lines = [ln for ln in got.decode().splitlines() if ln.strip()]
+        if len(lines) != len(set(lines)):
+            raise AssertionError(f"{path}: a duplicated line")
+        w, _ = served_phase_recovery(path)
+        if not w < 1e-4:
+            raise AssertionError(f"{path}: |dphi| = {w:.3e} rot")
+        worst = max(worst, w)
+    return worst
+
+
+def route_report(trace):
+    """(summary, the router section's latency line) of a router trace."""
+    from pulseportraiture_tpu_torch.telemetry import report, validate_trace
+
+    validate_trace(trace)
+    buf = io.StringIO()
+    summary = report(trace, file=buf)
+    lat = next((ln.strip() for ln in buf.getvalue().splitlines()
+                if "routed latency" in ln), "no routed latency line")
+    return summary, lat
+
+
+def route_events(trace, typ):
+    from pulseportraiture_tpu_torch.telemetry import load_trace
+
+    return [e for e in load_trace(trace)[1] if e["type"] == typ]
+
+
+def wait_idle(servers, timeout=300.0):
+    """Wait until no request is live on any of ``servers`` (a failover's
+    zombie attempt or a hedge's loser finishing)."""
+    t_end = time.monotonic() + timeout
+    while any(s.stats()["n_live"] for s in servers):
+        if time.monotonic() > t_end:
+            raise AssertionError("a server stayed busy after its round")
+        time.sleep(0.05)
+
+
+def check_failover(trace, survivor, label):
+    """A failover round's gates: at least one route_failover, every
+    request resolved without error on the survivor (or collected from
+    its durable .tim); returns the failover events."""
+    fo = route_events(trace, "route_failover")
+    done = route_events(trace, "route_done")
+    bad = [e for e in done if e["error"] or e["host"] not in (
+        survivor, None) or (e["host"] is None
+                            and e.get("failover") != "collected")]
+    if not fo or bad:
+        raise AssertionError(f"{label}: {len(fo)} route_failover events, "
+                             f"unresolved on the survivor: {bad}")
+    return fo
+
+
+def read_listen_line(proc, timeout):
+    """The ``ppserve: listening on HOST:PORT`` line of a replica, or
+    raise when it does not come within ``timeout`` seconds."""
+    import select
+
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        ready, _, _ = select.select([proc.stdout], [], [], 0.5)
+        if ready:
+            line = proc.stdout.readline()
+            if line.startswith("ppserve: listening on "):
+                return line.split()[3]
+            if not line and proc.poll() is not None:
+                break
+    raise AssertionError(f"replica {proc.pid} printed no listening line "
+                         f"(exit {proc.poll()})")
+
+
+def gpu_memory_by_pid(pids):
+    """{pid: 'used_memory'} from nvidia-smi --query-compute-apps (pids
+    the card reports; a container's pid namespace may hide them)."""
+    try:
+        r = subprocess.run(["nvidia-smi",
+                            "--query-compute-apps=pid,used_memory",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+    except OSError:
+        return {}
+    out = {}
+    for ln in r.stdout.splitlines():
+        parts = [x.strip() for x in ln.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and int(parts[0]) in pids:
+            out[int(parts[0])] = parts[1]
+    return out
+
+
+def phase_router(sctx, pctx, device="cuda", replica_prelude=None,
+                 replica_timeout=300.0):
+    """The router path (phase 18), on phase 17's requests (R1, R2 2-bit,
+    R3 int16), one-shot references, request file and trace (the warm-up
+    manifest), and phase 15's pulsars A and B with their factory
+    templates and two of its averages.
+    1. round 1: two library ToaServers on the card (phase 17's
+       nsub_batch and deadline, warmed from its trace), each behind a
+       TransportServer on 127.0.0.1:0, and ``pproute -r requests.jsonl
+       -H a,b --telemetry`` in this process, the counters set to 0 just
+       before it: requests on both hosts, B2 on the 2-bit buckets and
+       B1 on the int16 one through their FFT arms only, each held to its
+       plain version on one routed bucket;
+    2. round 2, the codec lane: ``pproute --no-shared-fs
+       --transport-compress on``: the router writes every .tim; the
+       result frames' bytes, plain and zlib;
+    3. round 3, failover in process: host A behind a KillableTransport,
+       killed once its first request is placed; every request resolves
+       on B (route_failover);
+    4. round 4, hedging: hedge_ms at half of round 1's p50 (route_hedge);
+    5. round 5, a fleet of processes: two ``python -m
+       pulseportraiture_tpu_torch.cli.ppserve --listen 127.0.0.1:0
+       --warmup-manifest`` replicas on the card, ``pproute -H`` over
+       them, then a library router over them with the replica that took
+       the first request killed by SIGKILL; every request resolves on
+       the survivor; the survivor stopped by SIGTERM (drain, exit 0), and
+       no replica left running;
+    6. stream_ipta_campaign(router=) over round 1's fleet on pulsars A
+       and B against a server= campaign on the same jobs: per-pulsar
+       .tim equal; ``ppfactory --result-cache on`` twice on two
+       averages: the second run serves 2/2 from the cache, the same
+       bytes.
+    Every routed .tim of rounds 1-5 is byte-identical to its one-shot
+    reference with no duplicated line, every TOA within 1e-4 rot of the
+    injection; the return codes of the in-process rounds in {0, 1, 2}.
+    replica_prelude: Python run in each replica before the CLI (the CPU
+    rehearsal forces the card's routes there).  Returns the B1 and B2
+    launches of rounds 1-4 (the in-process rounds; the replicas'
+    launches are their own processes')."""
+    import signal
+
+    import numpy as np
+    import torch
+    from pulseportraiture_tpu_torch import config as cfg
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline.ipta import (IPTAJob,
+                                                          stream_ipta_campaign)
+    from pulseportraiture_tpu_torch.serve import (InProcTransport,
+                                                  KillableTransport,
+                                                  SocketTransport,
+                                                  ToaRouter, ToaServer,
+                                                  TransportServer)
+    from pulseportraiture_tpu_torch.serve import transport as TTR
+    from pulseportraiture_tpu_torch.telemetry import load_trace
+
+    cuda = device_type(device) == "cuda"
+    reqs, one, rq, t1 = sctx["reqs"], sctx["one"], sctx["rq"], sctx["t1"]
+    gmodel, ntoa = sctx["gmodel"], sctx["ntoa"]
+    nb, wait_ms = sctx["nsub_batch"], sctx["max_wait_ms"]
+    names = [n for n, _ in reqs]
+    rdir = os.path.join(WORK, "router")
+    shutil.rmtree(rdir, ignore_errors=True)
+    os.makedirs(rdir)
+    kernels = ("fused_decode_cross_spectrum", "fused_cross_spectrum")
+    totals = {k: 0 for k in kernels}
+
+    def count(launches, label):
+        if cuda:
+            fft_only(launches, kernels, f"the router path ({label})")
+        for k in kernels:
+            totals[k] += launches[k]
+
+    # the two in-process hosts, warmed from phase 17's trace
+    t0 = time.perf_counter()
+    straces = [os.path.join(rdir, f"s{i}.jsonl") for i in range(2)]
+    servers = [ToaServer(nsub_batch=nb, max_wait_ms=wait_ms, telemetry=tr,
+                         warmup_manifest=t1, warmup_model=gmodel,
+                         device=device).start() for tr in straces]
+    listeners = [TransportServer(s, host="127.0.0.1", port=0).start()
+                 for s in servers]
+    hosts = [ls.label for ls in listeners]
+    log(f"router path: 2 warm in-process hosts {hosts} up in "
+        f"{time.perf_counter() - t0:.3f} s")
+    procs = []
+    try:
+        # 1. round 1: pproute over sockets, traced
+        r1 = os.path.join(rdir, "r1.jsonl")
+        rcs = []
+        with collect_return_codes(rcs), \
+                capture_calls("fused_decode_cross_spectrum") as b2, \
+                capture_calls("fused_cross_spectrum") as b1:
+            w1, launches, _ = run_tool("pproute", [
+                "-r", rq, "-O", os.path.join(rdir, "r1"), "-H",
+                ",".join(hosts), "--telemetry", r1, "--quiet", "--device",
+                device], "pproute (round 1)")
+        worst = check_routed_tims(os.path.join(rdir, "r1"), one)
+        if len(rcs) != ntoa or not np.all(np.isin(rcs, (0, 1, 2))):
+            raise AssertionError(f"router path: {len(rcs)} return codes for "
+                                 f"{ntoa} TOAs, values {sorted(set(rcs))}")
+        s1, lat1 = route_report(r1)
+        subs = route_events(r1, "route_submit")
+        placed = {}
+        for e in subs:
+            d = placed.setdefault(e["host"], [0, 0, []])
+            d[0] += 1
+            d[1] += e["n_archives"]
+            d[2].append(e["req"])
+        walls = {e["req"]: e["wall_s"] for e in route_events(r1, "route_done")}
+        host_wall = {}
+        for tr in straces:
+            for e in load_trace(tr)[1]:
+                if e["type"] == "request_done" and e["req"] in walls:
+                    host_wall.setdefault(e["req"], e["wall_s"])
+        over = [walls[n] - host_wall[n] for n in names]
+        p50 = float(np.percentile(list(walls.values()), 50))
+        log(f"router path (round 1, pproute -H over 2 in-process hosts, "
+            f"traced): {len(subs)} requests, {ntoa} TOAs in {w1:.3f} s = "
+            f"{ntoa / w1:.1f} routed TOAs/s (phase 17 on these archives: "
+            f"served {sctx['served_tps']:.1f}, one-shot warm "
+            f"{sctx['one_tps']:.1f} TOAs/s; two processes' loads overlap on "
+            f"one card, not a scale-out figure); host shares (requests, "
+            f"archives, names) {placed}; {lat1}; router overhead (route_done "
+            f"wall - the host's request_done wall) {[round(x, 4) for x in over]}"
+            f" s; max |dphi| {worst:.3e} rot; kernel launches {launches}")
+        if len(placed) != 2:
+            raise AssertionError(f"router path: round 1 placed on "
+                                 f"{sorted(placed)} only")
+        count(launches, "round 1")
+        if cuda:
+            p2 = [c for c in b2 if c[1].get("code") == "p2"]
+            (raw, scl, offs, model, w, K), kw = p2[0]
+            check_decode_case(dict(
+                name=f"router round 1 bucket {tuple(raw.shape)} K={K}",
+                raw=raw, scl=scl, offs=offs, model=model, w=w, K=K,
+                code=kw["code"], nbin=kw["nbin"], fold=kw.get("fold"),
+                arm=None))
+            (port, model, w, K), kw = b1[0][0][:4], b1[0][1]
+            check_cross_spectrum_case(dict(
+                name=f"router round 1 int16 bucket {tuple(port.shape)} "
+                     f"K={K}", port=port, model=model, w=w, K=K,
+                fold=kw.get("fold"), want_m2=kw.get("want_m2", False),
+                arm=None))
+        del b1[:], b2[:]
+        wait_idle(servers)
+
+        # 2. round 2: the codec lane, frames compressed
+        frames = []
+        orig_send = TTR._send_frame
+
+        def spy(sock, obj):
+            if isinstance(obj, dict) and "result" in obj:
+                import zlib
+
+                body = json.dumps(obj, separators=(",", ":")).encode()
+                frames.append((len(obj["result"]["order"]), len(body),
+                               len(zlib.compress(body, 1))))
+            return orig_send(sock, obj)
+
+        saved = cfg.transport_compress
+        TTR._send_frame = spy
+        try:
+            w2, launches, _ = run_tool("pproute", [
+                "-r", rq, "-O", os.path.join(rdir, "r2"), "-H",
+                ",".join(hosts), "--no-shared-fs", "--transport-compress",
+                "on", "--quiet", "--device", device], "pproute (round 2)")
+        finally:
+            TTR._send_frame = orig_send
+            cfg.transport_compress = saved
+        check_routed_tims(os.path.join(rdir, "r2"), one)
+        log(f"router path (round 2, pproute --no-shared-fs "
+            f"--transport-compress on): {w2:.3f} s; every .tim written by "
+            f"the router, byte-identical; result frames (archives, plain "
+            f"bytes, zlib bytes; zlib sent from {TTR.COMPRESS_MIN_FRAME} "
+            f"bytes) {frames}; kernel launches {launches}")
+        count(launches, "round 2")
+        wait_idle(servers)
+
+        # 3. round 3: failover in process
+        r3 = os.path.join(rdir, "r3.jsonl")
+        ka = KillableTransport(SocketTransport(hosts[0]))
+        router = ToaRouter([ka, SocketTransport(hosts[1])], telemetry=r3)
+        F.reset_kernel_launches()
+        out3 = os.path.join(rdir, "r3")
+        os.makedirs(out3)
+        try:
+            hs = [router.submit(reqs[0][1], gmodel, name=reqs[0][0],
+                                tim_out=os.path.join(out3,
+                                                     f"{reqs[0][0]}.tim"),
+                                print_phase=True)]
+            if hs[0].host.label != hosts[0]:
+                raise AssertionError(f"round 3: {reqs[0][0]} placed on "
+                                     f"{hs[0].host.label}, not host A")
+            t_kill = time.perf_counter()
+            ka.kill()
+            hs += [router.submit(fs, gmodel, name=name,
+                                 tim_out=os.path.join(out3, f"{name}.tim"),
+                                 print_phase=True) for name, fs in reqs[1:]]
+            for h in hs:
+                h.result(600)
+            w_fail = time.perf_counter() - t_kill
+        finally:
+            router.close()
+        wait_idle(servers)  # the killed attempt, a zombie, rewrites alike
+        sync(device)
+        launches = F.kernel_launches()
+        check_routed_tims(out3, one)
+        fo = check_failover(r3, hosts[1], "round 3")
+        log(f"router path (round 3, host A killed after its first "
+            f"placement): failover wall (kill -> last request resolved) "
+            f"{w_fail:.3f} s; failovers {[(e['req'], e['action']) for e in fo]}"
+            f"; every request resolved on {hosts[1]}, byte-identical; "
+            f"kernel launches {launches}")
+        count(launches, "round 3")
+
+        # 4. round 4: hedging below round 1's p50
+        r4 = os.path.join(rdir, "r4.jsonl")
+        hedge_ms = 0.5 * p50 * 1e3
+        router = ToaRouter([SocketTransport(h) for h in hosts],
+                           hedge_ms=hedge_ms, telemetry=r4)
+        F.reset_kernel_launches()
+        t0 = time.perf_counter()
+        out4 = os.path.join(rdir, "r4")
+        os.makedirs(out4)
+        try:
+            for h in [router.submit(fs, gmodel, name=name,
+                                    tim_out=os.path.join(out4, f"{name}.tim"),
+                                    print_phase=True) for name, fs in reqs]:
+                h.result(600)
+            w4 = time.perf_counter() - t0
+            t_end = time.monotonic() + 300
+            while router._orphans and time.monotonic() < t_end:
+                time.sleep(0.05)  # the losers reaped
+        finally:
+            router.close()
+        wait_idle(servers)
+        sync(device)
+        launches = F.kernel_launches()
+        check_routed_tims(out4, one)
+        hedges = route_events(r4, "route_hedge")
+        done = {e["req"]: e for e in route_events(r4, "route_done")}
+        won = [e["req"] for e in hedges if done[e["req"]]["host"] == e["host"]]
+        log(f"router path (round 4, hedge_ms {hedge_ms:.1f}): {w4:.3f} s; "
+            f"{len(hedges)} hedges launched, {len(won)} won by the hedge "
+            f"{won}; every .tim router-written, byte-identical; kernel "
+            f"launches {launches}")
+        if not hedges:
+            raise AssertionError("router path: round 4 launched no hedge")
+        count(launches, "round 4")
+
+        # 6a. the campaign over round 1's fleet against server=
+        jobs = [IPTAJob(n, pctx["meta"][n], pctx["tmpl"][i])
+                for i, n in enumerate(("A", "B"))]
+        router = ToaRouter([SocketTransport(h) for h in hosts])
+        t0 = time.perf_counter()
+        try:
+            res_r = stream_ipta_campaign(
+                jobs, outdir=os.path.join(rdir, "camp-router"), quiet=True,
+                router=router, device=device)
+            wr = time.perf_counter() - t0
+            camp_placed = {k: v["n_requests"]
+                           for k, v in router.stats().items()}
+        finally:
+            router.close()
+        t0 = time.perf_counter()
+        stream_ipta_campaign(jobs, outdir=os.path.join(rdir, "camp-server"),
+                             quiet=True, server=servers[0], device=device)
+        ws = time.perf_counter() - t0
+        for n in ("A", "B"):
+            a = os.path.join(rdir, "camp-router", f"{n}.tim")
+            with open(a, "rb") as fa, open(os.path.join(
+                    rdir, "camp-server", f"{n}.tim"), "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"campaign {n}: router= and "
+                                         "server= .tim differ")
+        log(f"router path (stream_ipta_campaign(router=) on A and B): "
+            f"{len(res_r.TOA_list)} TOAs in {wr:.3f} s (server= {ws:.3f} s),"
+            f" placed {camp_placed}; per-pulsar .tim equal to the server= "
+            "run's")
+    finally:
+        for ls in listeners:
+            ls.close()
+        for s in servers:
+            s.stop(drain=True)
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 5. round 5: a fleet of processes on the card
+    cmd = [sys.executable, "-m", "pulseportraiture_tpu_torch.cli.ppserve"]
+    if replica_prelude is not None:
+        cmd = [sys.executable, "-c", replica_prelude + "\n"
+               "import runpy, sys\nsys.argv = ['ppserve'] + sys.argv[1:]\n"
+               "runpy.run_module('pulseportraiture_tpu_torch.cli.ppserve',"
+               " run_name='__main__')"]
+    ptraces = [os.path.join(rdir, f"p{i}.jsonl") for i in range(2)]
+    try:
+        # one after the other, so that the card's free memory before and
+        # after each start is that replica's footprint
+        addrs, up, used = [], [], []
+        for i in range(2):
+            free0 = torch.cuda.mem_get_info()[0] if cuda else 0
+            err = open(os.path.join(rdir, f"p{i}.err"), "w")
+            t0 = time.perf_counter()
+            procs.append(subprocess.Popen(
+                cmd + ["--listen", "127.0.0.1:0", "--warmup-manifest", t1,
+                       "--warmup-model", gmodel, "--nsub-batch", str(nb),
+                       "--max-wait-ms", str(wait_ms), "--telemetry",
+                       ptraces[i], "--device", device, "--quiet"], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=err, text=True))
+            err.close()
+            addrs.append(read_listen_line(procs[-1], replica_timeout))
+            up.append(time.perf_counter() - t0)
+            used.append(free0 - torch.cuda.mem_get_info()[0] if cuda else 0)
+        mem = gpu_memory_by_pid({p.pid for p in procs})
+        log(f"router path (round 5): replicas {addrs} (pids "
+            f"{[p.pid for p in procs]}) listening {[round(x, 3) for x in up]}"
+            f" s after their start, warm-ups included; card memory taken by "
+            f"each (free memory before - after its start) "
+            f"{[round(u / 2 ** 30, 3) for u in used]} GiB; nvidia-smi by pid "
+            f"{mem or 'reports none of these pids'}")
+        r5 = os.path.join(rdir, "r5.jsonl")
+        w5, _, _ = run_tool("pproute", [
+            "-r", rq, "-O", os.path.join(rdir, "r5"), "-H", ",".join(addrs),
+            "--telemetry", r5, "--quiet", "--device", device],
+            "pproute (round 5)")
+        check_routed_tims(os.path.join(rdir, "r5"), one)
+        s5, lat5 = route_report(r5)
+        log(f"router path (round 5, pproute -H over 2 replica processes): "
+            f"{ntoa} TOAs in {w5:.3f} s = {ntoa / w5:.1f} routed TOAs/s; "
+            f"archives by host {s5['router_host_counts']}; {lat5}")
+        # the kill: SIGKILL the replica that took the first request
+        r5k = os.path.join(rdir, "r5k.jsonl")
+        out5 = os.path.join(rdir, "r5k")
+        os.makedirs(out5)
+        router = ToaRouter(list(addrs), telemetry=r5k)
+        try:
+            hs = [router.submit(reqs[0][1], gmodel, name=reqs[0][0],
+                                tim_out=os.path.join(out5,
+                                                     f"{reqs[0][0]}.tim"),
+                                print_phase=True)]
+            victim = addrs.index(hs[0].host.label)
+            t_kill = time.perf_counter()
+            os.kill(procs[victim].pid, signal.SIGKILL)
+            procs[victim].wait(60)
+            hs += [router.submit(fs, gmodel, name=name,
+                                 tim_out=os.path.join(out5, f"{name}.tim"),
+                                 print_phase=True) for name, fs in reqs[1:]]
+            for h in hs:
+                h.result(600)
+            w_fail5 = time.perf_counter() - t_kill
+            states = {k: v["state"] for k, v in router.stats().items()}
+        finally:
+            router.close()
+        survivor = addrs[1 - victim]
+        check_routed_tims(out5, one)
+        fo5 = check_failover(r5k, survivor, "round 5")
+        procs[1 - victim].send_signal(signal.SIGTERM)
+        rc_surv = procs[1 - victim].wait(120)
+        warm = {}
+        for i, tr in enumerate(ptraces):
+            try:
+                warm[addrs[i]] = [(e["shape"], e["compile_s"])
+                                  for e in load_trace(tr)[1]
+                                  if e["type"] == "warmup_compile"]
+            except (OSError, ValueError) as e:  # the killed one's tail
+                warm[addrs[i]] = f"trace unreadable ({e})"
+
+        log(f"router path (round 5, replica {addrs[victim]} SIGKILLed after "
+            f"its first placement): failover wall {w_fail5:.3f} s; failovers "
+            f"{[(e['req'], e['action']) for e in fo5]}; states {states}; "
+            f"every request resolved on {survivor}, byte-identical; the "
+            f"survivor drained and exited {rc_surv} on SIGTERM; warm-ups "
+            f"(shape, s) {warm}")
+        if rc_surv != 0:
+            raise AssertionError(f"replica {survivor} exited {rc_surv}")
+    finally:
+        left = [p for p in procs if p.poll() is None]
+        for p in left:
+            p.kill()
+            p.wait(30)
+        for p in procs:
+            if p.stdout is not None:
+                p.stdout.close()
+    if left:
+        raise AssertionError(f"router path: {len(left)} replica process(es) "
+                             "were still running at the end")
+    log(f"router path: no replica left running ({len(procs)} started)")
+
+    # 6b. the factory's result cache
+    meta = os.path.join(rdir, "factory.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join(pctx["averages"][:2]) + "\n")
+    saved = (cfg.result_cache, cfg.cache_dir, cfg.cache_max_mb)
+    fwalls, served = [], []
+    try:
+        for run in (1, 2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                w, _, _ = run_tool("ppfactory", [
+                    "-M", meta, "-O", os.path.join(rdir, f"factory{run}"),
+                    "--max-ngauss", "2", "--niter", "0", "--result-cache",
+                    "on", "--cache-dir", os.path.join(rdir, "store"),
+                    "--device", device, "--verbose"], f"ppfactory (run {run})")
+            fwalls.append(w)
+            served.append(next(ln for ln in buf.getvalue().splitlines()
+                               if "served from the result cache" in ln))
+    finally:
+        cfg.result_cache, cfg.cache_dir, cfg.cache_max_mb = saved
+    for f in pctx["averages"][:2]:
+        b = os.path.basename(f) + ".gmodel"
+        with open(os.path.join(rdir, "factory1", b), "rb") as fa, \
+                open(os.path.join(rdir, "factory2", b), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"ppfactory cache: {b} differs")
+    log(f"router path (ppfactory --result-cache on, 2 averages): miss "
+        f"{fwalls[0]:.3f} s ({served[0]}), hit {fwalls[1]:.3f} s "
+        f"({served[1]}); the same bytes")
+    if "2/2" not in served[1]:
+        raise AssertionError(f"ppfactory cache: {served[1]}")
+    return totals
 
 
 def fft_only(launches, kernels, path):
@@ -4439,8 +4996,11 @@ def main():
     camp = phase_campaign(pta_ctx)
     log(f"phase campaign path: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
-    serve = phase_serve()
+    serve, serve_ctx = phase_serve()
     log(f"phase serve path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    router = phase_router(serve_ctx, pta_ctx)
+    log(f"phase router path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -4472,7 +5032,8 @@ def main():
             "pta": pta_a["fused_cross_spectrum"]
             + pta_b["fused_cross_spectrum"],
             "campaign": camp["fused_cross_spectrum"],
-            "serve": serve["fused_cross_spectrum"]},
+            "serve": serve["fused_cross_spectrum"],
+            "router": router["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {
@@ -4502,7 +5063,8 @@ def main():
             "pta": pta_a["fused_decode_cross_spectrum"]
             + pta_b["fused_decode_cross_spectrum"],
             "campaign": camp["fused_decode_cross_spectrum"],
-            "serve": serve["fused_decode_cross_spectrum"]},
+            "serve": serve["fused_decode_cross_spectrum"],
+            "router": router["fused_decode_cross_spectrum"]},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

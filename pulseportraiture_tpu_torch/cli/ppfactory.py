@@ -13,22 +13,24 @@ metafile mode — multi-receiver fits keep ppgauss).
 
 Flag parity with the JAX CLI plus --device.  --telemetry writes the
 factory's template_fit/template_job/factory_end events to a JSONL trace.
-The result cache flags (--result-cache, --cache-dir, --cache-max-mb)
-parse; a value that would turn the cache on exits: the cache
-(serve/cache.py) is ported, its artifact store for built templates is
-not (ROADMAP A13.3).
+With the result cache on (--result-cache on|auto with --cache-dir, or
+config.result_cache / cache_dir), each archive's built .gmodel/.spl is
+stored in serve/cache's content-addressed store under
+content_key([archive], the factory option vector), the JAX ppfactory's
+key: a hit writes the stored bytes (temp file, then os.replace) and
+skips that archive's build.  A blob either package stored serves the
+other.
 """
 
 import argparse
 import os
 import sys
 
-from .ppserve import add_cache_flags
+from .ppserve import add_cache_flags, apply_cache_flags
 
 GAUSS_DEVICE_CHOICES = ("off", "auto", "on")
 _GAUSS_DEVICE_TABLE = {"off": False, "auto": "auto", "on": True}
 LM_JACOBIAN_CHOICES = ("auto", "analytic", "ad")
-_RESULT_CACHE_TABLE = {"off": False, "auto": "auto", "on": True}
 
 
 def parse_gauss_device(value):
@@ -64,37 +66,6 @@ def apply_lm_jacobian(value):
 
     config.lm_jacobian = parse_lm_jacobian(value)
     return config.lm_jacobian
-
-
-def refuse_cache(args, prog):
-    """Validate the cache flags as the JAX package does, and exit naming
-    ROADMAP A13.3 when they (or config.result_cache / cache_dir) would
-    turn the cache on.
-
-    serve/cache.resolve_result_cache returns no cache for 'off', and for
-    'auto' (the default) when no cache directory is configured; so at
-    the defaults the JAX ppfactory builds every template with no cache,
-    which is what the port does."""
-    from .. import config
-
-    mode = config.result_cache
-    if args.result_cache is not None:
-        v = str(args.result_cache).lower()
-        if v not in _RESULT_CACHE_TABLE:
-            raise SystemExit(
-                f"{prog}: --result-cache: expected 'off', 'auto' or "
-                f"'on', got {args.result_cache!r}")
-        mode = _RESULT_CACHE_TABLE[v]
-    if args.cache_max_mb is not None and args.cache_max_mb <= 0:
-        raise SystemExit(f"{prog}: --cache-max-mb: must be > 0, got "
-                         f"{args.cache_max_mb}")
-    cache_dir = args.cache_dir or config.cache_dir
-    if mode is True or (mode == "auto" and cache_dir):
-        raise SystemExit(
-            f"{prog}: the result cache's store for built templates (the "
-            "JAX ppfactory's .gmodel/.spl blobs through serve/cache) is "
-            "not ported yet (ROADMAP A13.3); leave --result-cache and "
-            "--cache-dir unset or pass --result-cache off")
 
 
 def build_parser():
@@ -158,7 +129,6 @@ def main(argv=None):
                          f"{args.max_ngauss}")
     if args.niter < 0:
         raise SystemExit(f"--niter must be >= 0, got {args.niter}")
-    refuse_cache(args, "ppfactory")
     if not os.path.exists(args.metafile):
         raise SystemExit(f"ppfactory: metafile not found: "
                          f"{args.metafile}")
@@ -171,17 +141,66 @@ def main(argv=None):
     from ..device import resolve_device
     from ..pipeline.factory import build_templates
     from ..pipeline.portrait import reset_template_stats
+    from ..serve.cache import content_key, resolve_result_cache
 
     dev = resolve_device(args.device)
-    reset_template_stats()
-    build_templates(
-        files, kind=args.kind, outdir=args.outdir,
-        max_ngauss=args.max_ngauss, niter=args.niter,
+    apply_cache_flags(args, "ppfactory")
+    cache = resolve_result_cache()
+    # the JAX ppfactory's option vector, field for field: any flag
+    # change is a new key
+    factory_opts = dict(
+        kind=args.kind, max_ngauss=args.max_ngauss, niter=args.niter,
         model_code=args.model_code, fixloc=args.fixloc,
         fixwid=args.fixwid, fixamp=args.fixamp, fixscat=args.fixscat,
         fixalpha=args.fixalpha, normalize=args.normalize,
-        gauss_device=gauss_device, telemetry=args.telemetry,
-        quiet=args.quiet, device=dev)
+        gauss_device=gauss_device)
+    ext = ".gmodel" if args.kind == "gauss" else ".spl"
+
+    def outfile_for(f):
+        # build_templates' own derivation
+        if args.outdir:
+            return os.path.join(args.outdir, os.path.basename(f) + ext)
+        return f + ext
+
+    build, keys, n_hits = list(files), {}, 0
+    if cache is not None:
+        if args.outdir:
+            os.makedirs(args.outdir, exist_ok=True)
+        build = []
+        for f in files:
+            try:
+                keys[f] = content_key([f], factory_opts)
+            except OSError:
+                keys[f] = None  # unreadable: the build reports it
+            blob = cache.get_blob(keys[f]) if keys[f] else None
+            if blob is None:
+                build.append(f)
+                continue
+            out = outfile_for(f)
+            tmp = out + ".tmp~"
+            with open(tmp, "wb") as fh:
+                fh.write(blob)
+            os.replace(tmp, out)
+            n_hits += 1
+    reset_template_stats()
+    if build:
+        build_templates(
+            build, kind=args.kind, outdir=args.outdir,
+            max_ngauss=args.max_ngauss, niter=args.niter,
+            model_code=args.model_code, fixloc=args.fixloc,
+            fixwid=args.fixwid, fixamp=args.fixamp, fixscat=args.fixscat,
+            fixalpha=args.fixalpha, normalize=args.normalize,
+            gauss_device=gauss_device, telemetry=args.telemetry,
+            quiet=args.quiet, device=dev)
+    if cache is not None:
+        for f in build:
+            out = outfile_for(f)
+            if keys.get(f) and os.path.exists(out):
+                with open(out, "rb") as fh:
+                    cache.put_blob(keys[f], fh.read())
+        if not args.quiet:
+            print(f"ppfactory: {n_hits}/{len(files)} template(s) "
+                  "served from the result cache")
     return 0
 
 

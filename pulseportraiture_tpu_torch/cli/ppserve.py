@@ -1,13 +1,15 @@
-"""ppserve: run the continuous-batching TOA server over a request set
-(counterpart of pulseportraiture_tpu/cli/ppserve.py, its -r mode).
+"""ppserve: run the continuous-batching TOA server over a request set,
+or serve remote clients as a fleet member (counterpart of
+pulseportraiture_tpu/cli/ppserve.py).
 
 The serving loop (serve/server.ToaServer) keeps ONE warm stream
 executor alive and coalesces compatible subints across requests into
-shared dispatches on the card; this CLI is its batch client: it reads a
-JSONL request file, submits every request at once through the bounded
-admission queue (retrying on backpressure), waits for all results, and
-writes one ``<name>.tim`` per request, each byte-identical to the
-one-shot ``pptoas --stream`` with the same ``--nsub-batch``.
+shared dispatches on the card.  In its batch mode (``-r``) this CLI is
+its client: it reads a JSONL request file, submits every request at once
+through the bounded admission queue (retrying on backpressure), waits
+for all results, and writes one ``<name>.tim`` per request, each
+byte-identical to the one-shot ``pptoas --stream`` with the same
+``--nsub-batch``.
 
     python -m pulseportraiture_tpu_torch.cli.ppserve -r requests.jsonl \\
         [-O outdir] [--nsub-batch N] [--max-wait-ms MS] \\
@@ -17,6 +19,8 @@ one-shot ``pptoas --stream`` with the same ``--nsub-batch``.
         [--metrics off|on] [--slo-targets t:SEC,...] \\
         [--result-cache off|auto|on] [--cache-dir DIR] [--cache-max-mb MB] \\
         [--device cuda|cpu] [--quiet]
+    python -m pulseportraiture_tpu_torch.cli.ppserve --listen HOST:PORT \\
+        [the same server options]
 
 Request file: one JSON object per line,
     {"name": "J0030+0451", "datafiles": ["a.fits", ...] | "meta.txt",
@@ -26,17 +30,26 @@ Request file: one JSON object per line,
 requests sharing (modelfile, options) coalesce.  ``tenant`` (optional)
 labels the request's weighted-fair lane.
 
+``--listen HOST:PORT`` (or PPT_SERVE_LISTEN, the listen mode's default)
+runs the other mode: no request file; the warm server is exposed to
+remote clients over the length-prefixed JSON transport
+(serve/transport.TransportServer), and ``pproute`` routes a campaign's
+requests across a fleet of such listeners.  Archive paths in remote
+requests must be readable here (a shared filesystem); each request's
+``.tim`` is written here unless the router writes it.  Port 0 binds an
+ephemeral port; the bound address is printed on its own flushed line
+(``ppserve: listening on HOST:PORT ...``) so a parent process can read
+it.  The process serves until SIGINT or SIGTERM, then drains.
+
 ``--warmup-manifest trace.jsonl`` dispatches every bucket shape a prior
 run's trace recorded once before serving starts
 (utils/device.warmup_from_manifest), so the first requests pay no first
 launch; compare the traces' cold-start sections with ``python -m
 pulseportraiture_tpu_torch.cli.pptrace report``.
 
-Not ported yet: ``--listen`` / PPT_SERVE_LISTEN (serving remote clients
-needs serve/transport, ROADMAP A13.4) and ``--tune-db`` (the tuning
-database, ROADMAP A13.7) exit naming their item.  The JAX CLI's
-``--compile-cache`` has no counterpart (eager PyTorch compiles no
-programs).
+Not ported yet: ``--tune-db`` (the tuning database, ROADMAP A13.7) exits
+naming its item.  The JAX CLI's ``--compile-cache`` has no counterpart
+(eager PyTorch compiles no programs).
 """
 
 import argparse
@@ -54,8 +67,12 @@ def build_parser():
                    help="JSONL request file (one JSON object per line: "
                         "name, datafiles, modelfile, options).")
     p.add_argument("--listen", metavar="HOST:PORT", default=None,
-                   help="Serve remote clients (not ported yet: exits "
-                        "naming ROADMAP A13.4).")
+                   help="Serve REMOTE clients instead of a request file: "
+                        "expose the warm server on this endpoint (port 0 "
+                        "= ephemeral, printed) for pproute/SocketTransport "
+                        "clients; runs until SIGINT or SIGTERM, then "
+                        "drains. Exactly one of -r / --listen. Also via "
+                        "PPT_SERVE_LISTEN. [default: off]")
     p.add_argument("-O", "--outdir", metavar="DIR", default=".",
                    help="Directory for per-request <name>.tim outputs "
                         "(created). [default: .]")
@@ -105,16 +122,25 @@ def build_parser():
                    help="Per-request result timeout in seconds. "
                         "[default: none]")
     add_cache_flags(p)
-    p.add_argument("--tune-db", dest="tune_db", default=None,
-                   metavar="PATH",
-                   help="Tuning database (not ported yet: exits naming "
-                        "ROADMAP A13.7).")
+    add_tune_flags(p)
+    add_obs_flags(p)
+    p.add_argument("--device", default=None, metavar="cuda|cpu",
+                   help="The one torch device to serve on when "
+                        "--stream-devices is not given. [default: every "
+                        "CUDA device]")
+    p.add_argument("--quiet", action="store_true", default=False)
+    return p
+
+
+def add_obs_flags(p):
+    """The observability flags shared by ppserve and pproute: the
+    streaming metrics registry and the per-tenant SLO targets."""
     p.add_argument("--metrics", dest="metrics", default=None,
                    metavar="off|on",
                    help="Streaming metrics registry (counters and "
-                        "latency histograms, ToaServer.metrics()); the "
-                        ".tim is byte-identical either way. Also via "
-                        "PPT_METRICS. [default: on]")
+                        "latency histograms, exported over the 'metrics' "
+                        "transport op); the .tim is byte-identical either "
+                        "way. Also via PPT_METRICS. [default: on]")
     p.add_argument("--slo-targets", dest="slo_targets", default=None,
                    metavar="t:SEC,...|SEC|off",
                    help="Per-tenant request-latency SLO targets in "
@@ -122,12 +148,21 @@ def build_parser():
                         "applies to every tenant); breaches emit "
                         "slo_breach telemetry. Also via PPT_SLO_TARGETS. "
                         "[default: off]")
-    p.add_argument("--device", default=None, metavar="cuda|cpu",
-                   help="The one torch device to serve on when "
-                        "--stream-devices is not given. [default: every "
-                        "CUDA device]")
-    p.add_argument("--quiet", action="store_true", default=False)
-    return p
+
+
+def add_tune_flags(p):
+    """The tuning-database flag, shared by ppserve and pproute; not
+    ported yet (refuse_tune_db)."""
+    p.add_argument("--tune-db", dest="tune_db", default=None,
+                   metavar="PATH",
+                   help="Tuning database (not ported yet: exits naming "
+                        "ROADMAP A13.7).")
+
+
+def refuse_tune_db(args, prog):
+    if args.tune_db is not None:
+        raise SystemExit(f"{prog}: --tune-db: the tuning database is not "
+                         "ported yet (ROADMAP A13.7)")
 
 
 def add_cache_flags(p):
@@ -286,27 +321,29 @@ def main(argv=None):
                                  f">= 1, got {stream_devices}")
     if args.warmup_model and not args.warmup_manifest:
         raise SystemExit("--warmup-model requires --warmup-manifest")
+    from .. import config
+
     if args.listen is not None and args.requests is not None:
         raise SystemExit("ppserve: -r/--requests and --listen are "
                          "mutually exclusive (batch client vs fleet "
                          "member)")
-    # PPT_SERVE_LISTEN is only the listen mode's default: an explicit
-    # -r is a batch request
+    # PPT_SERVE_LISTEN is only the listen mode's default: an explicit -r
+    # is a batch request
     listen = args.listen
     if listen is None and args.requests is None:
-        env = os.environ.get("PPT_SERVE_LISTEN", "")
-        listen = None if env.lower() in ("", "off", "none") else env
+        listen = config.serve_listen
+    if listen is None and args.requests is None:
+        raise SystemExit("ppserve: need -r/--requests (batch mode) or "
+                         "--listen HOST:PORT (fleet member)")
     if listen is not None:
-        raise SystemExit(
-            f"ppserve: --listen {listen}: serving remote clients needs "
-            "serve/transport.TransportServer, which is not ported yet "
-            "(ROADMAP A13.4); run a request file with -r")
-    if args.requests is None:
-        raise SystemExit("ppserve: need -r/--requests (batch mode)")
-    if args.tune_db is not None:
-        raise SystemExit("ppserve: --tune-db: the tuning database is not "
-                         "ported yet (ROADMAP A13.7)")
-    reqs = parse_requests(args.requests)
+        try:
+            config.parse_hostport(listen)
+        except ValueError as e:
+            raise SystemExit(f"ppserve: --listen: {e}")
+        reqs = None
+    else:
+        reqs = parse_requests(args.requests)
+    refuse_tune_db(args, "ppserve")
     apply_cache_flags(args, "ppserve")
     apply_obs_flags(args, "ppserve")
     os.makedirs(args.outdir, exist_ok=True)
@@ -321,6 +358,9 @@ def main(argv=None):
         warmup_manifest=args.warmup_manifest,
         warmup_model=args.warmup_model, quiet=args.quiet,
         device=args.device)
+
+    if listen is not None:
+        return serve_listen(server, listen, args.quiet)
 
     failures = 0
     t0 = time.time()
@@ -358,6 +398,44 @@ def main(argv=None):
         print(f"ppserve: {len(reqs) - failures}/{len(reqs)} requests "
               f"in {time.time() - t0:.2f} s")
     return 1 if failures else 0
+
+
+def serve_listen(server, listen, quiet=False, stop=None):
+    """The fleet-member mode: start ``server`` (its warm-up included),
+    expose it on ``listen`` through a TransportServer, print the bound
+    address on its own flushed line, and serve until SIGINT or SIGTERM
+    (or until ``stop``, a threading.Event, is set); then close the
+    listener and drain the server.  Returns 0."""
+    import signal
+    import threading
+
+    from .. import config
+    from ..serve import TransportServer
+
+    host, port = config.parse_hostport(listen)
+    stop = threading.Event() if stop is None else stop
+    server.start()
+    try:
+        transport = TransportServer(server, host=host, port=port,
+                                    quiet=quiet).start()
+    except BaseException:
+        server.stop(drain=False)
+        raise
+    try:
+        signal.signal(signal.SIGTERM, lambda *a: stop.set())
+        signal.signal(signal.SIGINT, lambda *a: stop.set())
+    except ValueError:
+        pass  # not the main thread (a test drives main() directly)
+    print(f"ppserve: listening on {transport.label} "
+          f"({len(server._ex.devices)} device(s)); Ctrl-C to drain and "
+          "exit", flush=True)
+    try:
+        stop.wait()
+    except KeyboardInterrupt:
+        pass
+    transport.close()
+    server.stop(drain=True)
+    return 0
 
 
 if __name__ == "__main__":

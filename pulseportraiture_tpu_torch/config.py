@@ -238,6 +238,35 @@ metrics = True
 # bare number for every tenant.  None = no SLO tracking.
 slo_targets = None
 
+# --- Routing across a fleet (serve/router.py, fleet.py, transport.py) -----
+# Default fleet of ToaRouter / pproute: a tuple of 'host:port' endpoints,
+# each a ``ppserve --listen`` server.  () = none; pproute then needs
+# --hosts or --fleet-file.
+router_hosts = ()
+
+# Total placement attempts the router spends on one request: every
+# retryable ServeRejected and every unreachable host takes one, and each
+# full pass over the fleet backs off exponentially (capped).
+router_retry_max = 16
+
+# Default endpoint of ``ppserve --listen``: 'host:port' (port 0 binds an
+# ephemeral port, printed at start).  None = ppserve needs -r or --listen.
+serve_listen = None
+
+# Deadline [ms] of the router's per-host ``stat`` probes: a placement pass
+# waits at most this long; a probe still outstanding feeds the host's
+# SUSPECT transition and the cached load is used.  Must be > 0.
+router_probe_ms = 1000.0
+
+# Hedged requests [ms]: a routed request unresolved after this long
+# launches ONE duplicate attempt on the least-loaded other host; the first
+# completion wins.  None = off.
+router_hedge_ms = None
+
+# Watched fleet file (one host:port per line, # comments): the router
+# joins and leaves hosts to match whenever it changes.  None = static.
+router_fleet_file = None
+
 
 # --- Telemetry (telemetry.py) --------------------------------------------
 # Path of the JSONL event trace the campaign drivers (GetTOAs,
@@ -283,6 +312,12 @@ telemetry_path = None
 #   PPT_CACHE_MAX_MB=<float>        -> cache_max_mb
 #   PPT_METRICS=off|on              -> metrics
 #   PPT_SLO_TARGETS=t:S,...|<S>|off -> slo_targets
+#   PPT_ROUTER_HOSTS=h:p,...|off    -> router_hosts
+#   PPT_ROUTER_RETRY_MAX=<N>        -> router_retry_max
+#   PPT_SERVE_LISTEN=h:p|off        -> serve_listen
+#   PPT_ROUTER_PROBE_MS=<float>     -> router_probe_ms
+#   PPT_ROUTER_HEDGE_MS=<float>|off -> router_hedge_ms
+#   PPT_ROUTER_FLEET_FILE=<path>|off -> router_fleet_file
 #
 # Unset variables leave the module values untouched; a bad value of a
 # hooked variable raises ValueError (a silent fallback would quietly
@@ -339,7 +374,9 @@ HOOKED_PPT_ENV = frozenset({
     "PPT_SERVE_MAX_WAIT_MS", "PPT_SERVE_QUEUE_DEPTH",
     "PPT_SERVE_TENANT_QUOTA", "PPT_SERVE_TENANT_WEIGHT",
     "PPT_RESULT_CACHE", "PPT_CACHE_DIR", "PPT_CACHE_MAX_MB",
-    "PPT_METRICS", "PPT_SLO_TARGETS"})
+    "PPT_METRICS", "PPT_SLO_TARGETS", "PPT_ROUTER_HOSTS",
+    "PPT_ROUTER_RETRY_MAX", "PPT_SERVE_LISTEN", "PPT_ROUTER_PROBE_MS",
+    "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE"})
 
 
 def _unported_ppt_env():
@@ -352,10 +389,6 @@ def _unported_ppt_env():
     why["PPT_COMPILE_CACHE"] = (
         "the JAX compilation cache; eager PyTorch compiles no programs "
         "(ROADMAP A5)")
-    for name in ("PPT_ROUTER_HOSTS", "PPT_ROUTER_RETRY_MAX",
-                 "PPT_SERVE_LISTEN", "PPT_ROUTER_PROBE_MS",
-                 "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE"):
-        why[name] = "the router and its transport (ROADMAP A13.4)"
     for name in ("PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS",
                  "PPT_ALERT_CUSUM_K", "PPT_ALERT_CUSUM_H"):
         why[name] = "online ingest (ROADMAP A13.5)"
@@ -419,6 +452,23 @@ def parse_tenant_spec(raw, name, cast=int, allow_bare=True):
     if not out:
         raise ValueError(f"{name}: no tenant:value pairs in {raw!r}")
     return out
+
+
+def parse_hostport(spec):
+    """'host:port' -> (host, port), with the JAX package's ValueErrors;
+    shared by the router env hooks, the transports and the CLIs."""
+    s = str(spec).strip()
+    host, sep, port = s.rpartition(":")
+    if not sep or not host:
+        raise ValueError(f"expected 'host:port', got {spec!r}")
+    try:
+        port = int(port)
+    except ValueError:
+        raise ValueError(
+            f"expected an integer port in {spec!r}, got {port!r}")
+    if not 0 <= port <= 65535:
+        raise ValueError(f"port {port} out of range in {spec!r}")
+    return host, port
 
 
 _warned_ppt = set()  # warn ONCE per process per variable
@@ -635,6 +685,59 @@ def env_overrides():
                             else parse_tenant_spec(
                                 slo, "PPT_SLO_TARGETS", cast=float,
                                 allow_bare=True),))
+    rh = env.get("PPT_ROUTER_HOSTS", "")
+    if rh:
+        if rh.lower() in ("off", "none"):
+            put("router_hosts", ((),))
+        else:
+            hosts = []
+            for part in rh.split(","):
+                part = part.strip()
+                if not part:
+                    continue
+                try:
+                    parse_hostport(part)
+                except ValueError as e:
+                    raise ValueError(
+                        "PPT_ROUTER_HOSTS must be a comma-separated "
+                        f"list of host:port endpoints: {e}")
+                hosts.append(part)
+            if not hosts:
+                raise ValueError(
+                    "PPT_ROUTER_HOSTS must name at least one "
+                    f"host:port endpoint (or 'off'), got {rh!r}")
+            if len(set(hosts)) != len(hosts):
+                raise ValueError(
+                    f"PPT_ROUTER_HOSTS lists a duplicate endpoint: {rh!r}")
+            put("router_hosts", (tuple(hosts),))
+    n = _int_env(env, "PPT_ROUTER_RETRY_MAX", "a positive integer")
+    if n is not None:
+        if n < 1:
+            raise ValueError(f"PPT_ROUTER_RETRY_MAX must be >= 1, got {n}")
+        put("router_retry_max", (n,))
+    put("router_probe_ms", _float_env(
+        env, "PPT_ROUTER_PROBE_MS", "a positive number of milliseconds",
+        lambda v: v > 0, "> 0"))
+    hms = env.get("PPT_ROUTER_HEDGE_MS", "")
+    if hms:
+        put("router_hedge_ms", (None,) if hms.lower() in ("off", "none")
+            else _float_env(env, "PPT_ROUTER_HEDGE_MS",
+                            "a non-negative number of milliseconds or "
+                            "'off'", lambda v: v >= 0, ">= 0"))
+    ffile = env.get("PPT_ROUTER_FLEET_FILE", "")
+    if ffile:
+        put("router_fleet_file",
+            (None if ffile.lower() in ("off", "none") else ffile,))
+    listen = env.get("PPT_SERVE_LISTEN", "")
+    if listen:
+        if listen.lower() in ("off", "none"):
+            put("serve_listen", (None,))
+        else:
+            try:
+                parse_hostport(listen)
+            except ValueError as e:
+                raise ValueError(f"PPT_SERVE_LISTEN: {e}")
+            put("serve_listen", (listen,))
     tel = env.get("PPT_TELEMETRY", "")
     if tel:
         # 'off'/'none'/'0' disable explicitly (a wrapper script can force

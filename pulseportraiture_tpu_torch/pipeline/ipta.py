@@ -17,14 +17,15 @@ The orchestration layer above pipeline/stream.py:
   the listed pulsars feed timing.fleet.fleet_gls_fit on the same
   tracer, so archives -> TOAs -> timing solutions run as one pipeline.
 
-- **the thin-client mode** (``server=``): every pulsar's shard is one
-  request to a running serve.ToaServer, so the warm executor carries
-  across pulsars and small shards coalesce into shared dispatches.
+- **the thin-client modes**: with ``server=`` every pulsar's shard is
+  one request to a running serve.ToaServer, so the warm executor
+  carries across pulsars and small shards coalesce into shared
+  dispatches; with ``router=`` each request is placed on a fleet of
+  such servers by a serve.ToaRouter.
 
 The port runs campaigns at world size 1 (parallel/multihost.py): the
 (pulsar, archive) grid sharding over processes is ROADMAP A12, and a
-``torch.distributed`` group of world size above 1 raises.  ``router=``
-(a fleet of servers) is ROADMAP A13.4 and raises.
+``torch.distributed`` group of world size above 1 raises.
 """
 
 import glob
@@ -74,13 +75,15 @@ class IPTAJob:
         self.kwargs = dict(kwargs)
 
 
-def _serve_campaign(server, jobs, by_psr, stream_kwargs, outdir, tim_name,
-                    tracer, per_pulsar, TOA_list):
+def _serve_campaign(server, router, jobs, by_psr, stream_kwargs, outdir,
+                    tim_name, tracer, per_pulsar, TOA_list):
     """The thin-client path: submit every pulsar's shard to ``server``
-    (retrying on backpressure), then collect the results in job order
-    into ``per_pulsar`` and ``TOA_list``."""
+    (retrying on backpressure) or to ``router`` (which owns the
+    backpressure retries across its fleet), then collect the results in
+    job order into ``per_pulsar`` and ``TOA_list``."""
     from ..serve import ServeRejected
 
+    target = "ToaServer" if server is not None else "ToaRouter"
     # executor-level knobs belong to the server (it was built with
     # them); as lane options they would fail every request with a
     # TypeError on the serving thread, so they are refused here by name
@@ -91,8 +94,8 @@ def _serve_campaign(server, jobs, by_psr, stream_kwargs, outdir, tim_name,
     if bad:
         raise ValueError(
             f"stream_ipta_campaign: {sorted(bad)} are executor-level "
-            "options — configure them on the ToaServer when using "
-            "server=")
+            f"options — configure them on the {target} when using "
+            f"{'server=' if server is not None else 'router='}")
     handles = []
     for job in jobs:
         files = by_psr.get(job.pulsar, [])
@@ -100,16 +103,21 @@ def _serve_campaign(server, jobs, by_psr, stream_kwargs, outdir, tim_name,
             continue
         kw = {**stream_kwargs, **job.kwargs}
         kw.pop("telemetry", None)
-        while True:
-            try:
-                h = server.submit(files, job.modelfile,
-                                  tim_out=tim_name(job.pulsar) if outdir
-                                  else None, name=job.pulsar, **kw)
-                break
-            except ServeRejected as e:
-                if not e.retryable:
-                    raise
-                time.sleep(0.05)  # honour the backpressure
+        tim_out = tim_name(job.pulsar) if outdir else None
+        if router is not None:
+            h = router.submit(files, job.modelfile, tim_out=tim_out,
+                              name=job.pulsar, **kw)
+        else:
+            while True:
+                try:
+                    h = server.submit(files, job.modelfile,
+                                      tim_out=tim_out, name=job.pulsar,
+                                      **kw)
+                    break
+                except ServeRejected as e:
+                    if not e.retryable:
+                        raise
+                    time.sleep(0.05)  # honour the backpressure
         handles.append((job, time.time(), h))
     for job, t_job, h in handles:
         res = per_pulsar[job.pulsar] = h.result()
@@ -171,17 +179,22 @@ def stream_ipta_campaign(jobs, outdir=None, shard=True, nsub_batch=256,
     the executor-level ones raise ValueError, as does resume=True
     (restart by submitting again; the request .tim files are the
     durable artifact).  ``device`` then applies to the timing stage
-    only.  router= (a fleet of servers) is ROADMAP A13.4 and raises.
+    only.
+
+    router: a serve.ToaRouter over a fleet of warm servers: the same thin
+    client as server=, but each pulsar's request is placed on the
+    least-loaded host (sticky per-template affinity; the router owns the
+    backpressure retries), and its .tim is written by whichever host
+    served it (or by the router: its codec lane, hedges, failovers),
+    byte-identical to the one-host path.  Archive paths and outdir must
+    be readable on every host.  Mutually exclusive with server=; the same
+    lane-option and resume rules apply.
 
     Returns a DataBunch with pulsars (job order), per_pulsar ({pulsar:
     stream result DataBunch}), TOA_list (all pulsars), DeltaDM_summary
     ({pulsar: (means, errs)} of the per-archive offset-DM statistics,
     gathered over processes), timing, nfit, fit_duration and wall_s.
     """
-    if router is not None:
-        raise NotImplementedError(
-            "stream_ipta_campaign: router= needs the router and its "
-            "transport, which are not ported yet (ROADMAP A13.4)")
     jobs = [j if isinstance(j, IPTAJob) else IPTAJob(*j) for j in jobs]
     names = [j.pulsar for j in jobs]
     if len(set(names)) != len(names):
@@ -189,11 +202,15 @@ def stream_ipta_campaign(jobs, outdir=None, shard=True, nsub_batch=256,
     if resume and not outdir:
         raise ValueError("stream_ipta_campaign: resume=True needs "
                          "outdir (the checkpoints live there)")
-    if server is not None and resume:
+    if server is not None and router is not None:
+        raise ValueError(
+            "stream_ipta_campaign: pass server= OR router=, not both "
+            "(a router already owns its fleet of serving loops)")
+    if (server is not None or router is not None) and resume:
         raise ValueError(
             "stream_ipta_campaign: resume=True is not supported with "
-            "server= — restart by re-submitting; the per-request .tim "
-            "files are the durable artifact")
+            "server=/router= — restart by re-submitting; the "
+            "per-request .tim files are the durable artifact")
     if outdir:
         os.makedirs(outdir, exist_ok=True)
 
@@ -272,10 +289,12 @@ def stream_ipta_campaign(jobs, outdir=None, shard=True, nsub_batch=256,
         TOA_list = []
         nfit = 0
         fit_duration = 0.0
-        if server is not None:
-            _serve_campaign(server, jobs, by_psr, stream_kwargs, outdir,
-                            _tim_name, tracer, per_pulsar, TOA_list)
-        for job in (jobs if server is None else ()):
+        thin = server is not None or router is not None
+        if thin:
+            _serve_campaign(server, router, jobs, by_psr, stream_kwargs,
+                            outdir, _tim_name, tracer, per_pulsar,
+                            TOA_list)
+        for job in (jobs if not thin else ()):
             files = by_psr.get(job.pulsar, [])
             if not files:
                 continue

@@ -23,8 +23,11 @@ so a hit is byte-identical to a fresh fit by construction:
 
 ``config.result_cache`` is off / 'auto' / on (``PPT_RESULT_CACHE``,
 ``ppserve --result-cache``); 'auto', the default, engages only when
-``config.cache_dir`` is set.  The template-factory artifact store
-(``ppfactory --result-cache``) is not ported yet (ROADMAP A13.3).
+``config.cache_dir`` is set.  The same store keeps the template
+factory's built ``.gmodel``/``.spl`` files as opaque blobs
+(:meth:`ResultCache.get_blob` / :meth:`~ResultCache.put_blob`,
+``ppfactory --result-cache``) in the JAX package's blob format, so a
+blob either package stored reads back in the other.
 """
 
 import hashlib
@@ -54,6 +57,11 @@ NUMERIC_CONFIG_KEYS = (
     "bucket_pad", "zap_nstd", "quality_refit", "quality_max_gof",
     "quality_min_snr",
 )
+
+# Blob entries (template-factory artifacts) carry their own torn-entry
+# detection: a fixed magic and an explicit payload length, verified on
+# read, so a truncated file is a miss, never half an artifact.
+_BLOB_MAGIC = b"PPTBLOB1\n"
 
 # Knobs of the JAX package with no counterpart in the port (its Pallas
 # mode and its matmul-DFT selection): they enter the key at the JAX
@@ -105,9 +113,8 @@ def content_key(files, options):
 class ResultCache:
     """Bounded on-disk LRU of content-addressed ``.tim`` results.
 
-    One directory, flat layout: ``<key>.tim`` for TOA results (the JAX
-    package's ``<key>.blob`` factory artifacts in a shared directory
-    count toward the size bound).  Writes are atomic
+    One directory, flat layout: ``<key>.tim`` for TOA results and
+    ``<key>.blob`` for factory artifacts.  Writes are atomic
     (temp-then-``os.replace``); recency is tracked in-process and
     mirrored to file mtimes so a re-opened cache resumes an
     approximate LRU order.  All methods are thread-safe.
@@ -264,6 +271,66 @@ class ResultCache:
         return size
 
 
+    # ------------------------------------------------------------------
+    # opaque blobs (template-factory artifacts)
+    # ------------------------------------------------------------------
+
+    def get_blob(self, key):
+        """Look up an artifact blob: its bytes on a hit, None on a miss.
+        A bad header or a length mismatch (a torn entry) is a miss and
+        deletes the entry."""
+        fname = f"{key}.blob"
+        path = self._path(fname)
+        with self._lock:
+            if fname not in self._entries and not os.path.exists(path):
+                self.misses += 1
+                return None
+            try:
+                with open(path, "rb") as fh:
+                    magic = fh.read(len(_BLOB_MAGIC))
+                    header = fh.read(16)
+                    payload = fh.read()
+                if magic != _BLOB_MAGIC or len(header) != 16:
+                    raise ValueError("bad blob header")
+                if int(header.decode(), 16) != len(payload):
+                    raise ValueError("torn blob")
+            except (OSError, ValueError):
+                self._drop(fname)
+                self.misses += 1
+                return None
+            self._touch(fname)
+            self.hits += 1
+            self.bytes_served += len(payload)
+            return payload
+
+    def put_blob(self, key, data):
+        """Store an artifact blob atomically; returns the stored byte
+        count (None on failure, or when the blob alone exceeds the
+        bound)."""
+        data = bytes(data)
+        fname = f"{key}.blob"
+        path = self._path(fname)
+        tmp = path + ".tmp~"
+        try:
+            with open(tmp, "wb") as fh:
+                fh.write(_BLOB_MAGIC)
+                fh.write(f"{len(data):016x}".encode())
+                fh.write(data)
+            os.replace(tmp, path)
+            size = os.path.getsize(path)
+        except OSError:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            return None
+        with self._lock:
+            self._account(fname, size)
+            if fname not in self._entries:
+                return None
+        return size
+
+
 def resolve_result_cache(tracer=None, cache_dir=None, mode=None,
                          max_mb=None):
     """Resolve the tri-state ``config.result_cache`` knob into a
@@ -277,7 +344,7 @@ def resolve_result_cache(tracer=None, cache_dir=None, mode=None,
       doing nothing would be a lie).
 
     ``cache_dir`` / ``mode`` / ``max_mb`` override the config globals
-    (used by per-instance server arguments and tests).
+    (used by per-instance server and router arguments and tests).
     """
     from .. import config
 

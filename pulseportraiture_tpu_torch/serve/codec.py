@@ -5,14 +5,19 @@
   per-request DataBunch codec (an MJD ships as an exact (int day, f64
   frac) pair; flag values keep the bool/int/float/str distinction the
   ``.tim`` formatting branches on, numpy scalars narrowed to builtins).
+- :func:`roundtrip_result`: encode, JSON bytes, decode: what the
+  socket transport does to a result, which ``InProcTransport`` repeats.
 - :func:`write_tim_result`: writes a request's ``.tim`` from a result,
   byte-identical to the server's own demux (truncate, then per-archive
   TOA lines and a completion sentinel), atomically; the result cache
-  stores entries through it.
+  stores entries through it, and the router writes the codec lane's,
+  hedges' and failover replacements' ``.tim`` files through it.
 - :func:`copy_tim_atomic`: the cache hit path's atomic byte copy.
 - :func:`tim_complete` / :func:`read_tim_result`: a ``.tim`` that
   carries a completion sentinel for every request datafile is a
-  durable result; ``read_tim_result`` recovers it.  The recovered TOAs
+  durable result; ``read_tim_result`` recovers it (the router's
+  exactly-once failover collects such a request from its file instead
+  of fitting it again).  The recovered TOAs
   re-serialize byte-identically, but the in-memory DeltaDM statistics
   are not in the file: the recovered DataBunch carries ``DM0s=[None
   ...]``, NaN DeltaDM_means/errs and ``recovered_from_tim=True``.
@@ -27,7 +32,8 @@ import numpy as np
 
 from ..utils.bunch import DataBunch
 
-__all__ = ["encode_result", "decode_result", "iter_archive_toas",
+__all__ = ["encode_result", "decode_result", "roundtrip_result",
+           "iter_archive_toas",
            "write_tim_result", "copy_tim_atomic", "tim_complete",
            "read_tim_result"]
 
@@ -93,6 +99,14 @@ def decode_result(d):
 # ---------------------------------------------------------------------------
 # .tim writers
 # ---------------------------------------------------------------------------
+
+def roundtrip_result(res):
+    """Encode -> JSON bytes -> decode, exactly what the socket lane does
+    (InProcTransport rides it, so both transports return the same result
+    shapes and the codec runs wherever the router does)."""
+    return decode_result(json.loads(
+        json.dumps(encode_result(res), separators=(",", ":"))))
+
 
 def iter_archive_toas(result):
     """Split ``result.TOA_list`` into per-archive runs following

@@ -28,8 +28,9 @@ the stream executor (counterpart of pulseportraiture_tpu/serve/server.py).
 Scope: the wideband options ``stream_wideband_TOAs`` streams, on the
 executor's devices (``stream_devices``, default every CUDA device; a
 host without a card raises unless the caller asks for the CPU).
-Serving remote clients (``ppserve --listen``) and routing across hosts
-are ROADMAP A13.4.
+Remote clients reach a server through serve/transport.TransportServer
+(``ppserve --listen``), and serve/router.ToaRouter (``pproute``) routes
+a campaign across a fleet of them.
 """
 
 import os

@@ -343,16 +343,17 @@ def test_ppfactory_flags(fleet, tmp_path):
             "--mcode", "000", "--fixwid", "--fixamp", "--lm-jacobian",
             "analytic", "--gauss-device", "off", "--result-cache", "off",
             "--cache-dir", str(tmp_path / "cache"), "--cache-max-mb", "64"]
-    saved = jcfg.lm_jacobian, tcfg.lm_jacobian, jcfg.result_cache, \
-        jcfg.cache_dir, jcfg.cache_max_mb
+    saved = [(c, k, getattr(c, k)) for c in (jcfg, tcfg)
+             for k in ("lm_jacobian", "result_cache", "cache_dir",
+                       "cache_max_mb")]
     try:
         _cli(jppfactory.main, argv + ["-O", str(tmp_path / "jax")])
         _cli(tppfactory.main, argv + ["-O", str(tmp_path / "torch"),
                                       "--device", "cpu", "--verbose"])
         assert tcfg.lm_jacobian == "analytic"
     finally:
-        (jcfg.lm_jacobian, tcfg.lm_jacobian, jcfg.result_cache,
-         jcfg.cache_dir, jcfg.cache_max_mb) = saved
+        for c, k, v in saved:
+            setattr(c, k, v)
     b = os.path.basename(files[0]) + ".gmodel"
     dp = TGauss(files[0], quiet=True, device="cpu")
     dp.normalize_portrait("max")
@@ -367,9 +368,11 @@ def test_ppfactory_flags(fleet, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     # --telemetry is ported: the case holds the JAX CLI's trace
     pytest.param(["--telemetry", "TRACE"], None, id="argv0-A13"),
-    (["--result-cache", "on"], "A13"),
-    (["--cache-dir", "CACHE"], "A13"),
-    (["--result-cache", "auto", "--cache-dir", "CACHE"], "A13"),
+    # the result cache is ported: these cases hold the JAX CLI's runs
+    pytest.param(["--result-cache", "on"], "CACHE", id="argv1-A13"),
+    pytest.param(["--cache-dir", "CACHE"], "CACHE", id="argv2-A13"),
+    pytest.param(["--result-cache", "auto", "--cache-dir", "CACHE"],
+                 "CACHE", id="argv3-A13"),
     (["--result-cache", "sometimes"], "expected 'off', 'auto' or 'on'"),
     (["--cache-max-mb", "0"], "must be > 0"),
     (["--gauss-device", "maybe"], "gauss-device"),
@@ -401,11 +404,63 @@ def test_ppfactory_refusals(fleet, tmp_path, argv, match):
         assert fits(traces["torch"]) == fits(traces["jax"])
         assert len(fits(traces["torch"])) >= 2
         return
+    if match == "CACHE":
+        _cache_case(files, argv, tmp_path)
+        return
     argv = [str(tmp_path / "c") if a == "CACHE" else a for a in argv]
     with pytest.raises(SystemExit, match=match):
         tppfactory.main(["-M", meta, "-O", str(tmp_path / "o"), "--device",
                          "cpu"] + argv)
     assert not (tmp_path / "c").exists()
+
+
+def _cache_case(files, argv, tmp_path):
+    """One ppfactory cache-flag case in both packages, with a store of
+    each's own.  '--result-cache on' without a directory exits as the
+    JAX CLI does, then runs with config.cache_dir set; every run builds
+    the one archive's template on a miss, serves it on the repeat (the
+    same bytes) and stores the blob under the JAX package's key."""
+    from pulseportraiture_tpu import config as jcfg
+    from pulseportraiture_tpu_torch import config as tcfg
+
+    one = tmp_path / "one.txt"
+    one.write_text(files[0] + "\n")
+    saved = [(c, k, getattr(c, k)) for c in (jcfg, tcfg)
+             for k in ("result_cache", "cache_dir", "cache_max_mb")]
+    try:
+        if "CACHE" not in argv:
+            msgs = []
+            for main, extra in ((jppfactory.main, []),
+                                (tppfactory.main, ["--device", "cpu"])):
+                with pytest.raises(SystemExit) as e:
+                    main(["-M", str(one), "--max-ngauss", "1"] + argv
+                         + extra)
+                msgs.append(str(e.value))
+            assert msgs[1] == msgs[0] and "requires --cache-dir" in msgs[0]
+        names = {}
+        for tag, main, cfg, extra in (
+                ("jax", jppfactory.main, jcfg, []),
+                ("torch", tppfactory.main, tcfg, ["--device", "cpu"])):
+            store = tmp_path / f"store-{tag}"
+            cfg.cache_dir = str(store) if "CACHE" not in argv else None
+            av = [str(store) if a == "CACHE" else a for a in argv]
+            for run in (1, 2):
+                _cli(main, ["-M", str(one), "--max-ngauss", "1", "-O",
+                            str(tmp_path / f"{tag}{run}")] + av + extra)
+            b = os.path.basename(files[0]) + ".gmodel"
+            assert (tmp_path / f"{tag}1" / b).read_bytes() == \
+                (tmp_path / f"{tag}2" / b).read_bytes()
+            names[tag] = sorted(os.listdir(store))
+        assert names["torch"] == names["jax"] and len(names["jax"]) == 1
+        assert names["jax"][0].endswith(".blob")
+        dp = TGauss(files[0], quiet=True, device="cpu")
+        TFAC.build_templates([(dp, files[0])], write=False, max_ngauss=1,
+                             fixloc=True, device="cpu")
+        _gmodel_close(str(tmp_path / "torch1" / b),
+                      str(tmp_path / "jax1" / b), dp.fit_errs)
+    finally:
+        for c, k, v in saved:
+            setattr(c, k, v)
 
 
 def test_factory_input_refusals(fleet, tmp_path):

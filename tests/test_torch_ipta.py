@@ -258,17 +258,43 @@ def test_gloo_world_size_one(tmp_path):
         dist.destroy_process_group()
 
 
-def test_refusals(fleet, stream_config, monkeypatch):
-    """router= names A13 (server= runs: tests/test_torch_serve.py); a
-    process group of world size > 1 names A12; the JAX package's
-    ValueErrors (duplicate names, unknown timing pulsars, timing_pars
-    with resume, server= with resume or an executor-level option)."""
+def test_refusals(fleet, stream_config, monkeypatch, tmp_path):
+    """router= runs: a port ToaRouter over a port server gives the
+    executor-per-pulsar path's .tim files byte for byte (the JAX router
+    comparison is tests/test_torch_router.py); server= runs in
+    tests/test_torch_serve.py.  A process group of world size > 1 names
+    A12; the JAX package's ValueErrors (duplicate names, unknown timing
+    pulsars, timing_pars with resume, server= with router=, server= or
+    router= with resume or an executor-level option)."""
     import torch.distributed as dist
+
+    from pulseportraiture_tpu_torch import serve as TSV
 
     root, files, gmodel = fleet
     jobs = _jobs(files, gmodel, TI)
-    with pytest.raises(NotImplementedError, match="A13"):
-        TI.stream_ipta_campaign(jobs, device="cpu", router=object())
+    solo = TI.stream_ipta_campaign(jobs, outdir=str(tmp_path / "solo"),
+                                   quiet=True, nsub_batch=2, device="cpu")
+    with TSV.ToaServer(nsub_batch=2, max_wait_ms=30, device="cpu") as srv:
+        router = TSV.ToaRouter([TSV.InProcTransport(srv, label="h0")])
+        try:
+            routed = TI.stream_ipta_campaign(
+                jobs, outdir=str(tmp_path / "routed"), quiet=True,
+                router=router, device="cpu")
+            with pytest.raises(ValueError, match="not both"):
+                TI.stream_ipta_campaign(jobs, device="cpu", server=srv,
+                                        router=router)
+            with pytest.raises(ValueError, match="resume"):
+                TI.stream_ipta_campaign(jobs, outdir=str(root / "r"),
+                                        resume=True, device="cpu",
+                                        router=router)
+        finally:
+            router.close()
+    for name in PARS:
+        assert ((tmp_path / "routed" / f"{name}.tim").read_bytes()
+                == (tmp_path / "solo" / f"{name}.tim").read_bytes())
+        m1, e1 = solo.DeltaDM_summary[name]
+        m2, e2 = routed.DeltaDM_summary[name]
+        assert np.array_equal(m1, m2) and np.array_equal(e1, e2)
     with pytest.raises(ValueError, match="resume"):
         TI.stream_ipta_campaign(jobs, outdir=str(root / "r"), resume=True,
                                 device="cpu", server=object())

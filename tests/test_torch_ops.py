@@ -517,7 +517,8 @@ def test_import_hygiene():
         " 'cli.ppfactory', 'synth.fake', 'obs.trace', 'obs.metrics',"
         " 'obs.slo', 'serve.queue', 'serve.codec', 'serve.cache',"
         " 'serve.server', 'serve.client', 'utils.device',"
-        " 'cli.ppserve')}\n"
+        " 'cli.ppserve', 'serve.transport', 'serve.fleet',"
+        " 'serve.router', 'cli.pproute')}\n"
         "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "

@@ -781,6 +781,12 @@ HOOKS = {
     "PPT_CACHE_MAX_MB": ("64", "cache_max_mb", "0"),
     "PPT_METRICS": ("off", "metrics", "maybe"),
     "PPT_SLO_TARGETS": ("interactive:0.5,*:5", "slo_targets", "a:b"),
+    "PPT_ROUTER_HOSTS": ("nodeA:9090, nodeB:9091", "router_hosts", "a:1,a:1"),
+    "PPT_ROUTER_RETRY_MAX": ("7", "router_retry_max", "0"),
+    "PPT_SERVE_LISTEN": ("0.0.0.0:9090", "serve_listen", "nowhere"),
+    "PPT_ROUTER_PROBE_MS": ("250", "router_probe_ms", "soon"),
+    "PPT_ROUTER_HEDGE_MS": ("1500", "router_hedge_ms", "-1"),
+    "PPT_ROUTER_FLEET_FILE": ("fleet.txt", "router_fleet_file", "off"),
 }
 
 # Loads both packages' config.py by path (neither package's __init__, so
@@ -834,8 +840,8 @@ def test_env_hook(name):
     assert vt != default, (name, vt)
     ej, et = out["errors"]
     assert et == ej
-    if name in ("PPT_TELEMETRY", "PPT_CACHE_DIR"):
-        # no value of either is invalid; 'off' disables in both packages
+    if name in ("PPT_TELEMETRY", "PPT_CACHE_DIR", "PPT_ROUTER_FLEET_FILE"):
+        # no value of these is invalid; 'off' disables in both packages
         assert ej is None
     else:
         assert ej is not None
@@ -845,12 +851,12 @@ def test_env_unported_and_unknown_warn():
     """A JAX-package hook whose knob the port lacks warns with its
     ROADMAP item; a typo warns with the closest known name; both once."""
     out, err = _probe("PPT_ZAP_NSTD", "3", "zap_nstd", "2",
-                      {"PPT_ROUTER_HOSTS": "h1:1,h2:2",
+                      {"PPT_INGEST_POLL_MS": "250",
                        "PPT_NCHAN": "64",
                        "PPT_ZAP_NSTDS": "2"})
     port = [ln for ln in err.splitlines()
             if ln.startswith("pulseportraiture_tpu_torch.config")]
-    assert any("PPT_ROUTER_HOSTS" in ln and "A13" in ln for ln in port)
+    assert any("PPT_INGEST_POLL_MS" in ln and "A13.5" in ln for ln in port)
     assert any("PPT_NCHAN" in ln and "A5" in ln for ln in port)
     assert any("PPT_ZAP_NSTDS" in ln and "did you mean PPT_ZAP_NSTD" in ln
                for ln in port)

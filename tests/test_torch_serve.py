@@ -27,7 +27,11 @@ Tolerances:
 
 import io
 import json
+import os
+import subprocess
+import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -56,6 +60,7 @@ from pulseportraiture_tpu_torch.pipeline import stream as TS
 from pulseportraiture_tpu_torch.serve import cache as TC
 
 NB = 8  # nsub_batch of every served and one-shot run here
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -640,7 +645,9 @@ def test_ipta_thin_client(corpus, serve_config, tmp_path):
 def test_ppserve_cli(corpus, serve_config, tmp_path, monkeypatch):
     """Case 13: ppserve -r on a JSONL file against the JAX ppserve -r:
     .tim in parity, the same exit codes (0, then 1 with a failing
-    request); --listen / PPT_SERVE_LISTEN name A13.4, --tune-db A13.7."""
+    request); --listen (in this process) and PPT_SERVE_LISTEN (in a
+    process of its own, stopped by SIGTERM) bind and answer stat;
+    --tune-db names A13.7."""
     from pulseportraiture_tpu.cli.ppserve import main as jmain
     from pulseportraiture_tpu_torch.cli.ppserve import main as tmain
 
@@ -666,11 +673,54 @@ def test_ppserve_cli(corpus, serve_config, tmp_path, monkeypatch):
                        tmp_path / f"{name}_j.tim"),
             _tim_lines(tmp_path / "t" / f"{name}.tim",
                        tmp_path / f"{name}_t.tim"))
-    with pytest.raises(SystemExit, match="A13.4"):
-        tmain(["--listen", "localhost:0"])
-    monkeypatch.setenv("PPT_SERVE_LISTEN", "localhost:0")
-    with pytest.raises(SystemExit, match="A13.4"):
-        tmain([])
+    from pulseportraiture_tpu_torch.cli import ppserve as tppserve
+
+    # --listen: main() in a thread, stopped through serve_listen's event
+    stop = threading.Event()
+    orig = tppserve.serve_listen
+    monkeypatch.setattr(tppserve, "serve_listen",
+                        lambda srv, listen, quiet: orig(srv, listen, quiet,
+                                                        stop=stop))
+    got = {}
+    lines = io.StringIO()
+    monkeypatch.setattr("sys.stdout", lines)
+    th = threading.Thread(target=lambda: got.setdefault("rc", tmain(
+        ["--listen", "127.0.0.1:0", "--device", "cpu", "--quiet"])))
+    th.start()
+    try:
+        for _ in range(600):
+            if "listening on" in lines.getvalue():
+                break
+            time.sleep(0.05)
+        address = lines.getvalue().split()[3]
+        t = TSV.SocketTransport(address)
+        st = t.stat()
+        t.close()
+    finally:
+        stop.set()
+        th.join(60)
+    assert got["rc"] == 0
+    assert (st["pending_archives"], st["queue_len"], st["n_live"]) == \
+        (0, 0, 0)
+    # PPT_SERVE_LISTEN: the listen mode's default, in a fresh process
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PPT_")}
+    env.update(PPT_SERVE_LISTEN="127.0.0.1:0", PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pulseportraiture_tpu_torch.cli.ppserve",
+         "--device", "cpu", "--quiet"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("ppserve: listening on 127.0.0.1:"), line
+        t = TSV.SocketTransport(line.split()[3])
+        assert t.stat()["n_live"] == 0
+        t.close()
+        proc.terminate()
+        assert proc.wait(60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
     with pytest.raises(SystemExit, match="A13.7"):
         tmain(["-r", str(path), "--tune-db", "db.json"])
     with pytest.raises(SystemExit):

@@ -140,7 +140,9 @@ def test_report_parity(corpus, stream_config, tmp_path):
     assert man["backend"] == "cpu" and man["devices"] == []
     assert set(man["config"]) == set(JT.CONFIG_SNAPSHOT_KEYS)
     assert man["config"]["fit_harmonic_window"] == 128
-    assert man["config"]["serve_listen"] is None  # a knob the port lacks
+    # a real knob since the router plane: its default, in both manifests
+    assert man["config"]["serve_listen"] is None
+    assert tcfg.serve_listen is None
 
 
 def test_stream_trace_parity(corpus, stream_config, tmp_path):
