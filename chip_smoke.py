@@ -219,7 +219,33 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    scale-out), the router's overhead per request, the result frames'
    bytes plain and zlib, the failover walls, hedges launched and won,
    each replica's start and warm-up wall and GPU memory, the factory
-   cache's miss and hit walls.
+   cache's miss and hit walls;
+19. ingest path: two corpora of 12 spin-coherent epochs x 8 subints x
+   512 x 2048, 30 days apart (the JAX ingest bench's pulsar and events
+   at NARCH = 12): event (dithered 2-bit, a 100 us achromatic step from
+   epoch 6 and a 4e-3 pc/cc DM step from epoch 8) and clean (int16),
+   both over a per-epoch DM wander; ``python -m
+   pulseportraiture_tpu_torch.cli.ppwatch --drain -p --stable-ms 0
+   --resolve-every 8`` over each in this process (the counters set to 0
+   just before it): rc 0, the first glitch and the first dm_step alert
+   within one day of their injected epochs and no alert before them on
+   the event corpus (its later re-alerts of the persistent events
+   printed: the reference semantics give the same on the same TOAs, a
+   CPU test holds them equal), none on the clean corpus, at least one
+   full incremental resolve, B2 (event) and B1 (clean) through their FFT
+   arms only, each held to its plain version on a padded ingest bucket;
+   a trickle (ppwatch on a worker thread, the archives copied in one at
+   a time in two chunks: at least one 'truncated' deferral), a burst
+   (all at once), three paths announced to a SocketSource and a
+   queue_depth-1 server (at least one 'backpressure' deferral); every
+   streamed .tim byte-identical to the one-shot stream_wideband_TOAs of
+   its archives in admission order at ppwatch's nsub_batch; ``pptrace
+   merge [--json]`` over phase 18's round 3 traces (each request once,
+   with its host spans, its failover and its critical stage); ``ppmon
+   --once --json`` against a router monitor and a host (exit 0, the
+   fleet p99 present) and ``ppmon --once``.  Printed per round: the
+   wall, discovery -> admission and admission -> TOA p50/p99, TOAs/s,
+   the dispatches and the deferrals.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -336,6 +362,23 @@ PTA_NGLS, PTA_GLS_NEP, PTA_GLS_SPAN = 45, 120, 3650.0
 # R2's 2-bit subints share a bucket while the archives load) and the
 # 2-bit archives of its first request
 SERVE_WAIT_MS, SERVE_SPLIT = 2000.0, 3
+# phase 19, the ingest path: the JAX ingest bench's corpus at NARCH = 12
+# (benchmarks/bench_ingest.py) at the chip's widths and noise:
+# INGEST_NEP spin-coherent epochs of INGEST_NSUB subints of INGEST_TSUB
+# s, INGEST_SPACING days apart, an achromatic INGEST_DT [s] step from
+# epoch INGEST_GLITCH_I on and an INGEST_DDM DM step from epoch
+# INGEST_DM_I on (the event corpus only), over a per-epoch DM wander of
+# INGEST_WANDER x ((i mod 3) - 1); ppwatch's default bucket size; the
+# trickle writer's pause between an archive's two chunks and between
+# archives [s], and its poll and stability windows [ms]
+INGEST_NEP, INGEST_NSUB, INGEST_TSUB, INGEST_SPACING = 12, 8, 60.0, 30.0
+INGEST_GLITCH_I, INGEST_DM_I = 6, 8
+INGEST_DT, INGEST_DDM, INGEST_WANDER = 100e-6, 4e-3, 2e-4
+INGEST_NSUB_BATCH = 64
+INGEST_PAUSE_S, INGEST_GAP_S = 0.3, 0.2
+INGEST_POLL_MS, INGEST_STABLE_MS = 50.0, 200.0
+PAR_INGEST = dict(PAR, PEPOCH=55100.0 + 0.5 * INGEST_SPACING
+                  * (INGEST_NEP - 1))
 
 
 def log(msg):
@@ -3209,7 +3252,8 @@ def run_tool(tool, args, label, spy=()):
         sys.argv = argv
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    sync(args[args.index("--device") + 1])
+    if "--device" in args:
+        sync(args[args.index("--device") + 1])
     return time.perf_counter() - t0, F.kernel_launches(), got
 
 
@@ -4518,7 +4562,8 @@ def phase_router(sctx, pctx, device="cuda", replica_prelude=None,
     replica_prelude: Python run in each replica before the CLI (the CPU
     rehearsal forces the card's routes there).  Returns the B1 and B2
     launches of rounds 1-4 (the in-process rounds; the replicas'
-    launches are their own processes')."""
+    launches are their own processes') and what phase 19 merges: round
+    3's router trace and the two in-process hosts' traces."""
     import signal
 
     import numpy as np
@@ -4898,6 +4943,491 @@ def phase_router(sctx, pctx, device="cuda", replica_prelude=None,
         f"({served[1]}); the same bytes")
     if "2/2" not in served[1]:
         raise AssertionError(f"ppfactory cache: {served[1]}")
+    return totals, {"r3": r3, "hosts": straces}
+
+
+def ingest_corpus(kind, folder, gmodel, device, nchan, nbin, nsub, nep):
+    """One corpus of phase 19 in ``folder``, each archive with its .done
+    sentinel: 'event' (dithered 2-bit, the glitch and the DM step) or
+    'clean' (int16, no event), both with the DM wander; returns the
+    archives in name order."""
+    from pulseportraiture_tpu_torch.synth import make_fake_pulsar
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    event = kind == "event"
+    os.makedirs(folder)
+    files = []
+    for i in range(nep):
+        path = os.path.join(folder, f"ep{i:03d}.fits")
+        phase = 0.017 + (INGEST_DT / PAR_INGEST["P0"]
+                         if event and i >= INGEST_GLITCH_I else 0.0)
+        ddm = INGEST_WANDER * ((i % 3) - 1) + (
+            INGEST_DDM if event and i >= INGEST_DM_I else 0.0)
+        make_fake_pulsar(gmodel, PAR_INGEST, outfile=path, nsub=nsub,
+                         nchan=nchan, nbin=nbin, nu0=1500.0, bw=800.0,
+                         tsub=INGEST_TSUB, phase=phase, dDM=ddm,
+                         start_MJD=MJD(int(55100 + INGEST_SPACING * i), 0.2),
+                         noise_stds=NOISE_2BIT, dedispersed=False,
+                         quiet=True, rng=SEED + 190 + i, spin_coherent=True,
+                         nbit=2 if event else 16, dither=event, device=device)
+        open(path + ".done", "w").close()
+        files.append(path)
+    return files
+
+
+def ppwatch_thread(argv):
+    """ppwatch.main(argv) on a worker thread, as a library caller runs it
+    (its signal handlers are skipped off the main thread); returns (the
+    thread, a list that receives its return value or exception)."""
+    import threading
+
+    from pulseportraiture_tpu_torch.cli import ppwatch
+
+    out = []
+
+    def run():
+        try:
+            out.append(ppwatch.main(argv))
+        except BaseException as e:  # re-raised by join_ppwatch
+            out.append(e)
+
+    th = threading.Thread(target=run, name="ppwatch", daemon=True)
+    th.start()
+    return th, out
+
+
+def join_ppwatch(th, out, label, timeout=600.0):
+    th.join(timeout)
+    if th.is_alive():
+        raise AssertionError(f"{label}: ppwatch still running after "
+                             f"{timeout:.0f} s")
+    if isinstance(out[0], BaseException):
+        raise out[0]
+    if out[0] != 0:
+        raise AssertionError(f"{label}: ppwatch returned {out[0]!r}")
+
+
+def ingest_stats(trace, tim):
+    """A ppwatch trace's figures: (report summary, admission -> TOA
+    latencies [s] in admission order (request_done - ingest_admit),
+    TOAs/s from the first admission to the last request_done, the
+    dispatches as (seq, real rows, requests)).  The .tim gives the TOA
+    count."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.telemetry import (load_trace, report,
+                                                      validate_trace)
+
+    validate_trace(trace)
+    summary = report(trace, file=io.StringIO())
+    events = load_trace(trace)[1]
+    admits = [e for e in events if e["type"] == "ingest_admit"]
+    done = {e["req"]: e["t"] for e in events if e["type"] == "request_done"}
+    lats = np.asarray([done[f"ingest{i}"] - ev["t"]
+                       for i, ev in enumerate(admits)])
+    with open(tim) as f:
+        ntoa = sum(1 for ln in f if ln.strip() and not ln.startswith("C "))
+    span = max(done.values()) - min(ev["t"] for ev in admits)
+    disp = [(e["seq"], e["rows"], e["n_requests"])
+            for e in events if e["type"] == "batch_coalesce"]
+    return summary, lats, ntoa / span, disp
+
+
+def latency_text(summary, lats):
+    import numpy as np
+
+    return (f"{summary['n_ingest_admit']} admitted, discovery -> admission "
+            f"p50 {summary['ingest_p50_s']:.3f} s, p99 "
+            f"{summary['ingest_p99_s']:.3f} s; admission -> TOA p50 "
+            f"{np.percentile(lats, 50):.3f} s, p99 "
+            f"{np.percentile(lats, 99):.3f} s")
+
+
+def admitted_files(trace):
+    """The archives a ppwatch trace admitted, in admission order (the
+    order the streamed .tim follows)."""
+    from pulseportraiture_tpu_torch.telemetry import load_trace
+
+    return [e["datafile"] for e in load_trace(trace)[1]
+            if e["type"] == "ingest_admit"]
+
+
+def phase_ingest(rctx, device="cuda", nchan=NCHAN, nbin=NBIN,
+                 nsub=INGEST_NSUB, nep=INGEST_NEP,
+                 nsub_batch=INGEST_NSUB_BATCH):
+    """The ingest path (phase 19): two corpora of ``nep`` epochs
+    (ingest_corpus), the default_test_model .gmodel and PAR_INGEST's
+    parfile; every streamed .tim is held BYTE-identical to the one-shot
+    stream_wideband_TOAs of the same files at ppwatch's nsub_batch.
+    1. drain: ``python -m pulseportraiture_tpu_torch.cli.ppwatch -w
+       event/ -m model.gmodel -p pulsar.par --drain --stable-ms 0
+       --resolve-every 8 --telemetry`` in this process, the counters set
+       to 0 just before it: rc 0, exactly one glitch and one dm_step
+       alert, each within one day of its injected epoch's MJD, at least
+       one full incremental resolve (the drift gate at 1e-10), B2
+       through its FFT arm only and held to its plain version on an
+       ingest bucket; then the clean corpus the same way: zero alerts,
+       B1 through its FFT arm only and held to its plain version;
+    2. trickle: ppwatch on a worker thread over an empty folder
+       (--stable-ms INGEST_STABLE_MS, no sentinels) while a writer
+       thread copies the event archives in one at a time, each in two
+       chunks INGEST_PAUSE_S apart: at least one 'truncated' skip;
+    3. burst, announce, backpressure: the 12 archives dropped at once
+       into a watched folder; 3 paths announced (ingest.announce) to a
+       SocketSource of an IngestDriver; a folder of the 12 through an
+       IngestDriver on a ToaServer with queue_depth 1: at least one
+       'backpressure' skip;
+    4. the operator's tools: ``pptrace merge`` (text and --json) over
+       phase 18's round 3 traces (rctx; None, in a CPU rehearsal, leaves
+       this out): each round 3 request exactly once, with its host
+       spans, its failover and its critical stage; a ToaServer behind a
+       TransportServer and a ToaRouter over it behind a monitor
+       TransportServer serve one clean archive, then ``ppmon --once
+       --json`` against both endpoints (exit 0, the fleet p99 present)
+       and ``ppmon --once``.
+    Prints each round's wall, the admitted count, discovery -> admission
+    and admission -> TOA p50/p99, TOAs/s and the dispatches (real rows,
+    requests).  Returns the kernels' launches over the phase."""
+    import threading
+
+    import torch
+    from pulseportraiture_tpu_torch import config as cfg
+    from pulseportraiture_tpu_torch.ingest import (IngestDriver,
+                                                   SocketSource,
+                                                   WatchFolderSource,
+                                                   announce)
+    from pulseportraiture_tpu_torch.io.gmodel import write_gmodel
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline.stream import \
+        stream_wideband_TOAs
+    from pulseportraiture_tpu_torch.serve import (SocketTransport, ToaRouter,
+                                                  ToaServer, TransportServer)
+    from pulseportraiture_tpu_torch.synth import default_test_model
+    from pulseportraiture_tpu_torch.telemetry import load_trace
+
+    cuda = device_type(device) == "cuda"
+    idir = os.path.join(WORK, "ingest")
+    shutil.rmtree(idir, ignore_errors=True)
+    os.makedirs(idir)
+    kernels = ("fused_decode_cross_spectrum", "fused_cross_spectrum")
+    totals = {k: 0 for k in kernels}
+
+    def count(launches):
+        for k in kernels:
+            totals[k] += launches[k]
+        return {k: launches[k] for k in launches if k.startswith("fused")}
+
+    def check_oneshot(tim, files, label, n):
+        """The streamed .tim byte-identical to the one-shot stream of the
+        admitted archives in admission order (name order unless a
+        deferral reordered them); returns whether it was name order."""
+        if len(files) != n:
+            raise AssertionError(f"ingest path ({label}): {len(files)} "
+                                 f"archives admitted, not {n}")
+        ref = os.path.join(idir, f"{label}-one.tim")
+        stream_wideband_TOAs(files, gmodel, nsub_batch=nsub_batch,
+                             tim_out=ref, quiet=True, device=device)
+        with open(tim, "rb") as a, open(ref, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"ingest path ({label}): {tim} "
+                                     f"differs from the one-shot {ref}")
+        return [os.path.basename(f) for f in files] == sorted(
+            os.path.basename(f) for f in files)
+
+    t0 = time.perf_counter()
+    gmodel = os.path.join(idir, "model.gmodel")
+    write_gmodel(default_test_model(1500.0), gmodel, quiet=True)
+    par = os.path.join(idir, "pulsar.par")
+    with open(par, "w") as f:
+        for k, v in PAR_INGEST.items():
+            f.write(f"{k} {v}\n")
+    corpus = {kind: ingest_corpus(kind, os.path.join(idir, kind), gmodel,
+                                  device, nchan, nbin, nsub, nep)
+              for kind in ("event", "clean")}
+    sync(device)
+    log(f"ingest path: 2 corpora of {nep} epochs x {nsub} x {nchan} x "
+        f"{nbin} written in {time.perf_counter() - t0:.3f} s")
+    truth = {"glitch": 55100 + INGEST_SPACING * INGEST_GLITCH_I + 0.2,
+             "dm_step": 55100 + INGEST_SPACING * INGEST_DM_I + 0.2}
+
+    # 1. drain, the event corpus then the clean one
+    for kind, kern in (("event", "fused_decode_cross_spectrum"),
+                       ("clean", "fused_cross_spectrum")):
+        tim = os.path.join(idir, f"{kind}.tim")
+        trace = os.path.join(idir, f"{kind}.jsonl")
+        with capture_largest(kern) as big:
+            wall, launches, _ = run_tool("ppwatch", [
+                "-w", os.path.join(idir, kind), "-m", gmodel, "-t", tim,
+                "-p", par, "--drain", "--stable-ms", "0", "--resolve-every",
+                "8", "--nsub-batch", str(nsub_batch), "--telemetry", trace,
+                "--quiet", "--device", device], f"ppwatch --drain ({kind})")
+        summary, lats, tps, disp = ingest_stats(trace, tim)
+        check_oneshot(tim, admitted_files(trace), kind, nep)
+        alerts = [e for e in load_trace(trace)[1] if e["type"] == "alert"]
+        found = [(e["kind"], round(e["mjd"], 4), round(e["score"], 1))
+                 for e in alerts]
+        log(f"ingest path (drain, {kind}, ppwatch --drain -p): "
+            f"{wall:.3f} s; {latency_text(summary, lats)}; {tps:.1f} TOAs/s"
+            f"; dispatches (seq, real rows, requests) {disp}; "
+            f"{summary['incremental_resolves']} full incremental "
+            f"resolves; alerts (kind, MJD, score) {found}; the .tim "
+            f"byte-identical to the one-shot; kernel launches "
+            f"{count(launches)}")
+        if summary["n_ingest_admit"] != nep or not \
+                summary["incremental_resolves"]:
+            raise AssertionError(
+                f"ingest path ({kind}): {summary['n_ingest_admit']} "
+                f"admissions, {summary['incremental_resolves']} resolves")
+        if kind == "event":
+            # the first alert of each kind localizes its injected event;
+            # the monitor's later re-alerts of a persistent event are
+            # the reference semantics' (PERF.md, ROADMAP C)
+            first = {}
+            for e in alerts:
+                first.setdefault(e["kind"], e)
+            early = [e for e in alerts
+                     if e["mjd"] < min(truth.values()) - 1.0]
+            if set(first) != set(truth) or early or any(
+                    abs(first[k]["mjd"] - truth[k]) > 1.0 for k in truth):
+                raise AssertionError(f"ingest path (event): alerts {found}"
+                                     f" against the injected {truth}")
+            log(f"ingest path (event): first glitch and dm_step alerts "
+                f"{[(k, round(first[k]['mjd'] - truth[k], 5)) for k in truth]}"
+                f" days from their injected epochs; {len(alerts) - 2} "
+                f"re-alerts of the persistent events after them")
+        elif alerts:
+            raise AssertionError(f"ingest path (clean): alerts {found}")
+        if cuda:
+            fft_only(launches, (kern,), f"the ingest path ({kind})")
+            other = [k for k in kernels if k != kern][0]
+            if launches[f"{other}.gemm"]:
+                raise AssertionError(f"ingest path ({kind}): {other}'s "
+                                     "GEMM arm launched")
+            if kind == "event":
+                (raw, scl, offs, model, w, K), kw = big[0]
+                check_decode_case(dict(
+                    name=f"ingest bucket {tuple(raw.shape)} K={K}",
+                    raw=raw, scl=scl, offs=offs, model=model, w=w, K=K,
+                    code=kw["code"], nbin=kw["nbin"], fold=kw.get("fold"),
+                    arm=None))
+            else:
+                (port, model, w, K), kw = big[0][0][:4], big[0][1]
+                check_cross_spectrum_case(dict(
+                    name=f"ingest int16 bucket {tuple(port.shape)} K={K}",
+                    port=port, model=model, w=w, K=K, fold=kw.get("fold"),
+                    want_m2=kw.get("want_m2", False), arm=None))
+        del big[:]
+
+    def watched(label, feed, extra=()):
+        """ppwatch on a worker thread over an empty folder that ``feed``
+        fills; returns (folder, .tim, trace, wall)."""
+        folder = os.path.join(idir, label)
+        os.makedirs(folder)
+        tim = os.path.join(idir, f"{label}.tim")
+        trace = os.path.join(idir, f"{label}.jsonl")
+        F.reset_kernel_launches()
+        t0 = time.perf_counter()
+        th, out = ppwatch_thread([
+            "-w", folder, "-m", gmodel, "-t", tim, "--drain",
+            "--idle-polls", "40", "--poll-ms", str(INGEST_POLL_MS),
+            "--nsub-batch", str(nsub_batch), "--telemetry", trace,
+            "--quiet", "--device", device] + list(extra))
+        writer = threading.Thread(target=feed, args=(folder,), daemon=True)
+        writer.start()
+        writer.join(600)
+        join_ppwatch(th, out, f"ppwatch ({label})")
+        sync(device)
+        return folder, tim, trace, time.perf_counter() - t0
+
+    # 2. trickle: one archive at a time, each in two chunks
+    def trickle(folder):
+        for src in corpus["event"]:
+            with open(src, "rb") as f:
+                data = f.read()
+            dst = os.path.join(folder, os.path.basename(src))
+            with open(dst, "wb") as f:
+                f.write(data[:len(data) // 2])
+            time.sleep(INGEST_PAUSE_S)
+            with open(dst, "ab") as f:
+                f.write(data[len(data) // 2:])
+            time.sleep(INGEST_GAP_S)
+
+    folder, tim, trace, wall = watched(
+        "trickle", trickle, ["--stable-ms", str(INGEST_STABLE_MS)])
+    launches = F.kernel_launches()
+    summary, lats, tps, disp = ingest_stats(trace, tim)
+    check_oneshot(tim, admitted_files(trace), "trickle", nep)
+    skips = [e["reason"] for e in load_trace(trace)[1]
+             if e["type"] == "ingest_skip"]
+    log(f"ingest path (trickle, {nep} archives {INGEST_PAUSE_S + INGEST_GAP_S}"
+        f" s apart, two chunks each, --stable-ms {INGEST_STABLE_MS:.0f}, "
+        f"--poll-ms {INGEST_POLL_MS:.0f}, deadline "
+        f"{cfg.serve_max_wait_ms:.0f} ms): {wall:.3f} s; "
+        f"{latency_text(summary, lats)}; {tps:.1f} TOAs/s; skips "
+        f"{ {r: skips.count(r) for r in set(skips)} }; {len(disp)} "
+        f"dispatches (seq, real rows, requests) {disp}; the .tim "
+        f"byte-identical to the one-shot; kernel launches {count(launches)}")
+    if "truncated" not in skips or summary["n_ingest_admit"] != nep:
+        raise AssertionError(f"ingest path (trickle): skips {skips}, "
+                             f"{summary['n_ingest_admit']} admitted")
+
+    # 3a. burst: all at once, with sentinels
+    def burst(folder):
+        time.sleep(0.5)
+        for src in corpus["event"]:
+            dst = os.path.join(folder, os.path.basename(src))
+            shutil.copyfile(src, dst + ".part")
+            os.replace(dst + ".part", dst)
+        for src in corpus["event"]:
+            open(os.path.join(folder, os.path.basename(src)) + ".done",
+                 "w").close()
+
+    folder, tim, trace, wall = watched("burst", burst, ["--stable-ms", "0"])
+    launches = F.kernel_launches()
+    summary, lats, tps, disp = ingest_stats(trace, tim)
+    check_oneshot(tim, admitted_files(trace), "burst", nep)
+    log(f"ingest path (burst, {nep} archives dropped at once): {wall:.3f} s;"
+        f" {latency_text(summary, lats)}; {tps:.1f} TOAs/s; {len(disp)} "
+        f"dispatches (seq, real rows, requests) {disp}; the .tim "
+        f"byte-identical to the one-shot; kernel launches {count(launches)}")
+
+    # 3b. announce, then backpressure, through the library on one server
+    strace = os.path.join(idir, "library.jsonl")
+    server = ToaServer(nsub_batch=nsub_batch, queue_depth=1,
+                       telemetry=strace, device=device).start()
+    try:
+        F.reset_kernel_launches()
+        tim = os.path.join(idir, "announce.tim")
+        with SocketSource() as src:
+            drv = IngestDriver(server, gmodel, [src], tim_out=tim,
+                               tracer=server.tracer, quiet=True)
+            stop = threading.Event()
+            th = threading.Thread(target=drv.run, kwargs=dict(
+                stop=stop, poll_ms=INGEST_POLL_MS), daemon=True)
+            th.start()
+            t0 = time.perf_counter()
+            n = announce(src.endpoint, corpus["clean"][:3])
+            t_end = time.monotonic() + 600
+            while drv.stats()["completed"] < 3 and time.monotonic() < t_end:
+                time.sleep(0.01)
+            wall = time.perf_counter() - t0
+            stop.set()
+            th.join(600)
+        st = drv.stats()
+        launches = count(F.kernel_launches())
+        check_oneshot(tim, admitted_files(strace), "announce", 3)
+        log(f"ingest path (announce): {n} paths acknowledged, {st} in "
+            f"{wall:.3f} s; the .tim byte-identical to the one-shot; "
+            f"kernel launches {launches}")
+        if st["completed"] != 3 or st["errors"]:
+            raise AssertionError(f"ingest path (announce): {st}")
+
+        F.reset_kernel_launches()
+        n_before = len(admitted_files(strace))
+        folder = os.path.join(idir, "backpressure")
+        os.makedirs(folder)
+        for src in corpus["event"]:
+            dst = os.path.join(folder, os.path.basename(src))
+            shutil.copyfile(src, dst)
+            open(dst + ".done", "w").close()
+        tim = os.path.join(idir, "backpressure.tim")
+        drv = IngestDriver(server, gmodel,
+                           [WatchFolderSource(folder, stable_ms=0)],
+                           tim_out=tim, tracer=server.tracer, quiet=True)
+        t0 = time.perf_counter()
+        drv.run(idle_polls=5, poll_ms=INGEST_POLL_MS)
+        wall = time.perf_counter() - t0
+        st = drv.stats()
+    finally:
+        server.stop(drain=True)
+    sync(device)
+    launches = count(F.kernel_launches())
+    files = admitted_files(strace)[n_before:]
+    in_order = check_oneshot(tim, files, "backpressure", nep)
+    bp = [e for e in load_trace(strace)[1] if e["type"] == "ingest_skip"
+          and e["reason"] == "backpressure" and e["datafile"] in files]
+    log(f"ingest path (backpressure, queue_depth 1): {st} in {wall:.3f} s; "
+        f"{len(bp)} 'backpressure' skips; admitted in name order "
+        f"{in_order}; the .tim byte-identical to the one-shot of the "
+        f"admitted order; kernel launches {launches}")
+    if not bp or st["completed"] != nep:
+        raise AssertionError(f"ingest path (backpressure): {st}, "
+                             f"{len(bp)} backpressure skips")
+
+    # 4a. pptrace merge over phase 18's round 3
+    if rctx is not None:
+        from pulseportraiture_tpu_torch.telemetry import main as pptrace
+
+        paths = [rctx["r3"]] + list(rctx["hosts"])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            pptrace(["merge"] + paths)
+        text = buf.getvalue().splitlines()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            pptrace(["merge", "--json"] + paths)
+        merged = json.loads(buf.getvalue())
+        subs = {e["trace_id"]: e["req"]
+                for e in load_trace(rctx["r3"])[1]
+                if e["type"] == "route_submit"}
+        fo = {e["trace_id"] for e in load_trace(rctx["r3"])[1]
+              if e["type"] == "route_failover"}
+        named = [r for r in merged["requests"].values() if r["req"]]
+        bad = [r["req"] for r in named if r["trace_id"] not in subs
+               or not r["n_host_spans"] or r["critical"] is None
+               or (r["trace_id"] in fo) != bool(r["failovers"])]
+        if sorted(r["req"] for r in named) != sorted(set(subs.values())) \
+                or bad or not fo:
+            raise AssertionError(f"pptrace merge: {len(named)} requests "
+                                 f"named for {sorted(subs.values())}; "
+                                 f"failing {bad}; {len(fo)} failovers")
+        rows = [(r["req"], r["n_host_spans"], len(r["failovers"]),
+                 r["critical"], r["segments"]) for r in named]
+        log(f"ingest path (pptrace merge over phase 18's round 3: "
+            f"{text[0]}): {merged['n_requests']} trace ids, round 3's "
+            f"{len(named)} requests each once with (host spans, failovers, "
+            f"critical stage, segments) {rows}")
+
+    # 4b. ppmon against a host and a router monitor
+    F.reset_kernel_launches()
+    server = ToaServer(nsub_batch=nsub_batch, device=device).start()
+    listener = TransportServer(server, host="127.0.0.1", port=0).start()
+    router = monitor = None
+    try:
+        router = ToaRouter([SocketTransport(listener.label)])
+        router.submit(corpus["clean"][:1], gmodel,
+                      tim_out=os.path.join(idir, "mon.tim")).result(600)
+        sync(device)
+        launches = count(F.kernel_launches())
+        monitor = TransportServer(router, host="127.0.0.1", port=0).start()
+        replies = {}
+        for ep, argv in (("fleet", [monitor.label, "--once", "--json"]),
+                         ("host", [listener.label, "--once", "--json"]),
+                         ("text", [monitor.label, "--once"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                run_tool("ppmon", argv, f"ppmon {ep}")
+            replies[ep] = buf.getvalue()
+    finally:
+        if monitor is not None:
+            monitor.close()
+        if router is not None:
+            router.close()
+        listener.close()
+        server.stop(drain=True)
+    fleet = json.loads(replies["fleet"])
+    host = json.loads(replies["host"])
+    if fleet["fleet"]["p99_s"] is None or "ppmon: fleet" not in \
+            replies["text"] or not host["metrics_enabled"]:
+        raise AssertionError(f"ppmon: {replies}")
+    log(f"ingest path (ppmon --once --json, exit 0): fleet p50 "
+        f"{fleet['fleet']['p50_s']} s, p99 {fleet['fleet']['p99_s']} s, "
+        f"states {fleet['fleet']['states']}; host queue "
+        f"{host['queue_len']}, requests "
+        f"{host['metrics']['counters'].get('requests_total')}; the text "
+        f"view's first line {replies['text'].splitlines()[0]!r}; kernel "
+        f"launches {launches}")
+    if cuda:
+        torch.cuda.empty_cache()
     return totals
 
 
@@ -4999,8 +5529,11 @@ def main():
     serve, serve_ctx = phase_serve()
     log(f"phase serve path: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
-    router = phase_router(serve_ctx, pta_ctx)
+    router, router_ctx = phase_router(serve_ctx, pta_ctx)
     log(f"phase router path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    ingest = phase_ingest(router_ctx)
+    log(f"phase ingest path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -5033,7 +5566,8 @@ def main():
             + pta_b["fused_cross_spectrum"],
             "campaign": camp["fused_cross_spectrum"],
             "serve": serve["fused_cross_spectrum"],
-            "router": router["fused_cross_spectrum"]},
+            "router": router["fused_cross_spectrum"],
+            "ingest": ingest["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {
@@ -5064,7 +5598,8 @@ def main():
             + pta_b["fused_decode_cross_spectrum"],
             "campaign": camp["fused_decode_cross_spectrum"],
             "serve": serve["fused_decode_cross_spectrum"],
-            "router": router["fused_decode_cross_spectrum"]},
+            "router": router["fused_decode_cross_spectrum"],
+            "ingest": ingest["fused_decode_cross_spectrum"]},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -268,6 +268,33 @@ router_hedge_ms = None
 router_fleet_file = None
 
 
+# --- Online ingest (ingest/, ppwatch) --------------------------------------
+# Poll cadence [ms] of the watch-folder source (ingest/source.
+# WatchFolderSource): how often the directory is re-scanned, and the
+# driver's idle sleep.  Per-source override via WatchFolderSource(poll_ms=).
+ingest_poll_ms = 200.0
+
+# Size-stability window [ms] of watch-folder admission: a file whose
+# (size, mtime) changed within the last this-many milliseconds is presumed
+# still being written and is not admitted; a '<name>.done' sentinel next to
+# it bypasses the wait.  Per-source override via WatchFolderSource(stable_ms=).
+ingest_stable_ms = 500.0
+
+# CUSUM reference value k of the residual-stream detectors
+# (ingest/alerts.py), in sigmas of the standardized residual: drifts below
+# k per sample accumulate nothing.  Per-detector override via
+# CusumDetector(k=).
+alert_cusum_k = 0.5
+
+# CUSUM decision threshold h (same units): an alert fires when a one-sided
+# sum crosses h.  Per-detector override via CusumDetector(h=).
+alert_cusum_h = 5.0
+
+# ppmon's refresh interval [ms]: how often the endpoint's 'metrics' op is
+# polled.  ppmon --interval overrides it.
+mon_interval_ms = 1000.0
+
+
 # --- Telemetry (telemetry.py) --------------------------------------------
 # Path of the JSONL event trace the campaign drivers (GetTOAs,
 # get_channels_to_zap, the stream drivers, stream_ipta_campaign, ppzap,
@@ -290,6 +317,11 @@ telemetry_path = None
 #   PPT_GAUSS_DEVICE=off|auto|on    -> gauss_device
 #   PPT_GLS_DEVICE=off|auto|on      -> gls_device
 #   PPT_GLS_RESOLVE_EVERY=<N>       -> gls_resolve_every
+#   PPT_INGEST_POLL_MS=<float>      -> ingest_poll_ms
+#   PPT_INGEST_STABLE_MS=<float>    -> ingest_stable_ms
+#   PPT_ALERT_CUSUM_K=<float>       -> alert_cusum_k
+#   PPT_ALERT_CUSUM_H=<float>       -> alert_cusum_h
+#   PPT_MON_INTERVAL_MS=<float>     -> mon_interval_ms
 #   PPT_LM_JACOBIAN=auto|analytic|ad -> lm_jacobian
 #   PPT_ZAP_DEVICE=off|auto|on      -> zap_device
 #   PPT_ZAP_NSTD=<float>            -> zap_nstd
@@ -376,7 +408,9 @@ HOOKED_PPT_ENV = frozenset({
     "PPT_RESULT_CACHE", "PPT_CACHE_DIR", "PPT_CACHE_MAX_MB",
     "PPT_METRICS", "PPT_SLO_TARGETS", "PPT_ROUTER_HOSTS",
     "PPT_ROUTER_RETRY_MAX", "PPT_SERVE_LISTEN", "PPT_ROUTER_PROBE_MS",
-    "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE"})
+    "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE",
+    "PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS", "PPT_ALERT_CUSUM_K",
+    "PPT_ALERT_CUSUM_H", "PPT_MON_INTERVAL_MS"})
 
 
 def _unported_ppt_env():
@@ -389,10 +423,6 @@ def _unported_ppt_env():
     why["PPT_COMPILE_CACHE"] = (
         "the JAX compilation cache; eager PyTorch compiles no programs "
         "(ROADMAP A5)")
-    for name in ("PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS",
-                 "PPT_ALERT_CUSUM_K", "PPT_ALERT_CUSUM_H"):
-        why[name] = "online ingest (ROADMAP A13.5)"
-    why["PPT_MON_INTERVAL_MS"] = "the ppmon dashboard (ROADMAP A13.6)"
     for name in ("PPT_TUNE_DB", "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS"):
         why[name] = "the tuning database (ROADMAP A13.7)"
     for name in KNOWN_PPT_ENV - HOOKED_PPT_ENV - set(why):
@@ -605,6 +635,19 @@ def env_overrides():
             raise ValueError(
                 f"PPT_GLS_RESOLVE_EVERY must be >= 0, got {n}")
         put("gls_resolve_every", (n,))
+    put("ingest_poll_ms", _float_env(
+        env, "PPT_INGEST_POLL_MS", "a positive number of milliseconds",
+        lambda v: v > 0, "> 0"))
+    put("ingest_stable_ms", _float_env(
+        env, "PPT_INGEST_STABLE_MS",
+        "a non-negative number of milliseconds", lambda v: v >= 0, ">= 0"))
+    put("alert_cusum_k", _float_env(
+        env, "PPT_ALERT_CUSUM_K",
+        "a non-negative number (in sigma units)", lambda v: v >= 0,
+        ">= 0"))
+    put("alert_cusum_h", _float_env(
+        env, "PPT_ALERT_CUSUM_H", "a positive number (in sigma units)",
+        lambda v: v > 0, "> 0"))
     znstd = env.get("PPT_ZAP_NSTD", "")
     if znstd:
         try:
@@ -738,6 +781,9 @@ def env_overrides():
             except ValueError as e:
                 raise ValueError(f"PPT_SERVE_LISTEN: {e}")
             put("serve_listen", (listen,))
+    put("mon_interval_ms", _float_env(
+        env, "PPT_MON_INTERVAL_MS", "a positive number of milliseconds",
+        lambda v: v > 0, "> 0"))
     tel = env.get("PPT_TELEMETRY", "")
     if tel:
         # 'off'/'none'/'0' disable explicitly (a wrapper script can force

@@ -1418,9 +1418,9 @@ def report(path, file=None):
 
 def main(argv=None):
     """``python -m pulseportraiture_tpu_torch.telemetry
-    {report,validate} trace.jsonl``, the entry cli/pptrace.py wraps.
-    ``merge`` (router + host traces) needs obs/merge, which is not
-    ported yet (ROADMAP A13) and raises NotImplementedError."""
+    {report,validate} trace.jsonl`` and ``merge router.jsonl
+    host.jsonl ... [--json]`` (obs/merge.py), the entry cli/pptrace.py
+    wraps."""
     import argparse
 
     p = argparse.ArgumentParser(
@@ -1451,9 +1451,9 @@ def main(argv=None):
               f"{len(events)} events)")
         return 0
     if args.cmd == "merge":
-        raise NotImplementedError(
-            "pptrace merge: stitching router and host traces needs "
-            "obs/merge, which is not ported yet (ROADMAP A13)")
+        from .obs.merge import main_merge
+        main_merge(args.traces, as_json=args.json)
+        return 0
     report(args.trace)
     return 0
 

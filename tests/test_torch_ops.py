@@ -518,7 +518,9 @@ def test_import_hygiene():
         " 'obs.slo', 'serve.queue', 'serve.codec', 'serve.cache',"
         " 'serve.server', 'serve.client', 'utils.device',"
         " 'cli.ppserve', 'serve.transport', 'serve.fleet',"
-        " 'serve.router', 'cli.pproute')}\n"
+        " 'serve.router', 'cli.pproute', 'ingest', 'ingest.source',"
+        " 'ingest.alerts', 'ingest.driver', 'cli.ppwatch', 'obs.merge',"
+        " 'cli.ppmon')}\n"
         "assert new <= names, new - names\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "

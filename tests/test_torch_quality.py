@@ -787,6 +787,11 @@ HOOKS = {
     "PPT_ROUTER_PROBE_MS": ("250", "router_probe_ms", "soon"),
     "PPT_ROUTER_HEDGE_MS": ("1500", "router_hedge_ms", "-1"),
     "PPT_ROUTER_FLEET_FILE": ("fleet.txt", "router_fleet_file", "off"),
+    "PPT_INGEST_POLL_MS": ("75.5", "ingest_poll_ms", "0"),
+    "PPT_INGEST_STABLE_MS": ("0", "ingest_stable_ms", "-1"),
+    "PPT_ALERT_CUSUM_K": ("0.75", "alert_cusum_k", "-0.1"),
+    "PPT_ALERT_CUSUM_H": ("6.5", "alert_cusum_h", "0"),
+    "PPT_MON_INTERVAL_MS": ("250", "mon_interval_ms", "soon"),
 }
 
 # Loads both packages' config.py by path (neither package's __init__, so
@@ -851,12 +856,12 @@ def test_env_unported_and_unknown_warn():
     """A JAX-package hook whose knob the port lacks warns with its
     ROADMAP item; a typo warns with the closest known name; both once."""
     out, err = _probe("PPT_ZAP_NSTD", "3", "zap_nstd", "2",
-                      {"PPT_INGEST_POLL_MS": "250",
+                      {"PPT_TUNE_DB": "tune.json",
                        "PPT_NCHAN": "64",
                        "PPT_ZAP_NSTDS": "2"})
     port = [ln for ln in err.splitlines()
             if ln.startswith("pulseportraiture_tpu_torch.config")]
-    assert any("PPT_INGEST_POLL_MS" in ln and "A13.5" in ln for ln in port)
+    assert any("PPT_TUNE_DB" in ln and "A13.7" in ln for ln in port)
     assert any("PPT_NCHAN" in ln and "A5" in ln for ln in port)
     assert any("PPT_ZAP_NSTDS" in ln and "did you mean PPT_ZAP_NSTD" in ln
                for ln in port)

@@ -21,7 +21,8 @@ What is held:
 - tracing changes no TOA (.tim identical, line for line);
 - the tracer's units: log levels, the .prev rotation, the NULL
   tracer's no-ops and monotonic next_seq, schema drift rejected by
-  validate_trace, the pptrace CLI (validate, report; merge names A13),
+  validate_trace, the pptrace CLI (validate, report; merge refuses a
+  stream trace, which carries no trace_id, as the JAX one does),
   and PPT_TELEMETRY on its own.
 """
 
@@ -359,7 +360,9 @@ def test_validate_rejects_drift(tmp_path):
 
 def test_pptrace_cli(corpus, stream_config, tmp_path, capsys):
     """python -m pulseportraiture_tpu_torch.cli.pptrace validate/report
-    exit 0; merge raises naming A13."""
+    exit 0; merge refuses a trace without trace_ids with the JAX
+    package's ValueError (tests/test_torch_obs_merge.py merges real
+    fleets)."""
     root, meta, files, gmodel = corpus
     tt = str(tmp_path / "t.jsonl")
     TS.stream_wideband_TOAs(files[:1], gmodel, nsub_batch=4, quiet=True,
@@ -373,8 +376,12 @@ def test_pptrace_cli(corpus, stream_config, tmp_path, capsys):
         assert r.returncode == 0, r.stderr
         assert ("ok (schema 1" in r.stdout if cmd == "validate"
                 else "-- h2d link (copy stage) --" in r.stdout)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError) as et:
         TT.main(["merge", tt])
+    with pytest.raises(ValueError) as ej:
+        JT.main(["merge", tt])
+    assert str(et.value) == str(ej.value)
+    assert "predate distributed tracing" in str(et.value)
     assert TT.main(["validate", tt]) == 0
     capsys.readouterr()
 
