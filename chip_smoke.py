@@ -245,7 +245,29 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    --once --json`` against a router monitor and a host (exit 0, the
    fleet p99 present) and ``ppmon --once``.  Printed per round: the
    wall, discovery -> admission and admission -> TOA p50/p99, TOAs/s,
-   the dispatches and the deferrals.
+   the dispatches and the deferrals;
+20. tune path: (a) profiling.profile_stages on the fast fit of the main
+   path's archive (64 x 512 x 2048, float32, its window K): prefix
+   ``cross_spectrum`` (the weights and B1), prefix ``prepare`` (all of
+   prepare_portrait_fit_real), piece ``newton`` (the Newton loop on the
+   prepared inputs), every stage cost finite and >= 0, B1 launched, the
+   breakdown and attributed_frac printed; (b) ``pptoas --stream
+   --autotune --tune-db tune.json --telemetry t1.jsonl`` over phase 6's
+   2-bit archives and the int16 one (the sweep streams the first, a
+   2-bit archive; the counters set to 0 just before it): one DB entry
+   under 512x2048 whose fingerprint names the card and torch, 1
+   tune_probe, 5 tune_sweep and 1 tune_apply (db_hit false), tuned_s <=
+   default_s, the .tim byte-identical to the untuned run's; (c) the same
+   command again: db_hit true, no tune_sweep, the same .tim; (d) a DB
+   with the JAX package's CPU fingerprint: a warning, the defaults
+   kept, rc 0, the same .tim; (e) a numerics sweep (tune_numerics on,
+   the numerics tier alone): its DB entry not identity-preserving; (f)
+   ``ppserve -r --tune-db tune.json --telemetry``: db_hit true in the
+   server's trace, the server's stats() fingerprint equal to the DB's;
+   (g) B1 (the campaign's int16 bucket) and B2 (the sweep's 2-bit
+   bucket) through their FFT arms only and held to their plain versions
+   at 1e-5 x max|ref|.  Printed: the sweep's wall, its winners and
+   walls per knob, the warm run's wall, the stage attribution.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -5431,6 +5453,295 @@ def phase_ingest(rctx, device="cuda", nchan=NCHAN, nbin=NBIN,
     return totals
 
 
+def tune_attribution(device="cuda", nchan=NCHAN, nbin=NBIN):
+    """Phase 20 (a): profiling.profile_stages on the fast fit of the
+    main path's archive (its first 64 subints; float32, the derived
+    window K, B1 on CUDA).  The Newton loop reads its convergence on the
+    host once per trip, so its slope is wall time, host work included.
+    Returns (Attribution, B1 launches during it)."""
+    import numpy as np
+    import torch
+    from pulseportraiture_tpu_torch.fit import portrait as FP
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline.models import TemplateModel
+    from pulseportraiture_tpu_torch.pipeline.toas import (
+        load_for_toas, snr_weighted_nu_fit)
+    from pulseportraiture_tpu_torch.profiling import Stage, profile_stages
+
+    d = load_for_toas(os.path.join(WORK, "fake.fits"))
+    ok = np.asarray(d.ok_isubs, int)[:NSUB]
+    freqs0 = np.asarray(d.freqs[0], float)
+    masks = np.asarray(d.weights[ok] > 0.0, float)
+    tmpl = TemplateModel(os.path.join(WORK, "model.gmodel"),
+                         device=device).portrait(
+        freqs0, d.nbin, P=float(np.mean(d.Ps[ok])))
+    theta0 = np.zeros((len(ok), 5))
+    theta0[:, 1] = float(d.DM)
+    args, bounds, common = FP._stage_fast(
+        np.asarray(d.subints[ok, 0], np.float32),
+        np.asarray(tmpl, np.float32),
+        np.asarray(d.noise_stds[ok, 0], np.float32), freqs0,
+        np.asarray(d.Ps[ok]),
+        snr_weighted_nu_fit(np.asarray(d.SNRs[ok, 0]) * masks, freqs0),
+        None, theta0, FP.FitFlags(True, True), masks, 40, None, None,
+        device)
+    ports, model, noise, cmask, freqs, P, nu_fit, nu_out, th0 = args
+    K = common["nharm_eff"]
+    x_bf16 = FP.use_bf16_cross_spectrum()
+    x_dtype = torch.bfloat16 if x_bf16 else None
+    model = model.to(ports.dtype)
+
+    def weights():
+        return FP.make_weights(noise, nbin, cmask, dtype=ports.dtype,
+                               nharm=K)
+
+    def prepare():
+        return FP.prepare_portrait_fit_real(
+            ports, model, weights(), freqs, P, nu_fit, th0,
+            seed_derotate=common["seed_derotate"], x_dtype=x_dtype,
+            nharm_eff=K, dft_fold=common["dft_fold"],
+            fit_fused=common["fit_fused"])
+
+    Xr, Xi, S0, Sd, th_seed = prepare()
+
+    def cross_spectrum():
+        return F.fused_cross_spectrum(
+            ports, model, weights()[..., :K].contiguous(), K,
+            fold=common["dft_fold"])[0]
+
+    def newton():
+        return FP._fit_portrait_core_real(
+            Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out, th_seed,
+            fit_flags=common["fit_flags"], max_iter=common["max_iter"],
+            nharm_total=nbin // 2 + 1).phi
+
+    def full():
+        return FP.fast_fit_batched(*args, bounds, x_bf16=x_bf16,
+                                   **common).phi
+
+    F.reset_kernel_launches()
+    att = profile_stages(full, [
+        Stage("cross_spectrum", cross_spectrum),
+        Stage("prepare", prepare, pick=lambda r: r[0]),
+        Stage("newton", newton, kind="piece")])
+    b1 = F.kernel_launches()["fused_cross_spectrum"]
+    log(f"tune path (a) stage attribution, fast fit {tuple(ports.shape)} "
+        f"K={K} {str(ports.dtype).split('.')[-1]} (fused "
+        f"{common['fit_fused']}): {json.dumps(att.breakdown_ms(ndigits=4))}"
+        f"; attributed_frac {att.attributed_frac:.4f}; single call "
+        f"{att.single_s * 1e3:.3f} ms; B1 launches {b1}")
+    for st in att.stages:
+        if not (math.isfinite(st.cost_s) and st.cost_s >= 0.0):
+            raise AssertionError(f"stage {st.name}: cost {st.cost_s!r}")
+    if device_type(device) == "cuda" and b1 < 1:
+        raise AssertionError("the attribution launched no B1")
+    return att, b1
+
+
+def tune_events(trace):
+    """The tune_* events of a JSONL trace."""
+    with open(trace) as f:
+        evs = [json.loads(ln) for ln in f if ln.strip()]
+    return [e for e in evs if e.get("type", "").startswith("tune_")]
+
+
+def phase_tune(device="cuda", nchan=NCHAN, nbin=NBIN):
+    """The tune path (phase 20; module docstring): the stage attribution,
+    then pptoas --autotune / --tune-db on phase 6's campaign (its
+    metafile, .gmodel and archives), a numerics sweep, ppserve --tune-db.
+    Returns the kernels' launches of run (b), the sweep and its
+    campaign."""
+    import warnings
+
+    import torch
+    from pulseportraiture_tpu_torch import config
+    from pulseportraiture_tpu_torch import serve as SV
+    from pulseportraiture_tpu_torch.tune import (IDENTITY_TIER,
+                                                 NUMERICS_TIER, TuningStore,
+                                                 ensure_tuned,
+                                                 shape_class_for)
+
+    tune_attribution(device, nchan, nbin)
+    tdir = os.path.join(WORK, "tune")
+    shutil.rmtree(tdir, ignore_errors=True)
+    os.makedirs(tdir)
+    meta = os.path.join(WORK, "stream_meta.txt")
+    gmodel = os.path.join(WORK, "model.gmodel")
+    with open(meta) as f:
+        files = [ln.strip() for ln in f if ln.strip()]
+    shape = shape_class_for(nchan, nbin)
+    names = [k.name for k in IDENTITY_TIER + NUMERICS_TIER]
+    defaults = {k: getattr(config, k) for k in names}
+    base = ["--stream", "-d", meta, "-m", gmodel, "--quiet",
+            "--device", device]
+
+    def reset():
+        for k, v in defaults.items():
+            setattr(config, k, v)
+        config.tune_db, config.autotune, config.tune_numerics = \
+            None, False, False
+
+    def campaign(tag, extra):
+        reset()
+        tim = os.path.join(tdir, f"{tag}.tim")
+        wall, launches, _ = run_tool("pptoas", base + ["-o", tim] + extra,
+                                     f"pptoas --stream {tag}")
+        with open(tim, "rb") as f:
+            return wall, launches, f.read()
+
+    db = os.path.join(tdir, "tune.json")
+    w0, _, ref = campaign("untuned", [])
+    log(f"tune path: untuned pptoas --stream {w0:.3f} s, "
+        f"{ref.count(b' -pp_dme ')} TOAs")
+
+    # (b) the first sweep, the counters set to 0 just before it
+    t1 = os.path.join(tdir, "t1.jsonl")
+    with capture_largest("fused_decode_cross_spectrum") as b2_call, \
+            capture_largest("fused_cross_spectrum", last=True) as b1_call:
+        w1, launches, tim1 = campaign(
+            "sweep", ["--autotune", "--tune-db", db, "--telemetry", t1])
+    evs = tune_events(t1)
+    kinds = [e["type"] for e in evs]
+    with open(db) as f:
+        doc = json.load(f)
+    ent = doc["entries"].get(shape)
+    fp = doc["fingerprint"]
+    for e in evs:
+        if e["type"] == "tune_sweep":
+            log(f"  sweep {e['knob']}: default {e['default']}, winner "
+                f"{e['winner']}, {e['n_candidates']} candidates, "
+                f"{e['n_rejected']} rejected by the byte gate, default "
+                f"{e['default_s']:.6f} s, best {e['best_s']:.6f} s")
+    log(f"tune path (b) pptoas --stream --autotune: {w1:.3f} s wall "
+        f"(sweep and campaign); DB {json.dumps(doc)}; launches "
+        f"{launches}")
+    if list(doc["entries"]) != [shape] or ent is None:
+        raise AssertionError(f"tune DB entries {list(doc['entries'])}, "
+                             f"expected one under {shape}")
+    kind = (torch.cuda.get_device_name(0)
+            if device_type(device) == "cuda" else "cpu")
+    want = f"{device_type(device)}:{kind}:torch-{torch.__version__}"
+    if fp != want:
+        raise AssertionError(f"tune DB fingerprint {fp!r}, expected {want!r}")
+    if (kinds.count("tune_probe"), kinds.count("tune_sweep"),
+            kinds.count("tune_apply")) != (1, len(IDENTITY_TIER), 1) or \
+            evs[-1]["db_hit"] is not False:
+        raise AssertionError(f"sweep trace tune events {kinds}")
+    if not ent["tuned_s"] <= ent["default_s"]:
+        raise AssertionError(f"tuned_s {ent['tuned_s']} > default_s "
+                             f"{ent['default_s']}")
+    if tim1 != ref:
+        raise AssertionError("the tuned .tim differs from the untuned run's")
+
+    # (c) the warm DB
+    t2 = os.path.join(tdir, "t2.jsonl")
+    w2, _, tim2 = campaign(
+        "warm", ["--autotune", "--tune-db", db, "--telemetry", t2])
+    evs2 = tune_events(t2)
+    applied = [e for e in evs2 if e["type"] == "tune_apply"]
+    if any(e["type"] == "tune_sweep" for e in evs2) or \
+            [e["db_hit"] for e in applied] != [True] or tim2 != ref:
+        raise AssertionError(f"warm run: tune events "
+                             f"{[e['type'] for e in evs2]}, db_hit "
+                             f"{[e['db_hit'] for e in applied]}, .tim "
+                             f"identical {tim2 == ref}")
+    log(f"tune path (c) warm DB: {w2:.3f} s wall (the sweep's run "
+        f"{w1:.3f} s, untuned {w0:.3f} s), applied {applied[0]['knobs']}, "
+        "no tune_sweep, .tim byte-identical")
+
+    # (d) a DB with the JAX package's CPU fingerprint
+    foreign = os.path.join(tdir, "jax.json")
+    with open(foreign, "w") as f:
+        json.dump({"version": 1, "fingerprint": "cpu:cpu:jax-0.4.35",
+                   "entries": {shape: {"knobs": {
+                       "stream_pipeline_depth": 1, "fused_block": 8}}}}, f)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        w3, _, tim3 = campaign("foreign", ["--tune-db", foreign])
+        moved = {k: getattr(config, k) for k in names
+                 if getattr(config, k) != defaults[k]}
+    said = [str(w.message) for w in caught
+            if "measured on backend" in str(w.message)]
+    if not said or moved or tim3 != ref:
+        raise AssertionError(f"foreign DB: warnings {said}, knobs moved "
+                             f"{moved}, .tim identical {tim3 == ref}")
+    log(f"tune path (d) foreign DB: warned ({said[0][:100]}...), defaults "
+        f"kept, {w3:.3f} s, .tim byte-identical")
+
+    # (e) a numerics sweep: the numerics tier alone (imported here: the
+    # runs above execute the CLI module afresh through runpy)
+    from pulseportraiture_tpu_torch.cli import pptoas as PT
+
+    reset()
+    config.tune_numerics = True
+    run_fn, nshape = PT._tune_workload(
+        PT.build_parser().parse_args(base + ["-o", os.devnull]))
+    ndb = os.path.join(tdir, "numerics.json")
+    t0 = time.perf_counter()
+    try:
+        won = ensure_tuned(run_fn, nshape, db_path=ndb,
+                           knobs=NUMERICS_TIER, apply=False, device=device)
+    finally:
+        reset()
+    nent = TuningStore(ndb, device=device).get(nshape)
+    if nent is None or nent.get("identity_preserving") is not False:
+        raise AssertionError(f"numerics sweep DB entry {nent}")
+    log(f"tune path (e) numerics sweep: {time.perf_counter() - t0:.3f} s, "
+        f"winners {won}, entry {json.dumps(nent)}")
+
+    # (f) the server on the stored DB (stats() read as it stops)
+    req = os.path.join(tdir, "requests.jsonl")
+    with open(req, "w") as f:
+        f.write(json.dumps({"name": "T", "datafiles": [files[0], files[-1]],
+                            "modelfile": gmodel}) + "\n")
+    tserve = os.path.join(tdir, "serve.jsonl")
+    orig, stats = SV.ToaServer, []
+
+    class StatServer(orig):
+        def stop(self, *a, **k):
+            if not stats:
+                stats.append(self.stats())
+            return super().stop(*a, **k)
+
+    SV.ToaServer = StatServer
+    try:
+        reset()
+        w4, _, _ = run_tool("ppserve", [
+            "-r", req, "-O", os.path.join(tdir, "served"), "--tune-db", db,
+            "--telemetry", tserve, "--max-wait-ms", "200", "--quiet",
+            "--device", device], "ppserve -r --tune-db")
+    finally:
+        SV.ToaServer = orig
+        reset()
+    served = [e for e in tune_events(tserve) if e["type"] == "tune_apply"]
+    cap = stats[0]["capability"] if stats else {}
+    if [e["db_hit"] for e in served] != [True] or \
+            cap.get("fingerprint") != fp:
+        raise AssertionError(f"ppserve --tune-db: tune_apply {served}, "
+                             f"stats fingerprint {cap.get('fingerprint')!r} "
+                             f"vs the DB's {fp!r}")
+    log(f"tune path (f) ppserve -r --tune-db: {w4:.3f} s, applied "
+        f"{served[0]['knobs']}, capability {json.dumps(cap)}")
+
+    # (g) the kernels on the path
+    if device_type(device) == "cuda":
+        fft_only(launches, ("fused_decode_cross_spectrum",
+                            "fused_cross_spectrum"), "the tune path")
+        (port, model, w, K), k = b1_call[0][0][:4], b1_call[0][1]
+        check_cross_spectrum_case(dict(
+            name=f"tune campaign int16 bucket {tuple(port.shape)} K={K}",
+            port=port, model=model, w=w, K=K, fold=k.get("fold"),
+            want_m2=k.get("want_m2", False), arm=None))
+        (raw, scl, offs, model, w, K), k = b2_call[0]
+        check_decode_case(dict(
+            name=f"tune sweep 2-bit bucket {tuple(raw.shape)} K={K}",
+            raw=raw, scl=scl, offs=offs, model=model, w=w, K=K,
+            code=k["code"], nbin=k["nbin"], fold=k.get("fold"), arm=None))
+        del b1_call[:], b2_call[:]
+        torch.cuda.empty_cache()
+    return launches
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -5534,6 +5845,9 @@ def main():
     t0 = time.perf_counter()
     ingest = phase_ingest(router_ctx)
     log(f"phase ingest path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    tune = phase_tune()
+    log(f"phase tune path: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -5567,7 +5881,8 @@ def main():
             "campaign": camp["fused_cross_spectrum"],
             "serve": serve["fused_cross_spectrum"],
             "router": router["fused_cross_spectrum"],
-            "ingest": ingest["fused_cross_spectrum"]},
+            "ingest": ingest["fused_cross_spectrum"],
+            "tune": tune["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"]),
     }, {
@@ -5599,7 +5914,8 @@ def main():
             "campaign": camp["fused_decode_cross_spectrum"],
             "serve": serve["fused_decode_cross_spectrum"],
             "router": router["fused_decode_cross_spectrum"],
-            "ingest": ingest["fused_decode_cross_spectrum"]},
+            "ingest": ingest["fused_decode_cross_spectrum"],
+            "tune": tune["fused_decode_cross_spectrum"]},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

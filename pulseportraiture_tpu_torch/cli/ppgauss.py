@@ -10,8 +10,9 @@
 
 Flag parity: reference ppgauss.py:666-812.  --batch -M fleet.txt builds
 one template per archive through the template factory
-(pipeline/factory.py), as the JAX CLI does.  Refused: --figure (viz/,
-ROADMAP A13).  The output .gmodel is a template for ``pptoas -m``.
+(pipeline/factory.py), as the JAX CLI does.  --figure saves the data /
+model / residual figure (viz/, needs matplotlib).  The output .gmodel is
+a template for ``pptoas -m``.
 """
 
 import argparse
@@ -62,8 +63,7 @@ def build_parser():
     p.add_argument("--norm", dest="normalize", default=None,
                    choices=(None, "mean", "max", "prof", "rms", "abs"))
     p.add_argument("--figure", default=False,
-                   help="Save a residual plot to this file name (not "
-                        "ported yet).")
+                   help="Save a residual plot to this file name.")
     p.add_argument("--batch", action="store_true", default=False,
                    help="Fleet mode: one template per archive of -M "
                         "(the template factory, batched across "
@@ -105,10 +105,6 @@ def main(argv=None):
                          f"{args.max_ngauss}")
     if args.batch:
         return _batch(args, gauss_device)
-    if args.figure:
-        raise SystemExit("ppgauss --figure needs the plotting package "
-                         "(viz/), which the port does not have yet "
-                         "(ROADMAP A13)")
     from ..device import resolve_device
     from ..pipeline.gauss import GaussPortrait
     from ..pipeline.portrait import reset_template_stats
@@ -128,8 +124,9 @@ def main(argv=None):
         fiducial_gaussian=args.fgauss, auto_gauss=args.auto_gauss,
         writemodel=True, outfile=args.outfile or (datafile + ".gmodel"),
         writeerrfile=bool(args.errfile), errfile=args.errfile,
-        model_name=args.model_name, gauss_device=gauss_device,
-        max_ngauss=args.max_ngauss, quiet=args.quiet)
+        model_name=args.model_name, residplot=args.figure or None,
+        gauss_device=gauss_device, max_ngauss=args.max_ngauss,
+        quiet=args.quiet)
     return 0
 
 

@@ -32,8 +32,9 @@ proposal runs on ``--device``).  ``--telemetry`` records the route and
 fleet ledger (``python -m pulseportraiture_tpu_torch.cli.pptrace report``:
 the "router" and "fleet" sections); ``--monitor PORT`` serves the
 router's fleet-wide ``metrics`` op on 127.0.0.1:PORT while the batch
-routes.  Exit code 0, or 1 when any request failed.  ``--tune-db`` is
-not ported yet (ROADMAP A13.7).
+routes.  Exit code 0, or 1 when any request failed.  ``--tune-db``
+applies the stored winners of ``--device``'s fingerprint to this
+process's config, as ppserve does.
 """
 
 import argparse
@@ -144,10 +145,10 @@ def main(argv=None):
                              f"of off/auto/on, got "
                              f"{args.transport_compress!r}")
         config.transport_compress = table[v]
-    from .ppserve import apply_cache_flags, apply_obs_flags, refuse_tune_db
+    from .ppserve import apply_cache_flags, apply_obs_flags, apply_tune_flags
 
     apply_cache_flags(args, "pproute")
-    refuse_tune_db(args, "pproute")
+    apply_tune_flags(args, "pproute", device=args.device)
     apply_obs_flags(args, "pproute")
     if args.monitor is not None and not 0 <= args.monitor <= 65535:
         raise SystemExit(f"--monitor: port out of range, got {args.monitor}")

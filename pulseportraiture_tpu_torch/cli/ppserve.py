@@ -47,9 +47,13 @@ run's trace recorded once before serving starts
 launch; compare the traces' cold-start sections with ``python -m
 pulseportraiture_tpu_torch.cli.pptrace report``.
 
-Not ported yet: ``--tune-db`` (the tuning database, ROADMAP A13.7) exits
-naming its item.  The JAX CLI's ``--compile-cache`` has no counterpart
-(eager PyTorch compiles no programs).
+``--tune-db PATH`` applies the winners a prior ``pptoas --autotune``
+stored for this card and torch build (tune/store.py) before the server
+and its warm-up start; a DB of another fingerprint is refused with a
+warning.  With ``--telemetry`` the hit is witnessed in the server's
+trace by a ``tune_apply`` event (the JAX CLI applies it untraced).  The
+JAX CLI's ``--compile-cache`` has no counterpart (eager PyTorch
+compiles no programs).
 """
 
 import argparse
@@ -151,18 +155,34 @@ def add_obs_flags(p):
 
 
 def add_tune_flags(p):
-    """The tuning-database flag, shared by ppserve and pproute; not
-    ported yet (refuse_tune_db)."""
+    """The tuning-database flag, shared by ppserve and pproute
+    (tune/store.TuningStore)."""
     p.add_argument("--tune-db", dest="tune_db", default=None,
                    metavar="PATH",
-                   help="Tuning database (not ported yet: exits naming "
-                        "ROADMAP A13.7).")
+                   help="Persisted per-backend tuning DB (JSON): the "
+                        "stored knob winners for this card's fingerprint "
+                        "are applied at startup; a DB from a different "
+                        "backend is refused with a warning. Also via "
+                        "PPT_TUNE_DB. [default: off]")
 
 
-def refuse_tune_db(args, prog):
-    if args.tune_db is not None:
-        raise SystemExit(f"{prog}: --tune-db: the tuning database is not "
-                         "ported yet (ROADMAP A13.7)")
+def apply_tune_flags(args, prog, tracer=None, device=None):
+    """Apply --tune-db to config and load any stored winners of
+    ``device``'s fingerprint (the store warns on a stale or corrupt
+    DB)."""
+    from .. import config
+    from ..telemetry import NULL_TRACER
+    from ..tune import apply_from_db
+
+    if getattr(args, "tune_db", None) is not None:
+        config.tune_db = args.tune_db
+    if not config.tune_db:
+        return
+    try:
+        apply_from_db(tracer=tracer if tracer is not None else NULL_TRACER,
+                      device=device)
+    except RuntimeError as e:   # no card to take the fingerprint of
+        raise SystemExit(f"{prog}: --tune-db: {e}")
 
 
 def add_cache_flags(p):
@@ -343,18 +363,39 @@ def main(argv=None):
         reqs = None
     else:
         reqs = parse_requests(args.requests)
-    refuse_tune_db(args, "ppserve")
     apply_cache_flags(args, "ppserve")
     apply_obs_flags(args, "ppserve")
     os.makedirs(args.outdir, exist_ok=True)
 
     from ..serve import ServeRejected, ToaServer
+    from ..telemetry import resolve_tracer
 
+    # the tuned winners are set before the server thread and its warm-up
+    # start; with a trace, ONE tracer carries the tune_apply witness and
+    # the server's events (a second Tracer on the path would rotate the
+    # first away)
+    telemetry, tracer, owned = args.telemetry, None, False
+    if args.tune_db is not None or config.tune_db:
+        tracer, owned = resolve_tracer(args.telemetry, run="ppserve")
+        if owned:
+            telemetry = tracer
+    try:
+        apply_tune_flags(args, "ppserve", tracer=tracer, device=args.device)
+        return _serve(args, reqs, listen, stream_devices, telemetry,
+                      ToaServer, ServeRejected)
+    finally:
+        if owned:
+            tracer.close()
+
+
+def _serve(args, reqs, listen, stream_devices, telemetry, ToaServer,
+           ServeRejected):
+    """Run the server over the request file, or in the listen mode."""
     server = ToaServer(
         nsub_batch=args.nsub_batch, max_wait_ms=args.max_wait_ms,
         queue_depth=args.queue_depth, stream_devices=stream_devices,
         max_inflight=args.max_inflight,
-        pipeline_depth=args.pipeline_depth, telemetry=args.telemetry,
+        pipeline_depth=args.pipeline_depth, telemetry=telemetry,
         warmup_manifest=args.warmup_manifest,
         warmup_model=args.warmup_model, quiet=args.quiet,
         device=args.device)

@@ -9,9 +9,10 @@ of pulseportraiture_tpu/cli/ppspline.py).
 Flag parity: reference ppspline.py:291-397 (default norm 'prof', one
 phase-shift fit per channel).  With -s, --gauss-device smooths the mean
 profile by the template factory's Gaussian fit
-(pipeline/factory.gauss_smooth_mean), as the JAX CLI does.  Refused:
---plots (viz/, ROADMAP A13).  The output .spl is a template for
-``pptoas -m``.
+(pipeline/factory.gauss_smooth_mean), as the JAX CLI does.  --plots
+saves the eigenprofile and spline-projection figures next to the model
+(viz/, needs matplotlib).  The output .spl is a template for ``pptoas
+-m``.
 """
 
 import argparse
@@ -43,8 +44,7 @@ def build_parser():
                    default=None)
     p.add_argument("--plots", dest="make_plots", action="store_true",
                    default=False,
-                   help="Save eigenprofile and spline-projection plots "
-                        "(not ported yet).")
+                   help="Save eigenprofile and spline-projection plots.")
     p.add_argument("--gauss-device", default=None,
                    help="With -s: smooth the MEAN profile by the template "
                         "factory's Gaussian fit instead of wavelets — "
@@ -71,10 +71,6 @@ def main(argv=None):
             raise SystemExit("--gauss-device requires -s/--smooth "
                              "(it selects the lane that smooths the "
                              "mean profile)")
-    if args.make_plots:
-        raise SystemExit("ppspline --plots needs the plotting package "
-                         "(viz/), which the port does not have yet "
-                         "(ROADMAP A13)")
     from ..device import resolve_device
     from ..pipeline.portrait import reset_template_stats
     from ..pipeline.spline import SplinePortrait
@@ -100,6 +96,12 @@ def main(argv=None):
     dp.write_model(outfile, quiet=args.quiet)
     if args.archive:
         dp.write_model_archive(args.archive, quiet=args.quiet)
+    if args.make_plots:
+        dp.show_eigenprofiles(show=False, savefig=outfile + ".eigen.png")
+        if dp.ncomp:
+            # writes <outfile>.proj.png and <outfile>.freq.png (the
+            # reference's savefig convention)
+            dp.show_spline_curve_projections(show=False, savefig=outfile)
     return 0
 
 

@@ -9,11 +9,16 @@ TOA per channel instead, with or without --stream.  Templates are
 JSONL trace of the wideband GetTOAs path or the --stream drivers (read
 it with ``python -m pulseportraiture_tpu_torch.cli.pptrace report``);
 --transport-compress switches the stream's lossless transport codec.
+--autotune resolves this card's knob winners from the tuning DB
+(--tune-db), sweeping the output-identical knob tier on the first
+archive when the DB has no entry, before the campaign runs; the .tim is
+byte-identical tuned or not.
 
     python -m pulseportraiture_tpu_torch.cli.pptoas -d archive.fits \\
         -m model.gmodel -o out.tim [--device cuda|cpu] [--narrowband]
     python -m pulseportraiture_tpu_torch.cli.pptoas --stream \\
-        -d metafile -m model.spl -o out.tim [--stream-devices auto|N]
+        -d metafile -m model.spl -o out.tim [--stream-devices auto|N] \\
+        [--autotune] [--tune-db tune.json]
 """
 
 import argparse
@@ -105,8 +110,27 @@ def build_parser():
                    help="Comma-separated extra TOA flag pairs k1,v1,k2,v2.")
     p.add_argument("--snr_cut", dest="snr_cutoff", default=0.0, type=float,
                    help="Minimum snr flag value for written TOAs.")
+    p.add_argument("--showplot", action="store_true", default=False,
+                   help="Save per-subint fit plots next to the archives "
+                        "(accepted as the JAX CLI accepts it; refused "
+                        "with --stream).")
     p.add_argument("--prefetch", action="store_true", default=False,
                    help="Overlap archive IO with fitting (long lists).")
+    p.add_argument("--autotune", action="store_true", default=False,
+                   help="Before the campaign, resolve this card's "
+                        "measured knob winners from the tuning DB "
+                        "(--tune-db / PPT_TUNE_DB); with no stored "
+                        "entry, sweep the output-identical knob tier on "
+                        "the first archive and persist the winners.  "
+                        ".tim output is byte-identical tuned vs default.  "
+                        "Also via PPT_AUTOTUNE.")
+    p.add_argument("--tune-db", dest="tune_db", default=None,
+                   metavar="PATH",
+                   help="Persisted per-backend tuning DB (JSON, "
+                        "tune/store.py).  A DB measured on a different "
+                        "backend fingerprint (another card, torch build "
+                        "or the JAX package) is refused with a warning.  "
+                        "Also via PPT_TUNE_DB. [default: config.tune_db]")
     p.add_argument("--fit-fused", dest="fit_fused", default=None,
                    metavar="off|auto|on",
                    help="Fused DFT -> cross-spectrum kernel lane of the "
@@ -173,8 +197,6 @@ def parse_bounds(specs):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from .. import config
-    from ..io.tim import write_princeton_TOAs, write_TOAs
-    from ..pipeline import GetTOAs
 
     stream_devices = _stream_options(args)
     nu_ref_DM = args.nu_ref_DM
@@ -223,6 +245,26 @@ def main(argv=None):
                 "narrowband path is untraced; use --stream "
                 "--narrowband for a traced per-channel campaign",
                 level="warn")
+
+    # --autotune / --tune-db: this card's tuned knob winners are set
+    # before any lane runs; when tuning is active the campaign shares the
+    # tracer resolved here (tune events and campaign events, one trace)
+    tune_tracer, tune_owned = _apply_autotune(args)
+    if tune_owned:
+        args.telemetry = tune_tracer
+    try:
+        return _run(args, nu_ref_DM, nu_refs, addtnl, stream_devices,
+                    scat_guess, bounds)
+    finally:
+        if tune_owned:
+            tune_tracer.close()
+
+
+def _run(args, nu_ref_DM, nu_refs, addtnl, stream_devices, scat_guess,
+         bounds):
+    """The lane the flags select: the stream drivers or GetTOAs."""
+    from ..io.tim import write_princeton_TOAs, write_TOAs
+    from ..pipeline import GetTOAs
 
     if args.stream and args.narrowband:
         return _run_stream_narrowband(args, addtnl, stream_devices,
@@ -310,17 +352,91 @@ def _stream_options(args):
                              f"{args.pipeline_depth}")
     if args.stream and args.narrowband:
         if (args.psrchive or args.one_DM or args.print_flux
-                or args.print_parangle or args.fit_GM):
+                or args.print_parangle or args.fit_GM or args.showplot):
             raise SystemExit(
                 "--stream --narrowband supports per-channel (phi[, tau]) "
-                "fits only (no psrchive/one_DM/flux/parangle/GM flags)")
+                "fits only (no psrchive/one_DM/flux/parangle/GM flags or "
+                "plots)")
     elif args.stream and (args.psrchive or args.one_DM
-                          or args.print_parangle):
+                          or args.print_parangle or args.showplot):
         raise SystemExit("--stream supports the wideband (phi, DM[, GM, "
                          "scattering]), flux and phase campaign "
                          "configuration only (no psrchive/one_DM/parangle "
-                         "flags)")
+                         "flags or plots)")
     return stream_devices
+
+
+def _tune_workload(args):
+    """The --autotune sweep's workload: the FIRST archive through the
+    streaming lane the campaign uses, on --device, returning the .tim
+    bytes as the artifact the sweep's byte gate compares.  Every call
+    builds a fresh executor, so each candidate's knobs reach the code.
+    The shape class is the archive's (nchan, nbin), read from its SUBINT
+    header: the JAX CLI loads the whole archive for it, which on a 64 x
+    512 x 2048 archive costs a warm-DB run seconds."""
+    import os
+    import tempfile
+
+    from ..io.fitsio import get_hdu, read_fits
+    from ..pipeline.toas import _is_metafile, _read_metafile
+    from ..tune import shape_class_for, tuned_config
+
+    datafiles = args.datafiles
+    if isinstance(datafiles, str):
+        datafiles = (_read_metafile(datafiles)
+                     if _is_metafile(datafiles) else [datafiles])
+    first = datafiles[0]
+    sub = get_hdu(read_fits(first, defer=("DATA",)), "SUBINT").header
+    shape_class = shape_class_for(sub["NCHAN"], sub["NBIN"])
+    tim = os.path.join(tempfile.mkdtemp(prefix="ppt_tune_"), "probe.tim")
+
+    def run_fn(overrides):
+        from ..pipeline.stream import (stream_narrowband_TOAs,
+                                       stream_wideband_TOAs)
+
+        stream = (stream_narrowband_TOAs if args.narrowband
+                  else stream_wideband_TOAs)
+        with tuned_config(overrides):
+            stream([first], args.modelfile, tscrunch=args.tscrunch,
+                   tim_out=tim, quiet=True, device=args.device)
+        with open(tim, "rb") as fh:
+            return fh.read()
+
+    return run_fn, shape_class
+
+
+def _apply_autotune(args):
+    """Resolve the tuned knob winners before the campaign (--autotune /
+    --tune-db): stored winners of this card's fingerprint apply
+    directly; with --autotune and no stored entry the output-identical
+    tier is swept on the first archive and the winners persisted.
+
+    Returns ``(tracer, owned)``.  With tuning active and a trace asked
+    for, ONE tracer is resolved here, so the tune_probe / tune_apply
+    events land in the trace the campaign writes; the caller hands the
+    lane the tracer object and closes it after."""
+    from .. import config
+    from ..telemetry import NULL_TRACER, resolve_tracer
+
+    if args.tune_db is not None:
+        config.tune_db = args.tune_db
+    if args.autotune:
+        config.autotune = True
+    if not (config.autotune or config.tune_db):
+        return NULL_TRACER, False
+    tracer, owned = resolve_tracer(args.telemetry, run="pptoas")
+    if config.autotune:
+        from ..tune import ensure_tuned
+
+        run_fn, shape_class = _tune_workload(args)
+        ensure_tuned(run_fn, shape_class, tracer=tracer, device=args.device)
+    else:
+        # --tune-db alone applies stored winners and never sweeps: a
+        # cold or foreign DB is a no-op (the store warns)
+        from ..tune import apply_from_db
+
+        apply_from_db(tracer=tracer, device=args.device)
+    return tracer, owned
 
 
 def _run_stream_narrowband(args, addtnl, stream_devices, scat_guess):

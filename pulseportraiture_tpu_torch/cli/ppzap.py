@@ -11,8 +11,9 @@ GetTOAs and flags channels by reduced chi^2 / S-N
 median algorithm on the channels' noise levels (pipeline/zap).  Beyond
 the reference, --apply edits the archive weights directly, and
 --telemetry writes the proposals' ``zap_propose`` and the applied zaps'
-``zap_apply`` events to a JSONL trace.  --hist (matplotlib) is not
-ported yet (ROADMAP A13) and raises.
+``zap_apply`` events to a JSONL trace.  --hist (model path) saves a
+histogram of the fits' reduced chi^2 as <datafiles>.rchi2.png (needs
+matplotlib).
 """
 
 import argparse
@@ -48,8 +49,7 @@ def build_parser():
                    help="Apply the zaps directly to the archives "
                         "(weight edits; no PSRCHIVE needed).")
     p.add_argument("--hist", action="store_true", default=False,
-                   help="Save a channel red-chi2 histogram (model path; "
-                        "not ported yet, ROADMAP A13).")
+                   help="Save a channel red-chi2 histogram (model path).")
     p.add_argument("--zap-device", default=None,
                    choices=("off", "auto", "on"),
                    help="Run the zap cut as the batched torch program on "
@@ -69,10 +69,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.hist:
-        raise NotImplementedError(
-            "ppzap --hist: plots (matplotlib) are not ported yet "
-            "(ROADMAP A13)")
     from ..device import resolve_device
     from ..io.psrfits import load_data, noise_std_ps
     from ..pipeline.portrait import normalize_portrait
@@ -98,6 +94,9 @@ def main(argv=None):
                 telemetry=tracer)
             # aligned with gt.order (the archives that fitted)
             datafiles = list(gt.order)
+            if args.hist:
+                _rchi2_hist(gt.red_chi2s, args.rchi2_threshold,
+                            args.datafiles + ".rchi2.png")
         else:
             zap_list = []
             for path in datafiles:
@@ -128,6 +127,24 @@ def main(argv=None):
         if own_tracer:
             tracer.close()
     return 0
+
+
+def _rchi2_hist(red_chi2s, threshold, path):
+    """The --hist figure: the fits' finite reduced chi^2 values with the
+    cut's threshold (the JAX ppzap's)."""
+    import numpy as np
+
+    from ..viz.plots import _pyplot
+
+    plt = _pyplot()
+    vals = np.concatenate([r[np.isfinite(r)] for r in
+                           (np.asarray(x).ravel() for x in red_chi2s)])
+    fig, ax = plt.subplots()
+    ax.hist(vals, bins=30, color="0.3")
+    ax.axvline(threshold, color="r")
+    ax.set_xlabel(r"red-$\chi^2$")
+    fig.savefig(path, bbox_inches="tight")
+    plt.close(fig)
 
 
 if __name__ == "__main__":

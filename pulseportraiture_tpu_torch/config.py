@@ -156,6 +156,26 @@ lm_jacobian = "auto"
 # exact iteration boundaries); None = one uninterrupted dispatch.
 lm_compact_every = 16
 
+# --- Autotune (tune/: the per-backend autotune subsystem) ----------------
+# Path of the persisted JSON tuning DB (tune/store.TuningStore): the
+# autotune sweep's accepted winners, keyed by (backend fingerprint,
+# shape class).  None (default) = no persistence: every
+# tune.ensure_tuned call sweeps again.  A DB written on another backend
+# fingerprint (another card or torch build, or the JAX package) is
+# refused with a loud warning, never applied, never fatal.  CLI:
+# pptoas/ppserve/pproute --tune-db.
+tune_db = None
+# Whether campaign entry points (pptoas --autotune) run the autotune
+# sweep when the tuning DB has no entry for this backend and shape
+# class.  False (default): tuning is explicit, a campaign never pays
+# sweep time unasked.
+autotune = False
+# Opt-in for the NUMERICS knob tier (tune/autotune.NUMERICS_TIER:
+# cross_spectrum_dtype).  It changes output digits, so it is never swept
+# silently: False (default) sweeps only the output-identical tier (and
+# every candidate there is still byte-gated against the default).
+tune_numerics = False
+
 # --- Timing (timing/fleet.py, timing/incremental.py) ---------------------
 # Route the fleet timing stage's GLS solves (timing/fleet.fleet_gls_fit,
 # pptime) through the BATCHED lane: per-pulsar whitened systems bucketed
@@ -350,6 +370,9 @@ telemetry_path = None
 #   PPT_ROUTER_PROBE_MS=<float>     -> router_probe_ms
 #   PPT_ROUTER_HEDGE_MS=<float>|off -> router_hedge_ms
 #   PPT_ROUTER_FLEET_FILE=<path>|off -> router_fleet_file
+#   PPT_TUNE_DB=<path>|off          -> tune_db
+#   PPT_AUTOTUNE=off|on             -> autotune
+#   PPT_TUNE_NUMERICS=off|on        -> tune_numerics
 #
 # Unset variables leave the module values untouched; a bad value of a
 # hooked variable raises ValueError (a silent fallback would quietly
@@ -410,7 +433,8 @@ HOOKED_PPT_ENV = frozenset({
     "PPT_ROUTER_RETRY_MAX", "PPT_SERVE_LISTEN", "PPT_ROUTER_PROBE_MS",
     "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE",
     "PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS", "PPT_ALERT_CUSUM_K",
-    "PPT_ALERT_CUSUM_H", "PPT_MON_INTERVAL_MS"})
+    "PPT_ALERT_CUSUM_H", "PPT_MON_INTERVAL_MS", "PPT_TUNE_DB",
+    "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS"})
 
 
 def _unported_ppt_env():
@@ -423,8 +447,6 @@ def _unported_ppt_env():
     why["PPT_COMPILE_CACHE"] = (
         "the JAX compilation cache; eager PyTorch compiles no programs "
         "(ROADMAP A5)")
-    for name in ("PPT_TUNE_DB", "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS"):
-        why[name] = "the tuning database (ROADMAP A13.7)"
     for name in KNOWN_PPT_ENV - HOOKED_PPT_ENV - set(why):
         why[name] = ("a shape knob of the JAX package's benchmarks; the "
                      "port's bench is ROADMAP A5")
@@ -784,6 +806,14 @@ def env_overrides():
     put("mon_interval_ms", _float_env(
         env, "PPT_MON_INTERVAL_MS", "a positive number of milliseconds",
         lambda v: v > 0, "> 0"))
+    tdb = env.get("PPT_TUNE_DB", "")
+    if tdb:
+        put("tune_db",
+            (None if tdb.lower() in ("off", "none", "0") else tdb,))
+    onoff = {**_ONOFF, "0": False, "1": True}
+    put("autotune", _table(env, "PPT_AUTOTUNE", onoff, "'off' or 'on'"))
+    put("tune_numerics", _table(env, "PPT_TUNE_NUMERICS", onoff,
+                                "'off' or 'on'"))
     tel = env.get("PPT_TELEMETRY", "")
     if tel:
         # 'off'/'none'/'0' disable explicitly (a wrapper script can force

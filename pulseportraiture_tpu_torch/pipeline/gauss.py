@@ -96,17 +96,20 @@ class GaussPortrait(_BasePortrait):
                     auto_gauss=0.0, profile_fit_flags=None, show=True):
         """Fit Gaussian components to one profile.  With auto_gauss != 0
         (the initial width [rot]) a single Gaussian, non-interactively
-        (ppgauss.py:450-487); otherwise the JAX package opens its
-        GaussianSelector GUI, which the port does not have (A13)."""
-        if not auto_gauss:
-            raise NotImplementedError(
-                "fit_profile without auto_gauss opens the interactive "
-                "GaussianSelector (viz/), which the port does not have "
-                "yet (ROADMAP A13); pass auto_gauss=<width> or use "
-                "auto_fit_profile")
+        (ppgauss.py:450-487); otherwise the interactive GaussianSelector
+        (viz/selector.py; show=True opens its window)."""
         if profile is None:
             profile, _ = self.select_ref_profile()
         noise = float(noise_std_ps(profile))
+        if not auto_gauss:
+            from ..viz.selector import GaussianSelector
+
+            sel = GaussianSelector(profile, noise, tau=tau, fixscat=fixscat,
+                                   show=show, device=self.device)
+            self.init_params = np.asarray(sel.fitted_params)
+            self.init_param_errs = np.asarray(sel.fit_errs)
+            self.ngauss = (len(self.init_params) - 2) // 3
+            return self.init_params
         amp = float(profile.max())
         wid = float(auto_gauss)
         first = amp * gen_gaussian_profile(
@@ -180,11 +183,8 @@ class GaussPortrait(_BasePortrait):
                             quiet=False):
         """Fit the evolving-Gaussian portrait model (reference
         ppgauss.py:62-245; same options).  Returns the GaussianModel.
-        residplot needs viz/ (ROADMAP A13) and raises."""
-        if residplot:
-            raise NotImplementedError(
-                "residplot needs the plotting package (viz/), which the "
-                "port does not have yet (ROADMAP A13)")
+        residplot: a path; the data / model / residual figure is saved
+        there (viz/)."""
         P = float(self.Ps[0])
         nbin = self.nbin
         njoin = len(getattr(self, "join_ichans", []))
@@ -286,6 +286,14 @@ class GaussPortrait(_BasePortrait):
         self.gaussian_model = self._to_gmodel(model_name, model_code,
                                               scattering_index,
                                               int(not fixalpha), flags, P)
+        if residplot:
+            from ..viz.plots import show_residual_plot
+
+            show_residual_plot(self.port, np.asarray(self.model),
+                               self.phases, self.freqs[0],
+                               noise_stds=self.noise_stds,
+                               weights=self.weights, show=False,
+                               savefig=residplot, device=self.device)
         if not quiet:
             resid = self.portx - self.model[self.ok_ichans]
             print(f"\nResiduals mean: {resid.mean():.2e}")

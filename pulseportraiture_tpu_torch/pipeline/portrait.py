@@ -91,12 +91,6 @@ def normalize_portrait(port, method="rms", weights=None,
     return (norm_port, norm_vals) if return_norms else norm_port
 
 
-def _refuse_plot(what):
-    raise NotImplementedError(
-        f"{what} needs the plotting package (viz/), which the port does "
-        "not have yet (ROADMAP A13)")
-
-
 class DataPortrait:
     """Load one archive, or a metafile of archives from different
     receivers (the JOIN path), into a t/p-scrunched portrait ready for
@@ -242,11 +236,9 @@ class DataPortrait:
     def fit_flux_profile(self, guessA=1.0, guessalpha=0.0, plot=False,
                          savefig=None, quiet=True):
         """Power-law fit to the phase-averaged flux against frequency
-        (pplib.py:448-506), on the device."""
+        (pplib.py:448-506), on the device; plot draws it (viz/)."""
         from ..fit.powlaw import fit_powlaw
 
-        if plot:
-            _refuse_plot("fit_flux_profile(plot=True)")
         okc = self.ok_ichans
         fluxes = self.port[okc].mean(axis=1)
         flux_errs = self.noise_stds[okc] / np.sqrt(self.nbin)
@@ -256,6 +248,11 @@ class DataPortrait:
                          errs=flux_errs, nu_ref=self.nu0, freqs=freqs,
                          device=self.device)
         self.flux_fit = res
+        if plot:
+            from ..viz.plots import plot_flux_profile
+
+            plot_flux_profile(freqs, fluxes, flux_errs, res, self.nu0,
+                              savefig=savefig)
         if not quiet:
             print(f"flux spectral index alpha = {float(res.alpha):.3f} "
                   f"+/- {float(res.alpha_err):.3f}")
@@ -355,12 +352,24 @@ class DataPortrait:
                            weights=np.ones_like(self.weights)[None],
                            quiet=quiet)
 
-    # -- plotting (viz/, ROADMAP A13) ---------------------------------------
+    # -- plotting (viz/) ----------------------------------------------------
     def show_data_portrait(self, **kwargs):
-        _refuse_plot("show_data_portrait")
+        from ..viz.plots import show_portrait
+
+        show_portrait(self.port * (self.weights > 0)[:, None],
+                      self.phases, self.freqs[0], **kwargs)
 
     def show_model_portrait(self, **kwargs):
-        _refuse_plot("show_model_portrait")
+        from ..viz.plots import show_portrait
+
+        show_portrait(np.asarray(self.model), self.phases, self.freqs[0],
+                      **kwargs)
 
     def show_model_fit(self, **kwargs):
-        _refuse_plot("show_model_fit")
+        from ..viz.plots import show_residual_plot
+
+        kwargs.setdefault("device", self.device)
+        show_residual_plot(self.port, np.asarray(self.model),
+                           self.phases, self.freqs[0],
+                           noise_stds=self.noise_stds,
+                           weights=self.weights, **kwargs)

@@ -21,7 +21,7 @@ from ..models.spline import (find_significant_eigvec, fit_spline_curve,
                              reconstruct_portrait)
 from ..models.wavelet import smart_smooth
 from .portrait import DataPortrait as _BasePortrait
-from .portrait import _refuse_plot, lap
+from .portrait import lap
 
 __all__ = ["snr_weighted_mean", "SplinePortrait", "DataPortrait"]
 
@@ -153,12 +153,29 @@ class SplinePortrait(_BasePortrait):
             write_spline_model(self.spline_model, outfile, quiet=quiet)
         return outfile
 
-    # plotting (viz/, ROADMAP A13)
+    # plotting wrappers (ppspline.py:246-288)
     def show_eigenprofiles(self, **kwargs):
-        _refuse_plot("show_eigenprofiles")
+        from ..viz.plots import show_eigenprofiles
+
+        ncomp = getattr(self, "ncomp", 0)
+        kwargs.setdefault("device", self.device)
+        show_eigenprofiles(
+            self.eigvec[:, self.ieig] if ncomp else np.zeros((self.nbin, 0)),
+            smooth_eigvec=(self.smooth_eigvec[:, self.ieig]
+                           if hasattr(self, "smooth_eigvec") and ncomp
+                           else None),
+            mean_prof=self.mean_prof,
+            smooth_mean_prof=getattr(self, "smooth_mean_prof", None),
+            **kwargs)
 
     def show_spline_curve_projections(self, **kwargs):
-        _refuse_plot("show_spline_curve_projections")
+        from ..viz.plots import show_spline_curve_projections
+
+        snrs = np.asarray(self.SNRsxs[0], float)
+        kwargs.setdefault("weights", snrs / snrs.sum())
+        kwargs.setdefault("device", self.device)
+        show_spline_curve_projections(self.proj_port, self.freqsxs[0],
+                                      tck=self.tck, **kwargs)
 
 
 # reference ppspline scripts use the name DataPortrait

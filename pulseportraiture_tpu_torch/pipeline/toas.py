@@ -804,6 +804,45 @@ class GetTOAs:
             torch.as_tensor(freqs0, dtype=torch.float64, device=dev),
             float(self.nu_refs[iarch][isub][0])).cpu().numpy()
 
+    def show_subint(self, datafile=None, isub=0, show=True,
+                    savefig=False):
+        """Display one subintegration portrait (reference
+        pptoas.py:1345-1373; viz/)."""
+        from ..viz.plots import show_portrait
+
+        datafile = datafile or self.order[0]
+        d = load_data(datafile, dedisperse=False, dededisperse=True,
+                      tscrunch=self.tscrunch, pscrunch=True, quiet=True)
+        return show_portrait(
+            np.asarray(d.subints[isub, 0]) *
+            (np.asarray(d.weights[isub]) > 0)[:, None],
+            d.phases, d.freqs[isub],
+            title=f"{datafile} subint {isub}", show=show,
+            savefig=savefig or None)
+
+    def show_fit(self, datafile=None, isub=0, show=True, savefig=False):
+        """Data / fitted-model / residual triptych of one subint
+        (reference pptoas.py:1375-1476; viz/): the template rotated and
+        scaled by the fit, on self.device."""
+        from ..viz.plots import show_residual_plot
+
+        datafile = datafile or self.order[0]
+        iarch = self.order.index(datafile)
+        d = load_data(datafile, dedisperse=False, dededisperse=True,
+                      tscrunch=self.tscrunch, pscrunch=True, quiet=True)
+        freqs0 = np.asarray(d.freqs[0], float)
+        modelx = self.model.portrait(freqs0, d.nbin,
+                                     P=float(np.mean(d.Ps)))
+        aligned = self._fitted_model(iarch, isub, d, modelx, freqs0)
+        scaled = self.scales[iarch][isub][:, None] * aligned
+        return show_residual_plot(
+            np.asarray(d.subints[isub, 0]), scaled, d.phases, freqs0,
+            noise_stds=np.asarray(d.noise_stds[isub, 0]),
+            weights=np.asarray(d.weights[isub]),
+            titles=(f"{datafile} subint {isub}",
+                    str(self.modelfile), "Residuals"),
+            show=show, savefig=savefig or None, device=self.device)
+
     def get_channels_to_zap(self, SNR_threshold=8.0, rchi2_threshold=1.3,
                             iterate=True, show=False, zap_device=None,
                             telemetry=None):
@@ -818,14 +857,11 @@ class GetTOAs:
         the ``zap_device`` tri-state (None follows config.zap_device;
         'auto' = on CUDA devices) its torch twin on self.device, which
         flags the same channels.  telemetry: a trace path or Tracer; one
-        ``zap_propose`` per archive.  show (plots) is not ported (ROADMAP
-        A13)."""
+        ``zap_propose`` per archive.  show: draw show_fit for every subint
+        with a flagged channel (the JAX package accepts show and draws
+        nothing)."""
         from .zap import resolve_zap_device
 
-        if show:
-            raise NotImplementedError(
-                "get_channels_to_zap: show (plots) is not ported yet "
-                "(ROADMAP A13)")
         use_device = resolve_zap_device(zap_device, self.device)
         dev = self.device
         tracer, own_tracer = resolve_tracer(telemetry,
@@ -839,6 +875,11 @@ class GetTOAs:
         finally:
             if own_tracer:
                 tracer.close()
+        if show:
+            for datafile, zaps in zip(self.order, self.zap_channels):
+                for isub, chans in enumerate(zaps):
+                    if chans:
+                        self.show_fit(datafile, isub, show=True)
         return self.zap_channels
 
     def _archive_zaps(self, iarch, datafile, use_device, dev, tracer,

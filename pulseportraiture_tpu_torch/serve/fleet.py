@@ -334,7 +334,10 @@ class FleetFileWatcher(threading.Thread):
     comments ignored).  Every ``poll_s`` the watcher re-reads it when its
     mtime moved and adds or removes hosts to match; only endpoints the
     watcher itself added are ever removed.  An unreachable new entry
-    warns and is retried on the next poll."""
+    warns and is retried on the next poll.  Passes are serialized: the
+    poll thread and a caller's :meth:`resync` never interleave, so a pass
+    that read a file being saved in place (truncated, then written)
+    cannot undo a later pass that read the whole file."""
 
     def __init__(self, router, path, poll_s=1.0, quiet=True):
         super().__init__(name="ppt-fleet-file", daemon=True)
@@ -343,6 +346,7 @@ class FleetFileWatcher(threading.Thread):
         self.poll_s = max(0.05, float(poll_s))
         self.quiet = quiet
         self._stop = threading.Event()
+        self._resync_lock = threading.Lock()
         self._mtime = None
         self._managed = set()   # labels this watcher added
         self._warned = set()
@@ -375,7 +379,12 @@ class FleetFileWatcher(threading.Thread):
         return hosts
 
     def resync(self):
-        """One reconciliation pass."""
+        """One reconciliation pass (the file read and the membership
+        edits under one lock)."""
+        with self._resync_lock:
+            self._resync()
+
+    def _resync(self):
         from .transport import TransportError
 
         hosts = self.parse()

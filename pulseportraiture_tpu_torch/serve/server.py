@@ -38,12 +38,14 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from ..io.tim import write_TOAs
 from ..pipeline.stream import (_DONE_PREFIX, _StreamExecutor,
                                _collect_wideband, make_wideband_lane)
 from ..telemetry import log, resolve_tracer
+# the stat wire's capability record (tune/capability.py holds the one
+# definition of the backend fingerprint)
+from ..tune.capability import capability_summary
 from ..utils.bunch import DataBunch
 from . import codec
 # canonical option freezing is shared with the result cache, so the lane
@@ -59,25 +61,6 @@ __all__ = ["ToaServer", "capability_summary"]
 # re-request rebuilds the lane with the same key prefix (so the same
 # bucket keys).
 LANE_CACHE_MAX = 32
-
-
-def capability_summary(device):
-    """The serving host's capability record for ``stats()``: platform,
-    device name and count, the CUDA compute capability, and the torch
-    and CUDA versions (static fields only)."""
-    dev = torch.device(device)
-    rec = {"platform": dev.type, "torch": torch.__version__,
-           "cuda": torch.version.cuda}
-    if dev.type == "cuda":
-        major, minor = torch.cuda.get_device_capability(dev)
-        rec.update(device_kind=torch.cuda.get_device_name(dev),
-                   n_devices=torch.cuda.device_count(),
-                   sm=f"sm_{major}{minor}")
-    else:
-        rec.update(device_kind="cpu", n_devices=1, sm=None)
-    rec["fingerprint"] = (f"{rec['platform']}:{rec['device_kind']}:"
-                          f"torch-{rec['torch']}")
-    return rec
 
 
 class ToaServer:

@@ -5,6 +5,7 @@ under several pytest-xdist workers, and torch's default thread pool per
 worker would oversubscribe the host.  No tests live here.
 """
 
+import contextlib
 import json
 from collections import Counter
 
@@ -43,3 +44,32 @@ def tol_for(dtype):
     (two frameworks' summation orders differ), f32 1e-5 (the JAX and
     torch matmuls differ by ~3e-5 absolute at unit inputs, measured)."""
     return 1e-12 if str(dtype).endswith("float64") else 1e-5
+
+
+@contextlib.contextmanager
+def saved_figures():
+    """Under the Agg backend, collect every matplotlib Figure saved
+    (Figure.savefig) inside the block: yields the list they land in."""
+    import matplotlib
+
+    matplotlib.use("Agg", force=True)
+    from matplotlib.figure import Figure
+
+    figs = []
+    save = Figure.savefig
+
+    def spy(fig, *args, **kwargs):
+        figs.append(fig)
+        return save(fig, *args, **kwargs)
+
+    Figure.savefig = spy
+    try:
+        yield figs
+    finally:
+        Figure.savefig = save
+
+
+def image_arrays(fig):
+    """The image arrays of a figure's axes, in axes order (float64)."""
+    return [np.asarray(im.get_array(), np.float64)
+            for ax in fig.axes for im in ax.get_images()]

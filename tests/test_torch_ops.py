@@ -520,8 +520,11 @@ def test_import_hygiene():
         " 'cli.ppserve', 'serve.transport', 'serve.fleet',"
         " 'serve.router', 'cli.pproute', 'ingest', 'ingest.source',"
         " 'ingest.alerts', 'ingest.driver', 'cli.ppwatch', 'obs.merge',"
-        " 'cli.ppmon')}\n"
+        " 'cli.ppmon', 'tune', 'tune.capability', 'tune.store',"
+        " 'tune.autotune', 'profiling', 'viz', 'viz.plots',"
+        " 'viz.selector')}\n"
         "assert new <= names, new - names\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'pulseportraiture_tpu' or "
         "k.startswith('pulseportraiture_tpu.')]\n"

@@ -436,15 +436,47 @@ def test_ppzap_main(corpus, tmp_path, capsys, extra):
 
 @pytest.mark.parametrize("flag", ["--telemetry", "--hist"])
 def test_ppzap_refusals(corpus, flag, tmp_path, capsys):
-    """--hist (plots, ROADMAP A13) is refused; --telemetry (ported)
-    writes the JAX CLI's zap_propose/zap_apply events."""
+    """--hist writes the JAX CLI's reduced-chi^2 histogram under Agg
+    (the same bin counts, to the bin; the same threshold line);
+    --telemetry writes the JAX CLI's zap_propose/zap_apply events."""
     from pulseportraiture_tpu.cli.ppzap import main as jmain
     from pulseportraiture_tpu_torch.cli.ppzap import main
 
     files, gmodel, _ = corpus
     if flag == "--hist":
-        with pytest.raises(NotImplementedError, match="A13"):
-            main(["-d", files[0], "--device", "cpu", flag, "-m", gmodel])
+        import matplotlib
+        import matplotlib.pyplot as plt
+
+        matplotlib.use("Agg", force=True)
+        bars = {}
+        for name, m, extra in (("jax", jmain, []),
+                               ("torch", main, ["--device", "cpu"])):
+            arch = str(tmp_path / f"{name}.fits")
+            with open(files[0], "rb") as fi, open(arch, "wb") as fo:
+                fo.write(fi.read())
+            saved = plt.Figure.savefig
+            figs = []
+
+            def spy(fig, *a, **k):
+                figs.append(fig)
+                return saved(fig, *a, **k)
+
+            plt.Figure.savefig = spy
+            try:
+                m(["-d", arch, "-m", gmodel, "--quiet", flag] + extra)
+            finally:
+                plt.Figure.savefig = saved
+            assert os.path.getsize(arch + ".rchi2.png") > 0
+            (ax,) = figs[0].axes
+            bars[name] = ([(p.get_x(), p.get_height()) for p in ax.patches],
+                          ax.lines[0].get_xdata(), ax.get_xlabel())
+        capsys.readouterr()
+        (pj, lj, xj), (pt, lt, xt) = bars["jax"], bars["torch"]
+        assert [h for _, h in pt] == [h for _, h in pj] and len(pj) == 30
+        # edges from each package's red_chi2 (float64 fits): 1e-6 relative
+        np.testing.assert_allclose([x for x, _ in pt], [x for x, _ in pj],
+                                   rtol=1e-6)
+        assert list(lt) == list(lj) and xt == xj
         return
     traces = {}
     for name, m, extra in (("jax", jmain, []),
@@ -496,8 +528,20 @@ def test_get_channels_to_zap(corpus):
     got = tg._fitted_model(0, 1, d, mj, freqs0)
     want = jg._fitted_model(0, 1, d, mj, freqs0)
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tg.get_channels_to_zap(show=True)
+    # show=True draws show_fit (data / model / residuals) for each subint
+    # with a flagged channel, under Agg, and flags the same lists
+    import matplotlib
+    import matplotlib.pyplot as plt
+
+    matplotlib.use("Agg", force=True)
+    plt.close("all")
+    assert tg.get_channels_to_zap(zap_device=False, show=True) == ref
+    nflagged = sum(bool(c) for arch in ref for c in arch)
+    assert len(plt.get_fignums()) == nflagged > 0
+    fig = plt.figure(plt.get_fignums()[0])
+    assert [a.get_title() for a in fig.axes if a.get_images()][1:] == \
+        [gmodel, "Residuals"]
+    plt.close("all")
 
 
 # ---------------------------------------------------------------------
@@ -792,6 +836,10 @@ HOOKS = {
     "PPT_ALERT_CUSUM_K": ("0.75", "alert_cusum_k", "-0.1"),
     "PPT_ALERT_CUSUM_H": ("6.5", "alert_cusum_h", "0"),
     "PPT_MON_INTERVAL_MS": ("250", "mon_interval_ms", "soon"),
+    # any string is a DB path: 'off' is the value that turns it off
+    "PPT_TUNE_DB": ("tune.json", "tune_db", "off"),
+    "PPT_AUTOTUNE": ("on", "autotune", "maybe"),
+    "PPT_TUNE_NUMERICS": ("on", "tune_numerics", "2"),
 }
 
 # Loads both packages' config.py by path (neither package's __init__, so
@@ -845,7 +893,8 @@ def test_env_hook(name):
     assert vt != default, (name, vt)
     ej, et = out["errors"]
     assert et == ej
-    if name in ("PPT_TELEMETRY", "PPT_CACHE_DIR", "PPT_ROUTER_FLEET_FILE"):
+    if name in ("PPT_TELEMETRY", "PPT_CACHE_DIR", "PPT_ROUTER_FLEET_FILE",
+                "PPT_TUNE_DB"):
         # no value of these is invalid; 'off' disables in both packages
         assert ej is None
     else:
@@ -854,14 +903,20 @@ def test_env_hook(name):
 
 def test_env_unported_and_unknown_warn():
     """A JAX-package hook whose knob the port lacks warns with its
-    ROADMAP item; a typo warns with the closest known name; both once."""
+    ROADMAP item; a typo warns with the closest known name; both once.
+    The tuning hooks are hooked now: they warn not."""
     out, err = _probe("PPT_ZAP_NSTD", "3", "zap_nstd", "2",
-                      {"PPT_TUNE_DB": "tune.json",
+                      {"PPT_COMPILE_CACHE": "cache",
+                       "PPT_TUNE_DB": "tune.json",
                        "PPT_NCHAN": "64",
                        "PPT_ZAP_NSTDS": "2"})
     port = [ln for ln in err.splitlines()
             if ln.startswith("pulseportraiture_tpu_torch.config")]
-    assert any("PPT_TUNE_DB" in ln and "A13.7" in ln for ln in port)
+    assert any("PPT_COMPILE_CACHE" in ln and "A5" in ln for ln in port)
+    assert not any("PPT_TUNE_DB" in ln for ln in port)
+    for name in ("PPT_TUNE_DB", "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS"):
+        assert name in tcfg.HOOKED_PPT_ENV
+        assert name not in tcfg.UNPORTED_PPT_ENV
     assert any("PPT_NCHAN" in ln and "A5" in ln for ln in port)
     assert any("PPT_ZAP_NSTDS" in ln and "did you mean PPT_ZAP_NSTD" in ln
                for ln in port)

@@ -695,6 +695,59 @@ def test_membership_and_fleet_file(campaign, hosts, tmp_path):
             router.close()
 
 
+class _Membership:
+    """A router's membership surface alone (what FleetFileWatcher
+    drives), with a yield in each edit so that racing passes interleave."""
+
+    def __init__(self):
+        self.hosts = set()
+        self.lock = threading.Lock()
+
+    def host_labels(self):
+        with self.lock:
+            return sorted(self.hosts)
+
+    def add_host(self, addr):
+        time.sleep(0)
+        with self.lock:
+            self.hosts.add(addr)
+
+    def remove_host(self, label):
+        time.sleep(0)
+        with self.lock:
+            self.hosts.discard(label)
+        return True
+
+
+def test_fleet_file_resync_serialized(tmp_path):
+    """Case 6d: a caller's resync racing the watcher's own pass while the
+    fleet file is saved in place (truncated, then written) ends, every
+    time, with the membership equal to the file's last content: the
+    passes are serialized, so one that read the truncated file cannot
+    undo a later one that read the whole file.  600 rewrites."""
+    rng = np.random.default_rng(7)
+    pool = [f"127.0.0.1:{p}" for p in range(9001, 9007)]
+    ffile = tmp_path / "fleet.txt"
+    ffile.write_text("".join(h + "\n" for h in pool))
+    router = _Membership()
+    watcher = TSV.FleetFileWatcher(router, str(ffile), quiet=True)
+    watcher.resync()
+    assert router.host_labels() == sorted(pool)
+    for _ in range(600):
+        want = sorted(rng.choice(pool, size=int(rng.integers(1, 5)),
+                                 replace=False))
+        def poll():
+            for _ in range(4):
+                watcher.resync()
+
+        th = threading.Thread(target=poll)
+        th.start()
+        ffile.write_text("".join(h + "\n" for h in want))
+        watcher.resync()
+        th.join(10)
+        assert router.host_labels() == want
+
+
 # ---------------------------------------------------------------------------
 # 7. failover
 # ---------------------------------------------------------------------------
@@ -717,9 +770,13 @@ def test_failover_redispatches_mid_fit(campaign, hosts, tmp_path):
     stats = router.stats()
     router.close()
     # the zombie primary may still rewrite the path (with the same
-    # bytes): read it once the shared server is idle
+    # bytes): read it once the shared server is idle, its request neither
+    # live nor still queued for admission
     deadline = time.monotonic() + 60
-    while h0.stats()["n_live"] and time.monotonic() < deadline:
+    while time.monotonic() < deadline:
+        st = h0.stats()
+        if not (st["n_live"] or st["queue_len"]):
+            break
         time.sleep(0.05)
     assert len(res.TOA_list) == 4
     assert _read(tim) == refs["01"]
@@ -1375,9 +1432,11 @@ def test_pproute_monitor_answers_metrics(campaign, serve_config, tmp_path,
     assert _read(tmp_path / "o" / "M.tim") == refs["0"]
 
 
-def test_cli_validation_matches_jax(tmp_path):
+def test_cli_validation_matches_jax(tmp_path, monkeypatch):
     """Case 14c: pproute's and ppserve's fleet-mode refusals carry the
-    JAX CLIs' messages (before any network)."""
+    JAX CLIs' messages (before any network); pproute --tune-db applies a
+    stored DB of its --device's fingerprint before it reaches the fleet,
+    and refuses a DB the JAX package wrote with a warning."""
     from pulseportraiture_tpu.cli import ppserve as jserve
     from pulseportraiture_tpu.cli import pproute as jroute
     from pulseportraiture_tpu_torch.cli import ppserve as tserve
@@ -1423,8 +1482,23 @@ def test_cli_validation_matches_jax(tmp_path):
             tserve.main(["-r", str(tmp_path / "missing.jsonl")])
     finally:
         jcfg.serve_listen, tcfg.serve_listen = saved
-    with pytest.raises(SystemExit, match="A13.7"):
-        troute.main(["-r", good, "-H", "h:1", "--tune-db", "db.json"])
+    from pulseportraiture_tpu.tune import TuningStore as JStore
+    from pulseportraiture_tpu_torch.tune import TuningStore
+
+    monkeypatch.setattr(tcfg, "tune_db", tcfg.tune_db)
+    monkeypatch.setattr(tcfg, "stream_pipeline_depth",
+                        tcfg.stream_pipeline_depth)
+    db, jdb = str(tmp_path / "tune.json"), str(tmp_path / "jax.json")
+    TuningStore(db, device="cpu").put("16x128", {"stream_pipeline_depth": 1})
+    JStore(jdb).put("16x128", {"stream_pipeline_depth": 4})
+    argv = ["-r", good, "-H", "127.0.0.1:9", "--quiet", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="pproute"):   # no host answers
+        troute.main(argv + ["--tune-db", db])
+    assert tcfg.stream_pipeline_depth == 1
+    with pytest.warns(UserWarning, match="jax-"):
+        with pytest.raises(SystemExit, match="pproute"):
+            troute.main(argv + ["--tune-db", jdb])
+    assert tcfg.stream_pipeline_depth == 1 and tcfg.tune_db == jdb
 
 
 # ---------------------------------------------------------------------------

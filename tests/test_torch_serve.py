@@ -38,7 +38,7 @@ import pytest
 import torch
 
 import test_torch_helpers  # noqa: F401  (one torch thread per worker)
-from test_torch_helpers import PAR
+from test_torch_helpers import PAR, trace_events
 from test_torch_stream import _tim_lines
 from test_torch_toas import _assert_tim_parity
 
@@ -647,7 +647,9 @@ def test_ppserve_cli(corpus, serve_config, tmp_path, monkeypatch):
     .tim in parity, the same exit codes (0, then 1 with a failing
     request); --listen (in this process) and PPT_SERVE_LISTEN (in a
     process of its own, stopped by SIGTERM) bind and answer stat;
-    --tune-db names A13.7."""
+    --tune-db applies a stored DB before the server starts: the winner
+    set on config, its tune_apply (db_hit true) in the server's trace,
+    the .tim byte-identical to the untuned run's."""
     from pulseportraiture_tpu.cli.ppserve import main as jmain
     from pulseportraiture_tpu_torch.cli.ppserve import main as tmain
 
@@ -721,8 +723,25 @@ def test_ppserve_cli(corpus, serve_config, tmp_path, monkeypatch):
         if proc.poll() is None:
             proc.kill()
             proc.wait(10)
-    with pytest.raises(SystemExit, match="A13.7"):
-        tmain(["-r", str(path), "--tune-db", "db.json"])
+    from pulseportraiture_tpu_torch.tune import TuningStore
+
+    db, trace = str(tmp_path / "tune.json"), str(tmp_path / "tuned.jsonl")
+    TuningStore(db, device="cpu").put("16x128", {"stream_pipeline_depth": 1},
+                                      default_s=1.0, tuned_s=0.5)
+    monkeypatch.setattr(tcfg, "tune_db", tcfg.tune_db)
+    monkeypatch.setattr(tcfg, "stream_pipeline_depth",
+                        tcfg.stream_pipeline_depth)
+    assert tmain(["-r", str(path), "-O", str(tmp_path / "tuned"),
+                  "--device", "cpu", "--tune-db", db, "--telemetry", trace]
+                 + common) == 0
+    assert tcfg.stream_pipeline_depth == 1 and tcfg.tune_db == db
+    applied = [e for e in trace_events(trace) if e["type"] == "tune_apply"]
+    assert len(applied) == 1 and applied[0]["db_hit"] is True
+    assert applied[0]["knobs"] == {"stream_pipeline_depth": "1"}
+    assert any(e["type"] == "request_done" for e in trace_events(trace))
+    for name in ("R1", "R2"):
+        assert (tmp_path / "tuned" / f"{name}.tim").read_bytes() == \
+            (tmp_path / "t" / f"{name}.tim").read_bytes()
     with pytest.raises(SystemExit):
         tmain(["-r", str(path), "--compile-cache", "d"])
 

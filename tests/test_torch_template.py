@@ -28,7 +28,7 @@ import os
 import numpy as np
 import pytest
 
-from test_torch_helpers import rel_err
+from test_torch_helpers import image_arrays, rel_err, saved_figures
 from test_torch_stream import _max_sigma
 from test_torch_toas import _assert_tim_parity
 
@@ -162,8 +162,17 @@ def test_dataportrait_single(ws, tmp_path):
     fr, fg = ref.fit_flux_profile(), got.fit_flux_profile()
     for k in ("amp", "alpha"):
         assert abs(fg[k] - fr[k]) <= 1e-6 * fr[k + "_err"], k
-    with pytest.raises(NotImplementedError, match="A13"):
-        got.show_data_portrait()
+    # show_data_portrait draws the JAX package's image (the data itself)
+    import matplotlib.pyplot as plt
+
+    with saved_figures():
+        ref.show_data_portrait(show=False)
+        want = image_arrays(plt.gcf())
+        got.show_data_portrait(show=False)
+        have = image_arrays(plt.gcf())
+    plt.close("all")
+    assert len(have) == len(want) == 1
+    assert rel_err(have[0], want[0]) <= 1e-12
     # unload_archive: both packages' archives read back by the JAX one
     outs = [str(tmp_path / f"unloaded-{i}.fits") for i in range(2)]
     ref.unload_archive(outs[0], quiet=True)
@@ -374,30 +383,106 @@ def test_ppspline_cli(ws, tmp_path, case):
     # --batch runs the template factory; without -M it exits
     pytest.param(["--batch", "-d", "x.fits"], "requires -M",
                  id="argv0-A9b"),
-    (["--figure", "fig.png", "-d", "x.fits"], "A13"),
 ])
 def test_ppgauss_refusals(argv, label):
     with pytest.raises(SystemExit, match=label):
         tppgauss.main(argv + ["--device", "cpu"])
 
 
+def test_ppgauss_figure(ws, tmp_path):
+    """ppgauss --figure saves the JAX CLI's data / model / residual
+    figure under Agg: the same panels, titles and labels, the images
+    within 1e-6 x max|ref| (the two fits' own agreement), the model
+    panel on the data panel's color limits."""
+    root, files, _ = ws
+    figs = {}
+    for name, main, extra in (("jax", jppgauss.main, []),
+                              ("torch", tppgauss.main,
+                               ["--device", "cpu"])):
+        png = str(tmp_path / f"{name}.png")
+        with saved_figures() as saved:
+            assert main(["-d", files[0], "-o", str(tmp_path / f"{name}.g"),
+                         "--figure", png] + extra) == 0
+        assert os.path.getsize(png) > 0 and len(saved) == 1
+        figs[name] = saved[0]
+    fj, ft = figs["jax"], figs["torch"]
+    assert [a.get_title() for a in ft.axes] == \
+        [a.get_title() for a in fj.axes]
+    assert [a.get_ylabel() for a in ft.axes] == \
+        [a.get_ylabel() for a in fj.axes]
+    ij, it = image_arrays(fj), image_arrays(ft)
+    assert len(it) == len(ij) == 3
+    for got, ref in zip(it[:2], ij[:2]):
+        assert rel_err(got, ref) <= 1e-6
+    # the residual panel is a difference of the two: held to the data's scale
+    assert np.max(np.abs(it[2] - ij[2])) <= 1e-6 * np.max(np.abs(ij[0]))
+    ims = [a.get_images()[0] for a in ft.axes if a.get_images()]
+    assert ims[1].get_clim() == ims[0].get_clim()
+
+
 @pytest.mark.parametrize("argv,label", [
     # --gauss-device smooths the mean through the factory, under -s only
     pytest.param(["--gauss-device", "on"], "requires -s", id="argv0-A9b"),
-    (["--plots"], "A13"),
 ])
 def test_ppspline_refusals(argv, label):
     with pytest.raises(SystemExit, match=label):
         tppspline.main(["-d", "x.fits"] + argv + ["--device", "cpu"])
 
 
-def test_library_refusals(ws):
+def test_ppspline_plots(ws, tmp_path):
+    """ppspline --plots saves the JAX CLI's figures (.eigen.png,
+    .freq.png and, from two components on, .proj.png) under Agg: the same axes and labels, every
+    line's data within 1e-6 x max|ref| of the JAX figure's (the two
+    PCAs agree to that; an eigenvector's sign is the PCA's choice, so a
+    line is compared up to its sign)."""
+    root, files, _ = ws
+    figs = {}
+    for name, main, extra in (("jax", jppspline.main, []),
+                              ("torch", tppspline.main,
+                               ["--device", "cpu"])):
+        out = str(tmp_path / f"{name}.spl")
+        with saved_figures() as saved:
+            assert main(["-d", files[0], "-o", out, "--plots", "--quiet"]
+                        + extra) == 0
+        # the pair grid (.proj.png) exists from two components on
+        figs[name] = (saved, sorted(
+            ext for ext in (".eigen.png", ".proj.png", ".freq.png")
+            if os.path.exists(out + ext) and os.path.getsize(out + ext)))
+    assert figs["torch"][1] == figs["jax"][1]
+    assert {".eigen.png", ".freq.png"} <= set(figs["torch"][1])
+    figs = {k: v[0] for k, v in figs.items()}
+    assert len(figs["torch"]) == len(figs["jax"]) >= 2
+    for fj, ft in zip(figs["jax"], figs["torch"]):
+        assert [a.get_ylabel() for a in ft.axes] == \
+            [a.get_ylabel() for a in fj.axes]
+        for aj, at in zip(fj.axes, ft.axes):
+            assert len(at.lines) == len(aj.lines)
+            for lj, lt in zip(aj.lines, at.lines):
+                xj, yj = (np.asarray(v, np.float64) for v in lj.get_data())
+                xt, yt = (np.asarray(v, np.float64) for v in lt.get_data())
+                assert rel_err(xt, xj) <= 1e-12
+                scale = max(np.max(np.abs(yj)), 1e-300)
+                assert min(np.max(np.abs(yt - yj)),
+                           np.max(np.abs(yt + yj))) <= 1e-6 * scale
+
+
+def test_library_refusals(ws, tmp_path):
+    """The option checks of the library and the CLI; the GaussianSelector
+    (no auto_gauss) and residplot run under Agg."""
+    import matplotlib.pyplot as plt
+
     root, files, _ = ws
     dp = TGauss(files[0], quiet=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        dp.fit_profile()
-    with pytest.raises(NotImplementedError, match="A13"):
-        dp.make_gaussian_model(residplot="r.png", quiet=True)
+    with saved_figures():
+        # the selector opens with no component: [dc, tau], ngauss 0,
+        # as the JAX package's
+        ref = JGauss(files[0], quiet=True).fit_profile(show=False)
+        got = dp.fit_profile(show=False)
+        assert dp.ngauss == 0 and np.array_equal(got, ref)
+        plt.close("all")
+        r = str(tmp_path / "r.png")
+        dp.make_gaussian_model(residplot=r, quiet=True)
+        assert os.path.getsize(r) > 0
     with pytest.raises(SystemExit, match="gauss-device"):
         tppgauss.main(["-d", files[0], "--gauss-device", "maybe",
                        "--device", "cpu"])
