@@ -75,8 +75,8 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    archives within 0.1 sigma of GetTOAs; and ``--narrowband --fit_scat
    --scat_guess auto`` on an 8-subint scattered archive, GetTOAs
    against the stream within 0.1 sigma and 2 % in tau;
-12. zap path: one int16 and two dithered 2-bit archives at the main
-   archive's widths with RFI from synth.inject_rfi (white tones on 8
+12. zap path: one int16 and two dithered 2-bit archives of 16 subints at
+   the main archive's widths with RFI from synth.inject_rfi (white tones on 8
    channels, two of them also structured, one burst); ``ppzap``
    model-less with --zap-device on and off (the same lists, every
    injected channel flagged, at most one channel per subint beyond what
@@ -268,6 +268,27 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    bucket) through their FFT arms only and held to their plain versions
    at 1e-5 x max|ref|.  Printed: the sweep's wall, its winners and
    walls per knob, the warm run's wall, the stage attribution.
+21. scale-out path (run after phase 16): two ranks over gloo, both on
+   the one card, as two processes (``chip_smoke.scale_out_rank``;
+   parallel.init_multihost(backend='gloo'): NCCL refuses two ranks on
+   one GPU, so this shows the sharded code path on the card, neither
+   NCCL nor a speed-up): fit_portrait_sharded_fast on a 2 x 1 mesh over
+   the main path's 64 x 512 x 2048 float32 batch (32 subints a rank; B1
+   launched by each rank through its FFT arm and held to its plain
+   version on rank 0's bucket), its scattering branch on an 8-subint
+   scattered int16 archive (B1's want_m2 form on each rank), one
+   align_iteration_sharded over the align path's 4 x 32 x 512 x 2048
+   epochs, each held to the same call at world size 1 in this process
+   (phi, DM, tau, alpha within 1e-3 x their errors on each rank's
+   slice; the template within 1e-5 x its max on the whole batch), the
+   first 4 subints' phi within 1e-4 rot of the
+   port's fit/reference_numpy; stream_ipta_campaign(shard=True) over
+   phase 15's pulsars A (int16, B1) and B (2-bit, B2): the union of the
+   ranks' .tim shards holds phase 16's run 1 lines (TOAs and DMs within
+   0.01 sigma), the ranks' summaries equal, B1 and B2 launched by each
+   rank through their FFT arms only (B2 held to its plain version on
+   rank 0's bucket).  Printed: the backend and world size, the launches
+   and walls per rank, each rank's peak memory.
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -283,6 +304,7 @@ import math
 import os
 import runpy
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -322,12 +344,14 @@ NB_PULL_MEAN, NB_PULL_STD = 0.05, (0.95, 1.06)
 NSUB_NB_SCAT = 8
 # a channel measures tau when its log10 error is below this [dex]
 NB_TAU_MEASURED = 1.0
-# the zap path: one int16 and NARCH_ZAP_2BIT 2-bit archives at the main
-# archive's widths (depth cut from the stream path's 9 archives to 3),
-# white RFI tones of ZAP_WHITE x the median channel noise on ZAP_TONES,
+# the zap path: one int16 and NARCH_ZAP_2BIT 2-bit archives of NSUB_ZAP
+# subints at the main archive's widths (depth cut from the stream path's
+# 9 archives to 3, and from 64 subints to 16: the path's two ppzap -m
+# runs and its archive writes are load- and write-bound), white RFI
+# tones of ZAP_WHITE x the median channel noise on ZAP_TONES,
 # ZAP_STRUCTURED of them also a structured ZAP_STRUCT x tone, and one
 # broadband burst (subint, channels, strength)
-NARCH_ZAP_2BIT = 2
+NARCH_ZAP_2BIT, NSUB_ZAP = 2, 16
 ZAP_TONES = (37, 101, 160, 222, 290, 333, 401, 470)
 ZAP_STRUCTURED = (101, 333)
 ZAP_WHITE, ZAP_STRUCT = 8.0, 60.0
@@ -401,6 +425,19 @@ INGEST_PAUSE_S, INGEST_GAP_S = 0.3, 0.2
 INGEST_POLL_MS, INGEST_STABLE_MS = 50.0, 200.0
 PAR_INGEST = dict(PAR, PEPOCH=55100.0 + 0.5 * INGEST_SPACING
                   * (INGEST_NEP - 1))
+# phase 21, the scale-out path: two gloo ranks on one card (NCCL refuses
+# two ranks on one GPU); the scattering branch's subints, the subints
+# held to the NumPy oracle, the ranks' time limit [s], and the bounds
+# against world size 1: phi, DM, tau and alpha within SCALE_TOL x their
+# errors of the same call on each rank's slice (not on the whole batch:
+# on the card a float32 fit's rounding depends on its batch's size,
+# ROADMAP C8), the align template within SCALE_TEMPLATE_TOL x its max,
+# the campaign's TOAs and DMs within SCALE_TIM_SIGMA x their errors
+SCALE_NSUB_SCAT, SCALE_NORACLE, SCALE_TIMEOUT = 8, 4, 300
+SCALE_TOL = 1e-3
+SCALE_TEMPLATE_TOL, SCALE_TIM_SIGMA = 1e-5, 0.01
+SCALE_BATCH_KEYS = ("ports", "noise_stds", "chan_masks", "P_s", "nu_fit",
+                    "theta0")
 
 
 def log(msg):
@@ -2116,7 +2153,7 @@ def cut_profile(cut, args):
                     for us, key, n in rows[:4]))
 
 
-def phase_zap(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
+def phase_zap(device="cuda", nsub=NSUB_ZAP, nchan=NCHAN, nbin=NBIN,
               nsub_batch=NSUB_BATCH):
     """The zap path (phase 12) on an int16 and two 2-bit archives with
     RFI (zap_archives):
@@ -5742,6 +5779,470 @@ def phase_tune(device="cuda", nchan=NCHAN, nbin=NBIN):
     return launches
 
 
+def scale_dir():
+    """Phase 21's directory: its inputs, the ranks' logs and results."""
+    return os.path.join(WORK, "scale_out")
+
+
+def scale_out_inputs(ctx, device, nsub_scat=SCALE_NSUB_SCAT, nchan=NCHAN,
+                     nbin=NBIN):
+    """Phase 21's inputs, written to scale_dir() for the ranks: the main
+    path's batch (fake.fits, the fit GetTOAs makes: float32, the .gmodel
+    portrait, DM seeded), an int16 archive of nsub_scat subints like the
+    scattering path's (log10 tau seeded at half the injection, alpha at
+    -4),
+    the align path's epochs dedispersed (one batch of NARCH_ALIGN x
+    NSUB_ALIGN subints, the .gmodel portrait as the template) and phase
+    15's pulsars A and B as campaign jobs.  Returns {name: inputs}."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.io.psrfits import load_data
+    from pulseportraiture_tpu_torch.pipeline.models import TemplateModel
+    from pulseportraiture_tpu_torch.pipeline.toas import (
+        load_for_toas, snr_weighted_nu_fit)
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    gmodel = os.path.join(WORK, "model.gmodel")
+
+    def fit_batch(d, ok, scat=False):
+        freqs0 = np.asarray(d.freqs[0], float)
+        masks = np.asarray(d.weights[ok] > 0.0, np.float32)
+        P = np.asarray(d.Ps[ok], float)
+        theta0 = np.zeros((len(ok), 5))
+        theta0[:, 1] = float(d.DM)
+        if scat:
+            theta0[:, 3] = math.log10(0.5 * T_SCAT / float(np.mean(P)))
+            theta0[:, 4] = -4.0
+        return dict(
+            ports=np.asarray(d.subints[ok, 0], np.float32),
+            models=np.asarray(TemplateModel(gmodel, device=device).portrait(
+                freqs0, d.nbin, P=float(np.mean(P))), np.float32),
+            noise_stds=np.asarray(d.noise_stds[ok, 0], np.float32),
+            freqs=freqs0.astype(np.float32), P_s=P.astype(np.float32),
+            nu_fit=snr_weighted_nu_fit(np.asarray(d.SNRs[ok, 0]) * masks,
+                                       freqs0).astype(np.float32),
+            theta0=theta0.astype(np.float32), chan_masks=masks)
+
+    d = load_for_toas(os.path.join(WORK, "fake.fits"))
+    fit = fit_batch(d, np.asarray(d.ok_isubs, int))
+    path = os.path.join(WORK, "scale-scat.fits")
+    make_fake_pulsar(default_test_model(1500.0), PAR, outfile=path,
+                     nsub=nsub_scat, nchan=nchan, nbin=nbin, nu0=1500.0,
+                     bw=800.0, tsub=60.0, phase=PHI_INJ, dDM=DDM_INJ,
+                     t_scat=T_SCAT, alpha=ALPHA_INJ,
+                     start_MJD=MJD(55700, 0.1), noise_stds=NOISE_SCAT_I16,
+                     dedispersed=False, quiet=True,
+                     rng=np.random.default_rng(SEED + 200), device=device)
+    d = load_for_toas(path)
+    scat = fit_batch(d, np.asarray(d.ok_isubs, int), scat=True)
+    parts = [load_data(os.path.join(WORK, f"epoch-{i}.fits"),
+                       dedisperse=True, pscrunch=True, flux_prof=False,
+                       refresh_arch=False, return_arch=False, quiet=True)
+             for i in range(NARCH_ALIGN)]
+    freqs0 = np.asarray(parts[0].freqs[0], float)
+    P = np.concatenate([np.asarray(p.Ps, float) for p in parts])
+    align = dict(
+        ports=np.concatenate([np.asarray(p.subints[:, 0], np.float32)
+                              for p in parts]),
+        model=np.asarray(TemplateModel(gmodel, device=device).portrait(
+            freqs0, parts[0].nbin, P=float(np.mean(P))), np.float32),
+        noise_stds=np.concatenate([np.asarray(p.noise_stds[:, 0],
+                                              np.float32) for p in parts]),
+        chan_masks=np.concatenate([np.asarray(p.weights > 0.0, np.float32)
+                                   for p in parts]),
+        freqs=freqs0.astype(np.float32), P_s=P.astype(np.float32))
+    os.makedirs(scale_dir(), exist_ok=True)
+    for name, arrays in (("fit", fit), ("scat", scat), ("align", align)):
+        np.savez(os.path.join(scale_dir(), f"{name}.npz"), **arrays)
+    jobs = {n: [ctx["meta"][n], ctx["tmpl"][i]]
+            for i, n in enumerate(("A", "B"))}
+    with open(os.path.join(scale_dir(), "jobs.json"), "w") as f:
+        json.dump(jobs, f)
+    return dict(fit=fit, scat=scat, align=align, jobs=jobs)
+
+
+def scale_out_call(name, mesh, inp, device):
+    """One of phase 21's sharded calls on ``mesh`` with inputs ``inp``
+    (scale_out_inputs): 'fit', the fast fit of the main batch; 'scat',
+    the scattering branch (phi, DM, tau, alpha free, log10 tau); 'align',
+    one align iteration.  Returns (result, wall s)."""
+    from pulseportraiture_tpu_torch import parallel
+    from pulseportraiture_tpu_torch.fit.portrait import FitFlags
+
+    t0 = time.perf_counter()
+    if name == "align":
+        r = parallel.align_iteration_sharded(mesh, device=device, **inp)
+    else:
+        kw = (dict(fit_flags=FitFlags(True, True, False, True, True),
+                   log10_tau=True, max_iter=60) if name == "scat"
+              else dict(fit_flags=FitFlags(True, True)))
+        r = parallel.fit_portrait_sharded_fast(mesh, device=device, **inp,
+                                               **kw)
+    sync(device)
+    return r, time.perf_counter() - t0
+
+
+def _fit_record(r):
+    """The compared fields of a FitResult, as lists."""
+    return {k: getattr(r, k).double().cpu().tolist()
+            for k in ("phi", "phi_err", "DM", "DM_err", "nu_DM", "tau",
+                      "tau_err", "alpha", "alpha_err", "return_code")}
+
+
+def scale_out_rank(rank, port, device="cuda", work=None, polarity=None):
+    """One rank of phase 21, started by phase_scale_out as ``python -c``
+    in the repo root: a gloo process group of 2 (init_multihost with
+    backend='gloo'), a 2 x 1 mesh on ``device``, each of scale_out_call's
+    calls with the counters set to 0 just before it and read just after,
+    then stream_ipta_campaign(shard=True) over pulsars A and B the same
+    way; on CUDA rank 0 holds B1 to its plain version on the fit's bucket
+    and B2 on the campaign's.  work: the parent's WORK; polarity: the
+    parent's device.KNOB_POLARITY, so the ranks take the routes of the
+    world-size-1 calls they are held to.  Writes
+    scale_dir()/rank<rank>.json and align<rank>.npy (the template)."""
+    global WORK
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pulseportraiture_tpu_torch import parallel
+    from pulseportraiture_tpu_torch.device import KNOB_POLARITY
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.pipeline.ipta import (
+        IPTAJob, stream_ipta_campaign)
+
+    WORK = work or WORK
+    KNOB_POLARITY.update(polarity or {})
+    cuda = device_type(device) == "cuda"
+    check = cuda and rank == 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    if cuda:
+        F.build_kernels()
+    parallel.init_multihost(f"127.0.0.1:{port}", num_processes=2,
+                            process_id=rank, backend="gloo", device=device,
+                            timeout=SCALE_TIMEOUT)
+    mesh = parallel.make_mesh(n_data=2, devices=[device])
+    rec = dict(rank=rank, backend=dist.get_backend(),
+               world=parallel.process_count(), coords=list(mesh.coords),
+               device=str(device), start_s=time.perf_counter() - t_start,
+               launches={}, wall_s={})
+    for name in ("fit", "scat", "align"):
+        with np.load(os.path.join(scale_dir(), f"{name}.npz")) as z:
+            inp = {k: z[k] for k in z.files}
+        spy = capture_largest("fused_cross_spectrum") if check and \
+            name == "fit" else contextlib.nullcontext([])
+        with spy as b1:
+            F.reset_kernel_launches()
+            r, rec["wall_s"][name] = scale_out_call(name, mesh, inp, device)
+            rec["launches"][name] = F.kernel_launches()
+        if name == "align":
+            np.save(os.path.join(scale_dir(), f"align{rank}.npy"),
+                    r[0].cpu().numpy())
+            r = r[1]
+        rec[name] = _fit_record(r)
+        if b1:
+            (port_, model, w, K), k = b1[0][0][:4], b1[0][1]
+            check_cross_spectrum_case(dict(
+                name=f"scale-out rank 0 fit bucket {tuple(port_.shape)} "
+                     f"K={K}", port=port_, model=model, w=w, K=K,
+                fold=k.get("fold"), want_m2=k.get("want_m2", False),
+                arm=None))
+            del b1[:]
+    with open(os.path.join(scale_dir(), "jobs.json")) as f:
+        jobs = [IPTAJob(n, meta, tmpl) for n, (meta, tmpl)
+                in json.load(f).items()]
+    spy = capture_largest("fused_decode_cross_spectrum") if check \
+        else contextlib.nullcontext([])
+    with spy as b2:
+        F.reset_kernel_launches()
+        t0 = time.perf_counter()
+        res = stream_ipta_campaign(
+            jobs, outdir=os.path.join(scale_dir(), "campaign"), shard=True,
+            nsub_batch=CAMPAIGN_BATCH, quiet=True, device=device)
+        sync(device)
+        rec["wall_s"]["campaign"] = time.perf_counter() - t0
+        rec["launches"]["campaign"] = F.kernel_launches()
+    if b2:
+        (raw, scl, offs, model, w, K), k = b2[0]
+        check_decode_case(dict(
+            name=f"scale-out rank 0 campaign bucket {tuple(raw.shape)} "
+                 f"K={K}", raw=raw, scl=scl, offs=offs, model=model, w=w,
+            K=K, code=k["code"], nbin=k["nbin"], fold=k.get("fold"),
+            arm=None))
+        del b2[:]
+    rec["summary"] = {n: [m.tolist(), e.tolist()]
+                      for n, (m, e) in res.DeltaDM_summary.items()}
+    rec["ntoa"] = len(res.TOA_list)
+    if cuda:
+        rec["peak_allocated"] = torch.cuda.max_memory_allocated()
+        rec["peak_reserved"] = torch.cuda.max_memory_reserved()
+    rec["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(scale_dir(), f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _wrap(x):
+    return (x + 0.5) % 1.0 - 0.5
+
+
+def _half(inp, r):
+    """Rank r's slice of a phase 21 call's inputs (its half of the
+    batch; the shared template and freqs whole)."""
+    n = len(inp["ports"]) // 2
+    return {k: v[r * n:(r + 1) * n] if k in SCALE_BATCH_KEYS else v
+            for k, v in inp.items()}
+
+
+def scale_out_compare(label, got, ref, fields, tol):
+    """The largest |got - ref| / ref's error over ``fields`` of two fit
+    records (_fit_record; phases wrapped); raises above ``tol`` or when
+    the return codes differ."""
+    import numpy as np
+
+    worst = {}
+    for k in fields:
+        d = np.asarray(got[k]) - np.asarray(ref[k])
+        if k == "phi":
+            d = _wrap(d)
+        worst[k] = float(np.max(np.abs(d) / np.asarray(ref[k + "_err"])))
+    if got["return_code"] != ref["return_code"] or not all(
+            v <= tol for v in worst.values()):
+        raise AssertionError(
+            f"scale-out {label}: 2 ranks vs world size 1 differ by "
+            f"{worst} x the errors (limit {tol}) or in return codes")
+    return worst
+
+
+def phase_scale_out(ctx, device="cuda", nsub_scat=SCALE_NSUB_SCAT,
+                    noracle=SCALE_NORACLE, nchan=NCHAN, nbin=NBIN):
+    """The scale-out path (phase 21): two ranks over gloo, both on one
+    card, as two processes (scale_out_rank; NCCL refuses two ranks on one
+    GPU), over scale_out_inputs:
+    1. fit_portrait_sharded_fast on a 2 x 1 mesh over the main path's 64 x
+       512 x 2048 float32 batch (32 subints a rank): B1 launched by each
+       rank, phi / DM within SCALE_TOL x their errors of the same call at
+       world size 1 in this process on each rank's slice (run while the
+       ranks work), the first ``noracle`` subints' phi within 1e-4 rot
+       of the port's fit/reference_numpy (float64, on the host,
+       re-referenced to the fit's nu_DM along its own DM);
+    2. the scattering branch on nsub_scat subints: B1's want_m2 form
+       launched by each rank, phi / DM / tau / alpha as 1;
+    3. one align_iteration_sharded over the align path's 4 x 32 x 512 x
+       2048 epochs: the template within SCALE_TEMPLATE_TOL x its max of
+       world size 1's on the whole batch, phi as 1;
+    4. stream_ipta_campaign(shard=True) over phase 15's pulsars A (int16,
+       B1) and B (2-bit, B2): the union of the ranks' .tim shards holds
+       phase 16's run 1 lines (the same keys, TOAs and DMs within
+       SCALE_TIM_SIGMA), the ranks' summaries equal, B1 and B2 launched
+       by each rank through their FFT arms only.
+    Prints each rank's peak memory.  Shows the sharded code path on the
+    card, not NCCL and not a speed-up.  Returns the ranks' launches,
+    summed over the calls and the ranks."""
+    import numpy as np
+    import torch
+    from pulseportraiture_tpu_torch import parallel
+    from pulseportraiture_tpu_torch.config import Dconst
+    from pulseportraiture_tpu_torch.device import KNOB_POLARITY
+    from pulseportraiture_tpu_torch.fit.reference_numpy import \
+        fit_portrait_numpy
+
+    cuda = device_type(device) == "cuda"
+    shutil.rmtree(scale_dir(), ignore_errors=True)
+    t0 = time.perf_counter()
+    inp = scale_out_inputs(ctx, device, nsub_scat, nchan, nbin)
+    log(f"scale-out inputs: fit {inp['fit']['ports'].shape}, scattering "
+        f"{inp['scat']['ports'].shape}, align "
+        f"{inp['align']['ports'].shape} float32, campaign A and B, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if cuda:
+        torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    logs = [open(os.path.join(scale_dir(), f"rank{r}.log"), "w")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as C; C.scale_out_rank("
+         f"{r}, {port}, {str(device)!r}, {WORK!r}, {dict(KNOB_POLARITY)!r})"],
+        cwd=ROOT,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    t_spawn = time.perf_counter()
+    try:
+        # world size 1 and the oracle in this process while the ranks
+        # run: the ranks' slices, each fitted alone, and the whole align
+        # batch for its template
+        mesh1 = parallel.make_mesh(devices=[device])
+        halves = {n: [scale_out_call(n, mesh1, _half(inp[n], r), device)
+                      for r in range(2)] for n in ("fit", "scat", "align")}
+        ref_t = scale_out_call("align", mesh1, inp["align"], device)[0][0]
+        t1 = time.perf_counter()
+        f = inp["fit"]
+        r1 = halves["fit"][0][0]
+        oracle = []
+        for i in range(noracle):
+            o = fit_portrait_numpy(
+                f["ports"][i].astype(float), f["models"].astype(float),
+                np.where(f["chan_masks"][i] > 0, f["noise_stds"][i], 0.0),
+                f["freqs"].astype(float), float(f["P_s"][i]),
+                float(f["nu_fit"][i]), DM0=float(f["theta0"][i, 1]))
+            nu = float(r1.nu_DM[i])
+            oracle.append((o["phi"] + Dconst * o["DM"] / float(f["P_s"][i])
+                           * (nu ** -2.0 - float(f["nu_fit"][i]) ** -2.0),
+                           o["DM"]))
+        oracle_s = time.perf_counter() - t1
+        for p in procs:
+            p.wait(timeout=max(SCALE_TIMEOUT - (time.perf_counter()
+                                                - t_spawn), 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"scale-out: the ranks did not finish within "
+                             f"{SCALE_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    ranks_s = time.perf_counter() - t_spawn
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(scale_dir(), f"rank{r}.log")) as fh:
+                tail = fh.read()[-4000:]
+            raise AssertionError(f"scale-out rank {r} exited "
+                                 f"{p.returncode}:\n{tail}")
+    recs = []
+    for r in range(2):
+        with open(os.path.join(scale_dir(), f"rank{r}.json")) as fh:
+            recs.append(json.load(fh))
+    starts = ", ".join(f"{rec['start_s']:.2f}" for rec in recs)
+    log(f"scale-out path: {recs[0]['world']} ranks over "
+        f"{recs[0]['backend']}, both on {device} of one card, mesh coords "
+        f"{[rec['coords'] for rec in recs]} (this shows the sharded code "
+        "path on the card, neither NCCL nor a speed-up); the ranks took "
+        f"{ranks_s:.2f} s from spawn, {starts} s of it to start, load the "
+        "kernels and join the group")
+    if not all(rec["backend"] == "gloo" and rec["world"] == 2
+               for rec in recs):
+        raise AssertionError("scale-out: not two gloo ranks")
+    for name in ("fit", "scat", "align"):
+        if recs[0][name] != recs[1][name]:
+            raise AssertionError(f"scale-out {name}: the ranks' gathered "
+                                 "results differ")
+
+    # 1-3: the sharded calls against world size 1 on the ranks' slices
+    fields = {"fit": ("phi", "DM"), "scat": ("phi", "DM", "tau", "alpha"),
+              "align": ("phi", "DM")}
+    worst = {}
+    for name, fl in fields.items():
+        hs = [_fit_record(h[0][1] if name == "align" else h[0])
+              for h in halves[name]]
+        worst[name] = scale_out_compare(
+            name, recs[0][name], {k: hs[0][k] + hs[1][k] for k in hs[0]},
+            fl, SCALE_TOL)
+    t1 = ref_t.cpu().numpy()
+    d_t = max(float(np.max(np.abs(np.load(os.path.join(
+        scale_dir(), f"align{r}.npy")) - t1))) for r in range(2))
+    d_t /= float(np.max(np.abs(t1)))
+    if not d_t <= SCALE_TEMPLATE_TOL:
+        raise AssertionError(f"scale-out align: the ranks' template is "
+                             f"{d_t:.3e} x max from world size 1's (limit "
+                             f"{SCALE_TEMPLATE_TOL})")
+    phi2 = np.asarray(recs[0]["fit"]["phi"])
+    d_or = [abs(_wrap(o[0] - phi2[i])) for i, o in enumerate(oracle)]
+    if not max(d_or) < 1e-4:
+        raise AssertionError(f"scale-out: |dphi| against "
+                             f"fit_portrait_numpy {max(d_or):.3e} rot "
+                             "(limit 1e-4)")
+    launches = {}
+    for rec in recs:
+        for name, la in rec["launches"].items():
+            for k, v in la.items():
+                launches.setdefault(name, {}).setdefault(k, 0)
+                launches[name][k] += v
+        if cuda:
+            fft_only(rec["launches"]["fit"], ("fused_cross_spectrum",),
+                     f"scale-out fit (rank {rec['rank']})")
+            fft_only(rec["launches"]["campaign"],
+                     ("fused_cross_spectrum", "fused_decode_cross_spectrum"),
+                     f"scale-out campaign (rank {rec['rank']})")
+            if rec["launches"]["scat"]["fused_cross_spectrum.m2"] < 1:
+                raise AssertionError(f"scale-out scattering (rank "
+                                     f"{rec['rank']}): no want_m2 launch")
+    walls = {n: ", ".join(f"{rec['wall_s'][n]:.2f}" for rec in recs)
+             for n in recs[0]["wall_s"]}
+    w1 = {n: sum(h[1] for h in halves[n]) for n in halves}
+    per_rank = {n: [rec["launches"][n]["fused_cross_spectrum"]
+                    for rec in recs] for n in ("fit", "scat", "campaign")}
+    log(f"scale-out fit (2 x 1 mesh, {len(phi2)} subints, "
+        f"{len(phi2) // 2} a rank): B1 launches per rank {per_rank['fit']}, "
+        f"walls per rank {walls['fit']} s (world size 1, the two slices "
+        f"{w1['fit']:.2f} s, both cold); largest |2 ranks - world size 1| "
+        f"on the ranks' slices {worst['fit']} x the errors (limit "
+        f"{SCALE_TOL}); phi of "
+        f"{len(d_or)} subints against fit_portrait_numpy (float64, "
+        f"{oracle_s:.2f} s on the host): max |dphi| {max(d_or):.3e} rot "
+        "(limit 1e-4)")
+    m2 = [rec["launches"]["scat"]["fused_cross_spectrum.m2"] for rec in recs]
+    log(f"scale-out scattering branch ({nsub_scat} subints): B1 want_m2 "
+        f"launches per rank {m2}, walls {walls['scat']} s (world size 1 "
+        f"{w1['scat']:.2f} s); "
+        f"largest difference on the ranks' slices {worst['scat']} x the "
+        "errors")
+    log(f"scale-out align ({inp['align']['ports'].shape[0]} subints): "
+        f"template {d_t:.3e} x max from world size 1's (limit "
+        f"{SCALE_TEMPLATE_TOL}), fits {worst['align']} x the errors on the "
+        f"ranks' slices; walls {walls['align']} s (world size 1 "
+        f"{w1['align']:.2f} s)")
+
+    # 4: the sharded campaign against phase 16's run 1
+    names = list(inp["jobs"])
+    one = campaign_tims(os.path.join(WORK, "campaign-1"), names)
+    union = {n: {} for n in names}
+    for n in names:
+        for r in range(2):
+            union[n].update(read_tim(os.path.join(
+                scale_dir(), "campaign", f"{n}.p{r}.tim")))
+    same = sum(union[n][k] == v for n in names for k, v in one[n].items()
+               if k in union[n])
+    spread = tims_spread(one, union)
+    if recs[0]["summary"] != recs[1]["summary"]:
+        raise AssertionError("scale-out campaign: the ranks' summaries "
+                             "differ")
+    nsum = {n: len(recs[0]["summary"][n][0]) for n in names}
+    narch = {}
+    for n in names:
+        with open(inp["jobs"][n][0]) as fh:
+            narch[n] = sum(1 for ln in fh if ln.strip())
+    ntoa = sum(len(v) for v in one.values())
+    b2 = [rec["launches"]["campaign"]["fused_decode_cross_spectrum"]
+          for rec in recs]
+    log(f"scale-out campaign (stream_ipta_campaign shard=True, A int16 + B "
+        f"2-bit): {sum(rec['ntoa'] for rec in recs)} TOAs over the ranks "
+        f"({[rec['ntoa'] for rec in recs]}), walls {walls['campaign']} s; "
+        f"B1 launches per rank {per_rank['campaign']}, B2 {b2}; the .tim "
+        f"union holds phase 16's {ntoa} lines, {same} of them identical, "
+        f"largest difference {spread:.3e} sigma (limit "
+        f"{SCALE_TIM_SIGMA}); each rank's summary {nsum} archives, equal")
+    if not (spread <= SCALE_TIM_SIGMA and sum(rec["ntoa"] for rec in recs)
+            == ntoa and all(nsum[n] == narch[n] for n in names)):
+        raise AssertionError("scale-out campaign: .tim union or summary")
+    if cuda:
+        parent = torch.cuda.memory_reserved()
+        log("scale-out memory: peak allocated / reserved per rank "
+            + ", ".join(f"{rec['peak_allocated'] / 2**30:.2f} / "
+                        f"{rec['peak_reserved'] / 2**30:.2f} GiB"
+                        for rec in recs)
+            + f"; this process holds {parent / 2**30:.2f} GiB reserved")
+    total = {k: sum(launches[n].get(k, 0) for n in launches)
+             for k in ("fused_cross_spectrum", "fused_decode_cross_spectrum",
+                       "fused_cross_spectrum.m2")}
+    log(f"scale-out launches over both ranks: {launches}")
+    return total
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -5776,6 +6277,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_main = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5837,6 +6339,9 @@ def main():
     camp = phase_campaign(pta_ctx)
     log(f"phase campaign path: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
+    scale = phase_scale_out(pta_ctx)
+    log(f"phase scale-out path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
     serve, serve_ctx = phase_serve()
     log(f"phase serve path: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
@@ -5879,12 +6384,15 @@ def main():
             "pta": pta_a["fused_cross_spectrum"]
             + pta_b["fused_cross_spectrum"],
             "campaign": camp["fused_cross_spectrum"],
+            "scale_out": scale["fused_cross_spectrum"],
             "serve": serve["fused_cross_spectrum"],
             "router": router["fused_cross_spectrum"],
             "ingest": ingest["fused_cross_spectrum"],
             "tune": tune["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
-            "fused_cross_spectrum.m2"]),
+            "fused_cross_spectrum.m2"], launches_by_path={
+                "scattering": scat_launches["fused_cross_spectrum.m2"],
+                "scale_out": scale["fused_cross_spectrum.m2"]}),
     }, {
         "name": "fused_decode_cross_spectrum",
         "route": "cuda",
@@ -5912,11 +6420,13 @@ def main():
             "pta": pta_a["fused_decode_cross_spectrum"]
             + pta_b["fused_decode_cross_spectrum"],
             "campaign": camp["fused_decode_cross_spectrum"],
+            "scale_out": scale["fused_decode_cross_spectrum"],
             "serve": serve["fused_decode_cross_spectrum"],
             "router": router["fused_decode_cross_spectrum"],
             "ingest": ingest["fused_decode_cross_spectrum"],
             "tune": tune["fused_decode_cross_spectrum"]},
     }]
+    log(f"chip_smoke total: {time.perf_counter() - t_main:.1f} s wall")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

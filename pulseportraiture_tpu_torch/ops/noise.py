@@ -14,9 +14,10 @@ PyTorch is the port.  Two differences in idiom, none in semantics:
 
 import torch
 
-__all__ = ["median_lastaxis", "get_noise_PS", "BASELINE_FRAC",
-           "baseline_window", "min_window_baseline", "get_SNR",
-           "fourier_noise"]
+__all__ = ["median_lastaxis", "exact_median_lastaxis", "get_noise",
+           "get_noise_PS", "BASELINE_FRAC", "baseline_window",
+           "min_window_baseline", "get_SNR", "fourier_noise",
+           "channel_SNRs_FT", "get_scales"]
 
 # the min-window baseline's window, as a fraction of the profile length;
 # the decode-fused kernel (ops.fused) reads the same window
@@ -39,6 +40,15 @@ def median_lastaxis(x):
     return (lo + hi) / 2
 
 
+def exact_median_lastaxis(x):
+    """The JAX package's name for the median over the last axis, equal to
+    ``jnp.median`` bit for bit.  There it is a sort-free 32-trip bisection
+    (an XLA workaround for the sort); two ``torch.kthvalue`` order
+    statistics give the same values in every dtype, so this is
+    median_lastaxis.  Assumes finite inputs."""
+    return median_lastaxis(x)
+
+
 def get_noise_PS(data, frac=0.25):
     """Off-pulse noise std per profile from the power spectrum: the mean
     power in the top ``frac`` of rFFT frequencies, converted to a
@@ -49,6 +59,52 @@ def get_noise_PS(data, frac=0.25):
     kc = int((1.0 - frac) * nharm)
     power = torch.abs(X[..., kc:]) ** 2.0
     return torch.sqrt(torch.mean(power, dim=-1) / nbin)
+
+
+def get_noise(data, method="PS", **kwargs):
+    """Noise estimator by name: 'PS' (get_noise_PS, torch on the data's
+    device) or 'fit' (ops.filters.get_noise_fit, NumPy on the host,
+    per channel for input of 2 or more dimensions; it returns NumPy)."""
+    if method == "PS":
+        return get_noise_PS(data, **kwargs)
+    if method == "fit":
+        import numpy as np
+
+        from .filters import get_noise_fit
+
+        if isinstance(data, torch.Tensor):
+            data = data.detach().cpu().numpy()
+        data = np.asarray(data)
+        kwargs.setdefault("chans", data.ndim >= 2)
+        return get_noise_fit(data, **kwargs)
+    raise ValueError(f"unknown noise method {method!r}")
+
+
+def _CS(dFT, mFT, errs_F, harm_weights):
+    """Per-channel C_n = sum_k Re(d conj m) w and S_n = sum_k |m|^2 w with
+    w = harm_weights / errs_F^2."""
+    if harm_weights is None:
+        harm_weights = torch.ones(dFT.shape[-1], dtype=errs_F.dtype,
+                                  device=errs_F.device)
+    w = harm_weights / errs_F[..., None] ** 2.0
+    S = torch.sum(torch.abs(mFT) ** 2.0 * w, dim=-1)
+    C = torch.sum((dFT * torch.conj(mFT)).real * w, dim=-1)
+    return C, torch.clamp(S, min=torch.finfo(S.dtype).tiny)
+
+
+def channel_SNRs_FT(dFT, mFT, errs_F, harm_weights=None):
+    """Matched-filter S/N of each channel of a data portrait against an
+    aligned model portrait, from their rffts: C_n / sqrt(S_n)."""
+    C, S = _CS(dFT, mFT, errs_F, harm_weights)
+    return C / torch.sqrt(S)
+
+
+def get_scales(dFT, mFT, errs_F, harm_weights=None):
+    """Maximum-likelihood per-channel amplitudes a_n = C_n / S_n (eq. 11
+    of Pennucci+ 2014).  dFT, mFT: (..., nchan, nharm) rffts of aligned
+    data and model; errs_F: (..., nchan) Fourier-domain noise."""
+    C, S = _CS(dFT, mFT, errs_F, harm_weights)
+    return C / S
 
 
 def fourier_noise(noise_std, nbin):

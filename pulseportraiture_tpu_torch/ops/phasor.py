@@ -17,13 +17,27 @@ import torch
 
 from ..config import Dconst
 
-__all__ = ["cexp", "phase_shifts", "phasor", "phase_transform",
+__all__ = ["cexp", "DM_delay", "dispersion_phases", "phase_shifts", "phasor", "phase_transform",
            "guess_fit_freq", "doppler_correct_freqs"]
 
 
 def cexp(x):
     """exp(i x) with the complex dtype matching x (float32 -> complex64)."""
     return torch.complex(torch.cos(x), torch.sin(x))
+
+
+def DM_delay(DM, freq, freq_ref=math.inf, P=None):
+    """Dispersion delay [s] of ``freq`` relative to ``freq_ref`` [MHz],
+    positive below freq_ref; in rotations when ``P`` is given."""
+    delay = Dconst * DM * (freq**-2.0 - freq_ref**-2.0)
+    if P is not None:
+        delay = delay / P
+    return delay
+
+
+def dispersion_phases(freqs, DM, P, nu_ref):
+    """Per-channel dispersive phase offsets [rot] relative to nu_ref."""
+    return (Dconst * DM / P) * (freqs**-2.0 - nu_ref**-2.0)
 
 
 def phase_shifts(phi, DM, GM, freqs, P, nu_DM, nu_GM):

@@ -1,5 +1,5 @@
-"""The single-device align programs (counterpart of the align part of
-pulseportraiture_tpu/parallel/batch.py, :276-483).
+"""The batched device programs of the align pipeline and the sharded
+fits (counterpart of pulseportraiture_tpu/parallel/batch.py).
 
 One align_archives iteration (pipeline/align.py) accumulates every
 archive's weighted, back-rotated subints in the HARMONIC domain on the
@@ -10,8 +10,16 @@ average.  The JAX package runs this as jitted XLA programs with donated
 buffers; here it is plain torch, eagerly: torch.fft for the DFTs, and
 ``add_`` into the accumulators in place of donation.
 
-The sharded programs of the JAX module (align_iteration_sharded, the
-sharded fits) are ROADMAP A12.
+The sharded programs (fit_portrait_sharded[_fast],
+align_iteration_sharded) run on the rank mesh of parallel/mesh.py: each
+rank takes its slice of the batch over 'data' (shard_batch), runs the
+port's batched lanes on it, and the results are gathered (the fits) or
+summed (the align accumulators) over the 'data' subgroup, so every rank
+returns what the JAX program returns at one process.
+shard_channels=True only checks that the channels divide over 'chan':
+every rank holds the whole batch and fits whole portraits, and the chi^2
+channel sums are not yet split into the Newton loop's collectives over
+'chan' (ROADMAP A4).
 """
 
 import math
@@ -21,11 +29,14 @@ import torch
 
 from .. import config
 from ..device import resolve_auto, resolve_device
+from ..fit.portrait import FitFlags
 from ..ops.fourier import irfft_sr, rfft_sr
 from ..ops.phasor import phase_shifts
 
 __all__ = ["ALIGN_DEVICE_CHUNK", "use_align_device", "align_accumulator_init",
-           "align_accumulate_archive", "align_finalize"]
+           "align_accumulate_archive", "align_finalize", "shard_batch",
+           "fit_portrait_sharded", "fit_portrait_sharded_fast",
+           "align_iteration_sharded"]
 
 _ALIGN_TINY = 1e-30
 
@@ -138,3 +149,203 @@ def align_finalize(acc, nbin):
     acc_r, acc_i, wacc = acc
     aligned = irfft_sr(acc_r, acc_i, n=nbin)
     return aligned / torch.clamp(wacc, min=_ALIGN_TINY)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# the sharded programs
+
+def _host_or_tensor(a):
+    """A tensor as it is, anything else as a CPU tensor (no copy)."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a))
+
+
+def shard_batch(mesh, arrays, chan_axis=None, device=None):
+    """This rank's slice of each array of ``arrays`` (one array, or a
+    tuple, list or dict of them) as tensors on the rank's device
+    (``device``, else the mesh's, else cuda): the leading axis over
+    'data', axis ``chan_axis`` over 'chan'.  An axis that does not
+    divide by its mesh axis raises ValueError."""
+    from .mesh import batch_sharding
+
+    dev = resolve_device(device if device is not None else mesh.device)
+
+    def one(a):
+        t = _host_or_tensor(a)
+        return t[batch_sharding(mesh, t.dim(), chan_axis).slices(
+            t.shape)].to(dev)
+
+    if isinstance(arrays, dict):
+        return {k: one(v) for k, v in arrays.items()}
+    if isinstance(arrays, (tuple, list)):
+        return type(arrays)(one(a) for a in arrays)
+    return one(arrays)
+
+
+def _local(mesh, a, dev, dtype, data_axis, chan_axis, shard_channels):
+    """This rank's block of ``a`` for a sharded fit, sliced where ``a``
+    lies and then moved to ``dev``: ``data_axis`` over 'data' (None:
+    whole).  The rank fits whole portraits, so with shard_channels the
+    channel axis stays whole; it must still divide over 'chan', as the
+    JAX package requires."""
+    from .mesh import Sharding
+
+    t = _host_or_tensor(a)
+    spec = [None] * t.dim()
+    if data_axis is not None:
+        spec[data_axis] = "data"
+    if shard_channels and chan_axis is not None:
+        Sharding(mesh, tuple("chan" if i == chan_axis else None
+                             for i in range(t.dim()))).slices(t.shape)
+    return t[Sharding(mesh, tuple(spec)).slices(t.shape)].to(device=dev,
+                                                             dtype=dtype)
+
+
+def _per_fit(x, nb):
+    """A scalar or (nb,) per-fit input as an (nb,) tensor."""
+    return _host_or_tensor(x).expand(nb)
+
+
+def _gather_result(mesh, res):
+    """Every rank's FitResult rows, concatenated over the 'data'
+    subgroup in mesh order."""
+    from .multihost import all_gather
+
+    if mesh.axis_size("data") == 1:
+        return res
+    g = mesh.groups["data"]
+    return type(res)(*[torch.cat(all_gather(v, g), dim=0) for v in res])
+
+
+def _sharded_inputs(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
+                    theta0, chan_masks, shard_channels, device):
+    """The rank's blocks of a sharded fit's inputs (ports' dtype, on its
+    device; nu_fit None is left out).  Shared templates (nchan, nbin) and
+    freqs (nchan,) keep their channel axis 0."""
+    dev = resolve_device(device if device is not None else mesh.device)
+    ports_t = _host_or_tensor(ports)
+    dt = ports_t.dtype
+    nb = ports_t.shape[0]
+    mesh.axis_index("data")  # a rank outside the mesh raises here
+
+    def loc(a, data_axis, chan_axis):
+        return _local(mesh, a, dev, dt, data_axis, chan_axis,
+                      shard_channels)
+
+    m_nd = np.ndim(models)
+    f_nd = np.ndim(freqs)
+    return dict(
+        ports=loc(ports_t, 0, 1),
+        models=loc(models, 0 if m_nd == 3 else None, 1 if m_nd == 3 else 0),
+        noise_stds=loc(noise_stds, 0, 1),
+        freqs=loc(freqs, 0 if f_nd == 2 else None, 1 if f_nd == 2 else 0),
+        P=loc(_per_fit(P_s, nb), 0, None),
+        nu_fit=None if nu_fit is None else loc(_per_fit(nu_fit, nb), 0,
+                                               None),
+        theta0=None if theta0 is None else loc(theta0, 0, None),
+        chan_masks=None if chan_masks is None else loc(chan_masks, 0, 1))
+
+
+def fit_portrait_sharded(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
+                         theta0=None, nu_out=None, fit_flags=FitFlags(),
+                         log10_tau=False, max_iter=40, shard_channels=False,
+                         use_scatter=None, device=None):
+    """The complex engine (fit.portrait.fit_portrait_batch) over a
+    (nb, nchan, nbin) batch sharded on the mesh: each rank fits its
+    'data' slice and every rank returns the whole batch's FitResult.
+
+    models (nb, nchan, nbin) or a shared (nchan, nbin) template; freqs
+    (nchan,) or (nb, nchan); P_s / nu_fit scalars or (nb,); nu_out None
+    or a scalar.  use_scatter None: derived from fit_flags, log10_tau and
+    theta0, so a fixed nonzero tau is not ignored.  device: the rank's
+    device (None: the mesh's, else cuda)."""
+    from ..fit.portrait import derive_use_scatter, fit_portrait_batch
+
+    if use_scatter is None:
+        use_scatter = derive_use_scatter(fit_flags, log10_tau, theta0)
+    b = _sharded_inputs(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
+                        theta0, None, shard_channels, device)
+    res = fit_portrait_batch(
+        b["ports"], b["models"], b["noise_stds"], b["freqs"], b["P"],
+        b["nu_fit"], nu_out=nu_out, theta0=b["theta0"], fit_flags=fit_flags,
+        log10_tau=log10_tau, max_iter=max_iter, use_scatter=use_scatter,
+        device=b["ports"].device)
+    return _gather_result(mesh, res)
+
+
+def fit_portrait_sharded_fast(mesh, ports, models, noise_stds, freqs, P_s,
+                              nu_fit, theta0=None, nu_out=None,
+                              fit_flags=FitFlags(), chan_masks=None,
+                              max_iter=40, shard_channels=False,
+                              log10_tau=False, compensated=None,
+                              harmonic_window=None, device=None):
+    """fit_portrait_sharded through the complex-free lanes
+    (fit.portrait.fit_portrait_batch_fast): the three-moment fast fit, or
+    the scattering lane when tau/alpha are fitted, log10_tau is set or
+    theta0 seeds a fixed nonzero tau.  On CUDA with a harmonic window the
+    fast fit's DFT and cross-spectrum are the fused kernel B1 (its
+    want_m2 form on the scattering lane).
+
+    models (nb, nchan, nbin) or a shared (nchan, nbin) template;
+    harmonic_window as fit_portrait_batch_fast ('auto' derives K from a
+    host numpy model), resolved once from the whole batch so every rank
+    fits with the same K."""
+    from ..fit.portrait import (derive_use_scatter, fit_portrait_batch_fast,
+                                reject_fixed_tau_seed,
+                                resolve_harmonic_window)
+
+    use_scatter = derive_use_scatter(fit_flags, log10_tau, theta0)
+    if not use_scatter:
+        reject_fixed_tau_seed(theta0, "fit_portrait_sharded_fast")
+    nbin = np.shape(ports)[-1]
+    K = resolve_harmonic_window(harmonic_window, models, nbin)
+    b = _sharded_inputs(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
+                        theta0, chan_masks, shard_channels, device)
+    res = fit_portrait_batch_fast(
+        b["ports"], b["models"], b["noise_stds"], b["freqs"], b["P"],
+        b["nu_fit"], nu_out=nu_out, theta0=b["theta0"], fit_flags=fit_flags,
+        chan_masks=b["chan_masks"], max_iter=max_iter, log10_tau=log10_tau,
+        compensated=compensated,
+        harmonic_window=False if K is None else K,
+        device=b["ports"].device)
+    return _gather_result(mesh, res)
+
+
+def align_iteration_sharded(mesh, ports, model, noise_stds, chan_masks,
+                            freqs, P_s, fit_dm=True, max_iter=20,
+                            shard_channels=False, device=None):
+    """ONE ppalign iteration on the rank mesh: the batched (phi[, DM])
+    fast fit of every (archive, subint) against the shared template, at
+    nu_fit = nu_out = mean(freqs) and without a harmonic window, as in
+    the JAX program; then each rank back-rotates and weights its slice
+    into the harmonic accumulators (align_accumulate_archive), the
+    accumulators and the weight sum are summed over 'data', and every
+    rank finishes with the same align_finalize (reference ppalign.py:
+    220-248).
+
+    ports (nb, nchan, nbin); model the shared (nchan, nbin) template;
+    noise_stds / chan_masks (nb, nchan); freqs (nchan,); P_s scalar or
+    (nb,).  Returns (new_template (nchan, nbin) on the rank's device,
+    the whole batch's FitResult)."""
+    from ..fit.portrait import fit_portrait_batch_fast
+    from .multihost import all_reduce_sum
+
+    b = _sharded_inputs(mesh, ports, model, noise_stds, freqs, P_s, None,
+                        None, chan_masks, shard_channels, device)
+    port, dt, dev = b["ports"], b["ports"].dtype, b["ports"].device
+    nchan, nbin = port.shape[1:]
+    nu0 = torch.mean(b["freqs"])
+    res = fit_portrait_batch_fast(
+        port, b["models"], b["noise_stds"], b["freqs"], b["P"], nu0,
+        nu_out=nu0, fit_flags=FitFlags(True, bool(fit_dm), False, False,
+                                       False),
+        chan_masks=b["chan_masks"], max_iter=max_iter,
+        harmonic_window=False, device=dev)
+    nloc = port.shape[0]
+    acc = align_accumulate_archive(
+        align_accumulator_init(1, nchan, nbin, dt, dev), port[:, None],
+        res.phi, res.DM, nu0.expand(nloc), b["P"], b["freqs"],
+        b["noise_stds"], b["chan_masks"], res.scales)
+    if mesh.axis_size("data") > 1:
+        acc = tuple(all_reduce_sum(a, mesh.groups["data"]) for a in acc)
+    return align_finalize(acc, nbin)[0], _gather_result(mesh, res)

@@ -23,9 +23,13 @@ The orchestration layer above pipeline/stream.py:
   dispatches; with ``router=`` each request is placed on a fleet of
   such servers by a serve.ToaRouter.
 
-The port runs campaigns at world size 1 (parallel/multihost.py): the
-(pulsar, archive) grid sharding over processes is ROADMAP A12, and a
-``torch.distributed`` group of world size above 1 raises.
+- **multi-process sharding across the (pulsar, archive) grid**: under a
+  ``torch.distributed`` process group (parallel.init_multihost) the
+  flattened grid is dealt round-robin over the ranks
+  (parallel.shard_files), each rank writes its own checkpoint shards
+  ``outdir/<pulsar>.p<rank>.tim``, and the per-pulsar DeltaDM summaries
+  are allgathered (parallel.process_allgather), so every rank returns
+  the whole campaign's summary.
 """
 
 import glob
@@ -139,8 +143,8 @@ def stream_ipta_campaign(jobs, outdir=None, shard=True, nsub_batch=256,
     jobs: sequence of IPTAJob (or (pulsar, datafiles, modelfile)
     tuples).  outdir: directory for per-pulsar .tim outputs (created;
     None = no .tim files).  shard=True deals the flattened (pulsar,
-    archive) grid over processes (parallel.shard_files), a no-op at the
-    one process the port runs.  stream_kwargs: campaign-wide defaults
+    archive) grid over the ranks of the process group
+    (parallel.shard_files; a no-op at one process).  stream_kwargs: campaign-wide defaults
     forwarded to every stream_wideband_TOAs call (per-job kwargs
     override them).  device: the torch device of every per-pulsar
     stream call and of the timing stage (default cuda; per-job or

@@ -332,7 +332,7 @@ class FleetFileWatcher(threading.Thread):
 
     The file holds one ``host:port`` per line (blank lines and ``#``
     comments ignored).  Every ``poll_s`` the watcher re-reads it when its
-    mtime moved and adds or removes hosts to match; only endpoints the
+    mtime (in ns) or its size moved and adds or removes hosts to match; only endpoints the
     watcher itself added are ever removed.  An unreachable new entry
     warns and is retried on the next poll.  Passes are serialized: the
     poll thread and a caller's :meth:`resync` never interleave, so a pass
@@ -345,9 +345,9 @@ class FleetFileWatcher(threading.Thread):
         self.path = str(path)
         self.poll_s = max(0.05, float(poll_s))
         self.quiet = quiet
-        self._stop = threading.Event()
+        self._halt = threading.Event()
         self._resync_lock = threading.Lock()
-        self._mtime = None
+        self._last_stamp = None
         self._managed = set()   # labels this watcher added
         self._warned = set()
 
@@ -410,16 +410,23 @@ class FleetFileWatcher(threading.Thread):
             if label in current:
                 self.router.remove_host(label)
 
+    def _stamp(self):
+        """(mtime in ns, size) of the fleet file, None when unreadable: an
+        in-place save within one mtime tick of the last pass still
+        changes the size (ROADMAP C6; the JAX watcher compares mtimes)."""
+        try:
+            st = os.stat(self.path)
+        except OSError:
+            return None
+        return st.st_mtime_ns, st.st_size
+
     def run(self):
         self.resync()
-        while not self._stop.wait(self.poll_s):
+        while not self._halt.wait(self.poll_s):
             try:
-                try:
-                    mtime = os.path.getmtime(self.path)
-                except OSError:
-                    mtime = None
-                if mtime != self._mtime:
-                    self._mtime = mtime
+                stamp = self._stamp()
+                if stamp != self._last_stamp:
+                    self._last_stamp = stamp
                     self.resync()
                 elif self._warned:
                     # retry endpoints unreachable on the last pass
@@ -429,4 +436,4 @@ class FleetFileWatcher(threading.Thread):
                     tracer=None)
 
     def stop(self):
-        self._stop.set()
+        self._halt.set()

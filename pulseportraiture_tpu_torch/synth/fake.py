@@ -1,18 +1,32 @@
-"""Synthetic template models and timing campaigns (counterpart of
-pulseportraiture_tpu/synth/fake.py).
+"""Synthetic portraits, template models and timing campaigns
+(counterpart of pulseportraiture_tpu/synth/fake.py).
 
 default_test_model, the known-truth template the synthetic archives
-(synth/archive.py) are generated from, and fake_timing_campaign, TOA
-campaigns straight from a parfile for the timing fits.  Host numpy
-with numpy Generators, draw for draw as in the JAX package.
+(synth/archive.py) are generated from; fake_portrait and
+fake_observation, portraits with known injected (phi, DM, GM, tau,
+alpha, scales, noise, zapped channels, scintillation) in torch on a
+device; and fake_timing_campaign, TOA campaigns straight from a parfile
+for the timing fits (host numpy with numpy Generators, draw for draw as
+in the JAX package).
+
+The portraits' random draws come from an explicit ``torch.Generator``
+(None: a fixed seed) where the JAX package takes a PRNG key, so noisy
+portraits agree with the JAX ones in distribution, not draw for draw.
 """
 
-import numpy as np
+import math
 
-from ..models.gaussian import GaussianModel
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.gaussian import GaussianModel, gen_gaussian_portrait
+from ..ops.phasor import phase_shifts, phasor
+from ..ops.scattering import add_scattering, scattering_times
 from ..utils.bunch import DataBunch
 
-__all__ = ["default_test_model", "fake_timing_campaign"]
+__all__ = ["default_test_model", "fake_portrait", "fake_observation",
+           "fake_timing_campaign"]
 
 
 def default_test_model(nu_ref=1500.0):
@@ -32,6 +46,109 @@ def default_test_model(nu_ref=1500.0):
         mwids=np.array([-0.2, 0.16, -0.3]),
         mamps=np.array([-1.6, -2.0, -0.9]),
     )
+
+
+def _generator(key):
+    """The portraits' random source: ``key`` itself, or a generator
+    seeded 0 when it is None."""
+    return torch.Generator().manual_seed(0) if key is None else key
+
+
+def fake_portrait(key, model, freqs, nbin, P, phi=0.0, DM=0.0, GM=0.0,
+                  tau=0.0, alpha=None, nu_ref=None, scales=None,
+                  noise_std=1.0, zap_frac=0.0, scint_nsin=0,
+                  dtype=torch.float64, device=None):
+    """One (nchan, nbin) data portrait with known injected parameters, on
+    ``device`` (default cuda).
+
+    phi/DM/GM are referenced to ``nu_ref`` (default: model.nu_ref); a
+    fit of this portrait against the clean model should recover them
+    there.  ``tau`` [s at nu_ref] scatters with index ``alpha``;
+    ``scales`` (nchan,) multiplies channels; ``noise_std`` adds white
+    noise; ``zap_frac`` zero-weights each channel with that probability;
+    ``scint_nsin`` multiplies a sin^2 scintillation pattern of that many
+    half-periods across the band.  ``key``: a torch.Generator (None: a
+    fixed seed); the draws are made on its device.
+
+    Returns a DataBunch with port, model_port, weights, noise_stds (those
+    tensors on the device), freqs, P and the injected truth values.
+    """
+    dev = resolve_device(device)
+    gen = _generator(key)
+    freqs = torch.as_tensor(np.asarray(freqs, float) if not isinstance(
+        freqs, torch.Tensor) else freqs).to(device=dev, dtype=dtype)
+    nchan = freqs.shape[0]
+    nu_ref = model.nu_ref if nu_ref is None else nu_ref
+    alpha = model.alpha if alpha is None else alpha
+
+    def draw(fn, shape):
+        return fn(shape, generator=gen, dtype=dtype,
+                  device=gen.device).to(dev)
+
+    clean = gen_gaussian_portrait(model.params(dev, dtype), freqs,
+                                  model.nu_ref, nbin, P=P, code=model.code,
+                                  scattered=False)
+    port = clean
+    if tau != 0.0:
+        port = add_scattering(port, scattering_times(tau / P, alpha, freqs,
+                                                     nu_ref))
+    # delay by the injected (phi, DM, GM): rotate to *later* phase, so
+    # that a fit returns positive (phi, DM, GM)
+    delays = phase_shifts(phi, DM, GM, freqs, P, nu_ref, nu_ref)
+    pFT = torch.fft.rfft(port, dim=-1)
+    pFT = pFT * torch.conj(phasor(delays, pFT.shape[-1]))
+    port = torch.fft.irfft(pFT, n=nbin, dim=-1)
+
+    if scint_nsin:
+        x = torch.linspace(0.0, scint_nsin * math.pi, nchan, dtype=dtype,
+                           device=dev)
+        u = draw(torch.rand, ())
+        pattern = torch.sin(x + u * 2 * math.pi) ** 2.0 + 0.1
+        port = port * pattern[:, None]
+    if scales is not None:
+        port = port * torch.as_tensor(np.asarray(scales, float)).to(
+            device=dev, dtype=dtype)[:, None]
+    if noise_std:
+        port = port + noise_std * draw(torch.randn, tuple(port.shape))
+    weights = torch.ones(nchan, dtype=dtype, device=dev)
+    if zap_frac > 0.0:
+        weights = (draw(torch.rand, (nchan,)) >= zap_frac).to(dtype)
+        port = port * weights[:, None]
+
+    return DataBunch(
+        port=port, model_port=clean, freqs=freqs, weights=weights,
+        noise_stds=torch.full((nchan,), float(noise_std), dtype=dtype,
+                              device=dev),
+        P=P, nbin=nbin, nu_ref=nu_ref, phi=phi, DM=DM, GM=GM, tau=tau,
+        alpha=alpha, scales=scales)
+
+
+def fake_observation(key, model, nsub=1, nchan=64, nbin=1024, P=0.002,
+                     lofreq=1200.0, bw=800.0, dDM_std=0.0, **kwargs):
+    """A stack of subint portraits (nsub, nchan, nbin) with per-subint
+    dDMs drawn from N(0, dDM_std), the shape pptoas consumes; the other
+    keywords (device= among them) go to fake_portrait.  ``key``: a
+    torch.Generator (None: a fixed seed) that draws the dDMs and then
+    every subint in turn.
+
+    Returns (DataBunch with the subints stacked, the injected dDMs as a
+    numpy array)."""
+    gen = _generator(key)
+    freqs = lofreq + (bw / nchan) * (np.arange(nchan) + 0.5)
+    dDMs = dDM_std * torch.randn((nsub,), generator=gen,
+                                 dtype=torch.float64,
+                                 device=gen.device).cpu().numpy()
+    base_DM = kwargs.pop("DM", 0.0)
+    truths = [fake_portrait(gen, model, freqs, nbin, P,
+                            DM=base_DM + float(dDMs[i]), **kwargs)
+              for i in range(nsub)]
+    first = truths[0]
+    return (DataBunch(
+        subints=torch.stack([t.port for t in truths]),
+        model_port=first.model_port, freqs=first.freqs,
+        weights=torch.stack([t.weights for t in truths]),
+        noise_stds=torch.stack([t.noise_stds for t in truths]),
+        P=P, nbin=nbin, nu_ref=first.nu_ref, DMs=base_DM + dDMs), dDMs)
 
 
 def fake_timing_campaign(par, truth=None, n_epochs=10, toas_per_epoch=2,

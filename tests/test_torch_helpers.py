@@ -19,6 +19,43 @@ PAR = {"PSR": "J1744-1134", "RAJ": "17:44:29.4", "DECJ": "-11:34:54.6",
        "P0": 0.004074, "PEPOCH": 55000.0, "DM": 3.139}
 
 
+# the scale-out tests' batch: SCALE_NB subints fitted with a
+# SCALE_K-harmonic window at 256 bins
+SCALE_NB, SCALE_K, SCALE_P0 = 8, 128, 0.004074
+
+
+def make_sharded_batch(seed=7, nb=SCALE_NB, nchan=16, nbin=256, tau=None):
+    """The scale-out tests' batch (test_torch_parallel.py,
+    test_torch_multiprocess.py): noisy dispersed portraits of the default
+    model (injected phi and DM per subint, scattered when tau is given)
+    against its clean template; channel 3 masked.  Returns (ports,
+    model, noise, freqs, masks)."""
+    from pulseportraiture_tpu_torch.config import Dconst
+    from pulseportraiture_tpu_torch.io.gmodel import gen_gmodel_portrait
+    from pulseportraiture_tpu_torch.synth import default_test_model
+
+    rng = np.random.default_rng(seed)
+    freqs = np.linspace(1150.0, 1850.0, nchan)
+    model = gen_gmodel_portrait(default_test_model(1500.0), np.arange(nbin),
+                                freqs, device="cpu")
+    k = np.arange(nbin // 2 + 1)
+    ports = np.empty((nb, nchan, nbin))
+    for b in range(nb):
+        t = 0.01 * b - 0.03 + Dconst * 3e-4 * (b - 4) / SCALE_P0 * (
+            freqs**-2 - 1500.0**-2)
+        spec = np.fft.rfft(model, axis=-1) * np.exp(-2j * np.pi * k
+                                                     * t[:, None])
+        if tau is not None:
+            tn = tau * (freqs / 1500.0) ** -4.0
+            spec = spec / (1.0 + 2j * np.pi * tn[:, None] * k)
+        ports[b] = np.fft.irfft(spec, n=nbin, axis=-1)
+    noise = np.full((nb, nchan), 0.2)
+    ports += noise[..., None] * rng.standard_normal(ports.shape)
+    masks = np.ones((nb, nchan))
+    masks[:, 3] = 0.0
+    return ports, model, noise, freqs, masks
+
+
 def trace_events(path):
     """The events of a JSONL trace (its first record, the manifest,
     dropped)."""

@@ -262,8 +262,9 @@ def test_refusals(fleet, stream_config, monkeypatch, tmp_path):
     """router= runs: a port ToaRouter over a port server gives the
     executor-per-pulsar path's .tim files byte for byte (the JAX router
     comparison is tests/test_torch_router.py); server= runs in
-    tests/test_torch_serve.py.  A process group of world size > 1 names
-    A12; the JAX package's ValueErrors (duplicate names, unknown timing
+    tests/test_torch_serve.py.  At a world size of 2 the helpers answer
+    without a real group; the JAX package's ValueErrors (timing_pars
+    under multi-process sharding, duplicate names, unknown timing
     pulsars, timing_pars with resume, server= with router=, server= or
     router= with resume or an executor-level option)."""
     import torch.distributed as dist
@@ -313,12 +314,20 @@ def test_refusals(fleet, stream_config, monkeypatch, tmp_path):
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
     monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
-    for fn in (TM.process_count, TM.process_index,
-               lambda: TM.shard_files([1, 2]),
-               lambda: TM.process_allgather([1.0]),
-               lambda: TI.stream_ipta_campaign(jobs, device="cpu")):
-        with pytest.raises(NotImplementedError, match="A12"):
-            fn()
+    # the world-size-2 answers that need no real group (two real ranks:
+    # test_torch_multiprocess.py), and the JAX package's refusal of
+    # timing_pars under sharding, on both sides
+    assert TM.process_count() == 2 and TM.process_index() == 0
+    assert TM.shard_files([1, 2]) == [1]
+    import pulseportraiture_tpu.parallel as JPar
+
+    monkeypatch.setattr(JPar, "process_count", lambda: 2)
+    for run in (lambda: TI.stream_ipta_campaign(jobs, device="cpu",
+                                                timing_pars=dict(PARS)),
+                lambda: JI.stream_ipta_campaign(
+                    _jobs(files, gmodel, JI), timing_pars=dict(PARS))):
+        with pytest.raises(ValueError, match="multi-process sharding"):
+            run()
     # explicit index/count never consult the process group
     assert TM.shard_files([1, 2, 3], 1, 2) == [2]
 

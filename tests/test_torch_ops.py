@@ -522,7 +522,8 @@ def test_import_hygiene():
         " 'ingest.alerts', 'ingest.driver', 'cli.ppwatch', 'obs.merge',"
         " 'cli.ppmon', 'tune', 'tune.capability', 'tune.store',"
         " 'tune.autotune', 'profiling', 'viz', 'viz.plots',"
-        " 'viz.selector')}\n"
+        " 'viz.selector', 'ops.filters', 'ops.ism', 'fit.reference_numpy',"
+        " 'parallel.mesh', 'parallel.multihost')}\n"
         "assert new <= names, new - names\n"
         "assert 'matplotlib' not in sys.modules\n"
         "bad = [k for k in sys.modules if k == 'jax' or "

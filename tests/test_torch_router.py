@@ -748,6 +748,41 @@ def test_fleet_file_resync_serialized(tmp_path):
         assert router.host_labels() == want
 
 
+def test_fleet_file_save_within_one_mtime_tick(tmp_path):
+    """ROADMAP C6: two saves within one mtime tick (the second with the
+    first's mtime, set by os.utime, and another size) are both seen by
+    the poll thread, with no caller's resync; comparing mtimes alone
+    misses the second."""
+    ffile = tmp_path / "fleet.txt"
+    a, b = "127.0.0.1:9101", "127.0.0.1:9102"
+    ffile.write_text(a + "\n")
+    router = _Membership()
+    watcher = TSV.FleetFileWatcher(router, str(ffile), poll_s=0.05,
+                                   quiet=True)
+
+    def wait_for(want):
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            if router.host_labels() == want:
+                return True
+            time.sleep(0.02)
+        return False
+
+    watcher.start()
+    try:
+        assert wait_for([a])
+        time.sleep(0.2)  # a few passes with the first stamp
+        st = os.stat(ffile)
+        ffile.write_text(a + "\n" + b + "\n")
+        os.utime(ffile, ns=(st.st_atime_ns, st.st_mtime_ns))
+        assert os.stat(ffile).st_mtime_ns == st.st_mtime_ns
+        assert wait_for([a, b])
+    finally:
+        watcher.stop()
+        watcher.join(10)
+    assert not watcher.is_alive()
+
+
 # ---------------------------------------------------------------------------
 # 7. failover
 # ---------------------------------------------------------------------------
