@@ -428,16 +428,18 @@ PAR_INGEST = dict(PAR, PEPOCH=55100.0 + 0.5 * INGEST_SPACING
 # phase 21, the scale-out path: two gloo ranks on one card (NCCL refuses
 # two ranks on one GPU); the scattering branch's subints, the subints
 # held to the NumPy oracle, the ranks' time limit [s], and the bounds
-# against world size 1: phi, DM, tau and alpha within SCALE_TOL x their
-# errors of the same call on each rank's slice (not on the whole batch:
-# on the card a float32 fit's rounding depends on its batch's size,
-# ROADMAP C8), the align template within SCALE_TEMPLATE_TOL x its max,
-# the campaign's TOAs and DMs within SCALE_TIM_SIGMA x their errors
+# against world size 1 on the whole batch: phi, DM, tau and alpha within
+# SCALE_TOL x their errors, the align template within SCALE_TEMPLATE_TOL
+# x its max, the campaign's TOAs and DMs within SCALE_TIM_SIGMA x their
+# errors; the meshes the sharded calls run on ((n_data, n_chan), the
+# second with shard_channels=True)
 SCALE_NSUB_SCAT, SCALE_NORACLE, SCALE_TIMEOUT = 8, 4, 300
 SCALE_TOL = 1e-3
 SCALE_TEMPLATE_TOL, SCALE_TIM_SIGMA = 1e-5, 0.01
 SCALE_BATCH_KEYS = ("ports", "noise_stds", "chan_masks", "P_s", "nu_fit",
                     "theta0")
+SCALE_MESHES = {"2x1": (2, 1), "1x2": (1, 2)}
+SCALE_CALLS = ("fit", "scat", "align")
 
 
 def log(msg):
@@ -5862,7 +5864,7 @@ def scale_out_inputs(ctx, device, nsub_scat=SCALE_NSUB_SCAT, nchan=NCHAN,
     return dict(fit=fit, scat=scat, align=align, jobs=jobs)
 
 
-def scale_out_call(name, mesh, inp, device):
+def scale_out_call(name, mesh, inp, device, shard_channels=False):
     """One of phase 21's sharded calls on ``mesh`` with inputs ``inp``
     (scale_out_inputs): 'fit', the fast fit of the main batch; 'scat',
     the scattering branch (phi, DM, tau, alpha free, log10 tau); 'align',
@@ -5872,13 +5874,14 @@ def scale_out_call(name, mesh, inp, device):
 
     t0 = time.perf_counter()
     if name == "align":
-        r = parallel.align_iteration_sharded(mesh, device=device, **inp)
+        r = parallel.align_iteration_sharded(
+            mesh, device=device, shard_channels=shard_channels, **inp)
     else:
         kw = (dict(fit_flags=FitFlags(True, True, False, True, True),
                    log10_tau=True, max_iter=60) if name == "scat"
               else dict(fit_flags=FitFlags(True, True)))
-        r = parallel.fit_portrait_sharded_fast(mesh, device=device, **inp,
-                                               **kw)
+        r = parallel.fit_portrait_sharded_fast(
+            mesh, device=device, shard_channels=shard_channels, **inp, **kw)
     sync(device)
     return r, time.perf_counter() - t0
 
@@ -5893,14 +5896,19 @@ def _fit_record(r):
 def scale_out_rank(rank, port, device="cuda", work=None, polarity=None):
     """One rank of phase 21, started by phase_scale_out as ``python -c``
     in the repo root: a gloo process group of 2 (init_multihost with
-    backend='gloo'), a 2 x 1 mesh on ``device``, each of scale_out_call's
-    calls with the counters set to 0 just before it and read just after,
-    then stream_ipta_campaign(shard=True) over pulsars A and B the same
-    way; on CUDA rank 0 holds B1 to its plain version on the fit's bucket
-    and B2 on the campaign's.  work: the parent's WORK; polarity: the
-    parent's device.KNOB_POLARITY, so the ranks take the routes of the
+    backend='gloo'), then for each mesh of SCALE_MESHES (2 x 1: the batch
+    over 'data'; 1 x 2 with shard_channels=True: the channels over
+    'chan') each of scale_out_call's calls with the counters set to 0
+    just before it and read just after, and the peak device memory of
+    the mesh's calls; then stream_ipta_campaign(shard=True) over pulsars
+    A and B the same way.  On CUDA every rank records the shape of B1's
+    largest bucket of each call at 1 x 2 (its channel block), and rank 0
+    holds B1 to its plain version on the fit's bucket at 2 x 1, on the
+    three calls' buckets at 1 x 2 (both forms), and B2 on the
+    campaign's.  work: the parent's WORK; polarity: the parent's
+    device.KNOB_POLARITY, so the ranks take the routes of the
     world-size-1 calls they are held to.  Writes
-    scale_dir()/rank<rank>.json and align<rank>.npy (the template)."""
+    scale_dir()/rank<rank>.json and the templates align<mesh><rank>.npy."""
     global WORK
     import numpy as np
     import torch
@@ -5923,38 +5931,54 @@ def scale_out_rank(rank, port, device="cuda", work=None, polarity=None):
     parallel.init_multihost(f"127.0.0.1:{port}", num_processes=2,
                             process_id=rank, backend="gloo", device=device,
                             timeout=SCALE_TIMEOUT)
-    mesh = parallel.make_mesh(n_data=2, devices=[device])
     rec = dict(rank=rank, backend=dist.get_backend(),
-               world=parallel.process_count(), coords=list(mesh.coords),
+               world=parallel.process_count(), coords={},
                device=str(device), start_s=time.perf_counter() - t_start,
-               launches={}, wall_s={})
-    for name in ("fit", "scat", "align"):
+               launches={}, wall_s={}, b1_rows={}, peak={})
+    inputs = {}
+    for name in SCALE_CALLS:
         with np.load(os.path.join(scale_dir(), f"{name}.npz")) as z:
-            inp = {k: z[k] for k in z.files}
-        spy = capture_largest("fused_cross_spectrum") if check and \
-            name == "fit" else contextlib.nullcontext([])
-        with spy as b1:
-            F.reset_kernel_launches()
-            r, rec["wall_s"][name] = scale_out_call(name, mesh, inp, device)
-            rec["launches"][name] = F.kernel_launches()
-        if name == "align":
-            np.save(os.path.join(scale_dir(), f"align{rank}.npy"),
-                    r[0].cpu().numpy())
-            r = r[1]
-        rec[name] = _fit_record(r)
-        if b1:
-            (port_, model, w, K), k = b1[0][0][:4], b1[0][1]
-            check_cross_spectrum_case(dict(
-                name=f"scale-out rank 0 fit bucket {tuple(port_.shape)} "
-                     f"K={K}", port=port_, model=model, w=w, K=K,
-                fold=k.get("fold"), want_m2=k.get("want_m2", False),
-                arm=None))
-            del b1[:]
+            inputs[name] = {k: z[k] for k in z.files}
+    for tag, (nd, nc) in SCALE_MESHES.items():
+        mesh = parallel.make_mesh(n_data=nd, n_chan=nc, devices=[device])
+        rec["coords"][tag] = list(mesh.coords)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for name in SCALE_CALLS:
+            key = name if tag == "2x1" else f"{name}_{tag}"
+            spy = capture_largest("fused_cross_spectrum") if cuda and (
+                nc > 1 or (check and name == "fit")) \
+                else contextlib.nullcontext([])
+            with spy as b1:
+                F.reset_kernel_launches()
+                r, rec["wall_s"][key] = scale_out_call(
+                    name, mesh, inputs[name], device, shard_channels=nc > 1)
+                rec["launches"][key] = F.kernel_launches()
+            if name == "align":
+                np.save(os.path.join(scale_dir(), f"align{tag}{rank}.npy"),
+                        r[0].cpu().numpy())
+                r = r[1]
+            rec[key] = _fit_record(r)
+            if b1:
+                (port_, model, w, K), k = b1[0][0][:4], b1[0][1]
+                rec["b1_rows"][key] = list(port_.shape)
+                if check:
+                    check_cross_spectrum_case(dict(
+                        name=f"scale-out rank 0 {key} bucket "
+                             f"{tuple(port_.shape)} K={K}", port=port_,
+                        model=model, w=w, K=K, fold=k.get("fold"),
+                        want_m2=k.get("want_m2", False), arm=None))
+                del b1[:]
+        if cuda:
+            rec["peak"][tag] = [torch.cuda.max_memory_allocated(),
+                                torch.cuda.max_memory_reserved()]
     with open(os.path.join(scale_dir(), "jobs.json")) as f:
         jobs = [IPTAJob(n, meta, tmpl) for n, (meta, tmpl)
                 in json.load(f).items()]
     spy = capture_largest("fused_decode_cross_spectrum") if check \
         else contextlib.nullcontext([])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     with spy as b2:
         F.reset_kernel_launches()
         t0 = time.perf_counter()
@@ -5976,8 +6000,8 @@ def scale_out_rank(rank, port, device="cuda", work=None, polarity=None):
                       for n, (m, e) in res.DeltaDM_summary.items()}
     rec["ntoa"] = len(res.TOA_list)
     if cuda:
-        rec["peak_allocated"] = torch.cuda.max_memory_allocated()
-        rec["peak_reserved"] = torch.cuda.max_memory_reserved()
+        rec["peak"]["campaign"] = [torch.cuda.max_memory_allocated(),
+                                   torch.cuda.max_memory_reserved()]
     rec["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(scale_dir(), f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -5988,18 +6012,16 @@ def _wrap(x):
     return (x + 0.5) % 1.0 - 0.5
 
 
-def _half(inp, r):
-    """Rank r's slice of a phase 21 call's inputs (its half of the
-    batch; the shared template and freqs whole)."""
-    n = len(inp["ports"]) // 2
-    return {k: v[r * n:(r + 1) * n] if k in SCALE_BATCH_KEYS else v
-            for k, v in inp.items()}
+def _rows(inp, sl):
+    """A phase 21 call's inputs on the subints ``sl`` (the shared
+    template and freqs whole)."""
+    return {k: v[sl] if k in SCALE_BATCH_KEYS else v for k, v in inp.items()}
 
 
 def scale_out_compare(label, got, ref, fields, tol):
     """The largest |got - ref| / ref's error over ``fields`` of two fit
-    records (_fit_record; phases wrapped); raises above ``tol`` or when
-    the return codes differ."""
+    records (_fit_record; phases wrapped), and the failure (a message,
+    or None within ``tol`` and with equal return codes)."""
     import numpy as np
 
     worst = {}
@@ -6010,37 +6032,69 @@ def scale_out_compare(label, got, ref, fields, tol):
         worst[k] = float(np.max(np.abs(d) / np.asarray(ref[k + "_err"])))
     if got["return_code"] != ref["return_code"] or not all(
             v <= tol for v in worst.values()):
-        raise AssertionError(
-            f"scale-out {label}: 2 ranks vs world size 1 differ by "
-            f"{worst} x the errors (limit {tol}) or in return codes")
-    return worst
+        return worst, (f"scale-out {label}: 2 ranks vs world size 1 on the "
+                       f"whole batch differ by {worst} x the errors (limit "
+                       f"{tol}) or in return codes")
+    return worst, None
+
+
+def scale_out_batch_invariance(inp, ref, device):
+    """ROADMAP C8's gate: each of the scattering branch's subints fitted
+    alone at world size 1 against the same subint in ``ref``, the batch
+    of all of them (scale_out_call 'scat': B1's want_m2 form, the
+    harmonic window): every FitResult field bit for bit, else raise.
+    Returns the walls of the single fits [s]."""
+    import torch
+    from pulseportraiture_tpu_torch import parallel
+
+    mesh1 = parallel.make_mesh(devices=[device])
+    walls = []
+    for i in range(len(inp["ports"])):
+        one, wall = scale_out_call("scat", mesh1, _rows(inp, slice(i, i + 1)),
+                                   device)
+        walls.append(wall)
+        diff = [k for k in ref._fields
+                if not torch.equal(getattr(one, k)[0], getattr(ref, k)[i])]
+        if diff:
+            raise AssertionError(
+                f"scale-out C8 gate: scattering subint {i} fitted alone "
+                f"differs from the batch of {len(inp['ports'])} in {diff}")
+    return walls
 
 
 def phase_scale_out(ctx, device="cuda", nsub_scat=SCALE_NSUB_SCAT,
                     noracle=SCALE_NORACLE, nchan=NCHAN, nbin=NBIN):
     """The scale-out path (phase 21): two ranks over gloo, both on one
     card, as two processes (scale_out_rank; NCCL refuses two ranks on one
-    GPU), over scale_out_inputs:
-    1. fit_portrait_sharded_fast on a 2 x 1 mesh over the main path's 64 x
-       512 x 2048 float32 batch (32 subints a rank): B1 launched by each
-       rank, phi / DM within SCALE_TOL x their errors of the same call at
-       world size 1 in this process on each rank's slice (run while the
-       ranks work), the first ``noracle`` subints' phi within 1e-4 rot
-       of the port's fit/reference_numpy (float64, on the host,
-       re-referenced to the fit's nu_DM along its own DM);
+    GPU), over scale_out_inputs, on a 2 x 1 mesh (the batch over 'data')
+    and then a 1 x 2 mesh with shard_channels=True (each rank fits its
+    256 of the 512 channels, the chi^2 channel sums combined over
+    'chan'):
+    1. fit_portrait_sharded_fast over the main path's 64 x 512 x 2048
+       float32 batch: B1 launched by each rank, phi / DM within SCALE_TOL
+       x their errors of the same call at world size 1 in this process on
+       the whole batch (run while the ranks work), the first ``noracle``
+       subints' phi within 1e-4 rot of the port's fit/reference_numpy
+       (float64, on the host, re-referenced to the fit's nu_DM along its
+       own DM);
     2. the scattering branch on nsub_scat subints: B1's want_m2 form
-       launched by each rank, phi / DM / tau / alpha as 1;
+       launched by each rank, phi / DM / tau / alpha as 1; and ROADMAP
+       C8's gate in this process (scale_out_batch_invariance): each
+       subint fitted alone gives the batch's bits;
     3. one align_iteration_sharded over the align path's 4 x 32 x 512 x
        2048 epochs: the template within SCALE_TEMPLATE_TOL x its max of
-       world size 1's on the whole batch, phi as 1;
+       world size 1's, phi / DM as 1;
+    at 1 x 2, B1 (both forms; the align's fit takes the S0 form at every
+    harmonic) on each rank's channel block (64, 8 and 128 x 256 rows),
+    rank 0's held to its plain version;
     4. stream_ipta_campaign(shard=True) over phase 15's pulsars A (int16,
        B1) and B (2-bit, B2): the union of the ranks' .tim shards holds
        phase 16's run 1 lines (the same keys, TOAs and DMs within
        SCALE_TIM_SIGMA), the ranks' summaries equal, B1 and B2 launched
        by each rank through their FFT arms only.
-    Prints each rank's peak memory.  Shows the sharded code path on the
-    card, not NCCL and not a speed-up.  Returns the ranks' launches,
-    summed over the calls and the ranks."""
+    Prints each rank's peak memory per mesh.  Shows the sharded code path
+    on the card, not NCCL and not a speed-up.  Returns the ranks'
+    launches, summed over the calls and the ranks."""
     import numpy as np
     import torch
     from pulseportraiture_tpu_torch import parallel
@@ -6071,16 +6125,17 @@ def phase_scale_out(ctx, device="cuda", nsub_scat=SCALE_NSUB_SCAT,
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
     t_spawn = time.perf_counter()
     try:
-        # world size 1 and the oracle in this process while the ranks
-        # run: the ranks' slices, each fitted alone, and the whole align
-        # batch for its template
+        # world size 1 on the whole batch, C8's gate and the oracle in
+        # this process while the ranks run
         mesh1 = parallel.make_mesh(devices=[device])
-        halves = {n: [scale_out_call(n, mesh1, _half(inp[n], r), device)
-                      for r in range(2)] for n in ("fit", "scat", "align")}
-        ref_t = scale_out_call("align", mesh1, inp["align"], device)[0][0]
+        whole = {n: scale_out_call(n, mesh1, inp[n], device)
+                 for n in SCALE_CALLS}
+        ref_t = whole["align"][0][0]
+        c8_walls = scale_out_batch_invariance(inp["scat"],
+                                              whole["scat"][0], device)
         t1 = time.perf_counter()
         f = inp["fit"]
-        r1 = halves["fit"][0][0]
+        r1 = whole["fit"][0]
         oracle = []
         for i in range(noracle):
             o = fit_portrait_numpy(
@@ -6127,35 +6182,40 @@ def phase_scale_out(ctx, device="cuda", nsub_scat=SCALE_NSUB_SCAT,
     if not all(rec["backend"] == "gloo" and rec["world"] == 2
                for rec in recs):
         raise AssertionError("scale-out: not two gloo ranks")
-    for name in ("fit", "scat", "align"):
-        if recs[0][name] != recs[1][name]:
-            raise AssertionError(f"scale-out {name}: the ranks' gathered "
+    keys = [n if tag == "2x1" else f"{n}_{tag}" for tag in SCALE_MESHES
+            for n in SCALE_CALLS]
+    for key in keys:
+        if recs[0][key] != recs[1][key]:
+            raise AssertionError(f"scale-out {key}: the ranks' gathered "
                                  "results differ")
 
-    # 1-3: the sharded calls against world size 1 on the ranks' slices
+    # 1-3: the sharded calls on both meshes against world size 1 on the
+    # whole batch
     fields = {"fit": ("phi", "DM"), "scat": ("phi", "DM", "tau", "alpha"),
               "align": ("phi", "DM")}
-    worst = {}
-    for name, fl in fields.items():
-        hs = [_fit_record(h[0][1] if name == "align" else h[0])
-              for h in halves[name]]
-        worst[name] = scale_out_compare(
-            name, recs[0][name], {k: hs[0][k] + hs[1][k] for k in hs[0]},
-            fl, SCALE_TOL)
+    # (every value is logged below before a failure raises)
+    worst, d_t, failures = {}, {}, []
     t1 = ref_t.cpu().numpy()
-    d_t = max(float(np.max(np.abs(np.load(os.path.join(
-        scale_dir(), f"align{r}.npy")) - t1))) for r in range(2))
-    d_t /= float(np.max(np.abs(t1)))
-    if not d_t <= SCALE_TEMPLATE_TOL:
-        raise AssertionError(f"scale-out align: the ranks' template is "
-                             f"{d_t:.3e} x max from world size 1's (limit "
-                             f"{SCALE_TEMPLATE_TOL})")
+    for key in keys:
+        name, tag = key.split("_")[0], ("1x2" if "_" in key else "2x1")
+        ref = whole[name][0][1] if name == "align" else whole[name][0]
+        worst[key], bad = scale_out_compare(
+            key, recs[0][key], _fit_record(ref), fields[name], SCALE_TOL)
+        failures += [bad] if bad else []
+        if name == "align":
+            d_t[tag] = max(float(np.max(np.abs(np.load(os.path.join(
+                scale_dir(), f"align{tag}{r}.npy")) - t1)))
+                for r in range(2)) / float(np.max(np.abs(t1)))
+            if not d_t[tag] <= SCALE_TEMPLATE_TOL:
+                failures.append(
+                    f"scale-out align ({tag}): the ranks' template is "
+                    f"{d_t[tag]:.3e} x max from world size 1's (limit "
+                    f"{SCALE_TEMPLATE_TOL})")
     phi2 = np.asarray(recs[0]["fit"]["phi"])
     d_or = [abs(_wrap(o[0] - phi2[i])) for i, o in enumerate(oracle)]
     if not max(d_or) < 1e-4:
-        raise AssertionError(f"scale-out: |dphi| against "
-                             f"fit_portrait_numpy {max(d_or):.3e} rot "
-                             "(limit 1e-4)")
+        failures.append(f"scale-out: |dphi| against fit_portrait_numpy "
+                        f"{max(d_or):.3e} rot (limit 1e-4)")
     launches = {}
     for rec in recs:
         for name, la in rec["launches"].items():
@@ -6163,39 +6223,62 @@ def phase_scale_out(ctx, device="cuda", nsub_scat=SCALE_NSUB_SCAT,
                 launches.setdefault(name, {}).setdefault(k, 0)
                 launches[name][k] += v
         if cuda:
-            fft_only(rec["launches"]["fit"], ("fused_cross_spectrum",),
-                     f"scale-out fit (rank {rec['rank']})")
+            for key in ("fit", "fit_1x2", "align", "align_1x2"):
+                fft_only(rec["launches"][key], ("fused_cross_spectrum",),
+                         f"scale-out {key} (rank {rec['rank']})")
             fft_only(rec["launches"]["campaign"],
                      ("fused_cross_spectrum", "fused_decode_cross_spectrum"),
                      f"scale-out campaign (rank {rec['rank']})")
-            if rec["launches"]["scat"]["fused_cross_spectrum.m2"] < 1:
-                raise AssertionError(f"scale-out scattering (rank "
-                                     f"{rec['rank']}): no want_m2 launch")
+            for key in ("scat", "scat_1x2"):
+                if rec["launches"][key]["fused_cross_spectrum.m2"] < 1:
+                    raise AssertionError(f"scale-out {key} (rank "
+                                         f"{rec['rank']}): no want_m2 "
+                                         "launch")
+            # B1 on the rank's channel block at 1 x 2
+            for key in ("fit_1x2", "scat_1x2", "align_1x2"):
+                n = key.split("_")[0]
+                want = [len(inp[n]["ports"]), nchan // 2, nbin]
+                if rec["b1_rows"].get(key) != want:
+                    raise AssertionError(
+                        f"scale-out {key} (rank {rec['rank']}): B1's largest "
+                        f"bucket {rec['b1_rows'].get(key)}, expected the "
+                        f"rank's channel block {want}")
     walls = {n: ", ".join(f"{rec['wall_s'][n]:.2f}" for rec in recs)
              for n in recs[0]["wall_s"]}
-    w1 = {n: sum(h[1] for h in halves[n]) for n in halves}
+    w1 = {n: whole[n][1] for n in whole}
     per_rank = {n: [rec["launches"][n]["fused_cross_spectrum"]
-                    for rec in recs] for n in ("fit", "scat", "campaign")}
-    log(f"scale-out fit (2 x 1 mesh, {len(phi2)} subints, "
-        f"{len(phi2) // 2} a rank): B1 launches per rank {per_rank['fit']}, "
-        f"walls per rank {walls['fit']} s (world size 1, the two slices "
-        f"{w1['fit']:.2f} s, both cold); largest |2 ranks - world size 1| "
-        f"on the ranks' slices {worst['fit']} x the errors (limit "
-        f"{SCALE_TOL}); phi of "
-        f"{len(d_or)} subints against fit_portrait_numpy (float64, "
+                    for rec in recs] for n in keys + ["campaign"]}
+    m2 = {n: [rec["launches"][n]["fused_cross_spectrum.m2"] for rec in recs]
+          for n in keys}
+    rows = {n: recs[0]["b1_rows"].get(n) for n in keys}
+    log(f"scale-out fit ({len(phi2)} subints): 2 x 1 ({len(phi2) // 2} "
+        f"a rank) B1 launches per rank {per_rank['fit']}, walls "
+        f"{walls['fit']} s; 1 x 2 (the channels split, B1 on {rows['fit_1x2']}"
+        f" rows) B1 launches {per_rank['fit_1x2']}, walls "
+        f"{walls['fit_1x2']} s (world size 1 {w1['fit']:.2f} s); largest "
+        f"|2 ranks - world size 1| on the whole batch {worst['fit']} (2 x "
+        f"1), {worst['fit_1x2']} (1 x 2) x the errors (limit {SCALE_TOL}); "
+        f"phi of {len(d_or)} subints against fit_portrait_numpy (float64, "
         f"{oracle_s:.2f} s on the host): max |dphi| {max(d_or):.3e} rot "
         "(limit 1e-4)")
-    m2 = [rec["launches"]["scat"]["fused_cross_spectrum.m2"] for rec in recs]
     log(f"scale-out scattering branch ({nsub_scat} subints): B1 want_m2 "
-        f"launches per rank {m2}, walls {walls['scat']} s (world size 1 "
-        f"{w1['scat']:.2f} s); "
-        f"largest difference on the ranks' slices {worst['scat']} x the "
-        "errors")
+        f"launches per rank {m2['scat']} (2 x 1), {m2['scat_1x2']} (1 x 2, "
+        f"{rows['scat_1x2']} rows), walls {walls['scat']} / "
+        f"{walls['scat_1x2']} s (world size 1 {w1['scat']:.2f} s); "
+        f"largest difference on the whole batch {worst['scat']} (2 x 1), "
+        f"{worst['scat_1x2']} (1 x 2) x the errors; C8 gate: each subint "
+        f"fitted alone gives the batch's bits in every field "
+        f"({sum(c8_walls):.2f} s for the {len(c8_walls)} single fits)")
     log(f"scale-out align ({inp['align']['ports'].shape[0]} subints): "
-        f"template {d_t:.3e} x max from world size 1's (limit "
-        f"{SCALE_TEMPLATE_TOL}), fits {worst['align']} x the errors on the "
-        f"ranks' slices; walls {walls['align']} s (world size 1 "
+        f"template {d_t['2x1']:.3e} (2 x 1), {d_t['1x2']:.3e} (1 x 2) x max "
+        f"from world size 1's (limit {SCALE_TEMPLATE_TOL}), fits "
+        f"{worst['align']} (2 x 1), {worst['align_1x2']} (1 x 2) x the "
+        f"errors; B1 launches per rank {per_rank['align']} (2 x 1), "
+        f"{per_rank['align_1x2']} (1 x 2, {rows['align_1x2']} rows); walls "
+        f"{walls['align']} / {walls['align_1x2']} s (world size 1 "
         f"{w1['align']:.2f} s)")
+    if failures:
+        raise AssertionError("; ".join(failures))
 
     # 4: the sharded campaign against phase 16's run 1
     names = list(inp["jobs"])
@@ -6231,10 +6314,11 @@ def phase_scale_out(ctx, device="cuda", nsub_scat=SCALE_NSUB_SCAT,
         raise AssertionError("scale-out campaign: .tim union or summary")
     if cuda:
         parent = torch.cuda.memory_reserved()
-        log("scale-out memory: peak allocated / reserved per rank "
-            + ", ".join(f"{rec['peak_allocated'] / 2**30:.2f} / "
-                        f"{rec['peak_reserved'] / 2**30:.2f} GiB"
-                        for rec in recs)
+        log("scale-out memory: peak allocated / reserved per rank, "
+            + "; ".join(f"{tag}: " + ", ".join(
+                f"{rec['peak'][tag][0] / 2**30:.2f} / "
+                f"{rec['peak'][tag][1] / 2**30:.2f} GiB" for rec in recs)
+                for tag in list(SCALE_MESHES) + ["campaign"])
             + f"; this process holds {parent / 2**30:.2f} GiB reserved")
     total = {k: sum(launches[n].get(k, 0) for n in launches)
              for k in ("fused_cross_spectrum", "fused_decode_cross_spectrum",

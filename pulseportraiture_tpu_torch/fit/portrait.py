@@ -30,9 +30,19 @@ package vmaps a per-element function).  A shared template stays 2-D.
 The Newton loop keeps a per-element ``done`` mask: finished elements
 keep their state while the others iterate, exactly like a vmapped
 ``lax.while_loop``, at the cost of one host sync per trip.
+
+Channel sums: every chi^2 sum over channels goes through chan_sums, a
+fixed tree of elementwise adds, and the packaging's 5 x 5 products are
+fixed-order (_bmm, _quad), so a fit's bits do not depend on the batch
+it runs in (a reduction or batched GEMM kernel on CUDA rounds by the
+batch's size).  With ``chan_group`` (the sharded fits' 'chan' subgroup,
+parallel/batch.py) each rank holds a block of the channels and the
+ranks' partial sums are combined by one all-gather per Newton
+evaluation, in the same tree.
 """
 
 import math
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +54,7 @@ from ..device import resolve_auto, resolve_device
 from ..ops.fourier import irfft_c, irfft_mm, rfft_c, rfft_mm, use_dft_fold
 from ..ops.phasor import cexp, guess_fit_freq
 from ..ops.scattering import scattering_portrait_FT
+from ..utils import collectives
 
 __all__ = ["FitFlags", "FitResult", "fit_portrait_batch_fast",
            "fast_fit_batched", "prepare_portrait_fit_real",
@@ -55,7 +66,8 @@ __all__ = ["FitFlags", "FitResult", "fit_portrait_batch_fast",
            "use_fast_fit_default", "use_bf16_cross_spectrum",
            "use_scatter_compensated", "effective_x_bf16",
            "derive_use_scatter", "reject_fixed_tau_seed", "split_ir_host",
-           "resolve_fit_fused", "warn_bf16_high_snr"]
+           "resolve_fit_fused", "warn_bf16_high_snr", "chan_sum",
+           "chan_sums"]
 
 # Per-iteration step bound for (phi, DM, GM, theta3, alpha): one decade
 # of log10 tau (or one rotation) and 2 units of alpha per trip keep the
@@ -74,6 +86,108 @@ _POLISH_MAX_ITER = 6
 
 def _tiny(dtype):
     return torch.finfo(dtype).tiny
+
+
+# ---------------------------------------------------------------------------
+# the channel reduction: one order for every batch size and channel split
+
+@lru_cache(maxsize=64)
+def _tree_layout(n):
+    """Where chan_sum's tree puts each of n channels: recursive halving
+    (the first ceil(m/2) of a block of m left, the rest right, the right
+    half zero-padded at its end to the left's length), so that a block
+    of n / R channels, R a power of two dividing n, is one subtree.
+    Returns the positions (n,) in the padded length 2^ceil(log2 n)."""
+    def rec(lo, m):
+        if m == 1:
+            return [lo]
+        h = (m + 1) // 2
+        left, right = rec(lo, h), rec(lo + h, m - h)
+        return left + right + [-1] * (len(left) - len(right))
+
+    order = rec(0, n)
+    pos = [0] * n
+    for p, c in enumerate(order):
+        if c >= 0:
+            pos[c] = p
+    return len(order), tuple(pos)
+
+
+@lru_cache(maxsize=64)
+def _tree_positions(n, device):
+    return torch.tensor(_tree_layout(n)[1], dtype=torch.int64,
+                        device=device)
+
+
+def _tree_sum(x, dim):
+    """Sum axis ``dim`` of x by a tree of elementwise adds of adjacent
+    pairs over _tree_layout's zero-padded order.  Every row's bits are
+    the same whatever the batch, the device's kernel choices included:
+    no reduction kernel runs."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    if n & (n - 1):
+        size, _ = _tree_layout(n)
+        shape = list(x.shape)
+        shape[dim] = size
+        x = x.new_zeros(shape).index_copy_(
+            dim, _tree_positions(n, x.device), x)
+    while x.shape[dim] > 1:
+        pairs = x.unflatten(dim, (-1, 2))
+        x = pairs.select(dim + 1, 0) + pairs.select(dim + 1, 1)
+    return x.squeeze(dim)
+
+
+def chan_sums(xs, dim=-1, group=None):
+    """The sums of each tensor of ``xs`` over its channel axis ``dim`` in
+    one fixed order (_tree_sum).  With a process ``group`` (the mesh's
+    'chan' subgroup, each rank holding a block of the channels in rank
+    order) the ranks' partial sums are all-gathered in ONE collective
+    and combined by the same tree in rank order, so every rank holds the
+    same bits, and at a power-of-two count of ranks dividing the
+    channels the bits of the whole-portrait sum."""
+    parts = [_tree_sum(x, dim) for x in xs]
+    if group is None:
+        return parts
+    real = [torch.view_as_real(p) if p.is_complex() else p for p in parts]
+    flat = torch.cat([p.reshape(-1) for p in real])
+    whole = _tree_sum(torch.stack(collectives.all_gather(flat, group)),
+                      0)
+    out, at = [], 0
+    for p, r in zip(parts, real):
+        v = whole[at:at + r.numel()].reshape(r.shape)
+        out.append(torch.view_as_complex(v) if p.is_complex() else v)
+        at += r.numel()
+    return out
+
+
+def chan_sum(x, dim=-1, group=None):
+    """chan_sums of one tensor."""
+    return chan_sums([x], dim, group)[0]
+
+
+def _bmm(A, B):
+    """A @ B per batch element, (B, p, q) @ (B, q, r), as q elementwise
+    products added in order: a batched GEMM on CUDA rounds by the batch
+    count, these do not (for the small matrices of the packaging)."""
+    out = A[:, :, 0, None] * B[:, None, 0, :]
+    for k in range(1, A.shape[-1]):
+        out = out + A[:, :, k, None] * B[:, None, k, :]
+    return out
+
+
+def _quad(u, M):
+    """u^T M u per batch element, u (B, p), M (B, p, p), through _bmm."""
+    return _bmm(_bmm(u[:, None, :], M), u[:, :, None])[:, 0, 0]
+
+
+def _gather_chans(xs, group):
+    """Per-channel tensors (B, n_local), whole over ``group``'s channel
+    blocks in rank order (one collective); unchanged without a group."""
+    if group is None:
+        return xs
+    blocks = collectives.all_gather(torch.stack(xs), group)
+    return tuple(torch.cat(blocks, dim=-1).unbind(0))
 
 
 class FitFlags(NamedTuple):
@@ -172,7 +286,7 @@ def chi2_prime(theta, dFT, mFT, w, freqs, P, nu_fit, ir_FT=None,
     C, S = _CS_general(theta, X, M2, freqs, P, nu_fit, ir_FT, log10_tau)
     good = S > 0.0
     S_safe = torch.where(good, S, 1.0)
-    return -torch.sum(torch.where(good, C**2.0 / S_safe, 0.0), dim=-1)
+    return -chan_sum(torch.where(good, C**2.0 / S_safe, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -326,23 +440,28 @@ def model_harmonic_window(model, nbin, tail=None, floor_sigma=None):
     return K
 
 
-def resolve_harmonic_window(harmonic_window, models, nbin):
+def resolve_harmonic_window(harmonic_window, models, nbin, device=None):
     """Parse the harmonic-window knob: explicit int wins (tile-rounded);
     None -> config.fit_harmonic_window; True or 'auto' derives from the
     model ONLY when it is host-resident numpy (never a device pull).
-    Unknown strings raise."""
+    'full' fits every harmonic: nbin // 2 + 1 where the fused lane is on
+    for ``device`` (B1 transforms each row alone, so a fit has the same
+    bits however its batch and channels are split), else None, the
+    unwindowed matmul DFT.  Unknown strings raise."""
     if harmonic_window is None:
         harmonic_window = config.fit_harmonic_window
     if harmonic_window is None or harmonic_window is False:
         return None
+    if harmonic_window == "full":
+        return nbin // 2 + 1 if use_fit_fused(device) else None
     if harmonic_window is True or harmonic_window == "auto":
         if isinstance(models, np.ndarray):
             return model_harmonic_window(models, nbin)
         return None
     if isinstance(harmonic_window, str):
         raise ValueError(
-            f"fit_harmonic_window must be 'auto', True/False/None, or "
-            f"a positive int; got {harmonic_window!r}")
+            f"fit_harmonic_window must be 'auto', 'full', True/False/None, "
+            f"or a positive int; got {harmonic_window!r}")
     K = int(harmonic_window)
     if K <= 0:
         raise ValueError(
@@ -374,7 +493,7 @@ def make_weights(noise_stds, nbin, chan_mask=None, dtype=None, nharm=None):
     return w
 
 
-def _parseval_Sd(port, w_full):
+def _parseval_Sd(port, w_full, chan_group=None):
     """Weighted one-sided data power over ALL harmonics from the time
     domain (exact Parseval; DC per F0_fact), per batch element.
     w_full needs columns 0 (DC) and 1 (every k >= 1)."""
@@ -387,14 +506,21 @@ def _parseval_Sd(port, w_full):
                            device=port.device)
         xn = torch.sum(port * sgn, dim=-1)
         pwr = pwr + xn**2
-    Sd = torch.sum(w_full[..., 1] * (0.5 * pwr), dim=-1)
+    return _sd_rows(pwr, x0, w_full, chan_group)
+
+
+def _sd_rows(pwr, x0, w_full, chan_group=None):
+    """_parseval_Sd's channel sums from the per-channel Parseval rows
+    pwr and x0 (B, nchan), in one chan_sums call."""
+    terms = [w_full[..., 1] * (0.5 * pwr)]
     if float(F0_fact) != 0.0:
-        Sd = Sd + torch.sum(w_full[..., 0] * x0**2, dim=-1)
-    return Sd
+        terms.append(w_full[..., 0] * x0**2)
+    sums = chan_sums(terms, -1, chan_group)
+    return sums[0] + sums[1] if len(sums) == 2 else sums[0]
 
 
 def _initial_phase_guess_real(Xr, Xi, cvec, DM0, oversamp=2,
-                              derotate=True, nbin=None):
+                              derotate=True, nbin=None, chan_group=None):
     """Dense-CCF phase seed: derotate by DM0, sum channels, inverse
     matmul DFT onto a 2x oversampled lag grid, first argmax."""
     nharm = Xr.shape[-1]
@@ -406,11 +532,10 @@ def _initial_phase_guess_real(Xr, Xi, cvec, DM0, oversamp=2,
         ang = 2.0 * math.pi * (cvec * DM0[..., None])[..., None] * k
         c = torch.cos(ang)
         s = torch.sin(ang)
-        xr = torch.sum(Xr * c - Xi * s, dim=-2)
-        xi = torch.sum(Xr * s + Xi * c, dim=-2)
+        xr, xi = chan_sums([Xr * c - Xi * s, Xr * s + Xi * c], -2,
+                           chan_group)
     else:
-        xr = torch.sum(Xr, dim=-2)
-        xi = torch.sum(Xi, dim=-2)
+        xr, xi = chan_sums([Xr, Xi], -2, chan_group)
     nlag = nbin * oversamp
     ccf = irfft_mm(xr, xi, n=nlag)
     j0 = torch.argmax(ccf, dim=-1)
@@ -421,7 +546,7 @@ def _initial_phase_guess_real(Xr, Xi, cvec, DM0, oversamp=2,
 def prepare_portrait_fit_real(port, model, w, freqs, P, nu_fit, theta0,
                               seed_phi=True, seed_derotate=True,
                               x_dtype=None, nharm_eff=None, dft_fold=None,
-                              fit_fused=None):
+                              fit_fused=None, chan_group=None):
     """Everything before the Newton loop, batched, in real arithmetic:
     the windowed DFT -> cross-spectrum (fused kernel or two rfft_mm
     matmuls), model/data powers, and the CCF phase seed.
@@ -429,7 +554,9 @@ def prepare_portrait_fit_real(port, model, w, freqs, P, nu_fit, theta0,
     port (B, nchan, nbin); model (nchan, nbin) shared or (B, nchan,
     nbin); w (B, nchan, nharm_w) with nharm_w >= nharm_eff (only
     columns < nharm_eff and the two Parseval columns are read when the
-    window is active).  Returns (Xr, Xi, S0, Sd, theta0_seeded)."""
+    window is active).  chan_group: the mesh's 'chan' subgroup when the
+    channels are split over ranks (Sd and the seed's channel sums are
+    then combined over it).  Returns (Xr, Xi, S0, Sd, theta0_seeded)."""
     dt = w.dtype
     if fit_fused is None:
         fit_fused = resolve_fit_fused(nharm_eff, port.device)
@@ -441,7 +568,7 @@ def prepare_portrait_fit_real(port, model, w, freqs, P, nu_fit, theta0,
         Xr, Xi, S0 = fused_cross_spectrum(
             port, model, w[..., :nharm_eff].contiguous(), nharm_eff,
             fold=dft_fold)
-        Sd = _parseval_Sd(port, w)
+        Sd = _parseval_Sd(port, w, chan_group)
     else:
         dr, di = rfft_mm(port, nharm=nharm_eff, fold=dft_fold)
         mr, mi = rfft_mm(model, nharm=nharm_eff, fold=dft_fold)
@@ -452,14 +579,16 @@ def prepare_portrait_fit_real(port, model, w, freqs, P, nu_fit, theta0,
         Xi = (di * mr - dr * mi) * w
         S0 = torch.sum((mr**2 + mi**2) * w, dim=-1)
         if nharm_eff is None:
-            Sd = torch.sum((dr**2 + di**2) * w, dim=(-2, -1))
+            Sd = chan_sum(torch.sum((dr**2 + di**2) * w, dim=-1), -1,
+                          chan_group)
         else:
-            Sd = _parseval_Sd(port, w_full)
+            Sd = _parseval_Sd(port, w_full, chan_group)
     theta0 = theta0.to(dt)
     if seed_phi:
         phi0 = _initial_phase_guess_real(Xr, Xi, cvec, theta0[:, 1],
                                          derotate=seed_derotate,
-                                         nbin=port.shape[-1])
+                                         nbin=port.shape[-1],
+                                         chan_group=chan_group)
         theta0 = theta0.clone()
         theta0[:, 0] = phi0
     xdt = x_dtype or dt
@@ -490,9 +619,7 @@ def prepare_portrait_fit_real_packed(raw, scl, offs, model, w, freqs, P,
     Xr, Xi, S0, pwr, x0 = fused_decode_cross_spectrum(
         raw, scl, offs, model, w[..., :nharm_eff].contiguous(), nharm_eff,
         code=raw_code, nbin=nbin, fold=dft_fold)
-    Sd = torch.sum(w[..., 1] * (0.5 * pwr), dim=-1)
-    if float(F0_fact) != 0.0:
-        Sd = Sd + torch.sum(w[..., 0] * x0**2, dim=-1)
+    Sd = _sd_rows(pwr, x0, w)
     theta0 = theta0.to(dt)
     if seed_phi:
         phi0 = _initial_phase_guess_real(Xr, Xi, cvec, theta0[:, 1],
@@ -522,14 +649,21 @@ def _moments_real(t_n, Xr, Xi):
             -torch.sum(wr * k2pi**2, dim=-1))
 
 
-def _cgh_tail(C, C1, C2, S0inv, cvec, gvec):
-    """(f (B,), grad (B, 5), hess (B, 5, 5)) from the harmonic moments."""
-    f = -torch.sum(C**2.0 * S0inv, dim=-1)
+def _outer(a, b):
+    """Per-channel outer products (B, p, q, n) of a (B, p, n) and b (B,
+    q, n)."""
+    return a[:, :, None, :] * b[:, None, :, :]
+
+
+def _cgh_tail(C, C1, C2, S0inv, cvec, gvec, chan_group=None):
+    """(f (B,), grad (B, 5), hess (B, 5, 5)) from the harmonic moments:
+    the per-channel terms summed by one chan_sums call."""
     base1 = 2.0 * C * C1 * S0inv
     base2 = 2.0 * (C1**2.0 + C * C2) * S0inv
     J = torch.stack([torch.ones_like(cvec), cvec, gvec], dim=-2)
-    g3 = -torch.matmul(J, base1[..., None])[..., 0]
-    H3 = -torch.matmul(J * base2[..., None, :], J.transpose(-1, -2))
+    f, g3, H3 = chan_sums([-(C**2.0 * S0inv), -(J * base1[:, None]),
+                           -(_outer(J, J) * base2[:, None, None])], -1,
+                          chan_group)
     B = C.shape[0]
     g5 = C.new_zeros((B, 5))
     g5[:, :3] = g3
@@ -551,12 +685,12 @@ def _moments_complex(t_n, X):
             -torch.sum(W * k2pi**2, dim=-1).real)
 
 
-def _cgh_fast(theta, X, S0inv, cvec, gvec):
+def _cgh_fast(theta, X, S0inv, cvec, gvec, chan_group=None):
     """(f, grad, hess) of chi2' in one pass over the complex X: the
     complex engine's no-scattering evaluator."""
     t_n = theta[:, 0:1] + cvec * theta[:, 1:2] + gvec * theta[:, 2:3]
     C, C1, C2 = _moments_complex(t_n, X)
-    return _cgh_tail(C, C1, C2, S0inv, cvec, gvec)
+    return _cgh_tail(C, C1, C2, S0inv, cvec, gvec, chan_group)
 
 
 # ---------------------------------------------------------------------------
@@ -613,13 +747,8 @@ def _dot2(a, b):
     return _pair_sum_df64(p, e)
 
 
-def _wJJ(w, A, B):
-    """sum_n w_n A_in B_jn per batch element: (B, 5, 5)."""
-    return torch.einsum("bn,bin,bjn->bij", w, A, B)
-
-
 def _cgh_scatter(theta, Xr, Xi, M2, freqs, nu_fit, cvec, gvec, log10_tau,
-                 compensated=False):
+                 compensated=False, chan_group=None):
     """(f (B,), grad (B, 5), hess (B, 5, 5), (C, S)) of chi2' with the
     scattering kernel active, in one pass over the split cross-spectrum.
 
@@ -635,7 +764,9 @@ def _cgh_scatter(theta, Xr, Xi, M2, freqs, nu_fit, cvec, gvec, log10_tau,
       B_k   = 1/(1 + 2 pi i tau_n k), dB/dtau = -2 pi i k B^2
       C_n   = sum_k Re[X conj(B) e^{2 pi i t k}], S_n = sum_k M2 |B|^2
     Nine k-reductions per channel give the exact 5x5 curvature;
-    compensated=True takes each through Dot2."""
+    compensated=True takes each through Dot2.  The channel sums of f,
+    g and H (31 numbers per fit) are one chan_sums call: one collective
+    over chan_group when the channels are split over ranks."""
     dt = M2.dtype
     nharm = Xr.shape[-1]
     k = torch.arange(nharm, dtype=dt, device=M2.device)
@@ -723,34 +854,36 @@ def _cgh_scatter(theta, Xr, Xi, M2, freqs, nu_fit, cvec, gvec, log10_tau,
     good = S > 0.0
     Sinv = torch.where(good, 1.0 / torch.where(good, S, 1.0), 0.0)
     CS = C * Sinv
-    f = -torch.sum(C * CS, dim=-1)
 
-    g = (-2.0 * torch.matmul(Cp, CS[..., None])[..., 0]
-         + torch.matmul(Sp, (CS ** 2.0)[..., None])[..., 0])
-
-    w_tt = -2.0 * (C * C_tt) * Sinv
-    w_taut = -2.0 * (C * C_taut) * Sinv
-    w_tautau = -2.0 * (C * C_tautau) * Sinv
-    H = (_wJJ(w_tt, Jt, Jt) + _wJJ(w_taut, Jt, Jtau)
-         + _wJJ(w_taut, Jtau, Jt) + _wJJ(w_tautau, Jtau, Jtau))
-    # -2 C_p C_q / S
-    H = H - 2.0 * torch.einsum("bin,bn,bjn->bij", Cp, Sinv, Cp)
-    # + 2 C (C_p S_q + C_q S_p) / S^2
-    CpSq = torch.einsum("bin,bn,bjn->bij", Cp, 2.0 * CS * Sinv, Sp)
-    H = H + CpSq + CpSq.transpose(-1, -2)
-    # + C^2 S_pq / S^2 - 2 C^2 S_p S_q / S^3
+    # per-channel terms of f, g and H
     w_sp = CS ** 2.0
-    H = H + _wJJ(w_sp * S_tautau, Jtau, Jtau)
-    H = H - 2.0 * torch.einsum("bin,bn,bjn->bij", Sp, w_sp * Sinv, Sp)
+    f_n = -(C * CS)
+    g_n = -2.0 * Cp * CS[:, None] + Sp * w_sp[:, None]
+
+    def wo(a, b, w):
+        return _outer(a, b) * w[:, None, None]
+
+    # sum_pq [w_tt Jt Jt + w_taut (Jt Jtau + Jtau Jt) + w_tautau Jtau Jtau]
+    # with w_x = -2 C C_x / S
+    H_n = (wo(Jt, Jt, -2.0 * (C * C_tt) * Sinv)
+           + wo(Jt, Jtau, -2.0 * (C * C_taut) * Sinv)
+           + wo(Jtau, Jt, -2.0 * (C * C_taut) * Sinv)
+           + wo(Jtau, Jtau, -2.0 * (C * C_tautau) * Sinv))
+    # -2 C_p C_q / S
+    H_n = H_n - wo(Cp, Cp, 2.0 * Sinv)
+    # + 2 C (C_p S_q + C_q S_p) / S^2
+    CpSq = wo(Cp, Sp, 2.0 * CS * Sinv)
+    H_n = H_n + CpSq + CpSq.transpose(1, 2)
+    # + C^2 S_pq / S^2 - 2 C^2 S_p S_q / S^3
+    H_n = H_n + wo(Jtau, Jtau, w_sp * S_tautau)
+    H_n = H_n - wo(Sp, Sp, 2.0 * w_sp * Sinv)
     # second derivatives of the tau(theta3, alpha) chain itself
     chain_C = -2.0 * CS * C_tau + w_sp * S_tau
-    h33 = torch.sum(chain_C * s11, dim=-1)
-    h34 = torch.sum(chain_C * s12, dim=-1)
-    h44 = torch.sum(chain_C * s22, dim=-1)
-    H[:, 3, 3] += h33
-    H[:, 3, 4] += h34
-    H[:, 4, 3] += h34
-    H[:, 4, 4] += h44
+    H_n[:, 3, 3] += chain_C * s11
+    H_n[:, 3, 4] += chain_C * s12
+    H_n[:, 4, 3] += chain_C * s12
+    H_n[:, 4, 4] += chain_C * s22
+    f, g, H = chan_sums([f_n, g_n, H_n], -1, chan_group)
     return f, g, H, (C, S)
 
 
@@ -938,13 +1071,16 @@ def _hybrid_scatter_loop(cgh_plain, cgh_comp, theta0, flags_arr, max_iter,
 
 def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
                   nu_fit, nu_out, nfev, code, log10_tau=False,
-                  out_dtype=None):
+                  out_dtype=None, chan_group=None):
     """Covariance, zero-covariance frequencies, re-referencing, scales,
     S/N and chi2 packaging, shared by every engine; theta[:, 3] is
     log10 tau when log10_tau.  Every input carries the batch as its
     leading axis.  out_dtype: the dtype the result is cast to when it
     differs from theta's (its tiny floors the divisions, so a masked
-    channel's scale error stays finite there)."""
+    channel's scale error stays finite there).  chan_group: C and S are
+    the rank's channel block, gathered whole over it first, so every
+    rank packages the whole portrait's per-channel outputs."""
+    C, S = _gather_chans((C, S), chan_group)
     dt = theta.dtype
     dev = theta.device
     tiny = _tiny(out_dtype or dt)
@@ -958,7 +1094,7 @@ def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
     J = torch.eye(5, dtype=dt, device=dev).expand(B, 5, 5).clone()
     J[:, 0, 1] = -cD_fit
     J[:, 0, 2] = -cG_fit
-    covI = J @ cov @ J.transpose(-1, -2)
+    covI = _bmm(_bmm(J, cov), J.transpose(-1, -2))
 
     vD, vG, vDG = covI[:, 1, 1], covI[:, 2, 2], covI[:, 1, 2]
     cpD, cpG = covI[:, 0, 1], covI[:, 0, 2]
@@ -1008,7 +1144,7 @@ def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
     zero = torch.zeros_like(cD_out)
     u = torch.stack([torch.ones_like(cD_out), cD_out, cG_out, zero, zero],
                     dim=-1)
-    phi_var = torch.einsum("bi,bij,bj->b", u, covI, u)
+    phi_var = _quad(u, covI)
     phi_var = torch.where(torch.isfinite(phi_var), phi_var, math.inf)
     if fit_flags[0]:
         phi_err = torch.sqrt(torch.clamp(phi_var, min=0.0))
@@ -1020,14 +1156,13 @@ def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
     if log10_tau:
         ut = torch.stack([zero, zero, zero, torch.ones_like(zero),
                           torch.log10(nu_tau_out / nu_fit)], dim=-1)
-        taup_var = torch.einsum("bi,bij,bj->b", ut, covI, ut)
+        taup_var = _quad(ut, covI)
         tau_err = (torch.sqrt(torch.clamp(taup_var, min=0.0)) * tau_out
                    * math.log(10.0))
     else:
         ut = torch.stack([zero, zero, zero, r_tau,
                           tau_out * torch.log(nu_tau_out / nu_fit)], dim=-1)
-        tau_err = torch.sqrt(torch.clamp(
-            torch.einsum("bi,bij,bj->b", ut, covI, ut), min=0.0))
+        tau_err = torch.sqrt(torch.clamp(_quad(ut, covI), min=0.0))
 
     DM_err = torch.sqrt(torch.clamp(cov[:, 1, 1], min=0.0))
     GM_err = torch.sqrt(torch.clamp(cov[:, 2, 2], min=0.0))
@@ -1038,12 +1173,11 @@ def _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr, fit_flags, P,
     scale_errs = S_safe**-0.5
     mask = (S > 0.0).to(dt)
     channel_snrs = C / torch.sqrt(S_safe) * mask
-    snr = torch.sqrt(torch.clamp(torch.sum(channel_snrs**2.0, dim=-1),
-                                 min=0.0))
+    snr2, nmask = chan_sums([channel_snrs**2.0, mask])
+    snr = torch.sqrt(torch.clamp(snr2, min=0.0))
     chi2 = Sd + f
     nbin = 2 * (nharm - 1)
     nfit = torch.sum(flags_arr)
-    nmask = torch.sum(mask, dim=-1)
     dof = nmask * (nbin - 1.0) - nfit - nmask
 
     return FitResult(
@@ -1072,11 +1206,14 @@ def _result_dtype(r, dt):
 
 def _fit_portrait_core_real(Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out,
                             theta0, fit_flags=FitFlags(), max_iter=40,
-                            ftol=None, nharm_total=None, bounds=None):
+                            ftol=None, nharm_total=None, bounds=None,
+                            chan_group=None):
     """Stage 2 of the split fit, batched: the (phi, DM, GM) Newton loop
     over the three harmonic moments and the result packaging.
     nharm_total: the full spectrum's harmonic count when Xr/Xi are
-    band-limited (dof counts every data harmonic)."""
+    band-limited (dof counts every data harmonic).  chan_group: the
+    'chan' subgroup when Xr/Xi/S0/freqs hold the rank's channel block
+    (one collective per Newton evaluation)."""
     if fit_flags[3] or fit_flags[4]:
         raise ValueError("the real core handles the no-scattering path "
                          "only")
@@ -1098,7 +1235,7 @@ def _fit_portrait_core_real(Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out,
         t_n = (theta[:, 0:1] + cvec * theta[:, 1:2]
                + gvec * theta[:, 2:3])
         C, C1, C2 = _moments_real(t_n, Xr, Xi)
-        f, g, H = _cgh_tail(C, C1, C2, S0inv, cvec, gvec)
+        f, g, H = _cgh_tail(C, C1, C2, S0inv, cvec, gvec, chan_group)
         return f, g, H, C
 
     theta, f, H, C, nfev, code = _newton_loop(
@@ -1106,17 +1243,20 @@ def _fit_portrait_core_real(Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out,
         bounds=None if bounds is None else bounds.to(wdt))
     return _result_dtype(_finalize_fit(
         theta, f, H, C, S0, Sd, nharm, flags_arr, fit_flags, P, nu_fit,
-        nu_out, nfev, code, out_dtype=dt), dt)
+        nu_out, nfev, code, out_dtype=dt, chan_group=chan_group), dt)
 
 
 def fast_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
                      nu_fit, nu_out, theta0, bounds=None, *, fit_flags,
                      max_iter, seed_derotate=True, x_bf16=None,
-                     nharm_eff=None, dft_fold=None, fit_fused=None):
+                     nharm_eff=None, dft_fold=None, fit_fused=None,
+                     chan_group=None):
     """The JAX package's fast_fit_one with the batch as a leading
     dimension: weights, DFT -> cross-spectrum + CCF seed, real Newton
     core.  nharm_eff band-limits the DFTs and moment passes; chi2/dof
-    stay full-spectrum (Parseval Sd, nharm_total)."""
+    stay full-spectrum (Parseval Sd, nharm_total).  chan_group: the
+    mesh's 'chan' subgroup when the channel axis of ports, model,
+    noise_stds, chan_masks and freqs is the rank's block."""
     if x_bf16 is None:
         x_bf16 = use_bf16_cross_spectrum()
     nbin = ports.shape[-1]
@@ -1129,12 +1269,12 @@ def fast_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
         ports, model.to(ports.dtype), w, freqs, P, nu_fit, theta0,
         seed_phi=bool(fit_flags[0]), seed_derotate=seed_derotate,
         x_dtype=x_dtype, nharm_eff=nharm_eff, dft_fold=dft_fold,
-        fit_fused=fit_fused)
+        fit_fused=fit_fused, chan_group=chan_group)
     return _fit_portrait_core_real(
         Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out, th0,
         fit_flags=fit_flags, max_iter=max_iter,
         nharm_total=nbin // 2 + 1 if nharm_eff is not None else None,
-        bounds=bounds)
+        bounds=bounds, chan_group=chan_group)
 
 
 def fast_fit_batched_packed(raw, scl, offs, model, noise_stds, chan_masks,
@@ -1167,7 +1307,8 @@ def fast_fit_batched_packed(raw, scl, offs, model, noise_stds, chan_masks,
 # the complex-free scattering lane
 
 def _initial_phase_guess_scatter(Xr, Xi, cvec, DM0, tau_n, nbin,
-                                 derotate=True, oversamp=2):
+                                 derotate=True, oversamp=2,
+                                 chan_group=None):
     """The CCF phase seed matched to the scattering kernel: the
     channel-summed CCF of X conj(B(tau_seed)) is sum_n C_n(phi) on the
     lag grid, so its argmax is the objective's own at the seeded tau
@@ -1182,14 +1323,15 @@ def _initial_phase_guess_scatter(Xr, Xi, cvec, DM0, tau_n, nbin,
     Yr = Xr * q - Xi * cBi
     Yi = Xr * cBi + Xi * q
     return _initial_phase_guess_real(Yr, Yi, cvec, DM0, derotate=derotate,
-                                     nbin=nbin, oversamp=oversamp)
+                                     nbin=nbin, oversamp=oversamp,
+                                     chan_group=chan_group)
 
 
 def prepare_scatter_fit_real(port, model, noise_stds, chan_mask, freqs, P,
                              nu_fit, theta0, ir_r=None, ir_i=None, *,
                              fit_flags, log10_tau=False, compensated=False,
                              x_bf16=None, nharm_eff=None, seed_derotate=True,
-                             dft_fold=None, fit_fused=None):
+                             dft_fold=None, fit_fused=None, chan_group=None):
     """Everything before the scattering Newton loop, batched, in real
     arithmetic: weights, the windowed DFT -> cross-spectrum with the
     weighted model power per harmonic (B1 in its want_m2 form on the
@@ -1199,7 +1341,8 @@ def prepare_scatter_fit_real(port, model, noise_stds, chan_mask, freqs, P,
     alpha).  X is stored in bfloat16 when the knob says so, unless the
     fit is compensated.  port (B, nchan, nbin); model shared (nchan,
     nbin) or per element; ir_r/ir_i (nchan, nharm_w) sliced to the
-    window.  Returns (Xr, Xi, M2w, Sd, theta0)."""
+    window; chan_group as prepare_portrait_fit_real.  Returns (Xr, Xi,
+    M2w, Sd, theta0)."""
     if x_bf16 is None:
         x_bf16 = use_bf16_cross_spectrum()
     nbin = port.shape[-1]
@@ -1214,7 +1357,7 @@ def prepare_scatter_fit_real(port, model, noise_stds, chan_mask, freqs, P,
         Xr, Xi, M2w = fused_cross_spectrum(
             port, model.to(dt).contiguous(), w, nharm_eff, fold=dft_fold,
             want_m2=True)
-        Sd = _parseval_Sd(port, w)
+        Sd = _parseval_Sd(port, w, chan_group)
     else:
         dr, di = rfft_mm(port, nharm=nharm_eff, fold=dft_fold)
         mr, mi = rfft_mm(model.to(dt), nharm=nharm_eff, fold=dft_fold)
@@ -1222,9 +1365,10 @@ def prepare_scatter_fit_real(port, model, noise_stds, chan_mask, freqs, P,
         Xi = (di * mr - dr * mi) * w
         M2w = (mr**2 + mi**2) * w
         if nharm_eff is None:
-            Sd = torch.sum((dr**2 + di**2) * w, dim=(-2, -1))
+            Sd = chan_sum(torch.sum((dr**2 + di**2) * w, dim=-1), -1,
+                          chan_group)
         else:
-            Sd = _parseval_Sd(port, w)
+            Sd = _parseval_Sd(port, w, chan_group)
         del dr, di
     if ir_r is not None:
         Xr, Xi = Xr * ir_r + Xi * ir_i, Xi * ir_r - Xr * ir_i
@@ -1239,7 +1383,7 @@ def prepare_scatter_fit_real(port, model, noise_stds, chan_mask, freqs, P,
             ** theta0[:, 4:5]
         phi0 = _initial_phase_guess_scatter(
             Xr, Xi, cvec.to(dt), theta0[:, 1], tau_n, nbin,
-            derotate=seed_derotate)
+            derotate=seed_derotate, chan_group=chan_group)
         theta0 = theta0.clone()
         theta0[:, 0] = phi0
     xdt = (dt if compensated
@@ -1251,13 +1395,14 @@ def _fit_portrait_core_real_scatter(Xr, Xi, M2w, Sd, freqs, P, nu_fit,
                                     nu_out, theta0, fit_flags=FitFlags(),
                                     log10_tau=False, max_iter=40, ftol=None,
                                     compensated=False, nharm_total=None,
-                                    bounds=None):
+                                    bounds=None, chan_group=None):
     """Stage 2 of the split scattering fit, batched: the (phi, DM, GM,
     tau, alpha) Newton loop on _cgh_scatter (hybrid plain + compensated
     polish when compensated) and the packaging, with (C, S) riding the
     loop state as aux.  nharm_total: the full spectrum's harmonic count
     when the spectra are band-limited (the unscattered template's
-    window holds for every tau: the kernel never widens the spectrum)."""
+    window holds for every tau: the kernel never widens the spectrum).
+    chan_group as _fit_portrait_core_real."""
     dt = M2w.dtype
     nharm = nharm_total if nharm_total is not None else Xr.shape[-1]
     flags_arr = FitFlags(*fit_flags).as_tensor(dt, M2w.device)
@@ -1270,7 +1415,7 @@ def _fit_portrait_core_real_scatter(Xr, Xi, M2w, Sd, freqs, P, nu_fit,
     def mk_cgh(comp):
         def cgh(theta):
             return _cgh_scatter(theta, Xr, Xi, M2w, freqs, nu_fit, cvec,
-                                gvec, log10_tau, comp)
+                                gvec, log10_tau, comp, chan_group)
         return cgh
 
     if compensated:
@@ -1283,7 +1428,7 @@ def _fit_portrait_core_real_scatter(Xr, Xi, M2w, Sd, freqs, P, nu_fit,
             lam0=_SCATTER_LAM0, bounds=bounds)
     return _finalize_fit(theta, f, H, C, S, Sd, nharm, flags_arr,
                          fit_flags, P, nu_fit, nu_out, nfev, code,
-                         log10_tau)
+                         log10_tau, chan_group=chan_group)
 
 
 def fast_scatter_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
@@ -1291,21 +1436,24 @@ def fast_scatter_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
                              bounds=None, *, fit_flags, log10_tau, max_iter,
                              compensated=False, x_bf16=None, nharm_eff=None,
                              seed_derotate=True, dft_fold=None,
-                             fit_fused=None):
+                             fit_fused=None, chan_group=None):
     """The JAX package's fast_scatter_fit_one with the batch as a leading
     dimension: prepare_scatter_fit_real, then the scattering Newton
-    core.  The (tau, alpha) seeds arrive in theta0's columns 3 and 4."""
+    core.  The (tau, alpha) seeds arrive in theta0's columns 3 and 4.
+    chan_group as fast_fit_batched (ir_r/ir_i then hold the rank's
+    channel block too)."""
     nbin = ports.shape[-1]
     Xr, Xi, M2w, Sd, th0 = prepare_scatter_fit_real(
         ports, model, noise_stds, chan_masks, freqs, P, nu_fit, theta0,
         ir_r, ir_i, fit_flags=fit_flags, log10_tau=log10_tau,
         compensated=compensated, x_bf16=x_bf16, nharm_eff=nharm_eff,
-        seed_derotate=seed_derotate, dft_fold=dft_fold, fit_fused=fit_fused)
+        seed_derotate=seed_derotate, dft_fold=dft_fold, fit_fused=fit_fused,
+        chan_group=chan_group)
     return _fit_portrait_core_real_scatter(
         Xr, Xi, M2w, Sd, freqs, P, nu_fit, nu_out, th0, fit_flags=fit_flags,
         log10_tau=log10_tau, max_iter=max_iter, compensated=compensated,
         nharm_total=nbin // 2 + 1 if nharm_eff is not None else None,
-        bounds=bounds)
+        bounds=bounds, chan_group=chan_group)
 
 
 def _as_tensor(x, dtype, device):
@@ -1390,7 +1538,7 @@ def fit_portrait_batch_fast(ports, models, noise_stds, freqs, P, nu_fit,
                             chan_masks=None, max_iter=40, log10_tau=False,
                             ir_FT=None, use_scatter=None, compensated=None,
                             harmonic_window=None, bounds=None,
-                            device=None):
+                            device=None, chan_group=None):
     """Batched fit through the complex-free lanes, on ``device`` (default
     cuda):
 
@@ -1406,7 +1554,12 @@ def fit_portrait_batch_fast(ports, models, noise_stds, freqs, P, nu_fit,
     (kept 2-D); noise_stds/chan_masks (nb, nchan); freqs (nchan,) or
     (nb, nchan); P and nu_fit scalars or (nb,).  harmonic_window: None
     -> config.fit_harmonic_window; 'auto' derives K from the model only
-    when it is host numpy.  bounds: (5, 2) or (nb, 5, 2) [lo, hi] box."""
+    when it is host numpy; 'full' every harmonic (resolve_harmonic_window).
+    bounds: (5, 2) or (nb, 5, 2) [lo, hi] box.
+    chan_group: the mesh's 'chan' subgroup (parallel/batch.py) when the
+    channel axis of every per-channel input is this rank's block: the
+    chi^2 channel sums are then combined over it, one collective per
+    Newton evaluation, and every rank returns the whole FitResult."""
     if use_scatter is None:
         use_scatter = (derive_use_scatter(fit_flags, log10_tau, theta0)
                        or ir_FT is not None)
@@ -1419,30 +1572,33 @@ def fit_portrait_batch_fast(ports, models, noise_stds, freqs, P, nu_fit,
         return _fit_batch_fast_scatter(
             ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
             fit_flags, chan_masks, max_iter, log10_tau, ir_FT, compensated,
-            harmonic_window, bounds, device)
+            harmonic_window, bounds, device, chan_group)
     reject_fixed_tau_seed(theta0, "fit_portrait_batch_fast")
     args, bounds, common = _stage_fast(
         ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
-        fit_flags, chan_masks, max_iter, harmonic_window, bounds, device)
+        fit_flags, chan_masks, max_iter, harmonic_window, bounds, device,
+        chan_group)
     return fast_fit_batched(*args, bounds, x_bf16=use_bf16_cross_spectrum(),
                             **common)
 
 
 def _stage_fast(ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
                 fit_flags, chan_masks, max_iter, harmonic_window, bounds,
-                device):
+                device, chan_group=None):
     """The fast lanes' staging: the batch's tensors (_stage_batch) as
     positional args, the bounds, and the keywords both lanes share
-    (flags, the resolved window, fold and fused knobs)."""
+    (flags, the resolved window, fold and fused knobs, the channel
+    group)."""
     dev = resolve_device(device)
     st = _stage_batch(ports, models, noise_stds, freqs, P, nu_fit, nu_out,
                       theta0, chan_masks, bounds, dev)
     nharm_eff = resolve_harmonic_window(harmonic_window, models,
-                                        st["ports"].shape[-1])
+                                        st["ports"].shape[-1], dev)
     common = dict(fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
                   max_iter=int(max_iter), seed_derotate=st["seed_derotate"],
                   nharm_eff=nharm_eff, dft_fold=use_dft_fold(dev),
-                  fit_fused=resolve_fit_fused(nharm_eff, dev))
+                  fit_fused=resolve_fit_fused(nharm_eff, dev),
+                  chan_group=chan_group)
     args = (st["ports"], st["models"], st["noise"], st["masks"],
             st["freqs"], st["P"], st["nu_fit"], st["nu_out"], st["theta0"])
     return args, st["bounds"], common
@@ -1451,13 +1607,14 @@ def _stage_fast(ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
 def _fit_batch_fast_scatter(ports, models, noise_stds, freqs, P, nu_fit,
                             nu_out, theta0, fit_flags, chan_masks, max_iter,
                             log10_tau, ir_FT, compensated, harmonic_window,
-                            bounds, device):
+                            bounds, device, chan_group):
     """Batch wrapper of the complex-free scattering lane (see
     fit_portrait_batch_fast, which routes here): the response is cut to
     the harmonic window and split into real parts."""
     args, bounds, common = _stage_fast(
         ports, models, noise_stds, freqs, P, nu_fit, nu_out, theta0,
-        fit_flags, chan_masks, max_iter, harmonic_window, bounds, device)
+        fit_flags, chan_masks, max_iter, harmonic_window, bounds, device,
+        chan_group)
     if compensated is None:
         compensated = use_scatter_compensated()
     nharm_eff = common["nharm_eff"]
@@ -1473,7 +1630,7 @@ def _fit_batch_fast_scatter(ports, models, noise_stds, freqs, P, nu_fit,
 # ---------------------------------------------------------------------------
 # the complex engine
 
-def _initial_phase_guess(X, cvec, DM0, oversamp=2):
+def _initial_phase_guess(X, cvec, DM0, oversamp=2, chan_group=None):
     """Dense-CCF phase seed of the complex cross-spectrum X (B, nchan,
     nharm): derotate by DM0 (B,), sum channels, inverse FFT onto a 2x
     oversampled lag grid, first argmax."""
@@ -1482,7 +1639,7 @@ def _initial_phase_guess(X, cvec, DM0, oversamp=2):
     dt = cvec.dtype
     k = torch.arange(nharm, dtype=dt, device=cvec.device)
     ph = cexp(2.0 * math.pi * (cvec * DM0[:, None])[..., None] * k)
-    x = torch.sum(X * ph, dim=-2)
+    x = chan_sum(X * ph, -2, chan_group)
     nlag = nbin * oversamp
     ccf = irfft_c(x, n=nlag)
     j0 = torch.argmax(ccf, dim=-1)
@@ -1494,7 +1651,7 @@ def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
                        ir_FT=None, fit_flags=FitFlags(), log10_tau=False,
                        max_iter=40, ftol=None, use_ir=False,
                        use_scatter=False, auto_seed=True, compensated=False,
-                       bounds=None):
+                       bounds=None, chan_group=None):
     """The complex engine, batched: dFT (B, nchan, nharm) complex data
     spectra, mFT the template's (shared (nchan, nharm) or per element),
     w (B, nchan, nharm) weights, ir_FT complex (nchan, nharm) or None.
@@ -1502,7 +1659,8 @@ def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
     (tau/alpha free, log10_tau, a fixed tau seed or the response):
     _cgh_scatter on X conj(ir) and M2 |ir|^2, the hybrid compensated
     loop when compensated.  C and S are re-evaluated at the solution
-    from the complex spectra (_CS_general)."""
+    from the complex spectra (_CS_general).  chan_group as
+    _fit_portrait_core_real."""
     dt = w.dtype
     ir = ir_FT if use_ir else None
     # log10_tau implies tau = 10^theta3 > 0, so the no-scatter path would
@@ -1536,7 +1694,7 @@ def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
             def cgh(theta):
                 f, g, H, _ = _cgh_scatter(theta, Xs_r, Xs_i, M2s_, freqs,
                                           nu_fit, cvec, gvec, log10_tau,
-                                          comp)
+                                          comp, chan_group)
                 return f, g, H, ()
             return cgh
 
@@ -1547,11 +1705,12 @@ def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
         S0inv = torch.where(good0, 1.0 / torch.where(good0, S0, 1.0), 0.0)
 
         def cgh(theta):
-            return _cgh_fast(theta, X, S0inv, cvec, gvec) + ((),)
+            return _cgh_fast(theta, X, S0inv, cvec, gvec, chan_group) + ((),)
 
     theta0 = theta0.to(wdt)
     if auto_seed and fit_flags[0]:
-        phi0 = _initial_phase_guess(X, cvec, theta0[:, 1])
+        phi0 = _initial_phase_guess(X, cvec, theta0[:, 1],
+                                    chan_group=chan_group)
         theta0 = theta0.clone()
         theta0[:, 0] = phi0
 
@@ -1565,11 +1724,12 @@ def _fit_portrait_core(dFT, mFT, w, freqs, P, nu_fit, nu_out, theta0,
             lam0=_SCATTER_LAM0 if scatter else 1.0e-3,
             bounds=None if bounds is None else bounds.to(wdt))
     C, S = _CS_general(theta, X, M2s, freqs, P, nu_fit, ir, log10_tau)
-    Sd = torch.sum((dFT.real**2 + dFT.imag**2) * w, dim=(-2, -1))
+    Sd = chan_sum(torch.sum((dFT.real**2 + dFT.imag**2) * w, dim=-1), -1,
+                  chan_group)
     return _result_dtype(_finalize_fit(
         theta, f, H, C.to(wdt), S.to(wdt), Sd.to(wdt), dFT.shape[-1],
         flags_arr, fit_flags, P, nu_fit, nu_out, nfev, code, log10_tau,
-        out_dtype=dt), dt)
+        out_dtype=dt, chan_group=chan_group), dt)
 
 
 def _complex_ir(ir_FT, dt, dev):
@@ -1587,7 +1747,7 @@ def fit_portrait_batch(ports, models, noise_stds, freqs, P, nu_fit,
                        nu_out=None, theta0=None, fit_flags=FitFlags(),
                        chan_masks=None, log10_tau=False, max_iter=40,
                        use_scatter=None, ir_FT=None, compensated=None,
-                       bounds=None, device=None):
+                       bounds=None, device=None, chan_group=None):
     """The complex engine over a batch, on ``device`` (default cuda).
 
     ports (nb, nchan, nbin); models shared (nchan, nbin) (kept 2-D) or
@@ -1599,7 +1759,8 @@ def fit_portrait_batch(ports, models, noise_stds, freqs, P, nu_fit,
     compensated None -> config.scatter_compensated.  float64 inputs run
     as float32 (complex64) where config's device_f32 knob resolves on:
     CUDA devices.  The body of the JAX package's _complex_batch_fn
-    (weights, spectra, the batched core) runs here eagerly."""
+    (weights, spectra, the batched core) runs here eagerly.  chan_group
+    as fit_portrait_batch_fast (ir_FT then the rank's channel block)."""
     dev = resolve_device(device)
     if use_scatter is None:
         use_scatter = derive_use_scatter(fit_flags, log10_tau, theta0)
@@ -1616,7 +1777,8 @@ def fit_portrait_batch(ports, models, noise_stds, freqs, P, nu_fit,
         fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
         log10_tau=bool(log10_tau), max_iter=int(max_iter),
         use_ir=ir_FT is not None, use_scatter=bool(use_scatter),
-        compensated=bool(compensated), bounds=st["bounds"])
+        compensated=bool(compensated), bounds=st["bounds"],
+        chan_group=chan_group)
 
 
 def fit_portrait(port, model, noise_stds, freqs, P, nu_fit=None, nu_out=None,
@@ -1692,14 +1854,15 @@ def estimate_tau_batch(ports, models, noise_stds, chan_masks=None):
     mabs = torch.sqrt(mr**2.0 + mi**2.0)
     Xa = torch.sqrt((dr * mr + di * mi) ** 2.0 + (di * mr - dr * mi) ** 2.0)
     del dr, di
-    num = torch.sum(w * Xa, dim=-2)
+    # one product at a time: Xa goes before the other two are built
+    num = chan_sum(w * Xa, -2)
     del Xa
-    den = torch.sum(w * mabs**2.0, dim=-2)
+    den = chan_sum(w * mabs**2.0, -2)
+    fl = chan_sum(torch.sqrt(w) * mabs, -2)
+    del w
     den_safe = torch.clamp(den, min=tiny)
     q = num / den_safe
-    floor = math.sqrt(math.pi / 2.0) * torch.sum(
-        torch.sqrt(w) * mabs, dim=-2) / den_safe
-    del w
+    floor = math.sqrt(math.pi / 2.0) * fl / den_safe
     q_sig = torch.sqrt(torch.clamp(q**2.0 - floor**2.0, min=0.0))
     k = torch.arange(nharm, dtype=dt, device=ports.device)
     ngrid = 64

@@ -16,10 +16,17 @@ rank takes its slice of the batch over 'data' (shard_batch), runs the
 port's batched lanes on it, and the results are gathered (the fits) or
 summed (the align accumulators) over the 'data' subgroup, so every rank
 returns what the JAX program returns at one process.
-shard_channels=True only checks that the channels divide over 'chan':
-every rank holds the whole batch and fits whole portraits, and the chi^2
-channel sums are not yet split into the Newton loop's collectives over
-'chan' (ROADMAP A4).
+
+shard_channels=True also splits each portrait's channel axis over
+'chan', as the JAX program does: a rank holds nchan / n_chan channels of
+its batch slice (B1 runs on those rows), and the fit engines combine the
+chi^2 channel sums over the mesh's 'chan' subgroup (the ``chan_group``
+of fit.portrait): the ranks' partial sums are all-gathered, one
+collective per Newton evaluation, and added by the same fixed-order
+tree (fit.portrait.chan_sums), so every rank of a 'chan' line holds the
+same bits and leaves the Newton loop on the same trip.  The per-channel
+outputs (scales, scale_errs, channel_snrs) and the align template are
+gathered over 'chan' in channel order.
 """
 
 import math
@@ -185,9 +192,8 @@ def shard_batch(mesh, arrays, chan_axis=None, device=None):
 def _local(mesh, a, dev, dtype, data_axis, chan_axis, shard_channels):
     """This rank's block of ``a`` for a sharded fit, sliced where ``a``
     lies and then moved to ``dev``: ``data_axis`` over 'data' (None:
-    whole).  The rank fits whole portraits, so with shard_channels the
-    channel axis stays whole; it must still divide over 'chan', as the
-    JAX package requires."""
+    whole) and, with shard_channels, ``chan_axis`` over 'chan'; a sliced
+    axis must divide over its mesh axis, as the JAX package requires."""
     from .mesh import Sharding
 
     t = _host_or_tensor(a)
@@ -195,10 +201,17 @@ def _local(mesh, a, dev, dtype, data_axis, chan_axis, shard_channels):
     if data_axis is not None:
         spec[data_axis] = "data"
     if shard_channels and chan_axis is not None:
-        Sharding(mesh, tuple("chan" if i == chan_axis else None
-                             for i in range(t.dim()))).slices(t.shape)
+        spec[chan_axis] = "chan"
     return t[Sharding(mesh, tuple(spec)).slices(t.shape)].to(device=dev,
                                                              dtype=dtype)
+
+
+def _chan_group(mesh, shard_channels):
+    """The 'chan' subgroup the fit engines combine channel sums over:
+    None unless the channels are split over more than one rank."""
+    if shard_channels and mesh.axis_size("chan") > 1:
+        return mesh.groups["chan"]
+    return None
 
 
 def _per_fit(x, nb):
@@ -220,8 +233,9 @@ def _gather_result(mesh, res):
 def _sharded_inputs(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
                     theta0, chan_masks, shard_channels, device):
     """The rank's blocks of a sharded fit's inputs (ports' dtype, on its
-    device; nu_fit None is left out).  Shared templates (nchan, nbin) and
-    freqs (nchan,) keep their channel axis 0."""
+    device; nu_fit None is left out) and the 'chan' subgroup
+    (``chan_group``).  Shared templates (nchan, nbin) and freqs (nchan,)
+    have their channel axis 0."""
     dev = resolve_device(device if device is not None else mesh.device)
     ports_t = _host_or_tensor(ports)
     dt = ports_t.dtype
@@ -243,7 +257,8 @@ def _sharded_inputs(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
         nu_fit=None if nu_fit is None else loc(_per_fit(nu_fit, nb), 0,
                                                None),
         theta0=None if theta0 is None else loc(theta0, 0, None),
-        chan_masks=None if chan_masks is None else loc(chan_masks, 0, 1))
+        chan_masks=None if chan_masks is None else loc(chan_masks, 0, 1),
+        chan_group=_chan_group(mesh, shard_channels))
 
 
 def fit_portrait_sharded(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
@@ -252,7 +267,9 @@ def fit_portrait_sharded(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
                          use_scatter=None, device=None):
     """The complex engine (fit.portrait.fit_portrait_batch) over a
     (nb, nchan, nbin) batch sharded on the mesh: each rank fits its
-    'data' slice and every rank returns the whole batch's FitResult.
+    'data' slice (and, with shard_channels, its block of the channels,
+    the chi^2 sums combined over 'chan') and every rank returns the
+    whole batch's FitResult.
 
     models (nb, nchan, nbin) or a shared (nchan, nbin) template; freqs
     (nchan,) or (nb, nchan); P_s / nu_fit scalars or (nb,); nu_out None
@@ -269,7 +286,7 @@ def fit_portrait_sharded(mesh, ports, models, noise_stds, freqs, P_s, nu_fit,
         b["ports"], b["models"], b["noise_stds"], b["freqs"], b["P"],
         b["nu_fit"], nu_out=nu_out, theta0=b["theta0"], fit_flags=fit_flags,
         log10_tau=log10_tau, max_iter=max_iter, use_scatter=use_scatter,
-        device=b["ports"].device)
+        device=b["ports"].device, chan_group=b["chan_group"])
     return _gather_result(mesh, res)
 
 
@@ -284,7 +301,8 @@ def fit_portrait_sharded_fast(mesh, ports, models, noise_stds, freqs, P_s,
     the scattering lane when tau/alpha are fitted, log10_tau is set or
     theta0 seeds a fixed nonzero tau.  On CUDA with a harmonic window the
     fast fit's DFT and cross-spectrum are the fused kernel B1 (its
-    want_m2 form on the scattering lane).
+    want_m2 form on the scattering lane), on the rank's rows: its
+    'data' slice, and with shard_channels its block of the channels.
 
     models (nb, nchan, nbin) or a shared (nchan, nbin) template;
     harmonic_window as fit_portrait_batch_fast ('auto' derives K from a
@@ -307,7 +325,7 @@ def fit_portrait_sharded_fast(mesh, ports, models, noise_stds, freqs, P_s,
         chan_masks=b["chan_masks"], max_iter=max_iter, log10_tau=log10_tau,
         compensated=compensated,
         harmonic_window=False if K is None else K,
-        device=b["ports"].device)
+        device=b["ports"].device, chan_group=b["chan_group"])
     return _gather_result(mesh, res)
 
 
@@ -316,36 +334,51 @@ def align_iteration_sharded(mesh, ports, model, noise_stds, chan_masks,
                             shard_channels=False, device=None):
     """ONE ppalign iteration on the rank mesh: the batched (phi[, DM])
     fast fit of every (archive, subint) against the shared template, at
-    nu_fit = nu_out = mean(freqs) and without a harmonic window, as in
-    the JAX program; then each rank back-rotates and weights its slice
-    into the harmonic accumulators (align_accumulate_archive), the
-    accumulators and the weight sum are summed over 'data', and every
-    rank finishes with the same align_finalize (reference ppalign.py:
-    220-248).
+    nu_fit = nu_out = mean(freqs) and over every harmonic, as in the JAX
+    program; then each rank back-rotates and weights its slice into the
+    harmonic accumulators (align_accumulate_archive), the accumulators
+    and the weight sum are summed over 'data', and every rank finishes
+    with the same align_finalize (reference ppalign.py: 220-248).  With
+    shard_channels a rank fits, accumulates and finalizes its block of
+    the channels (nu_fit stays the whole band's mean), and the template
+    is gathered over 'chan'.
+
+    The fit takes harmonic_window='full' (fit.portrait.
+    resolve_harmonic_window): where the fused lane is on (CUDA) that is
+    B1's S0 form over all nbin/2 + 1 harmonics, whose rows are
+    transformed independently, so a subint's fit has the same bits
+    however the batch and channels are split; a matmul DFT (the JAX
+    program's, and the port's without the fused lane) rounds by its row
+    count on the card.
 
     ports (nb, nchan, nbin); model the shared (nchan, nbin) template;
     noise_stds / chan_masks (nb, nchan); freqs (nchan,); P_s scalar or
     (nb,).  Returns (new_template (nchan, nbin) on the rank's device,
     the whole batch's FitResult)."""
     from ..fit.portrait import fit_portrait_batch_fast
-    from .multihost import all_reduce_sum
+    from .multihost import all_gather, all_reduce_sum
 
     b = _sharded_inputs(mesh, ports, model, noise_stds, freqs, P_s, None,
                         None, chan_masks, shard_channels, device)
     port, dt, dev = b["ports"], b["ports"].dtype, b["ports"].device
-    nchan, nbin = port.shape[1:]
-    nu0 = torch.mean(b["freqs"])
+    nloc, nchan, nbin = port.shape
+    # the whole band's mean, on every rank (its channels may be a block)
+    nu0 = torch.mean(_host_or_tensor(freqs).to(device=dev, dtype=dt))
     res = fit_portrait_batch_fast(
         port, b["models"], b["noise_stds"], b["freqs"], b["P"], nu0,
         nu_out=nu0, fit_flags=FitFlags(True, bool(fit_dm), False, False,
                                        False),
         chan_masks=b["chan_masks"], max_iter=max_iter,
-        harmonic_window=False, device=dev)
-    nloc = port.shape[0]
+        harmonic_window="full", device=dev, chan_group=b["chan_group"])
+    c0 = mesh.axis_index("chan") * nchan if b["chan_group"] is not None \
+        else 0
     acc = align_accumulate_archive(
         align_accumulator_init(1, nchan, nbin, dt, dev), port[:, None],
         res.phi, res.DM, nu0.expand(nloc), b["P"], b["freqs"],
-        b["noise_stds"], b["chan_masks"], res.scales)
+        b["noise_stds"], b["chan_masks"], res.scales[:, c0:c0 + nchan])
     if mesh.axis_size("data") > 1:
         acc = tuple(all_reduce_sum(a, mesh.groups["data"]) for a in acc)
-    return align_finalize(acc, nbin)[0], _gather_result(mesh, res)
+    template = align_finalize(acc, nbin)[0]
+    if b["chan_group"] is not None:
+        template = torch.cat(all_gather(template, b["chan_group"]), dim=0)
+    return template, _gather_result(mesh, res)

@@ -22,8 +22,9 @@ NCCL when the ranks use CUDA and each rank on a host has a GPU of its
 own, gloo otherwise (the CPU, or several ranks sharing one card); a
 ``backend=`` keyword overrides it.  Nothing retries on another backend.
 Gloo's ``all_gather`` takes CPU tensors only, so every collective on a
-small result goes through :func:`collective_tensor`, which puts it on
-the host under gloo and on the rank's card under NCCL.
+small result goes through :func:`collective_tensor` (utils/collectives.py,
+shared with the fit engines), which puts it on the host under gloo and
+on the rank's card under NCCL.
 """
 
 import os
@@ -32,6 +33,9 @@ import socket
 
 import numpy as np
 import torch
+
+from ..utils.collectives import (all_gather,  # noqa: F401
+                                 all_reduce_sum, collective_tensor)
 
 __all__ = ["init_multihost", "select_backend", "process_count",
            "process_index", "shard_files", "global_mesh",
@@ -200,33 +204,6 @@ def global_mesh(n_chan=1):
     from .mesh import make_mesh
 
     return make_mesh(n_chan=n_chan)
-
-
-def collective_tensor(x):
-    """``x`` where the process group's collectives take it: the host
-    under gloo, the current CUDA device under NCCL."""
-    if _dist().get_backend() == "nccl":
-        return x.to(torch.device("cuda", torch.cuda.current_device()))
-    return x.cpu()
-
-
-def all_gather(x, group=None):
-    """torch.distributed.all_gather of equal-shaped tensors through
-    collective_tensor: the list of every rank's ``x`` (of ``group``), in
-    rank order, on x's device."""
-    dist = _dist()
-    t = collective_tensor(x.contiguous())
-    out = [torch.empty_like(t)
-           for _ in range(dist.get_world_size(group=group))]
-    dist.all_gather(out, t, group=group)
-    return [o.to(x.device) for o in out]
-
-
-def all_reduce_sum(x, group=None):
-    """Sum of ``x`` over the ranks of ``group``, on x's device."""
-    t = collective_tensor(x.contiguous())
-    _dist().all_reduce(t, op=_dist().ReduceOp.SUM, group=group)
-    return t.to(x.device)
 
 
 def process_allgather(x):

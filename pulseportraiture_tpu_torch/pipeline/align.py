@@ -10,12 +10,13 @@ template.  The psradd/psrsmooth subprocess steps of the reference are
 internal averaging and wavelet smoothing.
 
 On CUDA the fits take the fast lane in float32, and its fused DFT ->
-cross-spectrum kernel (ops/fused.py, B1) runs whenever the harmonic
-window resolves from the iteration's template: a noisy template (the
-default seed, the first archive) can resolve none, and then that
-iteration fits the full spectrum without the kernel.  The template
-therefore stays a host numpy array, the only form
-fit.portrait.resolve_harmonic_window derives a window from.
+cross-spectrum kernel (ops/fused.py, B1) runs in every iteration: over
+the harmonic window that resolves from the iteration's template, or,
+where a noisy template (the default seed, the first archive) resolves
+none, over every harmonic (harmonic_window='full', the lane of
+parallel.batch.align_iteration_sharded).  The template stays a host
+numpy array, the only form fit.portrait.resolve_harmonic_window derives
+a window from.
 """
 
 import copy
@@ -347,7 +348,7 @@ def align_archives(metafile, initial_guess, fit_dm=True, tscrunch=False,
                         nu_out=freqs0.mean(),
                         theta0=theta0.astype(np.float32), fit_flags=flags,
                         chan_masks=masks.astype(np.float32),
-                        harmonic_window=hwin if hwin is not None else False,
+                        harmonic_window=hwin if hwin is not None else "full",
                         device=dev)
                 else:
                     res = fit_portrait_batch(

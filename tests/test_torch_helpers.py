@@ -56,6 +56,73 @@ def make_sharded_batch(seed=7, nb=SCALE_NB, nchan=16, nbin=256, tau=None):
     return ports, model, noise, freqs, masks
 
 
+SCALE_TAU = 0.004
+
+
+def scale_inputs(name):
+    """The batch and keywords of scale_calls' call ``name``: the fast
+    and align calls on make_sharded_batch(), the scattering lane on a
+    scattered one (tau, phi and DM free, log10 tau seeded at half a
+    bin), the complex engine on seed 8's with per-subint templates.
+    Returns (ports, models, noise, freqs, masks, keywords)."""
+    ports, model, noise, freqs, masks = make_sharded_batch(
+        seed=8 if name.startswith("complex") else 7,
+        tau=SCALE_TAU if name.startswith("scat") else None)
+    kw = {}
+    if name.startswith("scat"):
+        nb, _, nbin = ports.shape
+        th0 = np.zeros((nb, 5))
+        th0[:, 3] = np.log10(0.5 / nbin)
+        th0[:, 4] = -4.0
+        kw = dict(theta0=th0, log10_tau=True, max_iter=60,
+                  fit_flags=(True, True, False, True, False))
+    if name.startswith("complex"):
+        model = np.broadcast_to(model, ports.shape).copy()
+    return ports, model, noise, freqs, masks, kw
+
+
+def scale_calls(P, FitFlags, asarray=np.asarray):
+    """The scale-out calls of test_torch_multiprocess.py: (name, n_data,
+    n_chan, call(mesh)), the 1 x 2 ones with shard_channels=True, through
+    the parallel package P with its FitFlags and array constructor (the
+    port's, or the JAX package's with jnp.asarray).  A call on a 1 x 1
+    mesh is its world-size-1 reference."""
+    def inputs(name):
+        *arrays, kw = scale_inputs(name)
+        if "fit_flags" in kw:
+            kw["fit_flags"] = FitFlags(*kw["fit_flags"])
+        return [asarray(a) for a in arrays], kw
+
+    def fast(name, **extra):
+        def call(mesh):
+            (ports, model, noise, freqs, masks), kw = inputs(name)
+            return P.fit_portrait_sharded_fast(
+                mesh, ports, model, noise, freqs, SCALE_P0, 1500.0,
+                chan_masks=masks, **kw, **extra)
+        return call
+
+    def complex_(mesh):
+        (ports, model, noise, freqs, _), _ = inputs("complex")
+        return P.fit_portrait_sharded(mesh, ports, model, noise, freqs,
+                                      SCALE_P0, 1500.0, shard_channels=True)
+
+    def align(**extra):
+        def call(mesh):
+            (ports, model, noise, freqs, masks), _ = inputs("align")
+            return P.align_iteration_sharded(mesh, ports, model, noise,
+                                             masks, freqs, SCALE_P0,
+                                             **extra)
+        return call
+
+    chan = dict(shard_channels=True)
+    return [("fit_2x1", 2, 1, fast("fit")),
+            ("fit_1x2", 1, 2, fast("fit", **chan)),
+            ("scat_1x2", 1, 2, fast("scat", **chan)),
+            ("complex_1x2", 1, 2, complex_),
+            ("align_2x1", 2, 1, align()),
+            ("align_1x2", 1, 2, align(**chan))]
+
+
 def trace_events(path):
     """The events of a JSONL trace (its first record, the manifest,
     dropped)."""

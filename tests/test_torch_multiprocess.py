@@ -4,10 +4,15 @@ tests/test_multihost_spawn.py starts its workers, and one spawn running
 every check:
 
 - fit_portrait_sharded_fast on a 2 x 1 mesh (the batch over 'data') and
-  on a 1 x 2 mesh (shard_channels=True: both ranks fit the whole
-  portraits) against the same call at world size 1 in this process;
+  on a 1 x 2 mesh (shard_channels=True: each rank holds half of the
+  channels, B1's plain version sees (nb, nchan/2, nbin) rows, and the
+  chi^2 channel sums are combined over 'chan'), the scattering lane and
+  the complex engine (fit_portrait_sharded) at 1 x 2 too, against the
+  same call at world size 1 on the whole batch in this process and
+  against the JAX program on a 4 x 2 mesh with shard_channels=True;
 - align_iteration_sharded on the 2 x 1 mesh (the accumulators summed
-  over 'data') against world size 1;
+  over 'data') and on the 1 x 2 mesh (the template gathered over
+  'chan') against world size 1 and the JAX program;
 - process_allgather of ragged lengths (3 and 2);
 - stream_ipta_campaign(shard=True) over two small pulsars: the union of
   the ranks' .tim shards equals the one-process .tim field by field
@@ -15,8 +20,10 @@ every check:
   are the one-process summary's.
 
 Tolerances: the sharded fits and align run the same float64 programs on
-the same rows as world size 1, so they are held equal to 1e-12
-(relative to max |ref|; phi 1e-12 rot); the .tim fields exactly.  Every
+the same rows as world size 1 (the channel sums in the same tree order),
+so they are held equal to 1e-12 (relative to max |ref|; phi 1e-12 rot);
+against JAX, tests/test_torch_parallel.py's: 1e-8 (the scattering lane
+1e-7), the template 1e-10; the .tim fields exactly.  Every
 wait on the children has a timeout that kills both and fails the test: a
 hung collective fails fast (test_hung_rank_fails_within_timeout).
 """
@@ -31,13 +38,17 @@ import time
 import numpy as np
 import pytest
 
-from test_torch_helpers import SCALE_K as K
-from test_torch_helpers import SCALE_P0 as P0
-from test_torch_helpers import make_sharded_batch as make_batch
-from test_torch_helpers import rel_err
+import jax.numpy as jnp
 
+from test_torch_helpers import SCALE_K as K
+from test_torch_helpers import rel_err, scale_calls, scale_inputs
+
+from pulseportraiture_tpu import config as jcfg
+from pulseportraiture_tpu import parallel as JPar
+from pulseportraiture_tpu.fit import FitFlags as JFlags
 from pulseportraiture_tpu_torch import config as tcfg
 from pulseportraiture_tpu_torch import parallel as TPar
+from pulseportraiture_tpu_torch.fit.portrait import FitFlags as TFlags
 
 TIMEOUT = 120.0
 
@@ -60,26 +71,35 @@ assert parallel.process_count() == 2 and parallel.process_index() == rank
 WORKER = PRELUDE + r"""
 sys.path.insert(0, os.environ["PPT_TEST_DIR"])
 from test_torch_helpers import SCALE_K as K
-from test_torch_helpers import SCALE_P0 as P0
-from test_torch_helpers import make_sharded_batch as make_batch
+from test_torch_helpers import scale_calls
+from pulseportraiture_tpu_torch.fit import portrait
+from pulseportraiture_tpu_torch.ops import fused
 cfg.use_fast_fit = True
 cfg.fit_fused = True
 cfg.fit_harmonic_window = K
+cfg.scatter_compensated = False
 out = {}
-ports, model, noise, freqs, masks = make_batch()
-for name, nd, nc, kw in (("fit_2x1", 2, 1, {}),
-                         ("fit_1x2", 1, 2, {"shard_channels": True})):
+seen = []
+def spy(fn, label):
+    def run(port, *a, **k):
+        seen.append([label, list(port.shape), bool(k.get("want_m2"))])
+        return fn(port, *a, **k)
+    return run
+# the engines' local ports, and B1's (its plain version here) rows
+for mod, name in ((portrait, "fit_portrait_batch_fast"),
+                  (portrait, "fit_portrait_batch"),
+                  (fused, "fused_cross_spectrum")):
+    setattr(mod, name, spy(getattr(mod, name), name))
+for name, nd, nc, call in scale_calls(parallel, portrait.FitFlags):
     mesh = parallel.make_mesh(n_data=nd, n_chan=nc, devices=["cpu"])
     assert mesh.coords == divmod(rank, nc)
-    r = parallel.fit_portrait_sharded_fast(
-        mesh, ports, model, noise, freqs, P0, 1500.0, chan_masks=masks,
-        **kw)
+    del seen[:]
+    r = call(mesh)
+    if name.startswith("align"):
+        out[name + "_template"] = r[0].numpy().tolist()
+        r = r[1]
     out[name] = {k: v.numpy().tolist() for k, v in r._asdict().items()}
-mesh = parallel.make_mesh(n_data=2, devices=["cpu"])
-t, r = parallel.align_iteration_sharded(mesh, ports, model, noise, masks,
-                                        freqs, P0)
-out["align_template"] = t.numpy().tolist()
-out["align_phi"] = r.phi.numpy().tolist()
+    out[name + "_seen"] = list(seen)
 g = parallel.process_allgather(np.arange(3.0 - rank) + 10 * rank)
 out["allgather"] = [x.tolist() for x in g]
 
@@ -198,12 +218,19 @@ def campaign(tmp_path):
 
 @pytest.fixture
 def fast_config():
-    keys = ("use_fast_fit", "fit_fused", "fit_harmonic_window")
-    old = {k: getattr(tcfg, k) for k in keys}
-    tcfg.use_fast_fit = tcfg.fit_fused = True
-    tcfg.fit_harmonic_window = K
+    keys = ("use_fast_fit", "fit_fused", "fit_harmonic_window",
+            "scatter_compensated")
+    old_j = {k: getattr(jcfg, k) for k in keys + ("fit_pallas",)}
+    old_t = {k: getattr(tcfg, k) for k in keys}
+    jcfg.use_fast_fit = tcfg.use_fast_fit = True
+    jcfg.fit_fused = tcfg.fit_fused = True
+    jcfg.fit_harmonic_window = tcfg.fit_harmonic_window = K
+    jcfg.scatter_compensated = tcfg.scatter_compensated = False
+    jcfg.fit_pallas = False
     yield
-    for k, v in old.items():
+    for k, v in old_j.items():
+        setattr(jcfg, k, v)
+    for k, v in old_t.items():
         setattr(tcfg, k, v)
 
 
@@ -218,27 +245,44 @@ def test_two_gloo_ranks_match_world_size_one(tmp_path, campaign,
         with open(tmp_path / f"out{r}.json") as f:
             got.append(json.load(f))
 
-    # the world-size-1 references, in this process (no process group)
-    ports, model, noise, freqs, masks = make_batch()
+    # the world-size-1 references on the whole batch, in this process (no
+    # process group), and the JAX programs on a 4 x 2 mesh
     mesh = TPar.make_mesh(devices=["cpu"])
-    ref = TPar.fit_portrait_sharded_fast(mesh, ports, model, noise, freqs,
-                                         P0, 1500.0, chan_masks=masks)
-    ref = {k: v.numpy() for k, v in ref._asdict().items()}
-    for g in got:
-        for name in ("fit_2x1", "fit_1x2"):
+    jmesh = JPar.make_mesh(n_data=4, n_chan=2)
+    jcalls = {n: c for n, _, _, c in scale_calls(JPar, JFlags, jnp.asarray)}
+    for name, nd, nc, call in scale_calls(TPar, TFlags):
+        ref = call(mesh)
+        jref = jcalls[name](jmesh) if nc == 2 else None
+        if name.startswith("align"):
+            ref_t, ref = ref
+            if jref is not None:
+                jref_t, jref = jref
+            for g in got:
+                assert rel_err(g[name + "_template"], ref_t) <= 1e-12, name
+                if jref is not None:
+                    assert rel_err(g[name + "_template"], jref_t) <= 1e-10
+        ref = {k: v.numpy() for k, v in ref._asdict().items()}
+        for g in got:
             fit = {k: np.asarray(v) for k, v in g[name].items()}
-            assert np.all(np.abs(fit["phi"] - ref["phi"]) <= 1e-12), name
-            for k in ("DM", "phi_err", "DM_err", "snr", "chi2", "scales",
-                      "covariance"):
-                assert rel_err(fit[k], ref[k]) <= 1e-12, (name, k)
-            for k in ("nfeval", "return_code", "dof"):
-                assert np.array_equal(fit[k], ref[k]), (name, k)
-    t1, r1 = TPar.align_iteration_sharded(mesh, ports, model, noise, masks,
-                                          freqs, P0)
+            assert_parity(fit, ref, 1e-12, 1e-12, name)
+            if jref is not None:
+                assert_parity(fit, {k: np.asarray(v) for k, v in
+                                    jref._asdict().items()},
+                              1e-7 if name.startswith("scat") else 1e-8,
+                              1e-9, name)
+            # each rank's engine saw its block: the whole batch over
+            # 'data' at 1 x 2, nchan / 2 channels; B1 on the same rows
+            nb, nchan, nbin = scale_inputs(name)[0].shape
+            local = [nb // nd, nchan // nc]
+            assert g[name + "_seen"], name
+            for label, shape, m2 in g[name + "_seen"]:
+                assert shape[:2] == local, (name, label, shape)
+                assert m2 == (label == "fused_cross_spectrum"
+                              and name.startswith("scat")), (name, label)
+            if not name.startswith("complex"):
+                assert ["fused_cross_spectrum", local + [nbin],
+                        name.startswith("scat")] in g[name + "_seen"]
     for g in got:
-        assert rel_err(g["align_template"], t1.numpy()) <= 1e-12
-        assert np.all(np.abs(np.asarray(g["align_phi"]) - r1.phi.numpy())
-                      <= 1e-12)
         assert g["allgather"] == [[0.0, 1.0, 2.0], [10.0, 11.0]]
 
     files, gmodel = campaign
@@ -262,6 +306,21 @@ def test_two_gloo_ranks_match_world_size_one(tmp_path, campaign,
         assert sorted(s0[0]) == sorted(m1.tolist())
         assert sorted(s0[1]) == sorted(e1.tolist())
     assert sum(g["ntoa"] for g in got) == len(one.TOA_list) == 8
+
+
+def assert_parity(got, ref, tol, phi_tol, name):
+    """A gathered fit's fields against a reference: phi within phi_tol
+    rot, the floating fields within tol of max |ref| (the covariance,
+    the inverse of the Hessian combined over 'chan', among them), the
+    counts equal."""
+    dphi = np.abs((got["phi"] - ref["phi"] + 0.5) % 1.0 - 0.5)
+    assert np.all(dphi <= phi_tol), (name, dphi)
+    for k in ("DM", "phi_err", "DM_err", "tau", "tau_err", "snr", "nu_DM",
+              "chi2", "scales", "scale_errs", "channel_snrs", "covariance"):
+        if np.any(ref[k] != 0):
+            assert rel_err(got[k], ref[k]) <= tol, (name, k)
+    for k in ("nfeval", "return_code", "dof"):
+        assert np.array_equal(got[k], ref[k]), (name, k)
 
 
 def test_hung_rank_fails_within_timeout(tmp_path):
