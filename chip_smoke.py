@@ -67,7 +67,8 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    --stream -m model.spl`` on the stream metafile: B1 (and B2 on the
    stream) through their FFT arms only, every TOA within 1e-4 rot of
    the injection and 0.1 sigma of the .gmodel run's TOA;
-11. narrowband path (no kernel of the port runs on it): ``pptoas
+11. narrowband path (no kernel of the port runs on its fits; the tau
+   seed of its scat_guess 'auto' runs B1's want_m2 form): ``pptoas
    --narrowband`` on the main archive (32768 per-channel TOAs), its
    pulls against the injection held to fixed bounds, cold and warm
    TOAs/s, the dense CCF's time and memory, the device's idle share;
@@ -267,7 +268,9 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    (g) B1 (the campaign's int16 bucket) and B2 (the sweep's 2-bit
    bucket) through their FFT arms only and held to their plain versions
    at 1e-5 x max|ref|.  Printed: the sweep's wall, its winners and
-   walls per knob, the warm run's wall, the stage attribution.
+   walls per knob, the warm run's wall, the stage attribution.  The
+   numerics tier sweeps dft_precision too ('default': the matmul DFTs
+   in TF32 on the card).
 21. scale-out path (run after phase 16): two ranks over gloo, both on
    the one card, as two processes (``chip_smoke.scale_out_rank``;
    parallel.init_multihost(backend='gloo'): NCCL refuses two ranks on
@@ -289,6 +292,26 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    rank through their FFT arms only (B2 held to its plain version on
    rank 0's bucket).  Printed: the backend and world size, the launches
    and walls per rank, each rank's peak memory.
+22. batch invariance (ROADMAP C8), run last: 8 scattered int16
+   subints of 512 x 2048 and their dithered 2-bit rows fitted as one
+   batch and each alone, through the fast fit (B1), the packed 2-bit fit
+   (B2) and the scattering fit with scat_guess='auto' (B1's want_m2
+   form for the tau seed and the fit), with the template's window
+   (K=384) and without one (every harmonic through the kernels, K =
+   1025), then the complex engine and narrowband (their DFTs through
+   the invariant matmul DFT): each subint alone gives the batch's bits
+   in every result field (the counters set to 0 just before the fits;
+   every kernel through its FFT arm, at both windows); B1, its want_m2
+   form and B2 on 3 subints of 37 channels (an odd count) give each
+   subint alone the batch's bits; ``pptoas --stream`` with no window
+   over phase 6's 9 archives and over one 2-bit archive alone: its .tim
+   lines byte-identical, every TOA within 1e-4 rot of the injection; a
+   fresh process with PPT_COMPILE_CACHE at this process's build
+   directory loads the kernels without nvcc; dft_precision 'high' and
+   'default' (TF32 matmul DFTs) within 1e-3 x max|ref| of 'highest';
+   B1 (S0 and want_m2) and B2 at K = 1025 held to their plain versions
+   at 1e-5 x max|ref| and timed as in phases 5, 7 and 9 (the kernels
+   line's "full_spectrum" records).
 
 The line before the last is one JSON object listing each kernel with
 its launches on its path, error, times, bound and arm; the last line is
@@ -300,6 +323,7 @@ package is missing.
 import contextlib
 import io
 import json
+from collections import Counter
 import math
 import os
 import runpy
@@ -832,12 +856,13 @@ def phase_kernels():
         check_decode_case(c)
 
 
-def phase_timing(K_main):
+def phase_timing(K_main, Ks=None):
     """Kernel (its arm by the shape rule, the FFT arm here), GEMM-arm,
     plain-version, torch.matmul-equivalent and cuFFT-equivalent median
     times at the main path's shape: 64 subints against one shared
     template with per-element weights, at the main path's harmonic
-    window K_main and at the production K=256 of the directed set.  Each
+    window K_main and at the production K=256 of the directed set (or
+    at the windows ``Ks``).  Each
     output of the kernel, its GEMM arm and the cuFFT equivalent is first
     held to 1e-5 x its max|ref| (plain_oracle); raises otherwise."""
     import torch
@@ -846,7 +871,7 @@ def phase_timing(K_main):
 
     f32 = torch.float32
     records = {}
-    for K in sorted({256, K_main}):
+    for K in sorted(Ks or {256, K_main}):
         c = cross_spectrum_case(f"time K={K}", NSUB, NCHAN, NBIN, K, f32,
                                 seed=10 + K)
         args = (c["port"], c["model"], c["w"], K)
@@ -1868,8 +1893,9 @@ def nb_scatter_archive(device, nsub, nchan=NCHAN, nbin=NBIN):
 def phase_narrowband(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
                      nsub_scat=NSUB_NB_SCAT):
     """The narrowband path (phase 11), every run with the counters set to
-    0 just before it (no kernel of the port runs on it, as no Pallas
-    kernel does in the JAX package):
+    0 just before it (no kernel of the port runs on its fits, as no
+    Pallas kernel does in the JAX package; since PR 18 the scat_guess
+    'auto' tau seed of 3. runs B1's want_m2 form):
     1. ``pptoas --narrowband`` on the main path's archive (one TOA per
        channel), cold; the library call warm and under the profiler;
        the pulls held to NB_PULL_MEAN / NB_PULL_STD; the dense CCF timed;
@@ -6327,6 +6353,460 @@ def phase_scale_out(ctx, device="cuda", nsub_scat=SCALE_NSUB_SCAT,
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 22: a subint's fit does not depend on its bucket (ROADMAP C8)
+
+C8_NSUB = 8
+C8_LANES = ("fast", "packed", "scat_auto")
+# lanes with no harmonic window: the complex engine and narrowband
+C8_FULL_LANES = ("complex", "narrowband")
+C8_BATCH_KEYS = ("ports", "noise_stds", "P", "nu_fit", "theta0",
+                 "chan_masks", "raw", "scl", "offs")
+
+
+def pack_2bit(ports, rng):
+    """Float rows (..., nbin) as dithered 4-level samples, packed four to
+    a byte, the first sample in the most significant bits (the PSRFITS
+    convention): (raw uint8 (..., nbin / 4), scl, offs (...)), decoding
+    to s scl + offs ~ the rows."""
+    import numpy as np
+
+    x = np.asarray(ports, np.float64)
+    mu = x.mean(-1)
+    step = x.std(-1)
+    z = (x - mu[..., None]) / step[..., None]
+    s = np.clip(np.floor(z + 2.0 + rng.uniform(-0.5, 0.5, x.shape)), 0,
+                3).astype(np.uint8)
+    b = s.reshape(s.shape[:-1] + (-1, 4))
+    raw = (b[..., 0] << 6) | (b[..., 1] << 4) | (b[..., 2] << 2) | b[..., 3]
+    return (raw.astype(np.uint8), step.astype(np.float32),
+            (mu - 1.5 * step).astype(np.float32))
+
+
+def c8_inputs(device="cuda", nsub=C8_NSUB, nchan=NCHAN, nbin=NBIN,
+              work=None):
+    """The C8 gate's subints: an int16 archive of nsub x nchan x nbin
+    with the scattering path's injection (phase 21's scattering archive),
+    loaded as GetTOAs loads it (float32, the .gmodel portrait, DM and
+    log10 tau seeded), plus its rows as dithered packed 2-bit samples.
+    Returns (inputs, the template's derived harmonic window)."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.fit.portrait import \
+        resolve_harmonic_window
+    from pulseportraiture_tpu_torch.io.gmodel import write_gmodel
+    from pulseportraiture_tpu_torch.pipeline.models import TemplateModel
+    from pulseportraiture_tpu_torch.pipeline.toas import (
+        load_for_toas, snr_weighted_nu_fit)
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    work = work or os.path.join(WORK, "c8")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "scat.fits")
+    gmodel = os.path.join(work, "model.gmodel")
+    model = default_test_model(1500.0)
+    write_gmodel(model, gmodel, quiet=True)
+    make_fake_pulsar(model, PAR, outfile=path, nsub=nsub, nchan=nchan,
+                     nbin=nbin, nu0=1500.0, bw=800.0, tsub=60.0,
+                     phase=PHI_INJ, dDM=DDM_INJ, t_scat=T_SCAT,
+                     alpha=ALPHA_INJ, start_MJD=MJD(55700, 0.1),
+                     noise_stds=NOISE_SCAT_I16, dedispersed=False,
+                     quiet=True, rng=np.random.default_rng(SEED + 200),
+                     device=device)
+    d = load_for_toas(path)
+    ok = np.asarray(d.ok_isubs, int)
+    freqs = np.asarray(d.freqs[0], float)
+    P = np.asarray(d.Ps[ok], float)
+    masks = np.asarray(d.weights[ok] > 0.0, np.float32)
+    theta0 = np.zeros((len(ok), 5))
+    theta0[:, 1] = float(d.DM)
+    theta0[:, 3] = math.log10(0.5 * T_SCAT / float(np.mean(P)))
+    theta0[:, 4] = -4.0
+    mp = np.asarray(TemplateModel(gmodel, device=device).portrait(
+        freqs, d.nbin, P=float(np.mean(P))), np.float32)
+    ports = np.asarray(d.subints[ok, 0], np.float32)
+    raw, scl, offs = pack_2bit(ports, np.random.default_rng(SEED + 201))
+    inp = dict(ports=ports, models=mp,
+               noise_stds=np.asarray(d.noise_stds[ok, 0], np.float32),
+               freqs=freqs.astype(np.float32), P=P.astype(np.float32),
+               nu_fit=snr_weighted_nu_fit(np.asarray(d.SNRs[ok, 0]) * masks,
+                                          freqs).astype(np.float32),
+               theta0=theta0.astype(np.float32), chan_masks=masks,
+               raw=raw, scl=scl, offs=offs)
+    return inp, resolve_harmonic_window("auto", mp, nbin)
+
+
+def c8_fit(lane, inp, sl, K, device):
+    """One lane's fit of the subints ``sl`` of c8_inputs, through the
+    entry points the pipelines call, on the harmonic window K (None: no
+    window, which on CUDA is every harmonic through the fused kernels,
+    fit.portrait.full_spectrum_window):
+
+    - 'fast': fit_portrait_batch_fast, (phi, DM) free (B1's S0 form);
+    - 'packed': fast_fit_batched_packed on the 2-bit rows (B2; no
+      window: K = nbin / 2 + 1, as the stream's raw lane resolves it);
+    - 'scat_auto': the stream raw lane's scat_guess='auto': the tau seed
+      estimate_tau_batch (B1's want_m2 form at every harmonic on CUDA),
+      then fit_portrait_batch_fast with (phi, DM, tau, alpha) free, log10
+      tau (B1's want_m2 form);
+    - 'complex': the complex engine, fit_portrait_batch, (phi, DM) free
+      (complex64 on CUDA; spectra and CCF seed through the invariant
+      matmul DFT, ops.fourier.rfft_c_rows), K unused;
+    - 'narrowband': fit_phase_shift_batch, every channel's profile (its
+      spectra and dense CCF the same way), K unused."""
+    import torch
+    from pulseportraiture_tpu_torch.fit.phase_shift import \
+        fit_phase_shift_batch
+    from pulseportraiture_tpu_torch.fit.portrait import (
+        FitFlags, estimate_tau_batch, fast_fit_batched_packed,
+        fit_portrait_batch, fit_portrait_batch_fast)
+
+    a = {k: torch.as_tensor(v[sl] if k in C8_BATCH_KEYS else v).to(device)
+         for k, v in inp.items()}
+    nbin = a["ports"].shape[-1]
+    window = False if K is None else K
+    if lane == "complex":
+        return fit_portrait_batch(
+            a["ports"], a["models"], a["noise_stds"], a["freqs"], a["P"],
+            a["nu_fit"], theta0=a["theta0"] * torch.tensor(
+                [0.0, 1.0, 0.0, 0.0, 0.0], device=device),
+            chan_masks=a["chan_masks"], fit_flags=FitFlags(True, True),
+            device=device)
+    if lane == "narrowband":
+        return fit_phase_shift_batch(a["ports"], a["models"],
+                                     a["noise_stds"], device=device)
+    if lane == "fast":
+        return fit_portrait_batch_fast(
+            a["ports"], a["models"], a["noise_stds"], a["freqs"], a["P"],
+            a["nu_fit"], theta0=a["theta0"] * torch.tensor(
+                [0.0, 1.0, 0.0, 0.0, 0.0], device=device),
+            chan_masks=a["chan_masks"], fit_flags=FitFlags(True, True),
+            max_iter=40, harmonic_window=window, device=device)
+    if lane == "packed":
+        nb = a["raw"].shape[0]
+        return fast_fit_batched_packed(
+            a["raw"].contiguous(), a["scl"], a["offs"], a["models"],
+            a["noise_stds"], a["chan_masks"], a["freqs"], a["P"],
+            a["nu_fit"], torch.full((nb,), -1.0, device=device),
+            a["theta0"] * torch.tensor([0.0, 1.0, 0.0, 0.0, 0.0],
+                                       device=device),
+            raw_code="p2", nbin=nbin, fit_flags=FitFlags(True, True),
+            max_iter=40, nharm_eff=K or nbin // 2 + 1)
+    tau0 = estimate_tau_batch(a["ports"], a["models"], a["noise_stds"],
+                              a["chan_masks"])
+    theta0 = a["theta0"].clone()
+    theta0[:, 3] = torch.log10(torch.clamp(tau0, min=1e-12))
+    return fit_portrait_batch_fast(
+        a["ports"], a["models"], a["noise_stds"], a["freqs"], a["P"],
+        a["nu_fit"], theta0=theta0, chan_masks=a["chan_masks"],
+        fit_flags=FitFlags(True, True, False, True, True), log10_tau=True,
+        max_iter=60, harmonic_window=window, device=device)
+
+
+def _kernel_windows():
+    """Wrap the fused kernels' CUDA entry points to record the harmonic
+    count of every launch: returns (records, restore)."""
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    seen = []
+    orig = (F.fused_cross_spectrum_cuda, F.fused_decode_cross_spectrum_cuda)
+
+    def b1(port, model, w, nharm, *a, **kw):
+        seen.append(("B1.m2" if kw.get("want_m2") else "B1", int(nharm)))
+        return orig[0](port, model, w, nharm, *a, **kw)
+
+    def b2(raw, scl, offs, model, w, nharm, *a, **kw):
+        seen.append(("B2", int(nharm)))
+        return orig[1](raw, scl, offs, model, w, nharm, *a, **kw)
+
+    F.fused_cross_spectrum_cuda, F.fused_decode_cross_spectrum_cuda = b1, b2
+
+    def restore():
+        F.fused_cross_spectrum_cuda, F.fused_decode_cross_spectrum_cuda = orig
+    return seen, restore
+
+
+def kernel_rows_invariance(device="cuda", nsub=3, nchan=37, nbin=NBIN):
+    """B1 (S0, want_m2) and B2 at K = nbin / 2 + 1 on nsub random subints
+    of an odd channel count (the FFT arm's row pairs would cross the
+    subints: ops.fused._odd_batch pads each with a zero channel): each
+    subint alone gives the batch's bits in every output, else raise."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    K = nbin // 2 + 1
+    g = torch.Generator().manual_seed(SEED + 301)
+    port = torch.randn(nsub, nchan, nbin, generator=g).to(device)
+    model = torch.randn(nchan, nbin, generator=g).to(device)
+    w = torch.rand(nsub, nchan, K, generator=g).to(device)
+    raw = torch.randint(0, 256, (nsub, nchan, nbin // 4), generator=g,
+                        dtype=torch.uint8).to(device)
+    scl = (torch.rand(nsub, nchan, generator=g) + 0.5).to(device)
+    offs = torch.randn(nsub, nchan, generator=g).to(device)
+    calls = {
+        "B1": lambda sl: F.fused_cross_spectrum(port[sl].contiguous(), model,
+                                                w[sl].contiguous(), K),
+        "B1 want_m2": lambda sl: F.fused_cross_spectrum(
+            port[sl].contiguous(), model, w[sl].contiguous(), K,
+            want_m2=True),
+        "B2": lambda sl: F.fused_decode_cross_spectrum(
+            raw[sl].contiguous(), scl[sl], offs[sl], model,
+            w[sl].contiguous(), K, code="p2", nbin=nbin)}
+    for name, fn in calls.items():
+        whole = fn(slice(None))
+        for i in range(nsub):
+            one = fn(slice(i, i + 1))
+            if not all(torch.equal(a[0], b[i]) for a, b in zip(one, whole)):
+                raise AssertionError(f"{name} at {nsub}x{nchan}x{nbin} K={K}: "
+                                     f"subint {i} alone differs from the "
+                                     "batch")
+    log(f"kernels at an odd channel count ({nsub}x{nchan}x{nbin}, K={K}): "
+        "B1, B1 want_m2 and B2 give each subint alone the batch's bits")
+
+
+def phase_batch_invariance(device="cuda", nsub=C8_NSUB, nchan=NCHAN,
+                           nbin=NBIN):
+    """Phase 22, ROADMAP C8's gate on every fast lane: c8_inputs' nsub
+    subints fitted as one batch and each alone, through the fast fit
+    (B1), the packed 2-bit fit (B2) and the scattering fit with
+    scat_guess='auto' (B1's want_m2 form for the seed and the fit), with
+    the template's window and without one (every harmonic through the
+    kernels on CUDA, K = nbin / 2 + 1): each subint alone must give the
+    batch's bits in every FitResult field, else raise.  The kernels'
+    counters are set to 0 just before the fits and read just after; on
+    CUDA every lane must have launched its kernel through the FFT arm
+    only, and the unwindowed fits at K = nbin / 2 + 1 only.  Returns the
+    launches."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    t0 = time.perf_counter()
+    inp, K = c8_inputs(device, nsub, nchan, nbin)
+    log(f"C8 gate inputs: {nsub} x {nchan} x {nbin} scattered int16 and "
+        f"its 2-bit rows, window K={K}, in {time.perf_counter() - t0:.2f} s")
+    if K is None:
+        raise AssertionError("C8 gate: the template derived no window")
+    cuda = device_type(device) == "cuda"
+    if cuda:
+        seen, restore = _kernel_windows()
+    F.reset_kernel_launches()
+    try:
+        for lane, k in [(ln, kk) for ln in C8_LANES for kk in (K, None)] \
+                + [(ln, None) for ln in C8_FULL_LANES]:
+            t0 = time.perf_counter()
+            ref = c8_fit(lane, inp, slice(0, nsub), k, device)
+            sync(device)
+            t_batch = time.perf_counter() - t0
+            fields = [f for f in (ref._fields if hasattr(ref, "_fields")
+                                  else ref.keys())
+                      if torch.is_tensor(ref[f] if isinstance(ref, dict)
+                                         else getattr(ref, f))]
+            get = ((lambda r, f: r[f]) if isinstance(ref, dict)
+                   else getattr)
+            walls = []
+            for i in range(nsub):
+                t0 = time.perf_counter()
+                one = c8_fit(lane, inp, slice(i, i + 1), k, device)
+                sync(device)
+                walls.append(time.perf_counter() - t0)
+                diff = [f for f in fields
+                        if not torch.equal(get(one, f)[0],
+                                           get(ref, f)[i])]
+                if diff:
+                    raise AssertionError(
+                        f"C8 gate: lane {lane} window {k}: subint {i} "
+                        f"fitted alone differs from the batch of "
+                        f"{nsub} in {diff}")
+            codes = (ref.return_code.tolist() if hasattr(ref, "_fields")
+                     else [0])
+            log(f"C8 gate {lane} window {k}: {nsub} subints alone = "
+                f"the batch of {nsub} bit for bit in all "
+                f"{len(fields)} fields; batch {t_batch:.3f} s, "
+                f"alone {min(walls):.3f}-{max(walls):.3f} s, codes "
+                f"{codes}")
+            if not all(c in (0, 1, 2) for c in codes):
+                raise AssertionError(f"C8 gate {lane}: codes {codes}")
+    finally:
+        if cuda:
+            restore()
+    launches = F.kernel_launches()
+    log(f"C8 gate kernel launches {launches}")
+    if cuda:
+        kernel_rows_invariance(device, nbin=nbin)
+        fft_only(launches, ("fused_cross_spectrum",
+                            "fused_decode_cross_spectrum"), "the C8 gate")
+        if not launches["fused_cross_spectrum.m2"]:
+            raise AssertionError("C8 gate: B1's want_m2 form never ran")
+        log(f"C8 gate calls by (kernel, K): "
+            f"{dict(sorted(Counter(seen).items()))} (two launches each)")
+        full = {(n, kk) for n, kk in seen if kk == nbin // 2 + 1}
+        want = {("B1", nbin // 2 + 1), ("B1.m2", nbin // 2 + 1),
+                ("B2", nbin // 2 + 1)}
+        if not want <= full or {kk for _, kk in seen} != {K, nbin // 2 + 1}:
+            raise AssertionError(f"C8 gate: kernel windows {sorted(set(seen))}"
+                                 f"; expected every kernel at K={K} and "
+                                 f"{nbin // 2 + 1}")
+    return launches
+
+
+def phase_stream_alone(device="cuda", which=1):
+    """Phase 22's end-to-end gate: ``pptoas --stream`` over the stream
+    path's 9-archive campaign (phase 6's metafile) and over its 2-bit
+    archive ``which`` alone, both with no harmonic window (the template's
+    window off: every harmonic through B2 and B1 on CUDA); the lone
+    archive's .tim lines must equal its lines in the campaign's .tim,
+    byte for byte, and every campaign TOA recover the injected phase to
+    1e-4 rot.  The counters are set to 0 before each run and read
+    after it (B2 and B1 at K = nbin / 2 + 1 through the FFT arm).
+    Returns the launches of both runs."""
+    from pulseportraiture_tpu_torch import config
+
+    meta = os.path.join(WORK, "stream_meta.txt")
+    gmodel = os.path.join(WORK, "model.gmodel")
+    with open(meta) as f:
+        files = [ln.strip() for ln in f if ln.strip()]
+    lone = os.path.join(WORK, "stream_alone_meta.txt")
+    with open(lone, "w") as f:
+        f.write(files[which] + "\n")
+    saved = config.fit_harmonic_window
+    config.fit_harmonic_window = None
+    total = None
+    tims = []
+    try:
+        for m, label in ((meta, "campaign"), (lone, "alone")):
+            tim = os.path.join(WORK, f"stream_nowindow_{label}.tim")
+            if os.path.exists(tim):
+                os.remove(tim)
+            wall, launches = run_cli(
+                ["--stream", "-d", m, "-m", gmodel, "-o", tim, "--quiet",
+                 "--print_phase", "--quality_flags", "--device", device],
+                f"pptoas --stream no window ({label})")
+            log(f"stream no window ({label}): {wall:.3f} s, launches "
+                f"{launches}")
+            if device_type(device) == "cuda":
+                fft_only(launches, ("fused_decode_cross_spectrum",
+                                    "fused_cross_spectrum")
+                         if label == "campaign"
+                         else ("fused_decode_cross_spectrum",),
+                         f"stream no window ({label})")
+            total = launches if total is None else {
+                k: total[k] + v for k, v in launches.items()}
+            with open(tim) as f:
+                tims.append([ln for ln in f if ln.strip()])
+    finally:
+        config.fit_harmonic_window = saved
+    name = os.path.basename(files[which])
+    mine = [ln for ln in tims[0]
+            if ln.split()[0] in (files[which], name)]
+    if not mine or mine != tims[1]:
+        raise AssertionError(
+            f"stream no window: {name} alone wrote {len(tims[1])} lines, "
+            f"{len(mine)} in the campaign; equal byte for byte: "
+            f"{mine == tims[1]}")
+    worst = 0.0
+    for tok in (ln.split() for ln in tims[0]):
+        phi = float(dict(zip(tok[5::2], tok[6::2]))["-phs"])
+        worst = max(worst, abs((phi - expected_phase(float(tok[1])) + 0.5)
+                               % 1.0 - 0.5))
+    if not worst < 1e-4:
+        raise AssertionError(f"stream no window: phase recovery |dphi| = "
+                             f"{worst:.3e} rot >= 1e-4")
+    log(f"stream no window: {name} streamed alone = its {len(mine)} lines "
+        f"of the {len(files)}-archive campaign, byte for byte; max |dphi| "
+        f"= {worst:.3e} rot over the campaign's {len(tims[0])} TOAs (limit "
+        "1e-4)")
+    return total
+
+
+def phase_compile_cache(device="cuda"):
+    """--compile-cache: a fresh process pointed at this process's kernel
+    build (PPT_COMPILE_CACHE = ops.fused.BUILD_DIR) must load the
+    library built there without the builder (build_info 'cached'), and
+    launch B1 through it.  Returns that process's load seconds."""
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    code = ("import json, torch; from pulseportraiture_tpu_torch.ops "
+            "import fused as F; from pulseportraiture_tpu_torch.utils."
+            "device import enable_compile_cache; enable_compile_cache(); "
+            "F.build_kernels(); x = torch.randn(2, 8, 256, device='cuda'); "
+            "m = torch.randn(8, 256, device='cuda'); w = torch.rand(8, 129, "
+            "device='cuda'); F.fused_cross_spectrum(x, m, w, 129); "
+            "torch.cuda.synchronize(); print(json.dumps(dict(F.build_info, "
+            "launches=F.kernel_launches()['fused_cross_spectrum'])))")
+    env = dict(os.environ, PPT_COMPILE_CACHE=F.BUILD_DIR,
+               PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"compile cache: the fresh process failed: "
+                             f"{r.stderr[-2000:]}")
+    info = json.loads(r.stdout.strip().splitlines()[-1])
+    if not info["cached"] or info["launches"] != 2:
+        raise AssertionError(f"compile cache: {info}")
+    log(f"compile cache: a fresh process loaded the kernels from "
+        f"{info['dir']} without nvcc in {info['seconds']:.3f} s "
+        f"(process wall {wall:.2f} s; this process's build "
+        f"{F.build_info['seconds']:.2f} s, cached {F.build_info['cached']})")
+    return info["seconds"]
+
+
+# dft_precision 'high' / 'default' (TF32 matmul DFTs) against 'highest',
+# as a fraction of max|ref| (TF32 keeps 10 mantissa bits: ~5e-4 per
+# product; the measured gap at 512 x 2048 was 7.3e-5, PERF.md PR 18)
+TF32_TOL = 1e-3
+
+
+def check_tf32_arms(device="cuda", nsub=8, nchan=NCHAN, nbin=NBIN):
+    """The TF32 arms of dft_precision on the card: rfft_mm and
+    irfft_mm_invariant of nsub x nchan x nbin random rows at 'high' and
+    'default' against 'highest', each output within TF32_TOL x its
+    max|ref| and not all equal to it (TF32 engaged), and torch's TF32
+    flag as it was after every call.  Returns the worst relative gap."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fourier as FO
+
+    g = torch.Generator().manual_seed(SEED + 300)
+    x = torch.randn(nsub, nchan, nbin, generator=g).to(device)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    ref = FO.rfft_mm(x, precision="highest")
+    iref = FO.irfft_mm_invariant(*ref, n=2 * nbin, precision="highest")
+    worst = 0.0
+    for prec in ("high", "default"):
+        got = FO.rfft_mm(x, precision=prec)
+        igot = FO.irfft_mm_invariant(*got, n=2 * nbin, precision=prec)
+        if torch.backends.cuda.matmul.allow_tf32 != flag:
+            raise AssertionError(f"dft_precision={prec}: the TF32 flag was "
+                                 "left changed")
+        for a, b in zip(got + (igot,), ref + (iref,)):
+            rel = float((a - b).abs().max() / b.abs().max())
+            worst = max(worst, rel)
+            if not rel <= TF32_TOL:
+                raise AssertionError(f"dft_precision={prec}: {rel:.3e} x "
+                                     f"max|ref| (limit {TF32_TOL})")
+    if device_type(device) == "cuda" and worst == 0.0:
+        raise AssertionError("dft_precision high/default gave the 'highest' "
+                             "bits: TF32 never engaged")
+    log(f"dft_precision high/default (TF32) vs highest at {nsub}x{nchan}x"
+        f"{nbin}: worst {worst:.3e} x max|ref| (limit {TF32_TOL}), the TF32 "
+        "flag restored")
+    return worst
+
+
+def phase_full_spectrum_timing():
+    """The kernels at K = NBIN / 2 + 1, the unwindowed lanes' shape: B1's
+    S0 form at the main path's shape (phase_timing), its want_m2 form at
+    the scattering bucket's (phase_m2_timing) and B2 at the stream
+    bucket's (phase_decode_timing), each held to its plain version at
+    1e-5 x max|ref| (float64 oracle) and timed beside its bound, plain
+    version and library equivalents.  Returns the three records."""
+    K = NBIN // 2 + 1
+    return dict(s0=phase_timing(K, Ks=(K,))[K], m2=phase_m2_timing(K),
+                b2=phase_decode_timing(K))
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -6437,6 +6917,13 @@ def main():
     t0 = time.perf_counter()
     tune = phase_tune()
     log(f"phase tune path: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    c8 = phase_batch_invariance()
+    alone = phase_stream_alone()
+    phase_compile_cache()
+    check_tf32_arms()
+    full = phase_full_spectrum_timing()
+    log(f"phase batch invariance: {time.perf_counter() - t0:.1f} s wall")
     kernels = [{
         "name": "fused_cross_spectrum",
         "route": "cuda",
@@ -6472,11 +6959,16 @@ def main():
             "serve": serve["fused_cross_spectrum"],
             "router": router["fused_cross_spectrum"],
             "ingest": ingest["fused_cross_spectrum"],
-            "tune": tune["fused_cross_spectrum"]},
+            "tune": tune["fused_cross_spectrum"],
+            "c8": c8["fused_cross_spectrum"],
+            "stream_alone": alone["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"], launches_by_path={
                 "scattering": scat_launches["fused_cross_spectrum.m2"],
-                "scale_out": scale["fused_cross_spectrum.m2"]}),
+                "scale_out": scale["fused_cross_spectrum.m2"],
+                "c8": c8["fused_cross_spectrum.m2"]}),
+        "full_spectrum": {"K": NBIN // 2 + 1, "s0": full["s0"],
+                          "want_m2": full["m2"]},
     }, {
         "name": "fused_decode_cross_spectrum",
         "route": "cuda",
@@ -6508,7 +7000,10 @@ def main():
             "serve": serve["fused_decode_cross_spectrum"],
             "router": router["fused_decode_cross_spectrum"],
             "ingest": ingest["fused_decode_cross_spectrum"],
-            "tune": tune["fused_decode_cross_spectrum"]},
+            "tune": tune["fused_decode_cross_spectrum"],
+            "c8": c8["fused_decode_cross_spectrum"],
+            "stream_alone": alone["fused_decode_cross_spectrum"]},
+        "full_spectrum": dict(full["b2"], K=NBIN // 2 + 1),
     }]
     log(f"chip_smoke total: {time.perf_counter() - t_main:.1f} s wall")
     log(json.dumps({"kernels": kernels}))

@@ -33,10 +33,12 @@ _GAUSS_DEVICE_TABLE = {"off": False, "auto": "auto", "on": True}
 LM_JACOBIAN_CHOICES = ("auto", "analytic", "ad")
 
 
-def parse_gauss_device(value):
+def parse_gauss_device(value, error=None):
     """Strict --gauss-device parse shared by ppfactory/ppgauss/
     ppspline: 'off' | 'auto' | 'on' -> the config tri-state value;
-    anything else exits before any file I/O."""
+    anything else exits before any file I/O.  error: accepted for the
+    JAX package's signature and unused there too (the exit carries the
+    message)."""
     v = str(value).lower()
     if v not in _GAUSS_DEVICE_TABLE:
         raise SystemExit(f"--gauss-device expected one of "
@@ -45,10 +47,10 @@ def parse_gauss_device(value):
     return _GAUSS_DEVICE_TABLE[v]
 
 
-def parse_lm_jacobian(value):
+def parse_lm_jacobian(value, error=None):
     """Strict --lm-jacobian parse shared by ppfactory/ppgauss:
     'auto' | 'analytic' | 'ad' -> config.lm_jacobian; anything else
-    exits before any file I/O."""
+    exits before any file I/O.  error: as parse_gauss_device's."""
     v = str(value).lower()
     if v not in LM_JACOBIAN_CHOICES:
         raise SystemExit(f"--lm-jacobian expected one of "

@@ -51,9 +51,11 @@ pulseportraiture_tpu_torch.cli.pptrace report``.
 stored for this card and torch build (tune/store.py) before the server
 and its warm-up start; a DB of another fingerprint is refused with a
 warning.  With ``--telemetry`` the hit is witnessed in the server's
-trace by a ``tune_apply`` event (the JAX CLI applies it untraced).  The
-JAX CLI's ``--compile-cache`` has no counterpart (eager PyTorch
-compiles no programs).
+trace by a ``tune_apply`` event (the JAX CLI applies it untraced).
+
+``--compile-cache DIR`` builds the hand kernels into (and loads them
+from) a shared directory (utils/device.enable_compile_cache), so a
+restarted replica runs no nvcc.
 """
 
 import argparse
@@ -122,6 +124,11 @@ def build_parser():
                    help="Write the serve trace (request lifecycle, "
                         "batch_coalesce occupancy, cold starts) here. "
                         "Also via PPT_TELEMETRY. [default: off]")
+    p.add_argument("--compile-cache", dest="compile_cache",
+                   default=None, metavar="DIR",
+                   help="Shared build directory of the hand kernels "
+                        "(restarts load the built library, no nvcc). "
+                        "Also via PPT_COMPILE_CACHE. [default: off]")
     p.add_argument("--timeout", type=float, default=None, metavar="S",
                    help="Per-request result timeout in seconds. "
                         "[default: none]")
@@ -363,6 +370,11 @@ def main(argv=None):
         reqs = None
     else:
         reqs = parse_requests(args.requests)
+    if args.compile_cache:
+        from ..utils.device import enable_compile_cache
+
+        config.compile_cache_dir = args.compile_cache
+        enable_compile_cache(args.compile_cache)
     apply_cache_flags(args, "ppserve")
     apply_obs_flags(args, "ppserve")
     os.makedirs(args.outdir, exist_ok=True)

@@ -68,6 +68,14 @@ def build_parser():
                         "compressible).  .tim output is identical "
                         "either way. [default: "
                         "config.transport_compress]")
+    p.add_argument("--compile-cache", dest="compile_cache",
+                   default=None, metavar="DIR",
+                   help="Shared build directory of the hand kernels: a "
+                        "process that finds the library built there "
+                        "loads it instead of running nvcc.  Also via "
+                        "PPT_COMPILE_CACHE / config.compile_cache_dir. "
+                        "[default: off, the checkout's "
+                        "build/torch_kernels]")
     p.add_argument("--errfile", metavar="errfile", default=None,
                    help="Write fitted DM errors to this file (appends).")
     p.add_argument("-T", "--tscrunch", action="store_true", default=False,
@@ -226,6 +234,13 @@ def main(argv=None):
             raise SystemExit("--fit-fused expected one of off/auto/on, "
                              f"got {args.fit_fused!r}")
         config.fit_fused = table[v]
+    if args.compile_cache:
+        # every lane builds the same kernels; also the config default,
+        # so a helper process resolves the same directory
+        from ..utils.device import enable_compile_cache
+
+        config.compile_cache_dir = args.compile_cache
+        enable_compile_cache(args.compile_cache)
     if args.quality_flags and args.narrowband:
         raise SystemExit("--quality_flags applies to the wideband "
                          "paths (per-channel lines already carry "

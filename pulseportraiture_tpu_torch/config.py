@@ -324,6 +324,14 @@ mon_interval_ms = 1000.0
 # read a trace with python -m pulseportraiture_tpu_torch.cli.pptrace.
 telemetry_path = None
 
+# Shared build directory of the hand kernels (ops/fused.build_kernels,
+# the port's one compiled artefact): utils/device.enable_compile_cache()
+# routes the build there, so a restarted replica or a fresh host on the
+# same checkout loads the library built there instead of running nvcc
+# again.  The stream executor and GetTOAs apply it on construction.
+# None (default) = off: the checkout's build/torch_kernels.
+compile_cache_dir = None
+
 
 # --- Environment hooks ----------------------------------------------------
 # One A/B switch per knob, applied once at import (env_overrides):
@@ -352,6 +360,7 @@ telemetry_path = None
 #   PPT_RAW_SUBBYTE=on|off          -> raw_subbyte
 #   PPT_TRANSPORT_COMPRESS=off|auto|on -> transport_compress
 #   PPT_TELEMETRY=<path>|off|none|0 -> telemetry_path
+#   PPT_COMPILE_CACHE=<dir>|off     -> compile_cache_dir
 #   PPT_QUALITY_REFIT=off|on        -> quality_refit
 #   PPT_QUALITY_MAX_GOF=<float>     -> quality_max_gof
 #   PPT_QUALITY_MIN_SNR=<float>     -> quality_min_snr
@@ -434,7 +443,7 @@ HOOKED_PPT_ENV = frozenset({
     "PPT_ROUTER_HEDGE_MS", "PPT_ROUTER_FLEET_FILE",
     "PPT_INGEST_POLL_MS", "PPT_INGEST_STABLE_MS", "PPT_ALERT_CUSUM_K",
     "PPT_ALERT_CUSUM_H", "PPT_MON_INTERVAL_MS", "PPT_TUNE_DB",
-    "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS"})
+    "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS", "PPT_COMPILE_CACHE"})
 
 
 def _unported_ppt_env():
@@ -444,9 +453,6 @@ def _unported_ppt_env():
     why["PPT_FIT_PALLAS"] = (
         "the JAX package's Pallas mode; the port's kernels run wherever "
         "fit_fused resolves on (PPT_FIT_FUSED)")
-    why["PPT_COMPILE_CACHE"] = (
-        "the JAX compilation cache; eager PyTorch compiles no programs "
-        "(ROADMAP A5)")
     for name in KNOWN_PPT_ENV - HOOKED_PPT_ENV - set(why):
         why[name] = ("a shape knob of the JAX package's benchmarks; the "
                      "port's bench is ROADMAP A5")
@@ -734,6 +740,12 @@ def env_overrides():
                                            float, False))
     put("result_cache", _table(env, "PPT_RESULT_CACHE", _TRISTATE,
                                "'off', 'auto' or 'on'"))
+    cache = env.get("PPT_COMPILE_CACHE", "")
+    if cache:
+        # 'off'/'none'/'0' disable explicitly (a wrapper script can
+        # force the cache off over a config default)
+        put("compile_cache_dir",
+            (None if cache.lower() in ("off", "none", "0") else cache,))
     cdir = env.get("PPT_CACHE_DIR", "")
     if cdir:
         put("cache_dir",

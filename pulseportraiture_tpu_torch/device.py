@@ -29,6 +29,9 @@ KNOB_POLARITY = {
     "align_device": "cuda",  # ppalign's accumulate on the align's device
     "gauss_device": "cuda",  # the batched LM engine for template trials
     "gls_device": "cuda",   # the fleet's batched GLS solve
+    # an unwindowed fast fit over every harmonic through the fused
+    # kernels (fit.portrait.full_spectrum_window); no config knob
+    "full_spectrum": "cuda",
 }
 
 

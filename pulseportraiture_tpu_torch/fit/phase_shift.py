@@ -15,7 +15,12 @@ with jax.grad; here its derivatives are written out:
 
 Everything is batched over the leading dimensions of the profiles.
 Plain PyTorch: the JAX package runs this in XLA, outside any Pallas
-kernel, and the dense CCF is the library inverse FFT there as here.
+kernel, and the dense CCF is the library inverse FFT there.  On CUDA the
+spectra and the CCF go through the batch-invariant matmul DFT
+(ops.fourier.rfft_c_rows / irfft_c_rows): cuFFT's plan, and its
+rounding, follows the batch count, which moved a profile's phase by
+4e-4 sigma between a subint fitted alone and in a batch of 8 (ROADMAP
+C8).  The CPU keeps torch.fft.
 """
 
 import math
@@ -24,7 +29,7 @@ import torch
 
 from ..config import F0_fact
 from ..device import resolve_device
-from ..ops.fourier import irfft_c, rfft_c
+from ..ops.fourier import CHANNEL_ROW_BLOCK, irfft_c_rows, rfft_c_rows
 from ..ops.noise import fourier_noise, get_noise_PS
 from ..ops.phasor import cexp
 from ..utils.bunch import DataBunch
@@ -63,7 +68,7 @@ def _fit_phase_shift_core(dFT, mFT, errs_F, oversamp=8, newton_iters=5):
 
     # dense CCF: C(phi_j) at phi_j = j / nlag, its first maximum the seed
     nlag = nbin * oversamp
-    ccf = irfft_c(x, n=nlag) * nlag
+    ccf = irfft_c_rows(x, n=nlag, block=CHANNEL_ROW_BLOCK) * nlag
     phi = torch.argmax(ccf, dim=-1).to(rdt) / nlag
     del ccf
     for _ in range(newton_iters):
@@ -112,7 +117,7 @@ def fit_phase_shift(data, model, noise_std=None, oversamp=8, newton_iters=5,
         noise_std = get_noise_PS(data)
     errs_F = fourier_noise(_as_tensor(noise_std, data.dtype, dev), nbin)
     return _bunch(*_fit_phase_shift_core(
-        rfft_c(data), rfft_c(model), errs_F, oversamp=oversamp,
+        rfft_c_rows(data), rfft_c_rows(model), errs_F, oversamp=oversamp,
         newton_iters=newton_iters))
 
 
@@ -131,5 +136,5 @@ def fit_phase_shift_batch(data, model, noise_std, oversamp=8, newton_iters=5,
     nbin = data.shape[-1]
     errs_F = fourier_noise(_as_tensor(noise_std, data.dtype, dev), nbin)
     return _bunch(*_fit_phase_shift_core(
-        rfft_c(data), rfft_c(model), errs_F, oversamp=oversamp,
+        rfft_c_rows(data), rfft_c_rows(model), errs_F, oversamp=oversamp,
         newton_iters=newton_iters))

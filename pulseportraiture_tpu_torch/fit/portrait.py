@@ -51,7 +51,8 @@ import torch
 from .. import config
 from ..config import Dconst, F0_fact
 from ..device import resolve_auto, resolve_device
-from ..ops.fourier import irfft_c, irfft_mm, rfft_c, rfft_mm, use_dft_fold
+from ..ops.fourier import (irfft_c_rows, irfft_mm, irfft_mm_invariant,
+                            rfft_c_rows, rfft_mm, use_dft_fold)
 from ..ops.phasor import cexp, guess_fit_freq
 from ..ops.scattering import scattering_portrait_FT
 from ..utils import collectives
@@ -67,7 +68,8 @@ __all__ = ["FitFlags", "FitResult", "fit_portrait_batch_fast",
            "use_scatter_compensated", "effective_x_bf16",
            "derive_use_scatter", "reject_fixed_tau_seed", "split_ir_host",
            "resolve_fit_fused", "warn_bf16_high_snr", "chan_sum",
-           "chan_sums"]
+           "chan_sums", "fast_fit_one", "fast_fit_one_packed",
+           "fast_scatter_fit_one", "use_fit_fused"]
 
 # Per-iteration step bound for (phi, DM, GM, theta3, alpha): one decade
 # of log10 tau (or one rotation) and 2 units of alpha per trip keep the
@@ -203,6 +205,11 @@ class FitFlags(NamedTuple):
         return torch.tensor([float(f) for f in self], dtype=dtype,
                             device=device)
 
+    def as_array(self, dtype=torch.float64, device=None):
+        """The JAX package's name: the flags as a (5,) 0/1 tensor
+        (float64 on the CPU unless told otherwise)."""
+        return self.as_tensor(dtype, "cpu" if device is None else device)
+
 
 class FitResult(NamedTuple):
     """Per-fit outputs, each a tensor with the batch as leading axis.
@@ -298,9 +305,13 @@ def use_bf16_cross_spectrum():
     return str(config.cross_spectrum_dtype) == "bfloat16"
 
 
-def use_fit_fused(device):
-    """config.fit_fused resolved for ``device`` ('auto' = CUDA)."""
-    return resolve_auto("fit_fused", config.fit_fused, device)
+def use_fit_fused(device=None, setting=None):
+    """config.fit_fused (or ``setting``, the JAX keyword) resolved for
+    ``device`` (None: cuda, the port's default device; 'auto' = CUDA)."""
+    if setting is None:
+        setting = config.fit_fused
+    return resolve_auto("fit_fused", setting,
+                        "cuda" if device is None else device)
 
 
 def resolve_fit_fused(nharm_eff, device):
@@ -440,6 +451,22 @@ def model_harmonic_window(model, nbin, tail=None, floor_sigma=None):
     return K
 
 
+def full_spectrum_window(nbin, device):
+    """The window of an unwindowed fast fit: nbin // 2 + 1 (every
+    harmonic, through the fused kernels) where the full_spectrum knob
+    resolves on for ``device`` (CUDA) and the fused lane is on there,
+    else None (the matmul DFT).  B1 and B2 transform each row alone, so
+    a subint's fit has the same bits whatever bucket it runs in; a
+    cuBLAS matmul DFT rounds by its row count (ROADMAP C8).  The CPU
+    keeps the matmul DFT of the JAX package.  device None: None."""
+    if device is None:
+        return None
+    if resolve_auto("full_spectrum", "auto", device) \
+            and use_fit_fused(device):
+        return nbin // 2 + 1
+    return None
+
+
 def resolve_harmonic_window(harmonic_window, models, nbin, device=None):
     """Parse the harmonic-window knob: explicit int wins (tile-rounded);
     None -> config.fit_harmonic_window; True or 'auto' derives from the
@@ -447,17 +474,21 @@ def resolve_harmonic_window(harmonic_window, models, nbin, device=None):
     'full' fits every harmonic: nbin // 2 + 1 where the fused lane is on
     for ``device`` (B1 transforms each row alone, so a fit has the same
     bits however its batch and channels are split), else None, the
-    unwindowed matmul DFT.  Unknown strings raise."""
+    unwindowed matmul DFT.  Where the knob resolves to no window (None,
+    False, 'auto' finding none, an int of nbin // 2 + 1 or more) the
+    result is full_spectrum_window(nbin, device): every harmonic on a
+    CUDA device with the fused lane on, None elsewhere.  Unknown
+    strings raise."""
     if harmonic_window is None:
         harmonic_window = config.fit_harmonic_window
     if harmonic_window is None or harmonic_window is False:
-        return None
+        return full_spectrum_window(nbin, device)
     if harmonic_window == "full":
         return nbin // 2 + 1 if use_fit_fused(device) else None
     if harmonic_window is True or harmonic_window == "auto":
-        if isinstance(models, np.ndarray):
-            return model_harmonic_window(models, nbin)
-        return None
+        K = (model_harmonic_window(models, nbin)
+             if isinstance(models, np.ndarray) else None)
+        return K if K is not None else full_spectrum_window(nbin, device)
     if isinstance(harmonic_window, str):
         raise ValueError(
             f"fit_harmonic_window must be 'auto', 'full', True/False/None, "
@@ -468,7 +499,7 @@ def resolve_harmonic_window(harmonic_window, models, nbin, device=None):
             f"fit_harmonic_window must be positive (got {K}); use "
             f"None or False to disable the window")
     K = (K + 127) // 128 * 128
-    return K if K < nbin // 2 + 1 else None
+    return K if K < nbin // 2 + 1 else full_spectrum_window(nbin, device)
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +568,10 @@ def _initial_phase_guess_real(Xr, Xi, cvec, DM0, oversamp=2,
     else:
         xr, xi = chan_sums([Xr, Xi], -2, chan_group)
     nlag = nbin * oversamp
-    ccf = irfft_mm(xr, xi, n=nlag)
+    # one GEMM shape on CUDA, whatever the batch: the argmax must not
+    # move with the bucket at a near-tie (ROADMAP C8)
+    inv = xr.device.type == "cuda"
+    ccf = (irfft_mm_invariant if inv else irfft_mm)(xr, xi, n=nlag)
     j0 = torch.argmax(ccf, dim=-1)
     phi0 = j0.to(dt) / nlag
     return torch.remainder(phi0 + 0.5, 1.0) - 0.5
@@ -599,7 +633,7 @@ def prepare_portrait_fit_real_packed(raw, scl, offs, model, w, freqs, P,
                                      nu_fit, theta0, *, raw_code, nbin,
                                      nharm_eff, seed_phi=True,
                                      seed_derotate=True, x_dtype=None,
-                                     dft_fold=None):
+                                     dft_fold=None, fused_block=None):
     """prepare_portrait_fit_real for sub-byte PACKED raw rows: the
     decode (bit-plane unpack, affine decode, min-window baseline) and
     the windowed DFT -> cross-spectrum run in one fused stage
@@ -610,7 +644,10 @@ def prepare_portrait_fit_real_packed(raw, scl, offs, model, w, freqs, P,
     shared; w (B, nchan, nharm_w) with nharm_w >= nharm_eff (columns 0
     and 1 carry the Parseval weights).  The full-spectrum Sd comes from
     the stage's per-channel Parseval rows with _parseval_Sd's outer
-    reductions.  Windowed lanes only: nharm_eff must be set."""
+    reductions.  Windowed lanes only: nharm_eff must be set (on CUDA
+    the unwindowed lane sets it to nbin // 2 + 1, full_spectrum_window).
+    fused_block: the plain version's channel tile (ops.fused._block_size;
+    None -> config.fused_block); the kernel ignores it."""
     from ..ops.fused import fused_decode_cross_spectrum
 
     dt = w.dtype
@@ -618,7 +655,7 @@ def prepare_portrait_fit_real_packed(raw, scl, offs, model, w, freqs, P,
     cvec = cvec.to(dt)
     Xr, Xi, S0, pwr, x0 = fused_decode_cross_spectrum(
         raw, scl, offs, model, w[..., :nharm_eff].contiguous(), nharm_eff,
-        code=raw_code, nbin=nbin, fold=dft_fold)
+        code=raw_code, nbin=nbin, fold=dft_fold, block=fused_block)
     Sd = _sd_rows(pwr, x0, w)
     theta0 = theta0.to(dt)
     if seed_phi:
@@ -1280,7 +1317,8 @@ def fast_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
 def fast_fit_batched_packed(raw, scl, offs, model, noise_stds, chan_masks,
                             freqs, P, nu_fit, nu_out, theta0, *, raw_code,
                             nbin, fit_flags, max_iter, nharm_eff,
-                            seed_derotate=True, x_bf16=None, dft_fold=None):
+                            seed_derotate=True, x_bf16=None, dft_fold=None,
+                            fused_block=None):
     """fast_fit_batched for sub-byte packed raw rows (the JAX package's
     fast_fit_one_packed with the batch as a leading dimension): weights
     from the noise levels, the decode-fused prepare
@@ -1297,7 +1335,7 @@ def fast_fit_batched_packed(raw, scl, offs, model, noise_stds, chan_masks,
         raw, scl, offs, model.to(dt), w, freqs, P, nu_fit, theta0,
         raw_code=raw_code, nbin=nbin, nharm_eff=nharm_eff,
         seed_phi=bool(fit_flags[0]), seed_derotate=seed_derotate,
-        x_dtype=x_dtype, dft_fold=dft_fold)
+        x_dtype=x_dtype, dft_fold=dft_fold, fused_block=fused_block)
     return _fit_portrait_core_real(
         Xr, Xi, S0, Sd, freqs, P, nu_fit, nu_out, th0,
         fit_flags=fit_flags, max_iter=max_iter, nharm_total=nbin // 2 + 1)
@@ -1454,6 +1492,134 @@ def fast_scatter_fit_batched(ports, model, noise_stds, chan_masks, freqs, P,
         log10_tau=log10_tau, max_iter=max_iter, compensated=compensated,
         nharm_total=nbin // 2 + 1 if nharm_eff is not None else None,
         bounds=bounds, chan_group=chan_group)
+
+
+# ---------------------------------------------------------------------------
+# one subint: the JAX package's per-element bodies, as the batched lanes
+# at B = 1
+
+def _unbatched(r):
+    """A batched FitResult's only element (0-d fields, the covariance
+    (5, 5), the per-channel fields (nchan,))."""
+    return FitResult(*[v[0] for v in r])
+
+
+def _one(x, dt, dev, ndim):
+    """x (numpy, scalar or tensor) as a tensor of dtype dt on dev with a
+    leading batch axis of 1 (``ndim`` = the un-batched rank)."""
+    t = _as_tensor(x, dt, dev)
+    return t.reshape((1,) + tuple(t.shape[t.dim() - ndim:]))
+
+
+def _nu_out_one(nu_out, dt, dev):
+    """A single fit's nu_out (None: the zero-covariance frequency, as
+    -1) as a (1,) tensor."""
+    return _nu_out_tensor(None if nu_out is None else _as_tensor(
+        nu_out, dt, dev).reshape(()), 1, dt, dev)
+
+
+def fast_fit_one(port, model, noise_stds, chan_mask, freqs, P, nu_fit,
+                 nu_out, theta0, bounds=None, *, fit_flags, max_iter,
+                 seed_derotate=True, x_bf16=None, nharm_eff=None,
+                 dft_fold=None, fit_fused=None):
+    """One complex-free fast fit, the JAX package's per-element body:
+    fast_fit_batched at B = 1 on port's device and dtype, returning the
+    un-batched FitResult.  port (nchan, nbin); model (nchan, nbin);
+    noise_stds, chan_mask (None: all channels) and freqs (nchan,); P,
+    nu_fit, nu_out (None: the zero-covariance frequency) scalars;
+    theta0 (5,); bounds (5, 2) or None.  nharm_eff None is the
+    unwindowed lane, as in the JAX function (pass
+    full_spectrum_window(nbin, device) for the fused one on the card).
+    The batched lane gives every row its own bits (ROADMAP C8), so this
+    equals that row of any batch."""
+    port = port if isinstance(port, torch.Tensor) else \
+        torch.as_tensor(np.asarray(port))
+    dt, dev = port.dtype, port.device
+    nchan = port.shape[-2]
+    r = fast_fit_batched(
+        port.reshape((1,) + tuple(port.shape[-2:])).contiguous(),
+        _as_tensor(model, dt, dev).contiguous(),
+        _one(noise_stds, dt, dev, 1),
+        (torch.ones((1, nchan), dtype=dt, device=dev) if chan_mask is None
+         else _one(chan_mask, dt, dev, 1)),
+        _as_tensor(freqs, dt, dev), _one(P, dt, dev, 0),
+        _one(nu_fit, dt, dev, 0), _nu_out_one(nu_out, dt, dev),
+        _one(theta0, dt, dev, 1),
+        None if bounds is None else _as_tensor(bounds, dt, dev),
+        fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
+        max_iter=int(max_iter), seed_derotate=seed_derotate, x_bf16=x_bf16,
+        nharm_eff=nharm_eff, dft_fold=dft_fold, fit_fused=fit_fused)
+    return _unbatched(r)
+
+
+def fast_fit_one_packed(raw, scl, offs, model, noise_stds, chan_mask,
+                        freqs, P, nu_fit, nu_out, theta0, *, raw_code,
+                        nbin, fit_flags, max_iter, seed_derotate=True,
+                        x_bf16=None, nharm_eff=None, dft_fold=None,
+                        fused_block=None):
+    """fast_fit_one for sub-byte packed rows (the JAX package's
+    per-element body of the decode-fused raw lane):
+    fast_fit_batched_packed at B = 1, returning the un-batched
+    FitResult.  raw (nchan, nbin * nbit / 8) uint8; scl, offs,
+    noise_stds, chan_mask (nchan,); noise_stds' dtype is the working
+    dtype; nharm_eff must be set (the decode-fused stage is windowed;
+    nbin // 2 + 1 takes every harmonic)."""
+    if nharm_eff is None:
+        raise ValueError("fast_fit_one_packed: the decode-fused stage needs "
+                         "a harmonic window (nharm_eff; nbin // 2 + 1 for "
+                         "every harmonic)")
+    noise = noise_stds if isinstance(noise_stds, torch.Tensor) else \
+        torch.as_tensor(np.asarray(noise_stds))
+    dt, dev = noise.dtype, noise.device
+    raw = torch.as_tensor(raw).to(dev)
+    nchan = raw.shape[-2]
+    r = fast_fit_batched_packed(
+        raw.reshape((1,) + tuple(raw.shape[-2:])).contiguous(),
+        _one(scl, dt, dev, 1), _one(offs, dt, dev, 1),
+        _as_tensor(model, dt, dev).contiguous(), _one(noise, dt, dev, 1),
+        (torch.ones((1, nchan), dtype=dt, device=dev) if chan_mask is None
+         else _one(chan_mask, dt, dev, 1)),
+        _as_tensor(freqs, dt, dev), _one(P, dt, dev, 0),
+        _one(nu_fit, dt, dev, 0), _nu_out_one(nu_out, dt, dev),
+        _one(theta0, dt, dev, 1), raw_code=raw_code, nbin=int(nbin),
+        fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
+        max_iter=int(max_iter), nharm_eff=int(nharm_eff),
+        seed_derotate=seed_derotate, x_bf16=x_bf16, dft_fold=dft_fold,
+        fused_block=fused_block)
+    return _unbatched(r)
+
+
+def fast_scatter_fit_one(port, model, noise_stds, chan_mask, freqs, P,
+                         nu_fit, nu_out, theta0, ir_r=None, ir_i=None,
+                         bounds=None, *, fit_flags, log10_tau, max_iter,
+                         compensated=False, x_bf16=None, nharm_eff=None,
+                         seed_derotate=True, dft_fold=None,
+                         fit_fused=None):
+    """One complex-free scattering fit, the JAX package's per-element
+    body: fast_scatter_fit_batched at B = 1, returning the un-batched
+    FitResult.  Arguments as fast_fit_one's; ir_r/ir_i the instrumental
+    response's real parts (nchan, nharm_w), sliced to the window when
+    nharm_eff is set; the (tau, alpha) seeds in theta0[3:5]."""
+    port = port if isinstance(port, torch.Tensor) else \
+        torch.as_tensor(np.asarray(port))
+    dt, dev = port.dtype, port.device
+    nchan = port.shape[-2]
+    ir = [None if v is None else _as_tensor(v, dt, dev) for v in (ir_r, ir_i)]
+    r = fast_scatter_fit_batched(
+        port.reshape((1,) + tuple(port.shape[-2:])).contiguous(),
+        _as_tensor(model, dt, dev).contiguous(),
+        _one(noise_stds, dt, dev, 1),
+        (torch.ones((1, nchan), dtype=dt, device=dev) if chan_mask is None
+         else _one(chan_mask, dt, dev, 1)),
+        _as_tensor(freqs, dt, dev), _one(P, dt, dev, 0),
+        _one(nu_fit, dt, dev, 0), _nu_out_one(nu_out, dt, dev),
+        _one(theta0, dt, dev, 1), ir[0], ir[1],
+        None if bounds is None else _as_tensor(bounds, dt, dev),
+        fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
+        log10_tau=bool(log10_tau), max_iter=int(max_iter),
+        compensated=bool(compensated), x_bf16=x_bf16, nharm_eff=nharm_eff,
+        seed_derotate=seed_derotate, dft_fold=dft_fold, fit_fused=fit_fused)
+    return _unbatched(r)
 
 
 def _as_tensor(x, dtype, device):
@@ -1641,7 +1807,7 @@ def _initial_phase_guess(X, cvec, DM0, oversamp=2, chan_group=None):
     ph = cexp(2.0 * math.pi * (cvec * DM0[:, None])[..., None] * k)
     x = chan_sum(X * ph, -2, chan_group)
     nlag = nbin * oversamp
-    ccf = irfft_c(x, n=nlag)
+    ccf = irfft_c_rows(x, n=nlag)
     j0 = torch.argmax(ccf, dim=-1)
     phi0 = j0.to(dt) / nlag
     return torch.remainder(phi0 + 0.5, 1.0) - 0.5
@@ -1772,7 +1938,8 @@ def fit_portrait_batch(ports, models, noise_stds, freqs, P, nu_fit,
     w = make_weights(st["noise"], st["ports"].shape[-1], st["masks"],
                      dtype=dt)
     return _fit_portrait_core(
-        rfft_c(st["ports"]), rfft_c(st["models"]), w, st["freqs"], st["P"],
+        rfft_c_rows(st["ports"]), rfft_c_rows(st["models"]), w, st["freqs"],
+        st["P"],
         st["nu_fit"], st["nu_out"], st["theta0"], _complex_ir(ir_FT, dt, dev),
         fit_flags=FitFlags(*[bool(f) for f in fit_flags]),
         log10_tau=bool(log10_tau), max_iter=int(max_iter),
@@ -1816,7 +1983,8 @@ def fit_portrait(port, model, noise_stds, freqs, P, nu_fit=None, nu_out=None,
     use_scatter = (bool(fit_flags[3]) or bool(fit_flags[4])
                    or float(tau0) != 0.0)
     r = _fit_portrait_core(
-        rfft_c(port_t.to(dt))[None], rfft_c(_as_tensor(model, dt, dev)), w,
+        rfft_c_rows(port_t.to(dt))[None],
+        rfft_c_rows(_as_tensor(model, dt, dev)), w,
         freqs_t, _as_tensor(P, dt, dev).reshape(1),
         _as_tensor(nu_fit, dt, dev).reshape(1),
         _nu_out_tensor(nu_out, 1, dt, dev), theta0,
@@ -1832,7 +2000,8 @@ def fit_portrait(port, model, noise_stds, freqs, P, nu_fit=None, nu_out=None,
 # ---------------------------------------------------------------------------
 # scattering-timescale seeds
 
-def estimate_tau_batch(ports, models, noise_stds, chan_masks=None):
+def estimate_tau_batch(ports, models, noise_stds, chan_masks=None,
+                       fit_fused=None):
     """Seed-quality broadband scattering timescales [rot], (B,), on the
     ports' device: the channel-summed weighted cross-spectrum amplitude
     ratio q(k) = sum_n w|d conj(m)| / sum_n w|m|^2, the analytic Rice
@@ -1843,23 +2012,46 @@ def estimate_tau_batch(ports, models, noise_stds, chan_masks=None):
     argmin.  Unscattered data return the neutral half-bin seed.
 
     ports (B, nchan, nbin); models shared (nchan, nbin) or per element;
-    noise_stds/chan_masks (B, nchan)."""
+    noise_stds/chan_masks (B, nchan).  fit_fused None -> on where an
+    unwindowed fit takes the fused kernels (full_spectrum_window: CUDA
+    with the fused lane on; the CPU keeps the JAX package's matmul
+    DFT).  On, the three channel sums come from B1's
+    want_m2 form at every harmonic (w|d conj(m)| = |(Xr, Xi)|, w|m|^2 =
+    M2w, sqrt(w)|m| = sqrt(M2w)), which transforms each row alone, so a
+    subint's seed does not depend on its bucket; off, from two matmul
+    DFTs (rfft_mm), whose cuBLAS GEMM rounds by the row count."""
     dt = ports.dtype
     nbin = ports.shape[-1]
     nharm = nbin // 2 + 1
     tiny = _tiny(dt)
     w = make_weights(noise_stds.to(dt), nbin, chan_masks, dtype=dt)
-    dr, di = rfft_mm(ports)
-    mr, mi = rfft_mm(models.to(dt))
-    mabs = torch.sqrt(mr**2.0 + mi**2.0)
-    Xa = torch.sqrt((dr * mr + di * mi) ** 2.0 + (di * mr - dr * mi) ** 2.0)
-    del dr, di
-    # one product at a time: Xa goes before the other two are built
-    num = chan_sum(w * Xa, -2)
-    del Xa
-    den = chan_sum(w * mabs**2.0, -2)
-    fl = chan_sum(torch.sqrt(w) * mabs, -2)
-    del w
+    if fit_fused is None:
+        fit_fused = full_spectrum_window(nbin, ports.device) is not None
+    if fit_fused:
+        from ..ops.fused import fused_cross_spectrum
+
+        Xr, Xi, M2w = fused_cross_spectrum(
+            ports.contiguous(), models.to(dt).contiguous(), w.contiguous(),
+            nharm, want_m2=True)
+        del w
+        num = chan_sum(torch.sqrt(Xr**2.0 + Xi**2.0), -2)
+        del Xr, Xi
+        den = chan_sum(M2w, -2)
+        fl = chan_sum(torch.sqrt(M2w), -2)
+        del M2w
+    else:
+        dr, di = rfft_mm(ports)
+        mr, mi = rfft_mm(models.to(dt))
+        mabs = torch.sqrt(mr**2.0 + mi**2.0)
+        Xa = torch.sqrt((dr * mr + di * mi) ** 2.0
+                        + (di * mr - dr * mi) ** 2.0)
+        del dr, di
+        # one product at a time: Xa goes before the other two are built
+        num = chan_sum(w * Xa, -2)
+        del Xa
+        den = chan_sum(w * mabs**2.0, -2)
+        fl = chan_sum(torch.sqrt(w) * mabs, -2)
+        del w
     den_safe = torch.clamp(den, min=tiny)
     q = num / den_safe
     floor = math.sqrt(math.pi / 2.0) * fl / den_safe

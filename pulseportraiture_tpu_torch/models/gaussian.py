@@ -107,6 +107,11 @@ class GaussianModel:
                 for k in ("dc", "tau", "alpha", "locs", "wids", "amps",
                           "mlocs", "mwids", "mamps")}
 
+    def params_pytree(self, device=None, dtype=torch.float64):
+        """The JAX package's name for params(): the parameters as a dict
+        of tensors (the counterpart of its pytree of jnp arrays)."""
+        return self.params(device, dtype)
+
 
 def _family(params, name):
     return params[name][..., None, :]

@@ -13,8 +13,30 @@ interface, rfft_c / irfft_c (torch.fft), as the JAX package's do off
 the TPU.  The split-real interface of the align accumulate, rfft_sr /
 irfft_sr, is torch.fft too: the JAX package's matmul arm of it exists
 for TPUs only, whose programs cannot hold complex values.
+
+dft_precision: 'highest' computes full float32 products everywhere.
+On CUDA, 'high' and 'default' run the matmul DFTs' products in TF32
+(what XLA gives these settings on a GPU), with
+``torch.backends.cuda.matmul.allow_tf32`` set for the call and restored
+after it; on the CPU all three are full float32, as the JAX package's
+CPU backend computes them.  The fused kernels (ops.fused) and the
+torch.fft transforms take no tensor-core arm and compute every setting
+in full precision.
+
+Batch invariance: a cuBLAS GEMM picks its kernel, and so its rounding,
+by the row count, so a matmul DFT of one row and of the same row among
+many differ in their last bits.  rfft_mm_invariant / irfft_mm_invariant
+run the rows through GEMMs of one fixed shape (ROW_BLOCK rows,
+zero-padded), so a row's bits do not depend on how many rows share
+the call; the fast lanes take them on CUDA where a DFT's row count
+follows the batch (fit.portrait's CCF seed, pipeline.stream's
+re-dispersion), and rfft_c_rows / irfft_c_rows give the complex engine
+and narrowband the same through complex spectra (cuFFT's plan, and its
+rounding, follows the batch count too), computed in float64 and rounded
+once to the input's precision.
 """
 
+import contextlib
 from functools import lru_cache
 
 import numpy as np
@@ -25,30 +47,55 @@ from ..device import resolve_auto
 
 __all__ = ["rfft_mm", "irfft_mm", "rfft_c", "irfft_c", "rfft_sr",
            "irfft_sr", "use_dft_fold", "check_dft_precision",
-           "device_weights"]
+           "device_weights", "rfft_mm_invariant", "irfft_mm_invariant",
+           "rfft_c_invariant", "irfft_c_invariant", "rfft_c_rows",
+           "irfft_c_rows", "matmul_rows_invariant", "ROW_BLOCK",
+           "CHANNEL_ROW_BLOCK"]
+
+# Rows per GEMM of the batch-invariant matmul DFT (matmul_rows_invariant):
+# every GEMM it issues is (block, n) @ (n, m).  ROW_BLOCK where a row is
+# a subint (the CCF seeds), CHANNEL_ROW_BLOCK where a row is a channel of
+# a subint (spectra, the re-dispersion rotation, narrowband's CCF).
+# Chosen on the card (tools/fit_batch_invariance.py, PERF.md PR 18).
+ROW_BLOCK = 64
+CHANNEL_ROW_BLOCK = 512
 
 
 def _dtype_str(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def check_dft_precision(precision, device):
-    """Validate config.dft_precision (or an explicit value) for a DFT on
-    ``device``.  On the CPU all three settings compute full float32
-    products, as the JAX package's CPU backend does.  On CUDA only
-    'highest' (full FP32, no TF32) is implemented: 'high' and 'default'
-    raise rather than compute something else."""
+def check_dft_precision(precision=None):
+    """Validate config.dft_precision (or an explicit value): one of
+    'highest', 'high', 'default'; returns it lower-cased.  On CUDA,
+    'high' and 'default' run the matmul DFTs in TF32
+    (matmul_precision); elsewhere every setting is full float32."""
     name = str(config.dft_precision if precision is None
                else precision).lower()
     if name not in ("highest", "high", "default"):
         raise ValueError(
             f"config.dft_precision must be 'highest', 'high' or "
             f"'default', got {name!r}")
-    if name != "highest" and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"dft_precision={name!r} has no CUDA arm yet (tensor-core "
-            "TF32/bf16 DFTs are queued in ROADMAP.md); use 'highest'")
     return name
+
+
+@contextlib.contextmanager
+def matmul_precision(precision, device):
+    """The matmul DFTs' product precision for one call: on a CUDA
+    device, 'high' and 'default' (config.dft_precision when None) allow
+    TF32 in cuBLAS float32 GEMMs and restore the process's setting on
+    exit; 'highest', and every setting off CUDA, leave it as it is."""
+    name = check_dft_precision(precision)
+    if name == "highest" or torch.device(device).type != "cuda":
+        yield name
+        return
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    flags.allow_tf32 = True
+    try:
+        yield name
+    finally:
+        flags.allow_tf32 = prev
 
 
 # host numpy caches, built in float64 and cast (the JAX package's
@@ -104,8 +151,22 @@ def _fft_twiddles(n, dtype_str):
     return (np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(dtype_str),)
 
 
+@lru_cache(maxsize=None)
+def _rfft_pair(n):
+    """(W,): the (n, 2 (n // 2 + 1)) float64 [Wc | Ws] of rfft_c_invariant:
+    Re and Im of the spectrum from one GEMM."""
+    return (np.concatenate(_rfft_weights(n, "float64"), axis=1),)
+
+
+@lru_cache(maxsize=None)
+def _irfft_pair(nharm, n):
+    """(V,): the (2 nharm, n) float64 [Vc ; Vs] of irfft_c_invariant."""
+    return (np.concatenate(_irfft_weights(nharm, n, "float64"), axis=0),)
+
+
 _HOST_WEIGHTS = {"rfft": _rfft_weights, "fold": _rfft_fold_weights,
-                 "irfft": _irfft_weights, "fft": _fft_twiddles}
+                 "irfft": _irfft_weights, "fft": _fft_twiddles,
+                 "rfft_pair": _rfft_pair, "irfft_pair": _irfft_pair}
 _device_cache = {}
 
 
@@ -129,49 +190,166 @@ def use_dft_fold(device):
                         label="config.dft_fold")
 
 
-def rfft_mm(x, precision=None, nharm=None, fold=None):
-    """Real DFT of the last axis via matmul: (..., n) -> two (..., nharm)
-    tensors (Re, Im); nharm defaults to the full n//2+1.  fold None ->
-    config.dft_fold (the half-length fold-symmetry contraction)."""
-    check_dft_precision(precision, x.device)
+def _matmul(x, W, block):
+    """x @ W over the last axis: one torch.matmul (block None) or
+    matmul_rows_invariant."""
+    if block is None:
+        return torch.matmul(x, W)
+    return matmul_rows_invariant(x, W, block)
+
+
+def matmul_rows_invariant(x, W, block=None, out_dtype=None):
+    """x (..., n) @ W (n, m) with every GEMM of one shape: the rows
+    (all leading axes flattened) go through (block, n) @ (n, m) GEMMs,
+    the last block zero-padded, so a row's bits do not depend on the row
+    count (a single GEMM of R rows lets cuBLAS pick its kernel by R).
+    block None -> ROW_BLOCK.  No torch.bmm: a batched GEMM rounds by its
+    batch count too.  With W wider than x (float64 twiddles for float32
+    rows) each block is widened, multiplied in W's dtype and rounded
+    once to out_dtype (None: x's dtype)."""
+    block = int(ROW_BLOCK if block is None else block)
+    if block < 1:
+        raise ValueError(f"block must be a positive int; got {block}")
+    lead, n = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, n).contiguous()
+    M, m = rows.shape[0], W.shape[-1]
+    out = rows.new_empty((M, m), dtype=out_dtype or rows.dtype)
+    direct = rows.dtype == W.dtype == out.dtype
+    for lo in range(0, M, block):
+        hi = min(lo + block, M)
+        if direct and hi - lo == block:
+            torch.matmul(rows[lo:hi], W, out=out[lo:hi])
+            continue
+        a = rows.new_zeros((block, n), dtype=W.dtype)
+        a[:hi - lo] = rows[lo:hi]
+        out[lo:hi] = torch.matmul(a, W)[:hi - lo]
+    return out.reshape(lead + (m,))
+
+
+def _rfft(x, precision, nharm, fold, block):
     n = x.shape[-1]
     if fold is None:
         fold = use_dft_fold(x.device)
     dts = _dtype_str(x.dtype)
-    if fold and n % 2 == 0 and n >= 8:
-        Wc_h, Ws_h, sgn = device_weights("fold", x.device, n, dts, nharm)
-        head = x[..., 1:n // 2]
-        tail = torch.flip(x[..., n // 2 + 1:], dims=(-1,))
-        dr = (torch.matmul(head + tail, Wc_h)
-              + x[..., 0:1] + x[..., n // 2:n // 2 + 1] * sgn)
-        di = torch.matmul(head - tail, Ws_h)
-        return dr, di
-    Wc, Ws = device_weights("rfft", x.device, n, dts, nharm)
-    return torch.matmul(x, Wc), torch.matmul(x, Ws)
+    with matmul_precision(precision, x.device):
+        if fold and n % 2 == 0 and n >= 8:
+            Wc_h, Ws_h, sgn = device_weights("fold", x.device, n, dts, nharm)
+            head = x[..., 1:n // 2]
+            tail = torch.flip(x[..., n // 2 + 1:], dims=(-1,))
+            dr = (_matmul(head + tail, Wc_h, block)
+                  + x[..., 0:1] + x[..., n // 2:n // 2 + 1] * sgn)
+            di = _matmul(head - tail, Ws_h, block)
+            return dr, di
+        Wc, Ws = device_weights("rfft", x.device, n, dts, nharm)
+        return _matmul(x, Wc, block), _matmul(x, Ws, block)
 
 
-def irfft_mm(Xr, Xi, n=None, precision=None):
-    """Inverse of rfft_mm: two (..., nharm) tensors -> (..., n)."""
-    check_dft_precision(precision, Xr.device)
+def _irfft(Xr, Xi, n, precision, block):
     nharm = Xr.shape[-1]
     if n is None:
         n = 2 * (nharm - 1)
     Vc, Vs = device_weights("irfft", Xr.device, nharm, n,
                             _dtype_str(Xr.dtype))
-    return torch.matmul(Xr, Vc) + torch.matmul(Xi, Vs)
+    with matmul_precision(precision, Xr.device):
+        return _matmul(Xr, Vc, block) + _matmul(Xi, Vs, block)
 
 
-def rfft_c(x):
+def rfft_mm(x, precision=None, nharm=None, fold=None):
+    """Real DFT of the last axis via matmul: (..., n) -> two (..., nharm)
+    tensors (Re, Im); nharm defaults to the full n//2+1.  fold None ->
+    config.dft_fold (the half-length fold-symmetry contraction)."""
+    return _rfft(x, precision, nharm, fold, None)
+
+
+def irfft_mm(Xr, Xi, n=None, precision=None):
+    """Inverse of rfft_mm: two (..., nharm) tensors -> (..., n)."""
+    return _irfft(Xr, Xi, n, precision, None)
+
+
+def rfft_mm_invariant(x, precision=None, nharm=None, fold=None,
+                      block=None):
+    """rfft_mm with every GEMM of one shape (matmul_rows_invariant): a
+    row's bits are the same whatever the number of rows."""
+    return _rfft(x, precision, nharm, fold,
+                 ROW_BLOCK if block is None else block)
+
+
+def irfft_mm_invariant(Xr, Xi, n=None, precision=None, block=None):
+    """irfft_mm with every GEMM of one shape (matmul_rows_invariant)."""
+    return _irfft(Xr, Xi, n, precision,
+                  ROW_BLOCK if block is None else block)
+
+
+def rfft_c_invariant(x, precision=None, block=None):
+    """rfft_c as GEMMs of one shape (matmul_rows_invariant, block None:
+    ROW_BLOCK), so a row's spectrum has the same bits whatever the number
+    of rows (cuFFT picks its plan, and its rounding, by the batch count).
+    The products and sums run in float64 against float64 twiddles
+    (Re and Im in one GEMM) and the spectrum is rounded once to x's
+    precision: a float32 DFT summed in float32 over n terms would carry
+    ~sqrt(n) roundings, more than cuFFT's ~log2(n).  precision is
+    checked and changes nothing (no TF32 arm).  Complex (..., n // 2 +
+    1) in x's complex dtype."""
+    check_dft_precision(precision)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.float()
+    n = x.shape[-1]
+    W, = device_weights("rfft_pair", x.device, n)
+    out = matmul_rows_invariant(x, W, block, out_dtype=x.dtype)
+    return torch.complex(out[..., :n // 2 + 1], out[..., n // 2 + 1:])
+
+
+def irfft_c_invariant(X, n=None, precision=None, block=None):
+    """irfft_c as GEMMs of one shape, in float64 as rfft_c_invariant: the
+    spectrum zero-padded or cut to n // 2 + 1 harmonics, as
+    torch.fft.irfft does."""
+    check_dft_precision(precision)
+    nharm = X.shape[-1]
+    if n is None:
+        n = 2 * (nharm - 1)
+    keep = min(nharm, n // 2 + 1)
+    V, = device_weights("irfft_pair", X.device, keep, n)
+    rows = torch.cat([X.real[..., :keep], X.imag[..., :keep]], dim=-1)
+    return matmul_rows_invariant(rows, V, block, out_dtype=rows.dtype)
+
+
+def rfft_c_rows(x, precision=None, block=None):
+    """The complex engine's and narrowband's spectra: on CUDA
+    rfft_c_invariant (block None: CHANNEL_ROW_BLOCK), so a subint's
+    spectrum does not depend on its batch (cuFFT's plan rounds by the
+    batch count, ROADMAP C8); elsewhere rfft_c, the JAX package's
+    torch.fft."""
+    if x.device.type == "cuda":
+        return rfft_c_invariant(x, precision, CHANNEL_ROW_BLOCK
+                                if block is None else block)
+    return rfft_c(x, precision)
+
+
+def irfft_c_rows(X, n=None, precision=None, block=None):
+    """irfft_c for the fit lanes' CCFs: on CUDA irfft_c_invariant (block
+    None: ROW_BLOCK), elsewhere irfft_c."""
+    if X.device.type == "cuda":
+        return irfft_c_invariant(X, n, precision,
+                                 ROW_BLOCK if block is None else block)
+    return irfft_c(X, n, precision)
+
+
+def rfft_c(x, precision=None):
     """numpy-convention rfft of the last axis as a complex tensor
-    (torch.fft; bfloat16 and float16 inputs are taken in float32)."""
+    (torch.fft; bfloat16 and float16 inputs are taken in float32).
+    precision is checked as for the matmul DFTs (the JAX signature) and
+    changes nothing here: cuFFT has no TF32 arm."""
+    check_dft_precision(precision)
     if x.dtype in (torch.bfloat16, torch.float16):
         x = x.float()
     return torch.fft.rfft(x, dim=-1)
 
 
-def irfft_c(X, n=None):
+def irfft_c(X, n=None, precision=None):
     """Inverse of rfft_c: complex (..., nharm) -> real (..., n), the
-    spectrum zero-padded or cut to n // 2 + 1 harmonics."""
+    spectrum zero-padded or cut to n // 2 + 1 harmonics.  precision as
+    rfft_c's."""
+    check_dft_precision(precision)
     return torch.fft.irfft(X, n=n, dim=-1)
 
 
@@ -180,12 +358,12 @@ def rfft_sr(x, precision=None):
     (..., n//2+1) real, through torch.fft (the JAX package's arm for
     backends with a working FFT).  precision is checked as for the
     matmul DFTs and changes nothing here."""
-    check_dft_precision(precision, x.device)
+    check_dft_precision(precision)
     X = torch.fft.rfft(x, dim=-1)
     return X.real, X.imag
 
 
 def irfft_sr(Xr, Xi, n=None, precision=None):
     """Inverse of rfft_sr: (Re, Im) -> (..., n) real."""
-    check_dft_precision(precision, Xr.device)
+    check_dft_precision(precision)
     return torch.fft.irfft(torch.complex(Xr, Xi), n=n, dim=-1)

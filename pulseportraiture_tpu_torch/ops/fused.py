@@ -41,6 +41,7 @@ import ctypes
 import hashlib
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -66,11 +67,15 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SOURCES = [os.path.join(_CSRC, "fused_cross_spectrum.cu"),
             os.path.join(_CSRC, "fused_decode_cross_spectrum.cu")]
-# included by both sources; their digest is a build flag, so editing a
-# header rebuilds the library
+# included by both sources; they are part of the build's digest, so
+# editing a header builds a new library
 _HEADERS = [os.path.join(_CSRC, "fcs_gemm.cuh"),
             os.path.join(_CSRC, "fft_smem.cuh")]
-BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
+# where build_kernels keeps the library, one subdirectory per digest of
+# its sources, headers and flags; utils.device.enable_compile_cache
+# (--compile-cache, PPT_COMPILE_CACHE) points it at a shared directory
+DEFAULT_BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 # the FFT arm's range of nbin (csrc/fft_smem.cuh FFT_MIN_LOGN,
 # FFT_MAX_LOGN), in float32 and float64
@@ -201,36 +206,56 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
+def _build_digest(flags):
+    """sha1 of the kernels' sources, headers, flags and the CUDA build
+    of torch: the name of the library's directory under BUILD_DIR."""
+    digest = hashlib.sha1()
+    for path in _SOURCES + _HEADERS:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(flags).encode())
+    digest.update(str(torch.version.cuda).encode())
+    return digest.hexdigest()[:16]
+
+
+# how the last build_kernels call of this process got its library:
+# {"dir": ..., "cached": True when it loaded a library already built
+# there (no nvcc), "seconds": the call's wall}
+build_info = {}
+
+
 def build_kernels(verbose=False):
     """Compile the kernels' sources (csrc/*.cu, one object each, built in
     parallel; both include csrc/fcs_gemm.cuh and csrc/fft_smem.cuh) for
-    sm_90a with torch.utils.cpp_extension.load into BUILD_DIR as one
-    library, and bind its plain C interface with ctypes.  No source
-    includes PyTorch headers, so the build takes seconds.  Idempotent
-    per process; load() rebuilds when a source, a header (through the
-    digest flag) or the flags change.  verbose prints ptxas's register,
-    shared-memory and spill report (-Xptxas=-v is always passed, so a
-    verbose and a quiet build of the same sources are one build, and a
-    second process loads the library the first one built)."""
+    sm_90a with torch.utils.cpp_extension.load as one library, and bind
+    its plain C interface with ctypes.  No source includes PyTorch
+    headers, so the build takes seconds.  The library lives in
+    BUILD_DIR/<digest of the sources, headers, flags and torch's CUDA>:
+    a process that finds it there loads it without calling the builder
+    (the compile cache, utils.device.enable_compile_cache), and an
+    edited source or header builds into a new directory.  Idempotent
+    per process.  verbose prints ptxas's register, shared-memory and
+    spill report (-Xptxas=-v is always passed, so a verbose and a quiet
+    build of the same sources are one build)."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        from torch.utils.cpp_extension import load
-
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        digest = hashlib.sha1()
-        for path in _HEADERS:
-            with open(path, "rb") as f:
-                digest.update(f.read())
+        t0 = time.perf_counter()
         flags = ["-O3", "-gencode=arch=compute_90a,code=sm_90a",
-                 f"-DPPT_HEADERS_SHA1={digest.hexdigest()[:16]}",
                  "-Xptxas=-v"]
         name = "ppt_fused_kernels"
-        load(name=name, sources=_SOURCES, extra_cuda_cflags=flags,
-             build_directory=BUILD_DIR, verbose=verbose, with_cuda=True,
-             is_python_module=False)
-        lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"{name}.so"))
+        out_dir = os.path.join(BUILD_DIR, _build_digest(flags))
+        so = os.path.join(out_dir, f"{name}.so")
+        cached = os.path.exists(so) and not verbose
+        if not cached:
+            from torch.utils.cpp_extension import load
+
+            os.makedirs(out_dir, exist_ok=True)
+            load(name=name, sources=_SOURCES, extra_cuda_cflags=flags,
+                 build_directory=out_dir, verbose=verbose, with_cuda=True,
+                 is_python_module=False)
+        lib = ctypes.CDLL(so)
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         argtypes = {
             "ppt_fcs_spectrum": [vp, i64, i32, vp, vp, vp, i32, i32, i32,
@@ -254,6 +279,9 @@ def build_kernels(verbose=False):
                 fn = getattr(lib, f"{stem}_{sfx}")
                 fn.restype = i32
                 fn.argtypes = args
+        build_info.clear()
+        build_info.update({"dir": out_dir, "cached": cached,
+                           "seconds": time.perf_counter() - t0})
         _lib = lib
         return _lib
 
@@ -286,6 +314,25 @@ def _gemm_weights(fold, device, nbin, dts, K):
     return Wc, Ws, sgn, Wc.shape[0], fold
 
 
+def _pad_chan(t, dim=-2):
+    """t with one zero channel appended along ``dim``."""
+    shape = list(t.shape)
+    shape[dim] = 1
+    return torch.cat([t, t.new_zeros(shape)], dim=dim).contiguous()
+
+
+def _odd_batch(arm, batch, nchan):
+    """Whether a call must pad each subint to an even channel count: the
+    FFT arm transforms real rows two at a time (one complex FFT, rows 2g
+    and 2g + 1 of the flattened batch), and a pair's rounding depends on
+    both of its rows, so at an odd channel count a subint's last channel
+    would pair with the next subint's first and its bits would depend on
+    the batch.  With one zero channel per subint every pair stays within
+    its subint (ROADMAP C8)."""
+    return arm == "fft" and nchan % 2 == 1 and len(batch) > 0 \
+        and int(np.prod(batch)) > 1
+
+
 def _check(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
@@ -300,10 +347,13 @@ def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
     with the cross-spectrum and the S0 row sum (or M2w) formed in its
     epilogue.  arm None takes the shape rule of :func:`fft_arm`; 'gemm'
     forces the GEMM arm, 'fft' asserts the FFT arm.  fold shapes only
-    the GEMM arm.  CUDA float32/float64 tensors only; dft_precision must
-    be 'highest' (full FP32 products)."""
+    the GEMM arm.  CUDA float32/float64 tensors only.  dft_precision is
+    checked and computes full FP32 products in every setting (an FFT has
+    no TF32 arm).  At an odd channel count with a batch, each subint is
+    padded with one zero channel on the FFT arm (_odd_batch), so its bits
+    do not depend on its neighbours."""
     name = "fused_cross_spectrum_cuda"
-    check_dft_precision(precision, port.device)
+    check_dft_precision(precision)
     if port.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors")
     dt = port.dtype
@@ -339,6 +389,14 @@ def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
                          f"({nchan}, {K}) nor the port's batch + "
                          f"({nchan}, {K})")
     arm = _resolve_arm(arm, nbin, K, name)
+    if _odd_batch(arm, batch, nchan):
+        Xr, Xi, o2 = fused_cross_spectrum_cuda(
+            _pad_chan(port), _pad_chan(model), _pad_chan(w), K,
+            precision=precision, fold=fold, want_m2=want_m2, arm=arm)
+        keep = (slice(None),) * (Xr.dim() - 2) + (slice(0, nchan),)
+        return (Xr[keep].contiguous(), Xi[keep].contiguous(),
+                o2[keep].contiguous() if want_m2
+                else o2[..., :nchan].contiguous())
     dts = _dtype_str(dt)
     lib = build_kernels()
     sfx = "f32" if dt == torch.float32 else "f64"
@@ -487,12 +545,13 @@ def fused_decode_cross_spectrum_cuda(raw, scl, offs, model, w, nharm, *,
     stages them.  arm None takes the shape rule; 'gemm' forces the GEMM
     arm, 'fft' asserts the FFT arm.  fold shapes only the GEMM arm.
     CUDA tensors only; the compute dtype (w's) is float32 or float64;
-    dft_precision must be 'highest'."""
+    dft_precision as B1's (full FP32 products); an odd channel count
+    with a batch is padded as B1's (_odd_batch)."""
     name = "fused_decode_cross_spectrum_cuda"
     dt = w.dtype
     nbit, bpc, M, scl, offs = _packed_args(raw, scl, offs, code, nbin, dt,
                                            name)
-    check_dft_precision(precision, raw.device)
+    check_dft_precision(precision)
     nchan = raw.shape[-2]
     batch = raw.shape[:-2]
     K = int(nharm)
@@ -511,6 +570,14 @@ def fused_decode_cross_spectrum_cuda(raw, scl, offs, model, w, nharm, *,
                          f"({nchan}, {K}) nor the rows' batch + "
                          f"({nchan}, {K})")
     arm = _resolve_arm(arm, nbin, K, name)
+    if _odd_batch(arm, batch, nchan):
+        outs = fused_decode_cross_spectrum_cuda(
+            _pad_chan(raw), _pad_chan(scl, -1), _pad_chan(offs, -1),
+            _pad_chan(model), _pad_chan(w), K, code=code, nbin=nbin,
+            precision=precision, fold=fold, arm=arm)
+        keep = (slice(None),) * (outs[0].dim() - 2) + (slice(0, nchan),)
+        return (outs[0][keep].contiguous(), outs[1][keep].contiguous(),
+                *(o[..., :nchan].contiguous() for o in outs[2:]))
     dts = _dtype_str(dt)
     lib = build_kernels()
     sfx = "f32" if dt == torch.float32 else "f64"

@@ -98,7 +98,8 @@ from ..io.tim import TOA, write_TOAs
 from ..obs.metrics import record_h2d
 from ..ops.decode import (PACKED_BITS, RAW_CODES, decode_stokes_I,
                           decode_transport)
-from ..ops.fourier import irfft_mm, rfft_mm, use_dft_fold
+from ..ops.fourier import (CHANNEL_ROW_BLOCK, irfft_mm, irfft_mm_invariant,
+                           rfft_mm, rfft_mm_invariant, use_dft_fold)
 from ..ops.noise import get_noise_PS, get_SNR
 from ..telemetry import NULL_TRACER, finite, log, resolve_tracer
 from ..utils.bunch import DataBunch
@@ -128,6 +129,7 @@ _DONE_PREFIX = "C ppt-done "
 # checkpoint writes of everything after it.  The trigger depends only on
 # the fill sequence, never on completion timing or the device count.
 CKPT_STALENESS_HORIZON = 8
+
 
 
 def checkpoint_completed(path):
@@ -206,13 +208,16 @@ class _Bucket:
         self.key = None             # the executor's bucket key
         self.lane = None            # the lane that prepared its subints
 
-    def harmonic_window(self):
-        """The template's harmonic window, derived once per bucket per
-        config.fit_harmonic_window value (a host rfft of the template)."""
-        key = config.fit_harmonic_window
+    def harmonic_window(self, device=None):
+        """The template's harmonic window for a fit on ``device``,
+        derived once per bucket per (config.fit_harmonic_window value,
+        device) (a host rfft of the template); where it resolves to no
+        window, every harmonic through the fused kernels on CUDA
+        (fit.portrait.full_spectrum_window)."""
+        key = (config.fit_harmonic_window, str(device))
         if key != self._hwin_key:
             self._hwin = resolve_harmonic_window(None, self.modelx,
-                                                 self.nbin)
+                                                 self.nbin, device)
             self._hwin_key = key
         return self._hwin
 
@@ -383,6 +388,11 @@ class _StreamExecutor:
                  resume=False, skip_archives=None, quiet=False,
                  stream_devices=None, tracer=None, pipeline_depth=None,
                  service=False):
+        from ..utils.device import enable_compile_cache
+
+        # the kernels' shared build directory (config.compile_cache_dir /
+        # PPT_COMPILE_CACHE); a no-op when unset
+        enable_compile_cache()
         self.lane = lane
         self.nsub_batch = int(nsub_batch)
         if max_inflight is None:
@@ -916,8 +926,17 @@ def _raw_decode(raw, scl, offs, nbin, ft, redisp=False, redisp_turns=None,
         k = torch.arange(nbin // 2 + 1, dtype=ft, device=x.device)
         ang = -2.0 * np.pi * redisp_turns.to(ft)[..., None] * k
         c, s = torch.cos(ang), torch.sin(ang)
-        Xr, Xi = rfft_mm(x, fold=dft_fold)
-        x = irfft_mm(Xr * c - Xi * s, Xr * s + Xi * c, nbin)
+        # one GEMM shape on CUDA whatever the bucket's size, so a
+        # subint's rotated rows have the same bits alone or in a batch
+        # (ROADMAP C8); the CPU keeps the JAX package's matmul DFT
+        if x.device.type == "cuda":
+            Xr, Xi = rfft_mm_invariant(x, fold=dft_fold,
+                                       block=CHANNEL_ROW_BLOCK)
+            x = irfft_mm_invariant(Xr * c - Xi * s, Xr * s + Xi * c, nbin,
+                                   block=CHANNEL_ROW_BLOCK)
+        else:
+            Xr, Xi = rfft_mm(x, fold=dft_fold)
+            x = irfft_mm(Xr * c - Xi * s, Xr * s + Xi * c, nbin)
     return x
 
 
@@ -1384,7 +1403,7 @@ def _launch(bucket, nu_ref_DM, max_iter, nsub_batch, pipeline,
     ir_FT = bucket.ir_FT
     use_fast = use_fast_fit_default(device)
     # only the fast lanes band-limit; the complex engine never does
-    hwin = bucket.harmonic_window() if use_fast else None
+    hwin = bucket.harmonic_window(device) if use_fast else None
     ft, ft_np = ((torch.float32, np.float32) if use_fast
                  else (torch.float64, np.float64))
     put = pipeline.put

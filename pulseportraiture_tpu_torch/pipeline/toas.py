@@ -314,6 +314,11 @@ class GetTOAs:
     """
 
     def __init__(self, datafiles, modelfile, quiet=False, device=None):
+        from ..utils.device import enable_compile_cache
+
+        # the kernels' shared build directory (config.compile_cache_dir /
+        # PPT_COMPILE_CACHE / pptoas --compile-cache); a no-op when unset
+        enable_compile_cache()
         self.device = resolve_device(device)
         if isinstance(datafiles, str):
             if _is_metafile(datafiles):
@@ -844,8 +849,8 @@ class GetTOAs:
             show=show, savefig=savefig or None, device=self.device)
 
     def get_channels_to_zap(self, SNR_threshold=8.0, rchi2_threshold=1.3,
-                            iterate=True, show=False, zap_device=None,
-                            telemetry=None):
+                            iterate=True, show=False, device=None,
+                            telemetry=None, zap_device=None):
         """Flag channels with bad per-channel reduced chi2 or low S/N
         (reference pptoas.py:1266-1343).  Requires get_TOAs() results;
         fills self.zap_channels as [archive][subint] index lists.
@@ -859,9 +864,16 @@ class GetTOAs:
         flags the same channels.  telemetry: a trace path or Tracer; one
         ``zap_propose`` per archive.  show: draw show_fit for every subint
         with a flagged channel (the JAX package accepts show and draws
-        nothing)."""
+        nothing).  device: the JAX package's name of the same tri-state
+        (the torch device is self.device); give one of the two."""
         from .zap import resolve_zap_device
 
+        if device is not None and zap_device is not None \
+                and device != zap_device:
+            raise ValueError("get_channels_to_zap: device and zap_device "
+                             "name one tri-state; got both, differing")
+        if zap_device is None:
+            zap_device = device
         use_device = resolve_zap_device(zap_device, self.device)
         dev = self.device
         tracer, own_tracer = resolve_tracer(telemetry,

@@ -62,14 +62,13 @@ IDENTITY_TIER = (
     Knob("fit_harmonic_window", ("auto", None)),
 )
 
-# Numerics tier: the JAX package's without dft_precision.  On a CUDA
-# device the matmul DFT implements 'highest' only, and
-# ops.fourier.check_dft_precision raises for 'default' (reached from
-# the fused lanes), so a numerics sweep on the card would die on that
-# candidate; the sweep swallows no error, so the knob is left out.  It
-# returns with a TF32/bfloat16 arm of the DFT (ROADMAP A4).
+# Numerics tier: the JAX package's.  On a CUDA device dft_precision
+# 'default' runs the matmul DFTs' products in TF32 (ops.fourier
+# .matmul_precision); the fused kernels compute every setting in full
+# precision.
 NUMERICS_TIER = (
     Knob("cross_spectrum_dtype", ("bfloat16", None)),
+    Knob("dft_precision", ("highest", "default")),
 )
 
 

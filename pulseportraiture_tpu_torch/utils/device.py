@@ -10,15 +10,79 @@ dispatch per (manifest shape x device) through the stream's real launch
 path (``pipeline/stream._launch``) on synthetic rows, through the
 caller's own device pipelines when it passes them (a server passes its
 executor's, so the allocator blocks, streams and worker threads it
-warms are the ones the requests use).  ``PPT_COMPILE_CACHE`` has no
-counterpart: the kernels' build directory is already persistent.
+warms are the ones the requests use).
+
+The port's one compiled artefact is the library of its hand kernels
+(ops/fused.build_kernels, built by nvcc at a process's first launch).
+:func:`enable_compile_cache` (``config.compile_cache_dir``,
+``PPT_COMPILE_CACHE``, ``pptoas`` / ``ppserve --compile-cache``) routes
+its build directory to a shared one, so a restarted replica, or a fresh
+host on the same checkout, loads the library built there instead of
+running nvcc again.  :func:`host_compute` and :func:`on_host` place
+torch work on the CPU, as the JAX package's helpers do for jnp.
 """
 
+import functools
+import os
 import time
 
 import numpy as np
+import torch
 
-__all__ = ["warmup_from_manifest"]
+__all__ = ["warmup_from_manifest", "host_compute", "on_host",
+           "enable_compile_cache"]
+
+
+def host_compute():
+    """Context manager making the CPU torch's default device for the
+    tensors created inside it (torch.device('cpu') as a context), the
+    counterpart of the JAX package's host placement: small offline
+    computations (phasors, 1-D guesses) that are cheaper on the host
+    than one device dispatch."""
+    return torch.device("cpu")
+
+
+def on_host(fn):
+    """Decorator: run the whole function under host_compute()."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with host_compute():
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+_compile_cache_dir = None  # what enable_compile_cache last applied
+
+
+def enable_compile_cache(path=None):
+    """Route the hand kernels' build directory (ops.fused.BUILD_DIR) to
+    ``path`` (None = ``config.compile_cache_dir``), created on demand.
+    The library is kept there under a digest of its sources, headers
+    and flags (ops.fused.build_kernels), so every process that points
+    at the directory loads the library the first one built, and a
+    changed source builds beside it.  A false path ('' / None with no
+    config value) unconfigures: the build directory goes back to the
+    default (``build/torch_kernels`` in the checkout).  Returns the
+    applied directory, or None when unconfigured.  Idempotent; takes
+    effect at the process's next build (a library already loaded in
+    this process stays)."""
+    global _compile_cache_dir
+    from .. import config
+    from ..ops import fused
+
+    if path is None:
+        path = config.compile_cache_dir
+    if not path:
+        if _compile_cache_dir is not None:
+            fused.BUILD_DIR = fused.DEFAULT_BUILD_DIR
+            _compile_cache_dir = None
+        return None
+    path = os.path.abspath(str(path))
+    if path != _compile_cache_dir:
+        os.makedirs(path, exist_ok=True)
+        fused.BUILD_DIR = path
+        _compile_cache_dir = path
+    return path
 
 # Wire dtype of each raw sample code, as pipeline/stream's raw loader
 # stacks them.

@@ -840,6 +840,8 @@ HOOKS = {
     "PPT_TUNE_DB": ("tune.json", "tune_db", "off"),
     "PPT_AUTOTUNE": ("on", "autotune", "maybe"),
     "PPT_TUNE_NUMERICS": ("on", "tune_numerics", "2"),
+    # any string is a directory: 'off' is the value that turns it off
+    "PPT_COMPILE_CACHE": ("kcache", "compile_cache_dir", "off"),
 }
 
 # Loads both packages' config.py by path (neither package's __init__, so
@@ -894,7 +896,7 @@ def test_env_hook(name):
     ej, et = out["errors"]
     assert et == ej
     if name in ("PPT_TELEMETRY", "PPT_CACHE_DIR", "PPT_ROUTER_FLEET_FILE",
-                "PPT_TUNE_DB"):
+                "PPT_TUNE_DB", "PPT_COMPILE_CACHE"):
         # no value of these is invalid; 'off' disables in both packages
         assert ej is None
     else:
@@ -903,17 +905,21 @@ def test_env_hook(name):
 
 def test_env_unported_and_unknown_warn():
     """A JAX-package hook whose knob the port lacks warns with its
-    ROADMAP item; a typo warns with the closest known name; both once.
-    The tuning hooks are hooked now: they warn not."""
+    reason; a typo warns with the closest known name; both once.  The
+    tuning hooks and PPT_COMPILE_CACHE are hooked now: they warn not."""
     out, err = _probe("PPT_ZAP_NSTD", "3", "zap_nstd", "2",
                       {"PPT_COMPILE_CACHE": "cache",
+                       "PPT_FIT_PALLAS": "on",
                        "PPT_TUNE_DB": "tune.json",
                        "PPT_NCHAN": "64",
                        "PPT_ZAP_NSTDS": "2"})
     port = [ln for ln in err.splitlines()
             if ln.startswith("pulseportraiture_tpu_torch.config")]
-    assert any("PPT_COMPILE_CACHE" in ln and "A5" in ln for ln in port)
-    assert not any("PPT_TUNE_DB" in ln for ln in port)
+    assert any("PPT_FIT_PALLAS" in ln and "PPT_FIT_FUSED" in ln
+               for ln in port)
+    assert not any("PPT_TUNE_DB" in ln or "PPT_COMPILE_CACHE" in ln
+                   for ln in port)
+    assert "PPT_COMPILE_CACHE" in tcfg.HOOKED_PPT_ENV
     for name in ("PPT_TUNE_DB", "PPT_AUTOTUNE", "PPT_TUNE_NUMERICS"):
         assert name in tcfg.HOOKED_PPT_ENV
         assert name not in tcfg.UNPORTED_PPT_ENV

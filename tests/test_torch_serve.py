@@ -649,7 +649,9 @@ def test_ppserve_cli(corpus, serve_config, tmp_path, monkeypatch):
     process of its own, stopped by SIGTERM) bind and answer stat;
     --tune-db applies a stored DB before the server starts: the winner
     set on config, its tune_apply (db_hit true) in the server's trace,
-    the .tim byte-identical to the untuned run's."""
+    the .tim byte-identical to the untuned run's; --compile-cache DIR
+    routes the kernels' build directory there (config and
+    ops.fused.BUILD_DIR), the .tim byte-identical again."""
     from pulseportraiture_tpu.cli.ppserve import main as jmain
     from pulseportraiture_tpu_torch.cli.ppserve import main as tmain
 
@@ -742,8 +744,20 @@ def test_ppserve_cli(corpus, serve_config, tmp_path, monkeypatch):
     for name in ("R1", "R2"):
         assert (tmp_path / "tuned" / f"{name}.tim").read_bytes() == \
             (tmp_path / "t" / f"{name}.tim").read_bytes()
-    with pytest.raises(SystemExit):
-        tmain(["-r", str(path), "--compile-cache", "d"])
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.utils import device as UD
+
+    monkeypatch.setattr(tcfg, "compile_cache_dir", tcfg.compile_cache_dir)
+    monkeypatch.setattr(F, "BUILD_DIR", F.BUILD_DIR)
+    monkeypatch.setattr(UD, "_compile_cache_dir", UD._compile_cache_dir)
+    kdir = str(tmp_path / "kcache")
+    assert tmain(["-r", str(path), "-O", str(tmp_path / "cc"), "--device",
+                  "cpu", "--compile-cache", kdir] + common) == 0
+    assert tcfg.compile_cache_dir == kdir and F.BUILD_DIR == kdir
+    assert os.path.isdir(kdir)
+    for name in ("R1", "R2"):
+        assert (tmp_path / "cc" / f"{name}.tim").read_bytes() == \
+            (tmp_path / "t" / f"{name}.tim").read_bytes()
 
 
 def test_server_without_card_raises(monkeypatch):

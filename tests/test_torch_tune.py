@@ -6,8 +6,7 @@ against the JAX package's, on the CPU.
 - the tuning store: roundtrip, the loud refusals (corrupt, stale,
   mis-versioned), and DBs read across the two packages under one
   fingerprint (a DB of the JAX package's own fingerprint is refused);
-- the knob tiers (the JAX identity tier verbatim, its numerics tier
-  without dft_precision);
+- the knob tiers (both the JAX package's verbatim);
 - sweep / ensure_tuned parity: the same deterministic run/time stubs
   give equal SweepResults and equal tune_sweep / tune_apply fields;
 - ``pptoas --stream --autotune`` in both packages on the
@@ -172,12 +171,12 @@ def test_store_across_packages(tmp_path):
 
 
 def test_tiers():
-    """The identity tier is the JAX package's verbatim (the DB keys
-    agree); the numerics tier lacks only dft_precision."""
+    """Both tiers are the JAX package's verbatim (the DB keys agree);
+    dft_precision is back in the numerics tier, as CUDA runs its
+    'default' arm (TF32 matmul DFTs)."""
     assert TTU.IDENTITY_TIER == JTU.IDENTITY_TIER
-    assert TTU.NUMERICS_TIER == tuple(
-        k for k in JTU.NUMERICS_TIER if k.name != "dft_precision")
-    assert "dft_precision" in {k.name for k in JTU.NUMERICS_TIER}
+    assert TTU.NUMERICS_TIER == JTU.NUMERICS_TIER
+    assert "dft_precision" in {k.name for k in TTU.NUMERICS_TIER}
     assert TTU.shape_class_for(16.0, 128.0) == "16x128"
 
 
@@ -262,7 +261,8 @@ def test_sweep_parity(case, tmp_path):
 
 def test_numerics_tier_opt_in():
     """The default sweep never touches the numerics tier; numerics=True
-    sweeps cross_spectrum_dtype and never dft_precision on the port."""
+    sweeps cross_spectrum_dtype and dft_precision, as the JAX package
+    does."""
     seen = []
 
     def run_fn(overrides):
@@ -277,7 +277,7 @@ def test_numerics_tier_opt_in():
     TTU.sweep(run_fn, time_fn=lambda ov: seen.append(dict(ov)) or 1.0,
               numerics=True)
     swept = {k for ov in seen for k in ov}
-    assert "cross_spectrum_dtype" in swept and "dft_precision" not in swept
+    assert "cross_spectrum_dtype" in swept and "dft_precision" in swept
 
 
 def test_ensure_tuned_parity_and_warm_db(tmp_path, monkeypatch):
