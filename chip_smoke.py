@@ -14,11 +14,16 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    (sub-byte decode -> DFT -> cross-spectrum) against their plain
    PyTorch versions on the card over directed sets of shapes, with the
    tolerance stated per case (B2's decoded samples exactly), each case
-   through the arm the shape rule (ops.fused.fft_arm) or the case
-   names: the FFT arm at nbin 16 ... 8192, the GEMM arm at nbin 1000 and
-   forced at 2048.  A float32 FFT-arm case is held to the plain version
-   evaluated in float64 on the same inputs (plain_oracle: the float32
-   plain version's own error can exceed the tolerance);
+   through the arm the shape rule (ops.fused.fft_arm: the FFT arm for
+   an nbin in [16, 8192] with no prime factor other than 2, 3 and 5 and
+   K <= nbin/2 + 1, else the GEMM arm) or the case names: the FFT arm at
+   nbin 16 ... 8192 and at the mixed-radix 1000, 1125, 1536 and 3072
+   (B1's S0 and want_m2 forms and its spectrum launch alone in float32
+   and float64; B2 2-bit and 4-bit at 1000 and 1536), the GEMM arm forced
+   beside each 1000-bin case and at 2048, and by the rule at 1022.  A
+   float32 FFT-arm case is held to the plain version evaluated in
+   float64 on the same inputs (plain_oracle: the float32 plain version's
+   own error can exceed the tolerance);
 4. main path: a 64-subint 512-channel x 2048-bin archive with injected
    (phi, dDM) from a seeded generator and a .gmodel template, measured
    by ``python -m pulseportraiture_tpu_torch.cli.pptoas`` (run in this
@@ -292,6 +297,21 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    rank through their FFT arms only (B2 held to its plain version on
    rank 0's bucket).  Printed: the backend and world size, the launches
    and walls per rank, each rank's peak memory.
+23. non-power-of-two nbin (run before phase 22, which stays last): an
+   int16 archive of 64 x 512 x 1000 (the FFT arm's mixed-radix plan, 5 5
+   5 8) and two 2-bit archives at 1000 bins; ``pptoas`` on the int16
+   archive at window K=384 and unwindowed (K = 501 through the kernels)
+   and ``pptoas --stream`` over the three at K=384 (the counters set to
+   0 just before each run): every TOA within 1e-4 rot of the injection,
+   every B1 and B2 launch through the FFT arm and none through the GEMM
+   arm; the C8 gate at 1000 bins (4 scattered subints alone vs as a
+   batch through the fast, packed and scat_guess='auto' lanes at K=384
+   and unwindowed, bit for bit); then timing rows, each with the kernel,
+   its GEMM arm (and that arm's own FP32 bound), its plain version, the
+   torch.matmul and cuFFT equivalents and the bound: B1's S0 form at 64 x
+   512 x {1000, 1536, 3072} at K=384 and nbin/2 + 1, its want_m2 form and
+   B2 2-bit at 256 x 512 x 1536, K=384, and the GEMM arm at 64 x 512 x
+   1022 (2 x 7 x 73 bins, which the rule keeps on it);
 22. batch invariance (ROADMAP C8), run last: 8 scattered int16
    subints of 512 x 2048 and their dithered 2-bit rows fitted as one
    batch and each alone, through the fast fit (B1), the packed 2-bit fit
@@ -464,6 +484,20 @@ SCALE_BATCH_KEYS = ("ports", "noise_stds", "chan_masks", "P_s", "nu_fit",
                     "theta0")
 SCALE_MESHES = {"2x1": (2, 1), "1x2": (1, 2)}
 SCALE_CALLS = ("fit", "scat", "align")
+# phase 3's mixed-radix cases (nbin, dtype, K) and phase 23, the
+# non-power-of-two nbin: the main path's 64 x 512 at MIXED_NBIN bins (5 5 5
+# 8) through GetTOAs at window MIXED_K and unwindowed (K = 501), the stream
+# over it and MIXED_NARCH 2-bit archives, the C8 gate on MIXED_C8_NSUB
+# scattered subints; timing rows of B1's S0 form at 64 x 512 x
+# MIXED_TIME_NBINS (K = MIXED_K and nbin / 2 + 1), of its want_m2 form and
+# of B2 at a full bucket of MIXED_BUCKET_NBIN bins, and of the GEMM arm at
+# MIXED_GEMM_NBIN = 2 x 7 x 73 bins, which it keeps
+MIXED_CASES = ((1536, "float32", 384), (1536, "float64", 769),
+               (3072, "float32", 1537), (3072, "float64", 384),
+               (1125, "float32", 563), (1125, "float64", 100))
+MIXED_NBIN, MIXED_K, MIXED_NARCH, MIXED_C8_NSUB = 1000, 384, 2, 4
+MIXED_TIME_NBINS, MIXED_BUCKET_NBIN, MIXED_GEMM_NBIN = (1000, 1536,
+                                                        3072), 1536, 1022
 
 
 def log(msg):
@@ -616,6 +650,37 @@ def check_cross_spectrum_case(c):
         f"tol {'1e-5' if ref32 is not None else '1e-12'} x max|ref| of the "
         f"plain version{' in float64' if upcast(ref, ref32) else ''};"
         f" max abs err {text})")
+
+
+def check_fft_spectrum(name, rows, nbin, K, dtype, seed=0):
+    """B1's FFT spectrum launch (ppt_fcs_fft_spectrum, the template's
+    transform in every FFT-arm call) on ``rows`` random rows against the
+    plain DFT (ops.fourier.rfft_mm) evaluated in float64: Re and Im
+    within 1e-5 (float32) or 1e-12 (float64) x max|ref|; raises
+    otherwise.  A check: it counts no launch."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.ops.fourier import (_dtype_str,
+                                                        device_weights,
+                                                        rfft_mm)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, nbin), generator=g, device="cuda", dtype=dtype)
+    tw, = device_weights("fft", x.device, nbin, _dtype_str(dtype))
+    out = (torch.empty((rows, K), device="cuda", dtype=dtype),
+           torch.empty((rows, K), device="cuda", dtype=dtype))
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    F._check(getattr(F.build_kernels(), f"ppt_fcs_fft_spectrum_{sfx}")(
+        x.data_ptr(), rows, nbin, tw.data_ptr(), K, out[0].data_ptr(),
+        out[1].data_ptr(), torch.cuda.current_stream().cuda_stream), name)
+    ref = rfft_mm(x.double(), nharm=K)
+    ref32 = rfft_mm(x, nharm=K) if dtype == torch.float32 else None
+    torch.cuda.synchronize()
+    _, text = check_outputs(name, "fused_cross_spectrum spectrum", out, ref,
+                            ref32, ("re", "im"))
+    log(f"kernel check ok: fused_cross_spectrum FFT spectrum {name} (tol "
+        f"{'1e-5' if ref32 is not None else '1e-12'} x max|ref| of the plain "
+        f"DFT in float64; max abs err {text})")
 
 
 def _cross_epilogue(dr, di, mr, mi, w, want_m2):
@@ -816,16 +881,39 @@ def phase_kernels():
         B1("f64 nbin=8192 K=1 5 rows", None, 5, 8192, 1, f64, seed=11),
         B1("f64 nbin=8192 K=4097 want_m2", 1, 7, 8192, 4097, f64,
            want_m2=True, seed=12),
-        # GEMM arm: by the rule (nbin=1000) and forced at 2048
-        B1("GEMM arm nbin=1000 K=100", 3, 37, 1000, 100, f32, seed=13),
+        # the mixed-radix plan (5 5 5 8) by the rule at nbin=1000, each
+        # with its GEMM-arm twin forced; the GEMM arm also forced at 2048
+        # and by the rule at 1022 = 2 x 7 x 73
+        B1("nbin=1000 K=100", 3, 37, 1000, 100, f32, seed=13),
+        B1("GEMM arm forced nbin=1000 K=100", 3, 37, 1000, 100, f32,
+           seed=13, arm="gemm"),
         B1("GEMM arm forced 2048 fold", 4, 512, 2048, 256, f32, fold=True,
            seed=14, arm="gemm"),
-        B1("GEMM arm f64 nbin=1000 fold want_m2 per-element", 2, 13, 1000,
-           40, f64, fold=True, want_m2=True, per_element=True, seed=15),
+        B1("f64 nbin=1000 fold want_m2 per-element", 2, 13, 1000, 40, f64,
+           fold=True, want_m2=True, per_element=True, seed=15),
+        B1("GEMM arm forced f64 nbin=1000 fold want_m2 per-element", 2, 13,
+           1000, 40, f64, fold=True, want_m2=True, per_element=True,
+           seed=15, arm="gemm"),
+        B1("GEMM arm nbin=1022 K=100", 2, 37, 1022, 100, f32, seed=16),
     ]
+    # the mixed-radix plan at 1536 (3 8 8 8), 3072 (3 8 8 8 2) and the
+    # odd 1125 (3 3 5 5 5): S0 and want_m2 in float32 and float64, at an
+    # odd channel count (each subint padded to an even one)
+    for i, (nbin, dt, K) in enumerate(MIXED_CASES):
+        for m2 in (False, True):
+            cases.append(B1(f"{'f64 ' if dt == 'float64' else ''}nbin={nbin} "
+                            f"K={K}{' want_m2' if m2 else ''}", 2, 37, nbin,
+                            K, getattr(torch, dt), want_m2=m2,
+                            per_element=m2, seed=60 + 2 * i + m2))
     for c in cases:
         check_cross_spectrum_case(c)
     del cases
+    # B1's FFT spectrum launch (the template's transform) alone at the
+    # mixed lengths, every harmonic, an odd row count
+    for i, (nbin, dt, _) in enumerate(MIXED_CASES):
+        check_fft_spectrum(f"{'f64 ' if dt == 'float64' else ''}nbin={nbin} "
+                           f"K={nbin // 2 + 1} 37 rows", 37, nbin,
+                           nbin // 2 + 1, getattr(torch, dt), seed=80 + i)
     B2 = decode_case
     for c in (
             B2("2-bit 64x512x2048 K=256", NSUB, NCHAN, NBIN, 256, f32, "p2",
@@ -847,77 +935,45 @@ def phase_kernels():
             B2("f64 4-bit nbin=16 K=9", 2, 13, 16, 9, f64, "p4", seed=28),
             B2("f64 2-bit nbin=8192 K=1", None, 5, 8192, 1, f64, "p2",
                seed=29),
-            B2("GEMM arm 2-bit nbin=1000 K=100", 2, 37, 1000, 100, f32,
-               "p2", seed=30),
+            # the mixed-radix plan at nbin=1000 by the rule, each with its
+            # GEMM-arm twin forced; the GEMM arm forced at 2048
+            B2("2-bit nbin=1000 K=100", 2, 37, 1000, 100, f32, "p2",
+               seed=30),
+            B2("GEMM arm forced 2-bit nbin=1000 K=100", 2, 37, 1000, 100,
+               f32, "p2", seed=30, arm="gemm"),
             B2("GEMM arm forced 2-bit 2048 fold", 4, NCHAN, NBIN, 256, f32,
                "p2", fold=True, seed=31, arm="gemm"),
-            B2("GEMM arm f64 4-bit nbin=1000 fold", 2, 13, 1000, 40, f64,
-               "p4", fold=True, seed=32)):
+            B2("f64 4-bit nbin=1000 fold", 2, 13, 1000, 40, f64, "p4",
+               fold=True, seed=32),
+            B2("GEMM arm forced f64 4-bit nbin=1000 fold", 2, 13, 1000, 40,
+               f64, "p4", fold=True, seed=32, arm="gemm"),
+            # 2-bit and 4-bit at 1000 and 1536 bins
+            B2("2-bit 8x512x1000 K=384", 8, NCHAN, 1000, 384, f32, "p2",
+               seed=33),
+            B2("f64 4-bit nbin=1000 K=501 37 rows", 3, 37, 1000, 501, f64,
+               "p4", seed=34),
+            B2("f64 2-bit nbin=1536 K=769 37 rows", 3, 37, 1536, 769, f64,
+               "p2", seed=35),
+            B2("4-bit 8x512x1536 K=384", 8, NCHAN, 1536, 384, f32, "p4",
+               seed=36)):
         check_decode_case(c)
 
 
 def phase_timing(K_main, Ks=None):
-    """Kernel (its arm by the shape rule, the FFT arm here), GEMM-arm,
-    plain-version, torch.matmul-equivalent and cuFFT-equivalent median
-    times at the main path's shape: 64 subints against one shared
-    template with per-element weights, at the main path's harmonic
-    window K_main and at the production K=256 of the directed set (or
-    at the windows ``Ks``).  Each
-    output of the kernel, its GEMM arm and the cuFFT equivalent is first
-    held to 1e-5 x its max|ref| (plain_oracle); raises otherwise."""
-    import torch
-    from pulseportraiture_tpu_torch.ops import fused as F
-    from pulseportraiture_tpu_torch.ops.fourier import device_weights
-
-    f32 = torch.float32
+    """B1 at the main path's shape (64 subints against one shared
+    template, per-element weights) at the main path's harmonic window
+    K_main and at the production K=256 of the directed set (or at the
+    windows ``Ks``): time_cross_spectrum's checks and times of the
+    kernel, its GEMM arm, its plain version and the torch.matmul and
+    cuFFT equivalents (median of 20 samples).  The kernel must take its
+    FFT arm.  Returns {K: record}."""
     records = {}
     for K in sorted(Ks or {256, K_main}):
-        c = cross_spectrum_case(f"time K={K}", NSUB, NCHAN, NBIN, K, f32,
-                                seed=10 + K)
-        args = (c["port"], c["model"], c["w"], K)
-        Wc, Ws = device_weights("rfft", c["port"].device, NBIN, "float32",
-                                K)
-        W = torch.cat([Wc, Ws], dim=1).contiguous()
-        before = F.kernel_launches()
-        got = F.fused_cross_spectrum_cuda(*args)
-        arm = expect_arm("fused_cross_spectrum", before, "fft",
-                         f"time K={K}")
-        parts = ("Xr", "Xi", "S0")
-        ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, {},
-                                  arm)
-        errs, text = check_outputs(f"time K={K}", "fused_cross_spectrum",
-                                   got, ref, ref32, parts)
-        check_outputs(f"time K={K} GEMM arm", "fused_cross_spectrum",
-                      F.fused_cross_spectrum_cuda(*args, arm="gemm"), ref32,
-                      ref32, parts)
-        check_outputs(f"time K={K} cuFFT equivalent", "cufft_equivalent",
-                      cufft_equivalent(c["port"], c["model"], c["w"], K),
-                      ref, ref32, parts)
-        del got, ref, ref32
-        err, scale, _ = max(errs, key=lambda t: t[0] / max(t[1], 1e-300))
-        ms = median_ms(lambda: F.fused_cross_spectrum_cuda(*args))
-        gemm_ms = median_ms(lambda: F.fused_cross_spectrum_cuda(
-            *args, arm="gemm"))
-        plain_ms = median_ms(lambda: F.fused_cross_spectrum_ref(*args))
-        lib_ms = median_ms(lambda: library_equivalent(
-            c["port"], c["model"], c["w"], K, W))
-        cufft_ms = median_ms(lambda: cufft_equivalent(
-            c["port"], c["model"], c["w"], K))
-        ms2 = median_ms(lambda: F.fused_cross_spectrum_cuda(*args))
-        bound, by = cross_spectrum_bound_ms(NSUB, NCHAN, NBIN, K, 4, False)
-        log(f"timing fused_cross_spectrum {NSUB}x{NCHAN}x{NBIN} K={K} "
-            f"f32: kernel ({arm} arm) {ms:.4f} ms (again {ms2:.4f}), GEMM "
-            f"arm {gemm_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
-            f"equivalent {lib_ms:.4f} ms, cuFFT equivalent {cufft_ms:.4f} "
-            f"ms, bound {bound:.4f} ms ({by}; rfft operations or bytes), "
-            f"kernel at {100.0 * bound / ms:.1f} % of its bound; max abs "
-            f"err {text} (tol 1e-5 x max|ref| of the plain version in "
-            f"float64 each)")
-        records[K] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          cufft_ms=cufft_ms, gemm_ms=gemm_ms,
-                          bound_ms=bound, bound_by=by, max_abs_err=err,
-                          max_abs_ref=scale, arm=arm)
-        del c, args
+        records[K] = time_cross_spectrum(NSUB, NCHAN, NBIN, K, seed=10 + K,
+                                         n=20)
+        if records[K]["arm"] != "fft":
+            raise AssertionError(f"B1 at the main path's shape, K={K}: the "
+                                 f"{records[K]['arm']} arm")
     return records
 
 
@@ -1098,61 +1154,17 @@ def phase_fit_profile(arch, gmodel, device="cuda"):
 
 def phase_decode_timing(K_main):
     """B2 at the directed production shape (64 x 512 x 2048, 2-bit) at
-    the main path's K, then its (FFT arm), its GEMM arm's, its plain
-    version's and the two torch equivalents' (decode as torch ops, then
-    torch.matmul or torch.fft.rfft) median times at the stream path's
-    bucket shape (NSUB_BATCH x 512 x 2048, 2-bit, per-element weights)
-    at K_main.  Each output of the kernel, its GEMM arm and the cuFFT
-    equivalent is first held to 1e-5 x its max|ref| (plain_oracle)."""
+    the main path's K, then time_decode at the stream path's bucket shape
+    (NSUB_BATCH x 512 x 2048, 2-bit, per-element weights) at K_main: the
+    kernel (its FFT arm), its GEMM arm, its plain version and the two
+    torch equivalents, each output held to 1e-5 x its max|ref| first.
+    Returns the record."""
     import torch
-    from pulseportraiture_tpu_torch.ops import fused as F
-    from pulseportraiture_tpu_torch.ops.fourier import device_weights
 
-    f32 = torch.float32
     check_decode_case(decode_case(f"2-bit 64x512x2048 K={K_main}", NSUB,
-                                  NCHAN, NBIN, K_main, f32, "p2", seed=40))
-    name = f"stream bucket {NSUB_BATCH}x{NCHAN}x{NBIN} K={K_main}"
-    c = decode_case(name, NSUB_BATCH, NCHAN, NBIN, K_main, f32, "p2",
-                    seed=41)
-    err, scale, part = check_decode_case(c)
-    args = (c["raw"], c["scl"], c["offs"], c["model"], c["w"], K_main)
-    kw = dict(code="p2", nbin=NBIN)
-    Wc, Ws = device_weights("rfft", c["raw"].device, NBIN, "float32",
-                            K_main)
-    W = torch.cat([Wc, Ws], dim=1).contiguous()
-    parts = ("Xr", "Xi", "S0", "pwr", "x0")
-    ref, ref32 = plain_oracle(F.fused_decode_cross_spectrum_ref, args, kw,
-                              "fft")
-    check_outputs(f"{name} GEMM arm", "fused_decode_cross_spectrum",
-                  F.fused_decode_cross_spectrum_cuda(*args, arm="gemm", **kw),
-                  ref32, ref32, parts)
-    check_outputs(f"{name} cuFFT equivalent", "decode_library_equivalent",
-                  decode_library_equivalent(*args, "p2", NBIN), ref, ref32,
-                  parts)
-    del ref, ref32
-    ms = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(*args, **kw),
-                   n=10)
-    gemm_ms = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(
-        *args, arm="gemm", **kw), n=10)
-    plain_ms = median_ms(
-        lambda: F.fused_decode_cross_spectrum_ref(*args, **kw), n=5)
-    lib_ms = median_ms(lambda: decode_library_equivalent(
-        *args, "p2", NBIN, W), n=5)
-    cufft_ms = median_ms(lambda: decode_library_equivalent(
-        *args, "p2", NBIN), n=5)
-    ms2 = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(*args, **kw),
-                    n=10)
-    bound, by = decode_bound_ms(NSUB_BATCH, NCHAN, NBIN, K_main, 2)
-    log(f"timing fused_decode_cross_spectrum {NSUB_BATCH}x{NCHAN}x{NBIN} "
-        f"2-bit K={K_main} f32: kernel (fft arm) {ms:.4f} ms (again "
-        f"{ms2:.4f}), GEMM arm {gemm_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch equivalents: decode + torch.matmul {lib_ms:.4f} ms, decode "
-        f"+ torch.fft.rfft {cufft_ms:.4f} ms; bound {bound:.4f} ms ({by}), "
-        f"kernel at {100.0 * bound / ms:.1f} % of its bound; worst {part} "
-        f"max abs err {err:.3e} of max|ref| {scale:.3e}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                cufft_ms=cufft_ms, gemm_ms=gemm_ms, bound_ms=bound,
-                bound_by=by, max_abs_err=err, max_abs_ref=scale, arm="fft")
+                                  NCHAN, NBIN, K_main, torch.float32, "p2",
+                                  seed=40))
+    return time_decode(NSUB_BATCH, NCHAN, NBIN, K_main, seed=41)
 
 
 def stream_archives(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=NBIN,
@@ -1562,62 +1574,10 @@ def scatter_profile(meta, gmodel, device, nsub_batch):
 def phase_m2_timing(K):
     """B1's want_m2 form at the scattering bucket's shape (NSUB_BATCH x
     512 x 2048, one shared template, per-element weights, the derived
-    window K, float32): the kernel (FFT arm), its GEMM arm, the plain
-    version and the torch.matmul and cuFFT equivalents, each output held
-    to 1e-5 x max|ref| of plain_oracle first (the GEMM arm and the
-    matmul equivalent, which sum in the float32 plain version's order,
-    to that version), then timed (median of 20 samples of 5 calls issued
-    back to back)."""
-    import torch
-    from pulseportraiture_tpu_torch.ops import fused as F
-    from pulseportraiture_tpu_torch.ops.fourier import device_weights
-
-    name = f"want_m2 {NSUB_BATCH}x{NCHAN}x{NBIN} K={K}"
-    c = cross_spectrum_case(name, NSUB_BATCH, NCHAN, NBIN, K,
-                            torch.float32, want_m2=True, seed=50)
-    args = (c["port"], c["model"], c["w"], K)
-    kw = dict(want_m2=True)
-    Wc, Ws = device_weights("rfft", c["port"].device, NBIN, "float32", K)
-    W = torch.cat([Wc, Ws], dim=1).contiguous()
-    parts = ("Xr", "Xi", "M2w")
-    before = F.kernel_launches()
-    got = F.fused_cross_spectrum_cuda(*args, **kw)
-    arm = expect_arm("fused_cross_spectrum", before, "fft", name)
-    ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, kw, arm)
-    errs, text = check_outputs(name, "fused_cross_spectrum", got, ref, ref32,
-                               parts)
-    del got
-    check_outputs(f"{name} GEMM arm", "fused_cross_spectrum",
-                  F.fused_cross_spectrum_cuda(*args, arm="gemm", **kw),
-                  ref32, ref32, parts)
-    check_outputs(f"{name} torch.matmul equivalent", "library_equivalent",
-                  library_equivalent(c["port"], c["model"], c["w"], K, W,
-                                     want_m2=True), ref32, ref32, parts)
-    check_outputs(f"{name} cuFFT equivalent", "cufft_equivalent",
-                  cufft_equivalent(c["port"], c["model"], c["w"], K,
-                                   want_m2=True), ref, ref32, parts)
-    del ref, ref32
-    err, scale, _ = max(errs, key=lambda t: t[0] / max(t[1], 1e-300))
-    ms = median_ms(lambda: F.fused_cross_spectrum_cuda(*args, **kw))
-    gemm_ms = median_ms(lambda: F.fused_cross_spectrum_cuda(
-        *args, arm="gemm", **kw))
-    plain_ms = median_ms(lambda: F.fused_cross_spectrum_ref(*args, **kw))
-    lib_ms = median_ms(lambda: library_equivalent(
-        c["port"], c["model"], c["w"], K, W, want_m2=True))
-    cufft_ms = median_ms(lambda: cufft_equivalent(
-        c["port"], c["model"], c["w"], K, want_m2=True))
-    ms2 = median_ms(lambda: F.fused_cross_spectrum_cuda(*args, **kw))
-    bound, by = cross_spectrum_bound_ms(NSUB_BATCH, NCHAN, NBIN, K, 4, True)
-    log(f"timing fused_cross_spectrum {name} f32: kernel ({arm} arm) "
-        f"{ms:.4f} ms (again {ms2:.4f}), GEMM arm {gemm_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.matmul equivalent {lib_ms:.4f} ms, cuFFT "
-        f"equivalent {cufft_ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel "
-        f"at {100.0 * bound / ms:.1f} % of its bound; max abs err {text} "
-        f"(tol 1e-5 x max|ref| of the plain version in float64)")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                cufft_ms=cufft_ms, gemm_arm_ms=gemm_ms, bound_ms=bound,
-                bound_by=by, max_abs_err=err, max_abs_ref=scale, arm=arm,
-                shape=[NSUB_BATCH, NCHAN, NBIN, K])
+    window K, float32): time_cross_spectrum's checks and times (median of
+    20 samples).  Returns the record."""
+    return time_cross_spectrum(NSUB_BATCH, NCHAN, NBIN, K, want_m2=True,
+                               seed=50, n=20)
 
 
 def read_tim(path):
@@ -6565,6 +6525,45 @@ def kernel_rows_invariance(device="cuda", nsub=3, nchan=37, nbin=NBIN):
         "B1, B1 want_m2 and B2 give each subint alone the batch's bits")
 
 
+def c8_gate(inp, nsub, runs, device, label):
+    """C8's gate: for each (lane, window) of runs, c8_fit of the nsub
+    subints of inp as one batch and of each subint alone; each alone
+    must give the batch's bits in every tensor field of the result and
+    the batch return codes in {0, 1, 2}, else raise."""
+    import torch
+
+    for lane, k in runs:
+        t0 = time.perf_counter()
+        ref = c8_fit(lane, inp, slice(0, nsub), k, device)
+        sync(device)
+        t_batch = time.perf_counter() - t0
+        fields = [f for f in (ref._fields if hasattr(ref, "_fields")
+                              else ref.keys())
+                  if torch.is_tensor(ref[f] if isinstance(ref, dict)
+                                     else getattr(ref, f))]
+        get = ((lambda r, f: r[f]) if isinstance(ref, dict) else getattr)
+        walls = []
+        for i in range(nsub):
+            t0 = time.perf_counter()
+            one = c8_fit(lane, inp, slice(i, i + 1), k, device)
+            sync(device)
+            walls.append(time.perf_counter() - t0)
+            diff = [f for f in fields
+                    if not torch.equal(get(one, f)[0], get(ref, f)[i])]
+            if diff:
+                raise AssertionError(
+                    f"{label}: lane {lane} window {k}: subint {i} fitted "
+                    f"alone differs from the batch of {nsub} in {diff}")
+        codes = (ref.return_code.tolist() if hasattr(ref, "_fields")
+                 else [0])
+        log(f"{label} {lane} window {k}: {nsub} subints alone = the batch "
+            f"of {nsub} bit for bit in all {len(fields)} fields; batch "
+            f"{t_batch:.3f} s, alone {min(walls):.3f}-{max(walls):.3f} s, "
+            f"codes {codes}")
+        if not all(c in (0, 1, 2) for c in codes):
+            raise AssertionError(f"{label} {lane}: codes {codes}")
+
+
 def phase_batch_invariance(device="cuda", nsub=C8_NSUB, nchan=NCHAN,
                            nbin=NBIN):
     """Phase 22, ROADMAP C8's gate on every fast lane: c8_inputs' nsub
@@ -6578,7 +6577,6 @@ def phase_batch_invariance(device="cuda", nsub=C8_NSUB, nchan=NCHAN,
     CUDA every lane must have launched its kernel through the FFT arm
     only, and the unwindowed fits at K = nbin / 2 + 1 only.  Returns the
     launches."""
-    import torch
     from pulseportraiture_tpu_torch.ops import fused as F
 
     t0 = time.perf_counter()
@@ -6592,41 +6590,8 @@ def phase_batch_invariance(device="cuda", nsub=C8_NSUB, nchan=NCHAN,
         seen, restore = _kernel_windows()
     F.reset_kernel_launches()
     try:
-        for lane, k in [(ln, kk) for ln in C8_LANES for kk in (K, None)] \
-                + [(ln, None) for ln in C8_FULL_LANES]:
-            t0 = time.perf_counter()
-            ref = c8_fit(lane, inp, slice(0, nsub), k, device)
-            sync(device)
-            t_batch = time.perf_counter() - t0
-            fields = [f for f in (ref._fields if hasattr(ref, "_fields")
-                                  else ref.keys())
-                      if torch.is_tensor(ref[f] if isinstance(ref, dict)
-                                         else getattr(ref, f))]
-            get = ((lambda r, f: r[f]) if isinstance(ref, dict)
-                   else getattr)
-            walls = []
-            for i in range(nsub):
-                t0 = time.perf_counter()
-                one = c8_fit(lane, inp, slice(i, i + 1), k, device)
-                sync(device)
-                walls.append(time.perf_counter() - t0)
-                diff = [f for f in fields
-                        if not torch.equal(get(one, f)[0],
-                                           get(ref, f)[i])]
-                if diff:
-                    raise AssertionError(
-                        f"C8 gate: lane {lane} window {k}: subint {i} "
-                        f"fitted alone differs from the batch of "
-                        f"{nsub} in {diff}")
-            codes = (ref.return_code.tolist() if hasattr(ref, "_fields")
-                     else [0])
-            log(f"C8 gate {lane} window {k}: {nsub} subints alone = "
-                f"the batch of {nsub} bit for bit in all "
-                f"{len(fields)} fields; batch {t_batch:.3f} s, "
-                f"alone {min(walls):.3f}-{max(walls):.3f} s, codes "
-                f"{codes}")
-            if not all(c in (0, 1, 2) for c in codes):
-                raise AssertionError(f"C8 gate {lane}: codes {codes}")
+        c8_gate(inp, nsub, [(ln, kk) for ln in C8_LANES for kk in (K, None)]
+                + [(ln, None) for ln in C8_FULL_LANES], device, "C8 gate")
     finally:
         if cuda:
             restore()
@@ -6807,6 +6772,312 @@ def phase_full_spectrum_timing():
                 b2=phase_decode_timing(K))
 
 
+def gemm_bound_ms(rows, nbin, K, itemsize=4):
+    """The GEMM arm's own least time: its matmul DFT's 4 nbin K FMA-FLOPs
+    (cos and sin products) per transformed row (data and template rows)
+    over the FP32 (or FP64) peak."""
+    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS
+    return 4.0 * rows * nbin * K / peak * 1e3
+
+
+def time_cross_spectrum(nb, nchan, nbin, K, want_m2=False, seed=0, n=10):
+    """B1 at nb x nchan x nbin (float32, one shared template, per-element
+    weights) at window K: the kernel through the arm the shape rule picks,
+    its GEMM arm, its plain version and the torch.matmul and cuFFT
+    equivalents, each output held first to 1e-5 x max|ref| (plain_oracle;
+    the GEMM arm and the matmul equivalent, which sum in the float32 plain
+    version's order, to that version), then timed (median of n samples of
+    5 calls); with the function's bound (cross_spectrum_bound_ms) and the
+    GEMM arm's own (gemm_bound_ms).  Returns the record."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.ops.fourier import device_weights
+
+    name = (f"{'want_m2' if want_m2 else 'S0'} {nb}x{nchan}x{nbin} K={K}")
+    c = cross_spectrum_case(name, nb, nchan, nbin, K, torch.float32,
+                            want_m2=want_m2, seed=seed)
+    args = (c["port"], c["model"], c["w"], K)
+    kw = dict(want_m2=want_m2)
+    parts = ("Xr", "Xi", "M2w" if want_m2 else "S0")
+    before = F.kernel_launches()
+    got = F.fused_cross_spectrum_cuda(*args, **kw)
+    arm = expect_arm("fused_cross_spectrum", before, case_arm(c, nbin), name)
+    ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, kw, arm)
+    errs, text = check_outputs(name, "fused_cross_spectrum", got, ref, ref32,
+                               parts)
+    del got
+    if arm != "gemm":
+        check_outputs(f"{name} GEMM arm", "fused_cross_spectrum",
+                      F.fused_cross_spectrum_cuda(*args, arm="gemm", **kw),
+                      ref32, ref32, parts)
+    Wc, Ws = device_weights("rfft", c["port"].device, nbin, "float32", K)
+    W = torch.cat([Wc, Ws], dim=1).contiguous()
+    check_outputs(f"{name} torch.matmul equivalent", "library_equivalent",
+                  library_equivalent(c["port"], c["model"], c["w"], K, W,
+                                     want_m2=want_m2), ref32, ref32, parts)
+    check_outputs(f"{name} cuFFT equivalent", "cufft_equivalent",
+                  cufft_equivalent(c["port"], c["model"], c["w"], K,
+                                   want_m2=want_m2), ref, ref32, parts)
+    del ref, ref32
+    err, scale, _ = max(errs, key=lambda t: t[0] / max(t[1], 1e-300))
+    ms = median_ms(lambda: F.fused_cross_spectrum_cuda(*args, **kw), n=n)
+    gemm_ms = ms if arm == "gemm" else median_ms(
+        lambda: F.fused_cross_spectrum_cuda(*args, arm="gemm", **kw), n=n)
+    plain_ms = median_ms(lambda: F.fused_cross_spectrum_ref(*args, **kw),
+                         n=n)
+    lib_ms = median_ms(lambda: library_equivalent(
+        c["port"], c["model"], c["w"], K, W, want_m2=want_m2), n=n)
+    cufft_ms = median_ms(lambda: cufft_equivalent(
+        c["port"], c["model"], c["w"], K, want_m2=want_m2), n=n)
+    ms2 = median_ms(lambda: F.fused_cross_spectrum_cuda(*args, **kw), n=n)
+    bound, by = cross_spectrum_bound_ms(nb, nchan, nbin, K, 4, want_m2)
+    gbound = gemm_bound_ms(nb * nchan + nchan, nbin, K)
+    log(f"timing fused_cross_spectrum {name} f32: kernel ({arm} arm) "
+        f"{ms:.4f} ms (again {ms2:.4f}), GEMM arm {gemm_ms:.4f} ms (its own "
+        f"FP32 bound {gbound:.4f} ms, {100.0 * gbound / gemm_ms:.1f} %), "
+        f"plain {plain_ms:.4f} ms, torch.matmul equivalent {lib_ms:.4f} ms, "
+        f"cuFFT equivalent {cufft_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+        f"kernel at {100.0 * bound / ms:.1f} % of its bound"
+        f"{'' if ms <= cufft_ms else ', SLOWER than the cuFFT equivalent'}; "
+        f"max abs err {text}")
+    return dict(shape=[nb, nchan, nbin, K], want_m2=want_m2, arm=arm, ms=ms,
+                ms_again=ms2, gemm_arm_ms=gemm_ms, gemm_bound_ms=gbound,
+                plain_ms=plain_ms, library_ms=lib_ms, cufft_ms=cufft_ms,
+                bound_ms=bound, bound_by=by, max_abs_err=err,
+                max_abs_ref=scale)
+
+
+def time_decode(nb, nchan, nbin, K, code="p2", seed=0, n=10):
+    """B2 at nb x nchan x nbin packed rows (float32, per-element weights)
+    at window K: the kernel (its arm by the shape rule), its GEMM arm,
+    its plain version and the two torch equivalents (the decode as torch
+    ops, then torch.matmul or torch.fft.rfft), each output held first to
+    1e-5 x max|ref| (check_decode_case, plain_oracle), then timed (median
+    of n samples of 5 calls); with the bound (decode_bound_ms) and the
+    GEMM arm's own (gemm_bound_ms).  Returns the record."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.ops.decode import PACKED_BITS
+    from pulseportraiture_tpu_torch.ops.fourier import device_weights
+
+    nbit = PACKED_BITS[code]
+    name = f"{nbit}-bit {nb}x{nchan}x{nbin} K={K}"
+    c = decode_case(name, nb, nchan, nbin, K, torch.float32, code, seed=seed)
+    err, scale, part = check_decode_case(c)
+    arm = case_arm(c, nbin)
+    args = (c["raw"], c["scl"], c["offs"], c["model"], c["w"], K)
+    kw = dict(code=code, nbin=nbin)
+    parts = ("Xr", "Xi", "S0", "pwr", "x0")
+    ref, ref32 = plain_oracle(F.fused_decode_cross_spectrum_ref, args, kw,
+                              arm)
+    if arm != "gemm":
+        check_outputs(f"{name} GEMM arm", "fused_decode_cross_spectrum",
+                      F.fused_decode_cross_spectrum_cuda(*args, arm="gemm",
+                                                         **kw),
+                      ref32, ref32, parts)
+    check_outputs(f"{name} cuFFT equivalent", "decode_library_equivalent",
+                  decode_library_equivalent(*args, code, nbin), ref, ref32,
+                  parts)
+    del ref, ref32
+    Wc, Ws = device_weights("rfft", c["raw"].device, nbin, "float32", K)
+    W = torch.cat([Wc, Ws], dim=1).contiguous()
+    ms = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(*args, **kw),
+                   n=n)
+    gemm_ms = ms if arm == "gemm" else median_ms(
+        lambda: F.fused_decode_cross_spectrum_cuda(*args, arm="gemm", **kw),
+        n=n)
+    plain_ms = median_ms(
+        lambda: F.fused_decode_cross_spectrum_ref(*args, **kw), n=n)
+    lib_ms = median_ms(lambda: decode_library_equivalent(
+        *args, code, nbin, W), n=n)
+    cufft_ms = median_ms(lambda: decode_library_equivalent(
+        *args, code, nbin), n=n)
+    ms2 = median_ms(lambda: F.fused_decode_cross_spectrum_cuda(*args, **kw),
+                    n=n)
+    bound, by = decode_bound_ms(nb, nchan, nbin, K, nbit)
+    gbound = gemm_bound_ms(nb * nchan + nchan, nbin, K)
+    log(f"timing fused_decode_cross_spectrum {name} f32: kernel ({arm} arm) "
+        f"{ms:.4f} ms (again {ms2:.4f}), GEMM arm {gemm_ms:.4f} ms (its own "
+        f"FP32 bound {gbound:.4f} ms), plain {plain_ms:.4f} ms, torch "
+        f"equivalents: decode + torch.matmul {lib_ms:.4f} ms, decode + "
+        f"torch.fft.rfft {cufft_ms:.4f} ms; bound {bound:.4f} ms ({by}), "
+        f"kernel at {100.0 * bound / ms:.1f} % of its bound"
+        f"{'' if ms <= cufft_ms else ', SLOWER than the cuFFT equivalent'}; "
+        f"worst {part} max abs err {err:.3e} of max|ref| {scale:.3e}")
+    return dict(shape=[nb, nchan, nbin, K], code=code, arm=arm, ms=ms,
+                ms_again=ms2, gemm_arm_ms=gemm_ms, gemm_bound_ms=gbound,
+                plain_ms=plain_ms, library_ms=lib_ms, cufft_ms=cufft_ms,
+                bound_ms=bound, bound_by=by, max_abs_err=err,
+                max_abs_ref=scale)
+
+
+def mixed_archives(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=MIXED_NBIN,
+                   narch=MIXED_NARCH):
+    """Phase 23's campaign under WORK/mixed: an int16 archive of nsub x
+    nchan x nbin with the main path's injection and narch 2-bit archives
+    (each its own epoch and noise draw) in one metafile, and the .gmodel.
+    Returns (metafile, int16 archive, 2-bit archives, .gmodel)."""
+    import numpy as np
+    from pulseportraiture_tpu_torch.io.gmodel import write_gmodel
+    from pulseportraiture_tpu_torch.synth import (default_test_model,
+                                                  make_fake_pulsar)
+    from pulseportraiture_tpu_torch.utils.mjd import MJD
+
+    work = os.path.join(WORK, "mixed")
+    os.makedirs(work, exist_ok=True)
+    model = default_test_model(1500.0)
+    gmodel = os.path.join(work, "model.gmodel")
+    write_gmodel(model, gmodel, quiet=True)
+    int16 = os.path.join(work, "fake.fits")
+    files = []
+    for i in range(narch + 1):
+        path = int16 if i == 0 else os.path.join(work, f"fake2bit-{i}.fits")
+        make_fake_pulsar(model, PAR, outfile=path, nsub=nsub, nchan=nchan,
+                         nbin=nbin, nu0=1500.0, bw=800.0, tsub=60.0,
+                         phase=PHI_INJ, dDM=DDM_INJ,
+                         start_MJD=MJD(55300 + i, 0.1),
+                         noise_stds=1.0 if i == 0 else NOISE_2BIT,
+                         dedispersed=False, quiet=True,
+                         rng=np.random.default_rng(SEED + 400 + i),
+                         nbit=2 if i else 16, device=device)
+        if i:
+            files.append(path)
+    meta = os.path.join(work, "stream_meta.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join([int16] + files) + "\n")
+    return meta, int16, files, gmodel
+
+
+def tim_phase_recovery(tim, n):
+    """The worst |dphi| [rot] of the .tim's TOAs against the injection
+    (expected_phase at each TOA's frequency); raises unless the file has
+    n finite TOA lines."""
+    worst = 0.0
+    with open(tim) as f:
+        lines = [ln.split() for ln in f if ln.strip()]
+    if len(lines) != n:
+        raise AssertionError(f"{tim}: {len(lines)} TOAs, expected {n}")
+    for tok in lines:
+        flags = dict(zip(tok[5::2], tok[6::2]))
+        phi = float(flags["-phs"])
+        if not all(math.isfinite(float(x))
+                   for x in (tok[3], phi, flags["-pp_dm"])):
+            raise AssertionError(f"non-finite TOA line {tok}")
+        worst = max(worst, abs((phi - expected_phase(float(tok[1])) + 0.5)
+                               % 1.0 - 0.5))
+    return worst
+
+
+def phase_nbin_mixed(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=MIXED_NBIN,
+                     narch=MIXED_NARCH, nsub_c8=MIXED_C8_NSUB):
+    """Phase 23, a non-power-of-two nbin on the main and stream paths:
+    mixed_archives at nbin bins (the FFT arm's mixed-radix plan);
+    ``pptoas`` (GetTOAs) on the int16 archive at window MIXED_K and
+    unwindowed (every harmonic through B1 on CUDA), then ``pptoas
+    --stream`` over it and the 2-bit archives at MIXED_K, each run in
+    this process with the counters set to 0 just before it and read just
+    after: every TOA within 1e-4 rot of the injection, and on CUDA every
+    B1 and B2 launch through the FFT arm, none through the GEMM arm;
+    then the C8 gate (c8_gate) on nsub_c8 scattered subints at nbin bins,
+    the fast, packed and scat_guess='auto' lanes at MIXED_K and
+    unwindowed.  Runs before phase 22, which stays last.  Returns the
+    launches of all its runs."""
+    from pulseportraiture_tpu_torch import config
+    from pulseportraiture_tpu_torch.ops import fused as F
+
+    t0 = time.perf_counter()
+    meta, int16, files, gmodel = mixed_archives(device, nsub, nchan, nbin,
+                                                narch)
+    log(f"mixed-nbin archives: an int16 and {narch} 2-bit {nsub}x{nchan}x"
+        f"{nbin} written in {time.perf_counter() - t0:.2f} s")
+    cuda = device_type(device) == "cuda"
+    total = Counter()
+    saved = config.fit_harmonic_window
+    if cuda:
+        seen, restore = _kernel_windows()
+    try:
+        runs = [(["-d", int16], MIXED_K, nsub, ("fused_cross_spectrum",)),
+                (["-d", int16], None, nsub, ("fused_cross_spectrum",)),
+                (["--stream", "-d", meta], MIXED_K, (narch + 1) * nsub,
+                 ("fused_cross_spectrum", "fused_decode_cross_spectrum"))]
+        for args, window, ntoa, kernels in runs:
+            config.fit_harmonic_window = window
+            label = (f"{'pptoas --stream' if '--stream' in args else 'pptoas'}"
+                     f" at {nbin} bins, window {window}")
+            tim = os.path.join(WORK, "mixed", "out.tim")
+            if os.path.exists(tim):
+                os.remove(tim)
+            wall, launches = run_cli(
+                args + ["-m", gmodel, "-o", tim, "--quiet", "--print_phase",
+                        "--quality_flags", "--device", device], label)
+            worst = tim_phase_recovery(tim, ntoa)
+            if not worst < 1e-4:
+                raise AssertionError(f"{label}: phase recovery |dphi| = "
+                                     f"{worst:.3e} rot >= 1e-4")
+            log(f"{label}: {ntoa} TOAs in {wall:.3f} s wall incl. load and "
+                f"first use, max |dphi| = {worst:.3e} rot (limit 1e-4), "
+                f"kernel launches {launches}")
+            if cuda:
+                fft_only(launches, kernels, label)
+            total.update(launches)
+        config.fit_harmonic_window = saved
+        t0 = time.perf_counter()
+        inp, _ = c8_inputs(device, nsub_c8, nchan, nbin,
+                           work=os.path.join(WORK, "mixed", "c8"))
+        log(f"mixed-nbin C8 inputs: {nsub_c8} x {nchan} x {nbin} scattered "
+            f"int16 and its 2-bit rows in {time.perf_counter() - t0:.2f} s")
+        F.reset_kernel_launches()
+        c8_gate(inp, nsub_c8, [(ln, k) for ln in C8_LANES
+                               for k in (MIXED_K, None)], device,
+                f"C8 gate at {nbin} bins")
+        launches = F.kernel_launches()
+        if cuda:
+            fft_only(launches, ("fused_cross_spectrum",
+                                "fused_decode_cross_spectrum"),
+                     f"the C8 gate at {nbin} bins")
+        total.update(launches)
+    finally:
+        config.fit_harmonic_window = saved
+        if cuda:
+            restore()
+    total = {k: total[k] for k in F.kernel_launches()}
+    log(f"mixed-nbin launches {total}")
+    if cuda:
+        windows = sorted({kk for _, kk in seen})
+        log(f"mixed-nbin calls by (kernel, K): "
+            f"{dict(sorted(Counter(seen).items()))} (two launches each)")
+        if windows != [MIXED_K, nbin // 2 + 1] \
+                or not total["fused_cross_spectrum.m2"]:
+            raise AssertionError(f"mixed nbin: kernel windows {windows}, "
+                                 f"want_m2 launches "
+                                 f"{total['fused_cross_spectrum.m2']}; "
+                                 f"expected K={MIXED_K} and "
+                                 f"{nbin // 2 + 1}, want_m2 run")
+    return total
+
+
+def phase_mixed_timing():
+    """Phase 23's timing rows: B1's S0 form at 64 x 512 x nbin for nbin in
+    MIXED_TIME_NBINS at K = MIXED_K and nbin / 2 + 1, its want_m2 form
+    and B2 (2-bit) at a full bucket (NSUB_BATCH x 512 x
+    MIXED_BUCKET_NBIN, K = MIXED_K), and the GEMM arm by the rule at
+    64 x 512 x MIXED_GEMM_NBIN, K = MIXED_K (time_cross_spectrum,
+    time_decode).  Returns {"b1": [...], "b2": [...]}."""
+    b1 = [time_cross_spectrum(NSUB, NCHAN, n, K, seed=90 + i)
+          for i, (n, K) in enumerate((n, K) for n in MIXED_TIME_NBINS
+                                     for K in (MIXED_K, n // 2 + 1))]
+    b1.append(time_cross_spectrum(NSUB_BATCH, NCHAN, MIXED_BUCKET_NBIN,
+                                  MIXED_K, want_m2=True, seed=97))
+    b1.append(time_cross_spectrum(NSUB, NCHAN, MIXED_GEMM_NBIN, MIXED_K,
+                                  seed=98))
+    if b1[-1]["arm"] != "gemm":
+        raise AssertionError(f"{MIXED_GEMM_NBIN} bins took the "
+                             f"{b1[-1]['arm']} arm")
+    b2 = [time_decode(NSUB_BATCH, NCHAN, MIXED_BUCKET_NBIN, MIXED_K,
+                      seed=99)]
+    return {"b1": b1, "b2": b2}
+
+
 def fft_only(launches, kernels, path):
     """Raise unless each kernel was launched on the path, through its
     FFT arm only (the paths run 2048 bins)."""
@@ -6918,6 +7189,11 @@ def main():
     tune = phase_tune()
     log(f"phase tune path: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
+    mixed = phase_nbin_mixed()
+    mixed_rows = phase_mixed_timing()
+    log(f"phase non-power-of-two nbin: {time.perf_counter() - t0:.1f} s "
+        "wall")
+    t0 = time.perf_counter()
     c8 = phase_batch_invariance()
     alone = phase_stream_alone()
     phase_compile_cache()
@@ -6939,7 +7215,7 @@ def main():
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
         "cufft_ms": rec["cufft_ms"],
-        "gemm_arm_ms": rec["gemm_ms"],
+        "gemm_arm_ms": rec["gemm_arm_ms"],
         "arm": rec["arm"],
         "launches_by_path": {
             "main": launches,
@@ -6961,14 +7237,17 @@ def main():
             "ingest": ingest["fused_cross_spectrum"],
             "tune": tune["fused_cross_spectrum"],
             "c8": c8["fused_cross_spectrum"],
-            "stream_alone": alone["fused_cross_spectrum"]},
+            "stream_alone": alone["fused_cross_spectrum"],
+            "nbin_mixed": mixed["fused_cross_spectrum"]},
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"], launches_by_path={
                 "scattering": scat_launches["fused_cross_spectrum.m2"],
                 "scale_out": scale["fused_cross_spectrum.m2"],
-                "c8": c8["fused_cross_spectrum.m2"]}),
+                "c8": c8["fused_cross_spectrum.m2"],
+                "nbin_mixed": mixed["fused_cross_spectrum.m2"]}),
         "full_spectrum": {"K": NBIN // 2 + 1, "s0": full["s0"],
                           "want_m2": full["m2"]},
+        "nbin_mixed": mixed_rows["b1"],
     }, {
         "name": "fused_decode_cross_spectrum",
         "route": "cuda",
@@ -6984,7 +7263,7 @@ def main():
         "bound_by": rec2["bound_by"],
         "library_ms": rec2["library_ms"],
         "cufft_ms": rec2["cufft_ms"],
-        "gemm_arm_ms": rec2["gemm_ms"],
+        "gemm_arm_ms": rec2["gemm_arm_ms"],
         "arm": rec2["arm"],
         "launches_by_path": {
             "stream": stream_launches["fused_decode_cross_spectrum"],
@@ -7002,8 +7281,10 @@ def main():
             "ingest": ingest["fused_decode_cross_spectrum"],
             "tune": tune["fused_decode_cross_spectrum"],
             "c8": c8["fused_decode_cross_spectrum"],
-            "stream_alone": alone["fused_decode_cross_spectrum"]},
+            "stream_alone": alone["fused_decode_cross_spectrum"],
+            "nbin_mixed": mixed["fused_decode_cross_spectrum"]},
         "full_spectrum": dict(full["b2"], K=NBIN // 2 + 1),
+        "nbin_mixed": mixed_rows["b2"],
     }]
     log(f"chip_smoke total: {time.perf_counter() - t_main:.1f} s wall")
     log(json.dumps({"kernels": kernels}))

@@ -11,13 +11,13 @@
 // the four spectra.  Two arms compute it, chosen by a rule on the shape
 // (ops/fused.py fft_arm):
 //
-// - the FFT arm (fft_smem.cuh), for power-of-two nbin in [16, 8192] with
-//   K <= nbin/2 + 1: a block stages RB rows with cp.async, takes their
-//   real FFTs in shared memory two rows per complex transform, and
-//   forms the cross-spectrum from the K harmonics it needs.  Bound on
-//   this card: bytes (each row, weight and output moved once; the FFT's
-//   arithmetic is ~1/50 of the FP32 peak's share of that time), which
-//   is what the design aims at;
+// - the FFT arm (fft_smem.cuh), for nbin in [16, 8192] with no prime
+//   factor above 5 and K <= nbin/2 + 1: a block stages RB rows with
+//   cp.async, takes their real mixed-radix FFTs in shared memory two rows
+//   per complex transform, and forms the cross-spectrum from the K
+//   harmonics it needs.  Bound on this card: bytes (each row, weight and
+//   output moved once; the FFT's arithmetic is ~1/50 of the FP32 peak's
+//   share of that time), which is what the design aims at;
 // - the GEMM arm (fcs_gemm.cuh), for every other shape: the DFT as an
 //   FP32 SIMT matrix product, bound by FP32 FMA throughput.
 //
@@ -33,9 +33,9 @@
 
 namespace {
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool MIXED>
 __global__ void __launch_bounds__(FFT_NT) fft_dense_kernel(
-    const T* __restrict__ x, int64_t M, int n, int logn,
+    const T* __restrict__ x, int64_t M, const FftPlan plan,
     const typename Fft<T>::C* __restrict__ tw, int K,
     const T* __restrict__ mr, const T* __restrict__ mi, int64_t m_mod,
     const T* __restrict__ w, int64_t w_mod, T* __restrict__ out_r,
@@ -43,13 +43,32 @@ __global__ void __launch_bounds__(FFT_NT) fft_dense_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   using C = typename Fft<T>::C;
   C* buf = reinterpret_cast<C*>(smem);
-  T* red = reinterpret_cast<T*>(smem + fft_buffer_bytes<T>(n));
-  const int RB = fft_rows_per_block<T>(n);
+  T* red = reinterpret_cast<T*>(smem + fft_buffer_bytes<T>(plan.n));
+  const int RB = fft_rows_per_block<T>(plan.n);
   const int64_t row0 = (int64_t)blockIdx.x * RB;
-  fft_stage_dense<T>(buf, x, row0, M, RB, n, logn);
-  fft_dif<T>(buf, RB / 2 * n, n, logn, tw);
-  fft_epilogue<T, MODE>(buf, row0, M, RB, n, logn, K, mr, mi, m_mod, w,
-                        w_mod, out_r, out_i, o2, want_m2, red);
+  fft_stage_dense<T, MIXED>(buf, x, row0, M, RB, plan);
+  fft_dif<T, MIXED>(buf, RB / 2 * plan.n, plan, tw);
+  fft_epilogue<T, MODE, MIXED>(buf, row0, M, RB, plan, K, mr, mi, m_mod, w,
+                               w_mod, out_r, out_i, o2, want_m2, red);
+}
+
+template <typename T, int MODE, bool MIXED>
+int fft_dense_run(const FftPlan& plan, const void* x, int64_t M,
+                  const void* tw, int K, const void* mr, const void* mi,
+                  int64_t m_mod, const void* w, int64_t w_mod, void* out_r,
+                  void* out_i, void* o2, int want_m2, void* stream) {
+  const int RB = fft_rows_per_block<T>(plan.n);
+  const int smem = fft_buffer_bytes<T>(plan.n) + 2 * FFT_NW * (int)sizeof(T);
+  auto kern = fft_dense_kernel<T, MODE, MIXED>;
+  static int granted[64] = {};  // per kernel and device
+  const cudaError_t e = allow_smem((const void*)kern, smem, granted);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)((M + RB - 1) / RB), FFT_NT, smem,
+         (cudaStream_t)stream>>>(
+      (const T*)x, M, plan, (const typename Fft<T>::C*)tw, K,
+      (const T*)mr, (const T*)mi, m_mod, (const T*)w, w_mod, (T*)out_r,
+      (T*)out_i, (T*)o2, want_m2);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int MODE>
@@ -57,22 +76,17 @@ int fft_dense_launch(const void* x, int64_t M, int nbin, const void* tw,
                      int K, const void* mr, const void* mi, int64_t m_mod,
                      const void* w, int64_t w_mod, void* out_r, void* out_i,
                      void* o2, int want_m2, void* stream) {
-  const int logn = fft_logn(nbin);
-  if (logn < 0 || K < 0 || K > nbin / 2 + 1)
+  FftPlan plan;
+  if (!fft_plan(nbin, plan) || K < 0 || K > nbin / 2 + 1)
     return (int)cudaErrorInvalidValue;
   if (M <= 0) return 0;
-  const int RB = fft_rows_per_block<T>(nbin);
-  const int smem = fft_buffer_bytes<T>(nbin) + 2 * FFT_NW * (int)sizeof(T);
-  auto kern = fft_dense_kernel<T, MODE>;
-  static int granted[64] = {};  // per kernel and device
-  const cudaError_t e = allow_smem((const void*)kern, smem, granted);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<(unsigned)((M + RB - 1) / RB), FFT_NT, smem,
-         (cudaStream_t)stream>>>(
-      (const T*)x, M, nbin, logn, (const typename Fft<T>::C*)tw, K,
-      (const T*)mr, (const T*)mi, m_mod, (const T*)w, w_mod, (T*)out_r,
-      (T*)out_i, (T*)o2, want_m2);
-  return (int)cudaGetLastError();
+  return plan.nodd
+             ? fft_dense_run<T, MODE, true>(plan, x, M, tw, K, mr, mi, m_mod,
+                                            w, w_mod, out_r, out_i, o2,
+                                            want_m2, stream)
+             : fft_dense_run<T, MODE, false>(plan, x, M, tw, K, mr, mi,
+                                             m_mod, w, w_mod, out_r, out_i,
+                                             o2, want_m2, stream);
 }
 
 }  // namespace

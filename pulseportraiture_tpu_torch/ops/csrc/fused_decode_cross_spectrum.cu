@@ -27,11 +27,13 @@
 //
 // - the FFT arm, one pass per row block (fft_decode_kernel): after the
 //   template's spectrum (B1's FFT spectrum launch, once per call), one
-//   kernel copies its RB rows' packed bytes into shared memory with
-//   cp.async (each byte read once), takes the rows' baselines there,
-//   several rows at once, one group of threads each (their float64
-//   prefix arrays overlay the complex buffer until b is known; a pad
-//   slot after each thread's chunk keeps the chunks' sums off one bank),
+//   kernel copies its RB rows' packed bytes into shared memory (each
+//   byte read once: 16-byte cp.async when the block's bytes start and
+//   end on 16-byte boundaries, else a byte a thread), takes the rows'
+//   baselines there, several rows at once, one group of threads each
+//   (their float64 prefix arrays overlay the complex buffer until b is
+//   known; a pad slot after each thread's chunk keeps the chunks' sums
+//   off one bank),
 //   decodes the rows into the buffer with x0 and pwr, runs the
 //   shared-memory FFT of fft_smem.cuh and B1's epilogue.  The decoded
 //   portrait never leaves shared memory.  Bound on this card: bytes (the
@@ -201,7 +203,7 @@ __device__ T row_baseline(const uint8_t* rowp, int nbin, int win, T sc,
   __syncthreads();
 
   // the least sum over every circular window of win samples
-  const bool pow2 = (chunk & (chunk - 1)) == 0;  // every FFT-arm shape
+  const bool pow2 = (chunk & (chunk - 1)) == 0;  // at a power-of-two nbin
   const int cs = __ffs(chunk) - 1;
   auto at = [&](unsigned j) { return P[j + (pow2 ? j >> cs : j / chunk)]; };
   const double total = at(nbin - 1);
@@ -298,9 +300,9 @@ __host__ __device__ __forceinline__ int fft_decode_extra(int RB, int bpc) {
 }
 
 // FFT arm: one pass per block of RB rows
-template <typename T, int NBIT>
+template <typename T, int NBIT, bool MIXED>
 __global__ void __launch_bounds__(FFT_NT) fft_decode_kernel(
-    const uint8_t* __restrict__ raw, int64_t M, int n, int logn, int bpc,
+    const uint8_t* __restrict__ raw, int64_t M, const FftPlan plan, int bpc,
     int win, const T* __restrict__ scl, const T* __restrict__ offs,
     const typename Fft<T>::C* __restrict__ tw, int K,
     const T* __restrict__ mr, const T* __restrict__ mi, int64_t m_mod,
@@ -310,6 +312,7 @@ __global__ void __launch_bounds__(FFT_NT) fft_decode_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   using C = typename Fft<T>::C;
   C* buf = reinterpret_cast<C*>(smem);
+  const int n = plan.n;
   const int RB = fft_rows_per_block<T>(n);
   uint8_t* bytes = smem + fft_decode_front<T>(n);
   double* red = reinterpret_cast<double*>(bytes + ((RB * bpc + 15) & ~15));
@@ -367,9 +370,9 @@ __global__ void __launch_bounds__(FFT_NT) fft_decode_kernel(
   __syncthreads();
 
   // 4. the rows' FFTs and B1's epilogue
-  fft_dif<T>(buf, RB / 2 * n, n, logn, tw);
-  fft_epilogue<T, FFT_CROSS>(buf, row0, M, RB, n, logn, K, mr, mi, m_mod, w,
-                             w_mod, Xr, Xi, S0, 0, tred);
+  fft_dif<T, MIXED>(buf, RB / 2 * n, plan, tw);
+  fft_epilogue<T, FFT_CROSS, MIXED>(buf, row0, M, RB, plan, K, mr, mi,
+                                    m_mod, w, w_mod, Xr, Xi, S0, 0, tred);
 }
 
 template <typename T, int NBIT>
@@ -477,22 +480,22 @@ int decode(const void* raw, int64_t M, int nbin, int bpc, int nbit,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NBIT>
-int fft_decode_launch(const uint8_t* raw, int64_t M, int nbin, int logn,
+template <typename T, int NBIT, bool MIXED>
+int fft_decode_launch(const uint8_t* raw, int64_t M, const FftPlan& plan,
                       int bpc, int win, const T* scl, const T* offs,
                       const typename Fft<T>::C* tw, int K, const T* mr,
                       const T* mi, int64_t m_mod, const T* w, int64_t w_mod,
                       T* Xr, T* Xi, T* S0, T* x0, T* pwr,
                       cudaStream_t stream) {
-  const int RB = fft_rows_per_block<T>(nbin);
-  const int smem = fft_decode_front<T>(nbin) + fft_decode_extra<T>(RB, bpc);
-  auto kern = fft_decode_kernel<T, NBIT>;
+  const int RB = fft_rows_per_block<T>(plan.n);
+  const int smem = fft_decode_front<T>(plan.n) + fft_decode_extra<T>(RB, bpc);
+  auto kern = fft_decode_kernel<T, NBIT, MIXED>;
   static int granted[64] = {};  // per kernel and device
   const cudaError_t e = allow_smem((const void*)kern, smem, granted);
   if (e != cudaSuccess) return (int)e;
   kern<<<(unsigned)((M + RB - 1) / RB), FFT_NT, smem, stream>>>(
-      raw, M, nbin, logn, bpc, win, scl, offs, tw, K, mr, mi, m_mod, w,
-      w_mod, Xr, Xi, S0, x0, pwr);
+      raw, M, plan, bpc, win, scl, offs, tw, K, mr, mi, m_mod, w, w_mod, Xr,
+      Xi, S0, x0, pwr);
   return (int)cudaGetLastError();
 }
 
@@ -502,20 +505,20 @@ int fft_decode(const void* raw, int64_t M, int nbin, int bpc, int nbit,
                int K, const void* mr, const void* mi, int64_t m_mod,
                const void* w, int64_t w_mod, void* Xr, void* Xi, void* S0,
                void* x0, void* pwr, void* stream) {
-  const int logn = fft_logn(nbin);
-  if (logn < 0 || K < 0 || K > nbin / 2 + 1)
+  FftPlan plan;
+  if (!fft_plan(nbin, plan) || K < 0 || K > nbin / 2 + 1)
     return (int)cudaErrorInvalidValue;
   if (M <= 0) return 0;
-#define PPT_FDCS_FFT(NB)                                                    \
-  return fft_decode_launch<T, NB>(                                          \
-      (const uint8_t*)raw, M, nbin, logn, bpc, win, (const T*)scl,          \
+#define PPT_FDCS_FFT(NB, MX)                                                \
+  fft_decode_launch<T, NB, MX>(                                             \
+      (const uint8_t*)raw, M, plan, bpc, win, (const T*)scl,                \
       (const T*)offs, (const typename Fft<T>::C*)tw, K, (const T*)mr,       \
       (const T*)mi, m_mod, (const T*)w, w_mod, (T*)Xr, (T*)Xi, (T*)S0,      \
       (T*)x0, (T*)pwr, (cudaStream_t)stream)
   switch (nbit) {
-    case 1: PPT_FDCS_FFT(1);
-    case 2: PPT_FDCS_FFT(2);
-    case 4: PPT_FDCS_FFT(4);
+    case 1: return plan.nodd ? PPT_FDCS_FFT(1, true) : PPT_FDCS_FFT(1, false);
+    case 2: return plan.nodd ? PPT_FDCS_FFT(2, true) : PPT_FDCS_FFT(2, false);
+    case 4: return plan.nodd ? PPT_FDCS_FFT(4, true) : PPT_FDCS_FFT(4, false);
   }
 #undef PPT_FDCS_FFT
   return (int)cudaErrorInvalidValue;

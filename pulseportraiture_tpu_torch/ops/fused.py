@@ -16,12 +16,13 @@ same function live here:
   is the CPU implementation and the kernel's oracle on the card.
 
 The kernel has two arms, chosen by a rule on the shape (:func:`fft_arm`):
-a power-of-two nbin in [FFT_NBIN_MIN, FFT_NBIN_MAX] = [16, 8192] with a
-harmonic window K <= nbin/2 + 1 takes the FFT arm (csrc/fft_smem.cuh: a
-real FFT of the rows in shared memory, two rows per complex transform),
-every other shape the GEMM arm (csrc/fcs_gemm.cuh: the DFT as an FP32
-matrix product).  A failed build or launch of either arm raises; neither
-falls back to the other.
+an nbin in [FFT_NBIN_MIN, FFT_NBIN_MAX] = [16, 8192] with no prime factor
+other than 2, 3 and 5 and a harmonic window K <= nbin/2 + 1 takes the
+FFT arm (csrc/fft_smem.cuh: a mixed-radix 2/3/4/5/8 real FFT of the rows
+in shared memory, two rows per complex transform), every other shape
+the GEMM arm (csrc/fcs_gemm.cuh: the DFT as an FP32 matrix product).  A
+failed build or launch of either arm raises; neither falls back to the
+other.
 
 :func:`fused_cross_spectrum` dispatches by the device the tensors are
 on.  Inputs carry an optional leading batch (subint) dimension: port
@@ -77,8 +78,8 @@ _HEADERS = [os.path.join(_CSRC, "fcs_gemm.cuh"),
 DEFAULT_BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 BUILD_DIR = DEFAULT_BUILD_DIR
 
-# the FFT arm's range of nbin (csrc/fft_smem.cuh FFT_MIN_LOGN,
-# FFT_MAX_LOGN), in float32 and float64
+# the FFT arm's range of nbin (csrc/fft_smem.cuh FFT_MIN_N, FFT_MAX_N),
+# in float32 and float64
 FFT_NBIN_MIN, FFT_NBIN_MAX = 16, 8192
 
 _KERNELS = ("fused_cross_spectrum", "fused_decode_cross_spectrum")
@@ -108,12 +109,21 @@ def _count(kernel, arm, m2=False):
         _launches[f"{kernel}.m2"] += 1
 
 
+def _five_smooth(n):
+    """Whether n > 0 has no prime factor other than 2, 3 and 5."""
+    for p in (2, 3, 5):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
 def fft_arm(nbin, nharm):
-    """The shape rule between the kernels' arms: True (the FFT arm) for a
-    power-of-two nbin in [FFT_NBIN_MIN, FFT_NBIN_MAX] and a harmonic
-    window nharm <= nbin/2 + 1, False (the GEMM arm) otherwise."""
+    """The shape rule between the kernels' arms: True (the FFT arm) for an
+    nbin in [FFT_NBIN_MIN, FFT_NBIN_MAX] with no prime factor other than
+    2, 3 and 5 and a harmonic window nharm <= nbin/2 + 1, False (the GEMM
+    arm) otherwise."""
     nbin, nharm = int(nbin), int(nharm)
-    return (FFT_NBIN_MIN <= nbin <= FFT_NBIN_MAX and nbin & (nbin - 1) == 0
+    return (FFT_NBIN_MIN <= nbin <= FFT_NBIN_MAX and _five_smooth(nbin)
             and nharm <= nbin // 2 + 1)
 
 
@@ -287,14 +297,17 @@ def build_kernels(verbose=False):
 
 
 def _resolve_arm(arm, nbin, K, name):
-    """'fft' or 'gemm': the shape rule when arm is None; 'gemm' may be
-    forced for any shape, 'fft' only within the rule."""
+    """'fft' or 'gemm': the shape rule when arm is None (the FFT arm for
+    an nbin in [FFT_NBIN_MIN, FFT_NBIN_MAX] with no prime factor other
+    than 2, 3 and 5 and nharm <= nbin/2 + 1, else the GEMM arm); 'gemm'
+    may be forced for any shape, 'fft' only within the rule."""
     rule = "fft" if fft_arm(nbin, K) else "gemm"
     if arm is None or arm == rule or arm == "gemm":
         return arm or rule
     if arm == "fft":
-        raise ValueError(f"{name}: the FFT arm takes a power-of-two nbin in "
-                         f"[{FFT_NBIN_MIN}, {FFT_NBIN_MAX}] and nharm <= "
+        raise ValueError(f"{name}: the FFT arm takes an nbin in "
+                         f"[{FFT_NBIN_MIN}, {FFT_NBIN_MAX}] with no prime "
+                         f"factor other than 2, 3 and 5 and nharm <= "
                          f"nbin/2 + 1; got nbin={nbin}, nharm={K}")
     raise ValueError(f"{name}: arm must be None, 'fft' or 'gemm'; got "
                      f"{arm!r}")
