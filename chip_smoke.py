@@ -20,8 +20,14 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    nbin 16 ... 8192 and at the mixed-radix 1000, 1125, 1536 and 3072
    (B1's S0 and want_m2 forms and its spectrum launch alone in float32
    and float64; B2 2-bit and 4-bit at 1000 and 1536), the GEMM arm forced
-   beside each 1000-bin case and at 2048, and by the rule at 1022.  A
-   float32 FFT-arm case is held to the plain version evaluated in
+   beside each 1000-bin case and at 2048, and by the rule at 1022 (K=100;
+   K=512 with want_m2; a ragged 3 x 37; K=385; float64 fold), 1023 (odd:
+   the float32 direct form), 1032 (per-element want_m2; B2 1-, 2- and
+   4-bit, float64 fold), 12 (also at BIG_ROWS rows, past 65535 row
+   blocks, B1 and B2) and 8200 bins, and its spectrum launch on baselined
+   rows at 1022 and 8200 (folded, the float32 arm's form at even nbin;
+   the DC harmonic's error logged apart).  Every float32
+   case, of either arm, is held to the plain version evaluated in
    float64 on the same inputs (plain_oracle: the float32 plain version's
    own error can exceed the tolerance);
 4. main path: a 64-subint 512-channel x 2048-bin archive with injected
@@ -307,11 +313,23 @@ Drives pulseportraiture_tpu_torch end to end on the card and fails
    arm; the C8 gate at 1000 bins (4 scattered subints alone vs as a
    batch through the fast, packed and scat_guess='auto' lanes at K=384
    and unwindowed, bit for bit); then timing rows, each with the kernel,
-   its GEMM arm (and that arm's own FP32 bound), its plain version, the
-   torch.matmul and cuFFT equivalents and the bound: B1's S0 form at 64 x
-   512 x {1000, 1536, 3072} at K=384 and nbin/2 + 1, its want_m2 form and
-   B2 2-bit at 256 x 512 x 1536, K=384, and the GEMM arm at 64 x 512 x
-   1022 (2 x 7 x 73 bins, which the rule keeps on it);
+   its GEMM arm (and that arm's own three-product TF32 bound), its plain
+   version, the torch.matmul and cuFFT equivalents and the bound: B1's S0
+   form at 64 x 512 x {1000, 1536, 3072} at K=384 and nbin/2 + 1, its
+   want_m2 form and B2 2-bit at 256 x 512 x 1536, K=384;
+24. an nbin with a prime factor above 5 (run after phase 23, before
+   phase 22): phase 23's runs at 1032 = 2^3 3 43 bins (an int16 archive
+   of 64 x 512 x 1032 and two 2-bit archives; ``pptoas`` at K=384 and
+   unwindowed, K=517, ``pptoas --stream`` at K=384, the C8 gate on 4
+   scattered subints), every TOA within 1e-4 rot, every B1 and B2 launch
+   through the GEMM arm (the float32 three-product TF32 tensor-core GEMM)
+   and none through the FFT arm, the C8 runs bit for bit; then timing
+   rows through the GEMM arm, each with its plain version, the
+   torch.matmul and cuFFT equivalents, its byte bound, its
+   three-product TF32 bound for the folded form it runs (and the
+   direct form's FP32-FMA one beside it): B1's S0 form at 64 x 512 x
+   1022 (2 7 73) at K=384 and 512, its want_m2 form at 256 x 512 x
+   1022, K=384, and B2 2-bit at 256 x 512 x 1032, K=384;
 22. batch invariance (ROADMAP C8), run last: 8 scattered int16
    subints of 512 x 2048 and their dithered 2-bit rows fitted as one
    batch and each alone, through the fast fit (B1), the packed 2-bit fit
@@ -360,6 +378,8 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 # cores and HBM3 bandwidth, at the full 700 W power limit
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP64_FLOPS = 34e12
+# dense TF32 on the tensor cores (the float32 GEMM arm's three products)
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 PAR = {"PSR": "J1744-1134", "RAJ": "17:44:29.4", "DECJ": "-11:34:54.6",
@@ -490,14 +510,21 @@ SCALE_CALLS = ("fit", "scat", "align")
 # over it and MIXED_NARCH 2-bit archives, the C8 gate on MIXED_C8_NSUB
 # scattered subints; timing rows of B1's S0 form at 64 x 512 x
 # MIXED_TIME_NBINS (K = MIXED_K and nbin / 2 + 1), of its want_m2 form and
-# of B2 at a full bucket of MIXED_BUCKET_NBIN bins, and of the GEMM arm at
-# MIXED_GEMM_NBIN = 2 x 7 x 73 bins, which it keeps
+# of B2 at a full bucket of MIXED_BUCKET_NBIN bins
 MIXED_CASES = ((1536, "float32", 384), (1536, "float64", 769),
                (3072, "float32", 1537), (3072, "float64", 384),
                (1125, "float32", 563), (1125, "float64", 100))
 MIXED_NBIN, MIXED_K, MIXED_NARCH, MIXED_C8_NSUB = 1000, 384, 2, 4
-MIXED_TIME_NBINS, MIXED_BUCKET_NBIN, MIXED_GEMM_NBIN = (1000, 1536,
-                                                        3072), 1536, 1022
+MIXED_TIME_NBINS, MIXED_BUCKET_NBIN = (1000, 1536, 3072), 1536
+# phase 24, an nbin with a prime factor above 5: phase 23's runs at
+# PRIME_NBIN = 2^3 3 43 bins (which packs at 1, 2 and 4 bits; 2 7 73 =
+# 1022 carries no 2-bit row) through the GEMM arm (unwindowed K = 517);
+# timing rows of B1's S0 form at 64 x 512 x PRIME_TIME_NBIN = 1022 at K =
+# MIXED_K and 512 (every harmonic), its want_m2 form at a full bucket of
+# 1022 bins and B2 2-bit at a full bucket of PRIME_NBIN bins, K = MIXED_K
+PRIME_NBIN, PRIME_TIME_NBIN = 1032, 1022
+# phase 3's GEMM-arm row count past 65535 blocks of 128 rows (and of 64)
+BIG_ROWS = 65536 * 128 + 37
 
 
 def log(msg):
@@ -537,7 +564,11 @@ def median_ms(fn, n=20, warmup=3, reps=5):
 
 
 def cross_spectrum_case(name, nb, nchan, nbin, K, dtype, fold=False,
-                        want_m2=False, per_element=False, seed=0, arm=None):
+                        want_m2=False, per_element=False, seed=0, arm=None,
+                        block=None):
+    """A B1 problem on the card; block: the plain version's channel tile
+    (None: its default; one tile of every channel keeps the oracle of a
+    case with millions of channels to a few launches)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -549,7 +580,7 @@ def cross_spectrum_case(name, nb, nchan, nbin, K, dtype, fold=False,
     w = torch.rand(lead + (nchan, K), generator=g, device="cuda",
                    dtype=dtype) + 0.5
     return dict(name=name, port=port, model=model, w=w, K=K, fold=fold,
-                want_m2=want_m2, arm=arm)
+                want_m2=want_m2, arm=arm, block=block)
 
 
 def expect_arm(kernel, before, arm, name):
@@ -573,23 +604,22 @@ def case_arm(c, nbin):
     return c["arm"] or ("fft" if F.fft_arm(nbin, c["K"]) else "gemm")
 
 
-def plain_oracle(ref_fn, args, kw, arm):
+def plain_oracle(ref_fn, args, kw):
     """The plain version's outputs that a case is held to, and the
     float32 plain version's own outputs (None for float64 cases).  A
-    float64 case, and the GEMM arm (which sums each harmonic in the
-    plain version's order), are held to the plain version as it is.  A
-    float32 case of the FFT arm is held to the plain version on the same
-    inputs evaluated in float64: the float32 plain version sums each
-    harmonic over the row in order, and on baselined rows (a DC term of
-    a few hundred) its DC harmonic errs by up to ~2e-5 x max|dr| at 2048
-    bins, more than the tolerance and ~200x the FFT's tree of sums."""
+    float64 case is held to the plain version as it is.  A float32 case,
+    of either arm, is held to the plain version on the same inputs
+    evaluated in float64: the float32 plain version sums each harmonic
+    over the row in order, and on baselined rows (a DC term of a few
+    hundred) its DC harmonic errs by up to ~2e-5 x max|dr| at 2048 bins,
+    more than the tolerance and ~200x the FFT's tree of sums; the GEMM
+    arm's float32 sums its three TF32 products per 8 samples into an FP32
+    accumulator, in another order than the plain version's."""
     import torch
 
     ref32 = ref_fn(*args, **kw)
     if ref32[0].dtype == torch.float64:
         return ref32, None
-    if arm == "gemm":
-        return ref32, ref32
     up = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
                else a for a in args)
     return ref_fn(*up, **kw), ref32
@@ -642,7 +672,8 @@ def check_cross_spectrum_case(c):
     got = F.fused_cross_spectrum_cuda(*args, arm=c["arm"], **kw)
     arm = expect_arm("fused_cross_spectrum", before,
                      case_arm(c, c["port"].shape[-1]), c["name"])
-    ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, kw, arm)
+    ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args,
+                              dict(kw, block=c.get("block")))
     torch.cuda.synchronize()
     _, text = check_outputs(c["name"], "fused_cross_spectrum", got, ref,
                             ref32, ("Xr", "Xi", "o2"))
@@ -681,6 +712,78 @@ def check_fft_spectrum(name, rows, nbin, K, dtype, seed=0):
     log(f"kernel check ok: fused_cross_spectrum FFT spectrum {name} (tol "
         f"{'1e-5' if ref32 is not None else '1e-12'} x max|ref| of the plain "
         f"DFT in float64; max abs err {text})")
+
+
+def baselined_rows(rows, nbin, seed, noise=0.1):
+    """rows float32 profiles as a baselined archive holds them: a pulse
+    of peak 50 at phase 0.3 (width 0.02 rot) over an offset of 3 and
+    white noise, minus each row's least-window mean (ops.noise's
+    baseline), so the DC harmonic sums ~nbin values of one sign."""
+    import torch
+    from pulseportraiture_tpu_torch.ops.noise import min_window_baseline
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ph = torch.arange(nbin, device="cuda", dtype=torch.float64) / nbin
+    x = (3.0 + 50.0 * torch.exp(-0.5 * ((ph - 0.3) / 0.02) ** 2)
+         + noise * torch.randn((rows, nbin), generator=g, device="cuda",
+                               dtype=torch.float64))
+    return (x - min_window_baseline(x)[..., None]).float()
+
+
+def gemm_spectrum_f32(x, K, fold):
+    """The float32 GEMM arm's spectrum launch (ppt_fcs_spectrum_f32) on the
+    rows x (R, nbin), in its folded or direct form: (Re, Im) (R, K).  A
+    check: it counts no launch."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.ops.fourier import device_weights
+
+    rows, nbin = x.shape
+    hi, lo, sgn = device_weights("tf32x3", x.device, nbin, K, bool(fold))
+    out = (torch.empty((rows, K), device="cuda"),
+           torch.empty((rows, K), device="cuda"))
+    F._check(F.build_kernels().ppt_fcs_spectrum_f32(
+        x.data_ptr(), rows, nbin, hi.data_ptr(), lo.data_ptr(),
+        sgn.data_ptr(), nbin // 2 - 1 if fold else nbin, K, int(fold),
+        out[0].data_ptr(), out[1].data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "gemm_spectrum_f32")
+    return out
+
+
+def check_gemm_dc(name, rows, nbin, K, seed=0):
+    """The float32 GEMM arm's spectrum launch (the three-product TF32 DFT)
+    in the form the wrapper takes (folded at even nbin >= 8, else direct)
+    on baselined rows against the plain DFT (ops.fourier.rfft_mm)
+    evaluated in float64: Re and Im within 1e-5 x max|ref|; the DC
+    harmonic's error logged apart from the others' (the tensor cores'
+    sums of ~nbin values of one sign).  A check: it counts no launch.
+    Returns the (DC, the rest's Re) errors / max|ref|."""
+    import torch
+    from pulseportraiture_tpu_torch.ops import fused as F
+    from pulseportraiture_tpu_torch.ops.fourier import rfft_mm
+
+    if F.fft_arm(nbin, K):
+        raise AssertionError(f"check_gemm_dc {name}: the rule takes the FFT "
+                             "arm")
+    x = baselined_rows(rows, nbin, seed)
+    fold = nbin % 2 == 0 and nbin >= 8
+    name = f"{name} {'folded' if fold else 'direct'}"
+    out = gemm_spectrum_f32(x, K, fold)
+    ref = rfft_mm(x.double(), nharm=K)
+    ref32 = rfft_mm(x, nharm=K)
+    torch.cuda.synchronize()
+    _, text = check_outputs(f"GEMM spectrum baselined {name}",
+                            "fused_cross_spectrum spectrum", out, ref, ref32,
+                            ("re", "im"))
+    scale = float(ref[0].abs().max())
+    dc = float((out[0][:, 0].double() - ref[0][:, 0]).abs().max()) / scale
+    rest = float((out[0][:, 1:].double() - ref[0][:, 1:]).abs().max()) / scale
+    dc32 = float((ref32[0][:, 0].double() - ref[0][:, 0]).abs().max()) / scale
+    log(f"kernel check ok: fused_cross_spectrum GEMM spectrum on baselined "
+        f"rows {name} (tol 1e-5 x max|ref| of the plain DFT in float64; "
+        f"max abs err {text}); DC harmonic {dc:.3e} x max|ref| (plain f32 "
+        f"{dc32:.3e}), other harmonics' Re {rest:.3e}")
+    return dc, rest
 
 
 def _cross_epilogue(dr, di, mr, mi, w, want_m2):
@@ -736,10 +839,10 @@ def cross_spectrum_bound_ms(nb, nchan, nbin, K, itemsize, want_m2,
 
 
 def decode_case(name, nb, nchan, nbin, K, dtype, code, fold=False,
-                seed=0, arm=None):
+                seed=0, arm=None, block=None):
     """A B2 problem on the card: random packed bytes (every sample value
     occurs), DAT_SCL in [0.5, 1.5), DAT_OFFS ~ N(0, 1), one shared
-    template and per-element weights."""
+    template and per-element weights; block as cross_spectrum_case's."""
     import torch
     from pulseportraiture_tpu_torch.ops.decode import PACKED_BITS
 
@@ -757,7 +860,7 @@ def decode_case(name, nb, nchan, nbin, K, dtype, code, fold=False,
     w = torch.rand(lead + (nchan, K), generator=g, device="cuda",
                    dtype=dtype) + 0.5
     return dict(name=name, raw=raw, scl=scl, offs=offs, model=model, w=w,
-                K=K, code=code, nbin=nbin, fold=fold, arm=arm)
+                K=K, code=code, nbin=nbin, fold=fold, arm=arm, block=block)
 
 
 def check_decode_case(c):
@@ -779,8 +882,8 @@ def check_decode_case(c):
     got = F.fused_decode_cross_spectrum_cuda(*args, arm=c["arm"], **kw)
     arm = expect_arm("fused_decode_cross_spectrum", before,
                      case_arm(c, c["nbin"]), c["name"])
-    ref, ref32 = plain_oracle(F.fused_decode_cross_spectrum_ref, args, kw,
-                              arm)
+    ref, ref32 = plain_oracle(F.fused_decode_cross_spectrum_ref, args,
+                              dict(kw, block=c.get("block")))
     torch.cuda.synchronize()
     worst, _ = check_outputs(c["name"], "fused_decode_cross_spectrum", got,
                              ref, ref32, ("Xr", "Xi", "S0", "pwr", "x0"))
@@ -887,14 +990,40 @@ def phase_kernels():
         B1("nbin=1000 K=100", 3, 37, 1000, 100, f32, seed=13),
         B1("GEMM arm forced nbin=1000 K=100", 3, 37, 1000, 100, f32,
            seed=13, arm="gemm"),
-        B1("GEMM arm forced 2048 fold", 4, 512, 2048, 256, f32, fold=True,
-           seed=14, arm="gemm"),
+        B1("GEMM arm forced 2048 K=256", 4, 512, 2048, 256, f32, seed=14,
+           arm="gemm"),
         B1("f64 nbin=1000 fold want_m2 per-element", 2, 13, 1000, 40, f64,
            fold=True, want_m2=True, per_element=True, seed=15),
         B1("GEMM arm forced f64 nbin=1000 fold want_m2 per-element", 2, 13,
            1000, 40, f64, fold=True, want_m2=True, per_element=True,
            seed=15, arm="gemm"),
         B1("GEMM arm nbin=1022 K=100", 2, 37, 1022, 100, f32, seed=16),
+        # the float32 GEMM arm on the tensor cores (three TF32 products):
+        # every harmonic with want_m2, ragged rows, K one past a harmonic
+        # tile, the ends of the rule's nbin (below 16, above 8192), more
+        # row blocks than a grid's y axis holds (65535: 64-row spectrum
+        # and 128-row cross blocks), per-element models (the spectrum
+        # launch over every row), and the float64 SIMT GEMM (the only
+        # form that reads fold: float32 folds every even nbin) beside them
+        B1("GEMM arm 4x512x1022 K=512 want_m2", 4, 512, 1022, 512, f32,
+           want_m2=True, seed=17),
+        B1("GEMM arm ragged 3x37x1022 K=384", 3, 37, 1022, 384, f32, seed=18),
+        B1("GEMM arm 2x64x1022 K=385", 2, 64, 1022, 385, f32, seed=19),
+        B1("GEMM arm nbin=12 K=7 111 rows", 3, 37, 12, 7, f32, seed=40),
+        B1("GEMM arm nbin=8200 K=129 74 rows", 2, 37, 8200, 129, f32,
+           seed=41),
+        B1(f"GEMM arm {BIG_ROWS} rows per-element nbin=12 K=7", 1,
+           BIG_ROWS, 12, 7, f32, per_element=True, seed=42,
+           block=BIG_ROWS),
+        B1("GEMM arm per-element want_m2 2x37x1032 K=300", 2, 37, 1032, 300,
+           f32, want_m2=True, per_element=True, seed=43),
+        B1("f64 GEMM arm fold nbin=1022 K=200", 2, 13, 1022, 200, f64,
+           fold=True, seed=44),
+        # an odd nbin (3 11 31): the float32 GEMM arm's direct form
+        B1("GEMM arm direct nbin=1023 K=384", 4, 128, 1023, 384, f32,
+           seed=51),
+        B1("GEMM arm direct nbin=1023 K=512 want_m2 per-element", 2, 37,
+           1023, 512, f32, want_m2=True, per_element=True, seed=52),
     ]
     # the mixed-radix plan at 1536 (3 8 8 8), 3072 (3 8 8 8 2) and the
     # odd 1125 (3 3 5 5 5): S0 and want_m2 in float32 and float64, at an
@@ -941,8 +1070,8 @@ def phase_kernels():
                seed=30),
             B2("GEMM arm forced 2-bit nbin=1000 K=100", 2, 37, 1000, 100,
                f32, "p2", seed=30, arm="gemm"),
-            B2("GEMM arm forced 2-bit 2048 fold", 4, NCHAN, NBIN, 256, f32,
-               "p2", fold=True, seed=31, arm="gemm"),
+            B2("GEMM arm forced 2-bit 2048", 4, NCHAN, NBIN, 256, f32,
+               "p2", seed=31, arm="gemm"),
             B2("f64 4-bit nbin=1000 fold", 2, 13, 1000, 40, f64, "p4",
                fold=True, seed=32),
             B2("GEMM arm forced f64 4-bit nbin=1000 fold", 2, 13, 1000, 40,
@@ -955,8 +1084,25 @@ def phase_kernels():
             B2("f64 2-bit nbin=1536 K=769 37 rows", 3, 37, 1536, 769, f64,
                "p2", seed=35),
             B2("4-bit 8x512x1536 K=384", 8, NCHAN, 1536, 384, f32, "p4",
-               seed=36)):
+               seed=36),
+            # the float32 GEMM arm at 1032 = 2^3 3 43 bins, which packs at
+            # 1, 2 and 4 bits (1022 carries no 2-bit row)
+            B2("GEMM arm 1-bit 4x512x1032 K=384", 4, NCHAN, 1032, 384, f32,
+               "p1", seed=45),
+            B2("GEMM arm 2-bit 8x512x1032 K=384", 8, NCHAN, 1032, 384, f32,
+               "p2", seed=46),
+            B2("GEMM arm 4-bit 4x512x1032 K=517", 4, NCHAN, 1032, 517, f32,
+               "p4", seed=47),
+            B2("f64 GEMM arm 2-bit fold 2x37x1032 K=100", 2, 37, 1032, 100,
+               f64, "p2", fold=True, seed=48),
+            # more row blocks than a grid's y axis holds (the template's
+            # spectrum launch over every channel, then the cross launch)
+            B2(f"GEMM arm 2-bit {BIG_ROWS} rows nbin=12 K=7", None,
+               BIG_ROWS, 12, 7, f32, "p2", seed=53, block=BIG_ROWS)):
         check_decode_case(c)
+    # the GEMM arm's DC harmonic on baselined rows, logged apart
+    check_gemm_dc("64x512x1022 K=384", 64 * NCHAN, 1022, 384, seed=49)
+    check_gemm_dc("4x512x8200 K=129", 4 * NCHAN, 8200, 129, seed=50)
 
 
 def phase_timing(K_main, Ks=None):
@@ -6772,23 +6918,36 @@ def phase_full_spectrum_timing():
                 b2=phase_decode_timing(K))
 
 
-def gemm_bound_ms(rows, nbin, K, itemsize=4):
-    """The GEMM arm's own least time: its matmul DFT's 4 nbin K FMA-FLOPs
-    (cos and sin products) per transformed row (data and template rows)
-    over the FP32 (or FP64) peak."""
-    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS
-    return 4.0 * rows * nbin * K / peak * 1e3
+def gemm_bound_ms(rows, nbin, K):
+    """The float32 GEMM arm's own least time for the form it runs: 4 L K
+    FLOPs (cos and sin products) per transformed row (data and template
+    rows) over L samples, L = nbin / 2 - 1 at even nbin >= 8 (it folds:
+    the symmetric and antisymmetric sums) and nbin otherwise, three TF32
+    products each (FP32 accuracy), over the dense TF32 tensor-core
+    peak."""
+    L = nbin // 2 - 1 if nbin % 2 == 0 and nbin >= 8 else nbin
+    return 3.0 * 4.0 * rows * L * K / PEAK_TF32_FLOPS * 1e3
+
+
+def gemm_fma_bound_ms(rows, nbin, K):
+    """The direct form's 4 nbin K FLOPs per row over the FP32 FMA peak:
+    the bound of the SIMT GEMM that ran float32 before the tensor cores
+    (PR 1-19, direct unless fold was asked for), printed beside
+    gemm_bound_ms for the history."""
+    return 4.0 * rows * nbin * K / PEAK_FP32_FLOPS * 1e3
 
 
 def time_cross_spectrum(nb, nchan, nbin, K, want_m2=False, seed=0, n=10):
     """B1 at nb x nchan x nbin (float32, one shared template, per-element
     weights) at window K: the kernel through the arm the shape rule picks,
     its GEMM arm, its plain version and the torch.matmul and cuFFT
-    equivalents, each output held first to 1e-5 x max|ref| (plain_oracle;
-    the GEMM arm and the matmul equivalent, which sum in the float32 plain
-    version's order, to that version), then timed (median of n samples of
-    5 calls); with the function's bound (cross_spectrum_bound_ms) and the
-    GEMM arm's own (gemm_bound_ms).  Returns the record."""
+    equivalents, each output held first to 1e-5 x max|ref| (plain_oracle,
+    the float64 oracle; the matmul equivalent, which sums in the float32
+    plain version's order, to that version), then timed (median of n
+    samples of 5 calls); with the function's bound
+    (cross_spectrum_bound_ms) and the GEMM arm's own (gemm_bound_ms: its
+    three-product TF32 bound, and the FP32-FMA one of the SIMT arm it
+    replaced).  Returns the record."""
     import torch
     from pulseportraiture_tpu_torch.ops import fused as F
     from pulseportraiture_tpu_torch.ops.fourier import device_weights
@@ -6802,14 +6961,14 @@ def time_cross_spectrum(nb, nchan, nbin, K, want_m2=False, seed=0, n=10):
     before = F.kernel_launches()
     got = F.fused_cross_spectrum_cuda(*args, **kw)
     arm = expect_arm("fused_cross_spectrum", before, case_arm(c, nbin), name)
-    ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, kw, arm)
+    ref, ref32 = plain_oracle(F.fused_cross_spectrum_ref, args, kw)
     errs, text = check_outputs(name, "fused_cross_spectrum", got, ref, ref32,
                                parts)
     del got
     if arm != "gemm":
         check_outputs(f"{name} GEMM arm", "fused_cross_spectrum",
                       F.fused_cross_spectrum_cuda(*args, arm="gemm", **kw),
-                      ref32, ref32, parts)
+                      ref, ref32, parts)
     Wc, Ws = device_weights("rfft", c["port"].device, nbin, "float32", K)
     W = torch.cat([Wc, Ws], dim=1).contiguous()
     check_outputs(f"{name} torch.matmul equivalent", "library_equivalent",
@@ -6832,16 +6991,20 @@ def time_cross_spectrum(nb, nchan, nbin, K, want_m2=False, seed=0, n=10):
     ms2 = median_ms(lambda: F.fused_cross_spectrum_cuda(*args, **kw), n=n)
     bound, by = cross_spectrum_bound_ms(nb, nchan, nbin, K, 4, want_m2)
     gbound = gemm_bound_ms(nb * nchan + nchan, nbin, K)
+    fbound = gemm_fma_bound_ms(nb * nchan + nchan, nbin, K)
     log(f"timing fused_cross_spectrum {name} f32: kernel ({arm} arm) "
         f"{ms:.4f} ms (again {ms2:.4f}), GEMM arm {gemm_ms:.4f} ms (its own "
-        f"FP32 bound {gbound:.4f} ms, {100.0 * gbound / gemm_ms:.1f} %), "
-        f"plain {plain_ms:.4f} ms, torch.matmul equivalent {lib_ms:.4f} ms, "
-        f"cuFFT equivalent {cufft_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+        f"three-product TF32 bound {gbound:.4f} ms, "
+        f"{100.0 * gbound / gemm_ms:.1f} %; FP32-FMA bound {fbound:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, torch.matmul equivalent "
+        f"{lib_ms:.4f} ms, cuFFT equivalent {cufft_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}), "
         f"kernel at {100.0 * bound / ms:.1f} % of its bound"
         f"{'' if ms <= cufft_ms else ', SLOWER than the cuFFT equivalent'}; "
         f"max abs err {text}")
     return dict(shape=[nb, nchan, nbin, K], want_m2=want_m2, arm=arm, ms=ms,
                 ms_again=ms2, gemm_arm_ms=gemm_ms, gemm_bound_ms=gbound,
+                gemm_fma_bound_ms=fbound,
                 plain_ms=plain_ms, library_ms=lib_ms, cufft_ms=cufft_ms,
                 bound_ms=bound, bound_by=by, max_abs_err=err,
                 max_abs_ref=scale)
@@ -6868,13 +7031,12 @@ def time_decode(nb, nchan, nbin, K, code="p2", seed=0, n=10):
     args = (c["raw"], c["scl"], c["offs"], c["model"], c["w"], K)
     kw = dict(code=code, nbin=nbin)
     parts = ("Xr", "Xi", "S0", "pwr", "x0")
-    ref, ref32 = plain_oracle(F.fused_decode_cross_spectrum_ref, args, kw,
-                              arm)
+    ref, ref32 = plain_oracle(F.fused_decode_cross_spectrum_ref, args, kw)
     if arm != "gemm":
         check_outputs(f"{name} GEMM arm", "fused_decode_cross_spectrum",
                       F.fused_decode_cross_spectrum_cuda(*args, arm="gemm",
                                                          **kw),
-                      ref32, ref32, parts)
+                      ref, ref32, parts)
     check_outputs(f"{name} cuFFT equivalent", "decode_library_equivalent",
                   decode_library_equivalent(*args, code, nbin), ref, ref32,
                   parts)
@@ -6896,9 +7058,12 @@ def time_decode(nb, nchan, nbin, K, code="p2", seed=0, n=10):
                     n=n)
     bound, by = decode_bound_ms(nb, nchan, nbin, K, nbit)
     gbound = gemm_bound_ms(nb * nchan + nchan, nbin, K)
+    fbound = gemm_fma_bound_ms(nb * nchan + nchan, nbin, K)
     log(f"timing fused_decode_cross_spectrum {name} f32: kernel ({arm} arm) "
         f"{ms:.4f} ms (again {ms2:.4f}), GEMM arm {gemm_ms:.4f} ms (its own "
-        f"FP32 bound {gbound:.4f} ms), plain {plain_ms:.4f} ms, torch "
+        f"three-product TF32 bound {gbound:.4f} ms, "
+        f"{100.0 * gbound / gemm_ms:.1f} %; FP32-FMA bound {fbound:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, torch "
         f"equivalents: decode + torch.matmul {lib_ms:.4f} ms, decode + "
         f"torch.fft.rfft {cufft_ms:.4f} ms; bound {bound:.4f} ms ({by}), "
         f"kernel at {100.0 * bound / ms:.1f} % of its bound"
@@ -6906,24 +7071,26 @@ def time_decode(nb, nchan, nbin, K, code="p2", seed=0, n=10):
         f"worst {part} max abs err {err:.3e} of max|ref| {scale:.3e}")
     return dict(shape=[nb, nchan, nbin, K], code=code, arm=arm, ms=ms,
                 ms_again=ms2, gemm_arm_ms=gemm_ms, gemm_bound_ms=gbound,
+                gemm_fma_bound_ms=fbound,
                 plain_ms=plain_ms, library_ms=lib_ms, cufft_ms=cufft_ms,
                 bound_ms=bound, bound_by=by, max_abs_err=err,
                 max_abs_ref=scale)
 
 
 def mixed_archives(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=MIXED_NBIN,
-                   narch=MIXED_NARCH):
-    """Phase 23's campaign under WORK/mixed: an int16 archive of nsub x
-    nchan x nbin with the main path's injection and narch 2-bit archives
-    (each its own epoch and noise draw) in one metafile, and the .gmodel.
-    Returns (metafile, int16 archive, 2-bit archives, .gmodel)."""
+                   narch=MIXED_NARCH, sub="mixed"):
+    """Phase 23's (and 24's) campaign under WORK/sub: an int16 archive of
+    nsub x nchan x nbin with the main path's injection and narch 2-bit
+    archives (each its own epoch and noise draw) in one metafile, and the
+    .gmodel.  Returns (metafile, int16 archive, 2-bit archives,
+    .gmodel)."""
     import numpy as np
     from pulseportraiture_tpu_torch.io.gmodel import write_gmodel
     from pulseportraiture_tpu_torch.synth import (default_test_model,
                                                   make_fake_pulsar)
     from pulseportraiture_tpu_torch.utils.mjd import MJD
 
-    work = os.path.join(WORK, "mixed")
+    work = os.path.join(WORK, sub)
     os.makedirs(work, exist_ok=True)
     model = default_test_model(1500.0)
     gmodel = os.path.join(work, "model.gmodel")
@@ -6969,27 +7136,30 @@ def tim_phase_recovery(tim, n):
 
 
 def phase_nbin_mixed(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=MIXED_NBIN,
-                     narch=MIXED_NARCH, nsub_c8=MIXED_C8_NSUB):
-    """Phase 23, a non-power-of-two nbin on the main and stream paths:
-    mixed_archives at nbin bins (the FFT arm's mixed-radix plan);
-    ``pptoas`` (GetTOAs) on the int16 archive at window MIXED_K and
-    unwindowed (every harmonic through B1 on CUDA), then ``pptoas
-    --stream`` over it and the 2-bit archives at MIXED_K, each run in
-    this process with the counters set to 0 just before it and read just
-    after: every TOA within 1e-4 rot of the injection, and on CUDA every
-    B1 and B2 launch through the FFT arm, none through the GEMM arm;
-    then the C8 gate (c8_gate) on nsub_c8 scattered subints at nbin bins,
-    the fast, packed and scat_guess='auto' lanes at MIXED_K and
+                     narch=MIXED_NARCH, nsub_c8=MIXED_C8_NSUB, arm="fft"):
+    """Phase 23 (arm 'fft': a non-power-of-two 5-smooth nbin, the FFT
+    arm's mixed-radix plan) and phase 24 (arm 'gemm': an nbin with a
+    prime factor above 5, the GEMM arm) on the main and stream paths:
+    mixed_archives at nbin bins; ``pptoas`` (GetTOAs) on the int16 archive
+    at window MIXED_K and unwindowed (every harmonic through B1 on CUDA),
+    then ``pptoas --stream`` over it and the 2-bit archives at MIXED_K,
+    each run in this process with the counters set to 0 just before it
+    and read just after: every TOA within 1e-4 rot of the injection, and
+    on CUDA every B1 and B2 launch through ``arm``, none through the
+    other; then the C8 gate (c8_gate) on nsub_c8 scattered subints at
+    nbin bins, the fast, packed and scat_guess='auto' lanes at MIXED_K and
     unwindowed.  Runs before phase 22, which stays last.  Returns the
     launches of all its runs."""
     from pulseportraiture_tpu_torch import config
     from pulseportraiture_tpu_torch.ops import fused as F
 
+    sub = "mixed" if arm == "fft" else f"nbin{nbin}"
+    only = fft_only if arm == "fft" else gemm_only
     t0 = time.perf_counter()
     meta, int16, files, gmodel = mixed_archives(device, nsub, nchan, nbin,
-                                                narch)
-    log(f"mixed-nbin archives: an int16 and {narch} 2-bit {nsub}x{nchan}x"
-        f"{nbin} written in {time.perf_counter() - t0:.2f} s")
+                                                narch, sub)
+    log(f"nbin {nbin} ({arm} arm) archives: an int16 and {narch} 2-bit "
+        f"{nsub}x{nchan}x{nbin} written in {time.perf_counter() - t0:.2f} s")
     cuda = device_type(device) == "cuda"
     total = Counter()
     saved = config.fit_harmonic_window
@@ -7004,7 +7174,7 @@ def phase_nbin_mixed(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=MIXED_NBIN,
             config.fit_harmonic_window = window
             label = (f"{'pptoas --stream' if '--stream' in args else 'pptoas'}"
                      f" at {nbin} bins, window {window}")
-            tim = os.path.join(WORK, "mixed", "out.tim")
+            tim = os.path.join(WORK, sub, "out.tim")
             if os.path.exists(tim):
                 os.remove(tim)
             wall, launches = run_cli(
@@ -7018,13 +7188,13 @@ def phase_nbin_mixed(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=MIXED_NBIN,
                 f"first use, max |dphi| = {worst:.3e} rot (limit 1e-4), "
                 f"kernel launches {launches}")
             if cuda:
-                fft_only(launches, kernels, label)
+                only(launches, kernels, label)
             total.update(launches)
         config.fit_harmonic_window = saved
         t0 = time.perf_counter()
         inp, _ = c8_inputs(device, nsub_c8, nchan, nbin,
-                           work=os.path.join(WORK, "mixed", "c8"))
-        log(f"mixed-nbin C8 inputs: {nsub_c8} x {nchan} x {nbin} scattered "
+                           work=os.path.join(WORK, sub, "c8"))
+        log(f"nbin {nbin} C8 inputs: {nsub_c8} x {nchan} x {nbin} scattered "
             f"int16 and its 2-bit rows in {time.perf_counter() - t0:.2f} s")
         F.reset_kernel_launches()
         c8_gate(inp, nsub_c8, [(ln, k) for ln in C8_LANES
@@ -7032,23 +7202,23 @@ def phase_nbin_mixed(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=MIXED_NBIN,
                 f"C8 gate at {nbin} bins")
         launches = F.kernel_launches()
         if cuda:
-            fft_only(launches, ("fused_cross_spectrum",
-                                "fused_decode_cross_spectrum"),
-                     f"the C8 gate at {nbin} bins")
+            only(launches, ("fused_cross_spectrum",
+                            "fused_decode_cross_spectrum"),
+                 f"the C8 gate at {nbin} bins")
         total.update(launches)
     finally:
         config.fit_harmonic_window = saved
         if cuda:
             restore()
     total = {k: total[k] for k in F.kernel_launches()}
-    log(f"mixed-nbin launches {total}")
+    log(f"nbin {nbin} launches {total}")
     if cuda:
         windows = sorted({kk for _, kk in seen})
-        log(f"mixed-nbin calls by (kernel, K): "
-            f"{dict(sorted(Counter(seen).items()))} (two launches each)")
+        log(f"nbin {nbin} calls by (kernel, K): "
+            f"{dict(sorted(Counter(seen).items()))}")
         if windows != [MIXED_K, nbin // 2 + 1] \
                 or not total["fused_cross_spectrum.m2"]:
-            raise AssertionError(f"mixed nbin: kernel windows {windows}, "
+            raise AssertionError(f"nbin {nbin}: kernel windows {windows}, "
                                  f"want_m2 launches "
                                  f"{total['fused_cross_spectrum.m2']}; "
                                  f"expected K={MIXED_K} and "
@@ -7060,33 +7230,68 @@ def phase_mixed_timing():
     """Phase 23's timing rows: B1's S0 form at 64 x 512 x nbin for nbin in
     MIXED_TIME_NBINS at K = MIXED_K and nbin / 2 + 1, its want_m2 form
     and B2 (2-bit) at a full bucket (NSUB_BATCH x 512 x
-    MIXED_BUCKET_NBIN, K = MIXED_K), and the GEMM arm by the rule at
-    64 x 512 x MIXED_GEMM_NBIN, K = MIXED_K (time_cross_spectrum,
-    time_decode).  Returns {"b1": [...], "b2": [...]}."""
+    MIXED_BUCKET_NBIN, K = MIXED_K) (time_cross_spectrum, time_decode).
+    Returns {"b1": [...], "b2": [...]}."""
     b1 = [time_cross_spectrum(NSUB, NCHAN, n, K, seed=90 + i)
           for i, (n, K) in enumerate((n, K) for n in MIXED_TIME_NBINS
                                      for K in (MIXED_K, n // 2 + 1))]
     b1.append(time_cross_spectrum(NSUB_BATCH, NCHAN, MIXED_BUCKET_NBIN,
                                   MIXED_K, want_m2=True, seed=97))
-    b1.append(time_cross_spectrum(NSUB, NCHAN, MIXED_GEMM_NBIN, MIXED_K,
-                                  seed=98))
-    if b1[-1]["arm"] != "gemm":
-        raise AssertionError(f"{MIXED_GEMM_NBIN} bins took the "
-                             f"{b1[-1]['arm']} arm")
     b2 = [time_decode(NSUB_BATCH, NCHAN, MIXED_BUCKET_NBIN, MIXED_K,
                       seed=99)]
     return {"b1": b1, "b2": b2}
 
 
-def fft_only(launches, kernels, path):
-    """Raise unless each kernel was launched on the path, through its
-    FFT arm only (the paths run 2048 bins)."""
+def phase_nbin_prime(device="cuda", nsub=NSUB, nchan=NCHAN, nbin=PRIME_NBIN,
+                     narch=MIXED_NARCH, nsub_c8=MIXED_C8_NSUB):
+    """Phase 24: phase_nbin_mixed at an nbin with a prime factor above 5
+    (PRIME_NBIN = 2^3 3 43), every B1 and B2 launch through the GEMM arm
+    (the float32 three-product TF32 tensor-core GEMM).  Returns the
+    launches of all its runs."""
+    return phase_nbin_mixed(device, nsub, nchan, nbin, narch, nsub_c8,
+                            arm="gemm")
+
+
+def phase_prime_timing():
+    """Phase 24's timing rows, each through the GEMM arm by the rule:
+    B1's S0 form at 64 x 512 x PRIME_TIME_NBIN at K = MIXED_K and 512, its
+    want_m2 form at NSUB_BATCH x 512 x PRIME_TIME_NBIN, K = MIXED_K, and B2
+    2-bit at NSUB_BATCH x 512 x PRIME_NBIN, K = MIXED_K
+    (time_cross_spectrum, time_decode: the kernel beside its plain
+    version, the torch.matmul and cuFFT equivalents, its byte bound and
+    its three-product TF32 bound).  Returns {"b1": [...], "b2": [...]}."""
+    b1 = [time_cross_spectrum(NSUB, NCHAN, PRIME_TIME_NBIN, K, seed=98 + i)
+          for i, K in enumerate((MIXED_K, PRIME_TIME_NBIN // 2 + 1))]
+    b1.append(time_cross_spectrum(NSUB_BATCH, NCHAN, PRIME_TIME_NBIN,
+                                  MIXED_K, want_m2=True, seed=100))
+    b2 = [time_decode(NSUB_BATCH, NCHAN, PRIME_NBIN, MIXED_K, seed=101)]
+    for r in b1 + b2:
+        if r["arm"] != "gemm":
+            raise AssertionError(f"phase 24 timing row {r['shape']}: the "
+                                 f"{r['arm']} arm")
+    return {"b1": b1, "b2": b2}
+
+
+def _one_arm(launches, kernels, path, arm):
+    other = "gemm" if arm == "fft" else "fft"
     for k in kernels:
-        if launches[f"{k}.fft"] < 1 or launches[f"{k}.gemm"]:
+        if launches[f"{k}.{arm}"] < 1 or launches[f"{k}.{other}"]:
             raise AssertionError(
                 f"{path}: {k} launched {launches[f'{k}.fft']} times through "
                 f"the FFT arm and {launches[f'{k}.gemm']} through the GEMM "
-                "arm; expected FFT-arm launches only")
+                f"arm; expected {arm.upper()}-arm launches only")
+
+
+def fft_only(launches, kernels, path):
+    """Raise unless each kernel was launched on the path, through its
+    FFT arm only (the paths run 2048 bins)."""
+    _one_arm(launches, kernels, path, "fft")
+
+
+def gemm_only(launches, kernels, path):
+    """Raise unless each kernel was launched on the path, through its
+    GEMM arm only (phase 24's nbin has a prime factor above 5)."""
+    _one_arm(launches, kernels, path, "gemm")
 
 
 def device_type(device):
@@ -7194,6 +7399,11 @@ def main():
     log(f"phase non-power-of-two nbin: {time.perf_counter() - t0:.1f} s "
         "wall")
     t0 = time.perf_counter()
+    prime = phase_nbin_prime()
+    prime_rows = phase_prime_timing()
+    log(f"phase nbin with a prime factor above 5: "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
     c8 = phase_batch_invariance()
     alone = phase_stream_alone()
     phase_compile_cache()
@@ -7238,16 +7448,20 @@ def main():
             "tune": tune["fused_cross_spectrum"],
             "c8": c8["fused_cross_spectrum"],
             "stream_alone": alone["fused_cross_spectrum"],
-            "nbin_mixed": mixed["fused_cross_spectrum"]},
+            "nbin_mixed": mixed["fused_cross_spectrum"],
+            "nbin_prime": prime["fused_cross_spectrum"]},
+        "gemm_launches": prime["fused_cross_spectrum.gemm"],
         "want_m2": dict(rec_m2, launches=scat_launches[
             "fused_cross_spectrum.m2"], launches_by_path={
                 "scattering": scat_launches["fused_cross_spectrum.m2"],
                 "scale_out": scale["fused_cross_spectrum.m2"],
                 "c8": c8["fused_cross_spectrum.m2"],
-                "nbin_mixed": mixed["fused_cross_spectrum.m2"]}),
+                "nbin_mixed": mixed["fused_cross_spectrum.m2"],
+                "nbin_prime": prime["fused_cross_spectrum.m2"]}),
         "full_spectrum": {"K": NBIN // 2 + 1, "s0": full["s0"],
                           "want_m2": full["m2"]},
         "nbin_mixed": mixed_rows["b1"],
+        "nbin_prime": prime_rows["b1"],
     }, {
         "name": "fused_decode_cross_spectrum",
         "route": "cuda",
@@ -7282,9 +7496,12 @@ def main():
             "tune": tune["fused_decode_cross_spectrum"],
             "c8": c8["fused_decode_cross_spectrum"],
             "stream_alone": alone["fused_decode_cross_spectrum"],
-            "nbin_mixed": mixed["fused_decode_cross_spectrum"]},
+            "nbin_mixed": mixed["fused_decode_cross_spectrum"],
+            "nbin_prime": prime["fused_decode_cross_spectrum"]},
+        "gemm_launches": prime["fused_decode_cross_spectrum.gemm"],
         "full_spectrum": dict(full["b2"], K=NBIN // 2 + 1),
         "nbin_mixed": mixed_rows["b2"],
+        "nbin_prime": prime_rows["b2"],
     }]
     log(f"chip_smoke total: {time.perf_counter() - t_main:.1f} s wall")
     log(json.dumps({"kernels": kernels}))

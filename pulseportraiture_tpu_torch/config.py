@@ -97,6 +97,9 @@ raw_subbyte = True
 # Fold-symmetry matmul DFT (half-length contraction).
 #   False (default): direct matmul.  'auto': fold off CUDA only.
 #   True: fold everywhere.
+# On CUDA it shapes only the float64 GEMM arm of the fused kernels: their
+# float32 GEMM arm folds every even nbin >= 8 whatever this says, and
+# their FFT arm never folds.
 dft_fold = False
 
 # Harmonic window of the fast fit:

@@ -18,8 +18,10 @@
 //   harmonics it needs.  Bound on this card: bytes (each row, weight and
 //   output moved once; the FFT's arithmetic is ~1/50 of the FP32 peak's
 //   share of that time), which is what the design aims at;
-// - the GEMM arm (fcs_gemm.cuh), for every other shape: the DFT as an
-//   FP32 SIMT matrix product, bound by FP32 FMA throughput.
+// - the GEMM arm (fcs_gemm.cuh), for every other shape (an nbin with a
+//   prime factor above 5, above 8192 or below 16): the DFT as a matrix
+//   product, in float32 three TF32 products per FP32 product on the
+//   tensor cores (bound by their rate), in float64 a SIMT GEMM.
 //
 // Both arms run the model spectrum as a first launch (once per call for
 // a shared template) into scratch that the cross launch reads; fold
@@ -94,14 +96,15 @@ int fft_dense_launch(const void* x, int64_t M, int nbin, const void* tw,
 extern "C" {
 
 // GEMM arm, spectrum mode: (out_r, out_i)[M, K] = windowed DFT of
-// x[M, nbin].
+// x[M, nbin].  float32: hi, lo = the (2, Kp, Lp) TF32 twiddle planes
+// (ops/fourier.py "tf32x3"); float64: Wc, Ws = the (L, K) twiddles.
 int ppt_fcs_spectrum_f32(const void* x, int64_t M, int nbin,
-                         const void* Wc, const void* Ws, const void* sgn,
+                         const void* hi, const void* lo, const void* sgn,
                          int L, int K, int fold, void* out_r, void* out_i,
                          void* stream) {
   return launch<float, SPECTRUM>(
-      DenseRows<float>{(const float*)x, nbin}, M, nbin, (const float*)Wc,
-      (const float*)Ws, (const float*)sgn, L, K, fold, nullptr, nullptr, 1,
+      DenseRows<float>{(const float*)x, nbin}, M, nbin, (const float*)hi,
+      (const float*)lo, (const float*)sgn, L, K, fold, nullptr, nullptr, 1,
       nullptr, 1, (float*)out_r, (float*)out_i, nullptr, 0,
       (cudaStream_t)stream);
 }
@@ -119,16 +122,17 @@ int ppt_fcs_spectrum_f64(const void* x, int64_t M, int nbin,
 
 // GEMM arm, cross mode: (Xr, Xi)[M, K] and S0[M] (or M2w[M, K] when
 // want_m2) from data x[M, nbin], the model spectrum (mr, mi)[*, K] (row
-// r % m_mod) and weights w[*, K] (row r % w_mod).
-int ppt_fcs_cross_f32(const void* x, int64_t M, int nbin, const void* Wc,
-                      const void* Ws, const void* sgn, int L, int K,
+// r % m_mod) and weights w[*, K] (row r % w_mod); the twiddles as the
+// spectrum mode's.
+int ppt_fcs_cross_f32(const void* x, int64_t M, int nbin, const void* hi,
+                      const void* lo, const void* sgn, int L, int K,
                       int fold, const void* mr, const void* mi,
                       int64_t m_mod, const void* w, int64_t w_mod,
                       void* Xr, void* Xi, void* o2,
                       int want_m2, void* stream) {
   return launch<float, CROSS>(
-      DenseRows<float>{(const float*)x, nbin}, M, nbin, (const float*)Wc,
-      (const float*)Ws, (const float*)sgn, L, K, fold, (const float*)mr,
+      DenseRows<float>{(const float*)x, nbin}, M, nbin, (const float*)hi,
+      (const float*)lo, (const float*)sgn, L, K, fold, (const float*)mr,
       (const float*)mi, m_mod, (const float*)w, w_mod, (float*)Xr,
       (float*)Xi, (float*)o2, want_m2, (cudaStream_t)stream);
 }

@@ -42,7 +42,8 @@
 // - the GEMM arm, every other shape: a stats launch (one block per row,
 //   the same row_baseline and row_parseval), B1's GEMM spectrum launch,
 //   and the GEMM of fcs_gemm.cuh with a loader that decodes each sample
-//   as it stages it; bound by FP32 FMA throughput.
+//   as it stages it (float32: three TF32 products on the tensor cores,
+//   bound by their rate; float64: the SIMT GEMM).
 //
 // Plain C interface (ctypes); each entry point launches one kernel on
 // the given stream and returns a cudaError_t code.
@@ -98,6 +99,18 @@ struct PackedRows {
   __device__ __forceinline__ T operator()(int64_t row, int j) const {
     const T s = T(sample<NBIT>(raw + row * bpc, j));
     return sub_rn(add_rn(mul_rn(s, scl[row]), offs[row]), base[row]);
+  }
+  // one row's samples, its decode constants read once: at(row)(j) =
+  // (*this)(row, j)
+  struct Row {
+    const uint8_t* p;
+    T sc, of, b;
+    __device__ __forceinline__ T operator()(int j) const {
+      return sub_rn(add_rn(mul_rn(T(sample<NBIT>(p, j)), sc), of), b);
+    }
+  };
+  __device__ __forceinline__ Row at(int64_t row) const {
+    return {raw + row * bpc, scl[row], offs[row], base[row]};
   }
 };
 
@@ -546,15 +559,17 @@ int ppt_fdcs_stats_f64(const void* raw, int64_t M, int nbin, int bpc,
 
 // GEMM arm, cross: (Xr, Xi)[M, K] and S0[M] from the packed rows
 // decoded with scl/offs/base[M], the model spectrum (mr, mi)[*, K] (row
-// r % m_mod) and weights w[*, K] (row r % w_mod).
+// r % m_mod) and weights w[*, K] (row r % w_mod).  float32: hi, lo = the
+// (2, Kp, Lp) TF32 twiddle planes; float64: Wc, Ws = the (L, K)
+// twiddles.
 int ppt_fdcs_cross_f32(const void* raw, int64_t M, int nbin, int bpc,
                        int nbit, const void* scl, const void* offs,
-                       const void* base, const void* Wc, const void* Ws,
+                       const void* base, const void* hi, const void* lo,
                        const void* sgn, int L, int K, int fold,
                        const void* mr, const void* mi, int64_t m_mod,
                        const void* w, int64_t w_mod, void* Xr, void* Xi,
                        void* S0, void* stream) {
-  return cross<float>(raw, M, nbin, bpc, nbit, scl, offs, base, Wc, Ws,
+  return cross<float>(raw, M, nbin, bpc, nbit, scl, offs, base, hi, lo,
                       sgn, L, K, fold, mr, mi, m_mod, w, w_mod, Xr, Xi, S0,
                       stream);
 }

@@ -20,8 +20,10 @@ On CUDA, 'high' and 'default' run the matmul DFTs' products in TF32
 ``torch.backends.cuda.matmul.allow_tf32`` set for the call and restored
 after it; on the CPU all three are full float32, as the JAX package's
 CPU backend computes them.  The fused kernels (ops.fused) and the
-torch.fft transforms take no tensor-core arm and compute every setting
-in full precision.
+torch.fft transforms compute every setting to FP32 accuracy: the fused
+kernels' GEMM arm runs float32 on the tensor cores as three TF32
+products per FP32 product, against the host's split twiddles
+(device_weights "tf32x3").
 
 Batch invariance: a cuBLAS GEMM picks its kernel, and so its rounding,
 by the row count, so a matmul DFT of one row and of the same row among
@@ -142,6 +144,47 @@ def _rfft_fold_weights(n, dtype_str, nharm=None):
             sgn.astype(dtype_str))
 
 
+# the float32 GEMM arm's tiles (csrc/fcs_gemm.cuh TC_BK, TC_BH): its
+# twiddle planes are zero-padded to whole tiles
+TF32_TIME_CHUNK, TF32_HARM_TILE = 16, 128
+
+
+def tf32_rna(x):
+    """float64 x rounded to TF32 (11 significant bits: the low 13 of a
+    float32 mantissa zero), to nearest with ties away from zero, as the
+    card's cvt.rna.tf32.f32 rounds; float64 out."""
+    m, e = np.frexp(np.asarray(x, dtype=np.float64))
+    s = np.ldexp(m, 11)
+    return np.ldexp(np.sign(s) * np.floor(np.abs(s) + 0.5), e - 11)
+
+
+@lru_cache(maxsize=None)
+def _tf32x3_weights(n, nharm, fold=False):
+    """(hi, lo, sgn): the float32 GEMM arm's twiddles (csrc/fcs_gemm.cuh)
+    for the three-product TF32 DFT of length n over nharm harmonics, as
+    float32 (2, Kp, Lp) planes [cos, -sin][harmonic][time], K-major (time
+    contiguous), the time axis zero-padded to TF32_TIME_CHUNK and the
+    harmonics to TF32_HARM_TILE: hi = tf32_rna(w), lo = tf32_rna(w - hi),
+    w built in float64, so hi + lo is w to 2^-22 |w|.  fold: the
+    half-length fold-symmetry twiddles (_rfft_fold_weights, times
+    1 ... n/2 - 1).  sgn = (-1)^k (the fold's Nyquist sign)."""
+    if fold:
+        Wc, Ws, sgn = _rfft_fold_weights.__wrapped__(n, "float64", nharm)
+    else:
+        Wc, Ws = _rfft_weights.__wrapped__(n, "float64", nharm)
+        sgn = (-1.0) ** np.arange(Wc.shape[1])
+    L, K = Wc.shape
+    Lp = -(-L // TF32_TIME_CHUNK) * TF32_TIME_CHUNK
+    Kp = -(-K // TF32_HARM_TILE) * TF32_HARM_TILE
+    w = np.zeros((2, Kp, Lp))
+    w[0, :K, :L] = Wc.T
+    w[1, :K, :L] = Ws.T
+    hi = tf32_rna(w)
+    lo = tf32_rna(w - hi)
+    return (hi.astype(np.float32), lo.astype(np.float32),
+            sgn.astype(np.float32))
+
+
 @lru_cache(maxsize=None)
 def _fft_twiddles(n, dtype_str):
     """(tw,): the (n, 2) table of exp(-2 pi i j / n), j < n, as (re, im)
@@ -166,14 +209,15 @@ def _irfft_pair(nharm, n):
 
 _HOST_WEIGHTS = {"rfft": _rfft_weights, "fold": _rfft_fold_weights,
                  "irfft": _irfft_weights, "fft": _fft_twiddles,
+                 "tf32x3": _tf32x3_weights,
                  "rfft_pair": _rfft_pair, "irfft_pair": _irfft_pair}
 _device_cache = {}
 
 
 def device_weights(kind, device, *args):
-    """The cached host twiddles of ``kind`` ('rfft', 'fold', 'irfft', 'fft';
-    args as the host constructor's) as tensors on ``device``, copied
-    once per (shape, dtype, device)."""
+    """The cached host twiddles of ``kind`` ('rfft', 'fold', 'irfft', 'fft',
+    'tf32x3', ...; args as the host constructor's) as tensors on
+    ``device``, copied once per (shape, dtype, device)."""
     key = (kind, str(device)) + args
     hit = _device_cache.get(key)
     if hit is None:

@@ -20,9 +20,10 @@ an nbin in [FFT_NBIN_MIN, FFT_NBIN_MAX] = [16, 8192] with no prime factor
 other than 2, 3 and 5 and a harmonic window K <= nbin/2 + 1 takes the
 FFT arm (csrc/fft_smem.cuh: a mixed-radix 2/3/4/5/8 real FFT of the rows
 in shared memory, two rows per complex transform), every other shape
-the GEMM arm (csrc/fcs_gemm.cuh: the DFT as an FP32 matrix product).  A
-failed build or launch of either arm raises; neither falls back to the
-other.
+the GEMM arm (csrc/fcs_gemm.cuh: the DFT as a matrix product, in
+float32 three TF32 products per FP32 product on the tensor cores, in
+float64 a SIMT GEMM).  A failed build or launch of either arm raises;
+neither falls back to the other, nor the float32 GEMM to the SIMT one.
 
 :func:`fused_cross_spectrum` dispatches by the device the tensors are
 on.  Inputs carry an optional leading batch (subint) dimension: port
@@ -159,7 +160,10 @@ def fused_cross_spectrum(port, model, w, nharm, precision=None, fold=None,
     with S0 (..., nchan), or (Xr, Xi, M2w) when want_m2.
 
     CUDA tensors run the hand-written kernel; CPU tensors the plain
-    version.  block only shapes the plain version's tiling."""
+    version.  block only shapes the plain version's tiling.  fold (None:
+    config.dft_fold) shapes the plain version and, on CUDA, only the
+    float64 GEMM arm: the float32 GEMM arm folds every even nbin >= 8
+    whatever it says, and the FFT arm never folds."""
     if port.device.type == "cuda":
         return fused_cross_spectrum_cuda(port, model, w, nharm,
                                          precision=precision, fold=fold,
@@ -315,7 +319,17 @@ def _resolve_arm(arm, nbin, K, name):
 
 def _gemm_weights(fold, device, nbin, dts, K):
     """(Wc, Ws, sgn, L, fold) of the GEMM arm: the direct or the folded
-    DFT twiddles (fold only for even nbin >= 8)."""
+    DFT twiddles (fold only for even nbin >= 8) over L time samples.  In
+    float32 (Wc, Ws) are the tensor cores' TF32 (hi, lo) planes
+    (ops.fourier "tf32x3"), folded for every even nbin >= 8 whatever
+    ``fold`` says: the fold's sums are formed as the samples are staged,
+    and halve the tensor-core products (its own arithmetic, as the FFT
+    arm's); float64 (the SIMT GEMM) follows ``fold`` (None:
+    config.dft_fold)."""
+    if dts == "float32":
+        fold = nbin % 2 == 0 and nbin >= 8
+        hi, lo, sgn = device_weights("tf32x3", device, nbin, K, fold)
+        return hi, lo, sgn, nbin // 2 - 1 if fold else nbin, fold
     if fold is None:
         fold = use_dft_fold(device)
     fold = bool(fold) and nbin % 2 == 0 and nbin >= 8
@@ -360,9 +374,12 @@ def fused_cross_spectrum_cuda(port, model, w, nharm, precision=None,
     with the cross-spectrum and the S0 row sum (or M2w) formed in its
     epilogue.  arm None takes the shape rule of :func:`fft_arm`; 'gemm'
     forces the GEMM arm, 'fft' asserts the FFT arm.  fold shapes only
-    the GEMM arm.  CUDA float32/float64 tensors only.  dft_precision is
-    checked and computes full FP32 products in every setting (an FFT has
-    no TF32 arm).  At an odd channel count with a batch, each subint is
+    the float64 GEMM arm (the float32 one folds every even nbin,
+    _gemm_weights).  CUDA float32/float64 tensors only.  dft_precision is
+    checked and computes FP32-accurate products (three TF32 products) in
+    every dft_precision setting: the FFT arm in FP32, the GEMM arm's
+    float32 on the tensor cores with each product split into three TF32
+    products.  At an odd channel count with a batch, each subint is
     padded with one zero channel on the FFT arm (_odd_batch), so its bits
     do not depend on its neighbours."""
     name = "fused_cross_spectrum_cuda"
@@ -484,7 +501,9 @@ def fused_decode_cross_spectrum(raw, scl, offs, model, w, nharm, *, code,
     channel sum of the decoded, baselined samples.
 
     CUDA tensors run the hand-written kernel; CPU tensors the plain
-    version.  block only shapes the plain version's tiling."""
+    version.  block only shapes the plain version's tiling; fold as
+    :func:`fused_cross_spectrum`'s (on CUDA it shapes only the float64
+    GEMM arm)."""
     if raw.device.type == "cuda":
         return fused_decode_cross_spectrum_cuda(
             raw, scl, offs, model, w, nharm, code=code, nbin=nbin,
@@ -556,9 +575,10 @@ def fused_decode_cross_spectrum_cuda(raw, scl, offs, model, w, nharm, *,
     launches, the per-row stats (baseline, x0, pwr), B1's GEMM spectrum
     launch for the template, and the GEMM that decodes the rows as it
     stages them.  arm None takes the shape rule; 'gemm' forces the GEMM
-    arm, 'fft' asserts the FFT arm.  fold shapes only the GEMM arm.
+    arm, 'fft' asserts the FFT arm.  fold shapes only the float64 GEMM
+    arm, as B1's.
     CUDA tensors only; the compute dtype (w's) is float32 or float64;
-    dft_precision as B1's (full FP32 products); an odd channel count
+    dft_precision as B1's (FP32-accurate products); an odd channel count
     with a batch is padded as B1's (_odd_batch)."""
     name = "fused_decode_cross_spectrum_cuda"
     dt = w.dtype

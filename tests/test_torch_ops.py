@@ -72,6 +72,12 @@ class TestFusedCrossSpectrumParity:
         (13, 128, "float64", True, True, 5),
         (24, 256, "float32", False, False, 8),
         (8, 64, "float64", True, False, None),
+        # nbin with a prime factor above 5 (1022 = 2 7 73, 1032 = 2^3 3
+        # 43): the shapes the kernels' GEMM arm takes on the card
+        (13, 1022, "float64", False, False, None),
+        (13, 1022, "float32", True, True, None),
+        (13, 1032, "float32", False, False, 5),
+        (13, 1032, "float64", True, True, None),
     ]
 
     @pytest.mark.parametrize("jax_impl", ["scan", "pallas_interpret"])
@@ -172,6 +178,30 @@ class TestFusedDecodeCrossSpectrumParity:
         got = TFu.fused_decode_cross_spectrum(
             _t(raw), _t(scl), _t(offs), _t(model), _t(w), nharm, code=code,
             nbin=nbin, fold=fold, block=block)
+        for r, g, name in zip(ref, got, ("Xr", "Xi", "S0", "pwr", "x0")):
+            assert g.shape == r.shape, name
+            assert g.dtype == getattr(torch, dt), name
+            assert rel_err(g.numpy(), r) <= tol_for(dt), name
+
+    # nbin with a prime factor above 5: 1032 = 2^3 3 43 packs at 1, 2
+    # and 4 bits, 1022 = 2 7 73 at 4 bits only (nbin nbit / 8 whole)
+    @pytest.mark.parametrize("code,nbin,fold,dt", [
+        ("p1", 1032, False, "float32"), ("p2", 1032, False, "float64"),
+        ("p2", 1032, True, "float32"), ("p4", 1032, False, "float32"),
+        ("p4", 1022, True, "float64"), ("p4", 1022, False, "float32")])
+    def test_parity_prime_nbin(self, code, nbin, fold, dt):
+        nchan = 13
+        raw, scl, offs, model, w, nharm = _packed_problem(code, nchan, nbin,
+                                                          dt)
+        ref = jax.jit(lambda p, s, o, m, wk:
+                      JFu.fused_decode_cross_spectrum_pallas(
+                          p, s, o, m, wk, nharm, code=code, nbin=nbin,
+                          fold=fold, interpret=True))(
+            jnp.asarray(raw), jnp.asarray(scl), jnp.asarray(offs),
+            jnp.asarray(model), jnp.asarray(w))
+        got = TFu.fused_decode_cross_spectrum(
+            _t(raw), _t(scl), _t(offs), _t(model), _t(w), nharm, code=code,
+            nbin=nbin, fold=fold)
         for r, g, name in zip(ref, got, ("Xr", "Xi", "S0", "pwr", "x0")):
             assert g.shape == r.shape, name
             assert g.dtype == getattr(torch, dt), name

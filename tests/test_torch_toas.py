@@ -170,6 +170,44 @@ def test_tim_parity(dataset, fast_config, tmp_path, window, fused):
             DDMS[i], abs=max(4 * tg.DeltaDM_errs[i], 2e-4))
 
 
+@pytest.fixture(scope="module")
+def prime_dataset(tmp_path_factory):
+    """One archive of 4 subints x 16 channels x 1032 bins (2^3 3 43: a
+    prime factor above 5, the shape the kernels' GEMM arm takes on the
+    card)."""
+    root = tmp_path_factory.mktemp("torch_toas_prime")
+    model = default_test_model(1500.0)
+    gmodel = str(root / "model.gmodel")
+    write_gmodel(model, gmodel, quiet=True)
+    path = str(root / "fake-1032.fits")
+    make_fake_pulsar(model, PAR, outfile=path, nsub=4, nchan=16, nbin=1032,
+                     nu0=1500.0, bw=800.0, tsub=60.0, phase=0.01,
+                     dDM=DDMS[0], start_MJD=MJD(55200, 0.1), noise_stds=1.0,
+                     dedispersed=False, quiet=True, rng=310)
+    return path, gmodel
+
+
+def test_tim_parity_prime_nbin(prime_dataset, fast_config, tmp_path):
+    """GetTOAs at 1032 bins on the fused lane (use_fast_fit, fit_fused, an
+    explicit window of 128 harmonics; the plain version of B1 here, the
+    GEMM arm on the card) against the JAX package's GetTOAs on the same
+    path: the .tim fields as _assert_tim_parity holds them (TOAs and DMs
+    within 0.05 of their errors, flags equal or within a unit of their
+    last printed digit)."""
+    path, gmodel = prime_dataset
+    jcfg.fit_harmonic_window = tcfg.fit_harmonic_window = 128
+    jcfg.fit_fused = tcfg.fit_fused = True
+    jg = JGetTOAs(path, gmodel, quiet=True)
+    jg.get_TOAs(quiet=True)
+    tg = TGetTOAs(path, gmodel, quiet=True, device="cpu")
+    tg.get_TOAs(quiet=True)
+    ref_tim, got_tim = str(tmp_path / "ref.tim"), str(tmp_path / "got.tim")
+    jwrite(jg.TOA_list, outfile=ref_tim)
+    twrite(tg.TOA_list, outfile=got_tim)
+    _assert_tim_parity(ref_tim, got_tim)
+    np.testing.assert_array_equal(tg.rcs[0], jg.rcs[0])
+
+
 def test_cli_writes_tim(dataset, fast_config, tmp_path):
     """python -m pulseportraiture_tpu_torch.cli.pptoas on the CPU writes
     the same TOAs as the library call."""
